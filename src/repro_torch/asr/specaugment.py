@@ -1,0 +1,55 @@
+"""SpecAugment (Park et al., 2019): time and frequency masks on log-mel
+features. The port of ``repro/asr/specaugment.py:23-53``.
+
+As in the reference, one draw per call: every mask's width and start are
+scalars shared by the whole batch. They come from a CPU
+``torch.Generator`` (scalars drawn on the host cost no device sync), so
+the masks do not depend on the device the features lie on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecAugmentConfig:
+    freq_masks: int = 2
+    freq_mask_width: int = 27     # F parameter of the paper
+    time_masks: int = 2
+    time_mask_frac: float = 0.05  # max time-mask width as fraction of T
+    enabled: bool = True
+
+
+def _draw(generator: torch.Generator, high: int) -> int:
+    return int(torch.randint(0, high, (), generator=generator))
+
+
+def _mask_axis(generator, x, axis_len: int, max_width: int, num_masks: int, axis: int):
+    """Apply ``num_masks`` random contiguous zero-masks along ``axis``."""
+    idx = torch.arange(axis_len, device=x.device)
+    shape = [1] * x.ndim
+    shape[axis] = axis_len
+    for _ in range(num_masks):
+        width = _draw(generator, max_width + 1)
+        start = _draw(generator, max(axis_len - width, 1))
+        mask = (idx >= start) & (idx < start + width)
+        x = x * (1.0 - mask.reshape(shape).to(x.dtype))
+    return x
+
+
+def spec_augment(generator: torch.Generator, features: torch.Tensor,
+                 cfg: SpecAugmentConfig) -> torch.Tensor:
+    """features (..., T, F); ``generator`` is a CPU generator."""
+    if not cfg.enabled:
+        return features
+    t_len, f_len = features.shape[-2], features.shape[-1]
+    max_f = min(cfg.freq_mask_width, f_len)
+    max_t = max(1, int(t_len * cfg.time_mask_frac))
+    if cfg.freq_masks > 0:
+        features = _mask_axis(generator, features, f_len, max_f, cfg.freq_masks, axis=-1)
+    if cfg.time_masks > 0:
+        features = _mask_axis(generator, features, t_len, max_t, cfg.time_masks, axis=-2)
+    return features

@@ -1,0 +1,32 @@
+"""RoundEngine — the port's single entry point to a round engine.
+
+The port of ``repro/core/engine.py``'s ``build_round_engine`` for the
+``fedavg`` engine. The plan is validated when it is built
+(``FederatedPlan.__post_init__``), so an engine exists only for a plan
+the port runs in full.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
+
+from repro_torch.core.fedavg import init_server_state, make_round_step
+from repro_torch.core.plan import FederatedPlan
+from repro_torch.core.task import FederatedTask
+
+
+class RoundEngine(NamedTuple):
+    plan: FederatedPlan
+    init_state: Callable  # (params) -> ServerState
+    step: Callable        # (state, batch) -> (state, metrics)
+
+
+def build_round_engine(plan: FederatedPlan, task: FederatedTask, seed: int) -> RoundEngine:
+    """``seed`` seeds every client's per-step generators (FVN noise and
+    SpecAugment masks)."""
+    return RoundEngine(
+        plan=plan,
+        init_state=functools.partial(init_server_state, plan),
+        step=make_round_step(task.loss_fn, plan, seed),
+    )

@@ -1,0 +1,95 @@
+"""FederatedTask — the engine's task-level entry point.
+
+The port of ``repro/core/task.py`` for the paper's task: the RNN-T on
+the speaker-split corpus. A task bundles the model (an ``RNNT``
+template on the ``meta`` device), how to draw its parameters, its
+functional loss, and the corpus it trains on. Two tasks exist:
+
+- ``asr-rnnt``: the container-scale config of ``repro/core/task.py:352-368``
+  on the shared 48-speaker corpus;
+- ``rnnt-librispeech``: the paper's model at full width
+  (``configs/rnnt_librispeech.py``) on a corpus at the paper's widths
+  (128 log-mel bins, 4096 word-pieces, labels up to 32 word-pieces of 4
+  frames each, so T = 128 and T' = 64 after the time stride).
+
+Evaluation (greedy decoding and WER) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import torch
+
+from repro_torch.asr.specaugment import SpecAugmentConfig
+from repro_torch.data import make_speaker_corpus
+from repro_torch.models import rnnt
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedTask:
+    name: str
+    config: rnnt.RNNTConfig
+    make_corpus: Callable  # (seed) -> SpeakerCorpus
+
+    @functools.cached_property
+    def model(self) -> rnnt.RNNT:
+        """The shape-only module the loss is called through."""
+        return rnnt.RNNT(self.config)
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        return rnnt.init_params(self.config, generator)
+
+    def loss_fn(self, params: dict, batch: dict, generator=None):
+        return rnnt.loss_fn(self.model, params, batch, generator)
+
+
+def default_corpus(seed: int = 0):
+    """The shared container-scale speaker corpus, bitwise equal to
+    ``repro.core.task.default_corpus``."""
+    return make_speaker_corpus(
+        num_speakers=48, vocab_size=64, feat_dim=16, mean_utterances=24.0, seed=seed
+    )
+
+
+def paper_width_corpus(seed: int = 0):
+    """A corpus at the paper model's input and output widths."""
+    return make_speaker_corpus(
+        num_speakers=16, vocab_size=4096, feat_dim=128, max_label_len=32,
+        frames_per_token=4, seed=seed
+    )
+
+
+def tiny_rnnt_config() -> rnnt.RNNTConfig:
+    return rnnt.RNNTConfig(
+        name="rnnt-tiny",
+        feat_dim=16,
+        vocab=64,
+        enc_layers=2,
+        enc_hidden=96,
+        pred_layers=1,
+        pred_hidden=96,
+        pred_embed=32,
+        joint_dim=64,
+        time_stride=1,
+        specaug=SpecAugmentConfig(
+            freq_masks=1, freq_mask_width=3, time_masks=1, time_mask_frac=0.05
+        ),
+        dtype="float32",
+        param_dtype="float32",
+    )
+
+
+def get_task(name: str) -> FederatedTask:
+    from repro_torch.configs import rnnt_librispeech
+
+    tasks = {
+        "asr-rnnt": lambda: FederatedTask("asr-rnnt", tiny_rnnt_config(), default_corpus),
+        rnnt_librispeech.ARCH_ID: lambda: FederatedTask(
+            rnnt_librispeech.ARCH_ID, rnnt_librispeech.make_config(), paper_width_corpus),
+    }
+    if name not in tasks:
+        raise KeyError(f"unknown task {name!r}; available: {sorted(tasks)}")
+    return tasks[name]()

@@ -1,0 +1,15 @@
+"""Data substrate: the synthetic speaker-split corpus and federated round batching."""
+from repro_torch.data.corpus import CorpusConfig, SpeakerCorpus, make_speaker_corpus
+from repro_torch.data.pipeline import FederatedSampler, RoundBatch
+from repro_torch.data.strategies import available_strategies, get_strategy, register_strategy
+
+__all__ = [
+    "CorpusConfig",
+    "SpeakerCorpus",
+    "make_speaker_corpus",
+    "FederatedSampler",
+    "RoundBatch",
+    "available_strategies",
+    "get_strategy",
+    "register_strategy",
+]

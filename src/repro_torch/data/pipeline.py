@@ -1,0 +1,165 @@
+"""Federated round batching: client selection, data limiting, packing.
+
+The port's own copy of ``repro/data/pipeline.py`` for plain corpora:
+numpy only, and the same seed packs bitwise-equal round batches. The
+label-shuffle adversary, the legacy per-example packer and virtual
+populations are not ported yet.
+
+A round batch is a fixed-shape set of arrays:
+    features : (K, S, B, T, F)   S = local steps, B = local batch
+    labels   : (K, S, B, U)
+    label_len, frame_len : (K, S, B)
+    mask     : (K, S, B)  1.0 for real examples, 0.0 for padding
+    n_k      : (K,)       number of real examples per client (paper's n_k)
+
+The *data limit* L (paper §4.2.1) caps how many examples a client
+contributes in one round; per-client cursors still traverse the whole
+local dataset over the rounds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.data.strategies import get_strategy
+
+
+@dataclasses.dataclass
+class RoundBatch:
+    features: np.ndarray
+    labels: np.ndarray
+    label_len: np.ndarray
+    frame_len: np.ndarray
+    mask: np.ndarray
+    n_k: np.ndarray
+
+    def engine_batch(self) -> dict:
+        """The round engine's input layout (mask enters as "weight")."""
+        return {"features": self.features, "labels": self.labels,
+                "frame_len": self.frame_len, "label_len": self.label_len,
+                "weight": self.mask}
+
+
+class FederatedSampler:
+    """Selects K clients per round and packs their (possibly limited)
+    local datasets into fixed-shape round batches."""
+
+    def __init__(
+        self,
+        corpus,
+        clients_per_round: int,
+        local_batch_size: int,
+        data_limit: Optional[int] = None,
+        local_epochs: int = 1,
+        seed: int = 0,
+        max_steps=None,
+        strategy: str = "uniform",
+    ):
+        self.corpus = corpus
+        self.K = clients_per_round
+        self.b = local_batch_size
+        self.data_limit = data_limit
+        self.local_epochs = local_epochs
+        self.rng = np.random.default_rng(seed)
+        self._select = get_strategy(strategy)
+        # per-client cursors, created on first visit; each client's
+        # first order is seeded by its own id
+        self._seed = seed
+        self._cursors: dict = {}
+        self._orders: dict = {}
+        self.steps = self.natural_steps(corpus, local_batch_size, data_limit=data_limit,
+                                        local_epochs=local_epochs, max_steps=max_steps)
+
+    @staticmethod
+    def natural_steps(corpus, local_batch_size: int, data_limit: Optional[int] = None,
+                      local_epochs: int = 1, max_steps: Optional[int] = None) -> int:
+        """The local-step count a round needs to hold every selected
+        client's (possibly limited) contribution — the single source of
+        truth for batch shapes AND for CFMQ mu accounting."""
+        n_max = data_limit if data_limit is not None else int(corpus.counts.max())
+        steps = max(1, int(np.ceil(local_epochs * n_max / local_batch_size)))
+        if max_steps is not None:
+            steps = min(steps, max_steps)
+        return steps
+
+    def _count(self, cid: int) -> int:
+        return int(self.corpus.counts[cid])
+
+    def _order(self, cid: int) -> np.ndarray:
+        o = self._orders.get(cid)
+        if o is None:
+            o = np.random.default_rng(self._seed + 7 * cid).permutation(self._count(cid))
+            self._orders[cid] = o
+        return o
+
+    def _client_indices(self, cid: int) -> np.ndarray:
+        """This round's example indices for one client (length = limit),
+        advancing the cursor with a reshuffle at each full pass."""
+        n = self._count(cid)
+        limit = min(self.data_limit, n) if self.data_limit is not None else n
+        c = int(self._cursors.get(cid, 0))
+        order = self._order(cid)
+        pos = c % n
+        if limit <= n - pos and not (pos == 0 and c > 0):
+            # the whole contribution sits inside the current pass
+            self._cursors[cid] = c + limit
+            return order[pos:pos + limit]
+        out = np.empty(limit, np.int64)
+        filled = 0
+        while filled < limit:
+            if c % n == 0 and c > 0:
+                order = self.rng.permutation(n)
+                self._orders[cid] = order
+            take = min(n - c % n, limit - filled)
+            out[filled:filled + take] = order[c % n:c % n + take]
+            filled += take
+            c += take
+        self._cursors[cid] = c
+        return out
+
+    def _gather_indices(self, chosen: np.ndarray):
+        """(K, S*b) example-index matrix (-1 = padding) + per-client n_k."""
+        E = self.steps * self.b
+        ex = np.full((len(chosen), E), -1, np.int64)
+        n_k = np.zeros((len(chosen),), np.float32)
+        for j, cid in enumerate(chosen):
+            idx = self._client_indices(int(cid))
+            if self.local_epochs > 1:
+                idx = np.tile(idx, self.local_epochs)
+            m = min(len(idx), E)
+            ex[j, :m] = idx[:m]
+            n_k[j] = m
+        return ex, n_k
+
+    def next_round(self) -> RoundBatch:
+        K, b, S = self.K, self.b, self.steps
+        chosen = np.asarray(self._select(self.rng, self.corpus, K), np.int64)
+        ex, n_k = self._gather_indices(chosen)
+        pad = ex < 0
+        np.copyto(ex, 0, where=pad)                  # safe gather index
+        rows = chosen[:, None]
+        c = self.corpus
+        # fancy-indexing copies, so padded slots can be zeroed in place
+        feats = c.arena_features[rows, ex]           # (K, S*b, T, F)
+        labels = c.arena_labels[rows, ex]
+        label_len = c.arena_label_len[rows, ex]
+        frame_len = c.arena_frame_len[rows, ex]
+        if pad.any():
+            feats[pad] = 0.0
+            labels[pad] = 0
+            label_len[pad] = 0
+            frame_len[pad] = 0
+        mask = (~pad).astype(np.float32)
+        T, F = feats.shape[2:]
+        U = labels.shape[-1]
+        return RoundBatch(
+            feats.reshape(K, S, b, T, F),
+            labels.reshape(K, S, b, U),
+            label_len.reshape(K, S, b),
+            frame_len.reshape(K, S, b),
+            mask.reshape(K, S, b),
+            n_k,
+        )

@@ -1,0 +1,75 @@
+"""Build the port's CUDA sources and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface. On first use it is
+compiled by ``nvcc`` for ``sm_90a`` into
+``<checkout>/build/repro_torch_kernels/lib<name>-<hash>.so``, where the
+hash is that of the source, so an edited source never loads a stale
+library. The library is then opened with ``ctypes``. Only sources in the
+repository are built, and a failed build raises with the compiler's
+output: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("lstm_gates",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills per kernel, in the build log
+)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(path, os.X_OK):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together. Returns {name: build
+    log} for the sources compiled by this call."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu: nvcc exited {proc.returncode}\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never opens a half-written library
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    build((name,))
+    return ctypes.CDLL(str(library_path(name)))

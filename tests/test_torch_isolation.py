@@ -1,0 +1,28 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports jax or the JAX package ``repro``."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_the_port_has_files_to_check():
+    assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_package(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots

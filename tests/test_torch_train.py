@@ -1,0 +1,65 @@
+"""The port's training driver: a tiny CPU run end to end, no quiet CPU
+fallback, and no plan setting off the parity plane that runs anyway."""
+
+import json
+import math
+
+import pytest
+import torch
+
+from repro_torch.core.plan import FederatedPlan
+from repro_torch.core.task import get_task
+from repro_torch.launch import train
+
+
+def test_two_tiny_rounds_on_the_cpu_give_finite_losses():
+    task = get_task("asr-rnnt")
+    plan = FederatedPlan(clients_per_round=2, local_batch_size=2, data_limit=2,
+                         client_lr=0.05, server_lr=0.01)
+    state, hist = train.run_federated(task, task.make_corpus(0), plan, rounds=2, device="cpu",
+                                      log=lambda *_: None)
+    assert len(hist["loss"]) == 2 and all(math.isfinite(x) for x in hist["loss"])
+    assert state.round_idx == 2
+    n = hist["n_params"]
+    assert hist["uplink_bytes_client"] == 4 * n
+    assert hist["wire_bytes_total"] == 2 * (2 * 4 * n + 2 * 4 * n)
+    assert hist["cfmq_bytes"] > 0
+
+
+def test_main_runs_the_tiny_preset_on_the_cpu(capsys):
+    hist = train.main(["--preset", "tiny", "--rounds", "1", "--clients", "2", "--batch", "2",
+                       "--data-limit", "2", "--fvn-std", "0.01", "--device", "cpu"])
+    assert math.isfinite(hist["final_loss"])
+    summary = json.loads(capsys.readouterr().out.split("\n", 1)[1])
+    assert summary["task"] == "asr-rnnt" and summary["device"] == "cpu"
+
+
+def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    task = get_task("asr-rnnt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run_federated(task, task.make_corpus(0), FederatedPlan(), rounds=1)
+
+
+def test_evaluation_is_refused_until_it_is_ported():
+    task = get_task("asr-rnnt")
+    with pytest.raises(NotImplementedError, match="greedy_decode"):
+        train.run_federated(task, task.make_corpus(0), FederatedPlan(), rounds=1,
+                            device="cpu", eval_every=1)
+
+
+@pytest.mark.parametrize("setting", [
+    {"compression": "int8"},
+    {"participation": 0.5},
+    {"straggler_frac": 0.1},
+    {"aggregator": "trimmed_mean"},
+    {"corruption": "sign_flip"},
+    {"corruption": "label_shuffle"},
+    {"latency": True},
+    {"engine": "async"},
+    {"engine": "fedsgd"},
+    {"server_optimizer": "yogi"},
+])
+def test_every_non_parity_plan_setting_raises(setting):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FederatedPlan(**setting)
