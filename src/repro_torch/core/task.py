@@ -3,7 +3,9 @@
 The port of ``repro/core/task.py`` for the paper's task: the RNN-T on
 the speaker-split corpus. A task bundles the model (an ``RNNT``
 template on the ``meta`` device), how to draw its parameters, its
-functional loss, and the corpus it trains on. Two tasks exist:
+functional loss, the corpus it trains on, and its evaluation: greedy
+decoding and WER on the clean and hard eval splits
+(``repro/core/task.py:141-163``). Two tasks exist:
 
 - ``asr-rnnt``: the container-scale config of ``repro/core/task.py:352-368``
   on the shared 48-speaker corpus;
@@ -11,8 +13,6 @@ functional loss, and the corpus it trains on. Two tasks exist:
   (``configs/rnnt_librispeech.py``) on a corpus at the paper's widths
   (128 log-mel bins, 4096 word-pieces, labels up to 32 word-pieces of 4
   frames each, so T = 128 and T' = 64 after the time stride).
-
-Evaluation (greedy decoding and WER) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,9 +21,11 @@ import dataclasses
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.asr.specaugment import SpecAugmentConfig
+from repro_torch.asr.wer import wer
 from repro_torch.data import make_speaker_corpus
 from repro_torch.models import rnnt
 
@@ -33,6 +35,7 @@ class FederatedTask:
     name: str
     config: rnnt.RNNTConfig
     make_corpus: Callable  # (seed) -> SpeakerCorpus
+    quality_metric: str = "wer"  # what "quality" means in the summary
 
     @functools.cached_property
     def model(self) -> rnnt.RNNT:
@@ -44,6 +47,22 @@ class FederatedTask:
 
     def loss_fn(self, params: dict, batch: dict, generator=None):
         return rnnt.loss_fn(self.model, params, batch, generator)
+
+    def evaluate(self, params: dict, corpus, n: int = 64) -> dict:
+        """Greedy-decode WER on ``n`` examples of the clean and the hard
+        eval split, on the parameters' device."""
+        return {"quality": self._decode_wer(params, corpus.eval_split(n)),
+                "quality_hard": self._decode_wer(params, corpus.eval_split(n, hard=True))}
+
+    def _decode_wer(self, params: dict, ev: dict) -> float:
+        device = next(iter(params.values())).device
+        hyp = rnnt.greedy_decode(self.config, params,
+                                 torch.from_numpy(ev["features"]).to(device),
+                                 torch.from_numpy(ev["frame_len"]).to(device))
+        refs = [ev["labels"][i, : ev["label_len"][i]].tolist()
+                for i in range(ev["labels"].shape[0])]
+        hyps = [h[h != 0].tolist() for h in np.asarray(hyp.cpu())]
+        return wer(refs, hyps)
 
 
 def default_corpus(seed: int = 0):

@@ -1,8 +1,8 @@
 """Synthetic speaker-split ASR corpus (the Librispeech stand-in).
 
 The port's own copy of ``repro/data/corpus.py``: numpy only, and the
-same seed gives bitwise-equal arrays. ``VirtualPopulation``, the IID
-pool and the eval splits are not ported yet.
+same seed gives bitwise-equal arrays. ``VirtualPopulation`` and the IID
+pool are not ported yet.
 
 The paper trains on Librispeech split by its 2338 speakers; speaker
 splits are non-IID through differences in voice, vocabulary, recording
@@ -123,6 +123,30 @@ class SpeakerCorpus:
     @property
     def num_speakers(self) -> int:
         return len(self.speakers)
+
+    def eval_split(self, num_examples: int, seed: int = 1234, hard: bool = False):
+        """Held-out eval set; ``hard=True`` mimics the *Other* sets by
+        doubling acoustic noise and halving gains (harder recognition)."""
+        cfg = self.cfg
+        rng = np.random.default_rng(seed + (1 if hard else 0))
+        F, r = cfg.feat_dim, cfg.frames_per_token
+        feats = np.zeros((num_examples, self.t_max, F), np.float32)
+        labels = np.zeros((num_examples, self.u_max), np.int32)
+        label_len = np.zeros((num_examples,), np.int32)
+        frame_len = np.zeros((num_examples,), np.int32)
+        noise_std = cfg.noise_std * (2.5 if hard else 1.0)
+        for i in range(num_examples):
+            u = int(rng.integers(cfg.min_label_len, cfg.max_label_len + 1))
+            toks = rng.choice(np.arange(1, cfg.vocab_size), size=u, p=self.base_unigram)
+            labels[i, :u] = toks
+            label_len[i] = u
+            t = u * r
+            frame_len[i] = t
+            emission = self.codebook[toks].reshape(t, F)
+            bias = rng.normal(0.0, cfg.speaker_bias_std, size=(F,))
+            gain = 1.0 + rng.normal(0.0, cfg.speaker_gain_std)
+            feats[i, :t] = gain * emission + bias + rng.normal(0.0, noise_std, size=(t, F))
+        return dict(features=feats, labels=labels, label_len=label_len, frame_len=frame_len)
 
 
 def make_speaker_corpus(**kwargs) -> SpeakerCorpus:

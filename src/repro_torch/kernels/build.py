@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lstm_gates",)
+SOURCES = ("lstm_gates", "rnnt_joint")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -73,3 +73,10 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise on the cudaError a library entry point returned (0 is
+    success): a refused launch never runs, and nothing else reports it."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

@@ -70,11 +70,6 @@ def _check(gates: torch.Tensor, c: torch.Tensor, dh=None, dc_next=None) -> bool:
     return True
 
 
-def _raise_on_error(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err}")
-
-
 def lstm_gates_fwd(gates: torch.Tensor, c: torch.Tensor):
     """gates (N, 4H) [i|f|g|o], c (N, H) fp32 -> (h_new (N, H) in the
     gate dtype, c_new (N, H) fp32)."""
@@ -85,7 +80,7 @@ def lstm_gates_fwd(gates: torch.Tensor, c: torch.Tensor):
     h = torch.empty((N, H), dtype=gates.dtype, device=gates.device)
     c_new = torch.empty_like(c)
     stream = torch.cuda.current_stream(gates.device).cuda_stream
-    _raise_on_error(
+    build.check_launch(
         _lib().lstm_gates_fwd(_DTYPE_CODES[gates.dtype], gates.data_ptr(), c.data_ptr(),
                               h.data_ptr(), c_new.data_ptr(), N, H, stream),
         "lstm_gates_fwd",
@@ -104,7 +99,7 @@ def lstm_gates_bwd(gates, c, dh, dc_next):
     dgates = torch.empty_like(gates)
     dc_prev = torch.empty_like(c)
     stream = torch.cuda.current_stream(gates.device).cuda_stream
-    _raise_on_error(
+    build.check_launch(
         _lib().lstm_gates_bwd(_DTYPE_CODES[gates.dtype], gates.data_ptr(), c.data_ptr(),
                               dh.data_ptr(), dc_next.data_ptr(), dgates.data_ptr(),
                               dc_prev.data_ptr(), N, H, stream),

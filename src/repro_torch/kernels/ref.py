@@ -3,7 +3,10 @@
 Each function is what a hand-written kernel in ``repro_torch.kernels``
 computes, written as ordinary tensor code. A wrapper takes it for a
 tensor on the CPU, and ``chip_smoke.py`` holds each kernel against it on
-the card. ``rnnt_joint_ref`` is the dense joint oracle the tests use.
+the card.
+
+The joint's plain versions (K3/K4) work one chunk of U at a time, so
+on the CPU they never hold the (B, T, U1, V) logits, only (B, T, c, V).
 """
 
 from __future__ import annotations
@@ -50,15 +53,80 @@ def lstm_gates_bwd_ref(gates, c, dh, dc_next):
     return dgates.to(gates.dtype), (dc * f).to(c.dtype)
 
 
-def rnnt_joint_ref(enc_proj, pred_proj, w_out, bias, labels):
-    """Dense joint oracle: materializes (B, T, U1, V) logits.
+def _joint_chunks(e, g, w, b, labels, u_chunk: int):
+    """Yield (u0, h, logits, lbl) per chunk of at most ``u_chunk``
+    positions of U1: h = tanh(e + g) (B, T, c, J) and the logits
+    (B, T, c, V), in the math dtype."""
+    dt = _math_dtype(e.dtype)
+    e, w, b = e.to(dt), w.to(dt), b.to(dt)
+    for u0 in range(0, g.shape[1], u_chunk):
+        g_c = g[:, u0:u0 + u_chunk].to(dt)
+        h = torch.tanh(e[:, :, None, :] + g_c[:, None, :, :])
+        yield u0, h, h @ w + b, labels[:, u0:u0 + u_chunk].long()
 
-    enc_proj (B, T, J); pred_proj (B, U1, J); w_out (J, V); bias (V,);
-    labels (B, U1) label ids (the last is unused). Returns (blank_lp,
-    label_lp), each (B, T, U1) fp32."""
-    h = torch.tanh(enc_proj[:, :, None, :].float() + pred_proj[:, None, :, :].float())
-    logits = h @ w_out.float() + bias.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    idx = labels.long()[:, None, :, None].expand(*logits.shape[:3], 1)
-    label_lp = torch.gather(logits, -1, idx)[..., 0] - lse
-    return logits[..., 0] - lse, label_lp
+
+def _dlogits(logits, lse, dblank, dlabel, lbl):
+    """The softmax cotangent of ``repro/kernels/rnnt_joint.py:148-172``:
+    dblank·[v=0] + dlabel·[v=label] − (dblank+dlabel)·exp(logits − lse)."""
+    dt = logits.dtype
+    dbl, dlb = dblank.to(dt)[..., None], dlabel.to(dt)[..., None]
+    d = -(dbl + dlb) * torch.exp(logits - lse.to(dt)[..., None])
+    d[..., :1] += dbl
+    idx = lbl[:, None, :, None].expand(*logits.shape[:3], 1)
+    return d.scatter_add(-1, idx, dlb)
+
+
+def rnnt_joint_fwd_ref(e, g, w, b, labels, u_chunk: int = 8):
+    """The fused joint forward (K3). e (B, T, J), g (B, U1, J), w (J, V),
+    b (V,), labels (B, U1) int (the last column unused). Returns
+    (blank_lp, label_lp, lse), each (B, T, U1) in fp32 (fp64 for fp64
+    inputs)."""
+    blank, label, lse = [], [], []
+    for _, _, logits, lbl in _joint_chunks(e, g, w, b, labels, u_chunk):
+        s = torch.logsumexp(logits, dim=-1)
+        idx = lbl[:, None, :, None].expand(*logits.shape[:3], 1)
+        blank.append(logits[..., 0] - s)
+        label.append(torch.gather(logits, -1, idx)[..., 0] - s)
+        lse.append(s)
+    return tuple(torch.cat(x, dim=2) for x in (blank, label, lse))
+
+
+def rnnt_joint_bwd_dpre_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8):
+    """The first part of K4: dpre (B, T, U1, J), the gradient at tanh's
+    input. Per chunk, dh = dlogits @ w.T and dpre = dh·(1 − h²)."""
+    dpre = []
+    for u0, h, logits, lbl in _joint_chunks(e, g, w, b, labels, u_chunk):
+        c = h.shape[2]
+        d = _dlogits(logits, lse[:, :, u0:u0 + c], dblank[:, :, u0:u0 + c],
+                     dlabel[:, :, u0:u0 + c], lbl)
+        dpre.append((d @ w.to(d.dtype).T) * (1.0 - h * h))
+    return torch.cat(dpre, dim=2)
+
+
+def rnnt_joint_bwd_reduce_ref(dpre):
+    """The second part of K4: (de (B, T, J), dg (B, U1, J)), the sums of
+    dpre over U1 and over T."""
+    return dpre.sum(dim=2), dpre.sum(dim=1)
+
+
+def rnnt_joint_bwd_w_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8):
+    """The part of K4 that gives (dw (J, V), db (V,)): per chunk,
+    dw += h.T @ dlogits and db += the sum of dlogits."""
+    dt = _math_dtype(e.dtype)
+    dw = torch.zeros(w.shape, dtype=dt, device=w.device)
+    db = torch.zeros(b.shape, dtype=dt, device=b.device)
+    for u0, h, logits, lbl in _joint_chunks(e, g, w, b, labels, u_chunk):
+        c = h.shape[2]
+        d = _dlogits(logits, lse[:, :, u0:u0 + c], dblank[:, :, u0:u0 + c],
+                     dlabel[:, :, u0:u0 + c], lbl)
+        dw += h.reshape(-1, h.shape[-1]).T @ d.reshape(-1, d.shape[-1])
+        db += d.sum(dim=(0, 1, 2))
+    return dw, db
+
+
+def rnnt_joint_bwd_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8):
+    """The fused joint backward (K4), recomputed from the forward's lse:
+    (de, dg, dw, db) in fp32 (fp64 for fp64 inputs)."""
+    args = (e, g, w, b, labels, lse, dblank, dlabel, u_chunk)
+    return (*rnnt_joint_bwd_reduce_ref(rnnt_joint_bwd_dpre_ref(*args)),
+            *rnnt_joint_bwd_w_ref(*args))

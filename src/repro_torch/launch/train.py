@@ -2,15 +2,19 @@
 
 Runs FedAvg rounds of the RNN-T on the synthetic speaker-split corpus
 with the paper's knobs (data limit, FVN, server LR schedule) and CFMQ
-accounting, on the CUDA card unless the caller asks for the CPU.
+accounting, on the CUDA card unless the caller asks for the CPU, and
+ends, as ``repro/launch/train.py`` does, with greedy decoding and WER on
+the clean and hard eval splits.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --task asr-rnnt --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --preset arch --rounds 2 \\
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01
 
-Evaluation (greedy decoding and WER) is not ported yet: the summary
-reports the loss, CFMQ and the wire bytes.
+The history is a summary row of ``core/metrics.py``'s schema (WER as
+``quality``/``quality_hard``), with the per-round curves as extras. A
+task whose config has ``use_kernel=True`` runs its joint through the
+fused joint kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from repro_torch.configs import rnnt_librispeech
 from repro_torch.core.cfmq import cfmq, plan_wire_accounting, round_wire_bytes
 from repro_torch.core.engine import build_round_engine
+from repro_torch.core.metrics import empty_spread, summary_row
 from repro_torch.core.plan import FederatedPlan, FVNConfig
 from repro_torch.core.task import FederatedTask, get_task
 from repro_torch.data import FederatedSampler, available_strategies
@@ -52,12 +57,12 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
                   seed: int = 0, device: str | None = None, eval_every: int = 0,
-                  log=print):
-    """Returns (state, history): the per-round losses and times, CFMQ and
-    the exact wire bytes."""
-    if eval_every > 0:
-        raise NotImplementedError(
-            "evaluation (greedy_decode + asr/wer.py) is not ported yet; run with eval_every=0")
+                  eval_examples: int = 64, log=print):
+    """Returns (state, history): a summary row (final loss, WER, CFMQ,
+    the exact wire bytes) with the per-round losses and times as
+    extras. Every ``eval_every`` rounds, and at the end, the model is
+    decoded on ``eval_examples`` examples of each eval split; with
+    ``eval_examples=0`` there is no final decode and the WER is NaN."""
     device = resolve_device(device)
     params = task.init_params(torch.Generator(device=device).manual_seed(seed))
     n_params = sum(p.numel() for p in params.values())
@@ -73,6 +78,7 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
     t0 = time.perf_counter()
     wire_total = 0
     losses, examples, round_s = [], [], []
+    participants, corrupted, sim_times, server_steps, staleness = [], [], [], [], []
     for r in range(rounds):
         batch = _to_device(sampler.next_round().engine_batch(), device)
         t_round = time.perf_counter()
@@ -80,33 +86,60 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
         round_s.append(time.perf_counter() - t_round)
         losses.append(metrics["loss"])
         examples.append(metrics["examples"])
+        participants.append(float(metrics["participants"]))
+        corrupted.append(metrics["corrupted"])
+        sim_times.append(metrics["sim_time_s"])
+        server_steps.append(metrics["server_steps"])
+        staleness.append(metrics["staleness_mean"])
         wire_total += round_wire_bytes(up_per_client, down_per_round, metrics["participants"])
         log(f"round {r + 1}: loss={losses[-1]:.4f} ({round_s[-1]:.3f} s)")
+        if eval_every and (r + 1) % eval_every == 0:
+            q = task.evaluate(state.params, corpus, eval_examples)
+            log(f"round {r + 1}: loss={losses[-1]:.4f} "
+                f"{task.quality_metric}={q['quality']:.3f} "
+                f"{task.quality_metric}_hard={q['quality_hard']:.3f}")
     train_time_s = time.perf_counter() - t0
 
+    t_eval = time.perf_counter()
+    quality = (task.evaluate(state.params, corpus, eval_examples) if eval_examples
+               else {"quality": float("nan"), "quality_hard": float("nan")})
+    eval_s = time.perf_counter() - t_eval
     mu = plan.local_epochs * (plan.data_limit or sampler.steps * plan.local_batch_size)
     terms = cfmq(rounds=rounds, clients_per_round=plan.clients_per_round,
                  model_bytes=n_params * plan.param_bytes,
                  local_steps=mu / plan.local_batch_size, alpha=plan.alpha)
-    history = {
-        "task": task.name,
-        "device": str(device),
-        "rounds": rounds,
-        "final_loss": float(np.mean(losses[-5:])),
-        "loss": losses,
-        "round_s": round_s,
-        "examples": examples,
-        "cfmq_tb": terms.total_terabytes,
-        "cfmq_bytes": terms.total_bytes,
-        "payload_bytes": terms.payload_bytes,
-        "uplink_bytes_client": up_per_client,
-        "uplink_bytes_total": wire_total - down_per_round * rounds,
-        "wire_bytes_total": wire_total,
-        "downlink_bytes_round": down_per_round,
-        "n_params": n_params,
-        "local_steps": sampler.steps,
-        "wall_s": train_time_s,
-    }
+    steps_total = sum(server_steps)
+    history = summary_row(
+        rounds=rounds,
+        final_loss=float(np.mean(losses[-5:])),
+        quality=quality["quality"], quality_hard=quality["quality_hard"],
+        quality_metric=task.quality_metric,
+        **empty_spread(),
+        cfmq_tb=terms.total_terabytes, cfmq_bytes=terms.total_bytes,
+        payload_bytes=terms.payload_bytes,
+        uplink_bytes_client=up_per_client,
+        uplink_bytes_total=wire_total - down_per_round * rounds,
+        wire_bytes_total=wire_total,
+        downlink_bytes_round=down_per_round,
+        participants_mean=float(np.mean(participants)),
+        corrupted_mean=float(np.mean(corrupted)),
+        corrupted_total=int(round(sum(corrupted))),
+        n_params=n_params,
+        sim_time_s=sum(sim_times),
+        server_steps_total=steps_total,
+        staleness_mean=(sum(s * w for s, w in zip(staleness, server_steps)) / steps_total
+                        if steps_total else 0.0),
+        wall_s=train_time_s,
+        extras={
+            "task": task.name,
+            "device": str(device),
+            "loss": losses,
+            "round_s": round_s,
+            "examples": examples,
+            "local_steps": sampler.steps,
+            "eval_s": eval_s,
+        },
+    )
     return state, history
 
 
@@ -120,7 +153,7 @@ def build_plan(args) -> FederatedPlan:
     )
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default=None, choices=["asr-rnnt"],
                     help="a registered task; overrides --preset")
@@ -137,10 +170,15 @@ def main(argv=None):
     ap.add_argument("--client-sampling", default="uniform", choices=available_strategies())
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--eval-every", type=int, default=0,
-                    help="must stay 0: evaluation is not ported yet")
+    ap.add_argument("--eval-every", type=int, default=10,
+                    help="decode and print the WER every this many rounds (0: only at "
+                         "the end)")
     ap.add_argument("--out", default=None)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     name = args.task or ("asr-rnnt" if args.preset == "tiny" else rnnt_librispeech.ARCH_ID)
     task = get_task(name)

@@ -7,6 +7,10 @@ leaves this GEMM to XLA), and the gate nonlinearities run in the K1
 kernel (``repro_torch.kernels.lstm_gates``). The dtype contract is
 ``lstm_gates``'s: gates and h in the compute dtype, c always fp32. The
 full-scan kernel (K2) is not ported yet.
+
+``lstm_cell_step``, ``lstm_stack_step`` and ``lstm_stack_init_state``
+(``repro/models/lstm.py:71-74, 158-171``) are the single-step decode
+path; the cell goes through K1's forward there too.
 """
 
 from __future__ import annotations
@@ -74,3 +78,27 @@ def lstm_stack(layers, xs):
         xs, st = layer(xs)
         states.append(st)
     return xs, states
+
+
+def lstm_cell_step(w_ih, w_hh, b, x, h, c):
+    """x (B, d_in); h (B, H) in x's dtype, c (B, H) fp32 -> (h, c). The
+    weights are cast to x's dtype (a no-op for weights already cast)."""
+    gates = x @ w_ih.to(x.dtype) + h @ w_hh.to(x.dtype) + b.to(x.dtype)
+    return lstm_gates(gates, c)
+
+
+def lstm_stack_step(weights, x, states):
+    """One step of the stack (decode). weights: [(w_ih, w_hh, b)] per
+    layer; states: [(h, c)] per layer. Returns (top h, new states)."""
+    new_states = []
+    for (w_ih, w_hh, b), (h, c) in zip(weights, states):
+        x, c = lstm_cell_step(w_ih, w_hh, b, x, h, c)
+        new_states.append((x, c))
+    return x, new_states
+
+
+def lstm_stack_init_state(layers, batch: int, dtype: torch.dtype, device):
+    """Zero (h, c) per layer: h in ``dtype``, c fp32."""
+    return [(torch.zeros((batch, layer.w_hh.shape[0]), dtype=dtype, device=device),
+             torch.zeros((batch, layer.w_hh.shape[0]), dtype=torch.float32, device=device))
+            for layer in layers]

@@ -9,11 +9,18 @@ through ``torch.func.functional_call`` with explicit dicts of tensors
 (``loss_fn``). ``init_params`` draws those dicts.
 
 The joint computes only the (blank, label) log-probs the transducer DP
-needs, U-chunked as ``repro/kernels/ops.py:46-75`` does: the chunks are
-put back in U order (the reference model's own flattening at
+needs. With ``use_kernel=False`` (the default, as in JAX) it is
+U-chunked as ``repro/kernels/ops.py:46-75`` does: the chunks are put
+back in U order (the reference model's own flattening at
 ``repro/models/rnnt.py:120-121`` scrambles U once there are several
-chunks). The fused joint kernel (``use_kernel=True``) and greedy
-decoding come in a later slice.
+chunks). With ``use_kernel=True`` it goes through the fused joint
+(``repro_torch.kernels.rnnt_joint``: K3 forward, K4 backward), with W
+and b in the parameter dtype, as ``repro/models/rnnt.py:143-151`` does.
+
+``greedy_decode`` is the transducer's greedy search
+(``repro/models/rnnt.py:164-209``) on fixed shapes, with frames past
+``frame_len // time_stride`` masked (ROADMAP F3: the reference masks
+with the raw ``frame_len``).
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.asr.rnnt_loss import rnnt_loss_from_logprobs
 from repro_torch.asr.specaugment import SpecAugmentConfig, spec_augment
+from repro_torch.kernels.rnnt_joint import rnnt_joint
 from repro_torch.models.layers import dense_init, embed_init
-from repro_torch.models.lstm import LSTMLayer, lstm_stack
+from repro_torch.models.lstm import (LSTMLayer, lstm_stack, lstm_stack_init_state,
+                                     lstm_stack_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +56,7 @@ class RNNTConfig:
     specaug: SpecAugmentConfig = dataclasses.field(default_factory=SpecAugmentConfig)
     dtype: str = "float32"
     param_dtype: str = "float32"
-    use_kernel: bool = False       # fused joint kernel (K3/K4): not ported yet
+    use_kernel: bool = False       # fused joint kernels (K3/K4)
     loss_norm: bool = True         # per-label-token NLL normalization
 
     @property
@@ -72,9 +81,6 @@ def _joint_chunk(e, g, w, b, lbl):
 class RNNT(nn.Module):
     def __init__(self, cfg: RNNTConfig, device="meta"):
         super().__init__()
-        if cfg.use_kernel:
-            raise NotImplementedError(
-                "joint kernel: next slice (K3/K4 on the use_kernel=True configuration)")
         self.cfg = cfg
         dt, H, P = cfg.pdtype, cfg.enc_hidden, cfg.pred_hidden
         with torch.device(device):
@@ -130,6 +136,66 @@ class RNNT(nn.Module):
         label_lp = torch.cat([o[1] for o in outs], dim=2)[:, :, :U1]
         return blank_lp, label_lp
 
+    def joint_fused(self, enc, pred, labels):
+        """(blank_lp, label_lp) through the fused joint kernels (K3/K4),
+        with W and b in the parameter dtype."""
+        e = enc @ self.joint_enc.to(enc.dtype)                   # (B, T, J)
+        g = pred @ self.joint_pred.to(pred.dtype)                # (B, U1, J)
+        lbl = F.pad(labels, (0, 1)).to(torch.int32)              # (B, U1)
+        return rnnt_joint(e, g, self.joint_out, self.joint_bias, lbl)
+
+    def joint_logits(self, enc_t, pred_u):
+        """Pointwise joint for decoding: enc_t (B, H), pred_u (B, P) ->
+        (B, V) fp32 logits."""
+        e = enc_t @ self.joint_enc.to(enc_t.dtype)
+        g = pred_u @ self.joint_pred.to(pred_u.dtype)
+        h = torch.tanh(e + g)
+        return (h @ self.joint_out.to(h.dtype)).float() + self.joint_bias.float()
+
+    def greedy_decode(self, features, frame_len, max_symbols: int = 4):
+        """Greedy transducer decode. Returns (B, T'·max_symbols) int32
+        token ids, 0 = blank/pad. Every frame runs ``max_symbols``
+        predictor steps and keeps their results only where a token was
+        emitted, so nothing waits on the host."""
+        cfg = self.cfg
+        enc = self.encode(features)                                      # (B, T', H)
+        B, T, _ = enc.shape
+        device, cd = enc.device, cfg.cdtype
+        weights = [(layer.w_ih.to(cd), layer.w_hh.to(cd), layer.b.to(cd))
+                   for layer in self.predictor]
+        embed = self.pred_embed.to(cd)
+        state = lstm_stack_init_state(self.predictor, B, cd, device)
+        g, state = lstm_stack_step(weights, torch.zeros((B, cfg.pred_embed), dtype=cd,
+                                                        device=device), state)
+        frames = torch.div(frame_len.to(device), cfg.time_stride, rounding_mode="floor")
+        rows = torch.arange(B, device=device)
+        out = torch.zeros((B, T * max_symbols), dtype=torch.int32, device=device)
+        n_out = torch.zeros((B,), dtype=torch.long, device=device)
+
+        def keep(mask, new, old):
+            return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+        for t in range(T):
+            g2, state2, out2, n_out2 = g, state, out.clone(), n_out
+            done = torch.zeros((B,), dtype=torch.bool, device=device)
+            for _ in range(max_symbols):
+                tok = torch.argmax(self.joint_logits(enc[:, t], g2), dim=-1)     # (B,)
+                emit = (tok != 0) & ~done
+                g_new, state_new = lstm_stack_step(weights, embed[tok], state2)
+                g2 = keep(emit, g_new, g2)
+                state2 = [(keep(emit, hn, ho), keep(emit, cn, co))
+                          for (hn, cn), (ho, co) in zip(state_new, state2)]
+                out2[rows, n_out2] = torch.where(emit, tok.to(torch.int32), out2[rows, n_out2])
+                n_out2 = n_out2 + emit.long()
+                done = done | ~emit
+            mask_t = t < frames
+            g = keep(mask_t, g2, g)
+            state = [(keep(mask_t, h2, h), keep(mask_t, c2, c))
+                     for (h2, c2), (h, c) in zip(state2, state)]
+            out = keep(mask_t, out2, out)
+            n_out = torch.where(mask_t, n_out2, n_out)
+        return out
+
     def forward(self, batch: dict, generator: torch.Generator | None = None):
         """The loss. batch: features (B,T,F), labels (B,U), frame_len
         (B,), label_len (B,), optional weight (B,). ``generator`` (CPU)
@@ -140,7 +206,8 @@ class RNNT(nn.Module):
             feats = spec_augment(generator, feats, cfg.specaug)
         enc = self.encode(feats)
         pred = self.predict(batch["labels"])
-        blank_lp, label_lp = self.joint_logprobs(enc, pred, batch["labels"])
+        joint = self.joint_fused if cfg.use_kernel else self.joint_logprobs
+        blank_lp, label_lp = joint(enc, pred, batch["labels"])
         frame_len = torch.clamp(batch["frame_len"] // cfg.time_stride, min=1)
         nll = rnnt_loss_from_logprobs(blank_lp, label_lp, frame_len, batch["label_len"])
         if cfg.loss_norm:
@@ -168,6 +235,15 @@ def init_params(cfg: RNNTConfig, generator: torch.Generator) -> dict:
 
 def param_count(cfg: RNNTConfig) -> int:
     return sum(p.numel() for p in RNNT(cfg).parameters())
+
+
+def greedy_decode(cfg: RNNTConfig, params: dict, features, frame_len, max_symbols: int = 4):
+    """``RNNT.greedy_decode`` over an explicit parameter dict (the
+    module's parameters become these tensors; nothing is copied)."""
+    model = RNNT(cfg)
+    model.load_state_dict(params, assign=True)
+    with torch.no_grad():
+        return model.greedy_decode(features, frame_len, max_symbols)
 
 
 def loss_fn(model: RNNT, params: dict, batch: dict, generator=None):

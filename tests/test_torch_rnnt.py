@@ -1,7 +1,9 @@
 """The port's RNN-T against the JAX package's: the loss and every
 parameter's gradient at the tiny asr-rnnt config (SpecAugment off, the
-JAX weights carried across), the multi-chunk joint against the dense
-oracle, and the paper model's parameter count."""
+JAX weights carried across), on the chunked joint and on the fused joint
+(``use_kernel=True``, the Pallas kernels in interpret mode), the
+multi-chunk joint against the dense oracle, and the paper model's
+parameter count."""
 
 import dataclasses
 
@@ -16,6 +18,7 @@ from repro.configs import rnnt_librispeech as jax_librispeech
 from repro.core.task import default_corpus as jax_default_corpus
 from repro.kernels.ref import rnnt_joint_ref
 from repro.models import rnnt as jrnnt
+from repro.profile import tuner
 from repro_torch.configs import rnnt_librispeech
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.core.task import get_task
@@ -51,11 +54,21 @@ def _batch():
     return batch
 
 
-def test_loss_and_every_gradient_match_jax():
-    tcfg, jcfg = _configs()
-    jparams = jax.tree.map(np.asarray, jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
-    batch = _batch()
+def _kernel_batch():
+    """A batch whose lattice the Pallas joint takes (ROADMAP F4): T=16,
+    U+1=8, V=64; the last slot is weight-0 padding."""
+    r = np.random.default_rng(7)
+    return {
+        "features": r.standard_normal((4, 16, 16)).astype(np.float32),
+        "labels": r.integers(1, 64, (4, 7)).astype(np.int32),
+        "frame_len": np.array([16, 12, 9, 0], np.int32),
+        "label_len": np.array([7, 5, 3, 0], np.int32),
+        "weight": np.array([1, 1, 1, 0], np.float32),
+    }
 
+
+def _assert_loss_and_grads_match(tcfg, jcfg, batch):
+    jparams = jax.tree.map(np.asarray, jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss_j, _), grads_j = jax.value_and_grad(
         lambda p: jrnnt.loss_fn(jcfg, p, jb), has_aux=True)(jparams)
@@ -73,6 +86,26 @@ def test_loss_and_every_gradient_match_jax():
     for path, g in flat_t:
         np.testing.assert_allclose(g, np.asarray(flat_j[path]), atol=GRAD_ATOL, rtol=0,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+def test_loss_and_every_gradient_match_jax():
+    _assert_loss_and_grads_match(*_configs(), _batch())
+
+
+@pytest.mark.parametrize("joint_bwd", ["auto", "pallas"])
+def test_kernel_joint_loss_and_every_gradient_match_jax(joint_bwd, tmp_path):
+    """use_kernel=True in both packages: the JAX joint is the Pallas
+    forward in interpret mode, its backward the chunked VJP ("auto" on
+    the CPU) or the Pallas backward ("pallas"); the port's is K3/K4's
+    plain version on the CPU."""
+    tcfg, jcfg = (dataclasses.replace(c, use_kernel=True) for c in _configs())
+    reg = tuner.TuningRegistry(path=str(tmp_path / "tuning.json"))
+    tuner.set_registry(reg)
+    try:
+        reg.set_override("rnnt.joint_bwd_dispatch", joint_bwd)
+        _assert_loss_and_grads_match(tcfg, jcfg, _kernel_batch())
+    finally:
+        tuner.set_registry(None)
 
 
 @pytest.mark.parametrize("U1", [20, 25])
@@ -110,6 +143,11 @@ def test_paper_model_parameter_count_matches_jax():
 
 
 def test_joint_kernel_configuration_is_refused():
+    """The fused joint builds and runs on the CPU (plain version) and on
+    CUDA (the kernels); it refuses tensors on any other device."""
     cfg = dataclasses.replace(get_task("asr-rnnt").config, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="joint kernel: next slice"):
-        trnnt.RNNT(cfg)
+    model = trnnt.RNNT(cfg)
+    enc = torch.zeros((2, 5, cfg.enc_hidden), device="meta")
+    pred = torch.zeros((2, 4, cfg.pred_hidden), device="meta")
+    with pytest.raises(ValueError, match="run on CUDA or the CPU, not meta"):
+        model.joint_fused(enc, pred, torch.zeros((2, 3), dtype=torch.int32, device="meta"))

@@ -1,0 +1,177 @@
+"""K3/K4 (the fused RNN-T joint): the port's plain versions and autograd
+Function against the JAX package's Pallas kernels in interpret mode, its
+dense oracle and the VJP of its chunked joint.
+
+On the CPU the port's wrappers take the plain versions, so these tests
+hold the arithmetic the CUDA kernels must reproduce; ``chip_smoke.py``
+holds the kernels themselves against the plain versions on the card.
+The Pallas kernels take only shapes with T % min(16, T) == 0,
+U1 % min(8, U1) == 0 and V % min(512, V) == 0 (ROADMAP F4); ragged
+shapes are held to the oracles instead."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.ops import _joint_ref_chunked
+from repro.kernels.rnnt_joint import rnnt_joint_bwd_fused, rnnt_joint_fused
+from repro_torch.kernels import rnnt_joint as K
+
+# fp32 forward: J-term dot products and a V-term log-sum-exp, summed in
+# another order than XLA's; log-probs of magnitude ~5.
+FWD_ATOL = 2e-5
+# fp32 backward, compared relative to each gradient's largest entry (as
+# tests/test_kernels.py does for the Pallas backward).
+BWD_REL_ATOL = 5e-5
+
+# the shapes of tests/test_kernels.py:332-337: (B, T, U1, J, V, tq, tu, tv)
+PALLAS_SHAPES = [
+    (2, 32, 16, 24, 64, 16, 8, 32),
+    (1, 16, 8, 16, 128, 8, 4, 64),
+    (2, 24, 12, 8, 48, 8, 4, 16),
+    (1, 64, 8, 32, 256, 16, 8, 128),
+]
+# ragged shapes: the tiny corpus's lattice (T=24, U1=13) and the paper
+# width's U1=33, with a V that no slab divides
+RAGGED_SHAPES = [(3, 24, 13, 16, 40), (2, 24, 33, 8, 72)]
+
+
+def _inputs(B, T, U1, J, V, seed):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((B, T, J)).astype(np.float32),
+            r.standard_normal((B, U1, J)).astype(np.float32),
+            (r.standard_normal((J, V)) * 0.3).astype(np.float32),
+            (r.standard_normal((V,)) * 0.1).astype(np.float32),
+            r.integers(0, V, (B, U1)).astype(np.int32))
+
+
+def _cotangents(B, T, U1, seed):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((B, T, U1)).astype(np.float32),
+            r.standard_normal((B, T, U1)).astype(np.float32))
+
+
+def _torch(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _assert_rel(got, want, name):
+    want = np.asarray(want)
+    denom = float(np.abs(want).max()) + 1e-30
+    np.testing.assert_allclose(np.asarray(got) / denom, want / denom, atol=BWD_REL_ATOL, rtol=0,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("B,T,U1,J,V,tq,tu,tv", PALLAS_SHAPES)
+def test_plain_forward_matches_pallas(B, T, U1, J, V, tq, tu, tv):
+    arrays = _inputs(B, T, U1, J, V, seed=B * T + V)
+    got = K.rnnt_joint_fwd(*_torch(*arrays))
+    want = rnnt_joint_fused(*map(jnp.asarray, arrays), tq=tq, tu=tu, tv=tv, interpret=True,
+                            return_lse=True)
+    for name, a, b in zip(("blank", "label", "lse"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=FWD_ATOL, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,T,U1,J,V", RAGGED_SHAPES)
+def test_plain_forward_matches_dense_oracle_at_ragged_shapes(B, T, U1, J, V):
+    arrays = _inputs(B, T, U1, J, V, seed=U1)
+    blank, label, lse = K.rnnt_joint_fwd(*_torch(*arrays))
+    want_blank, want_label = jref.rnnt_joint_ref(*map(jnp.asarray, arrays))
+    e, g, w, b, _ = arrays
+    h = np.tanh(e[:, :, None, :].astype(np.float64) + g[:, None, :, :])
+    logits = h @ w + b
+    mx = logits.max(-1)
+    want_lse = mx + np.log(np.exp(logits - mx[..., None]).sum(-1))
+    np.testing.assert_allclose(blank.numpy(), np.asarray(want_blank), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(label.numpy(), np.asarray(want_label), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,T,U1,J,V,tq,tu,tv", PALLAS_SHAPES)
+def test_plain_backward_matches_pallas(B, T, U1, J, V, tq, tu, tv):
+    arrays = _inputs(B, T, U1, J, V, seed=B * T + V)
+    dbl, dlb = _cotangents(B, T, U1, seed=9)
+    jarrays = tuple(map(jnp.asarray, arrays))
+    _, _, lse = rnnt_joint_fused(*jarrays, tq=tq, tu=tu, tv=tv, interpret=True,
+                                 return_lse=True)
+    want = rnnt_joint_bwd_fused(*jarrays, lse, jnp.asarray(dbl), jnp.asarray(dlb),
+                                tq=tq, tu=tu, tv=tv, interpret=True)
+    got = K.rnnt_joint_bwd(*_torch(*arrays, np.array(lse), dbl, dlb))
+    for name, a, b in zip(("de", "dg", "dw", "db"), got, want):
+        assert a.dtype == torch.float32
+        _assert_rel(a.numpy(), b, name)
+
+
+@pytest.mark.parametrize("B,T,U1,J,V", RAGGED_SHAPES)
+def test_plain_backward_matches_chunked_vjp_at_ragged_shapes(B, T, U1, J, V):
+    arrays = _inputs(B, T, U1, J, V, seed=U1 + 1)
+    dbl, dlb = _cotangents(B, T, U1, seed=U1)
+    e, g, w, b, lbl = map(jnp.asarray, arrays)
+    _, vjp = jax.vjp(lambda e_, g_, w_, b_: _joint_ref_chunked(e_, g_, w_, b_, lbl), e, g, w, b)
+    want = vjp((jnp.asarray(dbl), jnp.asarray(dlb)))
+    _, _, lse = K.rnnt_joint_fwd(*_torch(*arrays))
+    got = K.rnnt_joint_bwd(*_torch(*arrays), lse, *_torch(dbl, dlb))
+    for name, a, b in zip(("de", "dg", "dw", "db"), got, want):
+        _assert_rel(a.numpy(), b, name)
+
+
+def test_autograd_function_gradcheck_float64():
+    r = np.random.default_rng(4)
+    B, T, U1, J, V = 2, 3, 4, 5, 7
+    e, g = (torch.from_numpy(r.standard_normal(s)).requires_grad_()
+            for s in ((B, T, J), (B, U1, J)))
+    w = torch.from_numpy(r.standard_normal((J, V)) * 0.5).requires_grad_()
+    b = torch.from_numpy(r.standard_normal(V) * 0.1).requires_grad_()
+    labels = torch.from_numpy(r.integers(0, V, (B, U1)).astype(np.int32))
+    assert torch.autograd.gradcheck(lambda *x: K.rnnt_joint(*x, labels), (e, g, w, b),
+                                    eps=1e-6, atol=1e-7)
+
+
+def test_autograd_returns_gradients_in_the_input_dtypes():
+    """bf16 e and g (the paper width's compute dtype) with fp32 W and b:
+    de and dg come back in bf16, dW and db in fp32, as ops.py:114-120."""
+    arrays = _inputs(2, 4, 3, 8, 16, seed=1)
+    e, g, w, b, lbl = _torch(*arrays)
+    e, g = (x.to(torch.bfloat16).requires_grad_() for x in (e, g))
+    w, b = w.requires_grad_(), b.requires_grad_()
+    blank, label = K.rnnt_joint(e, g, w, b, lbl)
+    assert blank.dtype == label.dtype == torch.float32
+    grads = torch.autograd.grad((blank.sum() + 2 * label.sum()), (e, g, w, b))
+    assert [x.dtype for x in grads] == [torch.bfloat16, torch.bfloat16, torch.float32,
+                                        torch.float32]
+
+
+@pytest.mark.parametrize("case", ["g_shape", "w_shape", "labels_shape", "lse_shape",
+                                  "float_labels", "mixed_dtypes", "meta_device"])
+def test_wrapper_refuses_bad_inputs(case):
+    e, g, w, b, lbl = _torch(*_inputs(2, 4, 3, 8, 16, seed=2))
+    lse = torch.zeros(2, 4, 3)
+    call, error = (lambda: K.rnnt_joint_fwd(e, g, w, b, lbl)), ValueError
+    if case == "g_shape":
+        g = g[:, :, :5]
+    elif case == "w_shape":
+        w = w[:5]
+    elif case == "labels_shape":
+        lbl = lbl[:, :2]
+    elif case == "lse_shape":
+        call = lambda: K.rnnt_joint_bwd(e, g, w, b, lbl, lse[:, :2], lse, lse)
+    elif case == "float_labels":
+        lbl, error = lbl.float(), TypeError
+    elif case == "mixed_dtypes":
+        g, error = g.double(), TypeError
+    elif case == "meta_device":
+        e, g, w, b, lbl = (x.to("meta") for x in (e, g, w, b, lbl))
+    def counts():
+        return (K.FWD_LAUNCHES, K.BWD_EG_LAUNCHES, K.BWD_REDUCE_LAUNCHES, K.BWD_W_LAUNCHES)
+
+    launches = counts()
+    with pytest.raises(error):
+        call()
+    args = _torch(*_inputs(2, 4, 3, 8, 16, seed=2))
+    blank, label, lse = K.rnnt_joint_fwd(*args)
+    K.rnnt_joint_bwd(*args, lse, blank, label)
+    assert counts() == launches  # the plain version is no launch

@@ -1,5 +1,7 @@
-"""The port's training driver: a tiny CPU run end to end, no quiet CPU
-fallback, and no plan setting off the parity plane that runs anyway."""
+"""The port's training driver: a tiny CPU run end to end, its summary
+row (the JAX package's schema, WER as the quality), evaluation during
+and after training, no quiet CPU fallback, and no plan setting off the
+parity plane that runs anyway."""
 
 import json
 import math
@@ -7,6 +9,8 @@ import math
 import pytest
 import torch
 
+from repro.core.metrics import SUMMARY_KEYS as JAX_SUMMARY_KEYS
+from repro_torch.core.metrics import SUMMARY_KEYS
 from repro_torch.core.plan import FederatedPlan
 from repro_torch.core.task import get_task
 from repro_torch.launch import train
@@ -42,10 +46,42 @@ def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
 
 
 def test_evaluation_is_refused_until_it_is_ported():
+    """Greedy decoding and WER are ported: eval_every > 0 decodes the
+    eval splits at those rounds and logs the WER line of
+    ``repro/launch/train.py:229-233``."""
     task = get_task("asr-rnnt")
-    with pytest.raises(NotImplementedError, match="greedy_decode"):
-        train.run_federated(task, task.make_corpus(0), FederatedPlan(), rounds=1,
-                            device="cpu", eval_every=1)
+    plan = FederatedPlan(clients_per_round=2, local_batch_size=2, data_limit=2)
+    lines = []
+    _, hist = train.run_federated(task, task.make_corpus(0), plan, rounds=2, device="cpu",
+                                  eval_every=1, eval_examples=2, log=lines.append)
+    wer_lines = [line for line in lines if " wer=" in line and " wer_hard=" in line]
+    assert [line.split(":")[0] for line in wer_lines] == ["round 1", "round 2"]
+    assert math.isfinite(hist["quality"]) and hist["quality"] >= 0
+
+
+def test_no_final_decode_without_eval_examples(monkeypatch):
+    """eval_examples=0 skips the final decode: the WER fields are NaN."""
+    task = get_task("asr-rnnt")
+    monkeypatch.setattr(type(task), "evaluate", lambda *a, **k: pytest.fail("decoded"))
+    plan = FederatedPlan(clients_per_round=2, local_batch_size=2, data_limit=2)
+    _, hist = train.run_federated(task, task.make_corpus(0), plan, rounds=1, device="cpu",
+                                  eval_examples=0, log=lambda *_: None)
+    assert math.isnan(hist["quality"]) and math.isnan(hist["quality_hard"])
+    assert math.isfinite(hist["final_loss"])
+
+
+def test_history_is_a_summary_row_with_wer():
+    task = get_task("asr-rnnt")
+    plan = FederatedPlan(clients_per_round=2, local_batch_size=2, data_limit=2)
+    _, hist = train.run_federated(task, task.make_corpus(0), plan, rounds=1, device="cpu",
+                                  eval_examples=3, log=lambda *_: None)
+    assert SUMMARY_KEYS == JAX_SUMMARY_KEYS
+    assert list(hist)[:len(SUMMARY_KEYS)] == list(SUMMARY_KEYS)
+    assert hist["quality_metric"] == "wer"
+    assert hist["quality"] >= 0 and hist["quality_hard"] >= 0
+    assert hist["participants_mean"] == 2.0 and hist["clients_tracked"] == 0
+    assert hist["server_steps_total"] == 1.0 and hist["corrupted_total"] == 0
+    assert len(hist["loss"]) == len(hist["round_s"]) == 1 and hist["eval_s"] > 0
 
 
 @pytest.mark.parametrize("setting", [
