@@ -13,18 +13,24 @@ Phases, each printed as it ends:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the training and decoding paths give it, with its time beside
    its bound, the plain version's time and a PyTorch yardstick: K1 (LSTM
-   gates), then K3/K4 (the fused joint) at the paper-width client step
-   and at a ragged small shape, with the backward run twice and held to
-   the same bits;
-4. one tiny FedAvg round on the card against the same round on the CPU,
-   and a tiny greedy decode on both from the same parameters;
-5. two rounds of the paper-width RNN-T (rnnt-librispeech, 105M
-   parameters) through the training entry point, first with the
-   chunked joint, then with the fused joint kernels (``use_kernel=True``),
-   with the kernels' launch counts over the training rounds and over
-   the final greedy-decode evaluation (WER on the clean and hard splits);
+   gates), K3/K4 (the fused joint) at the paper-width client step and at
+   a ragged small shape, and K2 (the full-sequence recurrence) at the
+   paper's encoder and predictor layers, the decoder's encoder and a
+   ragged small shape; every backward runs twice and must give the same
+   bits;
+4. one tiny FedAvg round and one tiny greedy decode on the card against
+   the same on the CPU, under each LSTM dispatch ('ref': the time loop;
+   'kernel': K2 on the card, its plain version on the CPU);
+5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
+   through the training entry point, each with its launch counts over
+   the training rounds and over the final greedy-decode evaluation (WER
+   on the clean and hard splits): on the time loop (K1) with the chunked
+   joint and with the fused joint kernels (``use_kernel=True``), then on
+   K2 (``lstm.scan_dispatch=auto``) with the fused joint, whose loss is
+   held to the time loop's;
 6. one more such round of each on its own under ``torch.profiler``:
-   the device's busy share of a round and the kernels that fill it.
+   the device's busy share of a round and the kernels that fill it;
+7. the tuner's LSTM autotune at the paper's width, not kept.
 
 The line before the last is a JSON object listing every kernel; the
 last is ``{"ok": true, "device": {...}}``. A failed phase raises, and
@@ -59,6 +65,21 @@ JOINT_FWD_ATOL = 1e-4
 # Gradients in fp32, relative to each gradient's largest entry: sums of
 # V products (dh) and of B·T·U1 products (dW, db) in another order.
 JOINT_BWD_REL_TOL = 1e-4
+
+# K2 against its plain versions, all with bf16 xg and fp32 w_hh. ys in
+# bf16: both carry h in fp32, with the 1152-term sums in another order,
+# and may round it to neighbouring bf16 values, one bf16 ulp apart (2**-8
+# for |h| < 1). cs in fp32 after up to 64 steps: 1e-4.
+SCAN_YS_ATOL = 2.0 ** -8
+SCAN_CS_ATOL = 1e-4
+# The backward recurrence and the dw product in fp32, both sides fed the
+# same saved (ys, cs) so that a bf16 flip does not compound: relative to
+# each gradient's largest entry, sums of 4H (dh) and S·B (dw) products.
+SCAN_BWD_REL_TOL = 1e-4
+# The paper-width round's first loss on the K2 path against the time
+# loop's, from the same seed: the time loop rounds h to bf16 every step,
+# K2 carries it in fp32 (as the JAX package's two paths do).
+SCAN_LOSS_RTOL = 5e-3
 
 # the paper-width round of phases 5 and 6: K=4 clients, b=4, 2 local
 # steps, FVN std 0.01; phase 5 ends with the final evaluation on 64
@@ -347,14 +368,148 @@ def phase_joint_kernels(torch):
     return rows
 
 
-def phase_tiny_round(torch):
+def _rel_err(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()) / (float(w.float().abs().max()) + 1e-30)
+               for g, w in zip(got, want))
+
+
+# K2's shapes: the paper's encoder layer (S=T'=64) and predictor layer
+# (S=U+1=33) in a client step of b=4, the encoder over the 64 examples of
+# one decode, and a ragged small shape
+SCAN_SHAPES = (("encoder", 64, 4, 1152), ("predictor", 33, 4, 1152),
+               ("decode", 64, 64, 1152), ("ragged", 17, 3, 96))
+
+
+def phase_scan_kernels(torch, timing: bool = True):
+    """K2's three kernels against their plain versions at SCAN_SHAPES,
+    bf16 xg and fp32 w_hh: the forward, then (but for decoding, which has
+    no backward) the backward recurrence and the dw product on the same
+    saved tensors, each run twice and held to the same bits. With
+    ``timing``, each kernel's time, eager and from a CUDA graph, beside
+    its bound, its plain version and a library yardstick. Returns
+    {kernel: row at the encoder shape}."""
+    from repro_torch.kernels import lstm_scan as K
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    rows, graphs_ok = {}, True
+    for name, S, B, H in SCAN_SHAPES:
+        tag = f"{name} S={S} B={B} H={H}"
+        xg, w = rnd(S, B, 4 * H, scale=0.5).bfloat16(), rnd(H, 4 * H, scale=H ** -0.5)
+        h0, c0 = rnd(B, H, scale=0.1), rnd(B, H, scale=0.1)
+        ys, cs = K.lstm_scan_fwd(xg, w, h0, c0)
+        torch.cuda.synchronize()
+        want = ref.lstm_scan_ref(xg, w, h0, c0)
+        err_ys = float((ys.float() - want[0].float()).abs().max())
+        err_cs = float((cs - want[1]).abs().max())
+        ulps = int(((ys.float() - want[0].float()).abs() > 0).sum())
+        if err_ys > SCAN_YS_ATOL or err_cs > SCAN_CS_ATOL or ys.dtype != torch.bfloat16:
+            raise AssertionError(f"lstm_scan_fwd {tag}: max|err| ys {err_ys:.2e} (tol "
+                                 f"{SCAN_YS_ATOL:.2e}), cs {err_cs:.2e} (tol {SCAN_CS_ATOL})")
+        msg = (f"[kernels] lstm_scan_fwd {tag}: max|err| ys {err_ys:.2e} ({ulps} of "
+               f"{ys.numel()} bf16 values differ, tol one ulp), cs {err_cs:.2e} "
+               f"(tol {SCAN_CS_ATOL})")
+        errs = {"lstm_scan_fwd": max(err_ys, err_cs)}
+        if name != "decode":
+            args = (xg, w, h0, c0, ys, cs, rnd(S, B, H).bfloat16(), rnd(B, H).bfloat16(),
+                    rnd(B, H))
+            got, again = K.lstm_scan_bwd_rec(*args), K.lstm_scan_bwd_rec(*args)
+            dw, dw_again = K.lstm_scan_dw(h0, ys, got[0]), K.lstm_scan_dw(h0, ys, got[0])
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip((*got, dw), (*again, dw_again))):
+                raise AssertionError(f"lstm_scan_bwd {tag}: two runs on the same inputs differ")
+            want_b = ref.lstm_scan_bwd_rec_ref(*args)
+            want_dw = ref.lstm_scan_dw_ref(h0, ys, got[0])
+            rel_b, rel_dw = _rel_err(got, want_b), _rel_err((dw,), (want_dw,))
+            if max(rel_b, rel_dw) > SCAN_BWD_REL_TOL:
+                raise AssertionError(f"lstm_scan_bwd {tag}: error relative to max: recurrence "
+                                     f"{rel_b:.2e}, dw {rel_dw:.2e} > {SCAN_BWD_REL_TOL}")
+            errs["lstm_scan_bwd"] = _max_err(torch, got, want_b)
+            errs["lstm_scan_dw"] = _max_err(torch, (dw,), (want_dw,))
+            msg += (f"; bwd |err|/max {rel_b:.2e}, dw {rel_dw:.2e} (tol {SCAN_BWD_REL_TOL}); "
+                    "backward and dw bitwise repeatable")
+        log(msg)
+        if not timing or name == "ragged":
+            continue
+
+        # the yardstick: cuDNN's LSTM (torch.nn.LSTM, fp32, TF32 off), which
+        # also runs the input product x @ w_ih (B·S·H·4H more) and takes
+        # its own layout; the forward without autograd, the backward as
+        # forward plus backward
+        lib = torch.nn.LSTM(H, H, device="cuda")
+        x_lib = rnd(S, B, H, scale=0.5)
+        lib_fwd = torch.no_grad()(lambda: lib(x_lib))
+
+        def lib_fwd_bwd():
+            x = x_lib.detach().requires_grad_()
+            lib(x)[0].sum().backward()
+
+        es, gs = xg.element_size(), 4
+        seqs, units = S * B * H, S * B * H
+        prod = 2 * S * B * H * 4 * H
+        cases = [("lstm_scan_fwd", lambda: K.lstm_scan_fwd(xg, w, h0, c0),
+                  lambda: ref.lstm_scan_ref(xg, w, h0, c0), lib_fwd,
+                  seqs * 4 * es + 16 * H * H + 2 * B * H * gs + seqs * (es + gs),
+                  prod + FWD_OPS_PER_UNIT * units)]
+        if name != "decode":
+            hp = torch.cat([h0[None], ys[:-1].float()]).reshape(-1, H)
+            dg = got[0].reshape(-1, 4 * H)
+            cases += [
+                ("lstm_scan_bwd", lambda: K.lstm_scan_bwd_rec(*args),
+                 lambda: ref.lstm_scan_bwd_rec_ref(*args), lib_fwd_bwd,
+                 seqs * 4 * es + 16 * H * H + 2 * B * H * gs + seqs * (2 * es + gs)
+                 + B * H * (es + gs) + seqs * 4 * gs + 2 * B * H * gs,
+                 2 * prod + (FWD_OPS_PER_UNIT + BWD_OPS_PER_UNIT) * units),
+                ("lstm_scan_dw", lambda: K.lstm_scan_dw(h0, ys, got[0]),
+                 lambda: ref.lstm_scan_dw_ref(h0, ys, got[0]), lambda: hp.T @ dg,
+                 B * H * gs + seqs * es + seqs * 4 * gs + 16 * H * H, prod),
+            ]
+        for kname, kernel, plain, library, nbytes, ops in cases:
+            t_k = cuda_ms(torch, kernel, 20)
+            g_k = None
+            if graphs_ok:
+                try:
+                    g_k = graph_ms(torch, kernel, 10)
+                except RuntimeError as e:  # a measurement, not the port's path
+                    graphs_ok = False
+                    torch.cuda.synchronize()
+                    log(f"[kernels] {kname}: the cooperative launch does not capture in a "
+                        f"CUDA graph ({e}); graph times of K2 not measured")
+            t_p, g_p = cuda_ms(torch, plain, 3), graph_ms(torch, plain, 3)
+            t_l = cuda_ms(torch, library, 10)
+            bound_ms, bound_by = _bound(nbytes, ops)
+            log(f"[kernels] {kname} {tag}: us per call eager/graph: kernel {_us(t_k)}/{_us(g_k)}, "
+                f"plain {_us(t_p)}/{_us(g_p)}, library {_us(t_l)} (eager); bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}, {ops} flop, {nbytes} B); "
+                f"eager time / bound {t_k / bound_ms:.2f}")
+            if name == "encoder":
+                rows[kname] = {"max_abs_err": errs[kname], "ms": t_k, "plain_ms": t_p,
+                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_l}
+    return rows
+
+
+def _dispatch(mode: str) -> None:
+    """Set ``lstm.scan_dispatch`` for the phases that follow (in memory)."""
+    from repro_torch.profile import tuner
+
+    tuner.registry().set_override("lstm.scan_dispatch", mode)
+
+
+def phase_tiny_round(torch, mode: str):
     """One tiny FedAvg round (fp32) on the card and on the CPU from the
-    same parameters and batch: the loss and the aggregated delta agree."""
+    same parameters and batch, under the same LSTM dispatch (``mode``:
+    'kernel' runs the encoder, S=24, through K2 on the card and its plain
+    version on the CPU): the loss and the aggregated delta agree."""
     from repro_torch.core.engine import build_round_engine
     from repro_torch.core.plan import FederatedPlan
     from repro_torch.core.task import get_task
     from repro_torch.data import FederatedSampler
 
+    _dispatch(mode)
     task = get_task("asr-rnnt")
     plan = FederatedPlan(clients_per_round=2, local_batch_size=2, data_limit=4,
                          client_lr=0.05, server_optimizer="sgd", server_lr=1.0)
@@ -375,15 +530,18 @@ def phase_tiny_round(torch):
     err = max(float((delta_c[k] - delta_h[k]).abs().max()) for k in delta_c)
     if err > 1e-5:
         raise AssertionError(f"tiny round aggregated delta differs by {err:.2e} (> 1e-5)")
-    log(f"[tiny] loss cuda {loss_c:.6f} cpu {loss_h:.6f}; aggregated delta max|err| {err:.2e}")
+    log(f"[tiny {mode}] loss cuda {loss_c:.6f} cpu {loss_h:.6f}; aggregated delta max|err| "
+        f"{err:.2e}")
 
 
-def phase_tiny_decode(torch):
+def phase_tiny_decode(torch, mode: str):
     """Greedy decoding of the tiny config (fp32) on the card and on the
-    CPU from the same parameters: the token ids are identical."""
+    CPU from the same parameters, under the same LSTM dispatch: the token
+    ids are identical."""
     from repro_torch.core.task import get_task
     from repro_torch.models import rnnt
 
+    _dispatch(mode)
     task = get_task("asr-rnnt")
     params = task.init_params(torch.Generator().manual_seed(0))
     ev = task.make_corpus(0).eval_split(16)
@@ -395,73 +553,106 @@ def phase_tiny_decode(torch):
             torch.from_numpy(ev["frame_len"]).to(device)).cpu()
     if not torch.equal(out["cuda"], out["cpu"]):
         raise AssertionError("tiny greedy decode: token ids differ between cuda and cpu")
-    log(f"[tiny] greedy decode of 16 eval examples: identical token ids on cuda and cpu "
+    log(f"[tiny {mode}] greedy decode of 16 eval examples: identical token ids on cuda and cpu "
         f"({int((out['cpu'] != 0).sum())} tokens emitted)")
 
 
-def _paper_task(use_kernel: bool):
+def _paper_task(use_kernel: bool, enc_layers=None):
     from repro_torch.configs import rnnt_librispeech
     from repro_torch.core.task import get_task
 
     task = get_task(rnnt_librispeech.ARCH_ID)
-    return dataclasses.replace(task, config=dataclasses.replace(task.config,
-                                                                use_kernel=use_kernel))
+    cfg = dataclasses.replace(task.config, use_kernel=use_kernel)
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, enc_layers=enc_layers)
+    return dataclasses.replace(task, config=cfg)
 
 
-def phase_paper_width(torch, use_kernel: bool):
-    """Two FedAvg rounds of rnnt-librispeech through the training entry
-    point, then its final evaluation. The counts are set to 0 before the
-    run, read after the last round (training) and again at the end (the
-    evaluation). Returns ({kernel: launches over the whole run}, the
-    last round's seconds)."""
+def _counts():
     from repro_torch.kernels import lstm_gates as K1
+    from repro_torch.kernels import lstm_scan as K2
     from repro_torch.kernels import rnnt_joint as KJ
-    from repro_torch.launch import train
 
-    task = _paper_task(use_kernel)
+    return {"lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
+            "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES, "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES,
+            "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
+            "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_eg": KJ.BWD_EG_LAUNCHES,
+            "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
+            "rnnt_joint_bwd_w": KJ.BWD_W_LAUNCHES}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import lstm_gates as K1
+    from repro_torch.kernels import lstm_scan as K2
+    from repro_torch.kernels import rnnt_joint as KJ
+
+    K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
+    K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_LAUNCHES = K2.SCAN_DW_LAUNCHES = 0
+    KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
+
+
+def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
+    """Two FedAvg rounds of rnnt-librispeech through the training entry
+    point under ``lstm.scan_dispatch`` = ``mode``, then its final
+    evaluation. The counts are set to 0 before the run, read after the
+    last round (training) and again at the end (the evaluation), and must
+    be exact: under 'ref' every LSTM step is a K1 launch; under 'auto'
+    every layer is one K2 launch of each kernel, and only the decoder's
+    per-step predictor runs K1. Returns ({kernel: launches over the whole
+    run}, the last round's seconds, the first round's loss)."""
+    from repro_torch.launch import train
+    from repro_torch.models.lstm import _scan_kernel_eligible
+
+    _dispatch(mode)
+    task = _paper_task(use_kernel, enc_layers)
     cfg, rounds = task.config, 2
     corpus = task.make_corpus(0)
     args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)])
-    tag = f"[paper use_kernel={use_kernel}]"
-
-    def counts():
-        return {"lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
-                "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_eg": KJ.BWD_EG_LAUNCHES,
-                "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
-                "rnnt_joint_bwd_w": KJ.BWD_W_LAUNCHES}
-
+    tag = f"[paper {mode} use_kernel={use_kernel} enc_layers={cfg.enc_layers}]"
+    t_enc = corpus.t_max // cfg.time_stride
+    scan = {S: _scan_kernel_eligible(S, cfg.enc_hidden, cfg.scan_chunk, torch.device("cuda"))
+            for S in (t_enc, corpus.u_max + 1)}
+    if set(scan.values()) != {mode == "auto"}:
+        raise AssertionError(f"{tag} the dispatch rule gives {scan} (sequence length: K2?)")
     marks = []
 
     def after_round(line):
         log(f"{tag} {line}")
-        marks.append((counts(), torch.cuda.max_memory_allocated()))
+        marks.append((_counts(), torch.cuda.max_memory_allocated()))
 
     torch.cuda.reset_peak_memory_stats()
-    K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = \
-        KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
+    _zero_counts()
     _, hist = train.run_federated(task, corpus, train.build_plan(args), rounds, seed=args.seed,
                                   device="cuda", eval_every=args.eval_every,
                                   eval_examples=EVAL_EXAMPLES, log=after_round)
     torch.cuda.synchronize()
-    total = counts()
+    total = _counts()
     trained, train_peak = marks[-1]
     evaluated = {k: total[k] - trained[k] for k in total}
 
     if not all(math.isfinite(x) for x in hist["loss"]):
         raise AssertionError(f"{tag} losses are not finite: {hist['loss']}")
     steps = args.clients * hist["local_steps"] * rounds
-    t_enc = corpus.t_max // cfg.time_stride
-    per_step = cfg.enc_layers * t_enc + cfg.pred_layers * (corpus.u_max + 1)
+    layers = cfg.enc_layers + cfg.pred_layers
+    loop_steps = cfg.enc_layers * t_enc + cfg.pred_layers * (corpus.u_max + 1)
     joint = steps if use_kernel else 0  # one launch of each joint kernel per client step
-    want = {"lstm_gates_fwd": per_step * steps, "lstm_gates_bwd": per_step * steps,
-            "rnnt_joint_fwd": joint, "rnnt_joint_bwd_eg": joint,
-            "rnnt_joint_bwd_reduce": joint, "rnnt_joint_bwd_w": joint}
+    want = {k: 0 for k in total}
+    want.update(rnnt_joint_fwd=joint, rnnt_joint_bwd_eg=joint, rnnt_joint_bwd_reduce=joint,
+                rnnt_joint_bwd_w=joint)
+    if mode == "auto":
+        want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
+                    lstm_scan_dw=layers * steps)
+    else:
+        want.update(lstm_gates_fwd=loop_steps * steps, lstm_gates_bwd=loop_steps * steps)
     if trained != want:
         raise AssertionError(f"{tag} launches over the training rounds {trained}, expected "
                              f"{want} ({steps} client steps)")
-    per_decode = cfg.enc_layers * t_enc + cfg.pred_layers * (1 + t_enc * 4)
-    want_eval = {k: 0 for k in want}
-    want_eval["lstm_gates_fwd"] = 2 * per_decode
+    pred_steps = cfg.pred_layers * (1 + t_enc * 4)  # the decoder's predictor, per decode
+    want_eval = {k: 0 for k in total}
+    if mode == "auto":
+        want_eval.update(lstm_scan_fwd=2 * cfg.enc_layers, lstm_gates_fwd=2 * pred_steps)
+    else:
+        want_eval.update(lstm_gates_fwd=2 * (cfg.enc_layers * t_enc + pred_steps))
     if evaluated != want_eval:
         raise AssertionError(f"{tag} launches over the evaluation {evaluated}, expected "
                              f"{want_eval}")
@@ -474,15 +665,15 @@ def phase_paper_width(torch, use_kernel: bool):
         f"client examples per second {per_s}; peak memory over the training rounds "
         f"{train_peak} B")
     log(f"{tag} launches per client step over {steps} client steps: "
-        + ", ".join(f"{k} {v / steps:g}" for k, v in trained.items()))
+        + ", ".join(f"{k} {v / steps:g}" for k, v in trained.items() if v))
     log(f"{tag} final evaluation ({EVAL_EXAMPLES} examples of each split): "
         f"{hist['eval_s'] * 1e3:.1f} ms, WER {wers[0]:.4f} clean, {wers[1]:.4f} hard; "
-        f"launches {evaluated} (lstm_gates_fwd expected {per_decode} per decode); "
+        f"launches {({k: v for k, v in evaluated.items() if v})} (2 decodes); "
         f"peak memory {torch.cuda.max_memory_allocated()} B")
-    return total, hist["round_s"][-1]
+    return total, hist["round_s"][-1], hist["loss"][0]
 
 
-def phase_profile(torch, round_s: float, use_kernel: bool):
+def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None):
     """One more paper-width round on its own under torch.profiler, with
     no final evaluation: the device's kernel time against the wall time
     of the counted run's last round (the busy share), and the kernels
@@ -491,9 +682,10 @@ def phase_profile(torch, round_s: float, use_kernel: bool):
 
     from repro_torch.launch import train
 
-    task = _paper_task(use_kernel)
+    _dispatch(mode)
+    task = _paper_task(use_kernel, enc_layers)
     args = train.parse_args(PAPER_ARGV + ["--rounds", "1"])
-    tag = f"[profile use_kernel={use_kernel}]"
+    tag = f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}]"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, hist = train.run_federated(task, task.make_corpus(0), train.build_plan(args), 1,
                                       seed=args.seed, device="cuda", eval_every=0,
@@ -514,11 +706,25 @@ def phase_profile(torch, round_s: float, use_kernel: bool):
         f"{device_s / hist['round_s'][0]:.3f} of the profiled one "
         f"({hist['round_s'][0] * 1e3:.1f} ms)")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    ours = [kv for kv in ranked if "lstm_gates" in kv[0] or "joint_" in kv[0]]
+    ours = [kv for kv in ranked if any(k in kv[0] for k in ("lstm_gates", "lstm_scan", "joint_"))]
     for name, (t, n) in ranked[:8] + [kv for kv in ours if kv not in ranked[:8]]:
         log(f"{tag}   {t / 1e3:9.2f} ms  {t / 1e6 / device_s:6.3f}  {n:6d}x  {name[:100]}")
     share = sum(t for _, (t, _) in ours) / 1e6 / device_s
     log(f"{tag} the hand-written kernels' share of device time: {share:.3f}")
+
+
+def phase_autotune(torch):
+    """The tuner's entry point on the card at the paper's width (B=4,
+    H=1152) over the JAX package's sequence lengths, not persisted: the
+    length from which K2 beats the time loop, forward plus backward."""
+    from repro_torch.profile import tuner
+
+    t0 = time.perf_counter()
+    chosen = tuner.autotune_lstm_scan(tuner.registry(), batch=4, hidden=1152, reps=3,
+                                      persist=False, device="cuda", log=log)
+    tuner.registry().clear_override("lstm.scan_min_seq")
+    log(f"[tuner] measured lstm.scan_min_seq {chosen} at B=4 H=1152 in "
+        f"{time.perf_counter() - t0:.1f} s (not kept: the runs above use the default)")
 
 
 def main() -> int:
@@ -531,21 +737,44 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: no src/repro_torch beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.profile import tuner
+
+    # knobs at their defaults; each phase sets the dispatch it needs, in memory
+    tuner.set_registry(tuner.TuningRegistry(path=str(ROOT / "build" / "chip_smoke_tuning.json")))
     phase_build()
     rows = phase_kernels(torch)
     rows.update(phase_joint_kernels(torch))
-    phase_tiny_round(torch)
-    phase_tiny_decode(torch)
-    _, round_s_chunked = phase_paper_width(torch, use_kernel=False)
-    launches, round_s_fused = phase_paper_width(torch, use_kernel=True)
-    phase_profile(torch, round_s_chunked, use_kernel=False)
-    phase_profile(torch, round_s_fused, use_kernel=True)
+    rows.update(phase_scan_kernels(torch))
+    for mode in ("ref", "kernel"):
+        phase_tiny_round(torch, mode)
+        phase_tiny_decode(torch, mode)
+    _, round_s_chunked, _ = phase_paper_width(torch, False, "ref")
+    k1_launches, round_s_loop, loss_loop = phase_paper_width(torch, True, "ref")
+    launches, round_s_scan, loss_scan = phase_paper_width(torch, True, "auto")
+    if not math.isclose(loss_scan, loss_loop, rel_tol=SCAN_LOSS_RTOL):
+        raise AssertionError(f"first-round loss on K2 {loss_scan} against the time loop's "
+                             f"{loss_loop}: more than {SCAN_LOSS_RTOL} apart")
+    log(f"[paper] first-round loss, use_kernel=True: K2 {loss_scan}, time loop {loss_loop}, "
+        f"relative difference {abs(loss_scan - loss_loop) / abs(loss_loop):.2e} "
+        f"(tol {SCAN_LOSS_RTOL})")
+    phase_profile(torch, round_s_chunked, False, "ref")
+    phase_profile(torch, round_s_loop, True, "ref")
+    phase_profile(torch, round_s_scan, True, "auto")
+    phase_autotune(torch)
 
-    gates, joint = "src/repro_torch/kernels/csrc/lstm_gates.cu", \
-        "src/repro_torch/kernels/csrc/rnnt_joint.cu"
+    # K1 runs the main path's LSTM steps under 'ref'; K2, K3 and K4 under 'auto'
+    for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
+        launches[name] = k1_launches[name]
+    gates, scan, joint = ("src/repro_torch/kernels/csrc/" + f for f in
+                          ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu"))
     table = {  # kernel: (source, the TPU kernel it replaces)
         "lstm_gates_fwd": (gates, "src/repro/kernels/lstm_gates.py:43"),
         "lstm_gates_bwd": (gates, "src/repro/kernels/lstm_gates.py:92"),
+        "lstm_scan_fwd": (scan, "src/repro/kernels/lstm_gates.py:202"),
+        # the recurrence of _scan_bwd_kernel (:235-279, :283-292)
+        "lstm_scan_bwd": (scan, "src/repro/kernels/lstm_gates.py:295"),
+        # the dw_hh accumulation of _scan_bwd_kernel (:280-282)
+        "lstm_scan_dw": (scan, "src/repro/kernels/lstm_gates.py:280"),
         "rnnt_joint_fwd": (joint, "src/repro/kernels/rnnt_joint.py:86"),
         "rnnt_joint_bwd_eg": (joint, "src/repro/kernels/rnnt_joint.py:175"),
         # the de/dg sums of _bwd_eg_kernel's last step and of the dg partials

@@ -5,8 +5,10 @@ computes, written as ordinary tensor code. A wrapper takes it for a
 tensor on the CPU, and ``chip_smoke.py`` holds each kernel against it on
 the card.
 
-The joint's plain versions (K3/K4) work one chunk of U at a time, so
-on the CPU they never hold the (B, T, U1, V) logits, only (B, T, c, V).
+The scan's plain versions (K2) work time-major, (S, B, ...), as the TPU
+kernels do. The joint's plain versions (K3/K4) work one chunk of U at a
+time, so on the CPU they never hold the (B, T, U1, V) logits, only
+(B, T, c, V).
 """
 
 from __future__ import annotations
@@ -51,6 +53,71 @@ def lstm_gates_bwd_ref(gates, c, dh, dc_next):
         dim=-1,
     )
     return dgates.to(gates.dtype), (dc * f).to(c.dtype)
+
+
+def lstm_scan_ref(xg, w_hh, h0, c0):
+    """The whole recurrence (K2), time-major, as the TPU kernel computes
+    it (``repro/kernels/lstm_gates.py:178-199``). xg (S, B, 4H) the
+    hoisted input pre-activations, w_hh (H, 4H), h0 and c0 (B, H).
+    Gates ``xg + h @ w_hh`` in fp32 with w_hh uncast; the h carry stays
+    fp32 across steps. Returns (ys (S, B, H) in xg's dtype, cs (S, B, H)
+    fp32); fp64 passes through."""
+    dt = _math_dtype(xg.dtype)
+    w = w_hh.to(dt)
+    h, c = h0.to(dt), c0.to(dt)
+    ys, cs = [], []
+    for t in range(xg.shape[0]):
+        i, f, g, o = _activations(xg[t].to(dt) + h @ w)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h.to(xg.dtype))
+        cs.append(c)
+    return torch.stack(ys), torch.stack(cs)
+
+
+def _h_prev(h0, ys, dt):
+    """The step-t predecessor of every step: h0 at t=0, the stored ys[t-1]
+    after, in the math dtype (S, B, H)."""
+    return torch.cat([h0[None].to(dt), ys[:-1].to(dt)])
+
+
+def lstm_scan_bwd_rec_ref(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT):
+    """The backward recurrence of K2, t = S-1..0, from the saved (ys, cs)
+    as ``repro/kernels/lstm_gates.py:235-292`` does: h_prev is the stored
+    ys[t-1] (bf16 at paper width), h0/c0 at t=0, and the gates are
+    recomputed. Returns (dxg (S, B, 4H), dh0, dc0), all fp32 (fp64 for
+    fp64 inputs)."""
+    dt = _math_dtype(xg.dtype)
+    w = w_hh.to(dt)
+    h_prev = _h_prev(h0, ys, dt)
+    c_prev = torch.cat([c0[None].to(dt), cs[:-1].to(dt)])
+    dh, dc = dhT.to(dt), dcT.to(dt)
+    dxg = torch.empty(xg.shape, dtype=dt, device=xg.device)
+    for t in reversed(range(xg.shape[0])):
+        i, f, g, o = _activations(xg[t].to(dt) + h_prev[t] @ w)
+        tct = torch.tanh(f * c_prev[t] + i * g)
+        dh = dh + dys[t].to(dt)
+        dc = dc + dh * o * (1.0 - tct * tct)
+        dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev[t] * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tct * o * (1.0 - o)], dim=-1)
+        dxg[t] = dg
+        dh = dg @ w.T
+        dc = dc * f
+    return dxg, dh, dc
+
+
+def lstm_scan_dw_ref(h0, ys, dgates):
+    """dw_hh (H, 4H) = the sum over steps and rows of h_prevᵀ dgates,
+    with h_prev as in the backward recurrence; fp32 (fp64 for fp64)."""
+    dt = _math_dtype(dgates.dtype)
+    H = ys.shape[-1]
+    return _h_prev(h0, ys, dt).reshape(-1, H).T @ dgates.to(dt).reshape(-1, 4 * H)
+
+
+def lstm_scan_bwd_ref(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT):
+    """The whole K2 backward: (dxg, dw_hh, dh0, dc0), fp32 (fp64 for fp64)."""
+    dxg, dh0, dc0 = lstm_scan_bwd_rec_ref(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT)
+    return dxg, lstm_scan_dw_ref(h0, ys, dxg), dh0, dc0
 
 
 def _joint_chunks(e, g, w, b, labels, u_chunk: int):

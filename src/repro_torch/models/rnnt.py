@@ -57,6 +57,7 @@ class RNNTConfig:
     dtype: str = "float32"
     param_dtype: str = "float32"
     use_kernel: bool = False       # fused joint kernels (K3/K4)
+    scan_chunk: int = 0            # time-chunked checkpointed LSTM time loop (0: off)
     loss_norm: bool = True         # per-label-token NLL normalization
 
     @property
@@ -103,14 +104,14 @@ class RNNT(nn.Module):
             B, T, Fd = x.shape
             T2 = T // cfg.time_stride
             x = x[:, : T2 * cfg.time_stride].reshape(B, T2, Fd * cfg.time_stride)
-        return lstm_stack(self.encoder, x)[0]
+        return lstm_stack(self.encoder, x, chunk=cfg.scan_chunk)[0]
 
     def predict(self, labels):
         """labels (B, U) -> (B, U+1, pred_hidden); position 0 is the
         blank-start state (zero embedding)."""
         emb = self.pred_embed.to(self.cfg.cdtype)[labels.long()]          # (B, U, E)
         emb = torch.cat([torch.zeros_like(emb[:, :1]), emb], dim=1)
-        return lstm_stack(self.predictor, emb)[0]
+        return lstm_stack(self.predictor, emb, chunk=self.cfg.scan_chunk)[0]
 
     def joint_logprobs(self, enc, pred, labels, u_chunk: int = 8):
         """(blank_lp, label_lp), each (B, T, U1) fp32, never holding more
