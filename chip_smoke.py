@@ -18,9 +18,16 @@ Phases, each printed as it ends:
    paper's encoder and predictor layers, the decoder's encoder and a
    ragged small shape; every backward runs twice and must give the same
    bits;
+   The compression plane's kernels (K5-K8: the quantizer, keyed,
+   streamed and nearest, the int4 nibble pack and unpack, and the top-k
+   scatter-add) run at K=4 clients on the paper's largest leaf
+   (n=5,308,416), at n=4,096 and at ragged sizes, and must give the
+   plain versions' bits; the scatter-add runs twice for the same bits;
 4. one tiny FedAvg round and one tiny greedy decode on the card against
    the same on the CPU, under each LSTM dispatch ('ref': the time loop;
-   'kernel': K2 on the card, its plain version on the CPU);
+   'kernel': K2 on the card, its plain version on the CPU); the
+   code-domain aggregate of the same tiny deltas on the card and on the
+   CPU, bitwise, under every compressed plane;
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -28,8 +35,15 @@ Phases, each printed as it ends:
    joint and with the fused joint kernels (``use_kernel=True``), then on
    K2 (``lstm.scan_dispatch=auto``) with the fused joint, whose loss is
    held to the time loop's;
+   then four compressed runs of two rounds on the K2 path (int4 packed,
+   int4 packed with error feedback, top-k 0.05 with error feedback, int8
+   with nearest rounding) with no evaluation: exact launch counts of the
+   compression kernels (one per leaf, 35 a round), the exact uplink
+   bytes per client, and a first-round loss equal to the uncompressed
+   run's;
 6. one more such round of each on its own under ``torch.profiler``:
-   the device's busy share of a round and the kernels that fill it;
+   the device's busy share of a round and the kernels that fill it (for
+   the compressed runs, the compression plane's share);
 7. the tuner's LSTM autotune at the paper's width, not kept.
 
 The line before the last is a JSON object listing every kernel; the
@@ -53,6 +67,24 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense fp32 rate (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# 32-bit integer operations (add, xor, shift), not in the data sheet: the
+# Hopper white paper's 64 INT32 lanes per SM, 132 SMs, at the 1.98 GHz that
+# the fp32 rate above implies (67e12 / (132 * 128 * 2))
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+# the keyed draw's 32-bit integer operations, counted in csrc/wire_pack.cu
+# as the function needs them: a size-n draw hashes ceil(n/2) threefry2x32
+# blocks, block (pair, pair + half) serving position pair with its first
+# word and position pair + half with its second. A block is 2 counter adds,
+# 20 rounds of add, rotate (one funnel shift) and xor, 5 key injections of
+# 2 adds, and 3 for its second counter (add, compare, select); each element
+# then takes 2 for its mantissa fill (shift, or). The kernel hashes every
+# block twice, once for each position it serves: the bound does not.
+WIRE_BLOCK_INT_OPS = 75
+WIRE_ELEM_INT_OPS = 2
+# the quantizer's fp32 operations per element: the division, clamp and
+# rounding
+WIRE_QUANT_FP_OPS = 8
 
 # gate operations per hidden unit, counted in csrc/lstm_gates.cu
 # (a sigmoid is 4, a tanh 1)
@@ -87,6 +119,29 @@ SCAN_LOSS_RTOL = 5e-3
 PAPER_ARGV = ["--preset", "arch", "--clients", "4", "--batch", "4", "--data-limit", "8",
               "--fvn-std", "0.01", "--eval-every", "0"]
 EVAL_EXAMPLES = 64
+
+# the compressed paper-width runs of phases 5 and 6: (name, CLI flags, the
+# CompressionConfig they give; nearest rounding has no flag), each with the
+# exact uplink bytes per client of rnnt-librispeech's 35 tensors
+COMPRESSED = (
+    ("int4_packed", ["--compression", "int4", "--packed-wire"],
+     dict(kind="int4", packed=True), 52_667_020),
+    ("int4_packed_ef", ["--compression", "int4", "--packed-wire", "--error-feedback"],
+     dict(kind="int4", packed=True, error_feedback=True), 52_667_020),
+    ("topk5_ef", ["--compression", "topk", "--topk-frac", "0.05", "--error-feedback"],
+     dict(kind="topk", topk_frac=0.05, error_feedback=True), 42_133_592),
+    ("int8_nearest", ["--compression", "int8"], dict(kind="int8", stochastic=False),
+     105_333_900),
+)
+# the compression kernels each compressed run launches once per leaf per round
+WIRE_LAUNCHES = {
+    "int4_packed": ("wire_quantize", "nibble_unpack"),
+    "int4_packed_ef": ("wire_quantize", "nibble_pack", "nibble_unpack"),
+    "topk5_ef": ("topk_scatter_add",),
+    "int8_nearest": ("wire_quantize",),
+}
+WIRE_KERNELS = ("wire_quantize", "nibble_pack", "nibble_unpack", "topk_scatter_add")
+N_LEAVES = 35
 
 
 def log(msg: str) -> None:
@@ -492,6 +547,179 @@ def phase_scan_kernels(torch, timing: bool = True):
     return rows
 
 
+# the compression kernels' sizes: the paper's largest leaf (joint and
+# encoder w_hh, 1152 x 4608), a 4,096-element leaf, and ragged sizes
+WIRE_SIZES = (5_308_416, 4096, 1, 65, 4097)
+WIRE_CLIENTS = 4
+WIRE_TOPK_FRAC = 0.05
+
+
+def _bitwise(torch, got, want, what: str) -> None:
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{what}: kernel and plain version differ ({bad} elements; "
+                             f"{tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+                             f"{want.dtype})")
+
+
+def _maybe_graph_ms(torch, fn, n: int, what: str):
+    try:
+        return graph_ms(torch, fn, n)
+    except RuntimeError as e:  # a measurement, not the port's path
+        torch.cuda.synchronize()
+        log(f"[kernels] {what}: not captured in a CUDA graph ({e}); graph time not measured")
+        return None
+
+
+def phase_wire_kernels(torch):
+    """The compression kernels against their plain versions at K=4 clients
+    and WIRE_SIZES: the quantizer in each rounding (keyed, streamed,
+    nearest) giving int8 codes and int4 nibble bytes, the nibble pack and
+    unpack, and the top-k scatter-add (5% of each row, with indices shared
+    across clients), all bitwise; the scatter-add twice for the same bits.
+    At the largest leaf each kernel's time (eager and from a CUDA graph)
+    beside its bound, its plain version and, for the scatter-add, a
+    library yardstick. Returns {kernel: row at the largest leaf}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wire_pack as W
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    K = WIRE_CLIENTS
+    rows = {}
+    for n in WIRE_SIZES:
+        tag = f"K={K} n={n}"
+        # correlated clients, as a round's deltas are: shared top-k picks
+        base = torch.randn(n, generator=gen, device="cuda") * 1e-3
+        x = (base + torch.randn((K, n), generator=gen, device="cuda") * 2e-4).contiguous()
+        x[:, ::97] = 0.0
+        keys = torch.randint(0, 2**32, (K, 2), generator=gen, device="cuda", dtype=torch.int64)
+        u = torch.rand((K, n), generator=gen, device="cuda")
+        calls = {}
+        for bits in (8, 4):
+            scale = x.abs().max() / (2 ** (bits - 1) - 1) * 0.9  # the largest values clamp
+            calls[f"keyed int{bits} codes"] = (
+                lambda s=scale, b=bits: W.quantize_with_scale_keyed(x, s, keys, b),
+                lambda s=scale, b=bits: ref.quantize_codes_with_scale_ref(
+                    x, s, ref.threefry_uniform_ref(keys, n), 2.0 ** (b - 1) - 1.0))
+            calls[f"streamed int{bits} codes"] = (
+                lambda s=scale, b=bits: W.quantize_with_scale(x, s, u, b),
+                lambda s=scale, b=bits: ref.quantize_codes_with_scale_ref(
+                    x, s, u, 2.0 ** (b - 1) - 1.0))
+            calls[f"nearest int{bits} codes"] = (
+                lambda s=scale, b=bits: W.quantize_with_scale(x, s, None, b),
+                lambda s=scale, b=bits: ref.quantize_codes_with_scale_ref(
+                    x, s, None, 2.0 ** (b - 1) - 1.0))
+        scale4 = x.abs().max() / 7 * 0.9
+        calls["keyed int4 packed"] = (
+            lambda: W.quantize_pack_keyed(x, scale4, keys, 4),
+            lambda: ref.quantize_pack_ref(x, scale4, ref.threefry_uniform_ref(keys, n), 4))
+        calls["streamed int4 packed"] = (lambda: W.quantize_pack(x, scale4, u, 4),
+                                         lambda: ref.quantize_pack_ref(x, scale4, u, 4))
+        calls["nearest int4 packed"] = (lambda: W.quantize_pack(x, scale4, None, 4),
+                                        lambda: ref.quantize_pack_ref(x, scale4, None, 4))
+        for what, (kernel, plain) in calls.items():
+            _bitwise(torch, kernel(), plain(), f"wire_quantize {what} {tag}")
+        codes = W.quantize_with_scale_keyed(x, scale4, keys, 4)
+        packed = W.nibble_pack(codes)
+        _bitwise(torch, packed, ref.nibble_pack_ref(codes), f"nibble_pack {tag}")
+        _bitwise(torch, W.nibble_unpack(packed, n), ref.nibble_unpack_ref(packed, n),
+                 f"nibble_unpack {tag}")
+        _bitwise(torch, W.nibble_unpack(packed, n), codes, f"nibble pack then unpack {tag}")
+        k = max(1, min(n, math.ceil(WIRE_TOPK_FRAC * n)))
+        idx = torch.topk(x.abs(), k, dim=1).indices.to(torch.int32)
+        vals = torch.gather(x, 1, idx.long())
+        weights = torch.tensor([4.0, 2.0, 3.0, 1.0], device="cuda")
+        dense = W.topk_scatter_add(vals, idx, weights, n)
+        again = W.topk_scatter_add(vals, idx, weights, n)
+        _bitwise(torch, dense, ref.topk_scatter_add_ref(vals, idx, weights, n),
+                 f"topk_scatter_add {tag}")
+        _bitwise(torch, again, dense, f"topk_scatter_add twice {tag}")
+        shared = K * k - int(torch.unique(idx).numel())
+        log(f"[kernels] wire {tag}: quantizer ({len(calls)} variants), nibble pack and unpack, "
+            f"top-k scatter-add ({k} of each row, {shared} indices picked by more than one "
+            f"client) bitwise equal to the plain versions; scatter-add bitwise repeatable")
+        if n != WIRE_SIZES[0]:
+            continue
+
+        # times at the largest leaf, as the main path calls each kernel
+        sv, si, bounds = W.scatter_add_segments(vals, idx, weights, n)
+        out = torch.empty(n, device="cuda")
+
+        def scatter_kernel():  # the kernel alone, on the sorted payload
+            W._lib().topk_scatter_add(sv.data_ptr(), si.data_ptr(), bounds.data_ptr(),
+                                      out.data_ptr(), n, W.SEGMENT,
+                                      torch.cuda.current_stream().cuda_stream)
+
+        flat_idx = idx.reshape(-1).long()
+
+        def library_scatter():  # the same function by index_add_, deterministic
+            return torch.zeros(n, device="cuda").index_add_(
+                0, flat_idx, (weights[:, None] * vals).reshape(-1))
+
+        lib_ms = None
+        was_deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            lib_err = float((library_scatter() - dense).abs().max())
+            lib_ms = cuda_ms(torch, library_scatter, 20)
+            log(f"[kernels] topk_scatter_add {tag}: deterministic index_add_ agrees to "
+                f"{lib_err:.2e}")
+        except RuntimeError as e:
+            log(f"[kernels] topk_scatter_add {tag}: deterministic index_add_ unavailable: {e}")
+        finally:
+            torch.use_deterministic_algorithms(was_deterministic)
+        m, nb, kn = K * k, (n + 1) // 2, K * n
+        nseg = -(-n // W.SEGMENT)
+        keyed_int_ops = K * (nb * WIRE_BLOCK_INT_OPS + n * WIRE_ELEM_INT_OPS)
+        cases = (
+            # (name, variant, kernel, plain, library, bytes, int ops, fp ops);
+            # a kernel's row in the kernels line is its first case with a
+            # plain version, which times the same function as the plain
+            # version and the library call
+            ("wire_quantize", "keyed int4 packed", calls["keyed int4 packed"][0],
+             calls["keyed int4 packed"][1], None, 4 * kn + K * nb + 4 + 8 * K,
+             keyed_int_ops, WIRE_QUANT_FP_OPS * kn),
+            ("wire_quantize", "keyed int8 codes", calls["keyed int8 codes"][0],
+             calls["keyed int8 codes"][1], None, 5 * kn + 4 + 8 * K, keyed_int_ops,
+             WIRE_QUANT_FP_OPS * kn),
+            ("wire_quantize", "nearest int8 codes", calls["nearest int8 codes"][0],
+             calls["nearest int8 codes"][1], None, 5 * kn + 4, 0, WIRE_QUANT_FP_OPS * kn),
+            ("wire_quantize", "streamed int4 packed", calls["streamed int4 packed"][0],
+             calls["streamed int4 packed"][1], None, 8 * kn + K * nb + 4, 0,
+             WIRE_QUANT_FP_OPS * kn),
+            ("nibble_pack", "", lambda: W.nibble_pack(codes), lambda: ref.nibble_pack_ref(codes),
+             None, kn + K * nb, 3 * K * nb, 0),
+            ("nibble_unpack", "", lambda: W.nibble_unpack(packed, n),
+             lambda: ref.nibble_unpack_ref(packed, n), None, K * nb + kn, 4 * kn, 0),
+            ("topk_scatter_add", "kernel alone, on the sorted payload", scatter_kernel, None,
+             None, 8 * m + 4 * (nseg + 1) + 4 * n, 0, m),
+            ("topk_scatter_add", "wrapper as the path calls it: weights, sort, searchsorted, "
+             "kernel", lambda: W.topk_scatter_add(vals, idx, weights, n),
+             lambda: ref.topk_scatter_add_ref(vals, idx, weights, n), library_scatter,
+             8 * m + 4 * K + 4 * n, 0, 2 * m),
+        )
+        for name, variant, kernel, plain, library, nbytes, int_ops, fp_ops in cases:
+            t_k, g_k = cuda_ms(torch, kernel, 50), _maybe_graph_ms(torch, kernel, 20, name)
+            t_p = g_p = None
+            if plain is not None:
+                t_p = cuda_ms(torch, plain, 3)
+                g_p = _maybe_graph_ms(torch, plain, 3, f"{name} plain")
+            t_b, t_i, t_f = nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S, \
+                fp_ops / FP32_OPS_PER_S
+            bound_ms = max(t_b, t_i, t_f) * 1e3
+            bound_by = "bytes" if t_b >= max(t_i, t_f) else "operations"
+            t_l = lib_ms if library is not None else None
+            log(f"[kernels] {name} {variant} {tag}: us per call eager/graph: kernel "
+                f"{_us(t_k)}/{_us(g_k)}, plain {_us(t_p)}/{_us(g_p)}, library "
+                f"{_us(t_l) if library is not None else 'none'}; bound {bound_ms * 1e3:.2f} us "
+                f"({bound_by}: {nbytes} B, {int_ops} int32 ops, {fp_ops} fp32 ops); "
+                f"eager time / bound {t_k / bound_ms:.2f}")
+            if name not in rows and plain is not None:
+                rows[name] = {"max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_l}
+    return rows
+
+
 def _dispatch(mode: str) -> None:
     """Set ``lstm.scan_dispatch`` for the phases that follow (in memory)."""
     from repro_torch.profile import tuner
@@ -557,6 +785,42 @@ def phase_tiny_decode(torch, mode: str):
         f"({int((out['cpu'] != 0).sum())} tokens emitted)")
 
 
+def phase_tiny_compressed(torch):
+    """The code-domain aggregate of the same tiny deltas (the asr-rnnt
+    model's shapes, K=3 clients, random from a seed) on the card and on
+    the CPU under each compressed plane: bitwise equal, so the kernels and
+    the plain versions agree inside the round's own data flow, leaf keys
+    and all."""
+    from repro_torch.core import compression as C
+    from repro_torch.core import keys
+    from repro_torch.core.task import get_task
+
+    gen = torch.Generator().manual_seed(4)
+    K = 3
+    shapes = {n: tuple(p.shape) for n, p in get_task("asr-rnnt").model.named_parameters()}
+    deltas = {n: torch.randn((K, *s), generator=gen) * 1e-3 for n, s in shapes.items()}
+    ef = {n: torch.randn((K, *s), generator=gen) * 1e-4 for n, s in shapes.items()}
+    n_k = torch.tensor([4.0, 2.0, 3.0])
+    ckeys = keys.fold_in(keys.fold_in(keys.PRNGKey(1), 0x636D70), torch.arange(K))
+    for _, _, kw, _ in COMPRESSED + (("int8", None, dict(kind="int8"), None),):
+        cfg = C.CompressionConfig(**kw)
+        out = {}
+        for device in ("cuda", "cpu"):
+            args = ({n: d.to(device) for n, d in deltas.items()}, n_k.to(device),
+                    torch.ones(K, device=device), ckeys)
+            if cfg.error_feedback:
+                wbar, new_ef = C.code_domain_aggregate_ef(
+                    cfg, *args, {n: e.to(device) for n, e in ef.items()})
+            else:
+                wbar, new_ef = C.code_domain_aggregate(cfg, *args), {}
+            out[device] = {**{f"wbar {n}": v.cpu() for n, v in wbar.items()},
+                           **{f"ef {n}": v.cpu() for n, v in new_ef.items()}}
+        for name, got in out["cuda"].items():
+            _bitwise(torch, got, out["cpu"][name], f"tiny aggregate {kw} {name}")
+        log(f"[tiny compressed] {kw}: the aggregate{' and the residuals' if new_ef else ''} of "
+            f"{len(shapes)} leaves, {K} clients: bitwise equal on cuda and cpu")
+
+
 def _paper_task(use_kernel: bool, enc_layers=None):
     from repro_torch.configs import rnnt_librispeech
     from repro_torch.core.task import get_task
@@ -572,8 +836,11 @@ def _counts():
     from repro_torch.kernels import lstm_gates as K1
     from repro_torch.kernels import lstm_scan as K2
     from repro_torch.kernels import rnnt_joint as KJ
+    from repro_torch.kernels import wire_pack as KW
 
-    return {"lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
+    return {"wire_quantize": KW.QUANTIZE_LAUNCHES, "nibble_pack": KW.PACK_LAUNCHES,
+            "nibble_unpack": KW.UNPACK_LAUNCHES, "topk_scatter_add": KW.SCATTER_ADD_LAUNCHES,
+            "lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
             "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES, "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES,
             "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
             "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_eg": KJ.BWD_EG_LAUNCHES,
@@ -586,6 +853,9 @@ def _zero_counts() -> None:
     from repro_torch.kernels import lstm_scan as K2
     from repro_torch.kernels import rnnt_joint as KJ
 
+    from repro_torch.kernels import wire_pack as KW
+
+    KW.QUANTIZE_LAUNCHES = KW.PACK_LAUNCHES = KW.UNPACK_LAUNCHES = KW.SCATTER_ADD_LAUNCHES = 0
     K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
     K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_LAUNCHES = K2.SCAN_DW_LAUNCHES = 0
     KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
@@ -673,24 +943,146 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
     return total, hist["round_s"][-1], hist["loss"][0]
 
 
-def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None):
+class _PlaneTimer:
+    """CUDA events around the round engine's code-domain aggregate (the
+    whole compression plane: scales, keys, kernels, sums, top-k), one pair
+    a round; read after the run, which has synchronised."""
+
+    def __init__(self, torch):
+        from repro_torch.core import fedavg
+
+        self.torch, self.fedavg, self.pairs = torch, fedavg, []
+        self.saved = (fedavg.code_domain_aggregate, fedavg.code_domain_aggregate_ef)
+
+    def _wrap(self, fn):
+        def timed(*args):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.fedavg.code_domain_aggregate = self._wrap(self.saved[0])
+        self.fedavg.code_domain_aggregate_ef = self._wrap(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.fedavg.code_domain_aggregate, self.fedavg.code_domain_aggregate_ef = self.saved
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+def _compressed_plan(args, kw: dict):
+    """The plan the CLI flags build, with the compression they cannot
+    say (nearest rounding) set as a user of run_federated would."""
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.launch import train
+
+    plan = train.build_plan(args)
+    want = CompressionConfig(**kw)
+    if plan.compression != want:
+        plan = dataclasses.replace(plan, compression=want)
+    return plan
+
+
+def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_ref: float):
+    """Two FedAvg rounds of rnnt-librispeech on the K2 path with the fused
+    joint (``lstm.scan_dispatch=auto``, ``use_kernel=True``) and a
+    compressed uplink, through the training entry point, with no final
+    evaluation. The counts are set to 0 before the run and read after each
+    round: every round launches each of the plane's kernels once per leaf,
+    K2 and the joint kernels as uncompressed. The uplink per client is
+    exact, and the first-round loss (computed before any compression)
+    equals the uncompressed run's ``loss_ref``. Returns ({kernel:
+    launches over the run}, the last round's seconds)."""
+    from repro_torch.launch import train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    cfg, rounds = task.config, 2
+    corpus = task.make_corpus(0)
+    args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)] + flags)
+    plan = _compressed_plan(args, kw)
+    tag = f"[paper compressed {name}]"
+    marks = []
+
+    def after_round(line):
+        log(f"{tag} {line}")
+        marks.append(_counts())
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _PlaneTimer(torch) as timer:
+        _, hist = train.run_federated(task, corpus, plan, rounds, seed=args.seed, device="cuda",
+                                      eval_every=0, eval_examples=0, log=after_round)
+    plane_ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated()
+    total = _counts()
+    steps = args.clients * hist["local_steps"]  # client steps per round
+    layers = cfg.enc_layers + cfg.pred_layers
+    want = {k: 0 for k in total}
+    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
+                lstm_scan_dw=layers * steps, rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
+                rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
+    want.update({k: N_LEAVES for k in WIRE_LAUNCHES[name]})
+    prev = {k: 0 for k in total}
+    for r, mark in enumerate(marks):
+        got = {k: mark[k] - prev[k] for k in total}
+        if got != want:
+            raise AssertionError(f"{tag} launches in round {r + 1} {got}, expected {want}")
+        prev = mark
+    if hist["uplink_bytes_client"] != uplink:
+        raise AssertionError(f"{tag} uplink bytes per client {hist['uplink_bytes_client']}, "
+                             f"expected {uplink}")
+    if hist["uplink_bytes_total"] != uplink * args.clients * rounds:
+        raise AssertionError(f"{tag} uplink total {hist['uplink_bytes_total']}")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"{tag} losses are not finite: {hist['loss']}")
+    if hist["loss"][0] != loss_ref:
+        raise AssertionError(f"{tag} first-round loss {hist['loss'][0]!r} is not the "
+                             f"uncompressed run's {loss_ref!r}")
+    per_s = [e / s for e, s in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} {plan.compression}: losses {hist['loss']} (round 1 equal to the uncompressed "
+        f"run's); ms per round {[round(x * 1e3, 1) for x in hist['round_s']]}; client examples "
+        f"per second {per_s}; compression plane ms per round (CUDA events) "
+        f"{[round(x, 3) for x in plane_ms]}; peak memory {peak} B; uplink {uplink} B per "
+        f"client, {hist['wire_bytes_total']} B on the wire; launches per round: "
+        + ", ".join(f"{k} {v}" for k, v in want.items() if v and k in WIRE_KERNELS))
+    return total, hist["round_s"][-1]
+
+
+def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None,
+                  compressed=None):
     """One more paper-width round on its own under torch.profiler, with
     no final evaluation: the device's kernel time against the wall time
     of the counted run's last round (the busy share), and the kernels
-    that fill it."""
+    that fill it. With ``compressed`` (an entry of COMPRESSED), under that
+    uplink compression, and the compression plane's share of the round's
+    device time: its span on the device (CUDA events around the
+    aggregate) and its kernels'."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train
 
     _dispatch(mode)
     task = _paper_task(use_kernel, enc_layers)
-    args = train.parse_args(PAPER_ARGV + ["--rounds", "1"])
-    tag = f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}]"
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, hist = train.run_federated(task, task.make_corpus(0), train.build_plan(args), 1,
+    flags, kw = (compressed[1], compressed[2]) if compressed else ([], dict(kind="none"))
+    args = train.parse_args(PAPER_ARGV + ["--rounds", "1"] + flags)
+    tag = f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}" + \
+        (f" {compressed[0]}]" if compressed else "]")
+    with _PlaneTimer(torch) as timer, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, hist = train.run_federated(task, task.make_corpus(0), _compressed_plan(args, kw), 1,
                                       seed=args.seed, device="cuda", eval_every=0,
                                       eval_examples=0, log=lambda line: None)
         torch.cuda.synchronize()
+    plane_ms = timer.ms()
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -706,11 +1098,19 @@ def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers
         f"{device_s / hist['round_s'][0]:.3f} of the profiled one "
         f"({hist['round_s'][0] * 1e3:.1f} ms)")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    ours = [kv for kv in ranked if any(k in kv[0] for k in ("lstm_gates", "lstm_scan", "joint_"))]
+    wire = ("wire_quantize", "nibble_", "topk_scatter_add")
+    ours = [kv for kv in ranked
+            if any(k in kv[0] for k in ("lstm_gates", "lstm_scan", "joint_") + wire)]
     for name, (t, n) in ranked[:8] + [kv for kv in ours if kv not in ranked[:8]]:
         log(f"{tag}   {t / 1e3:9.2f} ms  {t / 1e6 / device_s:6.3f}  {n:6d}x  {name[:100]}")
     share = sum(t for _, (t, _) in ours) / 1e6 / device_s
     log(f"{tag} the hand-written kernels' share of device time: {share:.3f}")
+    if compressed:
+        wire_s = sum(t for name, (t, _) in ranked if any(k in name for k in wire)) / 1e6
+        log(f"{tag} the compression plane: {sum(plane_ms):.3f} ms on the device between its "
+            f"events ({sum(plane_ms) / 1e3 / device_s:.4f} of the round's device kernel time, "
+            f"profiled), of which its hand-written kernels {wire_s * 1e3:.3f} ms "
+            f"({wire_s / device_s:.4f})")
 
 
 def phase_autotune(torch):
@@ -745,9 +1145,11 @@ def main() -> int:
     rows = phase_kernels(torch)
     rows.update(phase_joint_kernels(torch))
     rows.update(phase_scan_kernels(torch))
+    rows.update(phase_wire_kernels(torch))
     for mode in ("ref", "kernel"):
         phase_tiny_round(torch, mode)
         phase_tiny_decode(torch, mode)
+    phase_tiny_compressed(torch)
     _, round_s_chunked, _ = phase_paper_width(torch, False, "ref")
     k1_launches, round_s_loop, loss_loop = phase_paper_width(torch, True, "ref")
     launches, round_s_scan, loss_scan = phase_paper_width(torch, True, "auto")
@@ -757,16 +1159,29 @@ def main() -> int:
     log(f"[paper] first-round loss, use_kernel=True: K2 {loss_scan}, time loop {loss_loop}, "
         f"relative difference {abs(loss_scan - loss_loop) / abs(loss_loop):.2e} "
         f"(tol {SCAN_LOSS_RTOL})")
+    # each compressed run is its own path: its counts are set to 0 before it
+    wire_launches = {k: 0 for k in WIRE_KERNELS}
+    round_s_comp = {}
+    for name, flags, kw, uplink in COMPRESSED:
+        counts, round_s_comp[name] = phase_paper_compressed(torch, name, flags, kw, uplink,
+                                                            loss_scan)
+        for k in WIRE_KERNELS:
+            wire_launches[k] += counts[k]
     phase_profile(torch, round_s_chunked, False, "ref")
     phase_profile(torch, round_s_loop, True, "ref")
     phase_profile(torch, round_s_scan, True, "auto")
+    for entry in COMPRESSED:
+        phase_profile(torch, round_s_comp[entry[0]], True, "auto", compressed=entry)
     phase_autotune(torch)
 
-    # K1 runs the main path's LSTM steps under 'ref'; K2, K3 and K4 under 'auto'
+    # K1 runs the main path's LSTM steps under 'ref'; K2, K3 and K4 under
+    # 'auto'; K5-K8 in the four compressed runs (their launches summed)
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
-    gates, scan, joint = ("src/repro_torch/kernels/csrc/" + f for f in
-                          ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu"))
+    launches.update(wire_launches)
+    gates, scan, joint, wire = ("src/repro_torch/kernels/csrc/" + f for f in
+                                ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu",
+                                 "wire_pack.cu"))
     table = {  # kernel: (source, the TPU kernel it replaces)
         "lstm_gates_fwd": (gates, "src/repro/kernels/lstm_gates.py:43"),
         "lstm_gates_bwd": (gates, "src/repro/kernels/lstm_gates.py:92"),
@@ -780,6 +1195,11 @@ def main() -> int:
         # the de/dg sums of _bwd_eg_kernel's last step and of the dg partials
         "rnnt_joint_bwd_reduce": (joint, "src/repro/kernels/rnnt_joint.py:211"),
         "rnnt_joint_bwd_w": (joint, "src/repro/kernels/rnnt_joint.py:218"),
+        # K5 (keyed) and K6 (streamed, nearest, :170 and :204) in one template
+        "wire_quantize": (wire, "src/repro/kernels/wire_pack.py:286"),
+        "nibble_pack": (wire, "src/repro/kernels/wire_pack.py:66"),
+        "nibble_unpack": (wire, "src/repro/kernels/wire_pack.py:90"),
+        "topk_scatter_add": (wire, "src/repro/kernels/wire_pack.py:441"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], **rows[name])

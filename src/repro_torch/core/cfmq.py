@@ -7,9 +7,10 @@ with R rounds, K clients/round, P round-trip payload bytes, nu peak
 client memory per step, alpha the balance term. The paper approximates
 P = 2 * model_bytes and nu = 1.1 * model_bytes with alpha = 1.
 
-The port of ``repro/core/cfmq.py`` for the parity plane (no compression,
-full participation), where the paper's payload formula is exact. Byte
-counts are Python ints.
+The port of ``repro/core/cfmq.py``. Under full participation with no
+compression the paper's payload formula is exact; a compressed uplink is
+priced by its measured wire bytes (``measured_payload``). Byte counts are
+Python ints.
 """
 
 from __future__ import annotations
@@ -59,13 +60,33 @@ def paper_peak_memory(model_bytes: float) -> float:
     return 1.1 * model_bytes
 
 
+def wire_payload(downlink_bytes: float, uplink_bytes: float, clients_per_round: int) -> float:
+    """Measured per-client round-trip payload P from a round's wire
+    totals; with no compression and full participation it equals
+    ``paper_payload``."""
+    return (downlink_bytes + uplink_bytes) / max(clients_per_round, 1)
+
+
 def plan_wire_accounting(plan, params: dict) -> tuple[int, int]:
     """(uplink bytes per reporting client, downlink bytes per round) as
-    exact Python ints over the parameter shapes."""
+    exact Python ints over the parameter shapes, the uplink compressed as
+    the plan says."""
     from repro_torch.core.compression import client_wire_bytes, tree_param_bytes
 
     return (client_wire_bytes(plan.compression, params),
             plan.clients_per_round * tree_param_bytes(params))
+
+
+def measured_payload(plan, params: dict, mean_participants: float) -> Optional[float]:
+    """None on the paper's plane (no compression; the port's plans have
+    full participation): callers use ``paper_payload``. Else the
+    wire-accurate per-client P with the uplink scaled by the mean number
+    of reporting clients."""
+    if plan.compression.kind == "none":
+        return None
+    up_per_client, down_per_round = plan_wire_accounting(plan, params)
+    return wire_payload(down_per_round, up_per_client * mean_participants,
+                        plan.clients_per_round)
 
 
 def round_wire_bytes(up_per_client: int, down_per_round: int, participants: int) -> int:

@@ -24,7 +24,8 @@ class RoundEngine(NamedTuple):
 
 def build_round_engine(plan: FederatedPlan, task: FederatedTask, seed: int) -> RoundEngine:
     """``seed`` seeds every client's per-step generators (FVN noise and
-    SpecAugment masks)."""
+    SpecAugment masks) and is the compression plane's threefry base key,
+    ``PRNGKey(seed)``, as the reference's ``base_key`` is."""
     return RoundEngine(
         plan=plan,
         init_state=functools.partial(init_server_state, plan),

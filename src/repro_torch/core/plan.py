@@ -1,18 +1,22 @@
 """FederatedPlan — the experiment configuration of the paper's Alg. 1.
 
-The port of ``repro/core/plan.py`` on the FedAvg parity plane: full
-participation, no uplink compression, the example-weighted mean, no
-adversary, no latency model, and the ``fedavg`` engine with an Adam or
-SGD server. The reference's nested server-plane configs are flattened
-here to the one field each that selects a plane; a plan that sets any of
-them off the parity plane raises ``NotImplementedError`` naming the
-ROADMAP item that ports it, so no setting is ever ignored.
+The port of ``repro/core/plan.py`` with full participation, the
+example-weighted mean, no adversary, no latency model, and the
+``fedavg`` engine with an Adam or SGD server; the uplink may be
+compressed (``CompressionConfig``, the reference's own config), which
+under the weighted mean always takes the code-domain fast path. The
+reference's other nested server-plane configs are flattened here to the
+one field each that selects a plane; a plan that sets any of them off
+the parity plane raises ``NotImplementedError`` naming the ROADMAP item
+that ports it, so no setting is ever ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from repro_torch.core.compression import CompressionConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +35,6 @@ _PARITY = {
     "server_optimizer": (("adam", "sgd"), "M2 (momentum, yogi)"),
     "participation": (1.0, "M6 (core/cohort.py)"),
     "straggler_frac": (0.0, "M6 (core/cohort.py)"),
-    "compression": ("none", "M6 (core/compression.py)"),
     "aggregator": ("weighted_mean", "M6 (core/aggregation.py)"),
     "corruption": ("none", "M6 (core/corruption.py)"),
     "latency": (False, "M6 (core/cohort.py latency model)"),
@@ -54,12 +57,12 @@ class FederatedPlan:
     server_decay_rate: float = 0.9
     fvn: FVNConfig = dataclasses.field(default_factory=FVNConfig)
     engine: str = "fedavg"
-    # server plane, each field standing for the reference's config of
-    # the same stage (CohortConfig, CompressionConfig.kind,
+    # server plane: the uplink compression, then one field each standing
+    # for the reference's config of the same stage (CohortConfig,
     # AggregatorConfig.name, CorruptionConfig.kind, LatencyConfig.enabled)
+    compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
     participation: float = 1.0
     straggler_frac: float = 0.0
-    compression: str = "none"
     aggregator: str = "weighted_mean"
     corruption: str = "none"
     latency: bool = False
@@ -68,6 +71,9 @@ class FederatedPlan:
     param_bytes: int = 4  # bytes per parameter on the wire
 
     def __post_init__(self):
+        if not isinstance(self.compression, CompressionConfig):
+            raise TypeError(f"compression must be a CompressionConfig, got "
+                            f"{self.compression!r}")
         for name, (parity, item) in _PARITY.items():
             value = getattr(self, name)
             allowed = parity if isinstance(parity, tuple) else (parity,)

@@ -9,6 +9,11 @@ The scan's plain versions (K2) work time-major, (S, B, ...), as the TPU
 kernels do. The joint's plain versions (K3/K4) work one chunk of U at a
 time, so on the CPU they never hold the (B, T, U1, V) logits, only
 (B, T, c, V).
+
+The compression plane's plain versions (K5-K8) take a leading client
+axis, (K, n), as the kernels do. The threefry hash is restated as int64
+operations masked to 32 bits, since PyTorch's unsigned 32-bit type has
+few operators; its words are held bitwise to ``jax.random``.
 """
 
 from __future__ import annotations
@@ -197,3 +202,125 @@ def rnnt_joint_bwd_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8
     args = (e, g, w, b, labels, lse, dblank, dlabel, u_chunk)
     return (*rnnt_joint_bwd_reduce_ref(rnnt_joint_bwd_dpre_ref(*args)),
             *rnnt_joint_bwd_w_ref(*args))
+
+
+# ----------------------------------------------------- compression plane
+# The counterparts of repro/kernels/ref.py:76-121 (nibble pack, quantize,
+# scatter-add) and :147-212 (the threefry2x32 hash behind the keyed
+# stochastic rounding). Integers are int64 tensors (or Python ints) that
+# hold 32-bit words in [0, 2**32).
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_C = 0x1BD11BDA
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32_pair(k0, k1, c0, c1):
+    """One threefry2x32 block: 32-bit key words and counter words (int64
+    tensors or ints, broadcast together) -> both 32-bit output words, on
+    jax's 20-round schedule."""
+    ks2 = k0 ^ k1 ^ _THREEFRY_C
+    x0 = (c0 + k0) & _M32
+    x1 = (c1 + k1) & _M32
+    inject = ((k1, ks2), (ks2, k0), (k0, k1), (k1, ks2), (ks2, k0))
+    for i, (i0, i1) in enumerate(inject):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + i0) & _M32
+        x1 = (x1 + i1 + (i + 1)) & _M32
+    return x0, x1
+
+
+def threefry_random_bits_at(k0, k1, pos, n: int):
+    """The 32-bit word at flat position(s) ``pos`` (int64) of a size-n
+    draw, i.e. elementwise ``jax.random.bits(key, (n,))`` with the
+    non-partitionable threefry: counters iota(n) split in halves, position
+    p owning lane 0 of pair (p, p + half) when p < half, else lane 1 of
+    pair (p - half, p), the odd tail's missing counter 0."""
+    half = (n + 1) // 2
+    lo = pos < half
+    pair = torch.where(lo, pos, pos - half)
+    c1 = pair + half
+    c1 = torch.where(c1 < n, c1, torch.zeros_like(c1))
+    o0, o1 = threefry2x32_pair(k0, k1, pair, c1)
+    return torch.where(lo, o0, o1)
+
+
+def bits_to_uniform(bits):
+    """32-bit words (int64) -> [0, 1) float32 by jax.random.uniform's
+    mantissa fill: the top 23 bits under the exponent of 1.0, minus 1."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def threefry_uniform_ref(key_data, n: int):
+    """Key words (..., 2) in [0, 2**32) -> (..., n) float32, equal bit for
+    bit to ``jax.random.uniform(key, (n,))`` for each key (with
+    ``jax_threefry_partitionable`` off)."""
+    kd = key_data.to(torch.int64)
+    pos = torch.arange(n, dtype=torch.int64, device=kd.device)
+    bits = threefry_random_bits_at(kd[..., 0:1], kd[..., 1:2], pos, n)
+    return bits_to_uniform(bits)
+
+
+def nibble_pack_ref(codes):
+    """int4 wire packing: (..., n) int8 codes in [-8, 7] -> (...,
+    (n+1)//2) int8, element 2i in the low nibble and 2i+1 in the high one
+    of a two's-complement byte; an odd n pads the last high nibble with 0."""
+    c = codes.to(torch.int32) & 0xF
+    if c.shape[-1] % 2:
+        c = torch.nn.functional.pad(c, (0, 1))
+    pairs = c.reshape(*c.shape[:-1], -1, 2)
+    b = pairs[..., 0] | (pairs[..., 1] << 4)
+    return (((b & 0xFF) ^ 0x80) - 0x80).to(torch.int8)
+
+
+def nibble_unpack_ref(packed, n: int):
+    """Inverse of ``nibble_pack_ref``: both nibbles of each byte sign
+    extended, the odd-n pad dropped -> (..., n) int8."""
+    b = packed.to(torch.int32) & 0xFF
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = (((b >> 4) & 0xF) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(*b.shape[:-1], -1)[..., :n].to(torch.int8)
+
+
+def quantize_codes_with_scale_ref(x, scale, u, levels: float):
+    """Codes against a given scale: y = clip(x / scale, ±levels) (the
+    clamp before the draw), then floor(y) + [u < y - floor(y)] with the
+    uniforms u, or round half to even when ``u`` is None -> int8 codes
+    shaped like x. The scale becomes a tensor on x's device, so the
+    division is IEEE on the card too (PyTorch's CUDA division by a Python
+    number or a CPU scalar multiplies by its reciprocal)."""
+    s = torch.as_tensor(scale, dtype=torch.float32).to(x.device)
+    y = torch.clamp(x.float() / s, -levels, levels)
+    if u is None:
+        return torch.round(y).to(torch.int8)
+    lo = torch.floor(y)
+    return (lo + (u < (y - lo)).float()).to(torch.int8)
+
+
+def quantize_pack_ref(x, scale, u, bits: int):
+    """One intN wire buffer per row of x (..., n): the int8 codes, or for
+    int4 their nibble-packed bytes."""
+    levels = 2.0 ** (bits - 1) - 1.0
+    codes = quantize_codes_with_scale_ref(x, scale, u, levels)
+    return nibble_pack_ref(codes) if bits == 4 else codes
+
+
+def topk_scatter_add_ref(values, idx, weights, n: int):
+    """The weighted scatter-add of stacked top-k payloads: values (K, k)
+    fp32, idx (K, k) int flat indices, weights (K,) -> dense (n,) fp32.
+    Clients are added one after another, so an index that several
+    clients picked sums in client order from 0, as the reference's serial
+    scatter does; within a client's row the indices are distinct (a
+    top-k selection), so each add touches one element once."""
+    out = torch.zeros(n, dtype=torch.float32, device=values.device)
+    vals = weights.float()[:, None] * values.float()
+    for k in range(values.shape[0]):
+        out.index_add_(0, idx[k].long(), vals[k])
+    return out

@@ -1,0 +1,238 @@
+"""The compression plane's kernels (K5-K8): wrappers over a client axis.
+
+Replaces the Pallas TPU kernels of ``repro/kernels/wire_pack.py``: the
+keyed quantizers (K5, ``:286``, ``:310``), the streamed and nearest
+quantizers (K6, ``:170``, ``:204``), the int4 nibble pack and unpack (K7,
+``:66``, ``:90``) and the top-k scatter-add (K8, ``:441``), with the
+public wrappers of ``:491-611``. The kernels are CUDA C++ in
+``csrc/wire_pack.cu`` (its header states what bounds them on the card),
+built by ``build.py`` and called through ctypes.
+
+Each wrapper takes a leading client axis: x (K, n), key words (K, 2), so
+that one launch serves all K clients of a leaf where the reference
+vmaps a one-client kernel. A wrapper takes the plain version
+(``ref.py``) only for tensors on the CPU; CUDA tensors get the kernel or
+an exception, and nothing falls back. ``QUANTIZE_LAUNCHES`` (K5 and K6,
+one templated kernel), ``PACK_LAUNCHES``, ``UNPACK_LAUNCHES`` (K7) and
+``SCATTER_ADD_LAUNCHES`` (K8) count the launches, so that a run can show
+that its compression went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+QUANTIZE_LAUNCHES = 0
+PACK_LAUNCHES = 0
+UNPACK_LAUNCHES = 0
+SCATTER_ADD_LAUNCHES = 0
+
+_NEAREST, _STREAMED, _KEYED = 0, 1, 2
+SEGMENT = 2048  # K8's output window per block (kSeg in csrc/wire_pack.cu)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("wire_pack")
+    lib.wire_quantize.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P]
+    lib.nibble_pack.argtypes = [_P, _P, _I, _I, _P]
+    lib.nibble_unpack.argtypes = [_P, _P, _I, _I, _P]
+    lib.topk_scatter_add.argtypes = [_P, _P, _P, _P, _I, _I, _P]
+    for fn in (lib.wire_quantize, lib.nibble_pack, lib.nibble_unpack, lib.topk_scatter_add):
+        fn.restype = _I
+    return lib
+
+
+def _levels(bits: int) -> float:
+    if bits not in (4, 8):
+        raise ValueError(f"the wire codes are int4 or int8, got bits={bits}")
+    return 2.0 ** (bits - 1) - 1.0
+
+
+def _on_card(*tensors) -> bool:
+    """True when the kernel must run (every tensor on one CUDA device),
+    False for the plain version (every tensor on the CPU); raises on
+    anything else."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"the wire tensors lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"the wire kernels run on CUDA or the CPU, not {device}")
+    return True
+
+
+def _check_rows(x: torch.Tensor, dtype: torch.dtype, what: str) -> tuple[int, int]:
+    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"{what} must be (K, n) with K, n >= 1, got {tuple(x.shape)}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {x.dtype}")
+    K, n = x.shape
+    if K > 65535 or n >= 2**31 - 1:
+        raise ValueError(f"{what} of shape {tuple(x.shape)} is outside the kernels' range "
+                         "(K <= 65535, n < 2**31 - 1)")
+    return K, n
+
+
+def _scale_tensor(scale, like: torch.Tensor) -> torch.Tensor:
+    s = torch.as_tensor(scale, dtype=torch.float32, device=like.device)
+    if s.numel() != 1:
+        raise ValueError(f"the scale is one fp32 value shared by the clients, got "
+                         f"{tuple(s.shape)}")
+    return s.reshape(())
+
+
+def _key_words_u32(key_data: torch.Tensor, K: int, device) -> torch.Tensor:
+    """(K, 2) key words in [0, 2**32) -> their bits as int32 on ``device``,
+    which the kernel reads as uint32."""
+    if tuple(key_data.shape) != (K, 2):
+        raise ValueError(f"key_data must be ({K}, 2), got {tuple(key_data.shape)}")
+    kd = key_data.to(device=device, dtype=torch.int64)
+    return torch.where(kd >= 2**31, kd - 2**32, kd).to(torch.int32).contiguous()
+
+
+def _quantize(x, scale, u, key_data, bits: int, pack4: bool):
+    """The kernel path of every quantizer: (K, n) fp32 -> (K, n) int8
+    codes or (K, (n+1)//2) int8 nibble bytes."""
+    global QUANTIZE_LAUNCHES
+    K, n = _check_rows(x, torch.float32, "x")
+    mode = _NEAREST if u is None and key_data is None else (_KEYED if u is None else _STREAMED)
+    if u is not None and (u.shape != x.shape or u.dtype != torch.float32):
+        raise ValueError(f"u must be fp32 of x's shape {tuple(x.shape)}")
+    x = x.contiguous()
+    s = _scale_tensor(scale, x)
+    u = None if u is None else u.contiguous()
+    keys = None if key_data is None else _key_words_u32(key_data, K, x.device)
+    out = torch.empty((K, (n + 1) // 2 if pack4 else n), dtype=torch.int8, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check_launch(
+        _lib().wire_quantize(mode, int(pack4), x.data_ptr(), s.data_ptr(),
+                             None if u is None else u.data_ptr(),
+                             None if keys is None else keys.data_ptr(), out.data_ptr(), K, n,
+                             _levels(bits), stream),
+        "wire_quantize",
+    )
+    QUANTIZE_LAUNCHES += 1
+    return out
+
+
+def quantize_with_scale(x, scale, u, bits: int):
+    """x (K, n) fp32, one scale for all clients, uniforms u (K, n) fp32
+    (None: round to nearest, half to even) -> (K, n) int8 codes in
+    [-levels, levels] (K6)."""
+    if not _on_card(x, u):
+        return ref.quantize_codes_with_scale_ref(x, scale, u, _levels(bits))
+    return _quantize(x, scale, u, None, bits, pack4=False)
+
+
+def quantize_pack(x, scale, u, bits: int):
+    """The intN wire buffer of each client: the codes (int8), or their
+    nibble-packed bytes (K, (n+1)//2) (int4), quantized in one pass (K6)."""
+    if not _on_card(x, u):
+        return ref.quantize_pack_ref(x, scale, u, bits)
+    return _quantize(x, scale, u, None, bits, pack4=bits == 4)
+
+
+def quantize_with_scale_keyed(x, scale, key_data, bits: int):
+    """Keyed twin of ``quantize_with_scale`` (K5): client k's uniforms are
+    the threefry draw ``jax.random.uniform(key_k, (n,))`` made from its
+    key words key_data[k] and each element's position, never stored."""
+    if not _on_card(x):
+        u = ref.threefry_uniform_ref(key_data.to(x.device), x.shape[-1])
+        return ref.quantize_codes_with_scale_ref(x, scale, u, _levels(bits))
+    return _quantize(x, scale, None, key_data, bits, pack4=False)
+
+
+def quantize_pack_keyed(x, scale, key_data, bits: int):
+    """Keyed twin of ``quantize_pack`` (K5): quantize, round against the
+    in-kernel draw and (int4) nibble-pack in one pass."""
+    if not _on_card(x):
+        u = ref.threefry_uniform_ref(key_data.to(x.device), x.shape[-1])
+        return ref.quantize_pack_ref(x, scale, u, bits)
+    return _quantize(x, scale, None, key_data, bits, pack4=bits == 4)
+
+
+def nibble_pack(codes):
+    """codes (K, n) int8 in [-8, 7] -> (K, (n+1)//2) int8 wire bytes (K7)."""
+    global PACK_LAUNCHES
+    if not _on_card(codes):
+        return ref.nibble_pack_ref(codes)
+    K, n = _check_rows(codes, torch.int8, "codes")
+    codes = codes.contiguous()
+    out = torch.empty((K, (n + 1) // 2), dtype=torch.int8, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    build.check_launch(_lib().nibble_pack(codes.data_ptr(), out.data_ptr(), K, n, stream),
+                       "nibble_pack")
+    PACK_LAUNCHES += 1
+    return out
+
+
+def nibble_unpack(packed, n: int):
+    """packed (K, (n+1)//2) int8 -> (K, n) int8 sign-extended codes (K7)."""
+    global UNPACK_LAUNCHES
+    if not _on_card(packed):
+        return ref.nibble_unpack_ref(packed, n)
+    K, nb = _check_rows(packed, torch.int8, "packed")
+    if nb != (n + 1) // 2:
+        raise ValueError(f"{nb} packed bytes cannot hold n={n} codes")
+    packed = packed.contiguous()
+    out = torch.empty((K, n), dtype=torch.int8, device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    build.check_launch(_lib().nibble_unpack(packed.data_ptr(), out.data_ptr(), K, n, stream),
+                       "nibble_unpack")
+    UNPACK_LAUNCHES += 1
+    return out
+
+
+def scatter_add_segments(values, idx, weights, n: int):
+    """The kernel's inputs, built as the reference's wrapper builds them
+    (``repro/kernels/wire_pack.py:448-450``, ``:607-608``): the weighted
+    values and their indices flattened client-major, sorted by index with
+    a stable sort (an index several clients picked keeps client order),
+    and the first entry of each ``SEGMENT``-wide output window by
+    searchsorted.
+    Returns (sorted values (m,) fp32, sorted indices (m,) int32, bounds
+    (nseg + 1,) int32)."""
+    flat_vals = (weights.float()[:, None] * values.float()).reshape(-1)
+    flat_idx = idx.reshape(-1).to(torch.int32)
+    order = torch.argsort(flat_idx, stable=True)
+    starts = torch.arange((n + SEGMENT - 1) // SEGMENT + 1, dtype=torch.int32,
+                          device=flat_idx.device) * SEGMENT
+    si = flat_idx[order].contiguous()
+    bounds = torch.searchsorted(si, starts, out_int32=True)
+    return flat_vals[order].contiguous(), si, bounds
+
+
+def topk_scatter_add(values, idx, weights, n: int):
+    """Stacked top-k payloads -> their weighted sum: values (K, k) fp32,
+    idx (K, k) int flat indices, weights (K,) -> dense (n,) fp32; an index
+    several clients picked sums in client order (K8)."""
+    global SCATTER_ADD_LAUNCHES
+    if not _on_card(values, idx, weights):
+        return ref.topk_scatter_add_ref(values, idx, weights, n)
+    _check_rows(values, torch.float32, "values")
+    if idx.shape != values.shape or weights.shape != (values.shape[0],):
+        raise ValueError(f"idx must be {tuple(values.shape)} and weights "
+                         f"({values.shape[0]},), got {tuple(idx.shape)}, "
+                         f"{tuple(weights.shape)}")
+    if n <= 0 or n >= 2**31 - 2048:
+        raise ValueError(f"n={n} is outside the kernel's range")
+    sv, si, bounds = scatter_add_segments(values, idx, weights, n)
+    out = torch.empty(n, dtype=torch.float32, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    build.check_launch(
+        _lib().topk_scatter_add(sv.data_ptr(), si.data_ptr(), bounds.data_ptr(),
+                                out.data_ptr(), n, SEGMENT, stream),
+        "topk_scatter_add",
+    )
+    SCATTER_ADD_LAUNCHES += 1
+    return out

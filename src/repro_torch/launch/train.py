@@ -10,11 +10,15 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --task asr-rnnt --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --preset arch --rounds 2 \\
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
+        --compression int4 --packed-wire --error-feedback
 
 The history is a summary row of ``core/metrics.py``'s schema (WER as
 ``quality``/``quality_hard``), with the per-round curves as extras. A
 task whose config has ``use_kernel=True`` runs its joint through the
-fused joint kernels.
+fused joint kernels. With ``--compression {int8,int4,topk}`` the uplink
+is compressed and aggregated in the code domain, and CFMQ prices the
+measured wire bytes.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import rnnt_librispeech
-from repro_torch.core.cfmq import cfmq, plan_wire_accounting, round_wire_bytes
+from repro_torch.core.cfmq import cfmq, measured_payload, plan_wire_accounting, round_wire_bytes
+from repro_torch.core.compression import KINDS, CompressionConfig
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.metrics import empty_spread, summary_row
 from repro_torch.core.plan import FederatedPlan, FVNConfig
@@ -107,7 +112,8 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
     mu = plan.local_epochs * (plan.data_limit or sampler.steps * plan.local_batch_size)
     terms = cfmq(rounds=rounds, clients_per_round=plan.clients_per_round,
                  model_bytes=n_params * plan.param_bytes,
-                 local_steps=mu / plan.local_batch_size, alpha=plan.alpha)
+                 local_steps=mu / plan.local_batch_size, alpha=plan.alpha,
+                 payload_bytes=measured_payload(plan, params, float(np.mean(participants))))
     steps_total = sum(server_steps)
     history = summary_row(
         rounds=rounds,
@@ -150,6 +156,9 @@ def build_plan(args) -> FederatedPlan:
         client_sampling=args.client_sampling,
         server_lr=args.server_lr, server_warmup_rounds=max(2, args.rounds // 8),
         fvn=FVNConfig(enabled=args.fvn_std > 0, std=args.fvn_std, ramp_rounds=args.fvn_ramp),
+        compression=CompressionConfig(kind=args.compression, topk_frac=args.topk_frac,
+                                      packed=args.packed_wire,
+                                      error_feedback=args.error_feedback),
     )
 
 
@@ -168,6 +177,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--server-lr", type=float, default=0.01)
     ap.add_argument("--client-lr", type=float, default=0.05)
     ap.add_argument("--client-sampling", default="uniform", choices=available_strategies())
+    comp = ap.add_argument_group("compression")
+    comp.add_argument("--compression", default="none", choices=list(KINDS),
+                      help="uplink delta compression (exact wire bytes in CFMQ)")
+    comp.add_argument("--topk-frac", type=float, default=0.05)
+    comp.add_argument("--packed-wire", action="store_true",
+                      help="the int4 codes travel nibble-packed (same numbers)")
+    comp.add_argument("--error-feedback", action="store_true",
+                      help="EF21 per-client residual accumulation (same wire bytes)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--eval-every", type=int, default=10,

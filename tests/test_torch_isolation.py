@@ -22,6 +22,12 @@ def test_the_port_has_files_to_check():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
 
 
+@pytest.mark.parametrize("module", ["core/keys.py", "kernels/wire_pack.py",
+                                    "core/compression.py"])
+def test_the_compression_plane_is_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_reference_package(path):
     roots = set(_imported_roots(path))

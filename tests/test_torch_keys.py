@@ -1,0 +1,113 @@
+"""The port's threefry key chain (``repro_torch/core/keys.py``) and its
+uniform draw (``ref.threefry_uniform_ref``) against ``jax.random`` and
+the JAX package's plain version, bit for bit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.core import keys
+from repro_torch.kernels import ref
+
+DATA = (0, 1, 7, 35, 0x636D70, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1)
+SEEDS = (0, 1, 17, 2**31 - 1, 2**31 + 5, 2**32 - 1)
+
+
+def _jax_words(key) -> list:
+    return np.asarray(jax.random.key_data(key)).astype(np.int64).tolist()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_is_jax_prngkey(seed):
+    assert keys.PRNGKey(seed).tolist() == _jax_words(jax.random.PRNGKey(seed))
+
+
+def test_prngkey_refuses_a_seed_outside_32_bits():
+    for seed in (-1, 2**32):
+        with pytest.raises(ValueError, match="32-bit"):
+            keys.PRNGKey(seed)
+
+
+@pytest.mark.parametrize("seed", (1, 2**31 + 5))
+def test_fold_in_is_jax_fold_in_bitwise(seed):
+    jkey, tkey = jax.random.PRNGKey(seed), keys.PRNGKey(seed)
+    for d in DATA:
+        assert keys.fold_in(tkey, d).tolist() == _jax_words(jax.random.fold_in(jkey, d)), d
+    # a chain, and many data at once (the round's client fan-out)
+    jchain, tchain = jkey, tkey
+    for d in DATA:
+        jchain, tchain = jax.random.fold_in(jchain, d), keys.fold_in(tchain, d)
+    assert tchain.tolist() == _jax_words(jchain)
+    many = keys.fold_in(tkey, torch.tensor(DATA))
+    assert many.tolist() == [_jax_words(jax.random.fold_in(jkey, d)) for d in DATA]
+    assert keys.key_data(tkey) is tkey
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 65, 512, 513, 4096, 4097])
+def test_threefry_uniform_is_the_jax_plain_version_bitwise(n):
+    rng = np.random.default_rng(n)
+    kd = rng.integers(0, 2**32, size=2, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(jref.threefry_uniform_ref(jnp.asarray(kd), n))
+    got = ref.threefry_uniform_ref(torch.from_numpy(kd.astype(np.int64)), n).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_threefry_uniform_over_every_n_up_to_4097():
+    """Every n from 1 to 4097, odd and even, at one key: the draw at
+    every position p < n lands where JAX puts it. Both plain versions
+    take n as an array here, so one traced JAX call covers a block of n."""
+    kd = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    pos = np.arange(4097, dtype=np.uint32)
+
+    @jax.jit
+    def jax_block(ns):
+        k0, k1 = jnp.uint32(kd[0]), jnp.uint32(kd[1])
+        return jax.vmap(lambda n: jref.bits_to_uniform(
+            jref.threefry_random_bits_at(k0, k1, jnp.asarray(pos), n)))(ns)
+
+    tk0, tk1 = int(kd[0]), int(kd[1])
+    tpos = torch.from_numpy(pos.astype(np.int64))[None, :]
+    for start in range(1, 4098, 512):
+        ns = np.arange(start, min(start + 512, 4098), dtype=np.uint32)
+        want = np.asarray(jax_block(jnp.asarray(ns))).view(np.uint32)
+        got = ref.bits_to_uniform(ref.threefry_random_bits_at(
+            tk0, tk1, tpos, torch.from_numpy(ns.astype(np.int64))[:, None])).numpy()
+        valid = pos[None, :] < ns[:, None]
+        np.testing.assert_array_equal(got.view(np.uint32)[valid], want[valid])
+        for n in (ns[0], ns[-1]):  # the entry point with an int n, at the block's ends
+            row = ref.threefry_uniform_ref(torch.from_numpy(kd.astype(np.int64)), int(n))
+            np.testing.assert_array_equal(row.numpy().view(np.uint32),
+                                          want[n - ns[0], :n])
+
+
+def test_threefry_uniform_takes_a_client_axis():
+    kd = torch.tensor([[1, 2], [2**32 - 1, 5], [7, 2**31]])
+    rows = ref.threefry_uniform_ref(kd, 33)
+    assert rows.shape == (3, 33)
+    for k in range(3):
+        assert torch.equal(rows[k], ref.threefry_uniform_ref(kd[k], 33))
+
+
+@pytest.fixture
+def non_partitionable():
+    """jax.random with the non-partitionable threefry (the pinned jax's
+    default; F2a), restored after the test."""
+    before = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_threefry_partitionable", before)
+
+
+@pytest.mark.parametrize("n", [1, 2, 65, 513, 4096, 4097])
+def test_threefry_uniform_is_jax_random_uniform(non_partitionable, n):
+    for seed, data in ((0, 0), (42, 2**31 + 3)):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+        want = np.asarray(jax.random.uniform(jkey, (n,)))
+        tkey = keys.fold_in(keys.PRNGKey(seed), data)
+        got = ref.threefry_uniform_ref(tkey, n).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -3,13 +3,19 @@ row (the JAX package's schema, WER as the quality), evaluation during
 and after training, no quiet CPU fallback, and no plan setting off the
 parity plane that runs anyway."""
 
+import dataclasses
 import json
 import math
 
+import jax
 import pytest
 import torch
 
+from repro.core.compression import CompressionConfig as JaxCompression
+from repro.core.compression import client_wire_bytes as jax_client_wire_bytes
 from repro.core.metrics import SUMMARY_KEYS as JAX_SUMMARY_KEYS
+from repro.models import rnnt as jrnnt
+from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.metrics import SUMMARY_KEYS
 from repro_torch.core.plan import FederatedPlan
 from repro_torch.core.task import get_task
@@ -85,7 +91,7 @@ def test_history_is_a_summary_row_with_wer():
 
 
 @pytest.mark.parametrize("setting", [
-    {"compression": "int8"},
+    {"server_optimizer": "momentum"},
     {"participation": 0.5},
     {"straggler_frac": 0.1},
     {"aggregator": "trimmed_mean"},
@@ -99,3 +105,44 @@ def test_history_is_a_summary_row_with_wer():
 def test_every_non_parity_plan_setting_raises(setting):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FederatedPlan(**setting)
+
+
+def test_compression_is_a_config_of_its_own():
+    """The uplink compression is ported: a plan takes a CompressionConfig
+    (as the reference's does) and refuses anything else."""
+    for kw in (dict(kind="int8"), dict(kind="int4", packed=True, error_feedback=True),
+               dict(kind="topk", topk_frac=0.1), dict(kind="int8", stochastic=False)):
+        assert FederatedPlan(compression=CompressionConfig(**kw)).compression.kind == kw["kind"]
+    assert FederatedPlan().compression == CompressionConfig()
+    with pytest.raises(TypeError, match="CompressionConfig"):
+        FederatedPlan(compression="int8")
+
+
+def test_compression_flags_build_the_plan():
+    args = train.parse_args(["--compression", "topk", "--topk-frac", "0.1", "--packed-wire",
+                             "--error-feedback"])
+    assert train.build_plan(args).compression == CompressionConfig(
+        kind="topk", topk_frac=0.1, packed=True, error_feedback=True)
+    assert train.build_plan(train.parse_args([])).compression == CompressionConfig()
+    with pytest.raises(SystemExit):
+        train.parse_args(["--compression", "int2"])
+
+
+def test_a_compressed_cpu_run_reports_jax_wire_bytes(capsys):
+    """--compression int4 --packed-wire: the uplink per client is JAX's
+    count for the same model, the totals follow from it, and CFMQ prices
+    the measured payload."""
+    hist = train.main(["--preset", "tiny", "--rounds", "2", "--clients", "2", "--batch", "2",
+                       "--data-limit", "2", "--device", "cpu", "--eval-every", "0",
+                       "--compression", "int4", "--packed-wire"])
+    tcfg = get_task("asr-rnnt").config
+    jcfg = jrnnt.RNNTConfig(**{f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)
+                               if f.name != "specaug"})
+    shapes = jax.eval_shape(lambda: jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
+    up = jax_client_wire_bytes(JaxCompression(kind="int4", packed=True), shapes)
+    n = hist["n_params"]
+    assert hist["uplink_bytes_client"] == up < 4 * n
+    assert hist["uplink_bytes_total"] == 2 * 2 * up
+    assert hist["wire_bytes_total"] == 2 * (2 * 4 * n + 2 * up)
+    assert hist["payload_bytes"] == (2 * 4 * n + 2 * up) / 2
+    assert all(math.isfinite(x) for x in hist["loss"])
