@@ -23,11 +23,17 @@ Phases, each printed as it ends:
    scatter-add) run at K=4 clients on the paper's largest leaf
    (n=5,308,416), at n=4,096 and at ragged sizes, and must give the
    plain versions' bits; the scatter-add runs twice for the same bits;
+   K7's dequantize and K9's top-k unpack (the slow path's packed wire)
+   run at the same shapes, K9 also with repeated indices, and the
+   quantizer also with a scale for each client; all bitwise;
 4. one tiny FedAvg round and one tiny greedy decode on the card against
    the same on the CPU, under each LSTM dispatch ('ref': the time loop;
    'kernel': K2 on the card, its plain version on the CPU); the
    code-domain aggregate of the same tiny deltas on the card and on the
-   CPU, bitwise, under every compressed plane;
+   CPU, bitwise, under every compressed plane; the slow path's server
+   stage (compression, corruption, aggregation after the drawn cohort)
+   on the same tiny deltas under each slow-path plane below, bitwise but
+   for the planes that draw through ``normal`` (a stated tolerance);
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -35,15 +41,22 @@ Phases, each printed as it ends:
    joint and with the fused joint kernels (``use_kernel=True``), then on
    K2 (``lstm.scan_dispatch=auto``) with the fused joint, whose loss is
    held to the time loop's;
-   then four compressed runs of two rounds on the K2 path (int4 packed,
-   int4 packed with error feedback, top-k 0.05 with error feedback, int8
-   with nearest rounding) with no evaluation: exact launch counts of the
-   compression kernels (one per leaf, 35 a round), the exact uplink
-   bytes per client, and a first-round loss equal to the uncompressed
-   run's;
-6. one more such round of each on its own under ``torch.profiler``:
-   the device's busy share of a round and the kernels that fill it (for
-   the compressed runs, the compression plane's share);
+   then four compressed runs on the K2 path (int4 packed, int4 packed
+   with error feedback, top-k 0.05 with error feedback, int8 with nearest
+   rounding) and four runs of the slow path (SLOWPATH: robust
+   aggregators, delta adversaries, partial cohorts, the latency model),
+   with no evaluation, each two counted rounds and a third under
+   torch.profiler: exact launch counts of the plane kernels (one per
+   leaf, 35 a round), the exact uplink bytes per (reporting) client, the
+   plane's span in CUDA events and its share of the profiled round, the
+   busy share; for the compressed runs and the slow path's full cohorts a
+   first-round loss equal to the uncompressed run's; for the slow path
+   the participants and corrupted clients of each round, and server
+   parameters of the packed int4 run and its unpacked twin equal bit for
+   bit after every round;
+6. one more round of each uncompressed configuration on its own under
+   ``torch.profiler``: the device's busy share of a round and the
+   kernels that fill it;
 7. the tuner's LSTM autotune at the paper's width, not kept.
 
 The line before the last is a JSON object listing every kernel; the
@@ -140,7 +153,34 @@ WIRE_LAUNCHES = {
     "topk5_ef": ("topk_scatter_add",),
     "int8_nearest": ("wire_quantize",),
 }
-WIRE_KERNELS = ("wire_quantize", "nibble_pack", "nibble_unpack", "topk_scatter_add")
+# the slow path's paper-width runs (a robust aggregator or a delta
+# adversary): (name, CLI flags, the exact uplink bytes per reporting
+# client, the plane kernels it launches once per leaf per round)
+SLOWPATH = (
+    ("int4_packed_trimmed_signflip_p75",
+     ["--compression", "int4", "--packed-wire", "--aggregator", "trimmed_mean", "--trim-frac",
+      "0.25", "--corrupt-kind", "sign_flip", "--corrupt-rate", "0.25", "--corrupt-scale", "3",
+      "--participation", "0.75"], 52_667_020, ("wire_quantize", "nibble_unpack", "dequantize")),
+    ("int4_graph_trimmed_signflip_p75",
+     ["--compression", "int4", "--aggregator", "trimmed_mean", "--trim-frac", "0.25",
+      "--corrupt-kind", "sign_flip", "--corrupt-rate", "0.25", "--corrupt-scale", "3",
+      "--participation", "0.75"], 52_667_020, ("wire_quantize",)),
+    ("topk5_packed_median_stale_stragglers",
+     ["--compression", "topk", "--topk-frac", "0.05", "--packed-wire", "--aggregator",
+      "coordinate_median", "--corrupt-kind", "stale", "--corrupt-rate", "0.5",
+      "--corrupt-scale", "1", "--straggler-frac", "0.5", "--straggler-keep", "0.5"],
+     42_133_592, ("topk_unpack",)),
+    ("fp32_clipped_dp_gaussian_latency",
+     ["--aggregator", "clipped_mean", "--dp-clip", "1.0", "--dp-sigma", "0.01",
+      "--corrupt-kind", "gaussian", "--corrupt-rate", "0.25", "--corrupt-scale", "5",
+      "--latency"], 421_335_040, ()),
+)
+# the slow-path planes whose draws go through ``normal`` (PyTorch's erfinv
+# on both devices, but fp32 sums of squares in another order on the card):
+# held cuda against cpu at this tolerance, the others bit for bit
+SLOW_NORMAL_TOL = 1e-5
+WIRE_KERNELS = ("wire_quantize", "nibble_pack", "nibble_unpack", "dequantize",
+                "topk_scatter_add", "topk_unpack")
 N_LEAVES = 35
 
 
@@ -619,25 +659,67 @@ def phase_wire_kernels(torch):
                                         lambda: ref.quantize_pack_ref(x, scale4, None, 4))
         for what, (kernel, plain) in calls.items():
             _bitwise(torch, kernel(), plain(), f"wire_quantize {what} {tag}")
+        # the slow path quantizes each client against its own scale
+        for bits in (8, 4):
+            lv = 2.0 ** (bits - 1) - 1.0
+            sk = x.abs().amax(dim=1) / lv * 0.9
+            sk[0] = 1.0  # a row at the all-zero tensor's scale
+            calls[f"keyed int{bits} packed, per-client scale"] = (
+                lambda s=sk, b=bits: W.quantize_pack_keyed(x, s, keys, b),
+                lambda s=sk, b=bits: ref.quantize_pack_ref(x, s, ref.threefry_uniform_ref(keys, n),
+                                                           b))
+            calls[f"streamed int{bits} codes, per-client scale"] = (
+                lambda s=sk, b=bits: W.quantize_with_scale(x, s, u, b),
+                lambda s=sk, lv=lv: ref.quantize_codes_with_scale_ref(x, s, u, lv))
+            calls[f"nearest int{bits} packed, per-client scale"] = (
+                lambda s=sk, b=bits: W.quantize_pack(x, s, None, b),
+                lambda s=sk, b=bits: ref.quantize_pack_ref(x, s, None, b))
+        for what, (kernel, plain) in calls.items():
+            if "per-client" in what:
+                _bitwise(torch, kernel(), plain(), f"wire_quantize {what} {tag}")
         codes = W.quantize_with_scale_keyed(x, scale4, keys, 4)
         packed = W.nibble_pack(codes)
         _bitwise(torch, packed, ref.nibble_pack_ref(codes), f"nibble_pack {tag}")
         _bitwise(torch, W.nibble_unpack(packed, n), ref.nibble_unpack_ref(packed, n),
                  f"nibble_unpack {tag}")
         _bitwise(torch, W.nibble_unpack(packed, n), codes, f"nibble pack then unpack {tag}")
+        # K7 dequantize: int8 codes at a scale a client, and one shared
+        codes8 = W.quantize_with_scale_keyed(x, scale4 * 7 / 127, keys, 8)
+        scales = x.abs().amax(dim=1) / 127
+        _bitwise(torch, W.dequantize(codes8, scales), ref.dequantize_ref(codes8, scales),
+                 f"dequantize per-client scale {tag}")
+        _bitwise(torch, W.dequantize(codes, scale4), ref.dequantize_ref(codes, scale4),
+                 f"dequantize shared scale {tag}")
         k = max(1, min(n, math.ceil(WIRE_TOPK_FRAC * n)))
         idx = torch.topk(x.abs(), k, dim=1).indices.to(torch.int32)
         vals = torch.gather(x, 1, idx.long())
         weights = torch.tensor([4.0, 2.0, 3.0, 1.0], device="cuda")
+        # K9 top-k unpack: the path's distinct indices, then duplicates (the
+        # last pair in payload order wins)
+        _bitwise(torch, W.topk_unpack(vals, idx, n), ref.topk_unpack_ref(vals, idx, n),
+                 f"topk_unpack {tag}")
+        _bitwise(torch, W.topk_unpack(vals, idx, n),
+                 torch.zeros((K, n), device="cuda").scatter_(1, idx.long(), vals),
+                 f"topk_unpack against scatter_ {tag}")
+        dup = torch.randint(0, n, (K, 2 * k + 1), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        dup[:, -1] = dup[:, 0]
+        dvals = torch.randn(dup.shape, generator=gen, device="cuda")
+        _bitwise(torch, W.topk_unpack(dvals, dup, n), ref.topk_unpack_ref(dvals, dup, n),
+                 f"topk_unpack with duplicate indices {tag}")
+        n_dup = K * dup.shape[1] - sum(int(torch.unique(r).numel()) for r in dup)
         dense = W.topk_scatter_add(vals, idx, weights, n)
         again = W.topk_scatter_add(vals, idx, weights, n)
         _bitwise(torch, dense, ref.topk_scatter_add_ref(vals, idx, weights, n),
                  f"topk_scatter_add {tag}")
         _bitwise(torch, again, dense, f"topk_scatter_add twice {tag}")
         shared = K * k - int(torch.unique(idx).numel())
-        log(f"[kernels] wire {tag}: quantizer ({len(calls)} variants), nibble pack and unpack, "
+        log(f"[kernels] wire {tag}: quantizer ({len(calls)} variants, per-client scales "
+            f"included), nibble pack and unpack, dequantize (shared and per-client scale), "
             f"top-k scatter-add ({k} of each row, {shared} indices picked by more than one "
-            f"client) bitwise equal to the plain versions; scatter-add bitwise repeatable")
+            f"client), top-k unpack ({k} of each row; and {dup.shape[1]} a row with {n_dup} "
+            f"repeated indices) bitwise equal to the plain versions; scatter-add bitwise "
+            f"repeatable")
         if n != WIRE_SIZES[0]:
             continue
 
@@ -668,6 +750,24 @@ def phase_wire_kernels(torch):
             log(f"[kernels] topk_scatter_add {tag}: deterministic index_add_ unavailable: {e}")
         finally:
             torch.use_deterministic_algorithms(was_deterministic)
+        usv, usi, ubounds = W.unpack_segments(vals, idx, n)
+        uout = torch.empty((K, n), device="cuda")
+
+        def unpack_kernel():  # the kernel alone, on the sorted payload
+            W._lib().topk_unpack(usv.data_ptr(), usi.data_ptr(), ubounds.data_ptr(),
+                                 uout.data_ptr(), K, k, n, W.SEGMENT,
+                                 torch.cuda.current_stream().cuda_stream)
+
+        idx_long = idx.long()
+
+        def library_unpack():  # the same function for distinct indices
+            return torch.zeros((K, n), device="cuda").scatter_(1, idx_long, vals)
+
+        def library_dequantize():  # one PyTorch call: int8 times fp32 promotes
+            return codes8 * scales[:, None]
+
+        t_lib_unpack = cuda_ms(torch, library_unpack, 20)
+        t_lib_deq = cuda_ms(torch, library_dequantize, 50)
         m, nb, kn = K * k, (n + 1) // 2, K * n
         nseg = -(-n // W.SEGMENT)
         keyed_int_ops = K * (nb * WIRE_BLOCK_INT_OPS + n * WIRE_ELEM_INT_OPS)
@@ -691,6 +791,13 @@ def phase_wire_kernels(torch):
              None, kn + K * nb, 3 * K * nb, 0),
             ("nibble_unpack", "", lambda: W.nibble_unpack(packed, n),
              lambda: ref.nibble_unpack_ref(packed, n), None, K * nb + kn, 4 * kn, 0),
+            ("dequantize", "int8 codes, per-client scale", lambda: W.dequantize(codes8, scales),
+             lambda: ref.dequantize_ref(codes8, scales), t_lib_deq, kn + 4 * K + 4 * kn, 0, kn),
+            ("topk_unpack", "wrapper as the path calls it: stable sort, searchsorted, kernel",
+             lambda: W.topk_unpack(vals, idx, n), lambda: ref.topk_unpack_ref(vals, idx, n),
+             t_lib_unpack, 8 * m + 4 * kn, 0, 0),
+            ("topk_unpack", "kernel alone, on the sorted payload", unpack_kernel, None, None,
+             8 * m + 4 * K * (nseg + 1) + 4 * kn, 0, 0),
             ("topk_scatter_add", "kernel alone, on the sorted payload", scatter_kernel, None,
              None, 8 * m + 4 * (nseg + 1) + 4 * n, 0, m),
             ("topk_scatter_add", "wrapper as the path calls it: weights, sort, searchsorted, "
@@ -708,7 +815,8 @@ def phase_wire_kernels(torch):
                 fp_ops / FP32_OPS_PER_S
             bound_ms = max(t_b, t_i, t_f) * 1e3
             bound_by = "bytes" if t_b >= max(t_i, t_f) else "operations"
-            t_l = lib_ms if library is not None else None
+            t_l = library if isinstance(library, float) else (
+                lib_ms if library is not None else None)
             log(f"[kernels] {name} {variant} {tag}: us per call eager/graph: kernel "
                 f"{_us(t_k)}/{_us(g_k)}, plain {_us(t_p)}/{_us(g_p)}, library "
                 f"{_us(t_l) if library is not None else 'none'}; bound {bound_ms * 1e3:.2f} us "
@@ -821,6 +929,247 @@ def phase_tiny_compressed(torch):
             f"{len(shapes)} leaves, {K} clients: bitwise equal on cuda and cpu")
 
 
+def phase_tiny_slowpath(torch):
+    """The slow path's server stage (``fedavg._server_stage``: compression,
+    corruption, aggregation) after the drawn cohort, on the same tiny
+    deltas (the asr-rnnt model's shapes, K=4 clients, random from a seed)
+    on the card and on the CPU under each plane of the paper-width slow-path
+    runs: bitwise equal, but for the planes that draw through ``normal``
+    (the gaussian adversary, the DP noise), held to SLOW_NORMAL_TOL."""
+    from repro_torch.core import fedavg, keys
+    from repro_torch.core.task import get_task
+    from repro_torch.launch import train
+
+    gen = torch.Generator().manual_seed(5)
+    K = 4
+    shapes = {n: tuple(p.shape) for n, p in get_task("asr-rnnt").model.named_parameters()}
+    deltas = {n: torch.randn((K, *s), generator=gen) * 1e-3 for n, s in shapes.items()}
+    stale0 = {n: torch.randn((K, *s), generator=gen) * 1e-3 for n, s in shapes.items()}
+    weight = torch.ones((K, 2, 2))
+    weight[3, 1] = 0.0  # a client with one real step
+    base_key = keys.PRNGKey(1)
+    for name, flags, _, _ in SLOWPATH:
+        plan = train.build_plan(train.parse_args(PAPER_ARGV + flags))
+        plane = fedavg._plan_server_plane(plan)
+        out = {}
+        for r in range(2):
+            ckey, qkey, akey, xkey = fedavg._plane_keys(base_key, r)
+            for device in ("cuda", "cpu"):
+                batch, pmask = fedavg._apply_cohort(plane, ckey, {"weight": weight.to(device)})
+                n_k = fedavg._client_examples(batch)
+                ckeys = fedavg._client_key_fanout(plan.compression, qkey, K)
+                stale = ({n: v.to(device) for n, v in stale0.items()}
+                         if plan.corruption.kind == "stale" else None)
+                wbar, _, cmask, stale = fedavg._server_stage(
+                    plane, {n: d.to(device) for n, d in deltas.items()}, n_k, pmask, ckeys,
+                    (akey, xkey), None, stale)
+                got = {f"wbar {n}": v.cpu() for n, v in wbar.items()}
+                got.update({f"stale {n}": v.cpu() for n, v in (stale or {}).items()})
+                got.update(pmask=pmask.cpu(), cmask=cmask.cpu(), n_k=n_k.cpu())
+                out[device] = got
+            normal = plan.corruption.kind == "gaussian" or plan.aggregation.dp_sigma > 0
+            for what, got in out["cuda"].items():
+                want = out["cpu"][what]
+                if normal and what.startswith("wbar"):
+                    err = float((got - want).abs().max())
+                    if not err <= SLOW_NORMAL_TOL:
+                        raise AssertionError(f"tiny slow path {name} round {r}: {what} "
+                                             f"differs by {err:.2e} > {SLOW_NORMAL_TOL}")
+                else:
+                    _bitwise(torch, got, want, f"tiny slow path {name} round {r}: {what}")
+            log(f"[tiny slow path] {name} round {r}: participants "
+                f"{out['cpu']['pmask'].tolist()}, corrupted {out['cpu']['cmask'].tolist()}, "
+                f"n_k {out['cpu']['n_k'].tolist()}: the aggregate of {len(shapes)} leaves "
+                + (f"within {SLOW_NORMAL_TOL} (normal draws)" if normal else "bitwise equal")
+                + " on cuda and cpu")
+
+
+class _RoundTap:
+    """Wraps the round engine's round body: keeps each round's metrics
+    and, with ``keep_params``, the server parameters after it, which
+    ``snapshot`` copies to the host outside the round's timing."""
+
+    def __init__(self, keep_params: bool):
+        from repro_torch.core import fedavg
+
+        self.fedavg, self.keep, self.metrics, self.params = fedavg, keep_params, [], []
+        self.saved, self.pending = fedavg._fedavg_round_body, None
+
+    def __enter__(self):
+        def tapped(*args, **kwargs):
+            state, metrics = self.saved(*args, **kwargs)
+            self.metrics.append(metrics)
+            self.pending = state.params if self.keep else None
+            return state, metrics
+
+        self.fedavg._fedavg_round_body = tapped
+        return self
+
+    def snapshot(self) -> None:
+        if self.pending is not None:
+            self.params.append({k: v.detach().cpu() for k, v in self.pending.items()})
+            self.pending = None
+
+    def __exit__(self, *exc):
+        self.fedavg._fedavg_round_body = self.saved
+
+
+class _RunWatch:
+    """The log callback of a counted paper-width run: after each round the
+    launch counts and the peak memory so far; the last round under
+    torch.profiler (started after the round before it), the rounds before
+    it unprofiled; with a ``tap``, its snapshot outside the rounds."""
+
+    def __init__(self, torch, tag: str, rounds: int, tap=None):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch, self.tag, self.rounds, self.tap = torch, tag, rounds, tap
+        self.prof = profile(activities=[ProfilerActivity.CUDA])  # device events only
+        self.marks = []
+
+    def __call__(self, line: str) -> None:
+        log(f"{self.tag} {line}")
+        self.marks.append((_counts(), self.torch.cuda.max_memory_allocated()))
+        if len(self.marks) == self.rounds:
+            self.torch.cuda.synchronize()
+            self.prof.stop()
+        if self.tap is not None:
+            self.tap.snapshot()
+        if len(self.marks) == self.rounds - 1:
+            self.prof.start()
+
+    def check_launches(self, want: dict) -> None:
+        """Every round launched exactly ``want`` of each kernel."""
+        prev = {k: 0 for k in want}
+        for r, (mark, _) in enumerate(self.marks):
+            got = {k: mark[k] - prev[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{self.tag} launches in round {r + 1} {got}, expected "
+                                     f"{want}")
+            prev = mark
+
+
+def _device_times(torch, prof) -> dict:
+    """{kernel name: (device microseconds, launches)} of a profiler run."""
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    return by_name
+
+
+# substrings of the hand-written kernels' names, and of the plane's among them
+_OURS = ("lstm_gates", "lstm_scan", "joint_")
+_WIRE = ("wire_quantize", "nibble_", "dequantize_kernel", "topk_scatter_add", "topk_unpack")
+
+
+def _log_profile(tag: str, by_name: dict, round_s: float, profiled_s: float,
+                 plane_ms=None) -> None:
+    """The busy share of a profiled round (its device kernel time against
+    the unprofiled ``round_s`` and the profiled round's own wall time),
+    the kernels that fill it, and with ``plane_ms`` (the plane's span in
+    CUDA events in the profiled round) the plane's share."""
+    if not by_name:
+        log(f"{tag} the profiler recorded no device events: busy share not measured")
+        return
+    device_s = sum(t for t, _ in by_name.values()) / 1e6
+    log(f"{tag} one round: device kernel time {device_s * 1e3:.1f} ms, "
+        f"{sum(n for _, n in by_name.values())} device events; busy share "
+        f"{device_s / round_s:.3f} of the unprofiled round ({round_s * 1e3:.1f} ms), "
+        f"{device_s / profiled_s:.3f} of the profiled one ({profiled_s * 1e3:.1f} ms)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    ours = [kv for kv in ranked if any(k in kv[0] for k in _OURS + _WIRE)]
+    for name, (t, n) in ranked[:8] + [kv for kv in ours if kv not in ranked[:8]]:
+        log(f"{tag}   {t / 1e3:9.2f} ms  {t / 1e6 / device_s:6.3f}  {n:6d}x  {name[:100]}")
+    share = sum(t for _, (t, _) in ours) / 1e6 / device_s
+    log(f"{tag} the hand-written kernels' share of device time: {share:.3f}")
+    if plane_ms is not None:
+        wire_s = sum(t for name, (t, _) in ranked if any(k in name for k in _WIRE)) / 1e6
+        log(f"{tag} the server plane: {plane_ms:.3f} ms on the device between its events "
+            f"({plane_ms / 1e3 / device_s:.4f} of the round's device kernel time, profiled), "
+            f"of which its hand-written kernels {wire_s * 1e3:.3f} ms ({wire_s / device_s:.4f})")
+
+
+def phase_paper_slowpath(torch, name: str, flags, uplink: int, kernels, loss_ref: float,
+                         keep_params: bool = False, params_ref=None):
+    """FedAvg rounds of rnnt-librispeech on the slow path (a robust
+    aggregator or a delta adversary), on the K2 path with the fused joint,
+    through the training entry point, with no evaluation: two counted
+    rounds, then a third under torch.profiler for the busy share. The
+    counts are set to 0 before the run and read after each round: each
+    plane kernel of the run once per leaf a round, K2 and the joint
+    kernels as uncompressed. The uplink per reporting client is exact, the
+    first-round loss of a full cohort is the uncompressed run's
+    ``loss_ref``, and with ``params_ref`` (another run's server parameters
+    after each round) the parameters are equal bit for bit. Returns
+    ({kernel: launches over the run}, [server parameters after each round,
+    on the host, with ``keep_params`` or ``params_ref``])."""
+    from repro_torch.launch import train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    cfg, rounds = task.config, 3
+    corpus = task.make_corpus(0)
+    args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)] + flags)
+    plan = train.build_plan(args)
+    tag = f"[paper slow path {name}]"
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _PlaneTimer(torch, _PlaneTimer.SLOW) as timer, \
+            _RoundTap(keep_params or params_ref is not None) as tap:
+        watch = _RunWatch(torch, tag, rounds, tap)
+        _, hist = train.run_federated(task, corpus, plan, rounds, seed=args.seed, device="cuda",
+                                      eval_every=0, eval_examples=0, log=watch)
+    spans = timer.ms()
+    plane_ms = [spans[2 * r] + spans[2 * r + 1] for r in range(rounds)]
+    steps = args.clients * hist["local_steps"]  # client steps per round
+    layers = cfg.enc_layers + cfg.pred_layers
+    want = {k: 0 for k in watch.marks[0][0]}
+    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
+                lstm_scan_dw=layers * steps, rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
+                rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
+    want.update({k: N_LEAVES for k in kernels})
+    watch.check_launches(want)
+    participants = [m["participants"] for m in tap.metrics]
+    corrupted = [m["corrupted"] for m in tap.metrics]
+    if hist["uplink_bytes_client"] != uplink:
+        raise AssertionError(f"{tag} uplink bytes per reporting client "
+                             f"{hist['uplink_bytes_client']}, expected {uplink}")
+    if hist["uplink_bytes_total"] != uplink * sum(participants):
+        raise AssertionError(f"{tag} uplink total {hist['uplink_bytes_total']} for "
+                             f"participants {participants}")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"{tag} losses are not finite: {hist['loss']}")
+    if params_ref is not None:
+        for r, (got, ref_params) in enumerate(zip(tap.params, params_ref)):
+            bad = [k for k in got if not torch.equal(got[k], ref_params[k])]
+            if bad:
+                err = max(float((got[k] - ref_params[k]).abs().max()) for k in bad)
+                raise AssertionError(f"{tag} server parameters after round {r + 1} differ "
+                                     f"from the packed run's in {len(bad)} tensors, by up to "
+                                     f"{err:.3e}: {bad[:4]}")
+        log(f"{tag} server parameters after each of {len(tap.params)} rounds equal the packed "
+            "run's bit for bit")
+    per_s = [e / s for e, s in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} {plan.cohort}, {plan.compression}, {plan.aggregation}, {plan.corruption}, "
+        f"latency {plan.latency.enabled}: losses {hist['loss']}; ms per round "
+        f"{[round(x * 1e3, 1) for x in hist['round_s']]} (round 3 profiled); client examples "
+        f"per second {per_s}; participants {participants}; corrupted {corrupted}; simulated "
+        f"seconds {[m['sim_time_s'] for m in tap.metrics]}; server plane (cohort, then "
+        f"compression, corruption and aggregation) ms per round, CUDA events "
+        f"{[round(x, 3) for x in plane_ms]}; peak memory over rounds 1 and 2 "
+        f"{watch.marks[1][1]} B; uplink {uplink} B per reporting client, "
+        f"{hist['wire_bytes_total']} B on the wire; launches per round: "
+        + (", ".join(f"{k} {N_LEAVES}" for k in kernels) or "no plane kernel"))
+    _log_profile(tag, _device_times(torch, watch.prof), hist["round_s"][1], hist["round_s"][2],
+                 plane_ms[2])
+    if plan.cohort.full and hist["loss"][0] != loss_ref:
+        raise AssertionError(f"{tag} first-round loss {hist['loss'][0]!r} is not the "
+                             f"uncompressed run's {loss_ref!r}")
+    return watch.marks[-1][0], tap.params
+
+
 def _paper_task(use_kernel: bool, enc_layers=None):
     from repro_torch.configs import rnnt_librispeech
     from repro_torch.core.task import get_task
@@ -839,7 +1188,9 @@ def _counts():
     from repro_torch.kernels import wire_pack as KW
 
     return {"wire_quantize": KW.QUANTIZE_LAUNCHES, "nibble_pack": KW.PACK_LAUNCHES,
-            "nibble_unpack": KW.UNPACK_LAUNCHES, "topk_scatter_add": KW.SCATTER_ADD_LAUNCHES,
+            "nibble_unpack": KW.UNPACK_LAUNCHES, "dequantize": KW.DEQUANTIZE_LAUNCHES,
+            "topk_scatter_add": KW.SCATTER_ADD_LAUNCHES,
+            "topk_unpack": KW.TOPK_UNPACK_LAUNCHES,
             "lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
             "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES, "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES,
             "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
@@ -856,6 +1207,7 @@ def _zero_counts() -> None:
     from repro_torch.kernels import wire_pack as KW
 
     KW.QUANTIZE_LAUNCHES = KW.PACK_LAUNCHES = KW.UNPACK_LAUNCHES = KW.SCATTER_ADD_LAUNCHES = 0
+    KW.DEQUANTIZE_LAUNCHES = KW.TOPK_UNPACK_LAUNCHES = 0
     K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
     K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_LAUNCHES = K2.SCAN_DW_LAUNCHES = 0
     KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
@@ -944,15 +1296,20 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
 
 
 class _PlaneTimer:
-    """CUDA events around the round engine's code-domain aggregate (the
-    whole compression plane: scales, keys, kernels, sums, top-k), one pair
-    a round; read after the run, which has synchronised."""
+    """CUDA events around functions of the round engine (``core/fedavg.py``),
+    one pair a call; read after the run, which has synchronised. By default
+    the code-domain aggregate (the whole compressed plane of the fast path:
+    scales, keys, kernels, sums, top-k); for the slow path the cohort and
+    the server stage (compression, corruption, aggregation)."""
 
-    def __init__(self, torch):
+    FAST = ("code_domain_aggregate", "code_domain_aggregate_ef")
+    SLOW = ("_apply_cohort", "_server_stage")
+
+    def __init__(self, torch, names=FAST):
         from repro_torch.core import fedavg
 
-        self.torch, self.fedavg, self.pairs = torch, fedavg, []
-        self.saved = (fedavg.code_domain_aggregate, fedavg.code_domain_aggregate_ef)
+        self.torch, self.fedavg, self.names, self.pairs = torch, fedavg, names, []
+        self.saved = {name: getattr(fedavg, name) for name in names}
 
     def _wrap(self, fn):
         def timed(*args):
@@ -966,12 +1323,13 @@ class _PlaneTimer:
         return timed
 
     def __enter__(self):
-        self.fedavg.code_domain_aggregate = self._wrap(self.saved[0])
-        self.fedavg.code_domain_aggregate_ef = self._wrap(self.saved[1])
+        for name, fn in self.saved.items():
+            setattr(self.fedavg, name, self._wrap(fn))
         return self
 
     def __exit__(self, *exc):
-        self.fedavg.code_domain_aggregate, self.fedavg.code_domain_aggregate_ef = self.saved
+        for name, fn in self.saved.items():
+            setattr(self.fedavg, name, fn)
 
     def ms(self) -> list:
         self.torch.cuda.synchronize()
@@ -992,51 +1350,40 @@ def _compressed_plan(args, kw: dict):
 
 
 def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_ref: float):
-    """Two FedAvg rounds of rnnt-librispeech on the K2 path with the fused
+    """FedAvg rounds of rnnt-librispeech on the K2 path with the fused
     joint (``lstm.scan_dispatch=auto``, ``use_kernel=True``) and a
     compressed uplink, through the training entry point, with no final
-    evaluation. The counts are set to 0 before the run and read after each
-    round: every round launches each of the plane's kernels once per leaf,
-    K2 and the joint kernels as uncompressed. The uplink per client is
-    exact, and the first-round loss (computed before any compression)
-    equals the uncompressed run's ``loss_ref``. Returns ({kernel:
-    launches over the run}, the last round's seconds)."""
+    evaluation: two counted rounds, then a third under torch.profiler for
+    the busy share and the compression plane's share. The counts are set
+    to 0 before the run and read after each round: every round launches
+    each of the plane's kernels once per leaf, K2 and the joint kernels as
+    uncompressed. The uplink per client is exact, and the first-round loss
+    (computed before any compression) equals the uncompressed run's
+    ``loss_ref``. Returns {kernel: launches over the run}."""
     from repro_torch.launch import train
 
     _dispatch("auto")
     task = _paper_task(True)
-    cfg, rounds = task.config, 2
+    cfg, rounds = task.config, 3
     corpus = task.make_corpus(0)
     args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)] + flags)
     plan = _compressed_plan(args, kw)
     tag = f"[paper compressed {name}]"
-    marks = []
-
-    def after_round(line):
-        log(f"{tag} {line}")
-        marks.append(_counts())
-
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    watch = _RunWatch(torch, tag, rounds)
     with _PlaneTimer(torch) as timer:
         _, hist = train.run_federated(task, corpus, plan, rounds, seed=args.seed, device="cuda",
-                                      eval_every=0, eval_examples=0, log=after_round)
+                                      eval_every=0, eval_examples=0, log=watch)
     plane_ms = timer.ms()
-    peak = torch.cuda.max_memory_allocated()
-    total = _counts()
     steps = args.clients * hist["local_steps"]  # client steps per round
     layers = cfg.enc_layers + cfg.pred_layers
-    want = {k: 0 for k in total}
+    want = {k: 0 for k in watch.marks[0][0]}
     want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
                 lstm_scan_dw=layers * steps, rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
                 rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
     want.update({k: N_LEAVES for k in WIRE_LAUNCHES[name]})
-    prev = {k: 0 for k in total}
-    for r, mark in enumerate(marks):
-        got = {k: mark[k] - prev[k] for k in total}
-        if got != want:
-            raise AssertionError(f"{tag} launches in round {r + 1} {got}, expected {want}")
-        prev = mark
+    watch.check_launches(want)
     if hist["uplink_bytes_client"] != uplink:
         raise AssertionError(f"{tag} uplink bytes per client {hist['uplink_bytes_client']}, "
                              f"expected {uplink}")
@@ -1049,68 +1396,36 @@ def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_
                              f"uncompressed run's {loss_ref!r}")
     per_s = [e / s for e, s in zip(hist["examples"], hist["round_s"])]
     log(f"{tag} {plan.compression}: losses {hist['loss']} (round 1 equal to the uncompressed "
-        f"run's); ms per round {[round(x * 1e3, 1) for x in hist['round_s']]}; client examples "
-        f"per second {per_s}; compression plane ms per round (CUDA events) "
-        f"{[round(x, 3) for x in plane_ms]}; peak memory {peak} B; uplink {uplink} B per "
-        f"client, {hist['wire_bytes_total']} B on the wire; launches per round: "
+        f"run's); ms per round {[round(x * 1e3, 1) for x in hist['round_s']]} (round 3 "
+        f"profiled); client examples per second {per_s}; compression plane ms per round (CUDA "
+        f"events) {[round(x, 3) for x in plane_ms]}; peak memory over rounds 1 and 2 "
+        f"{watch.marks[1][1]} B; uplink {uplink} B per client, {hist['wire_bytes_total']} B on "
+        f"the wire; launches per round: "
         + ", ".join(f"{k} {v}" for k, v in want.items() if v and k in WIRE_KERNELS))
-    return total, hist["round_s"][-1]
+    _log_profile(tag, _device_times(torch, watch.prof), hist["round_s"][1], hist["round_s"][2],
+                 plane_ms[2])
+    return watch.marks[-1][0]
 
 
-def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None,
-                  compressed=None):
+def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None):
     """One more paper-width round on its own under torch.profiler, with
     no final evaluation: the device's kernel time against the wall time
     of the counted run's last round (the busy share), and the kernels
-    that fill it. With ``compressed`` (an entry of COMPRESSED), under that
-    uplink compression, and the compression plane's share of the round's
-    device time: its span on the device (CUDA events around the
-    aggregate) and its kernels'."""
+    that fill it."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train
 
     _dispatch(mode)
     task = _paper_task(use_kernel, enc_layers)
-    flags, kw = (compressed[1], compressed[2]) if compressed else ([], dict(kind="none"))
-    args = train.parse_args(PAPER_ARGV + ["--rounds", "1"] + flags)
-    tag = f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}" + \
-        (f" {compressed[0]}]" if compressed else "]")
-    with _PlaneTimer(torch) as timer, \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, hist = train.run_federated(task, task.make_corpus(0), _compressed_plan(args, kw), 1,
+    args = train.parse_args(PAPER_ARGV + ["--rounds", "1"])
+    tag = f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}]"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+        _, hist = train.run_federated(task, task.make_corpus(0), train.build_plan(args), 1,
                                       seed=args.seed, device="cuda", eval_every=0,
                                       eval_examples=0, log=lambda line: None)
         torch.cuda.synchronize()
-    plane_ms = timer.ms()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-    if not by_name:
-        log(f"{tag} the profiler recorded no device events: busy share not measured")
-        return
-    device_s = sum(t for t, _ in by_name.values()) / 1e6
-    log(f"{tag} one round: device kernel time {device_s * 1e3:.1f} ms, "
-        f"{sum(n for _, n in by_name.values())} device events; busy share "
-        f"{device_s / round_s:.3f} of the unprofiled round ({round_s * 1e3:.1f} ms), "
-        f"{device_s / hist['round_s'][0]:.3f} of the profiled one "
-        f"({hist['round_s'][0] * 1e3:.1f} ms)")
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    wire = ("wire_quantize", "nibble_", "topk_scatter_add")
-    ours = [kv for kv in ranked
-            if any(k in kv[0] for k in ("lstm_gates", "lstm_scan", "joint_") + wire)]
-    for name, (t, n) in ranked[:8] + [kv for kv in ours if kv not in ranked[:8]]:
-        log(f"{tag}   {t / 1e3:9.2f} ms  {t / 1e6 / device_s:6.3f}  {n:6d}x  {name[:100]}")
-    share = sum(t for _, (t, _) in ours) / 1e6 / device_s
-    log(f"{tag} the hand-written kernels' share of device time: {share:.3f}")
-    if compressed:
-        wire_s = sum(t for name, (t, _) in ranked if any(k in name for k in wire)) / 1e6
-        log(f"{tag} the compression plane: {sum(plane_ms):.3f} ms on the device between its "
-            f"events ({sum(plane_ms) / 1e3 / device_s:.4f} of the round's device kernel time, "
-            f"profiled), of which its hand-written kernels {wire_s * 1e3:.3f} ms "
-            f"({wire_s / device_s:.4f})")
+    _log_profile(tag, _device_times(torch, prof), round_s, hist["round_s"][0])
 
 
 def phase_autotune(torch):
@@ -1132,6 +1447,11 @@ def main() -> int:
         import torch
     except ImportError:
         raise SystemExit("chip_smoke: torch is not installed")
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[time] {what}: {time.perf_counter() - t0:.1f} s since the start")
+
     phase_card(torch)
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         raise SystemExit(f"chip_smoke: no src/repro_torch beside {__file__}; "
@@ -1142,14 +1462,18 @@ def main() -> int:
     # knobs at their defaults; each phase sets the dispatch it needs, in memory
     tuner.set_registry(tuner.TuningRegistry(path=str(ROOT / "build" / "chip_smoke_tuning.json")))
     phase_build()
+    mark("build")
     rows = phase_kernels(torch)
     rows.update(phase_joint_kernels(torch))
     rows.update(phase_scan_kernels(torch))
     rows.update(phase_wire_kernels(torch))
+    mark("kernels")
     for mode in ("ref", "kernel"):
         phase_tiny_round(torch, mode)
         phase_tiny_decode(torch, mode)
     phase_tiny_compressed(torch)
+    phase_tiny_slowpath(torch)
+    mark("tiny phases")
     _, round_s_chunked, _ = phase_paper_width(torch, False, "ref")
     k1_launches, round_s_loop, loss_loop = phase_paper_width(torch, True, "ref")
     launches, round_s_scan, loss_scan = phase_paper_width(torch, True, "auto")
@@ -1159,23 +1483,38 @@ def main() -> int:
     log(f"[paper] first-round loss, use_kernel=True: K2 {loss_scan}, time loop {loss_loop}, "
         f"relative difference {abs(loss_scan - loss_loop) / abs(loss_loop):.2e} "
         f"(tol {SCAN_LOSS_RTOL})")
+    mark("paper-width uncompressed runs")
     # each compressed run is its own path: its counts are set to 0 before it
     wire_launches = {k: 0 for k in WIRE_KERNELS}
-    round_s_comp = {}
     for name, flags, kw, uplink in COMPRESSED:
-        counts, round_s_comp[name] = phase_paper_compressed(torch, name, flags, kw, uplink,
-                                                            loss_scan)
+        counts = phase_paper_compressed(torch, name, flags, kw, uplink, loss_scan)
         for k in WIRE_KERNELS:
             wire_launches[k] += counts[k]
+    mark("compressed runs")
+    # the slow path's runs, each its own path; the second (packed=False)
+    # must give the first's server parameters bit for bit
+    params_packed = None
+    for name, flags, uplink, kernels in SLOWPATH:
+        counts, params = phase_paper_slowpath(
+            torch, name, flags, uplink, kernels, loss_scan,
+            keep_params=params_packed is None and name.startswith("int4_packed"),
+            params_ref=params_packed if name.startswith("int4_graph") else None)
+        if name.startswith("int4_packed"):
+            params_packed = params
+        for k in WIRE_KERNELS:
+            wire_launches[k] += counts[k]
+    del params_packed
+    mark("slow-path runs")
     phase_profile(torch, round_s_chunked, False, "ref")
     phase_profile(torch, round_s_loop, True, "ref")
     phase_profile(torch, round_s_scan, True, "auto")
-    for entry in COMPRESSED:
-        phase_profile(torch, round_s_comp[entry[0]], True, "auto", compressed=entry)
+    mark("profiles")
     phase_autotune(torch)
+    mark("autotune")
 
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3 and K4 under
-    # 'auto'; K5-K8 in the four compressed runs (their launches summed)
+    # 'auto'; K5-K9 in the compressed and slow-path runs (their launches
+    # summed)
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
@@ -1199,7 +1538,10 @@ def main() -> int:
         "wire_quantize": (wire, "src/repro/kernels/wire_pack.py:286"),
         "nibble_pack": (wire, "src/repro/kernels/wire_pack.py:66"),
         "nibble_unpack": (wire, "src/repro/kernels/wire_pack.py:90"),
+        "dequantize": (wire, "src/repro/kernels/wire_pack.py:112"),
         "topk_scatter_add": (wire, "src/repro/kernels/wire_pack.py:441"),
+        # the serial (:352) and the segmented (:387) kernel in one
+        "topk_unpack": (wire, "src/repro/kernels/wire_pack.py:352"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], **rows[name])

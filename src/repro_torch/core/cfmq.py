@@ -8,9 +8,9 @@ client memory per step, alpha the balance term. The paper approximates
 P = 2 * model_bytes and nu = 1.1 * model_bytes with alpha = 1.
 
 The port of ``repro/core/cfmq.py``. Under full participation with no
-compression the paper's payload formula is exact; a compressed uplink is
-priced by its measured wire bytes (``measured_payload``). Byte counts are
-Python ints.
+compression the paper's payload formula is exact; a compressed uplink or
+a partial cohort is priced by its measured wire bytes
+(``measured_payload``). Byte counts are Python ints.
 """
 
 from __future__ import annotations
@@ -78,11 +78,12 @@ def plan_wire_accounting(plan, params: dict) -> tuple[int, int]:
 
 
 def measured_payload(plan, params: dict, mean_participants: float) -> Optional[float]:
-    """None on the paper's plane (no compression; the port's plans have
-    full participation): callers use ``paper_payload``. Else the
-    wire-accurate per-client P with the uplink scaled by the mean number
-    of reporting clients."""
-    if plan.compression.kind == "none":
+    """None on the paper's plane (no compression, full participation):
+    callers use ``paper_payload``. Else the wire-accurate per-client P
+    with the uplink scaled by the mean number of reporting clients. An
+    adversary does not enter: a corrupted participant uploads a full
+    payload."""
+    if plan.compression.kind == "none" and plan.cohort.full:
         return None
     up_per_client, down_per_round = plan_wire_accounting(plan, params)
     return wire_payload(down_per_round, up_per_client * mean_participants,

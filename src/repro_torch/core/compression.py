@@ -1,7 +1,7 @@
 """Uplink delta compression: the wire side of the CFMQ cost axis.
 
-The port of ``repro/core/compression.py`` for the code-domain fast path,
-over the port's dicts of tensors ({dotted name: tensor}):
+The port of ``repro/core/compression.py`` over the port's dicts of
+tensors ({dotted name: tensor}):
 
 - ``int8`` / ``int4``: per-tensor absmax quantization with stochastic
   (unbiased) or nearest rounding; a 4-byte fp32 scale rides along.
@@ -21,9 +21,14 @@ sum is exact and the server dequantizes once. Top-k payloads go through
 one weighted scatter-add. The rounding keys fold the leaf's index in the
 reference's tree order (``jax_leaf_order``), so the codes equal JAX's.
 
-Left for the slow path (a robust aggregator or a delta adversary, not
-ported): ``pack_leaf``, ``unpack_leaf``, ``packed_leaf_bytes`` and
-``make_compressor``.
+A robust aggregator or a delta adversary needs each client's dequantized
+delta: the slow path compresses with ``make_compressor``, each client
+against its own per-tensor scale, one kernel launch per leaf for all K
+clients. With ``packed=False`` the codes are dequantized in PyTorch;
+with ``packed=True`` the wire payload is materialized (``pack_leaf``: the
+int8 codes, the int4 nibble bytes or the top-k pairs) and unpacked
+(``unpack_leaf``: nibble unpack and dequantize, or the top-k unpack), and
+the two give the same bits (``repro/core/compression.py:545-548``).
 """
 
 from __future__ import annotations
@@ -170,6 +175,97 @@ def topk_select(x: torch.Tensor, frac: float):
     return torch.gather(flat, 1, idx), idx.to(torch.int32)
 
 
+def client_leaf_scales(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``leaf_scale`` of each client's tensor in a client-stacked leaf x
+    (K, ...): (K,) fp32."""
+    return _over_levels(x.float().reshape(x.shape[0], -1).abs().amax(dim=1), bits)
+
+
+def _quantize_leaf(x, kd, bits: int, stochastic: bool):
+    """Each client's per-tensor absmax intN quantize then dequantize, x
+    (K, ...) with the clients' leaf keys kd (K, 2)."""
+    flat = x.float().reshape(x.shape[0], -1)
+    scale = client_leaf_scales(flat, bits)
+    codes = _quantize_payload(stochastic, flat, scale, kd, bits, pack=False)
+    return dequantize_codes(codes, scale[:, None], x.dtype).reshape(x.shape)
+
+
+def _topk_leaf(x, frac: float):
+    """Each client's k largest-|x| coordinates kept, the rest zero, x (K, ...)."""
+    vals, idx = topk_select(x, frac)
+    flat = torch.zeros((x.shape[0], x[0].numel()), dtype=x.dtype, device=x.device)
+    return flat.scatter_(1, idx.long(), vals.to(x.dtype)).reshape(x.shape)
+
+
+# ----------------------------------------------------------------------
+# Packed-wire payloads: the buffers behind the byte formulas.
+# ----------------------------------------------------------------------
+
+
+def pack_leaf(cfg: CompressionConfig, x: torch.Tensor, kd) -> tuple:
+    """The uplink payloads of a client-stacked leaf x (K, ...), rounding
+    with the clients' leaf keys kd (K, 2), as arrays with a leading client
+    axis whose rows hold ``leaf_wire_bytes`` each:
+
+    - int8: (int8 codes (K, n), fp32 scales (K,))         -> n + 4 a client
+    - int4: (int8 nibble bytes (K, (n+1)//2), scales (K,)) -> (n+1)//2 + 4
+    - topk: (fp32 values (K, k), int32 indices (K, k))     -> 8k
+    """
+    if cfg.kind == "topk":
+        return topk_select(x, cfg.topk_frac)
+    bits = _BITS[cfg.kind]
+    flat = x.float().reshape(x.shape[0], -1)
+    scale = client_leaf_scales(flat, bits)
+    return _quantize_payload(cfg.stochastic, flat, scale, kd, bits, pack=True), scale
+
+
+def unpack_leaf(cfg: CompressionConfig, payload: tuple, shape, dtype=torch.float32):
+    """The reverse of ``pack_leaf``: the payloads -> the dequantized leaf of
+    ``shape`` (K, ...). Equal bit for bit to ``_quantize_leaf`` and
+    ``_topk_leaf`` on the same leaf (the same codes, one product each)."""
+    size = math.prod(shape[1:])
+    if cfg.kind == "topk":
+        vals, idx = payload
+        return wire_pack.topk_unpack(vals, idx, size).reshape(shape).to(dtype)
+    data, scale = payload
+    codes = wire_pack.nibble_unpack(data, size) if cfg.kind == "int4" else data
+    return wire_pack.dequantize(codes, scale).reshape(shape).to(dtype)
+
+
+def packed_leaf_bytes(payload: tuple) -> int:
+    """Bytes of one client's payload (a row of each array): equal to
+    ``leaf_wire_bytes`` for every kind."""
+    return sum(a[0].numel() * a.element_size() for a in payload)
+
+
+def make_compressor(cfg: CompressionConfig):
+    """Returns compress(deltas, ckeys) -> deltas: the dequantized image of
+    every client's delta, {name: (K, ...)} with the round's client keys
+    ckeys (K, 2). Client k rounds leaf i of the reference's tree order
+    (``jax_leaf_order``) with ``split(ckeys[k], L)[i]``, as the reference
+    vmaps a compressor that splits its client key over the leaves. With
+    ``cfg.packed`` every payload is materialized and unpacked."""
+    if cfg.kind == "none":
+        return lambda deltas, ckeys: deltas
+    if cfg.kind == "topk" and not cfg.packed:
+        return lambda deltas, ckeys: {n: _topk_leaf(d, cfg.topk_frac) for n, d in deltas.items()}
+
+    def leaf_fn(x, kd):
+        if cfg.packed:
+            return unpack_leaf(cfg, pack_leaf(cfg, x, kd), x.shape, x.dtype)
+        return _quantize_leaf(x, kd, _BITS[cfg.kind], cfg.stochastic)
+
+    def compress(deltas: dict, ckeys: torch.Tensor) -> dict:
+        names = jax_leaf_order(deltas)
+        device = deltas[names[0]].device
+        lkeys = keys_lib.split(ckeys.cpu(), len(names)).to(device) if cfg.stochastic else None
+        out = {n: leaf_fn(deltas[n], None if lkeys is None else lkeys[:, i])
+               for i, n in enumerate(names)}
+        return {n: out[n] for n in deltas}
+
+    return compress
+
+
 # ----------------------------------------------------------------------
 # The code-domain fast path.
 # ----------------------------------------------------------------------
@@ -215,10 +311,11 @@ def _mean_divisor(n_k: torch.Tensor) -> torch.Tensor:
     return torch.clamp(n_k.float().sum(), min=1.0)
 
 
-def _quantize_payload(cfg: CompressionConfig, flat, scale, kd, bits: int, pack: bool):
+def _quantize_payload(stochastic: bool, flat, scale, kd, bits: int, pack: bool):
     """Each client's wire buffer (pack: the fused quantize-and-pack
-    kernel) or its codes, stochastic or nearest."""
-    if cfg.stochastic:
+    kernel) or its codes, stochastic (with the clients' keys kd) or
+    nearest."""
+    if stochastic:
         fn = wire_pack.quantize_pack_keyed if pack else wire_pack.quantize_with_scale_keyed
         return fn(flat, scale, kd, bits)
     fn = wire_pack.quantize_pack if pack else wire_pack.quantize_with_scale
@@ -279,12 +376,13 @@ def _code_domain(cfg: CompressionConfig, deltas: dict, n_k, pmask, ckeys,
             scale = shared_leaf_scale(target, pmask, bits)
             kd = None if lkeys is None else lkeys[li]
             if ef is None:
-                payload = _quantize_payload(cfg, flat, scale, kd, bits, pack=cfg.packed)
+                payload = _quantize_payload(cfg.stochastic, flat, scale, kd, bits,
+                                            pack=cfg.packed)
             else:
                 # the residual needs the codes; a packed int4 plane still puts
                 # the nibble bytes on the wire and reduces through them (pack
                 # then unpack is the identity on the codes)
-                codes = _quantize_payload(cfg, flat, scale, kd, bits, pack=False)
+                codes = _quantize_payload(cfg.stochastic, flat, scale, kd, bits, pack=False)
                 payload = wire_pack.nibble_pack(codes) if cfg.packed and bits == 4 else codes
                 resid = flat - codes.float() * scale
             csum = sum_packed_codes(cfg, payload, flat.shape[1], weights=w_int)

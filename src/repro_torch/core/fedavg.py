@@ -1,25 +1,35 @@
 """FedAvg round engine (paper Alg. 1).
 
-The port of ``repro/core/fedavg.py``'s ``init_server_state``,
-``_client_update`` and ``_fedavg_round_body`` with full participation,
-no adversary and the example-weighted mean, then the server optimizer
-(Adam in the paper) with the aggregated delta as its pseudo-gradient.
-The uplink is fp32 (the reference's ``_PARITY_PLANE``) or compressed;
-under the weighted mean a compressed uplink always takes the reference's
-code-domain fast path (``_code_fast_path``).
+The port of ``repro/core/fedavg.py``'s fedavg round (``:148-355``,
+``:526-634``): client deltas -> cohort mask -> uplink compression ->
+corruption -> aggregator -> server optimizer (Adam in the paper), the
+aggregated delta the server optimizer's pseudo-gradient. Each stage is a
+plane of ``ServerPlane``: the cohort (``core/cohort.py``), the compressor
+(``core/compression.py``), the adversary (``core/corruption.py``) and the
+aggregator (``core/aggregation.py``).
 
 A round is plain functions over dicts of tensors. The K clients run one
 after another in a Python loop, each on its own copy of the round-start
-parameters. On the fp32 uplink a client's delta is folded into the
-weighted mean as soon as it exists, so only one client's parameters,
-gradients and delta are alive at a time. A compressed uplink needs the
-K deltas stacked per leaf, (K, ...): the shared scale of a leaf is a
-max over all clients, so no delta can be folded in before the last
-client has finished. The randomness of client k's local step s in round
-r comes from generators seeded by (seed, r, k, s), as the reference
-folds the same four numbers into its key (``fvn.step_seed``); the
-compression plane's rounding keys are the reference's threefry keys
-(``core/keys.py``) from the base key ``PRNGKey(seed)``.
+parameters; a dropped client runs its local steps too, with its example
+weights masked to 0, as the reference's vmapped clients do. Three paths
+aggregate, chosen as the reference's selector (``_code_fast_path``)
+chooses:
+
+- the code-domain fast path: a compressed uplink under the weighted mean
+  with no delta adversary (``code_domain_aggregate{,_ef}``);
+- the slow path: a robust aggregator or a delta adversary needs each
+  client's compressed delta, stacked per leaf as (K, ...), before the
+  adversary and the aggregator see them;
+- the fp32 weighted mean with no delta adversary, which folds each
+  client's delta into the mean as soon as it exists, so only one client's
+  parameters, gradients and delta are alive at a time; it adds in the
+  order ``aggregation.weighted_mean`` does, so the two give the same bits.
+
+The randomness of client k's local step s in round r comes from
+generators seeded by (seed, r, k, s), as the reference folds the same four
+numbers into its key (``fvn.step_seed``); the server plane's draws are the
+reference's threefry draws (``core/keys.py``) from the base key
+``PRNGKey(seed)``.
 """
 
 from __future__ import annotations
@@ -31,13 +41,17 @@ import torch
 
 from repro_torch.core import fvn as fvn_lib
 from repro_torch.core import keys as keys_lib
+from repro_torch.core.aggregation import AGG_HYPER_DEFAULTS, get_aggregator
+from repro_torch.core.cohort import identity_cohort, make_cohort_fn, make_latency_fn
 from repro_torch.core.compression import (
     CompressionConfig,
     client_wire_bytes,
     code_domain_aggregate,
     code_domain_aggregate_ef,
+    make_compressor,
     tree_param_bytes,
 )
+from repro_torch.core.corruption import DELTA_KINDS, identity_corruption, make_corruption_fn
 from repro_torch.core.plan import FederatedPlan, make_server_optimizer
 from repro_torch.optim import Optimizer, apply_updates, sgd
 
@@ -47,28 +61,58 @@ class ServerState(NamedTuple):
     opt_state: object
     round_idx: int
     ef: Optional[dict] = None  # EF21 residuals, {name: (K, ...) fp32}, or None
+    # the stale adversary's cache (plan.corruption.kind == "stale"): each
+    # participant's last honest post-compression delta, {name: (K, ...)}
+    stale: Optional[dict] = None
+
+
+class ServerPlane(NamedTuple):
+    """The server side of a round: cohort -> compression -> corruption ->
+    aggregation, with the aggregator's name and the adversary's kind for
+    the fast-path selector."""
+
+    cohort: Callable  # (key, weight) -> (weight', pmask)
+    compress: Callable  # (deltas, ckeys) -> deltas
+    compression: CompressionConfig
+    aggregate: Callable  # (deltas, n_k, pmask, key) -> wbar
+    corrupt: Callable = identity_corruption  # (key, deltas, pmask, stale) -> (.., cmask, stale')
+    aggregator_name: str = "weighted_mean"
+    corruption_kind: str = "none"
+
+
+def _client_axis_zeros(params: dict, K: int) -> dict:
+    return {k: torch.zeros((K, *p.shape), dtype=torch.float32, device=p.device)
+            for k, p in params.items()}
 
 
 def init_server_state(plan: FederatedPlan, params: dict) -> ServerState:
     K = plan.clients_per_round
-    ef = None
-    if plan.compression.error_feedback:
-        ef = {k: torch.zeros((K, *p.shape), dtype=torch.float32, device=p.device)
-              for k, p in params.items()}
+    ef = _client_axis_zeros(params, K) if plan.compression.error_feedback else None
+    stale = _client_axis_zeros(params, K) if plan.corruption.kind == "stale" else None
     return ServerState(params=params, opt_state=make_server_optimizer(plan).init(params),
-                       round_idx=0, ef=ef)
+                       round_idx=0, ef=ef, stale=stale)
 
 
-def _code_fast_path(compression: CompressionConfig) -> bool:
-    """The reference's static selector (``repro/core/fedavg.py:189-206``):
-    a compressing plane under the weighted mean with no delta adversary.
-    The port runs only that aggregator and no adversary, so every
-    compressing plane takes it."""
-    return compression.kind in ("int8", "int4", "topk")
+def _code_fast_path(plane: ServerPlane) -> bool:
+    """The reference's selector (``repro/core/fedavg.py:189-206``): the
+    plane compresses, aggregates with the weighted mean, and no delta
+    adversary needs the per-client deltas the fast path never makes."""
+    return (plane.compression.kind in ("int8", "int4", "topk")
+            and plane.aggregator_name == "weighted_mean"
+            and plane.corruption_kind not in DELTA_KINDS)
+
+
+def _streamed_mean(plane: ServerPlane) -> bool:
+    """fp32 uplink, weighted mean, no delta adversary: each client's delta
+    folds into the mean as it is made (the reference's slow path computes
+    the same)."""
+    return (plane.compression.kind == "none" and plane.aggregator_name == "weighted_mean"
+            and plane.corruption_kind not in DELTA_KINDS)
 
 
 # Distinct fold_in tags keep the plane's streams apart (the reference's).
 _COHORT_TAG, _COMPRESS_TAG, _AGG_TAG, _CORRUPT_TAG = (0x636F68, 0x636D70, 0x616767, 0x626164)
+_LATENCY_TAG = 0x6C6174
 
 
 def _plane_keys(base_key: torch.Tensor, round_idx: int):
@@ -76,6 +120,37 @@ def _plane_keys(base_key: torch.Tensor, round_idx: int):
     rk = keys_lib.fold_in(base_key, round_idx)
     return tuple(keys_lib.fold_in(rk, tag)
                  for tag in (_COHORT_TAG, _COMPRESS_TAG, _AGG_TAG, _CORRUPT_TAG))
+
+
+def _latency_key(base_key: torch.Tensor, round_idx: int) -> torch.Tensor:
+    return keys_lib.fold_in(keys_lib.fold_in(base_key, round_idx), _LATENCY_TAG)
+
+
+def _plan_server_plane(plan: FederatedPlan) -> ServerPlane:
+    """The plan's server plane (the reference's ``_make_server_plane``
+    with the plan's knobs; the port has no traced-knob round step). A full
+    cohort draws nothing."""
+    cohort = plan.cohort
+    agg_fn = get_aggregator(plan.aggregation.name)
+    hypers = dict(AGG_HYPER_DEFAULTS, **plan.aggregation.hypers)
+    return ServerPlane(
+        cohort=identity_cohort if cohort.full else make_cohort_fn(
+            cohort.participation, cohort.straggler_frac, cohort.straggler_keep),
+        compress=make_compressor(plan.compression),
+        compression=plan.compression,
+        aggregate=lambda deltas, n_k, pmask, key: agg_fn(deltas, n_k, pmask, hypers, key),
+        corrupt=make_corruption_fn(plan.corruption.kind, plan.corruption.rate,
+                                   plan.corruption.scale),
+        aggregator_name=plan.aggregation.name,
+        corruption_kind=plan.corruption.kind,
+    )
+
+
+def _apply_cohort(plane: ServerPlane, ckey: torch.Tensor, round_batch: dict):
+    """The round batch with its example weights masked by the drawn
+    cohort, and the (K,) mask of reporting clients."""
+    weight, pmask = plane.cohort(ckey, round_batch["weight"])
+    return dict(round_batch, weight=weight), pmask
 
 
 def _client_key_fanout(compression: CompressionConfig, qkey: torch.Tensor, K: int):
@@ -174,41 +249,86 @@ def _wire_metrics(compression: CompressionConfig, params: dict, participants: in
     }
 
 
-def _fedavg_round_body(loss_fn, client_opt, server_opt, sigma, seed, state: ServerState,
-                       round_batch: dict, compression: CompressionConfig):
-    """One FedAvg round: client deltas -> (compressed, code-domain)
-    weighted mean -> server optimizer. The metrics carry the reference's
-    keys."""
-    K = round_batch["weight"].shape[0]
-    ef = state.ef
-    if _code_fast_path(compression):
-        _, qkey, _, _ = _plane_keys(keys_lib.PRNGKey(seed), state.round_idx)
-        ckeys = _client_key_fanout(compression, qkey, K)
-        deltas, losses, n_k = _stacked_client_deltas(
-            loss_fn, client_opt, sigma, seed, state.params, round_batch, state.round_idx)
-        pmask = torch.ones(K, dtype=torch.float32, device=n_k.device)
-        if compression.error_feedback:
-            wbar, ef = code_domain_aggregate_ef(compression, deltas, n_k, pmask, ckeys, ef)
-        else:
-            wbar = code_domain_aggregate(compression, deltas, n_k, pmask, ckeys)
+def _sim_time_s(latency_fn, base_key: torch.Tensor, round_idx: int, pmask: torch.Tensor,
+                K: int) -> float:
+    """A barrier round's simulated duration: its slowest participant's
+    arrival (0.0 with no latency model)."""
+    if latency_fn is None:
+        return 0.0
+    times = latency_fn(_latency_key(base_key, round_idx), K)
+    return float((times * pmask.cpu()).max())
+
+
+def _delta_payload_stage(plane: ServerPlane, deltas: dict, ef, pmask, ckeys, xkey, stale):
+    """The slow path's per-client payloads: (EF-)compression, then the
+    delta adversary (``repro/core/fedavg.py:526-561``). A client that does
+    not report keeps its residual. Returns (deltas', ef', cmask, stale')."""
+    if plane.compression.error_feedback:
+        target = {n: d + ef[n] for n, d in deltas.items()}
         del deltas
+        sent = plane.compress(target, ckeys)
+        sel = {n: (pmask > 0).reshape((-1,) + (1,) * (s.dim() - 1)) for n, s in sent.items()}
+        deltas = {n: torch.where(sel[n], s, 0.0) for n, s in sent.items()}
+        ef = {n: torch.where(sel[n], target[n] - s, ef[n]) for n, s in sent.items()}
+        del sent, target
+    elif plane.compression.kind != "none":
+        deltas = plane.compress(deltas, ckeys)
+    deltas, cmask, stale = plane.corrupt(xkey, deltas, pmask, stale)
+    return deltas, ef, cmask, stale
+
+
+def _server_stage(plane: ServerPlane, deltas: dict, n_k, pmask, ckeys, keys: tuple, ef,
+                  stale):
+    """Everything the slow path does after the clients: the payload stage,
+    then the aggregator. ``keys`` is the round's (aggregation, corruption)
+    key pair. Returns (wbar, ef', cmask, stale')."""
+    akey, xkey = keys
+    deltas, ef, cmask, stale = _delta_payload_stage(plane, deltas, ef, pmask, ckeys, xkey,
+                                                    stale)
+    return plane.aggregate(deltas, n_k, pmask, akey), ef, cmask, stale
+
+
+def _fedavg_round_body(loss_fn, client_opt, server_opt, sigma, seed, state: ServerState,
+                       round_batch: dict, plane: ServerPlane, latency_fn=None):
+    """One FedAvg round: client deltas -> cohort -> compression ->
+    corruption -> aggregator -> server optimizer. The metrics carry the
+    reference's keys."""
+    K = round_batch["weight"].shape[0]
+    base_key = keys_lib.PRNGKey(seed)
+    ckey, qkey, akey, xkey = _plane_keys(base_key, state.round_idx)
+    round_batch, pmask = _apply_cohort(plane, ckey, round_batch)
+    ckeys = _client_key_fanout(plane.compression, qkey, K)
+    ef, stale = state.ef, state.stale
+    cmask = torch.zeros_like(pmask)
+    args = (loss_fn, client_opt, sigma, seed, state.params, round_batch, state.round_idx)
+    if _streamed_mean(plane):
+        wbar, losses, n_k = _aggregate_client_updates(*args)
     else:
-        wbar, losses, n_k = _aggregate_client_updates(
-            loss_fn, client_opt, sigma, seed, state.params, round_batch, state.round_idx)
+        deltas, losses, n_k = _stacked_client_deltas(*args)
+        if not _code_fast_path(plane):
+            wbar, ef, cmask, stale = _server_stage(plane, deltas, n_k, pmask, ckeys,
+                                                   (akey, xkey), ef, stale)
+        elif plane.compression.error_feedback:
+            wbar, ef = code_domain_aggregate_ef(plane.compression, deltas, n_k, pmask, ckeys,
+                                                ef)
+        else:
+            wbar = code_domain_aggregate(plane.compression, deltas, n_k, pmask, ckeys)
+        del deltas
     updates, opt_state = server_opt.update(wbar, state.opt_state, state.params)
     params = apply_updates(state.params, updates)
     n = torch.clamp(n_k.sum(), min=1.0)
+    participants = int(pmask.sum())
     metrics = {
         "loss": float((losses * n_k).sum() / n),
         "examples": float(n_k.sum()),
         "delta_norm": math.sqrt(sum(float(x.square().sum()) for x in wbar.values())),
-        "corrupted": 0.0,
-        **_wire_metrics(compression, state.params, K, K),
-        "sim_time_s": 0.0,
+        "corrupted": float(cmask.sum()),
+        **_wire_metrics(plane.compression, state.params, participants, K),
+        "sim_time_s": _sim_time_s(latency_fn, base_key, state.round_idx, pmask, K),
         "server_steps": 1.0,
         "staleness_mean": 0.0,
     }
-    return ServerState(params, opt_state, state.round_idx + 1, ef), metrics
+    return ServerState(params, opt_state, state.round_idx + 1, ef, stale), metrics
 
 
 def make_round_step(loss_fn: Callable, plan: FederatedPlan, seed: int):
@@ -219,10 +339,12 @@ def make_round_step(loss_fn: Callable, plan: FederatedPlan, seed: int):
     n_k weighting)."""
     client_opt = sgd(plan.client_lr)
     server_opt = make_server_optimizer(plan)
+    plane = _plan_server_plane(plan)
+    latency_fn = make_latency_fn(plan.latency) if plan.latency.enabled else None
 
     def round_step(state: ServerState, round_batch: dict):
         sigma = fvn_lib.fvn_sigma(plan.fvn, state.round_idx) if plan.fvn.enabled else None
         return _fedavg_round_body(loss_fn, client_opt, server_opt, sigma, seed, state,
-                                  round_batch, plan.compression)
+                                  round_batch, plane, latency_fn)
 
     return round_step

@@ -1,27 +1,42 @@
-"""Threefry key words: the part of ``jax.random`` the compression plane uses.
+"""Threefry keys and draws: the part of ``jax.random`` the port uses.
 
-The reference derives every stochastic-rounding draw of the code-domain
-fast path from its round key with ``jax.random.fold_in`` alone
-(``repro/core/fedavg.py:213-224``, ``:414``;
-``repro/core/compression.py:366-370``). ``fold_in(key, d)`` is one
-threefry2x32 block of the key words over the counter words ``(0, d)``,
-whichever way ``jax_threefry_partitionable`` is set, so the port holds
-these keys bitwise to JAX's.
+The reference derives every draw of its server plane from its round key:
+``fold_in`` for the plane's streams and the clients' keys
+(``repro/core/fedavg.py:213-224``, ``:414``), ``split`` for the per-leaf
+keys of the compressor, the gaussian adversary and the DP noise and for
+the corruption mask's and the latency model's key pairs
+(``repro/core/compression.py:567``, ``corruption.py:133``, ``:212``,
+``aggregation.py:175``, ``cohort.py:88``), ``uniform`` for the cohort,
+corruption and tier masks, and ``normal`` for the gaussian adversary, the
+DP noise and the latency jitter.
 
 A key is its two 32-bit words as an int64 tensor of shape ``(..., 2)``
-(values in [0, 2**32)); leading axes fold many keys at once.
-``jax.random.split`` and ``normal`` are not here: only the slow path's
-compressor and FVN use them, and ``split`` changes with
-``jax_threefry_partitionable``.
+(values in [0, 2**32)); leading axes make many keys at once.
+
+``fold_in(key, d)`` is one threefry2x32 block over the counter words
+``(0, d)``, whichever way ``jax_threefry_partitionable`` is set. ``split``,
+``uniform`` and ``normal`` follow the non-partitionable threefry, the
+default of the jax that ``requirements.txt`` pins (``jax_threefry_
+partitionable=False``): ``split(key, n)`` is one block over the counters
+``iota(2n)`` halved, ``uniform`` is ``ref.threefry_uniform_ref`` scaled,
+and ``normal`` is ``sqrt(2) * erfinv(uniform(lo, 1))`` with ``lo`` the
+float32 after -1. ``split`` and ``uniform`` equal JAX's bit for bit.
+``normal`` takes PyTorch's ``erfinv``, which is not XLA's float32
+polynomial: the draws agree to about 2e-5 (a few ulps of draws up to
+about 5 in size), and only some of them bit for bit.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels.ref import threefry2x32_pair
+from repro_torch.kernels.ref import bits_to_uniform, threefry2x32_pair, threefry_random_bits_at
 
 _M32 = 0xFFFFFFFF
+# jax.random.normal's lower end: the float32 after -1 toward 0
+_NORMAL_LO = -(1.0 - 2.0 ** -24)
 
 
 def PRNGKey(seed: int) -> torch.Tensor:
@@ -38,6 +53,50 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     d = (torch.as_tensor(data, dtype=torch.int64, device=key.device)) & _M32
     o0, o1 = threefry2x32_pair(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)``: key (..., 2) -> keys (..., n, 2). One
+    threefry2x32 block per pair of counters (i, n + i) of ``iota(2n)``;
+    the first output words of all blocks, then the second ones, make the
+    2n words of the n keys in order."""
+    if n < 1:
+        raise ValueError(f"split makes at least one key, got n={n}")
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    o0, o1 = threefry2x32_pair(key[..., 0:1], key[..., 1:2], i, i + n)
+    return torch.cat([o0, o1], dim=-1).reshape(*key.shape[:-1], n, 2)
+
+
+def _bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """The 32-bit words of ``jax.random.bits(key, shape)`` (int64)."""
+    n = math.prod(shape)
+    kd = key.to(torch.int64)
+    pos = torch.arange(n, dtype=torch.int64, device=kd.device)
+    return threefry_random_bits_at(kd[..., 0:1], kd[..., 1:2], pos, n).reshape(
+        *key.shape[:-1], *shape)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: key
+    (..., 2) -> (..., *shape) float32 in [minval, maxval): the [0, 1)
+    draw times (maxval - minval) plus minval, rounded once to float32 as
+    the fused multiply-add XLA emits (the product of two float32 values
+    is exact in float64), then at least minval."""
+    f = bits_to_uniform(_bits(key, tuple(shape)))
+    if minval == 0.0 and maxval == 1.0:
+        return f
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    width = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
+    return torch.maximum(lo, (f.double() * width.double() + lo.double()).float())
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: key (..., 2) -> (...,
+    *shape) float32, sqrt(2) * erfinv of a uniform draw on [lo, 1) with
+    lo the float32 after -1 toward 0."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return torch.erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=torch.float32,
+                                          device=u.device)
 
 
 def key_data(key: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,14 @@
 """FederatedPlan — the experiment configuration of the paper's Alg. 1.
 
-The port of ``repro/core/plan.py`` with full participation, the
-example-weighted mean, no adversary, no latency model, and the
-``fedavg`` engine with an Adam or SGD server; the uplink may be
-compressed (``CompressionConfig``, the reference's own config), which
-under the weighted mean always takes the code-domain fast path. The
-reference's other nested server-plane configs are flattened here to the
-one field each that selects a plane; a plan that sets any of them off
-the parity plane raises ``NotImplementedError`` naming the ROADMAP item
-that ports it, so no setting is ever ignored.
+The port of ``repro/core/plan.py`` for the ``fedavg`` engine with an Adam
+or SGD server. The server plane's configs are the reference's own:
+``CohortConfig`` (partial participation, stragglers), ``CompressionConfig``
+(the uplink), ``AggregatorConfig`` (the aggregation rule and its knobs),
+``CorruptionConfig`` (the adversary) and ``LatencyConfig`` (simulated
+arrival times). A plan that asks for what the port does not run yet (the
+fedsgd or async engine, a momentum or yogi server, the data-plane
+``label_shuffle`` adversary) raises ``NotImplementedError`` naming the
+ROADMAP item that ports it, so no setting is ever ignored.
 """
 
 from __future__ import annotations
@@ -16,7 +16,25 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.core.aggregation import available_aggregators
+from repro_torch.core.cohort import LatencyConfig
 from repro_torch.core.compression import CompressionConfig
+from repro_torch.core.corruption import CorruptionConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortConfig:
+    """Cohort dynamics (``core/cohort.py``): the fraction of sampled
+    clients that report back and the straggler deadline model."""
+
+    participation: float = 1.0  # P(sampled client reports back)
+    straggler_frac: float = 0.0  # P(reporting client hits the deadline)
+    straggler_keep: float = 0.5  # fraction of local steps a straggler completes
+
+    @property
+    def full(self) -> bool:
+        """True iff the cohort is the paper's all-K-report assumption."""
+        return self.participation >= 1.0 and self.straggler_frac <= 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,16 +47,31 @@ class FVNConfig:
     ramp_rounds: int = 0  # 0 = constant std; >0 = linear 0 -> std
 
 
-# field -> (parity value, the ROADMAP item that ports the other values)
+@dataclasses.dataclass(frozen=True)
+class AggregatorConfig:
+    """Server aggregation (``core/aggregation.py``): the registered rule
+    that reduces the client deltas, and its knobs."""
+
+    name: str = "weighted_mean"
+    trim_frac: float = 0.1  # trimmed_mean: fraction trimmed per side
+    dp_clip: float = 1.0  # clipped_mean: per-client L2 clip norm
+    dp_sigma: float = 0.0  # clipped_mean: DP noise multiplier
+
+    @property
+    def hypers(self) -> dict:
+        """The knob dict the aggregation registry takes."""
+        return {"trim_frac": self.trim_frac, "dp_clip": self.dp_clip,
+                "dp_sigma": self.dp_sigma}
+
+
+# field -> (the values the port runs, the ROADMAP item that ports the others)
 _PARITY = {
-    "engine": ("fedavg", "M5 (fedsgd) / M7 (async)"),
+    "engine": (("fedavg",), "M5 (fedsgd) / M7 (async)"),
     "server_optimizer": (("adam", "sgd"), "M2 (momentum, yogi)"),
-    "participation": (1.0, "M6 (core/cohort.py)"),
-    "straggler_frac": (0.0, "M6 (core/cohort.py)"),
-    "aggregator": ("weighted_mean", "M6 (core/aggregation.py)"),
-    "corruption": ("none", "M6 (core/corruption.py)"),
-    "latency": (False, "M6 (core/cohort.py latency model)"),
 }
+_CONFIGS = {"cohort": CohortConfig, "compression": CompressionConfig,
+            "aggregation": AggregatorConfig, "corruption": CorruptionConfig,
+            "latency": LatencyConfig}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,30 +90,36 @@ class FederatedPlan:
     server_decay_rate: float = 0.9
     fvn: FVNConfig = dataclasses.field(default_factory=FVNConfig)
     engine: str = "fedavg"
-    # server plane: the uplink compression, then one field each standing
-    # for the reference's config of the same stage (CohortConfig,
-    # AggregatorConfig.name, CorruptionConfig.kind, LatencyConfig.enabled)
+    # server plane: cohort -> compression -> corruption -> aggregation
+    cohort: CohortConfig = dataclasses.field(default_factory=CohortConfig)
     compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
-    participation: float = 1.0
-    straggler_frac: float = 0.0
-    aggregator: str = "weighted_mean"
-    corruption: str = "none"
-    latency: bool = False
+    aggregation: AggregatorConfig = dataclasses.field(default_factory=AggregatorConfig)
+    corruption: CorruptionConfig = dataclasses.field(default_factory=CorruptionConfig)
+    # simulated arrival times: enabled prices a round in seconds too
+    latency: LatencyConfig = dataclasses.field(default_factory=LatencyConfig)
     # CFMQ constants (paper §4.3.1)
     alpha: float = 1.0
     param_bytes: int = 4  # bytes per parameter on the wire
 
     def __post_init__(self):
-        if not isinstance(self.compression, CompressionConfig):
-            raise TypeError(f"compression must be a CompressionConfig, got "
-                            f"{self.compression!r}")
-        for name, (parity, item) in _PARITY.items():
+        for name, cls in _CONFIGS.items():
+            if not isinstance(getattr(self, name), cls):
+                raise TypeError(f"{name} must be a {cls.__name__}, got "
+                                f"{getattr(self, name)!r}")
+        for name, (allowed, item) in _PARITY.items():
             value = getattr(self, name)
-            allowed = parity if isinstance(parity, tuple) else (parity,)
             if value not in allowed:
                 raise NotImplementedError(
-                    f"{name}={value!r} is off the FedAvg parity plane; the port runs "
-                    f"{name} in {allowed} until ROADMAP {item} is ported")
+                    f"{name}={value!r} is not ported; the port runs {name} in {allowed} "
+                    f"until ROADMAP {item} is ported")
+        if self.corruption.kind == "label_shuffle":
+            raise NotImplementedError(
+                "corruption kind 'label_shuffle' poisons the data plane (the sampler's "
+                "transcript shuffle), which is not ported; see ROADMAP §1 (M3's "
+                "data/synthetic.py)")
+        if self.aggregation.name not in available_aggregators():
+            raise ValueError(f"unknown aggregator {self.aggregation.name!r}; available: "
+                             f"{available_aggregators()}")
 
 
 def server_lr_schedule(plan: FederatedPlan):

@@ -1,16 +1,20 @@
-// Compression-plane kernels (K5-K8) for Hopper: the client side and the
-// top-k server side of the code-domain fast path.
+// Compression-plane kernels (K5-K9) for Hopper: the client side and the
+// top-k server side of the code-domain fast path, and the server side of
+// the slow path's packed wire (dequantize, top-k unpack).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/wire_pack.py:
 //   K5  :286 quantize_with_scale_keyed_pallas, :310 quantize_pack4_keyed_pallas
 //   K6  :170 quantize_with_scale_pallas, :204 quantize_pack4_pallas
 //       (their _nearest kernels included)
-//   K7  :66 nibble_pack_pallas, :90 nibble_unpack_pallas
+//   K7  :66 nibble_pack_pallas, :90 nibble_unpack_pallas, :112 dequantize_pallas
 //   K8  :441 topk_scatter_add_pallas (_topk_scatter_add_seg_kernel, :418)
+//   K9  :352 topk_unpack_pallas, :387 topk_unpack_segmented_pallas (one kernel)
 //
 // Every kernel takes a leading client axis: x (K, n) with blockIdx.y as the
 // client, so that one launch serves all K clients of a leaf (the TPU
-// version is vmapped, one client per call).
+// version is vmapped, one client per call). A scale is shared by the
+// clients (stride 0) or one per client (stride 1): client k reads
+// scale[k * stride].
 //
 // wire_quantize (K5 and K6, one template). Per element p of client k:
 //   y    = clip(x / s, -levels, levels)      IEEE division, clamp first
@@ -24,6 +28,17 @@
 // n pads the last high nibble with 0.
 //
 // nibble_pack / nibble_unpack (K7): one thread per byte.
+//
+// dequantize (K7): code * scale, one IEEE product per element and thread.
+//
+// topk_unpack (K9): the wrapper sorts each client's (value, index) payload
+// by index with a stable sort and finds each 2048-wide output segment's
+// slice of the row with searchsorted (K8's layout, one row per client).
+// One block per (segment, client) zeroes its window in shared memory; the
+// thread at the last entry of each run of equal indices stores that
+// entry's value, so the pair last in payload order wins, as in the TPU
+// kernels' serial walk; the block writes every element of its window
+// once. No atomics.
 //
 // topk_scatter_add (K8): the wrapper sorts the weighted (value, index)
 // pairs of all clients by index with a stable sort and finds each
@@ -44,9 +59,10 @@
 // and the bytes out. This kernel computes each element's block itself,
 // so it hashes every block twice (once per position it serves) and
 // throws one word away: twice the hash work the bound counts. Nearest and
-// streamed rounding, the nibble kernels and the scatter-add are bound by
-// bytes. Nothing here is tuned yet: one element (or byte) per thread, no
-// vector loads.
+// streamed rounding, the nibble kernels, dequantize, the scatter-add and
+// the top-k unpack are bound by bytes. Nothing here is tuned yet: one
+// element (or byte) per thread, no vector loads. The top-k unpack's
+// wrapper sorts each row; the kernel alone moves the bound's bytes once.
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes. Each
@@ -131,13 +147,14 @@ __device__ __forceinline__ int8_t pack_byte(int even, int odd) {
 template <int MODE, bool PACK4>
 __global__ void __launch_bounds__(kThreads)
     wire_quantize_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                         const float* __restrict__ u, const uint32_t* __restrict__ keys,
-                         int8_t* __restrict__ out, int n, float levels) {
+                         int scale_stride, const float* __restrict__ u,
+                         const uint32_t* __restrict__ keys, int8_t* __restrict__ out, int n,
+                         float levels) {
   const int k = blockIdx.y;
   const int n_out = PACK4 ? (n + 1) / 2 : n;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_out) return;
-  const float s = *scale;
+  const float s = scale[k * scale_stride];
   const float* x_row = x + static_cast<size_t>(k) * n;
   const float* u_row = MODE == kStreamed ? u + static_cast<size_t>(k) * n : nullptr;
   uint32_t k0 = 0, k1 = 0;
@@ -185,7 +202,46 @@ __global__ void __launch_bounds__(kThreads)
   if (2 * i + 1 < n) row[2 * i + 1] = static_cast<int8_t>((((b >> 4) & 0xF) ^ 8) - 8);
 }
 
+// codes (K, n) int8, scale[k * scale_stride] -> out (K, n) fp32
+__global__ void __launch_bounds__(kThreads)
+    dequantize_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scale,
+                      int scale_stride, float* __restrict__ out, int n) {
+  const int k = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t at = static_cast<size_t>(k) * n + i;
+  out[at] = __fmul_rn(static_cast<float>(codes[at]), scale[k * scale_stride]);
+}
+
 constexpr int kSeg = 2048;
+
+// values and idx (K, k), each row sorted by index (stable), bounds (K, nseg + 1)
+// the first entry of each segment of the row -> out (K, n) fp32
+__global__ void __launch_bounds__(kThreads)
+    topk_unpack_kernel(const float* __restrict__ values, const int* __restrict__ idx,
+                       const int* __restrict__ bounds, float* __restrict__ out, int k,
+                       int n) {
+  __shared__ float window[kSeg];
+  const int row = blockIdx.y;
+  const int nseg = gridDim.x;
+  const int base = blockIdx.x * kSeg;
+  const int width = min(kSeg, n - base);
+  for (int t = threadIdx.x; t < width; t += kThreads) window[t] = 0.0f;
+  __syncthreads();
+  const int* row_idx = idx + static_cast<size_t>(row) * k;
+  const float* row_val = values + static_cast<size_t>(row) * k;
+  const int start = bounds[row * (nseg + 1) + blockIdx.x];
+  const int end = bounds[row * (nseg + 1) + blockIdx.x + 1];
+  for (int j = start + threadIdx.x; j < end; j += kThreads) {
+    const int at = row_idx[j];
+    if (j + 1 < end && row_idx[j + 1] == at) continue;  // not the last of its run
+    const int off = at - base;
+    if (off >= 0 && off < width) window[off] = row_val[j];
+  }
+  __syncthreads();
+  float* row_out = out + static_cast<size_t>(row) * n + base;
+  for (int t = threadIdx.x; t < width; t += kThreads) row_out[t] = window[t];
+}
 
 // values and idx (m,) sorted by index (stable), bounds (nseg + 1,) the
 // first entry of each segment -> out (n,) fp32
@@ -212,33 +268,57 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int MODE, bool PACK4>
-void launch_quantize(const float* x, const float* scale, const float* u,
+void launch_quantize(const float* x, const float* scale, int scale_stride, const float* u,
                      const uint32_t* keys, int8_t* out, int K, int n, float levels,
                      cudaStream_t stream) {
   const int n_out = PACK4 ? (n + 1) / 2 : n;
   const dim3 grid((n_out + kThreads - 1) / kThreads, K);
-  wire_quantize_kernel<MODE, PACK4><<<grid, kThreads, 0, stream>>>(x, scale, u, keys, out, n,
-                                                                  levels);
+  wire_quantize_kernel<MODE, PACK4><<<grid, kThreads, 0, stream>>>(x, scale, scale_stride, u,
+                                                                  keys, out, n, levels);
 }
 
 }  // namespace
 
 extern "C" {
 
-// mode: 0 nearest, 1 streamed u, 2 keyed; pack4: 0 codes, 1 nibble bytes
-int wire_quantize(int mode, int pack4, const float* x, const float* scale, const float* u,
-                  const uint32_t* keys, int8_t* out, int K, int n, float levels,
-                  cudaStream_t stream) {
-  if (K <= 0 || n <= 0 || K > 65535) return static_cast<int>(cudaErrorInvalidValue);
+// mode: 0 nearest, 1 streamed u, 2 keyed; pack4: 0 codes, 1 nibble bytes;
+// scale_stride: 0 one scale for all clients, 1 one per client
+int wire_quantize(int mode, int pack4, const float* x, const float* scale, int scale_stride,
+                  const float* u, const uint32_t* keys, int8_t* out, int K, int n,
+                  float levels, cudaStream_t stream) {
+  if (K <= 0 || n <= 0 || K > 65535 || (scale_stride != 0 && scale_stride != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define WIRE_Q(M, P) \
+  launch_quantize<M, P>(x, scale, scale_stride, u, keys, out, K, n, levels, stream)
   switch (mode * 2 + (pack4 ? 1 : 0)) {
-    case 0: launch_quantize<kNearest, false>(x, scale, u, keys, out, K, n, levels, stream); break;
-    case 1: launch_quantize<kNearest, true>(x, scale, u, keys, out, K, n, levels, stream); break;
-    case 2: launch_quantize<kStreamed, false>(x, scale, u, keys, out, K, n, levels, stream); break;
-    case 3: launch_quantize<kStreamed, true>(x, scale, u, keys, out, K, n, levels, stream); break;
-    case 4: launch_quantize<kKeyed, false>(x, scale, u, keys, out, K, n, levels, stream); break;
-    case 5: launch_quantize<kKeyed, true>(x, scale, u, keys, out, K, n, levels, stream); break;
+    case 0: WIRE_Q(kNearest, false); break;
+    case 1: WIRE_Q(kNearest, true); break;
+    case 2: WIRE_Q(kStreamed, false); break;
+    case 3: WIRE_Q(kStreamed, true); break;
+    case 4: WIRE_Q(kKeyed, false); break;
+    case 5: WIRE_Q(kKeyed, true); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef WIRE_Q
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dequantize(const int8_t* codes, const float* scale, int scale_stride, float* out, int K,
+               int n, cudaStream_t stream) {
+  if (K <= 0 || n <= 0 || K > 65535 || (scale_stride != 0 && scale_stride != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kThreads - 1) / kThreads, K);
+  dequantize_kernel<<<grid, kThreads, 0, stream>>>(codes, scale, scale_stride, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// seg: the caller's segment width, which must be this kernel's window
+int topk_unpack(const float* values, const int* idx, const int* bounds, float* out, int K,
+                int k, int n, int seg, cudaStream_t stream) {
+  if (K <= 0 || K > 65535 || k <= 0 || n <= 0 || seg != kSeg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kSeg - 1) / kSeg, K);
+  topk_unpack_kernel<<<grid, kThreads, 0, stream>>>(values, idx, bounds, out, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,7 @@ kernels do. The joint's plain versions (K3/K4) work one chunk of U at a
 time, so on the CPU they never hold the (B, T, U1, V) logits, only
 (B, T, c, V).
 
-The compression plane's plain versions (K5-K8) take a leading client
+The compression plane's plain versions (K5-K9) take a leading client
 axis, (K, n), as the kernels do. The threefry hash is restated as int64
 operations masked to 32 bits, since PyTorch's unsigned 32-bit type has
 few operators; its words are held bitwise to ``jax.random``.
@@ -205,9 +205,9 @@ def rnnt_joint_bwd_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8
 
 
 # ----------------------------------------------------- compression plane
-# The counterparts of repro/kernels/ref.py:76-121 (nibble pack, quantize,
-# scatter-add) and :147-212 (the threefry2x32 hash behind the keyed
-# stochastic rounding). Integers are int64 tensors (or Python ints) that
+# The counterparts of repro/kernels/ref.py:76-131 and :204 (nibble pack,
+# dequantize, quantize, top-k unpack, scatter-add) and :147-201 (the
+# threefry2x32 hash behind the keyed stochastic rounding). Integers are int64 tensors (or Python ints) that
 # hold 32-bit words in [0, 2**32).
 
 _M32 = 0xFFFFFFFF
@@ -289,14 +289,22 @@ def nibble_unpack_ref(packed, n: int):
     return torch.stack([lo, hi], dim=-1).reshape(*b.shape[:-1], -1)[..., :n].to(torch.int8)
 
 
-def quantize_codes_with_scale_ref(x, scale, u, levels: float):
-    """Codes against a given scale: y = clip(x / scale, ±levels) (the
-    clamp before the draw), then floor(y) + [u < y - floor(y)] with the
-    uniforms u, or round half to even when ``u`` is None -> int8 codes
-    shaped like x. The scale becomes a tensor on x's device, so the
-    division is IEEE on the card too (PyTorch's CUDA division by a Python
-    number or a CPU scalar multiplies by its reciprocal)."""
+def _row_scale(scale, x):
+    """The scale as an fp32 tensor on x's device that broadcasts over x
+    (..., n): one value for every row, or (K,) one for each row of a
+    (K, n) x. A tensor, so that a division by it is IEEE on the card too
+    (PyTorch's CUDA division by a Python number or a CPU scalar multiplies
+    by its reciprocal)."""
     s = torch.as_tensor(scale, dtype=torch.float32).to(x.device)
+    return s[:, None] if s.dim() == 1 else s
+
+
+def quantize_codes_with_scale_ref(x, scale, u, levels: float):
+    """Codes against a given scale, one for all rows or (K,) one a row:
+    y = clip(x / scale, ±levels) (the clamp before the draw), then
+    floor(y) + [u < y - floor(y)] with the uniforms u, or round half to
+    even when ``u`` is None -> int8 codes shaped like x."""
+    s = _row_scale(scale, x)
     y = torch.clamp(x.float() / s, -levels, levels)
     if u is None:
         return torch.round(y).to(torch.int8)
@@ -305,8 +313,8 @@ def quantize_codes_with_scale_ref(x, scale, u, levels: float):
 
 
 def quantize_pack_ref(x, scale, u, bits: int):
-    """One intN wire buffer per row of x (..., n): the int8 codes, or for
-    int4 their nibble-packed bytes."""
+    """One intN wire buffer per row of x (..., n), against one scale or
+    one a row: the int8 codes, or for int4 their nibble-packed bytes."""
     levels = 2.0 ** (bits - 1) - 1.0
     codes = quantize_codes_with_scale_ref(x, scale, u, levels)
     return nibble_pack_ref(codes) if bits == 4 else codes
@@ -323,4 +331,32 @@ def topk_scatter_add_ref(values, idx, weights, n: int):
     vals = weights.float()[:, None] * values.float()
     for k in range(values.shape[0]):
         out.index_add_(0, idx[k].long(), vals[k])
+    return out
+
+
+def dequantize_ref(codes, scale):
+    """The uplink dequantization (``repro/kernels/ref.py:97``) over a
+    client axis: codes (K, n) int8 times the scale, one for all clients
+    or (K,) one each -> (K, n) fp32, one IEEE product an element."""
+    return codes.float() * _row_scale(scale, codes)
+
+
+def topk_unpack_ref(values, idx, n: int):
+    """The top-k payloads (``repro/kernels/ref.py:129``) over a client
+    axis: values (K, k) fp32 at flat indices idx (K, k) -> (K, n) fp32,
+    zero where no index points. Where a row names an index twice, the
+    pair last in payload order wins, as the TPU kernels' serial loop and
+    walk of the stably sorted payload do (``repro/kernels/wire_pack.py:
+    340-349``, ``:366-384``): the payload is sorted by index with a stable
+    sort and the last of each run of equal indices is written, each
+    element once. Indices outside [0, n) are dropped."""
+    K = values.shape[0]
+    si, order = torch.sort(idx.long(), dim=1, stable=True)
+    sv = torch.gather(values.float(), 1, order)
+    last = torch.ones_like(si, dtype=torch.bool)
+    last[:, :-1] = si[:, 1:] != si[:, :-1]
+    keep = last & (si >= 0) & (si < n)
+    rows = torch.arange(K, device=si.device)[:, None].expand_as(si)
+    out = torch.zeros((K, n), dtype=torch.float32, device=values.device)
+    out[rows[keep], si[keep]] = sv[keep]
     return out

@@ -1,20 +1,22 @@
-"""The compression plane's kernels (K5-K8): wrappers over a client axis.
+"""The compression plane's kernels (K5-K9): wrappers over a client axis.
 
 Replaces the Pallas TPU kernels of ``repro/kernels/wire_pack.py``: the
 keyed quantizers (K5, ``:286``, ``:310``), the streamed and nearest
-quantizers (K6, ``:170``, ``:204``), the int4 nibble pack and unpack (K7,
-``:66``, ``:90``) and the top-k scatter-add (K8, ``:441``), with the
-public wrappers of ``:491-611``. The kernels are CUDA C++ in
+quantizers (K6, ``:170``, ``:204``), the int4 nibble pack and unpack and
+the dequantization (K7, ``:66``, ``:90``, ``:112``), the top-k scatter-add
+(K8, ``:441``) and the top-k unpack (K9, ``:352`` and ``:387`` in one
+kernel), with the public wrappers of ``:491-611``. The kernels are CUDA C++ in
 ``csrc/wire_pack.cu`` (its header states what bounds them on the card),
 built by ``build.py`` and called through ctypes.
 
-Each wrapper takes a leading client axis: x (K, n), key words (K, 2), so
-that one launch serves all K clients of a leaf where the reference
-vmaps a one-client kernel. A wrapper takes the plain version
-(``ref.py``) only for tensors on the CPU; CUDA tensors get the kernel or
-an exception, and nothing falls back. ``QUANTIZE_LAUNCHES`` (K5 and K6,
+Each wrapper takes a leading client axis: x (K, n), key words (K, 2), a
+scale shared by the clients or one each (K,), so that one launch serves
+all K clients of a leaf where the reference vmaps a one-client kernel. A
+wrapper takes the plain version (``ref.py``) only for tensors on the CPU;
+CUDA tensors get the kernel or an exception, and nothing falls back. ``QUANTIZE_LAUNCHES`` (K5 and K6,
 one templated kernel), ``PACK_LAUNCHES``, ``UNPACK_LAUNCHES`` (K7) and
-``SCATTER_ADD_LAUNCHES`` (K8) count the launches, so that a run can show
+``DEQUANTIZE_LAUNCHES`` (K7), ``SCATTER_ADD_LAUNCHES`` (K8) and
+``TOPK_UNPACK_LAUNCHES`` (K9) count the launches, so that a run can show
 that its compression went through the kernels.
 """
 
@@ -31,9 +33,11 @@ QUANTIZE_LAUNCHES = 0
 PACK_LAUNCHES = 0
 UNPACK_LAUNCHES = 0
 SCATTER_ADD_LAUNCHES = 0
+DEQUANTIZE_LAUNCHES = 0
+TOPK_UNPACK_LAUNCHES = 0
 
 _NEAREST, _STREAMED, _KEYED = 0, 1, 2
-SEGMENT = 2048  # K8's output window per block (kSeg in csrc/wire_pack.cu)
+SEGMENT = 2048  # K8's and K9's output window per block (kSeg in csrc/wire_pack.cu)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -41,11 +45,14 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("wire_pack")
-    lib.wire_quantize.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P]
+    lib.wire_quantize.argtypes = [_I, _I, _P, _P, _I, _P, _P, _P, _I, _I, ctypes.c_float, _P]
     lib.nibble_pack.argtypes = [_P, _P, _I, _I, _P]
     lib.nibble_unpack.argtypes = [_P, _P, _I, _I, _P]
+    lib.dequantize.argtypes = [_P, _P, _I, _P, _I, _I, _P]
     lib.topk_scatter_add.argtypes = [_P, _P, _P, _P, _I, _I, _P]
-    for fn in (lib.wire_quantize, lib.nibble_pack, lib.nibble_unpack, lib.topk_scatter_add):
+    lib.topk_unpack.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    for fn in (lib.wire_quantize, lib.nibble_pack, lib.nibble_unpack, lib.dequantize,
+               lib.topk_scatter_add, lib.topk_unpack):
         fn.restype = _I
     return lib
 
@@ -83,12 +90,16 @@ def _check_rows(x: torch.Tensor, dtype: torch.dtype, what: str) -> tuple[int, in
     return K, n
 
 
-def _scale_tensor(scale, like: torch.Tensor) -> torch.Tensor:
+def _scale_tensor(scale, K: int, like: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The scale on like's device and its stride over the clients: one
+    value shared by the K clients (stride 0), or (K,) one each (stride 1)."""
     s = torch.as_tensor(scale, dtype=torch.float32, device=like.device)
-    if s.numel() != 1:
-        raise ValueError(f"the scale is one fp32 value shared by the clients, got "
-                         f"{tuple(s.shape)}")
-    return s.reshape(())
+    if s.dim() == 0 or tuple(s.shape) == (1,):
+        return s.reshape(()), 0
+    if tuple(s.shape) != (K,):
+        raise ValueError(f"the scale is one fp32 value shared by the clients or one for "
+                         f"each of the {K} clients, got {tuple(s.shape)}")
+    return s.contiguous(), 1
 
 
 def _key_words_u32(key_data: torch.Tensor, K: int, device) -> torch.Tensor:
@@ -109,13 +120,13 @@ def _quantize(x, scale, u, key_data, bits: int, pack4: bool):
     if u is not None and (u.shape != x.shape or u.dtype != torch.float32):
         raise ValueError(f"u must be fp32 of x's shape {tuple(x.shape)}")
     x = x.contiguous()
-    s = _scale_tensor(scale, x)
+    s, s_stride = _scale_tensor(scale, K, x)
     u = None if u is None else u.contiguous()
     keys = None if key_data is None else _key_words_u32(key_data, K, x.device)
     out = torch.empty((K, (n + 1) // 2 if pack4 else n), dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check_launch(
-        _lib().wire_quantize(mode, int(pack4), x.data_ptr(), s.data_ptr(),
+        _lib().wire_quantize(mode, int(pack4), x.data_ptr(), s.data_ptr(), s_stride,
                              None if u is None else u.data_ptr(),
                              None if keys is None else keys.data_ptr(), out.data_ptr(), K, n,
                              _levels(bits), stream),
@@ -126,7 +137,7 @@ def _quantize(x, scale, u, key_data, bits: int, pack4: bool):
 
 
 def quantize_with_scale(x, scale, u, bits: int):
-    """x (K, n) fp32, one scale for all clients, uniforms u (K, n) fp32
+    """x (K, n) fp32, one scale for all clients or (K,) one each, uniforms u (K, n) fp32
     (None: round to nearest, half to even) -> (K, n) int8 codes in
     [-levels, levels] (K6)."""
     if not _on_card(x, u):
@@ -235,4 +246,60 @@ def topk_scatter_add(values, idx, weights, n: int):
         "topk_scatter_add",
     )
     SCATTER_ADD_LAUNCHES += 1
+    return out
+
+
+def dequantize(codes, scale):
+    """codes (K, n) int8 times the scale, one for all clients or (K,) one
+    each -> (K, n) fp32 (K7)."""
+    global DEQUANTIZE_LAUNCHES
+    if not _on_card(codes):
+        return ref.dequantize_ref(codes, scale)
+    K, n = _check_rows(codes, torch.int8, "codes")
+    codes = codes.contiguous()
+    s, s_stride = _scale_tensor(scale, K, codes)
+    out = torch.empty((K, n), dtype=torch.float32, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    build.check_launch(_lib().dequantize(codes.data_ptr(), s.data_ptr(), s_stride,
+                                         out.data_ptr(), K, n, stream), "dequantize")
+    DEQUANTIZE_LAUNCHES += 1
+    return out
+
+
+def unpack_segments(values, idx, n: int):
+    """K9's inputs: each client's payload sorted by index with a stable
+    sort (pairs that name one index keep their payload order), and the
+    first entry of each ``SEGMENT``-wide output window of each row by
+    searchsorted. Returns (sorted values (K, k) fp32, sorted indices
+    (K, k) int32, bounds (K, nseg + 1) int32)."""
+    si, order = torch.sort(idx.to(torch.int32), dim=1, stable=True)
+    nseg = (n + SEGMENT - 1) // SEGMENT
+    starts = torch.arange(nseg + 1, dtype=torch.int32, device=si.device) * SEGMENT
+    bounds = torch.searchsorted(si, starts.expand(si.shape[0], -1).contiguous(),
+                                out_int32=True)
+    return torch.gather(values.float(), 1, order).contiguous(), si.contiguous(), bounds
+
+
+def topk_unpack(values, idx, n: int):
+    """Top-k payloads -> dense rows: values (K, k) fp32 at flat indices idx
+    (K, k) -> (K, n) fp32, zero elsewhere; of pairs in a row that name one
+    index, the last in payload order wins; indices outside [0, n) are
+    dropped (K9)."""
+    global TOPK_UNPACK_LAUNCHES
+    if not _on_card(values, idx):
+        return ref.topk_unpack_ref(values, idx, n)
+    K, k = _check_rows(values, torch.float32, "values")
+    if idx.shape != values.shape:
+        raise ValueError(f"idx must be {tuple(values.shape)}, got {tuple(idx.shape)}")
+    if n <= 0 or n >= 2**31 - SEGMENT:
+        raise ValueError(f"n={n} is outside the kernel's range")
+    sv, si, bounds = unpack_segments(values, idx, n)
+    out = torch.empty((K, n), dtype=torch.float32, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    build.check_launch(
+        _lib().topk_unpack(sv.data_ptr(), si.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+                           K, k, n, SEGMENT, stream),
+        "topk_unpack",
+    )
+    TOPK_UNPACK_LAUNCHES += 1
     return out

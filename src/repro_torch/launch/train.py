@@ -12,13 +12,22 @@ Usage:
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
         --compression int4 --packed-wire --error-feedback
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
+        --aggregator trimmed_mean --corrupt-kind sign_flip --corrupt-rate 0.25 \\
+        --participation 0.75 --compression int4 --packed-wire
 
 The history is a summary row of ``core/metrics.py``'s schema (WER as
 ``quality``/``quality_hard``), with the per-round curves as extras. A
 task whose config has ``use_kernel=True`` runs its joint through the
 fused joint kernels. With ``--compression {int8,int4,topk}`` the uplink
-is compressed and aggregated in the code domain, and CFMQ prices the
-measured wire bytes.
+is compressed (aggregated in the code domain under the weighted mean),
+and CFMQ prices the measured wire bytes. The server plane's flags are the
+reference's (``repro/launch/cli.py:83-125``): the cohort
+(``--participation``, ``--straggler-frac``, ``--straggler-keep``), the
+aggregator (``--aggregator``, ``--trim-frac``, ``--dp-clip``,
+``--dp-sigma``), the adversary (``--corrupt-kind``, ``--corrupt-rate``,
+``--corrupt-scale``) and the latency model (``--latency``,
+``--latency-base-s``, ``--latency-spread``).
 """
 
 from __future__ import annotations
@@ -32,10 +41,13 @@ import torch
 
 from repro_torch.configs import rnnt_librispeech
 from repro_torch.core.cfmq import cfmq, measured_payload, plan_wire_accounting, round_wire_bytes
+from repro_torch.core.aggregation import available_aggregators
+from repro_torch.core.cohort import LatencyConfig
 from repro_torch.core.compression import KINDS, CompressionConfig
+from repro_torch.core.corruption import CorruptionConfig, available_corruptions
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.metrics import empty_spread, summary_row
-from repro_torch.core.plan import FederatedPlan, FVNConfig
+from repro_torch.core.plan import AggregatorConfig, CohortConfig, FederatedPlan, FVNConfig
 from repro_torch.core.task import FederatedTask, get_task
 from repro_torch.data import FederatedSampler, available_strategies
 
@@ -159,6 +171,15 @@ def build_plan(args) -> FederatedPlan:
         compression=CompressionConfig(kind=args.compression, topk_frac=args.topk_frac,
                                       packed=args.packed_wire,
                                       error_feedback=args.error_feedback),
+        cohort=CohortConfig(participation=args.participation,
+                            straggler_frac=args.straggler_frac,
+                            straggler_keep=args.straggler_keep),
+        aggregation=AggregatorConfig(name=args.aggregator, trim_frac=args.trim_frac,
+                                     dp_clip=args.dp_clip, dp_sigma=args.dp_sigma),
+        corruption=CorruptionConfig(kind=args.corrupt_kind, rate=args.corrupt_rate,
+                                    scale=args.corrupt_scale),
+        latency=LatencyConfig(enabled=args.latency, base_s=args.latency_base_s,
+                              spread=args.latency_spread),
     )
 
 
@@ -182,9 +203,38 @@ def parse_args(argv=None) -> argparse.Namespace:
                       help="uplink delta compression (exact wire bytes in CFMQ)")
     comp.add_argument("--topk-frac", type=float, default=0.05)
     comp.add_argument("--packed-wire", action="store_true",
-                      help="the int4 codes travel nibble-packed (same numbers)")
+                      help="materialize and unpack the wire payload (same numbers)")
     comp.add_argument("--error-feedback", action="store_true",
                       help="EF21 per-client residual accumulation (same wire bytes)")
+    coh = ap.add_argument_group("cohort dynamics")
+    coh.add_argument("--participation", type=float, default=1.0,
+                     help="P(sampled client reports back)")
+    coh.add_argument("--straggler-frac", type=float, default=0.0)
+    coh.add_argument("--straggler-keep", type=float, default=0.5,
+                     help="fraction of local steps a straggler completes")
+    agg = ap.add_argument_group("aggregation")
+    agg.add_argument("--aggregator", default="weighted_mean", choices=available_aggregators())
+    agg.add_argument("--trim-frac", type=float, default=0.1,
+                     help="trimmed_mean: fraction trimmed per side")
+    agg.add_argument("--dp-clip", type=float, default=1.0,
+                     help="clipped_mean: per-client L2 clip norm")
+    agg.add_argument("--dp-sigma", type=float, default=0.0,
+                     help="clipped_mean: DP Gaussian noise multiplier")
+    cor = ap.add_argument_group("corruption")
+    cor.add_argument("--corrupt-kind", default="none",
+                     choices=["none", "label_shuffle"] + available_corruptions(),
+                     help="adversary: a delta corruption (label_shuffle is not ported)")
+    cor.add_argument("--corrupt-rate", type=float, default=0.0,
+                     help="P(participating client is corrupted) per round")
+    cor.add_argument("--corrupt-scale", type=float, default=1.0,
+                     help="adversary magnitude (sign_flip/gaussian/stale)")
+    lat = ap.add_argument_group("latency")
+    lat.add_argument("--latency", action="store_true",
+                     help="price rounds in simulated seconds too (sim_time_s)")
+    lat.add_argument("--latency-base-s", type=float, default=60.0,
+                     help="device-tier latency model: base upload seconds")
+    lat.add_argument("--latency-spread", type=float, default=0.25,
+                     help="device-tier latency model: lognormal jitter std")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--eval-every", type=int, default=10,

@@ -258,3 +258,66 @@ def test_codes_layer_is_jax_bitwise(bits, stochastic):
     np.testing.assert_array_equal(tcomp.dequantize_codes(codes, scale).numpy(),
                                   np.asarray(jcomp.dequantize_codes(jcodes, jscale)))
     assert float(tcomp.leaf_scale(torch.zeros(3), bits)) == 1.0
+
+
+# ----------------------------------------------------------------- slow path
+
+
+@pytest.fixture
+def non_partitionable():
+    """jax.random with the non-partitionable threefry (the pinned jax's
+    default), restored after the test: the compressor splits its client
+    keys over the leaves."""
+    before = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_threefry_partitionable", before)
+
+
+COMPRESSORS = [dict(kind=kind, packed=packed, stochastic=stochastic, topk_frac=0.25)
+               for kind in ("int8", "int4", "topk") for packed in (False, True)
+               for stochastic in (True, False) if kind != "topk" or stochastic]
+
+
+@pytest.mark.parametrize("kw", COMPRESSORS,
+                         ids=lambda kw: f"{kw['kind']}-{'packed' if kw['packed'] else 'graph'}"
+                                        f"-{'stochastic' if kw['stochastic'] else 'nearest'}")
+def test_make_compressor_is_jax_bitwise(non_partitionable, kw):
+    """Every client's dequantized delta, each against its own scale and
+    rounding keys split over the leaves in JAX's tree order, equals JAX's
+    eager vmapped compressor bit for bit; packed and unpacked give the
+    same bits, as the reference promises."""
+    jcfg, tcfg = _pair(**kw)
+    jx, tx = _round_inputs(5)
+    want = jax.vmap(jcomp.make_compressor(jcfg))(jx["deltas"], jx["ckeys"])
+    got = tcomp.make_compressor(tcfg)(tx["deltas"], tx["ckeys"])
+    assert list(got) == list(tx["deltas"])
+    _bitwise(got, want)
+    other = tcomp.make_compressor(dataclasses.replace(tcfg, packed=not tcfg.packed))
+    for name, v in other(tx["deltas"], tx["ckeys"]).items():
+        assert torch.equal(v, got[name]), name
+
+
+def test_the_uncompressed_compressor_is_the_identity():
+    _, tx = _round_inputs(6)
+    assert tcomp.make_compressor(tcomp.CompressionConfig())(tx["deltas"], None) is tx["deltas"]
+
+
+@pytest.mark.parametrize("kind,frac", [("int8", 0.05), ("int4", 0.05), ("topk", 0.05),
+                                       ("topk", 1e-6), ("topk", 1.0)])
+@pytest.mark.parametrize("n", [1, 2, 7, 65, 4097])
+def test_packed_leaf_bytes_are_the_wire_formula(kind, frac, n):
+    """The materialized payload of one client holds exactly the bytes the
+    formula prices: odd n, n = 1 and a top-k fraction below one element."""
+    cfg = tcomp.CompressionConfig(kind=kind, topk_frac=frac, packed=True)
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((K, n)).astype(np.float32))
+    ckeys = keys.fold_in(keys.PRNGKey(1), torch.arange(K))
+    payload = tcomp.pack_leaf(cfg, x, ckeys)
+    assert all(a.shape[0] == K for a in payload)
+    assert tcomp.packed_leaf_bytes(payload) == tcomp.leaf_wire_bytes(cfg, n)
+    assert tcomp.leaf_wire_bytes(cfg, n) == jcomp.leaf_wire_bytes(
+        jcomp.CompressionConfig(kind=kind, topk_frac=frac, packed=True), n)
+    back = tcomp.unpack_leaf(cfg, payload, x.shape)
+    assert back.shape == x.shape and back.dtype == torch.float32

@@ -1,7 +1,10 @@
 """The port's FedAvg round with a compressed uplink (the code-domain fast
 path) against the JAX engine: two rounds at the tiny asr-rnnt config
-(K=3, S=2, b=2) under int4 packed stochastic rounding and under top-k
-0.25 with error feedback, FVN and SpecAugment off, a server SGD at lr 1.
+(K=3, S=2, b=2) under int4 packed stochastic rounding (with every client
+reporting, and with participation 0.75) and under top-k 0.25 with error
+feedback, FVN and SpecAugment off, a server SGD at lr 1. The JAX rounds
+run with the non-partitionable threefry (the pinned jax's default), as
+the cohort's draws need.
 Each port round starts from the JAX round's starting state (parameters
 and EF residuals) on the same batch and base key, its dicts in the
 model's own order (``named_parameters``, as ``run_federated`` has them),
@@ -25,7 +28,9 @@ import torch
 from repro.asr.specaugment import SpecAugmentConfig as JaxSpecAug
 from repro.core import FederatedPlan as JaxPlan
 from repro.core import build_round_engine as jax_engine
+from repro.core import fedavg as jfedavg
 from repro.core.compression import CompressionConfig as JaxCompression
+from repro.core.plan import CohortConfig as JaxCohort
 from repro.core.task import default_corpus as jax_default_corpus
 from repro.core.task import task_for_config
 from repro.data import FederatedSampler as JaxSampler
@@ -34,7 +39,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import compression as tcomp
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.engine import build_round_engine
-from repro_torch.core.plan import FederatedPlan
+from repro_torch.core.plan import CohortConfig, FederatedPlan
 from repro_torch.core.task import FederatedTask, default_corpus, get_task
 
 K, B, LIMIT, CLIENT_LR = 3, 2, 4, 0.05   # data limit 4 at b = 2: S = 2 local steps
@@ -43,9 +48,10 @@ PARAM_ATOL = 1e-5  # server params / aggregated deltas after two local steps
 FLIP_SHARE = 1e-3  # elements whose code or top-k choice may flip
 PLAN = dict(clients_per_round=K, local_batch_size=B, data_limit=LIMIT, client_lr=CLIENT_LR,
             server_optimizer="sgd", server_lr=1.0)
-PLANES = {
-    "int4_packed": dict(kind="int4", packed=True),
-    "topk25_ef": dict(kind="topk", topk_frac=0.25, error_feedback=True),
+PLANES = {  # (compression, cohort)
+    "int4_packed": (dict(kind="int4", packed=True), dict()),
+    "int4_packed_p75": (dict(kind="int4", packed=True), dict(participation=0.75)),
+    "topk25_ef": (dict(kind="topk", topk_frac=0.25, error_feedback=True), dict()),
 }
 
 
@@ -61,33 +67,44 @@ def _tiny_configs():
 def reference(request):
     """Two jitted JAX rounds of one plane, with each round's starting
     state, metrics and result. One compiled engine per plane."""
-    comp = PLANES[request.param]
+    comp, coh = PLANES[request.param]
     tcfg, jcfg = _tiny_configs()
-    plan = JaxPlan(**PLAN, compression=JaxCompression(**comp))
-    engine = jax_engine(plan, task_for_config(jcfg, name="asr-rnnt"),
-                        base_key=jax.random.PRNGKey(1))
-    step = jax.jit(engine.step)
-    params0 = jax.tree.map(np.asarray, jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
-    sampler = JaxSampler(jax_default_corpus(0), clients_per_round=K, local_batch_size=B,
-                         data_limit=LIMIT, seed=0)
-    state = engine.init_state(params0)
-    rounds = []
-    for r in range(2):
-        batch = sampler.next_round().engine_batch()
-        start = state
-        state, metrics = step(state, jax.tree.map(jnp.asarray, batch))
-        rounds.append({
-            "batch": batch,
-            "params": params_from_jax(jax.tree.map(np.asarray, start.params)),
-            "ef": None if start.ef is None else params_from_jax(jax.tree.map(np.asarray,
-                                                                             start.ef)),
-            "metrics": {k: float(v) for k, v in metrics.items()},
-            "after": params_from_jax(jax.tree.map(np.asarray, state.params)),
-            "ef_after": None if state.ef is None else params_from_jax(
-                jax.tree.map(np.asarray, state.ef)),
-        })
+    plan = JaxPlan(**PLAN, compression=JaxCompression(**comp), cohort=JaxCohort(**coh))
+    before = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", False)
+    try:
+        base_key = jax.random.PRNGKey(1)
+        engine = jax_engine(plan, task_for_config(jcfg, name="asr-rnnt"), base_key=base_key)
+        jplane = jfedavg._plan_server_plane(plan)
+        step = jax.jit(engine.step)
+        params0 = jax.tree.map(np.asarray, jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
+        sampler = JaxSampler(jax_default_corpus(0), clients_per_round=K, local_batch_size=B,
+                             data_limit=LIMIT, seed=0)
+        state = engine.init_state(params0)
+        rounds = []
+        for r in range(2):
+            batch = sampler.next_round().engine_batch()
+            start = state
+            state, metrics = step(state, jax.tree.map(jnp.asarray, batch))
+            _, pmask = jfedavg._apply_cohort(jplane, jfedavg._plane_keys(base_key, r)[0],
+                                             jax.tree.map(jnp.asarray, batch))
+            rounds.append({
+                "batch": batch, "pmask": torch.tensor(np.asarray(pmask)),
+                "params": params_from_jax(jax.tree.map(np.asarray, start.params)),
+                "ef": None if start.ef is None else params_from_jax(jax.tree.map(np.asarray,
+                                                                                 start.ef)),
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "after": params_from_jax(jax.tree.map(np.asarray, state.params)),
+                "ef_after": None if state.ef is None else params_from_jax(
+                    jax.tree.map(np.asarray, state.ef)),
+            })
+    finally:
+        jax.config.update("jax_threefry_partitionable", before)
+    if coh:  # the drawn cohort drops a client in one of the rounds
+        assert min(r["metrics"]["participants"] for r in rounds) < K
     task = FederatedTask("asr-rnnt", tcfg, default_corpus)
-    return {"name": request.param, "comp": comp, "task": task, "rounds": rounds}
+    return {"name": request.param, "comp": comp, "cohort": coh, "task": task,
+            "rounds": rounds}
 
 
 def _held(got: torch.Tensor, want: torch.Tensor, step, what: str) -> int:
@@ -109,7 +126,8 @@ def test_compressed_rounds_match_jax(reference, monkeypatch):
     real_scale = tcomp.shared_leaf_scale
     monkeypatch.setattr(tcomp, "shared_leaf_scale",
                         lambda *a: scales.append(real_scale(*a)) or scales[-1])
-    plan = FederatedPlan(**PLAN, compression=CompressionConfig(**comp))
+    plan = FederatedPlan(**PLAN, compression=CompressionConfig(**comp),
+                         cohort=CohortConfig(**reference["cohort"]))
     engine = build_round_engine(plan, task, seed=1)
     for r, want in enumerate(reference["rounds"]):
         params = _model_order(task, want["params"])
@@ -131,10 +149,10 @@ def test_compressed_rounds_match_jax(reference, monkeypatch):
                   "sim_time_s", "server_steps", "staleness_mean"):
             assert metrics[k] == jm[k], k
         up = tcomp.client_wire_bytes(plan.compression, start.params)
-        assert metrics["uplink_bytes"] == K * up < K * 4 * sum(p.numel() for p in
-                                                               start.params.values())
+        assert metrics["uplink_bytes"] == metrics["participants"] * up < K * 4 * sum(
+            p.numel() for p in start.params.values())
 
-        n_k = batch["weight"].reshape(K, -1).sum(dim=1)
+        n_k = batch["weight"].reshape(K, -1).sum(dim=1) * want["pmask"]  # the cohort's
         steps = {}
         if scales:  # intN: one shared scale per leaf, in the reference's leaf order
             for name, s in zip(tcomp.jax_leaf_order(start.params), scales):

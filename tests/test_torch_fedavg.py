@@ -175,3 +175,26 @@ def test_cfmq_and_wire_accounting_match_jax_exactly(reference):
     up_t, down_t = tcfmq.plan_wire_accounting(plan_t, reference["params0"])
     assert (up_t, down_t) == (up_j, down_j)
     assert isinstance(up_t, int) and isinstance(down_t, int)
+
+
+@pytest.mark.parametrize("participation", [1.0, 0.75])
+@pytest.mark.parametrize("kind", ["none", "int4"])
+def test_measured_payload_prices_a_partial_fp32_cohort(reference, participation, kind):
+    """The paper's payload formula holds only for an fp32 uplink under full
+    participation; an fp32 plan that drops clients is priced by its
+    measured bytes, as ``repro/core/cfmq.py:121`` does."""
+    from repro.core.cfmq import measured_payload as jax_measured_payload
+    from repro.core.compression import CompressionConfig as JaxCompression
+    from repro.core.plan import CohortConfig as JaxCohort
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.plan import CohortConfig
+
+    plan_j = JaxPlan(**PLAN, compression=JaxCompression(kind=kind),
+                     cohort=JaxCohort(participation=participation))
+    plan_t = FederatedPlan(**PLAN, compression=CompressionConfig(kind=kind),
+                           cohort=CohortConfig(participation=participation))
+    mean_participants = K * participation
+    want = jax_measured_payload(plan_j, reference["jax_params0"], mean_participants)
+    got = tcfmq.measured_payload(plan_t, reference["params0"], mean_participants)
+    assert got == want
+    assert (got is None) == (kind == "none" and participation == 1.0)

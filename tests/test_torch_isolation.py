@@ -23,7 +23,8 @@ def test_the_port_has_files_to_check():
 
 
 @pytest.mark.parametrize("module", ["core/keys.py", "kernels/wire_pack.py",
-                                    "core/compression.py"])
+                                    "core/compression.py", "core/cohort.py",
+                                    "core/aggregation.py", "core/corruption.py"])
 def test_the_compression_plane_is_walked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 

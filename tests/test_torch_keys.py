@@ -111,3 +111,66 @@ def test_threefry_uniform_is_jax_random_uniform(non_partitionable, n):
         tkey = keys.fold_in(keys.PRNGKey(seed), data)
         got = ref.threefry_uniform_ref(tkey, n).numpy()
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# split, uniform and normal follow the non-partitionable threefry: each
+# test below sets the flag through the ``non_partitionable`` fixture.
+NORMAL_RTOL = NORMAL_ATOL = 1e-5  # PyTorch's erfinv is not XLA's float32 polynomial
+
+
+def _jax_key(seed, data):
+    return jax.random.fold_in(jax.random.PRNGKey(seed), data)
+
+
+def _port_key(seed, data):
+    return keys.fold_in(keys.PRNGKey(seed), data)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 35])
+def test_split_is_jax_split_bitwise(non_partitionable, n):
+    for seed, data in ((0, 0), (42, 2**31 + 3), (7, 0x616767)):
+        want = _jax_words(jax.random.split(_jax_key(seed, data), n))
+        assert keys.split(_port_key(seed, data), n).tolist() == want
+    # many keys at once: the clients' keys (K, 2) -> (K, n, 2)
+    ckeys = keys.fold_in(_port_key(1, 2), torch.arange(4))
+    many = keys.split(ckeys, n)
+    assert many.shape == (4, n, 2)
+    for k in range(4):
+        want = jax.random.split(jax.random.fold_in(_jax_key(1, 2), k), n)
+        assert many[k].tolist() == _jax_words(want)
+
+
+def test_split_depends_on_the_partitionable_flag(non_partitionable):
+    """The guard: jax's other threefry gives other keys, so a test that
+    forgot the flag would see it."""
+    ours = keys.split(_port_key(3, 4), 3).tolist()
+    assert ours == _jax_words(jax.random.split(_jax_key(3, 4), 3))
+    jax.config.update("jax_threefry_partitionable", True)
+    assert ours != _jax_words(jax.random.split(_jax_key(3, 4), 3))
+
+
+@pytest.mark.parametrize("shape", [(1,), (4,), (3, 5), (2, 65, 3)])
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (-2.5, 3.0), (keys._NORMAL_LO, 1.0)])
+def test_uniform_is_jax_uniform_bitwise(non_partitionable, shape, bounds):
+    lo, hi = bounds
+    want = np.asarray(jax.random.uniform(_jax_key(5, 6), shape, minval=lo, maxval=hi))
+    got = keys.uniform(_port_key(5, 6), shape, lo, hi)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_uniform_takes_many_keys(non_partitionable):
+    ckeys = keys.fold_in(_port_key(8, 9), torch.arange(3))
+    got = keys.uniform(ckeys, (5,))
+    for k in range(3):
+        want = np.asarray(jax.random.uniform(jax.random.fold_in(_jax_key(8, 9), k), (5,)))
+        np.testing.assert_array_equal(got[k].numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(1,), (4,), (5,), (64, 513)])
+def test_normal_is_jax_normal_within_tolerance(non_partitionable, shape):
+    for seed, data in ((0, 1), (42, 2**31 + 3)):
+        want = np.asarray(jax.random.normal(_jax_key(seed, data), shape))
+        got = keys.normal(_port_key(seed, data), shape)
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=NORMAL_RTOL, atol=NORMAL_ATOL)

@@ -1,7 +1,8 @@
 """The port's training driver: a tiny CPU run end to end, its summary
 row (the JAX package's schema, WER as the quality), evaluation during
 and after training, no quiet CPU fallback, and no plan setting off the
-parity plane that runs anyway."""
+parity plane that runs anyway: what is not ported raises, the server
+plane's settings build and run."""
 
 import dataclasses
 import json
@@ -15,9 +16,11 @@ from repro.core.compression import CompressionConfig as JaxCompression
 from repro.core.compression import client_wire_bytes as jax_client_wire_bytes
 from repro.core.metrics import SUMMARY_KEYS as JAX_SUMMARY_KEYS
 from repro.models import rnnt as jrnnt
+from repro_torch.core.cohort import LatencyConfig
 from repro_torch.core.compression import CompressionConfig
+from repro_torch.core.corruption import CorruptionConfig
 from repro_torch.core.metrics import SUMMARY_KEYS
-from repro_torch.core.plan import FederatedPlan
+from repro_torch.core.plan import AggregatorConfig, CohortConfig, FederatedPlan
 from repro_torch.core.task import get_task
 from repro_torch.launch import train
 
@@ -92,19 +95,92 @@ def test_history_is_a_summary_row_with_wer():
 
 @pytest.mark.parametrize("setting", [
     {"server_optimizer": "momentum"},
-    {"participation": 0.5},
-    {"straggler_frac": 0.1},
-    {"aggregator": "trimmed_mean"},
-    {"corruption": "sign_flip"},
-    {"corruption": "label_shuffle"},
-    {"latency": True},
+    {"corruption": CorruptionConfig(kind="label_shuffle", rate=0.5)},
     {"engine": "async"},
     {"engine": "fedsgd"},
     {"server_optimizer": "yogi"},
 ])
 def test_every_non_parity_plan_setting_raises(setting):
+    """What the port does not run yet raises, naming the ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FederatedPlan(**setting)
+
+
+@pytest.mark.parametrize("setting", [
+    {"cohort": CohortConfig(participation=0.5)},
+    {"cohort": CohortConfig(straggler_frac=0.5, straggler_keep=0.5)},
+    {"aggregation": AggregatorConfig(name="trimmed_mean", trim_frac=0.25)},
+    {"corruption": CorruptionConfig(kind="sign_flip", rate=0.5, scale=3.0)},
+    {"latency": LatencyConfig(enabled=True)},
+], ids=["participation", "stragglers", "trimmed_mean", "sign_flip", "latency"])
+def test_a_server_plane_setting_builds_and_runs(setting):
+    """The server plane's settings are ported: the plan builds and a tiny
+    round runs on the CPU with finite losses and the plane's metrics."""
+    task = get_task("asr-rnnt")
+    plan = FederatedPlan(clients_per_round=4, local_batch_size=2, data_limit=2, **setting)
+    _, hist = train.run_federated(task, task.make_corpus(0), plan, rounds=1, device="cpu",
+                                  eval_examples=0, log=lambda *_: None)
+    assert all(math.isfinite(x) for x in hist["loss"])
+    assert 1.0 <= hist["participants_mean"] <= 4.0
+    assert (hist["sim_time_s"] > 0) == plan.latency.enabled
+    assert hist["corrupted_total"] <= hist["participants_mean"]
+
+
+def test_the_plane_configs_are_configs():
+    for name in ("cohort", "aggregation", "corruption", "latency"):
+        with pytest.raises(TypeError, match=name):
+            FederatedPlan(**{name: "x"})
+    with pytest.raises(ValueError, match="unknown aggregator"):
+        FederatedPlan(aggregation=AggregatorConfig(name="mean"))
+
+
+def test_server_plane_flags_build_the_plan():
+    """The reference's flags (``repro/launch/cli.py:83-125``) build the
+    nested configs, and their defaults are the paper's plane."""
+    args = train.parse_args([
+        "--participation", "0.75", "--straggler-frac", "0.5", "--straggler-keep", "0.25",
+        "--aggregator", "clipped_mean", "--trim-frac", "0.3", "--dp-clip", "2.0",
+        "--dp-sigma", "0.01", "--corrupt-kind", "gaussian", "--corrupt-rate", "0.25",
+        "--corrupt-scale", "5", "--latency", "--latency-base-s", "30", "--latency-spread",
+        "0.5"])
+    plan = train.build_plan(args)
+    assert plan.cohort == CohortConfig(0.75, 0.5, 0.25)
+    assert plan.aggregation == AggregatorConfig("clipped_mean", 0.3, 2.0, 0.01)
+    assert plan.corruption == CorruptionConfig("gaussian", 0.25, 5.0)
+    assert plan.latency == LatencyConfig(enabled=True, base_s=30.0, spread=0.5)
+    base = train.build_plan(train.parse_args([]))
+    assert base.cohort.full and base.aggregation == AggregatorConfig()
+    assert base.corruption == CorruptionConfig() and not base.latency.enabled
+    for bad in (["--aggregator", "mean"], ["--corrupt-kind", "flip"]):
+        with pytest.raises(SystemExit):
+            train.parse_args(bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.build_plan(train.parse_args(["--corrupt-kind", "label_shuffle"]))
+
+
+def test_the_slow_path_cli_runs_two_tiny_rounds_on_the_cpu(capsys):
+    """The command a user of the robustness plane runs: participants and
+    corrupted clients are the drawn ones, and the uplink counts only the
+    participants at the packed int4 bytes."""
+    hist = train.main(["--task", "asr-rnnt", "--aggregator", "trimmed_mean", "--corrupt-kind",
+                       "sign_flip", "--corrupt-rate", "0.25", "--participation", "0.75",
+                       "--compression", "int4", "--packed-wire", "--device", "cpu",
+                       "--rounds", "2", "--clients", "4", "--batch", "2", "--data-limit", "2",
+                       "--eval-every", "0"])
+    assert all(math.isfinite(x) for x in hist["loss"])
+    up = hist["uplink_bytes_client"]
+    assert hist["uplink_bytes_total"] == round(hist["participants_mean"] * 2) * up
+    assert hist["participants_mean"] < 4.0 and hist["corrupted_total"] >= 0
+    summary = json.loads(capsys.readouterr().out.split("\n", 2)[2])
+    assert summary["participants_mean"] == hist["participants_mean"]
+
+
+def test_the_slow_path_cli_needs_a_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--task", "asr-rnnt", "--aggregator", "trimmed_mean", "--corrupt-kind",
+                    "sign_flip", "--corrupt-rate", "0.25", "--participation", "0.75",
+                    "--compression", "int4", "--packed-wire", "--rounds", "1"])
 
 
 def test_compression_is_a_config_of_its_own():

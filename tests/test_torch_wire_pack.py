@@ -151,3 +151,118 @@ def test_wrappers_refuse_mixed_devices_and_bad_bits():
         wire_pack.quantize_with_scale(x, torch.tensor(1.0), None, 3)
     with pytest.raises(ValueError, match="devices"):
         wire_pack.quantize_with_scale(x, torch.tensor(1.0), torch.zeros(2, 4, device="meta"), 8)
+
+
+def _client_scales(x):
+    """One scale a client: each row's absmax over 7, a row of zeros at 1."""
+    s = np.abs(x).max(axis=1) / np.float32(7.0)
+    return np.where(s > 0, s, np.float32(1.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("bits", (8, 4))
+def test_per_client_scales_are_the_pallas_kernels_bitwise(n, bits):
+    """The slow path quantizes each client against its own scale: the
+    wrappers take (K,) scales, and row k equals the Pallas kernel with
+    scale k, keyed, streamed and nearest."""
+    x, _ = _rows(n, 3 * n + bits)
+    x[1] *= 3.0
+    scale = _client_scales(x)
+    kd = _keys(n + 1)
+    u = np.random.default_rng(n + 2).random((K, n), dtype=np.float32)
+    ts, tkd = _t(scale), _t(kd.astype(np.int64))
+    keyed = wire_pack.quantize_with_scale_keyed(_t(x), ts, tkd, bits)
+    keyed_packed = wire_pack.quantize_pack_keyed(_t(x), ts, tkd, bits)
+    streamed = wire_pack.quantize_with_scale(_t(x), ts, _t(u), bits)
+    nearest_packed = wire_pack.quantize_pack(_t(x), ts, None, bits)
+    for k in range(K):
+        xk, sk = jnp.asarray(x[k]), jnp.float32(scale[k])
+        want = jwp.quantize_with_scale_keyed_pallas(xk, sk, jnp.asarray(kd[k]), bits,
+                                                    interpret=True)
+        np.testing.assert_array_equal(keyed[k].numpy(), np.asarray(want))
+        if bits == 4:
+            want = jwp.quantize_pack4_keyed_pallas(xk, sk, jnp.asarray(kd[k]), interpret=True)
+        np.testing.assert_array_equal(keyed_packed[k].numpy(), np.asarray(want))
+        want = jwp.quantize_with_scale_pallas(xk, sk, jnp.asarray(u[k]), bits, interpret=True)
+        np.testing.assert_array_equal(streamed[k].numpy(), np.asarray(want))
+        want = (jwp.quantize_pack4_pallas(xk, sk, None, interpret=True) if bits == 4 else
+                jwp.quantize_with_scale_pallas(xk, sk, None, bits, interpret=True))
+        np.testing.assert_array_equal(nearest_packed[k].numpy(), np.asarray(want))
+
+
+def test_a_scale_of_the_wrong_length_is_refused():
+    x = torch.ones(3, 5)
+    with pytest.raises(ValueError, match="3 clients"):
+        wire_pack._scale_tensor(torch.ones(2), 3, x)
+    assert wire_pack._scale_tensor(torch.tensor([2.0]), 3, x)[1] == 0
+    assert wire_pack._scale_tensor(torch.ones(3), 3, x)[1] == 1
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_dequantize_is_the_pallas_kernel_bitwise(n):
+    codes = np.random.default_rng(n).integers(-127, 128, size=(K, n)).astype(np.int8)
+    scale = np.array([3.7e-4, 1.0 / 7.0][:K], np.float32)
+    got = wire_pack.dequantize(_t(codes), _t(scale))
+    shared = wire_pack.dequantize(_t(codes), torch.tensor(scale[0]))
+    assert got.dtype == torch.float32 and got.shape == (K, n)
+    for k in range(K):
+        want = np.asarray(jwp.dequantize_pallas(jnp.asarray(codes[k]), jnp.float32(scale[k]),
+                                                interpret=True))
+        np.testing.assert_array_equal(got[k].numpy().view(np.uint32), want.view(np.uint32))
+        want = np.asarray(jref.dequantize_ref(jnp.asarray(codes[k]), jnp.float32(scale[0])))
+        np.testing.assert_array_equal(shared[k].numpy().view(np.uint32), want.view(np.uint32))
+
+
+def _last_wins(vals, idx, n):
+    """The TPU kernels' serial loop: pairs stored in payload order."""
+    out = np.zeros((vals.shape[0], n), np.float32)
+    for k in range(vals.shape[0]):
+        for j in range(vals.shape[1]):
+            out[k, idx[k, j]] = vals[k, j]
+    return out
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (65, 9), (513, 100), (4097, 400), (9000, 3000)])
+def test_topk_unpack_is_the_jax_plain_version_on_distinct_indices(n, k):
+    vals, idx, _ = _payload(n, k, n + 5)
+    got = wire_pack.topk_unpack(_t(vals[:K]), _t(idx[:K]), n)
+    assert got.dtype == torch.float32 and got.shape == (K, n)
+    for r in range(K):
+        want = np.asarray(jref.topk_unpack_ref(jnp.asarray(vals[r]), jnp.asarray(idx[r]), n))
+        np.testing.assert_array_equal(got[r].numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n,k", [(1, 3), (65, 40), (4097, 5000), (9000, 6000)])
+def test_topk_unpack_keeps_the_last_pair_of_a_duplicate_index(n, k):
+    """Duplicates in a row (more pairs than n, or drawn with replacement):
+    the last in payload order wins, as the serial TPU kernel stores them."""
+    rng = np.random.default_rng(n)
+    idx = rng.integers(0, n, size=(K, k)).astype(np.int32)
+    idx[:, -1] = idx[:, 0]  # the first and the last pair name one index
+    vals = rng.standard_normal((K, k)).astype(np.float32)
+    got = wire_pack.topk_unpack(_t(vals), _t(idx), n).numpy()
+    np.testing.assert_array_equal(got, _last_wins(vals, idx, n))
+    assert (np.unique(idx[0]).size < k) and got[0, idx[0, 0]] == vals[0, -1]
+
+
+def test_unpack_segments_give_each_row_its_windows():
+    """K9's inputs as the wrapper builds them on the card: each row sorted
+    stably, and its bounds the first entry of each 2048-wide window; the
+    kernel's walk (the last of each run) gives the plain version."""
+    n, k = 9000, 6000
+    rng = np.random.default_rng(2)
+    idx = rng.integers(0, n, size=(K, k)).astype(np.int32)
+    vals = rng.standard_normal((K, k)).astype(np.float32)
+    sv, si, bounds = wire_pack.unpack_segments(_t(vals), _t(idx), n)
+    nseg = -(-n // wire_pack.SEGMENT)
+    assert bounds.shape == (K, nseg + 1) and si.dtype == bounds.dtype == torch.int32
+    out = np.zeros((K, n), np.float32)
+    sv, si, bounds = sv.numpy(), si.numpy(), bounds.numpy()
+    for r in range(K):
+        assert bounds[r, 0] == 0 and bounds[r, -1] == k and (np.diff(si[r]) >= 0).all()
+        for s in range(nseg):
+            for j in range(bounds[r, s], bounds[r, s + 1]):
+                if j + 1 < bounds[r, s + 1] and si[r, j + 1] == si[r, j]:
+                    continue
+                out[r, si[r, j]] = sv[r, j]
+    np.testing.assert_array_equal(out, _last_wins(vals, idx, n))
