@@ -26,6 +26,15 @@ Phases, each printed as it ends:
    K7's dequantize and K9's top-k unpack (the slow path's packed wire)
    run at the same shapes, K9 also with repeated indices, and the
    quantizer also with a scale for each client; all bitwise;
+   K10 (flash attention) and K11 (flash decode) in bf16 and fp32 at
+   whisper-base's shapes (the encoder, B=4, 1,500 frames, 8 heads of 64;
+   the decoder's cross-attention at Sq=4 and 448 against 1,500 frames;
+   its causal self-attention over the 4-token prompt, over 64 tokens and
+   at 448; the self cache of 448 slots at
+   positions 3, 200 and 447 and the cross cache of 1,500), a ragged GQA
+   shape with a window, softcap and query offset for each, and K10 rows
+   with no valid key (which must be 0); each timed beside
+   ``scaled_dot_product_attention`` on the same inputs, a yardstick;
 4. one tiny FedAvg round and one tiny greedy decode on the card against
    the same on the CPU, under each LSTM dispatch ('ref': the time loop;
    'kernel': K2 on the card, its plain version on the CPU); the
@@ -34,6 +43,9 @@ Phases, each printed as it ends:
    stage (compression, corruption, aggregation after the drawn cohort)
    on the same tiny deltas under each slow-path plane below, bitwise but
    for the planes that draw through ``normal`` (a stated tolerance);
+   whisper-base's smoke config served on the card and on the CPU (fp32
+   and bf16): prefill over a 4-token prompt (6 K10 launches) and 8 decode
+   steps (4 K11 launches each), the logits held to each other;
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -54,6 +66,14 @@ Phases, each printed as it ends:
    the participants and corrupted clients of each round, and server
    parameters of the packed int4 run and its unpacked twin equal bit for
    bit after every round;
+   then whisper-base served at full width (70,857,216 bf16 parameters,
+   random from a seed) through the model bundle: 4 utterances of 1,500
+   frames, Whisper's 4-token prompt, prefill (18 K10 launches, 6 of them
+   in its encode), the caches grown to 448 slots, 60 greedy decode steps
+   (12 K11 launches each, 720 in all), with the encode, prefill and
+   per-token times and peak memory; the decode's logits held to the
+   teacher-forced decode_train over the same 64 tokens (12 K10 launches)
+   and one teacher-forced loss_fn forward at 448 positions (18 K10);
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it;
@@ -77,9 +97,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense fp32 rate (CUDA cores)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense fp32 rate (CUDA cores)
+# and dense bf16 rate (tensor cores, fp32 accumulation)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # 32-bit integer operations (add, xor, shift), not in the data sheet: the
 # Hopper white paper's 64 INT32 lanes per SM, 132 SMs, at the 1.98 GHz that
 # the fp32 rate above implies (67e12 / (132 * 128 * 2))
@@ -258,8 +280,12 @@ def graph_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / (5 * n)
 
 
-def _bound(nbytes: int, ops: int):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def _bound(nbytes: int, ops: int, bf16_ops: int = 0):
+    """(ms, what bounds it): ``ops`` at the fp32 rate, ``bf16_ops`` (the
+    products of two bf16 operands, exact in a bf16 MMA with fp32
+    accumulation) at the bf16 tensor rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1060,12 +1086,12 @@ def _device_times(torch, prof) -> dict:
 
 
 # substrings of the hand-written kernels' names, and of the plane's among them
-_OURS = ("lstm_gates", "lstm_scan", "joint_")
+_OURS = ("lstm_gates", "lstm_scan", "joint_", "flash_attention", "flash_decode")
 _WIRE = ("wire_quantize", "nibble_", "dequantize_kernel", "topk_scatter_add", "topk_unpack")
 
 
 def _log_profile(tag: str, by_name: dict, round_s: float, profiled_s: float,
-                 plane_ms=None) -> None:
+                 plane_ms=None, what: str = "round") -> None:
     """The busy share of a profiled round (its device kernel time against
     the unprofiled ``round_s`` and the profiled round's own wall time),
     the kernels that fill it, and with ``plane_ms`` (the plane's span in
@@ -1074,9 +1100,9 @@ def _log_profile(tag: str, by_name: dict, round_s: float, profiled_s: float,
         log(f"{tag} the profiler recorded no device events: busy share not measured")
         return
     device_s = sum(t for t, _ in by_name.values()) / 1e6
-    log(f"{tag} one round: device kernel time {device_s * 1e3:.1f} ms, "
+    log(f"{tag} one {what}: device kernel time {device_s * 1e3:.1f} ms, "
         f"{sum(n for _, n in by_name.values())} device events; busy share "
-        f"{device_s / round_s:.3f} of the unprofiled round ({round_s * 1e3:.1f} ms), "
+        f"{device_s / round_s:.3f} of the unprofiled {what} ({round_s * 1e3:.1f} ms), "
         f"{device_s / profiled_s:.3f} of the profiled one ({profiled_s * 1e3:.1f} ms)")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     ours = [kv for kv in ranked if any(k in kv[0] for k in _OURS + _WIRE)]
@@ -1196,7 +1222,7 @@ def _counts():
             "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
             "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_eg": KJ.BWD_EG_LAUNCHES,
             "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
-            "rnnt_joint_bwd_w": KJ.BWD_W_LAUNCHES}
+            "rnnt_joint_bwd_w": KJ.BWD_W_LAUNCHES, **_attn_counts()}
 
 
 def _zero_counts() -> None:
@@ -1211,6 +1237,10 @@ def _zero_counts() -> None:
     K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
     K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_LAUNCHES = K2.SCAN_DW_LAUNCHES = 0
     KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KA
+
+    KA.FWD_LAUNCHES = KD.FWD_LAUNCHES = 0
 
 
 def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
@@ -1442,6 +1472,413 @@ def phase_autotune(torch):
         f"{time.perf_counter() - t0:.1f} s (not kept: the runs above use the default)")
 
 
+# K10 and K11 against their plain versions on the card, (atol, rtol): fp32
+# sums of D products and of Sk terms in another order (tests/test_kernels.py:22);
+# in bf16 both compute in fp32 from the same inputs, so two outputs differ by
+# their final rounding, at most one bf16 ulp (2**-7 relative at a power of
+# two, 2**-9 = 1.95e-3 for |x| in [0.25, 0.5), the largest error read on the
+# card at these shapes): rtol 8e-3 covers one ulp at any |x|, atol the
+# outputs near 0
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 8e-3)}
+
+# K10's shapes: Whisper-base's encoder self-attention (B=4 utterances of
+# 1,500 frames, 8 heads of 64), the decoder's cross-attention at a 4-token
+# prompt and at 448 target positions, its causal self-attention over the
+# 4-token prompt (prefill), over 64 tokens (phase 5's decode_train) and at 448, a
+# ragged GQA shape with a window, softcap, query offset and scale (D=96,
+# Dv=80: the kernel's 128-wide variant), and a shape whose rows 19-39 have
+# no valid key (F5). (name, B, Sq, Sk, H, Kv, D, Dv, causal, window,
+# softcap, q_offset, scale)
+K10_SHAPES = (
+    ("encoder", 4, 1500, 1500, 8, 8, 64, 64, False, None, 0.0, 0, None),
+    ("cross prompt", 4, 4, 1500, 8, 8, 64, 64, False, None, 0.0, 0, None),
+    ("cross U=448", 4, 448, 1500, 8, 8, 64, 64, False, None, 0.0, 0, None),
+    ("causal self prompt", 4, 4, 4, 8, 8, 64, 64, True, None, 0.0, 0, None),
+    ("causal self U=64", 4, 64, 64, 8, 8, 64, 64, True, None, 0.0, 0, None),
+    ("causal self U=448", 4, 448, 448, 8, 8, 64, 64, True, None, 0.0, 0, None),
+    ("gqa window softcap", 2, 333, 517, 8, 2, 96, 80, True, 100, 30.0, 184, 0.1),
+    ("no valid key", 1, 40, 16, 2, 1, 16, 16, True, 4, 0.0, 0, None),
+)
+# K11's shapes: the self cache (448 slots) at three positions, the cross
+# cache (1,500 slots), and a GQA ring buffer with a window and softcap
+# (G=8, D=128). (name, B, S, H, Kv, D, pos, window, ring, softcap)
+K11_SHAPES = (
+    ("self pos 3", 4, 448, 8, 8, 64, 3, None, False, 0.0),
+    ("self pos 200", 4, 448, 8, 8, 64, 200, None, False, 0.0),
+    ("self pos 447", 4, 448, 8, 8, 64, 447, None, False, 0.0),
+    ("cross", 4, 1500, 8, 8, 64, 1499, None, False, 0.0),
+    ("gqa ring window", 2, 256, 16, 2, 128, 1000, 200, True, 20.0),
+)
+
+
+def _sdpa(torch, fn, what: str):
+    """A yardstick call, None where this torch refuses it."""
+    try:
+        fn()
+    except RuntimeError as e:  # a measurement, not the port's path
+        log(f"[attention] {what}: scaled_dot_product_attention refused ({e}); not timed")
+        return None
+    return fn
+
+
+def _attn_times(torch, kernel, plain, lib, n: int) -> dict:
+    t = {"kernel": (cuda_ms(torch, kernel, n), graph_ms(torch, kernel, max(2, n // 2))),
+         "plain": (cuda_ms(torch, plain, max(2, n // 4)),
+                   _maybe_graph_ms(torch, plain, 2, "plain attention"))}
+    t["library"] = (None, None) if lib is None else \
+        (cuda_ms(torch, lib, n), _maybe_graph_ms(torch, lib, max(2, n // 2), "sdpa"))
+    return t
+
+
+def phase_attention_kernels(torch):
+    """K10 and K11 against their plain versions at K10_SHAPES and
+    K11_SHAPES, in bf16 and fp32, with their times (eager and from a CUDA
+    graph) beside the bound, the plain version's and
+    ``scaled_dot_product_attention``'s on the same inputs (a yardstick the
+    port never calls). Returns {kernel: row} at the encoder's and the
+    cross cache's bf16 shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KA
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = {}
+    for name, B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale in K10_SHAPES:
+        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype) for s in
+                       ((B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, Dv)))
+            kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=off, scale=scale)
+            got = KA.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            tag = f"flash_attention {name} {dname}"
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"{tag}: the kernel broke the shape or dtype contract")
+            atol, rtol = ATTN_TOL[dname]
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{tag}: {m}")
+            qp = off + torch.arange(Sq)
+            kp = torch.arange(Sk)
+            mask = torch.ones((Sq, Sk), dtype=torch.bool)
+            if causal:
+                mask &= kp[None] <= qp[:, None]
+            if window:
+                mask &= kp[None] > qp[:, None] - window
+            dead = (~mask.any(dim=1)).cuda()
+            if dead.any() and float(got[:, dead].float().abs().max()) != 0.0:
+                raise AssertionError(f"{tag}: rows with no valid key are not 0")
+            n_valid = int(mask.sum()) * B * H
+            es = q.element_size()
+            nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
+            # Q.K^T's products of bf16 operands at the bf16 tensor rate,
+            # P.V's (p is fp32) at the fp32 rate
+            qk, pv = 2 * n_valid * D, 2 * n_valid * Dv
+            bf16 = dtype == torch.bfloat16
+            bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
+            lib = None
+            if not window and not cap and off == 0 and (not causal or Sq == Sk) and H == Kv:
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale), tag)
+            n = 10 if Sq * Sk > 100_000 else 100
+            t = _attn_times(torch, lambda: KA.flash_attention(q, k, v, **kw),
+                            lambda: ref.flash_attention_ref(q, k, v, **kw), lib, n)
+            err = float((got.float() - want.float()).abs().max())
+            log(f"[attention] {tag} (B={B} Sq={Sq} Sk={Sk} H={H} Kv={Kv} D={D} Dv={Dv}): "
+                f"max|err| {err:.2e}" + (f", {int(dead.sum())} rows with no valid key are 0"
+                                         if dead.any() else "")
+                + "; us per call eager/graph: "
+                + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
+                + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, "
+                  f"{qk} flop Q.K^T, {pv} flop P.V)")
+            if (name, dname) == ("encoder", "bfloat16"):
+                rows["flash_attention"] = {"max_abs_err": err, "ms": t["kernel"][0],
+                                           "plain_ms": t["plain"][0], "bound_ms": bound_ms,
+                                           "bound_by": bound_by, "library_ms": t["library"][0]}
+    for name, B, S, H, Kv, D, pos, window, ring, cap in K11_SHAPES:
+        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, kc, vc = (torch.randn(s, generator=gen, device="cuda").to(dtype) for s in
+                         ((B, H, D), (B, S, Kv, D), (B, S, Kv, D)))
+            pos_t = torch.full((), pos, dtype=torch.int32, device="cuda")
+            kw = dict(window=window, ring=ring, logit_softcap=cap)
+            got = KD.flash_decode(q, kc, vc, pos_t, **kw)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q, kc, vc, pos_t, **kw)
+            tag = f"flash_decode {name} {dname}"
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"{tag}: the kernel broke the shape or dtype contract")
+            atol, rtol = ATTN_TOL[dname]
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{tag}: {m}")
+            n_valid = int(ref.decode_valid(S, pos, window=window, ring=ring).sum())
+            es = q.element_size()
+            nbytes = (2 * q.numel() + B * Kv * n_valid * 2 * D) * es
+            qk = pv = 2 * B * H * n_valid * D  # bounded as K10's
+            bf16 = dtype == torch.bfloat16
+            bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
+            lib = None
+            if not ring and not window and not cap and H == Kv:
+                qt = q[:, :, None]
+                kt, vt = (c[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
+                lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), tag)
+            t = _attn_times(torch, lambda: KD.flash_decode(q, kc, vc, pos_t, **kw),
+                            lambda: ref.decode_attention_ref(q, kc, vc, pos_t, **kw), lib, 200)
+            err = float((got.float() - want.float()).abs().max())
+            log(f"[attention] {tag} (B={B} S={S} H={H} Kv={Kv} D={D} pos={pos}, {n_valid} "
+                f"valid slots): max|err| {err:.2e}; us per call eager/graph: "
+                + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
+                + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
+            if (name, dname) == ("cross", "bfloat16"):
+                rows["flash_decode"] = {"max_abs_err": err, "ms": t["kernel"][0],
+                                        "plain_ms": t["plain"][0], "bound_ms": bound_ms,
+                                        "bound_by": bound_by, "library_ms": t["library"][0]}
+    return rows
+
+
+def _attn_counts() -> dict:
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KA
+
+    return {"flash_attention": KA.FWD_LAUNCHES, "flash_decode": KD.FWD_LAUNCHES}
+
+
+def _check_attn(tag: str, want: dict) -> None:
+    got = _attn_counts()
+    if got != want:
+        raise AssertionError(f"{tag}: attention launches {got}, expected {want}")
+
+
+# the enc-dec serves: the tiny one (smoke config) is held cuda against cpu
+# relative to each output's largest entry, fp32 at sums in another order,
+# bf16 at about one bf16 ulp; the whisper-base decode against its
+# teacher-forced decoder in bf16 at SERVE_LOGIT_TOL relative to the largest
+# logit: the two paths round at other places (K11 against K10, one token
+# against 64 in each product) through 6 layers
+TINY_SERVE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SERVE_LOGIT_TOL = 5e-2
+SERVE_B, SERVE_FRAMES, SERVE_STEPS, SERVE_TOTAL = 4, 1500, 60, 448
+# Whisper's multilingual start-of-transcript prefix: <|startoftranscript|>,
+# <|en|>, <|transcribe|>, <|notimestamps|>
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+
+
+def _grow_cache(torch, cfg, cache: dict, total: int, device) -> dict:
+    """``prefill``'s caches copied into ``init_cache(B, total)``: a decode
+    step straight after ``prefill`` would overwrite its last slot (F6)."""
+    from repro_torch.models import encdec
+
+    full = encdec.init_cache(cfg, cache["self_k"].shape[1], total, device=device)
+    n = cache["self_k"].shape[2]
+    for name in ("self_k", "self_v"):
+        full[name][:, :, :n].copy_(cache[name])
+    for name in ("cross_k", "cross_v"):
+        full[name].copy_(cache[name])
+    return full
+
+
+def _rel(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1.0)
+
+
+def _margin_agrees(torch, got, want, tol: float):
+    """Greedy tokens of ``got`` and ``want`` (logits (..., V)) agree wherever
+    want's top-2 margin exceeds ``tol`` times its largest entry. Returns
+    (positions checked, positions in all)."""
+    top2 = want.float().topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol * max(float(want.float().abs().max()), 1.0)
+    same = got.argmax(-1) == want.argmax(-1)
+    if not bool(same[sure].all()):
+        raise AssertionError(f"greedy tokens differ at {int((~same & sure).sum())} positions "
+                             "whose top-2 margin exceeds the tolerance")
+    return int(sure.sum()), sure.numel()
+
+
+def phase_tiny_encdec(torch):
+    """The smoke config of whisper-base served on the card and on the CPU
+    from the same parameters and inputs, in fp32 and bf16 compute: encode
+    and prefill over a 4-token prompt (6 K10 launches), the caches grown to
+    16 slots, 8 decode steps (4 K11 launches each) fed the CPU's greedy
+    tokens. Every step's logits agree; greedy tokens agree where the
+    margin is clear."""
+    import numpy as np
+
+    from repro_torch.configs import whisper_base
+    from repro_torch.models import encdec
+
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(whisper_base.make_smoke_config(), dtype=dname)
+        params = encdec.init_params(cfg, torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        frames = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32))
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 4)))
+        out, fed = {}, None
+        for device in ("cpu", "cuda"):
+            p = {k: v.to(device) for k, v in params.items()}
+            _zero_counts()
+            logits, cache = encdec.prefill(cfg, p, frames.to(device), prompt.to(device))
+            cache = _grow_cache(torch, cfg, cache, 16, device)
+            steps = [logits]
+            toks = fed or []
+            for i in range(8):
+                if fed is None:
+                    toks.append(steps[-1].argmax(-1, keepdim=True))
+                logits, cache = encdec.decode_step(cfg, p, cache, toks[i].to(device), 4 + i)
+                steps.append(logits)
+            fed = toks
+            out[device] = torch.stack(steps).cpu()
+            if device == "cuda":
+                _check_attn(f"[tiny encdec {dname}]",
+                            {"flash_attention": 6, "flash_decode": 8 * 2 * cfg.dec_layers})
+        err = _rel(torch, out["cuda"], out["cpu"])
+        if err > TINY_SERVE_TOL[dname]:
+            raise AssertionError(f"[tiny encdec {dname}] logits cuda vs cpu: relative error "
+                                 f"{err:.2e} > {TINY_SERVE_TOL[dname]}")
+        checked, total = _margin_agrees(torch, out["cuda"], out["cpu"], TINY_SERVE_TOL[dname])
+        log(f"[tiny encdec {dname}] prefill + 8 decode steps: logits cuda vs cpu relative error "
+            f"{err:.2e} (tol {TINY_SERVE_TOL[dname]}); greedy tokens agree at {checked} of "
+            f"{total} positions with a clear margin; launches K10 6, K11 "
+            f"{8 * 2 * cfg.dec_layers}")
+
+
+def phase_whisper_serve(torch):
+    """whisper-base at full width (70,857,216 bf16 parameters, random from
+    a seed) served through the model bundle on the card: 4 utterances of
+    1,500 frames, Whisper's 4-token prompt, ``prefill``, the caches grown
+    to 448 slots, 60 greedy ``decode_step``s. Exact launch counts (K10 18 in
+    prefill, 6 of them in its encode; K11 12 a step), times and peak
+    memory; prefill and 10 decode steps again under torch.profiler (the
+    busy share and the kernels that fill it); the decode's logits held to
+    the teacher-forced ``decode_train`` over the prompt and the generated
+    tokens (12 K10 launches), and one teacher-forced ``loss_fn`` forward
+    at U=448 (18 K10 launches). Returns the serve path's launch counts."""
+    from repro_torch.configs import whisper_base
+    from repro_torch.models import encdec, model_zoo
+
+    cfg = whisper_base.make_config()
+    bundle = model_zoo.build_model(cfg)
+    L = cfg.dec_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = bundle.init(gen)
+    n_params = bundle.param_count(params)
+    frames = torch.randn((SERVE_B, SERVE_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.cdtype)
+    prompt = torch.tensor([WHISPER_PROMPT] * SERVE_B, device="cuda")
+    batch = {"frames": frames, "tokens": prompt}
+    tag = "[whisper-base serve]"
+
+    def serve():
+        logits, cache = bundle.prefill(params, batch)
+        cache = _grow_cache(torch, cfg, cache, SERVE_TOTAL, "cuda")
+        return logits, cache
+
+    with torch.no_grad():
+        logits, cache = serve()  # warm-up: cuBLAS handles, allocator pools
+        bundle.decode_step(params, cache, logits.argmax(-1, keepdim=True), len(WHISPER_PROMPT))
+        del cache
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        enc_out = encdec.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        _check_attn(f"{tag} encode", {"flash_attention": cfg.enc_layers, "flash_decode": 0})
+
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the weights, frames, enc_out, earlier phases'
+        _zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = serve()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        steps, fed = [logits], []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(SERVE_STEPS):
+            fed.append(steps[-1].argmax(-1, keepdim=True))
+            logits, cache = bundle.decode_step(params, cache, fed[-1], len(WHISPER_PROMPT) + i)
+            steps.append(logits)
+        end.record()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = _attn_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention": cfg.enc_layers + 2 * L, "flash_decode": 2 * L * SERVE_STEPS}
+        _check_attn(f"{tag} prefill + {SERVE_STEPS} decode steps", want)
+        del cache
+
+        # where the time goes: prefill, then 10 decode steps, under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        windows = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+            t0 = time.perf_counter()
+            out, cache = serve()
+            torch.cuda.synchronize()
+            windows["prefill"] = (prof, prefill_s, time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(10):
+                out, cache = bundle.decode_step(params, cache, out.argmax(-1, keepdim=True),
+                                                len(WHISPER_PROMPT) + i)
+            torch.cuda.synchronize()
+            windows["10 decode steps"] = (prof, 10 * decode_s / SERVE_STEPS,
+                                          time.perf_counter() - t0)
+        del cache, out
+        for what, (prof, wall, wall_prof) in windows.items():
+            _log_profile(tag, _device_times(torch, prof), wall, wall_prof, what=what)
+
+        # the decode against the teacher-forced decoder on the same encoder output
+        tokens = torch.cat([prompt, *fed], dim=1)                  # (B, 64)
+        _zero_counts()
+        h = encdec.decode_train(cfg, params, tokens, enc_out)
+        _check_attn(f"{tag} decode_train", {"flash_attention": 2 * L, "flash_decode": 0})
+        n0 = len(WHISPER_PROMPT) - 1
+        tf = (h[:, n0:] @ params["tok_embed"].to(cfg.cdtype).T).float().transpose(0, 1)
+        dec = torch.stack(steps)                                   # (61, B, V)
+        if dec.shape != tf.shape or not torch.isfinite(dec).all():
+            raise AssertionError(f"{tag} decode logits {tuple(dec.shape)} are not finite or "
+                                 f"not shaped as the teacher-forced {tuple(tf.shape)}")
+        err = _rel(torch, dec, tf)
+        if err > SERVE_LOGIT_TOL:
+            raise AssertionError(f"{tag} decode logits against decode_train: relative error "
+                                 f"{err:.3e} > {SERVE_LOGIT_TOL}")
+        checked, total = _margin_agrees(torch, dec, tf, SERVE_LOGIT_TOL)
+
+        # one teacher-forced loss forward at the 448 target positions
+        g2 = torch.Generator(device="cuda").manual_seed(1)
+        lbatch = {"frames": frames, "tokens": torch.randint(0, cfg.vocab, (SERVE_B, SERVE_TOTAL),
+                                                            generator=g2, device="cuda")}
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = bundle.loss_fn(params, lbatch)
+        loss = float(loss)
+        loss_s = time.perf_counter() - t0
+        _check_attn(f"{tag} loss_fn U={SERVE_TOTAL}",
+                    {"flash_attention": cfg.enc_layers + 2 * L, "flash_decode": 0})
+        if not math.isfinite(loss):
+            raise AssertionError(f"{tag} loss_fn gave {loss}")
+    log(f"{tag} {n_params} parameters ({cfg.pdtype}); B={SERVE_B} x {SERVE_FRAMES} frames, "
+        f"{len(WHISPER_PROMPT)}-token prompt, {SERVE_STEPS} greedy steps: encode "
+        f"{encode_s * 1e3:.2f} ms, prefill (with its encode, and the cache copy to "
+        f"{SERVE_TOTAL} slots) {prefill_s * 1e3:.2f} ms, decode {decode_s * 1e3 / SERVE_STEPS:.3f} "
+        f"ms per token on the host clock ({start.elapsed_time(end) / SERVE_STEPS:.3f} ms between "
+        f"CUDA events), {SERVE_B * SERVE_STEPS / decode_s:.1f} tokens/s; peak memory over "
+        f"prefill and decode {peak} B, {peak - held} B above the {held} B allocated before "
+        f"it; launches K10 {launches['flash_attention']} (encode "
+        f"{cfg.enc_layers}), K11 {launches['flash_decode']} ({2 * L} a step)")
+    log(f"{tag} decode vs teacher-forced decode_train ({2 * L} K10 launches) over "
+        f"{tokens.shape[1]} tokens: logits relative error {err:.3e} (tol {SERVE_LOGIT_TOL}); "
+        f"greedy tokens agree at {checked} of {total} positions with a clear margin; loss_fn "
+        f"at U={SERVE_TOTAL}: {loss:.4f} in {loss_s * 1e3:.1f} ms, "
+        f"{cfg.enc_layers + 2 * L} K10 launches")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1467,12 +1904,14 @@ def main() -> int:
     rows.update(phase_joint_kernels(torch))
     rows.update(phase_scan_kernels(torch))
     rows.update(phase_wire_kernels(torch))
+    rows.update(phase_attention_kernels(torch))
     mark("kernels")
     for mode in ("ref", "kernel"):
         phase_tiny_round(torch, mode)
         phase_tiny_decode(torch, mode)
     phase_tiny_compressed(torch)
     phase_tiny_slowpath(torch)
+    phase_tiny_encdec(torch)
     mark("tiny phases")
     _, round_s_chunked, _ = phase_paper_width(torch, False, "ref")
     k1_launches, round_s_loop, loss_loop = phase_paper_width(torch, True, "ref")
@@ -1505,6 +1944,8 @@ def main() -> int:
             wire_launches[k] += counts[k]
     del params_packed
     mark("slow-path runs")
+    attn_launches = phase_whisper_serve(torch)
+    mark("whisper-base serve")
     phase_profile(torch, round_s_chunked, False, "ref")
     phase_profile(torch, round_s_loop, True, "ref")
     phase_profile(torch, round_s_scan, True, "auto")
@@ -1514,13 +1955,14 @@ def main() -> int:
 
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3 and K4 under
     # 'auto'; K5-K9 in the compressed and slow-path runs (their launches
-    # summed)
+    # summed); K10 and K11 in the whisper-base serve
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
-    gates, scan, joint, wire = ("src/repro_torch/kernels/csrc/" + f for f in
-                                ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu",
-                                 "wire_pack.cu"))
+    launches.update(attn_launches)
+    gates, scan, joint, wire, attn = ("src/repro_torch/kernels/csrc/" + f for f in
+                                      ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu",
+                                       "wire_pack.cu", "attention.cu"))
     table = {  # kernel: (source, the TPU kernel it replaces)
         "lstm_gates_fwd": (gates, "src/repro/kernels/lstm_gates.py:43"),
         "lstm_gates_bwd": (gates, "src/repro/kernels/lstm_gates.py:92"),
@@ -1542,6 +1984,8 @@ def main() -> int:
         "topk_scatter_add": (wire, "src/repro/kernels/wire_pack.py:441"),
         # the serial (:352) and the segmented (:387) kernel in one
         "topk_unpack": (wire, "src/repro/kernels/wire_pack.py:352"),
+        "flash_attention": (attn, "src/repro/kernels/flash_attention.py:70"),
+        "flash_decode": (attn, "src/repro/kernels/decode_attention.py:62"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], **rows[name])

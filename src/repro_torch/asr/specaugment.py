@@ -2,9 +2,10 @@
 features. The port of ``repro/asr/specaugment.py:23-53``.
 
 As in the reference, one draw per call: every mask's width and start are
-scalars shared by the whole batch. They come from a CPU
-``torch.Generator`` (scalars drawn on the host cost no device sync), so
-the masks do not depend on the device the features lie on.
+scalars shared by the whole batch, drawn from a threefry key with the
+reference's splits and ``randint`` (``core/keys.py``), so the masks equal
+JAX's for the same key bit for bit. The scalars are hashed on the host:
+no device sync, and the masks do not depend on the features' device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.core import keys
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,33 +26,32 @@ class SpecAugmentConfig:
     enabled: bool = True
 
 
-def _draw(generator: torch.Generator, high: int) -> int:
-    return int(torch.randint(0, high, (), generator=generator))
-
-
-def _mask_axis(generator, x, axis_len: int, max_width: int, num_masks: int, axis: int):
+def _mask_axis(key, x, axis_len: int, max_width: int, num_masks: int, axis: int):
     """Apply ``num_masks`` random contiguous zero-masks along ``axis``."""
     idx = torch.arange(axis_len, device=x.device)
     shape = [1] * x.ndim
     shape[axis] = axis_len
-    for _ in range(num_masks):
-        width = _draw(generator, max_width + 1)
-        start = _draw(generator, max(axis_len - width, 1))
+    for mask_key in keys.split(key, num_masks):
+        k1, k2 = keys.split(mask_key)
+        width = keys.randint(k1, 0, max_width + 1)
+        start = keys.randint(k2, 0, max(axis_len - width, 1))
         mask = (idx >= start) & (idx < start + width)
         x = x * (1.0 - mask.reshape(shape).to(x.dtype))
     return x
 
 
-def spec_augment(generator: torch.Generator, features: torch.Tensor,
+def spec_augment(key: torch.Tensor, features: torch.Tensor,
                  cfg: SpecAugmentConfig) -> torch.Tensor:
-    """features (..., T, F); ``generator`` is a CPU generator."""
+    """features (..., T, F); ``key`` one threefry key (2,) (per client
+    step under FL, so each client augments independently)."""
     if not cfg.enabled:
         return features
     t_len, f_len = features.shape[-2], features.shape[-1]
+    kf, kt = keys.split(key)
     max_f = min(cfg.freq_mask_width, f_len)
     max_t = max(1, int(t_len * cfg.time_mask_frac))
     if cfg.freq_masks > 0:
-        features = _mask_axis(generator, features, f_len, max_f, cfg.freq_masks, axis=-1)
+        features = _mask_axis(kf, features, f_len, max_f, cfg.freq_masks, axis=-1)
     if cfg.time_masks > 0:
-        features = _mask_axis(generator, features, t_len, max_t, cfg.time_masks, axis=-2)
+        features = _mask_axis(kt, features, t_len, max_t, cfg.time_masks, axis=-2)
     return features

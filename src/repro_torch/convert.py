@@ -4,7 +4,10 @@ The JAX model keeps its parameters as nested dicts and lists of arrays
 (``repro/models/rnnt.py:52``, ``repro/models/lstm.py:141``). The port
 keeps one flat dict keyed by the dotted path, which is the name
 ``nn.Module.named_parameters`` gives (``encoder.0.w_ih``). Both use the
-same layout, so the arrays pass unchanged.
+same layout, so the arrays pass unchanged. That holds for the enc-dec
+too: its layers stay stacked as in the reference (``enc_layers.attn.wq``
+is (L, M, H·D), ``repro/models/encdec.py:100-111``), and the port's
+``models/encdec.py`` indexes layer l of each stacked tensor.
 """
 
 from __future__ import annotations

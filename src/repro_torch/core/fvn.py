@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import keys
 from repro_torch.core.plan import FVNConfig
 
 
@@ -28,10 +29,16 @@ def fvn_sigma(cfg: FVNConfig, round_idx: int) -> float:
     return float(np.float32(cfg.std))
 
 
-def step_seed(seed: int, round_idx: int, client_idx: int, step_idx: int, stream: int) -> int:
-    """A 64-bit generator seed for one (round, client, step); ``stream``
-    separates the FVN draw (0) from the data augmentation draw (1)."""
-    state = np.random.SeedSequence([seed, round_idx, client_idx, step_idx, stream])
+def fvn_key(base_key: torch.Tensor, round_idx: int, client_idx: int, step_idx: int):
+    """``repro/core/fvn.py:33-36``: the client step's threefry key."""
+    k = keys.fold_in(base_key, round_idx)
+    k = keys.fold_in(k, client_idx)
+    return keys.fold_in(k, step_idx)
+
+
+def step_seed(seed: int, round_idx: int, client_idx: int, step_idx: int) -> int:
+    """A 64-bit seed for FVN's generator at one (round, client, step)."""
+    state = np.random.SeedSequence([seed, round_idx, client_idx, step_idx])
     return int(state.generate_state(1, np.uint64)[0])
 
 

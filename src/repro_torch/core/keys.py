@@ -23,7 +23,13 @@ and ``normal`` is ``sqrt(2) * erfinv(uniform(lo, 1))`` with ``lo`` the
 float32 after -1. ``split`` and ``uniform`` equal JAX's bit for bit.
 ``normal`` takes PyTorch's ``erfinv``, which is not XLA's float32
 polynomial: the draws agree to about 2e-5 (a few ulps of draws up to
-about 5 in size), and only some of them bit for bit.
+about 5 in size), and only some of them bit for bit. ``randint`` draws one
+scalar as ``jax.random.randint`` does, bit for bit; the client step's
+SpecAugment masks come from it (``repro/asr/specaugment.py:23-53``).
+
+A single key on the CPU (shape ``(2,)``) is hashed with Python integers:
+the client step folds and splits a few dozen scalar keys, and a threefry
+block as tensor operations costs about a hundred small launches.
 """
 
 from __future__ import annotations
@@ -46,10 +52,17 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64)
 
 
+def _scalar(key: torch.Tensor) -> bool:
+    return key.dim() == 1 and key.device.type == "cpu"
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: key (..., 2) and data (an int or
     an integer tensor broadcastable to ``key.shape[:-1]``, taken modulo
     2**32) -> key (broadcast shape, 2)."""
+    if _scalar(key) and isinstance(data, int):
+        k0, k1 = key.tolist()
+        return torch.tensor(threefry2x32_pair(k0, k1, 0, data & _M32), dtype=torch.int64)
     d = (torch.as_tensor(data, dtype=torch.int64, device=key.device)) & _M32
     o0, o1 = threefry2x32_pair(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
@@ -62,6 +75,11 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     2n words of the n keys in order."""
     if n < 1:
         raise ValueError(f"split makes at least one key, got n={n}")
+    if _scalar(key):
+        k0, k1 = key.tolist()
+        blocks = [threefry2x32_pair(k0, k1, i, n + i) for i in range(n)]
+        words = [b[0] for b in blocks] + [b[1] for b in blocks]
+        return torch.tensor(words, dtype=torch.int64).reshape(n, 2)
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     o0, o1 = threefry2x32_pair(key[..., 0:1], key[..., 1:2], i, i + n)
     return torch.cat([o0, o1], dim=-1).reshape(*key.shape[:-1], n, 2)
@@ -97,6 +115,44 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return torch.erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=torch.float32,
                                           device=u.device)
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def randint(key: torch.Tensor, minval: int, maxval: int) -> int:
+    """``jax.random.randint(key, (), minval, maxval)`` (int32) for one key
+    (2,): ``jax._src.random._randint``'s algorithm on Python integers.
+    Two 32-bit words, ``hi`` from ``k1`` and ``lo`` from ``k2`` of
+    ``split(key)``, give ``minval + ((hi % span) * (2**32 % span) + lo %
+    span) % span`` in uint32 arithmetic, with ``span = maxval - minval``
+    as an unsigned word (1 when ``maxval <= minval``, one more when
+    ``maxval`` is above the int32 range, whose ends clip both bounds).
+    No device is touched."""
+    if key.shape != (2,):
+        raise ValueError(f"randint draws from one key (2,), got {tuple(key.shape)}")
+    out_of_range = maxval > _I32_MAX
+    lo_v, hi_v = (min(max(v, _I32_MIN), _I32_MAX) for v in (minval, maxval))
+    k1, k2 = split(key.cpu()).tolist()
+    hi = threefry2x32_pair(*k1, 0, 0)[0]  # bits(key, ()): lane 0 of block (0, 0)
+    lo = threefry2x32_pair(*k2, 0, 0)[0]
+    span = (hi_v - lo_v) & _M32
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _M32
+    mult = _rem(_rem(2**16, span) ** 2 & _M32, span)
+    offset = _rem((((_rem(hi, span) * mult) & _M32) + _rem(lo, span)) & _M32, span)
+    return _wrap_i32(lo_v + offset)
+
+
+def _rem(x: int, span: int) -> int:
+    """XLA's unsigned remainder: by 0 (a span of 2**32 wrapped) it is x."""
+    return x % span if span else x
+
+
+def _wrap_i32(v: int) -> int:
+    return (v + 2**31) % 2**32 - 2**31
 
 
 def key_data(key: torch.Tensor) -> torch.Tensor:

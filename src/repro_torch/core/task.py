@@ -45,8 +45,8 @@ class FederatedTask:
     def init_params(self, generator: torch.Generator) -> dict:
         return rnnt.init_params(self.config, generator)
 
-    def loss_fn(self, params: dict, batch: dict, generator=None):
-        return rnnt.loss_fn(self.model, params, batch, generator)
+    def loss_fn(self, params: dict, batch: dict, key=None):
+        return rnnt.loss_fn(self.model, params, batch, key)
 
     def evaluate(self, params: dict, corpus, n: int = 64) -> dict:
         """Greedy-decode WER on ``n`` examples of the clean and the hard

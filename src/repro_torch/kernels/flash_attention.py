@@ -1,0 +1,107 @@
+"""The forward attention kernel (K10): wrapper and launch count.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:70
+flash_attention`` and stands behind the port's ``blockwise_attention``
+(``models/attention.py``), which the model calls. The kernel is CUDA C++
+in ``csrc/attention.cu`` (its header states what bounds it on the card),
+built by ``build.py`` and called through ctypes. It takes the scale and
+the query offset of ``repro/models/attention.py:84 blockwise_attention``
+and masks ragged tiles, so every call of the model's function on the
+card runs it.
+
+The wrapper takes the plain version (``ref.flash_attention_ref``) only
+for tensors on the CPU. A CUDA tensor gets the kernel or an exception;
+nothing falls back. ``FWD_LAUNCHES`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+FWD_LAUNCHES = 0
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("attention")
+    lib.flash_attention_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                        _F, _I, _I, _F, _I, _P]
+    lib.flash_attention_fwd.restype = _I
+    lib.flash_decode_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _I, _I, _F, _P]
+    lib.flash_decode_fwd.restype = _I
+    return lib
+
+
+def check_devices(what: str, *tensors) -> bool:
+    """True when the tensors lie on one CUDA device (the kernel runs),
+    False when on the CPU (the plain version); raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: tensors lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {device}")
+    return True
+
+
+def check_kernel_inputs(what: str, *tensors) -> None:
+    """The kernels' contract: one dtype of fp32 or bf16, contiguous."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= DTYPE_CODES.keys():
+        raise TypeError(f"{what}: the kernel takes one dtype of float32 or bfloat16, "
+                        f"got {sorted(map(str, dtypes))}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: the kernel takes contiguous tensors")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window=None, logit_softcap: float = 0.0, q_offset: int = 0,
+                    scale=None, block_kv: int = 512) -> torch.Tensor:
+    """q (B, Sq, H, D), k (B, Sk, Kv, D), v (B, Sk, Kv, Dv) -> (B, Sq, H,
+    Dv) in q's dtype. ``window`` None or 0 is no window; ``scale`` None is
+    D**-0.5. ``block_kv`` is the plain version's kv block (the kernel's
+    tile is its own)."""
+    global FWD_LAUNCHES
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be (B, S, heads, D)")
+    B, Sq, H, D = q.shape
+    Sk, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (k.shape[0], k.shape[3]) != (B, D) or tuple(v.shape[:3]) != (B, Sk, Kv) or H % Kv:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         "do not agree (H must be a multiple of Kv)")
+    scale = D ** -0.5 if scale is None else float(scale)
+    if not check_devices("flash_attention", q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       logit_softcap=logit_softcap, q_offset=q_offset,
+                                       scale=scale, block_kv=block_kv)
+    check_kernel_inputs("flash_attention", q, k, v)
+    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes D and Dv up to {MAX_HEAD_DIM}, got {D} and {Dv}")
+    if Sq == 0 or Sk == 0 or B * H > 65535:
+        raise ValueError(f"the kernel takes Sq, Sk >= 1 and B*H <= 65535; got Sq={Sq}, "
+                         f"Sk={Sk}, B*H={B * H}")
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check_launch(
+        _lib().flash_attention_fwd(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                                   v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, Kv, D, Dv, scale,
+                                   int(bool(causal)), int(window or 0), float(logit_softcap),
+                                   int(q_offset), stream),
+        "flash_attention_fwd",
+    )
+    FWD_LAUNCHES += 1
+    return o

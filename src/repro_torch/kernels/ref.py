@@ -360,3 +360,100 @@ def topk_unpack_ref(values, idx, n: int):
     out = torch.zeros((K, n), dtype=torch.float32, device=values.device)
     out[rows[keep], si[keep]] = sv[keep]
     return out
+
+
+# ------------------------------------------------------------------ attention
+# K10 and K11's plain versions: the model's jnp functions
+# (``repro/models/attention.py:84-205``), all arithmetic in fp32, the
+# result in q's dtype. A query row with no valid key gives 0.
+
+NEG_INF = -1.0e30
+
+
+def attention_block_kv(Sk: int, block_kv: int = 512) -> int:
+    """The reference's kv block: the largest divisor of Sk at or below
+    ``block_kv``."""
+    b = min(block_kv, Sk)
+    while Sk % b:
+        b -= 1
+    return b
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        logit_softcap: float = 0.0, q_offset: int = 0,
+                        scale=None, block_kv: int = 512):
+    """q (B, Sq, H, D), k (B, Sk, Kv, D), v (B, Sk, Kv, Dv) -> (B, Sq, H,
+    Dv) in q's dtype: ``blockwise_attention``'s online softmax over kv
+    blocks, with its guards for a row whose keys are all masked
+    (``m_safe``, ``corr``). Query i sits at ``q_offset + i``; ``window``
+    None (or 0) is no window; ``scale`` None is D**-0.5. GQA: head h reads
+    kv head h // (H / Kv)."""
+    B, Sq, H, D = q.shape
+    Sk, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Kv
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float().permute(0, 2, 1, 3) * scale                             # (B, H, Sq, D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)      # (B, H, Sk, D)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    bk = attention_block_kv(Sk, block_kv)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, H, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, H, Sq), device=q.device)
+    acc = torch.zeros((B, H, Sq, Dv), device=q.device)
+    for j0 in range(0, Sk, bk):
+        k_pos = j0 + torch.arange(bk, device=q.device)
+        s = qf @ kf[:, :, j0:j0 + bk].transpose(-1, -2)                  # (B, H, Sq, bk)
+        if logit_softcap > 0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        mask = torch.ones((Sq, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        dead = m <= NEG_INF / 2
+        corr = torch.where(dead, 0.0, torch.exp(torch.where(dead, NEG_INF, m) - m_safe))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vf[:, :, j0:j0 + bk]
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def decode_valid(S: int, pos, *, window=None, ring: bool = False):
+    """(S,) bool: the cache slots one query at ``pos`` attends to
+    (``repro/models/attention.py:190-197``). ``ring``: slot j holds
+    absolute position pos - ((pos - j) mod S)."""
+    pos = torch.as_tensor(pos)
+    j = torch.arange(S, device=pos.device)
+    abs_pos = pos - torch.remainder(pos - j, S) if ring else j
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window:
+        valid &= abs_pos > pos - window
+    return valid
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos, *, window=None, ring: bool = False,
+                         logit_softcap: float = 0.0, scale=None):
+    """q (B, H, D), caches (B, S, Kv, D/Dv), pos an int or a 0-d integer
+    tensor (the current token, already written) -> (B, H, Dv) in q's
+    dtype: one softmax over the cache, the G = H / Kv query heads of a kv
+    head together."""
+    B, H, D = q.shape
+    S, Kv, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    G = H // Kv
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float().reshape(B, Kv, G, D) * scale
+    kf = k_cache.float().permute(0, 2, 3, 1)                           # (B, Kv, D, S)
+    vf = v_cache.float().permute(0, 2, 1, 3)                           # (B, Kv, S, Dv)
+    s = qf @ kf                                                        # (B, Kv, G, S)
+    if logit_softcap > 0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    valid = decode_valid(S, torch.as_tensor(pos, device=q.device), window=window, ring=ring)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    out = (p @ vf) / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    return out.reshape(B, H, Dv).to(q.dtype)

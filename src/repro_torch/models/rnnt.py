@@ -197,14 +197,15 @@ class RNNT(nn.Module):
             n_out = torch.where(mask_t, n_out2, n_out)
         return out
 
-    def forward(self, batch: dict, generator: torch.Generator | None = None):
+    def forward(self, batch: dict, key: torch.Tensor | None = None):
         """The loss. batch: features (B,T,F), labels (B,U), frame_len
-        (B,), label_len (B,), optional weight (B,). ``generator`` (CPU)
-        draws the SpecAugment masks. Returns (mean loss, aux)."""
+        (B,), label_len (B,), optional weight (B,). ``key`` (a threefry
+        key, ``core/keys.py``) draws the SpecAugment masks. Returns (mean
+        loss, aux)."""
         cfg = self.cfg
         feats = batch["features"]
-        if generator is not None and cfg.specaug.enabled:
-            feats = spec_augment(generator, feats, cfg.specaug)
+        if key is not None and cfg.specaug.enabled:
+            feats = spec_augment(key, feats, cfg.specaug)
         enc = self.encode(feats)
         pred = self.predict(batch["labels"])
         joint = self.joint_fused if cfg.use_kernel else self.joint_logprobs
@@ -247,6 +248,7 @@ def greedy_decode(cfg: RNNTConfig, params: dict, features, frame_len, max_symbol
         return model.greedy_decode(features, frame_len, max_symbols)
 
 
-def loss_fn(model: RNNT, params: dict, batch: dict, generator=None):
-    """The functional loss over an explicit parameter dict."""
-    return functional_call(model, params, (batch,), {"generator": generator})
+def loss_fn(model: RNNT, params: dict, batch: dict, key=None):
+    """The functional loss over an explicit parameter dict; ``key`` is
+    the client step's data key (``repro/models/rnnt.py:135``'s ``rng``)."""
+    return functional_call(model, params, (batch,), {"key": key})

@@ -53,13 +53,17 @@ PLANES = {  # (compression, cohort)
     "int4_packed_p75": (dict(kind="int4", packed=True), dict(participation=0.75)),
     "topk25_ef": (dict(kind="topk", topk_frac=0.25, error_feedback=True), dict()),
 }
+SPECAUG_PLANES = {"int4_packed_p75"}  # the client step's masks drawn in both packages
 
 
-def _tiny_configs():
+def _tiny_configs(specaug: bool = False):
+    """The tiny asr-rnnt config in both packages, SpecAugment on or off
+    (the port draws the reference's masks from the same key)."""
     tcfg = get_task("asr-rnnt").config
-    tcfg = dataclasses.replace(tcfg, specaug=dataclasses.replace(tcfg.specaug, enabled=False))
+    tcfg = dataclasses.replace(tcfg, specaug=dataclasses.replace(tcfg.specaug, enabled=specaug))
     jcfg = jrnnt.RNNTConfig(**{f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)
-                               if f.name != "specaug"}, specaug=JaxSpecAug(enabled=False))
+                               if f.name != "specaug"},
+                            specaug=JaxSpecAug(**dataclasses.asdict(tcfg.specaug)))
     return tcfg, jcfg
 
 
@@ -68,7 +72,7 @@ def reference(request):
     """Two jitted JAX rounds of one plane, with each round's starting
     state, metrics and result. One compiled engine per plane."""
     comp, coh = PLANES[request.param]
-    tcfg, jcfg = _tiny_configs()
+    tcfg, jcfg = _tiny_configs(request.param in SPECAUG_PLANES)
     plan = JaxPlan(**PLAN, compression=JaxCompression(**comp), cohort=JaxCohort(**coh))
     before = jax.config.jax_threefry_partitionable
     jax.config.update("jax_threefry_partitionable", False)

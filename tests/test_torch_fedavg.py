@@ -1,7 +1,8 @@
 """The port's FedAvg round on the parity plane against the JAX engine:
 two rounds at the tiny asr-rnnt config (K=3, S=2, b=2) from carried
-parameters, with FVN and SpecAugment off; the server optimizers, FVN and
-CFMQ on their own."""
+parameters, with SpecAugment on (its masks drawn from the reference's
+key in both packages, with the non-partitionable threefry) and FVN off;
+the server optimizers, FVN and CFMQ on their own."""
 
 import dataclasses
 
@@ -38,12 +39,14 @@ PLAN = dict(clients_per_round=K, local_batch_size=B, data_limit=LIMIT, client_lr
             server_optimizer="sgd", server_lr=1.0)
 
 
-def _tiny_configs():
-    """The tiny asr-rnnt config with SpecAugment off, in both packages."""
+def _tiny_configs(specaug: bool = False):
+    """The tiny asr-rnnt config in both packages, SpecAugment on or off
+    (the port draws the reference's masks from the same key)."""
     tcfg = get_task("asr-rnnt").config
-    tcfg = dataclasses.replace(tcfg, specaug=dataclasses.replace(tcfg.specaug, enabled=False))
+    tcfg = dataclasses.replace(tcfg, specaug=dataclasses.replace(tcfg.specaug, enabled=specaug))
     jcfg = jrnnt.RNNTConfig(**{f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)
-                               if f.name != "specaug"}, specaug=JaxSpecAug(enabled=False))
+                               if f.name != "specaug"},
+                            specaug=JaxSpecAug(**dataclasses.asdict(tcfg.specaug)))
     return tcfg, jcfg
 
 
@@ -51,27 +54,34 @@ def _tiny_configs():
 def reference():
     """Two JAX rounds under a server SGD with lr 1, so each round's
     aggregated delta is params_before - params_after. One compiled
-    engine for the module."""
-    tcfg, jcfg = _tiny_configs()
+    engine for the module, run with the non-partitionable threefry (the
+    pinned jax's default; F2a), restored after."""
+    tcfg, jcfg = _tiny_configs(specaug=True)
     plan = JaxPlan(**PLAN)
-    engine = jax_engine(plan, task_for_config(jcfg, name="asr-rnnt"),
-                        base_key=jax.random.PRNGKey(1))
-    step = jax.jit(engine.step)
-    params0 = jax.tree.map(np.asarray, jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
-    sampler = JaxSampler(jax_default_corpus(0), clients_per_round=K, local_batch_size=B,
-                         data_limit=LIMIT, seed=0)
-    batches = [sampler.next_round().engine_batch() for _ in range(2)]
-    state = engine.init_state(params0)
-    rounds = []
-    for batch in batches:
-        before = state.params
-        state, metrics = step(state, jax.tree.map(jnp.asarray, batch))
-        after = jax.tree.map(np.asarray, state.params)
-        rounds.append({
-            "metrics": {k: float(v) for k, v in metrics.items()},
-            "params": params_from_jax(after),
-            "wbar": params_from_jax(jax.tree.map(lambda a, b: np.asarray(a) - b, before, after)),
-        })
+    before_flag = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", False)
+    try:
+        engine = jax_engine(plan, task_for_config(jcfg, name="asr-rnnt"),
+                            base_key=jax.random.PRNGKey(1))
+        step = jax.jit(engine.step)
+        params0 = jax.tree.map(np.asarray, jrnnt.init_params(jcfg, jax.random.PRNGKey(0)))
+        sampler = JaxSampler(jax_default_corpus(0), clients_per_round=K, local_batch_size=B,
+                             data_limit=LIMIT, seed=0)
+        batches = [sampler.next_round().engine_batch() for _ in range(2)]
+        state = engine.init_state(params0)
+        rounds = []
+        for batch in batches:
+            before = state.params
+            state, metrics = step(state, jax.tree.map(jnp.asarray, batch))
+            after = jax.tree.map(np.asarray, state.params)
+            rounds.append({
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "params": params_from_jax(after),
+                "wbar": params_from_jax(jax.tree.map(lambda a, b: np.asarray(a) - b, before,
+                                                     after)),
+            })
+    finally:
+        jax.config.update("jax_threefry_partitionable", before_flag)
     task = FederatedTask("asr-rnnt", tcfg, default_corpus)
     return {"task": task, "params0": params_from_jax(params0), "batches": batches,
             "rounds": rounds, "jax_params0": params0}
@@ -153,7 +163,7 @@ def test_fvn_noise_is_deterministic_distinct_and_scaled():
     params = {"a": torch.zeros(300, 200), "b": torch.zeros(5000)}
 
     def noise(round_idx, client, step):
-        g = torch.Generator().manual_seed(fvn.step_seed(7, round_idx, client, step, 0))
+        g = torch.Generator().manual_seed(fvn.step_seed(7, round_idx, client, step))
         return torch.cat([v.flatten() for v in fvn.perturb(params, g, sigma).values()])
 
     n = noise(2, 1, 0)

@@ -29,6 +29,13 @@ def test_the_compression_plane_is_walked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
 
+@pytest.mark.parametrize("module", ["models/attention.py", "models/encdec.py",
+                                    "models/model_zoo.py", "kernels/flash_attention.py",
+                                    "kernels/decode_attention.py", "configs/whisper_base.py"])
+def test_the_serving_path_is_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_reference_package(path):
     roots = set(_imported_roots(path))

@@ -174,3 +174,52 @@ def test_normal_is_jax_normal_within_tolerance(non_partitionable, shape):
         got = keys.normal(_port_key(seed, data), shape)
         assert got.dtype == torch.float32 and tuple(got.shape) == shape
         np.testing.assert_allclose(got.numpy(), want, rtol=NORMAL_RTOL, atol=NORMAL_ATOL)
+
+
+# randint and SpecAugment (the client step's draws): bitwise to JAX
+RANDINT_BOUNDS = [(0, 1), (0, 2), (0, 4), (0, 28), (0, 7), (3, 11), (-5, 5), (0, 1000),
+                  (7, 7), (9, 2), (0, 2**31 - 1), (-(2**31), 2**31 - 1), (-3, 2**30 + 10)]
+
+
+@pytest.mark.parametrize("bounds", RANDINT_BOUNDS)
+def test_randint_is_jax_randint_bitwise(non_partitionable, bounds):
+    lo, hi = bounds
+    for seed, data in ((0, 0), (42, 2**31 + 3), (7, 0x616767), (1, 5)):
+        want = int(jax.random.randint(_jax_key(seed, data), (), lo, hi))
+        assert keys.randint(_port_key(seed, data), lo, hi) == want, (seed, data)
+
+
+def test_randint_refuses_many_keys():
+    with pytest.raises(ValueError, match="one key"):
+        keys.randint(keys.fold_in(_port_key(1, 2), torch.arange(3)), 0, 4)
+
+
+def test_scalar_fast_path_is_the_tensor_path():
+    """One key on the CPU is hashed with Python integers; the batched
+    tensor path gives the same words."""
+    key = _port_key(11, 12)
+    many = key[None].expand(2, 2)
+    assert keys.fold_in(key, 2**31 + 9).tolist() == keys.fold_in(many, 2**31 + 9)[0].tolist()
+    assert keys.split(key, 5).tolist() == keys.split(many, 5)[0].tolist()
+
+
+SPECAUG_CFGS = [dict(), dict(freq_masks=1, freq_mask_width=3, time_masks=1,
+                             time_mask_frac=0.05),
+                dict(freq_masks=3, freq_mask_width=40, time_masks=4, time_mask_frac=0.2),
+                dict(freq_masks=0, time_masks=2), dict(enabled=False)]
+
+
+@pytest.mark.parametrize("cfg", SPECAUG_CFGS, ids=str)
+@pytest.mark.parametrize("shape", [(2, 24, 16), (3, 128, 80), (1, 5, 4)])
+def test_spec_augment_masks_are_jax_bitwise(non_partitionable, cfg, shape):
+    from repro.asr.specaugment import SpecAugmentConfig as JaxSpecAug
+    from repro.asr.specaugment import spec_augment as jax_spec_augment
+    from repro_torch.asr.specaugment import SpecAugmentConfig, spec_augment
+
+    x = np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32) + 3.0
+    for seed, data in ((0, 1), (5, 2**31 + 7), (9, 123)):
+        want = np.asarray(jax_spec_augment(_jax_key(seed, data), jnp.asarray(x),
+                                           JaxSpecAug(**cfg)))
+        got = spec_augment(_port_key(seed, data), torch.from_numpy(x),
+                           SpecAugmentConfig(**cfg)).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -78,13 +78,17 @@ PLANES = {
         dict(kind="int4", error_feedback=True), dict(participation=0.75),
         dict(name="trimmed_mean", trim_frac=0.25), dict(), dict()),
 }
+SPECAUG_PLANES = {"int4_packed_trimmed_signflip_p75"}  # masks drawn in both packages
 
 
-def _tiny_configs():
+def _tiny_configs(specaug: bool = False):
+    """The tiny asr-rnnt config in both packages, SpecAugment on or off
+    (the port draws the reference's masks from the same key)."""
     tcfg = get_task("asr-rnnt").config
-    tcfg = dataclasses.replace(tcfg, specaug=dataclasses.replace(tcfg.specaug, enabled=False))
+    tcfg = dataclasses.replace(tcfg, specaug=dataclasses.replace(tcfg.specaug, enabled=specaug))
     jcfg = jrnnt.RNNTConfig(**{f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)
-                               if f.name != "specaug"}, specaug=JaxSpecAug(enabled=False))
+                               if f.name != "specaug"},
+                            specaug=JaxSpecAug(**dataclasses.asdict(tcfg.specaug)))
     return tcfg, jcfg
 
 
@@ -101,7 +105,7 @@ def reference(request):
     before = jax.config.jax_threefry_partitionable
     jax.config.update("jax_threefry_partitionable", False)
     try:
-        tcfg, jcfg = _tiny_configs()
+        tcfg, jcfg = _tiny_configs(request.param in SPECAUG_PLANES)
         plan = JaxPlan(**PLAN, compression=JaxCompression(**comp), cohort=JaxCohort(**coh),
                        aggregation=JaxAggregator(**agg), corruption=JaxCorruption(**cor),
                        latency=JaxLatency(**lat))
