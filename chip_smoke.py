@@ -31,10 +31,16 @@ Phases, each printed as it ends:
    the decoder's cross-attention at Sq=4 and 448 against 1,500 frames;
    its causal self-attention over the 4-token prompt, over 64 tokens and
    at 448; the self cache of 448 slots at
-   positions 3, 200 and 447 and the cross cache of 1,500), a ragged GQA
+   positions 3, 200 and 447, at both sides of K11's first split edge,
+   and the cross cache of 1,500), a ragged GQA
    shape with a window, softcap and query offset for each, and K10 rows
    with no valid key (which must be 0); each timed beside
    ``scaled_dot_product_attention`` on the same inputs, a yardstick;
+   every bf16 K10 shape on the tensor-core route (at the encoder at most
+   2 % of its outputs may differ from the plain version's bf16 result),
+   every fp32 one on the CUDA-core route; each K11 launch twice for the
+   same bits, and K11 replayed from one CUDA graph while pos advances on
+   the device, each replay held to the plain version;
 4. one tiny FedAvg round and one tiny greedy decode on the card against
    the same on the CPU, under each LSTM dispatch ('ref': the time loop;
    'kernel': K2 on the card, its plain version on the CPU); the
@@ -74,6 +80,7 @@ Phases, each printed as it ends:
    per-token times and peak memory; the decode's logits held to the
    teacher-forced decode_train over the same 64 tokens (12 K10 launches)
    and one teacher-forced loss_fn forward at 448 positions (18 K10);
+   every K10 launch of the serve on the tensor-core route;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it;
@@ -102,6 +109,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# exponentials on the special-function units: 16 a clock on each of 132 SMs,
+# about 3.9 T/s (FlashAttention-3, arXiv:2407.08608, section 3)
+SFU_OPS_PER_S = 3.9e12
 # 32-bit integer operations (add, xor, shift), not in the data sheet: the
 # Hopper white paper's 64 INT32 lanes per SM, 132 SMs, at the 1.98 GHz that
 # the fp32 rate above implies (67e12 / (132 * 128 * 2))
@@ -280,12 +290,14 @@ def graph_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / (5 * n)
 
 
-def _bound(nbytes: int, ops: int, bf16_ops: int = 0):
+def _bound(nbytes: int, ops: int, bf16_ops: int = 0, exps: int = 0):
     """(ms, what bounds it): ``ops`` at the fp32 rate, ``bf16_ops`` (the
     products of two bf16 operands, exact in a bf16 MMA with fp32
-    accumulation) at the bf16 tensor rate."""
+    accumulation) at the bf16 tensor rate; ``exps`` exponentials on the
+    special-function units, which run beside the tensor cores (the larger
+    of the two counts)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+    t_ops = max(ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S, exps / SFU_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1240,7 +1252,7 @@ def _zero_counts() -> None:
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KA
 
-    KA.FWD_LAUNCHES = KD.FWD_LAUNCHES = 0
+    KA.FWD_LAUNCHES = KA.WGMMA_LAUNCHES = KA.SIMT_LAUNCHES = KD.FWD_LAUNCHES = 0
 
 
 def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
@@ -1530,13 +1542,22 @@ def _attn_times(torch, kernel, plain, lib, n: int) -> dict:
     return t
 
 
+# K10's tensor-core route against the plain version's bf16 result at the
+# encoder: at most this share of outputs may differ (a one-term bf16 p
+# would change about 0.4 of them, tests/test_torch_attention.py)
+K10_BF16_DIFF_MAX = 0.02
+
+
 def phase_attention_kernels(torch):
     """K10 and K11 against their plain versions at K10_SHAPES and
-    K11_SHAPES, in bf16 and fp32, with their times (eager and from a CUDA
-    graph) beside the bound, the plain version's and
-    ``scaled_dot_product_attention``'s on the same inputs (a yardstick the
-    port never calls). Returns {kernel: row} at the encoder's and the
-    cross cache's bf16 shapes."""
+    K11_SHAPES (and K11 at the split edges of the self cache), in bf16 and
+    fp32, with their times (eager and from a CUDA graph) beside the bound,
+    the plain version's and ``scaled_dot_product_attention``'s on the same
+    inputs (a yardstick the port never calls); every bf16 K10 shape on the
+    tensor-core route, every fp32 one on the CUDA-core route; K11 replayed
+    from one CUDA graph while pos advances on the device. Returns {kernel:
+    row}: K10's routes at the encoder (bf16 and fp32), K11 at the cross
+    cache in bf16."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as KD
@@ -1550,15 +1571,26 @@ def phase_attention_kernels(torch):
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype) for s in
                        ((B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, Dv)))
             kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=off, scale=scale)
+            bf16 = dtype == torch.bfloat16
+            want_route = "wgmma" if bf16 else "simt"
+            tag = f"flash_attention {name} {dname}"
+            before = (KA.WGMMA_LAUNCHES, KA.SIMT_LAUNCHES)
             got = KA.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
+            moved = (KA.WGMMA_LAUNCHES - before[0], KA.SIMT_LAUNCHES - before[1])
+            took = {(1, 0): "wgmma", (0, 1): "simt"}.get(moved, f"launch counts moved {moved}")
+            if took != want_route or KA.route(q, k, v) != want_route:
+                raise AssertionError(f"{tag}: took the {took} route, expected {want_route}")
             want = ref.flash_attention_ref(q, k, v, **kw)
-            tag = f"flash_attention {name} {dname}"
             if got.dtype != dtype or got.shape != want.shape:
                 raise AssertionError(f"{tag}: the kernel broke the shape or dtype contract")
             atol, rtol = ATTN_TOL[dname]
             torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
                                        msg=lambda m: f"{tag}: {m}")
+            differ = float((got != want).float().mean())
+            if bf16 and name == "encoder" and differ > K10_BF16_DIFF_MAX:
+                raise AssertionError(f"{tag}: {differ:.4f} of the outputs differ from the plain "
+                                     f"version's bf16 result (at most {K10_BF16_DIFF_MAX})")
             qp = off + torch.arange(Sq)
             kp = torch.arange(Sk)
             mask = torch.ones((Sq, Sk), dtype=torch.bool)
@@ -1572,11 +1604,11 @@ def phase_attention_kernels(torch):
             n_valid = int(mask.sum()) * B * H
             es = q.element_size()
             nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
-            # Q.K^T's products of bf16 operands at the bf16 tensor rate,
-            # P.V's (p is fp32) at the fp32 rate
             qk, pv = 2 * n_valid * D, 2 * n_valid * Dv
-            bf16 = dtype == torch.bfloat16
-            bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
+            if bf16:  # tensor cores: Q.K^T, and P.V as two bf16 products; the exponentials
+                bound_ms, bound_by = _bound(nbytes, 0, qk + 2 * pv, n_valid)
+            else:     # CUDA cores: every product at the fp32 rate
+                bound_ms, bound_by = _bound(nbytes, qk + pv)
             lib = None
             if not window and not cap and off == 0 and (not causal or Sq == Sk) and H == Kv:
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1586,18 +1618,22 @@ def phase_attention_kernels(torch):
             t = _attn_times(torch, lambda: KA.flash_attention(q, k, v, **kw),
                             lambda: ref.flash_attention_ref(q, k, v, **kw), lib, n)
             err = float((got.float() - want.float()).abs().max())
-            log(f"[attention] {tag} (B={B} Sq={Sq} Sk={Sk} H={H} Kv={Kv} D={D} Dv={Dv}): "
-                f"max|err| {err:.2e}" + (f", {int(dead.sum())} rows with no valid key are 0"
-                                         if dead.any() else "")
+            log(f"[attention] {tag} (B={B} Sq={Sq} Sk={Sk} H={H} Kv={Kv} D={D} Dv={Dv}), "
+                f"{took} route: max|err| {err:.2e}"
+                + (f", {differ:.4f} of outputs differ from the plain version's" if bf16 else "")
+                + (f", {int(dead.sum())} rows with no valid key are 0" if dead.any() else "")
                 + "; us per call eager/graph: "
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, "
-                  f"{qk} flop Q.K^T, {pv} flop P.V)")
-            if (name, dname) == ("encoder", "bfloat16"):
-                rows["flash_attention"] = {"max_abs_err": err, "ms": t["kernel"][0],
-                                           "plain_ms": t["plain"][0], "bound_ms": bound_ms,
-                                           "bound_by": bound_by, "library_ms": t["library"][0]}
-    for name, B, S, H, Kv, D, pos, window, ring, cap in K11_SHAPES:
+                  f"{qk} flop Q.K^T, {pv} flop P.V, {n_valid} exp)")
+            if name == "encoder":
+                rows[f"flash_attention_{took}"] = {
+                    "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"][0]}
+    S_self = K11_SHAPES[0][2]
+    split_edges = tuple(("self pos %d" % p, 4, S_self, 8, 8, 64, p, None, False, 0.0)
+                        for p in (KD.SPLIT_SLOTS - 1, KD.SPLIT_SLOTS))
+    for name, B, S, H, Kv, D, pos, window, ring, cap in K11_SHAPES + split_edges:
         for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             q, kc, vc = (torch.randn(s, generator=gen, device="cuda").to(dtype) for s in
                          ((B, H, D), (B, S, Kv, D), (B, S, Kv, D)))
@@ -1612,10 +1648,13 @@ def phase_attention_kernels(torch):
             atol, rtol = ATTN_TOL[dname]
             torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
                                        msg=lambda m: f"{tag}: {m}")
+            again = KD.flash_decode(q, kc, vc, pos_t, **kw)
+            if not torch.equal(again, got):
+                raise AssertionError(f"{tag}: a second launch gave other bits")
             n_valid = int(ref.decode_valid(S, pos, window=window, ring=ring).sum())
             es = q.element_size()
             nbytes = (2 * q.numel() + B * Kv * n_valid * 2 * D) * es
-            qk = pv = 2 * B * H * n_valid * D  # bounded as K10's
+            qk = pv = 2 * B * H * n_valid * D  # bounded as K10's CUDA-core route
             bf16 = dtype == torch.bfloat16
             bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
             lib = None
@@ -1627,21 +1666,70 @@ def phase_attention_kernels(torch):
                             lambda: ref.decode_attention_ref(q, kc, vc, pos_t, **kw), lib, 200)
             err = float((got.float() - want.float()).abs().max())
             log(f"[attention] {tag} (B={B} S={S} H={H} Kv={Kv} D={D} pos={pos}, {n_valid} "
-                f"valid slots): max|err| {err:.2e}; us per call eager/graph: "
+                f"valid slots, {KD.n_splits(S)} splits): max|err| {err:.2e}, bitwise repeatable; "
+                "us per call eager/graph: "
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
             if (name, dname) == ("cross", "bfloat16"):
                 rows["flash_decode"] = {"max_abs_err": err, "ms": t["kernel"][0],
                                         "plain_ms": t["plain"][0], "bound_ms": bound_ms,
                                         "bound_by": bound_by, "library_ms": t["library"][0]}
+    _decode_graph_replay(torch, gen)
     return rows
+
+
+def _decode_graph_replay(torch, gen) -> None:
+    """K11 captured once in a CUDA graph and replayed while pos advances on
+    the device between replays, across a split edge and up to the last
+    slot of the self cache: each replay's output held to the plain
+    version at that pos, which shows that the partials and the tickets
+    (returned to 0 by the last block) serve every replay."""
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import ref
+
+    B, S, H, D = 4, K11_SHAPES[0][2], 8, 64
+    start = KD.SPLIT_SLOTS - 3
+    steps = [start + i for i in range(6)] + [S - 2, S - 1]
+    for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        q, kc, vc = (torch.randn(s, generator=gen, device="cuda").to(dtype) for s in
+                     ((B, H, D), (B, S, H, D), (B, S, H, D)))
+        pos_t = torch.full((), start, dtype=torch.int32, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            KD.flash_decode(q, kc, vc, pos_t)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = KD.flash_decode(q, kc, vc, pos_t)
+        atol, rtol = ATTN_TOL[dname]
+        worst = 0.0
+        for i, pos in enumerate(steps):
+            if i > 0:
+                pos_t.add_(pos - steps[i - 1])  # on the device, between replays
+            graph.replay()
+            want = ref.decode_attention_ref(q, kc, vc, pos_t)
+            tag = f"[attention] flash_decode graph replay {dname} pos={pos}"
+            torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{tag}: {m}")
+            worst = max(worst, float((out.float() - want.float()).abs().max()))
+        log(f"[attention] flash_decode {dname} replayed from one CUDA graph at pos {steps} "
+            f"(advanced on the device between replays): every replay matches the plain "
+            f"version, max|err| {worst:.2e}")
 
 
 def _attn_counts() -> dict:
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KA
 
-    return {"flash_attention": KA.FWD_LAUNCHES, "flash_decode": KD.FWD_LAUNCHES}
+    return {"flash_attention": KA.FWD_LAUNCHES, "flash_attention_wgmma": KA.WGMMA_LAUNCHES,
+            "flash_attention_simt": KA.SIMT_LAUNCHES, "flash_decode": KD.FWD_LAUNCHES}
+
+
+def _k10(n: int, route: str = "wgmma") -> dict:
+    """K10's expected counts: ``n`` launches, all on ``route``."""
+    return {"flash_attention": n, "flash_attention_wgmma": n if route == "wgmma" else 0,
+            "flash_attention_simt": n if route == "simt" else 0}
 
 
 def _check_attn(tag: str, want: dict) -> None:
@@ -1730,8 +1818,10 @@ def phase_tiny_encdec(torch):
             fed = toks
             out[device] = torch.stack(steps).cpu()
             if device == "cuda":
+                # head_dim 16: bf16 takes the tensor cores, fp32 the CUDA cores
                 _check_attn(f"[tiny encdec {dname}]",
-                            {"flash_attention": 6, "flash_decode": 8 * 2 * cfg.dec_layers})
+                            {**_k10(6, "wgmma" if dname == "bfloat16" else "simt"),
+                             "flash_decode": 8 * 2 * cfg.dec_layers})
         err = _rel(torch, out["cuda"], out["cpu"])
         if err > TINY_SERVE_TOL[dname]:
             raise AssertionError(f"[tiny encdec {dname}] logits cuda vs cpu: relative error "
@@ -1784,7 +1874,7 @@ def phase_whisper_serve(torch):
         enc_out = encdec.encode(cfg, params, frames)
         torch.cuda.synchronize()
         encode_s = time.perf_counter() - t0
-        _check_attn(f"{tag} encode", {"flash_attention": cfg.enc_layers, "flash_decode": 0})
+        _check_attn(f"{tag} encode", {**_k10(cfg.enc_layers), "flash_decode": 0})
 
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # the weights, frames, enc_out, earlier phases'
@@ -1806,7 +1896,7 @@ def phase_whisper_serve(torch):
         decode_s = time.perf_counter() - t0
         launches = _attn_counts()
         peak = torch.cuda.max_memory_allocated()
-        want = {"flash_attention": cfg.enc_layers + 2 * L, "flash_decode": 2 * L * SERVE_STEPS}
+        want = {**_k10(cfg.enc_layers + 2 * L), "flash_decode": 2 * L * SERVE_STEPS}
         _check_attn(f"{tag} prefill + {SERVE_STEPS} decode steps", want)
         del cache
 
@@ -1835,7 +1925,7 @@ def phase_whisper_serve(torch):
         tokens = torch.cat([prompt, *fed], dim=1)                  # (B, 64)
         _zero_counts()
         h = encdec.decode_train(cfg, params, tokens, enc_out)
-        _check_attn(f"{tag} decode_train", {"flash_attention": 2 * L, "flash_decode": 0})
+        _check_attn(f"{tag} decode_train", {**_k10(2 * L), "flash_decode": 0})
         n0 = len(WHISPER_PROMPT) - 1
         tf = (h[:, n0:] @ params["tok_embed"].to(cfg.cdtype).T).float().transpose(0, 1)
         dec = torch.stack(steps)                                   # (61, B, V)
@@ -1859,7 +1949,7 @@ def phase_whisper_serve(torch):
         loss = float(loss)
         loss_s = time.perf_counter() - t0
         _check_attn(f"{tag} loss_fn U={SERVE_TOTAL}",
-                    {"flash_attention": cfg.enc_layers + 2 * L, "flash_decode": 0})
+                    {**_k10(cfg.enc_layers + 2 * L), "flash_decode": 0})
         if not math.isfinite(loss):
             raise AssertionError(f"{tag} loss_fn gave {loss}")
     log(f"{tag} {n_params} parameters ({cfg.pdtype}); B={SERVE_B} x {SERVE_FRAMES} frames, "
@@ -1869,7 +1959,7 @@ def phase_whisper_serve(torch):
         f"ms per token on the host clock ({start.elapsed_time(end) / SERVE_STEPS:.3f} ms between "
         f"CUDA events), {SERVE_B * SERVE_STEPS / decode_s:.1f} tokens/s; peak memory over "
         f"prefill and decode {peak} B, {peak - held} B above the {held} B allocated before "
-        f"it; launches K10 {launches['flash_attention']} (encode "
+        f"it; launches K10 {launches['flash_attention']}, all on the tensor cores (encode "
         f"{cfg.enc_layers}), K11 {launches['flash_decode']} ({2 * L} a step)")
     log(f"{tag} decode vs teacher-forced decode_train ({2 * L} K10 launches) over "
         f"{tokens.shape[1]} tokens: logits relative error {err:.3e} (tol {SERVE_LOGIT_TOL}); "
@@ -1984,13 +2074,18 @@ def main() -> int:
         "topk_scatter_add": (wire, "src/repro/kernels/wire_pack.py:441"),
         # the serial (:352) and the segmented (:387) kernel in one
         "topk_unpack": (wire, "src/repro/kernels/wire_pack.py:352"),
-        "flash_attention": (attn, "src/repro/kernels/flash_attention.py:70"),
+        # K10's two routes (the rule in kernels/flash_attention.py:route)
+        "flash_attention_wgmma": (attn, "src/repro/kernels/flash_attention.py:70"),
+        "flash_attention_simt": (attn, "src/repro/kernels/flash_attention.py:70"),
         "flash_decode": (attn, "src/repro/kernels/decode_attention.py:62"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (src, replaces) in table.items()]
-    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    # K10's CUDA-core route serves fp32 and other widths: the main path (the
+    # bf16 serve at head width 64) takes the tensor cores by the rule
+    off_path = {"flash_attention_simt"}
+    idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in off_path]
     if idle:
         raise AssertionError(f"kernels of the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

@@ -77,6 +77,9 @@ def load(name: str) -> ctypes.CDLL:
 
 def check_launch(err: int, what: str) -> None:
     """Raise on the cudaError a library entry point returned (0 is
-    success): a refused launch never runs, and nothing else reports it."""
-    if err != 0:
+    success; a negative value is a driver CUresult, negated): a refused
+    launch never runs, and nothing else reports it."""
+    if err > 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
+    if err < 0:
+        raise RuntimeError(f"{what} launch failed: CUresult {-err}")

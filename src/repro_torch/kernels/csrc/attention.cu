@@ -11,60 +11,87 @@
 // kernels lack (src/repro/models/attention.py:84 blockwise_attention,
 // :158 decode_attention): the query scale, K10's query offset, K11's
 // softcap and ring buffer, so every call of those functions on the card
-// runs a kernel.
+// runs a kernel. Both keep blockwise_attention's guards: masked scores are
+// -1e30, m_safe = 0 for a row whose keys so far are all masked, p = exp(s
+// - m_safe) masked to 0, corr = exp(m - m_safe) (0 while m is -1e30), and
+// the output is acc / max(l, 1e-30), so a row with no valid key gives 0.
+// Ragged Sq, Sk and S are masked (the Pallas kernels assert divisible
+// tiles, which Whisper's 1,500 source frames fail). A tile or a split
+// whose every score is masked is skipped: its p are 0 and its corr exactly
+// 1 (or acc and l are still 0), so skipping it changes no bit.
 //
-// flash_attention (K10). q (B, Sq, H, D), k (B, Sk, Kv, D), v (B, Sk, Kv,
-// Dv), contiguous, bf16 or fp32; o (B, Sq, H, Dv) in q's dtype. Grid
-// (ceil(Sq / 32), B * H): one block of 128 threads per 32 query rows of
-// one head, which reads kv head h / (H / Kv) (GQA without copies). The
-// block walks the kv axis in tiles of 64 keys staged in shared memory as
-// fp32; a thread owns a 4 x 4 tile of the (32, 64) scores (its rows
-// 4*ty..4*ty+3, its keys tx + 16*c) and a 4 x (Dv / 16) tile of the
-// accumulator. Per tile, as blockwise_attention does per block: scores in
-// fp32 from the scaled query, softcap, mask to -1e30, the row max over
-// the 16 threads of a row (warp shuffles), m_safe = 0 for a row whose
-// keys so far are all masked, p = exp(s - m_safe) masked to 0, corr =
-// exp(m - m_safe) (0 while m is -1e30), l = l * corr + sum p, acc = acc *
-// corr + p @ v. The output is acc / max(l, 1e-30), so a row with no valid
-// key gives 0, as in the reference. Ragged Sq and Sk are masked (the
-// Pallas kernel asserts Sq % tq == 0 and Sk % tk == 0, which Whisper's
-// 1,500 source frames fail). A tile whose every score is masked (above
-// the causal diagonal of the block's last row, or below the window of
-// its first row) is skipped: its p are 0 and its corr exactly 1 (or acc
-// and l are still 0), so skipping it changes no bit.
+// K10 has two routes; the wrapper (kernels/flash_attention.py) picks one
+// by a fixed rule: bf16 with D and Dv multiples of 16 (and 16-byte aligned
+// tensors) takes the tensor cores, everything else the CUDA cores.
+//
+// flash_attention_wgmma (K10 on tensor cores). q (B, Sq, H, D), k (B, Sk,
+// Kv, D), v (B, Sk, Kv, Dv), bf16; o (B, Sq, H, Dv) bf16. Grid (ceil(Sq /
+// 64), B * H): one warpgroup per 64 query rows of one head, reading kv head
+// h / (H / Kv). Q's tile is loaded once; K/V tiles of 64 keys stream
+// through a ring of 2 stages by TMA (4-d tensor maps over the (B, S,
+// heads, D) layouts, so nothing is transposed in HBM; zero fill past every
+// edge), completing on mbarriers, so the next tile's copy overlaps this
+// tile's work. S = Q.K^T by wgmma m64n64k16 from shared memory (bf16
+// products, fp32 sums); the scale applies to the fp32 scores, not to bf16
+// q. The online softmax runs in registers, a row's max and sum over the 4
+// threads that share it, exp as ex2 on the special-function unit with
+// log2(e) folded in; softcap and masks branch once a tile. P.V keeps fp32
+// p, as the TPU kernel does: p = p_hi + p_lo, both bf16, and two
+// register-A wgmma products against V in shared memory (MN-major, the
+// transpose bit) accumulate in fp32. One bf16 term (bf16(p), as
+// FlashAttention and SDPA do) would change 42 % of the bf16-rounded
+// outputs at 1,500 keys, the two terms 0.25 % (tests/test_torch_
+// attention.py). Bound at Whisper's encoder (B=4, H=8, Sq=Sk=1500, D=64):
+// Q.K^T's 9.2 GFLOP and P.V's two bf16 products, 18.4 GFLOP, at 989
+// TFLOP/s take 27.9 us; the 72 M exponentials about 18.5 us on the
+// special-function units; 24.6 MB of bf16 in and out 7.3 us. The tensor
+// work bounds it. What the design leaves: a tile's products and softmax
+// run one after the other within the block (4 blocks of 110 registers an
+// SM overlap each other's; a second score buffer to overlap them within
+// the block cost registers and ran slower), and P.V runs twice the
+// products of a one-term kernel.
+//
+// flash_attention (K10 on CUDA cores: fp32, or bf16 at other widths).
+// Grid (ceil(Sq / 32), B * H): one block of 128 threads per 32 query rows
+// of one head. The block walks the kv axis in tiles of 64 keys staged in
+// shared memory as fp32; a thread owns a 4 x 4 tile of the (32, 64) scores
+// (its rows 4*ty..4*ty+3, its keys tx + 16*c) and a 4 x (Dv / 16) tile of
+// the accumulator. Per tile, as blockwise_attention does per block: scores
+// in fp32 from the scaled query, softcap, masks, the row max over the 16
+// threads of a row (warp shuffles), the online softmax above. Bound at the
+// encoder in fp32: 18.4 GFLOP at 67 TFLOP/s, 0.275 ms; its register tiles
+// give 16 fused multiply-adds per two shared loads in both products.
 //
 // flash_decode (K11). q (B, H, D), caches (B, S, Kv, D / Dv), pos one
 // int32 on the device (so a decode step can be captured in a CUDA graph);
-// o (B, H, Dv) in q's dtype. One block of 128 threads per (b, kv head)
-// carries the G = H / Kv grouped query rows over the cache in tiles of
-// 128 slots staged in shared memory as fp32, thread j scoring slot j of
-// the tile for all G rows; the same online softmax as K10, with block
-// reductions. Slot j is valid when its absolute position a (j, or pos -
+// o (B, H, Dv) in q's dtype. Split over S: grid (B * Kv, ceil(S /
+// split)), split a constant of the wrapper, so the grid depends on S only,
+// never on pos. Slot j is valid when its absolute position a (j, or pos -
 // ((pos - j) mod S) for a ring buffer) has 0 <= a <= pos and a > pos -
-// window (window 0: none), as in attention.py:190-197. Without a ring,
-// only the tiles that hold valid slots are read.
-//
-// Bound on an H100 SXM. K10 at Whisper's encoder (B=4, H=8, Sq=Sk=1500,
-// D=64, bf16): 4 B H Sq Sk D = 18.4 GFLOP, half of it Q.K^T, whose bf16
-// products are exact in a bf16 MMA with fp32 accumulation (9.3 us at 989
-// TFLOP/s), half P.V with fp32 p (137.6 us at the fp32 rate of 67
-// TFLOP/s): 0.147 ms; 24.6 MB of bf16 in and out take 7.3 us, so the
-// operations bound it. This kernel does both products in fp32, without
-// tensor cores; its register tiles give 16 fused multiply-adds per two
-// shared loads in both products. K11 moves the valid part of the cache once (at
-// the cross cache, B=4, S=1500, Kv=8, D=64, bf16: 12.3 MB, 3.7 us at
-// 3.35 TB/s) and does 4 flops a cached element: bytes bound it, and at
-// B * Kv = 32 blocks on 132 SMs one SM's load rate and the launch
-// dominate. Tensor cores (bf16 MMA), TMA and splitting S across blocks
-// are later work.
+// window (window 0: none), as in attention.py:190-197; only valid slots
+// are read. Each block runs the online softmax over its split for the G =
+// H / Kv grouped rows, reading each k and v row once with 16-byte loads
+// (a 64-wide bf16 row is 8 lanes) and scoring all G rows from it by
+// shuffles within the lane group, and writes its partial (m, l, acc); the
+// last block of a (b, kv head), found by an int32 ticket, merges the
+// partials in split order: o = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s
+// - M) l_s, 1e-30), M guarded as m_safe. One launch; deterministic. Bound
+// at the cross cache (B=4, S=1500, Kv=8, D=64, bf16): the valid cache,
+// 12.3 MB, at 3.35 TB/s, 3.7 us; 4 flops a cached element. At 768 blocks
+// (64 slots a split) every SM has work; the merge is a second, short
+// dependent pass in the last block.
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes. Each
 // entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -96,7 +123,7 @@ __device__ __forceinline__ float softcap_f(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
-// ------------------------------------------------------------------ K10
+// ------------------------------------------------------------------ K10, CUDA cores
 
 constexpr int kTQ = 32;                        // query rows a block
 constexpr int kTK = 64;                        // keys a tile
@@ -257,170 +284,678 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------ K10, tensor cores
+
+constexpr int kWgRows = 64;         // query rows a block: the m64 of one warpgroup
+constexpr int kWgKeys = 64;         // keys a tile: Q.K^T's n64, four k16 steps of P.V
+constexpr int kWgThreads = 128;     // one warpgroup
+constexpr int kWgStages = 2;        // K/V tiles in flight
+constexpr int kAtom = 64 * 64 * 2;  // one 64 x 64 bf16 region, 128-byte rows: 8 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22); -inf and
+// anything below -126 give 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival that also sets the bytes the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A copy that never
+// lands is a fault, not a wait: after 2^24 polls (far longer than any copy
+// takes) the kernel traps, and the launch fails with an error instead of
+// hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+// TMA: one box of a 4-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand (the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start address, the
+// leading and stride byte offsets, all in 16-byte units; layout type 1.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// K-major (Q and K: 8-row groups 1,024 B apart; the leading offset unused)
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) { return smem_desc(p, 16, 1024); }
+// MN-major (V: 64-column regions kAtom apart, 8-key groups 1,024 B apart)
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
+  return smem_desc(p, kAtom, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads of registers that an asynchronous
+// wgmma writes (or reuse of registers it reads) across the wait.
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (m64 x n64, fp32) += A (64 x 16, bf16, shared) . B (16 x n64, bf16, shared);
+// both operands K-major. scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (m64 x n16, fp32) += A (64 x 16, bf16, registers) . B (16 x n16, bf16, shared,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (m64 x n32, fp32) += A (64 x 16, bf16, registers) . B (16 x n32, bf16, shared,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (m64 x n48, fp32) += A (64 x 16, bf16, registers) . B (16 x n48, bf16, shared,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (m64 x n64, fp32) += A (64 x 16, bf16, registers) . B (16 x n64, bf16, shared,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// P (64 x 64 keys, bf16 A fragments for k16 step kk) . V (the stage's
+// 64 keys x DV): the full 64-column regions by n64, the rest (16, 32 or
+// 48 columns) by one narrower product, each accumulating into its columns
+// of O. O[4j + e] holds column 8j + 2 (lane % 4) + (e & 1) of row
+// 16 warp + lane / 4 + 8 (e >> 1), for every product shape alike.
+template <int DV>
+__device__ __forceinline__ void pv_step(float* O, const uint32_t* a, const uint8_t* Vs, int kk) {
+#pragma unroll
+  for (int c = 0; c < DV / 64; ++c)
+    wgmma_rs_n64(O + 32 * c, a, desc_mnmajor(Vs + c * kAtom + kk * 2048));
+  constexpr int R = DV % 64;
+  if constexpr (R > 0) {
+    const uint64_t db = desc_mnmajor(Vs + (DV / 64) * kAtom + kk * 2048);
+    float* Or = O + 32 * (DV / 64);
+    if constexpr (R == 16)
+      wgmma_rs_n16(Or, a, db);
+    else if constexpr (R == 32)
+      wgmma_rs_n32(Or, a, db);
+    else
+      wgmma_rs_n48(Or, a, db);
+  }
+}
+
+// One stage: the K tile (nd regions) and the V tile (nv regions) of keys
+// [t0, t0 + 64) of kv head kvh, batch b, completing on `bar`.
+__device__ __forceinline__ void load_kv(uint8_t* dst, uint64_t* bar, const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, int nd, int nv, int kvh, int t0,
+                                        int b) {
+  mbar_expect_tx(bar, (nd + nv) * kAtom);
+  for (int r = 0; r < nd; ++r) tma_load_4d(dst + r * kAtom, tm_k, 64 * r, kvh, t0, b, bar);
+  for (int c = 0; c < nv; ++c) tma_load_4d(dst + (nd + c) * kAtom, tm_v, 64 * c, kvh, t0, b, bar);
+}
+
+constexpr size_t wg_smem_bytes(int nd, int dv) {
+  return 1024 + static_cast<size_t>(kAtom) * (nd + kWgStages * (nd + (dv + 63) / 64)) +
+         8 * (kWgStages + 1);
+}
+
+// flash_attention_wgmma (K10, bf16, D and DV multiples of 16 up to 128;
+// ND = ceil(D / 64)). Grid (ceil(Sq / 64), B * H), one warpgroup a block.
+// Shared memory, each region 1,024-byte aligned as the 128-byte swizzle
+// needs: Q (ND regions of 64 rows x 64 columns), then kWgStages stages of
+// K (ND regions) and V (ceil(DV / 64) regions), then the stages' mbarriers
+// and Q's. Thread 0 issues every TMA load; TMA zero-fills rows past Sq and
+// Sk and columns past D and DV, so a ragged tile adds 0 to both products
+// and Q.K^T can run all 4 ND k16 steps (a compile-time count: with a
+// run-time one, ptxas serialises the products).
+template <int ND, int DV>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int Kv,
+                             float scale, int causal, int window, float softcap, int q_offset) {
+  constexpr int NV = (DV + 63) / 64;
+  constexpr int NO = DV / 2;  // accumulator floats a thread
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* base = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  uint8_t* Qs = base;
+  uint8_t* KV0 = base + ND * kAtom;
+  const int stage_bytes = (ND + NV) * kAtom;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KV0 + kWgStages * stage_bytes);
+  uint64_t* qbar = bars + kWgStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int cq = lane & 3;                 // and its column pair in each 8 columns
+  const int h = blockIdx.y % H;
+  const int b = blockIdx.y / H;
+  const int kvh = h / (H / Kv);
+  const int q0 = blockIdx.x * kWgRows;
+
+  // keys [k_begin, k_end) can be valid for some row of this block
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + kWgRows, Sq) - 1;
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q_last + 1);
+  if (window > 0) k_begin = max(0, q_first - window + 1);
+  const int t_first = (k_begin / kWgKeys) * kWgKeys;
+  const int n_tiles = k_end > t_first ? (k_end - t_first + kWgKeys - 1) / kWgKeys : 0;
+
+  float O[NO], S[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) O[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) S[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    if (tid == 0) {
+      for (int s = 0; s <= kWgStages; ++s) mbar_init(&bars[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(qbar, ND * kAtom);
+      for (int r = 0; r < ND; ++r) tma_load_4d(Qs + r * kAtom, &tm_q, 64 * r, h, q0, b, qbar);
+      for (int s = 0; s < min(n_tiles, kWgStages); ++s)
+        load_kv(KV0 + s * stage_bytes, &bars[s], &tm_k, &tm_v, ND, NV, kvh, t_first + s * kWgKeys,
+                b);
+    }
+    __syncthreads();  // the barriers are initialised before anyone waits on them
+    mbar_wait(qbar, 0);
+    __syncwarp();
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kWgStages;
+      const uint8_t* Ks = KV0 + st * stage_bytes;
+      const uint8_t* Vs = Ks + ND * kAtom;
+      const int t0 = t_first + it * kWgKeys;
+      mbar_wait(&bars[st], (it / kWgStages) & 1);
+      __syncwarp();
+
+      // S = Q . K^T: 4 ND steps of k16, each 32 bytes further into a
+      // region's swizzled 128-byte rows (columns past D are zeros in both)
+      pin<32>(S);  // the last tile's writes of S land before the fence
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * ND; ++kk) {
+        const int off = (kk >> 2) * kAtom + (kk & 3) * 32;
+        wgmma_ss_n64(S, desc_kmajor(Qs + off), desc_kmajor(Ks + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin<32>(S);
+
+      // the scale on the fp32 scores, softcap, masks and the online
+      // softmax of blockwise_attention, on this thread's 2 rows x 16 keys;
+      // each option's branch is taken once a tile, not once a score
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) S[i] = softcap * tanhf(S[i] * scale / softcap);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) S[i] *= scale;
+      }
+      const bool full = t0 + kWgKeys <= Sk && (!causal || t0 + kWgKeys - 1 <= q_first) &&
+                        (window <= 0 || t0 > q_last - window);
+      if (!full) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qpos = q_first + r0 + 8 * ((i >> 1) & 1);
+          const int key = t0 + 8 * (i >> 2) + 2 * cq + (i & 1);
+          const bool ok =
+              key < Sk && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
+          if (!ok) S[i] = kNegInf;
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(S[4 * j + 2 * rr], S[4 * j + 2 * rr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[rr], mx);
+        const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+        const float ms = m_safe * kLog2e;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * rr + e;
+            // a masked score (-1e30) gives exactly 0, as the mask would
+            const float p = fast_exp2(fmaf(S[idx], kLog2e, -ms));
+            S[idx] = p;
+            rs += p;
+          }
+        // 0 while m is -1e30 (m_safe is then 0 or a real score)
+        corr[rr] = fast_exp2(fmaf(m[rr], kLog2e, -ms));
+        l[rr] = l[rr] * corr[rr] + rs;  // this thread's share of the row; summed at the end
+        m[rr] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        O[4 * j] *= corr[0];
+        O[4 * j + 1] *= corr[0];
+        O[4 * j + 2] *= corr[1];
+        O[4 * j + 3] *= corr[1];
+      }
+
+      // p in fp32 as p_hi + p_lo, both bf16: the accumulator layout of
+      // m64n64 is the A-fragment layout of four k16 steps, so Ph[4 kk ..
+      // 4 kk + 3] is step kk's fragment with no shuffle
+      uint32_t Ph[16], Pl[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float p0 = S[4 * j + 2 * rr], p1 = S[4 * j + 2 * rr + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+          Ph[2 * j + rr] = *reinterpret_cast<const uint32_t*>(&hi);
+          Pl[2 * j + rr] = *reinterpret_cast<const uint32_t*>(&lo);
+        }
+      pin<NO>(O);  // the rescaled O and the fragments are defined before the fence
+      pin<16>(Ph);
+      pin<16>(Pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        pv_step<DV>(O, Ph + 4 * kk, Vs, kk);
+        pv_step<DV>(O, Pl + 4 * kk, Vs, kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin<NO>(O);
+      pin<16>(Ph);
+      pin<16>(Pl);
+
+      __syncthreads();  // every warp's products are done with this stage
+      if (tid == 0 && it + kWgStages < n_tiles)
+        load_kv(KV0 + st * stage_bytes, &bars[st], &tm_k, &tm_v, ND, NV, kvh,
+                t0 + kWgStages * kWgKeys, b);
+      __syncwarp();
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + r0 + 8 * rr;
+    if (row >= Sq) continue;
+    const float denom = fmaxf(l[rr], 1e-30f);
+    __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * DV + 2 * cq;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(O[4 * j + 2 * rr] / denom, O[4 * j + 2 * rr + 1] / denom);
+  }
+}
+
 // ------------------------------------------------------------------ K11
 
-constexpr int kTS = 128;          // cache slots a tile; thread j scores slot j
-constexpr int kDecThreads = kTS;
+constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kMaxG = 16;         // query heads a kv head
+constexpr int kMaxG = 16;    // query heads a kv head
+constexpr int kMaxDim = 128;  // D and Dv
 
-template <int DT>
-struct DecSmem {
-  static constexpr int k_ld = DT + 1;  // Ks[kTS][k_ld], padded: lanes read distinct banks
-  static constexpr int v_ld = DT;      // Vs[kTS][v_ld]
-  static constexpr int floats =
-      kTS * k_ld + kTS * v_ld + kMaxG * DT + kMaxG * kTS + 2 * kDecWarps * kMaxG;
-  static constexpr size_t bytes = floats * sizeof(float);
-};
+// CH = 16 / sizeof(T) elements of a cache row from `d0`, as fp32: one
+// 16-byte load when the rows allow it (`vec`), else element by element;
+// zeros past `n`.
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* row, int d0, int n, bool vec, float* out);
+template <>
+__device__ __forceinline__ void load_chunk<float>(const float* row, int d0, int n, bool vec,
+                                                  float* out) {
+  if (vec && d0 < n) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(row + d0));
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = d0 + e < n ? row[d0 + e] : 0.f;
+}
+template <>
+__device__ __forceinline__ void load_chunk<__nv_bfloat16>(const __nv_bfloat16* row, int d0, int n,
+                                                          bool vec, float* out) {
+  if (vec && d0 < n) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(row + d0));
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      out[2 * i] = f.x, out[2 * i + 1] = f.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) out[e] = d0 + e < n ? __bfloat162float(row[d0 + e]) : 0.f;
+}
 
-template <typename T, int DT>
+// the weight of a partial with max m under the common max m_safe
+__device__ __forceinline__ float merge_weight(float m, float m_safe) {
+  return m <= kNegInf / 2 ? 0.f : expf(m - m_safe);
+}
+
+// flash_decode (K11), split over S. Grid (B * Kv, n_split): block (bkv,
+// sp) takes slots [sp * split, (sp + 1) * split) of kv head bkv and its G
+// query heads. A lane group of `lps` lanes (a power of two) holds one
+// slot's k and v rows, CH elements a lane; the block's 128 / lps groups
+// each walk every (128 / lps)-th slot of the split with their own online
+// softmax (m, l and acc in fp32 for each of the GM <= 16 rows), are merged
+// within the warp by shuffles and across warps in shared memory, and the
+// block writes its partial (m, l, acc[Dv]) for each row. A block with no
+// valid slot writes the neutral partial (m = -1e30, l = 0, acc = 0) and
+// reads nothing of the cache. The block that takes the last ticket of its
+// (b, kv head) merges the n_split partials in split order (no float
+// atomics: the same inputs give the same bits) into o, and resets the
+// ticket to 0 for the next launch.
+template <typename T, int GM>
 __global__ void __launch_bounds__(kDecThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, T* __restrict__ o, const int* __restrict__ pos_ptr,
-                    int S, int Kv, int G, int D, int Dv, float scale, int window, int ring,
-                    float softcap) {
-  using L = DecSmem<DT>;
-  constexpr int kOut = kMaxG * DT / kDecThreads;  // accumulator entries a thread may own
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTS * L::k_ld;
-  float* Qs = Vs + kTS * L::v_ld;      // [kMaxG][DT], scaled
-  float* Ps = Qs + kMaxG * DT;         // [kMaxG][kTS]
-  float* red_max = Ps + kMaxG * kTS;   // [kDecWarps][kMaxG]
-  float* red_sum = red_max + kDecWarps * kMaxG;
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                    T* __restrict__ o, const int* __restrict__ pos_ptr, float* __restrict__ part,
+                    int* __restrict__ tickets, int S, int Kv, int G, int D, int Dv, float scale,
+                    int window, int ring, float softcap, int split, int lps, int vec) {
+  constexpr int CH = 16 / sizeof(T);
+  __shared__ __align__(16) float Qs[GM][kMaxDim];  // scaled
+  __shared__ float Wm[kDecWarps][GM], Wl[kDecWarps][GM];
+  __shared__ float Wacc[kDecWarps][GM][kMaxDim];
+  __shared__ int is_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / Kv, kvh = blockIdx.x % Kv;
-  const int H = Kv * G;
+  const int bkv = blockIdx.x, b = bkv / Kv, kvh = bkv % Kv, H = Kv * G;
+  const int n_split = gridDim.y, sp = blockIdx.y;
+  const int Dp = Dv + 2;  // a partial: m, l, acc[Dv]
+  float* parts = part + static_cast<long long>(bkv) * G * n_split * Dp;  // [G][n_split][Dp]
   const int pos = *pos_ptr;
 
-  for (int idx = tid; idx < kMaxG * DT; idx += kDecThreads) {
-    const int g = idx / DT, d = idx % DT;
-    float val = 0.f;
-    if (g < G && d < D)
-      val = load_f(q + (static_cast<long long>(b) * H + kvh * G + g) * D + d) * scale;
-    Qs[idx] = val;
-  }
-
-  // the slots that can be valid: all of a ring; else (pos - window, pos]
-  int lo = 0, hi = S - 1;
+  // this split's slots that can be valid: all of a ring; else (pos - window, pos]
+  int lo = sp * split, hi = min(S, lo + split) - 1;
   if (!ring) {
-    hi = min(S - 1, pos);
-    if (window > 0) lo = max(0, pos - window + 1);
+    hi = min(hi, pos);
+    if (window > 0) lo = max(lo, pos - window + 1);
   }
 
-  float m[kMaxG], l[kMaxG], acc[kOut];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < kOut; ++r) acc[r] = 0.f;
-
-  const T* kb = kc + (static_cast<long long>(b) * S * Kv + kvh) * D;
-  const T* vb = vc + (static_cast<long long>(b) * S * Kv + kvh) * Dv;
-  for (int t0 = (lo / kTS) * kTS; t0 <= hi; t0 += kTS) {
-    __syncthreads();  // the previous tile's reads are done
-    for (int idx = tid; idx < kTS * DT; idx += kDecThreads) {
-      const int j = idx / DT, d = idx % DT;
-      const int slot = t0 + j;
-      const long long row = static_cast<long long>(slot) * Kv;
-      Ks[j * L::k_ld + d] = (slot < S && d < D) ? load_f(kb + row * D + d) : 0.f;
-      Vs[j * L::v_ld + d] = (slot < S && d < Dv) ? load_f(vb + row * Dv + d) : 0.f;
+  if (lo > hi) {
+    for (int idx = tid; idx < G * Dp; idx += kDecThreads) {
+      const int g = idx / Dp, e = idx % Dp;
+      parts[(static_cast<long long>(g) * n_split + sp) * Dp + e] = e == 0 ? kNegInf : 0.f;
+    }
+  } else {
+    for (int idx = tid; idx < GM * kMaxDim; idx += kDecThreads) {
+      const int g = idx / kMaxDim, d = idx % kMaxDim;
+      float val = 0.f;
+      if (g < G && d < D)
+        val = load_f(q + (static_cast<long long>(b) * H + kvh * G + g) * D + d) * scale;
+      Qs[g][d] = val;
     }
     __syncthreads();
 
-    const int slot = t0 + tid;
-    bool valid = slot < S;
-    if (valid) {
-      int a = slot;
-      if (ring) {
-        int back = (pos - slot) % S;
+    const int per_warp = 32 / lps;
+    const int sub = lane % lps, d0 = sub * CH;
+    const int gid = warp * per_warp + lane / lps, n_groups = kDecWarps * per_warp;
+    float m[GM], l[GM], acc[GM][CH];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < CH; ++e) acc[g][e] = 0.f;
+    }
+
+    const T* kb = kc + (static_cast<long long>(b) * S * Kv + kvh) * D;
+    const T* vb = vc + (static_cast<long long>(b) * S * Kv + kvh) * Dv;
+    const int n_iter = (hi - lo + n_groups) / n_groups;  // the same for every lane of the block
+    for (int it = 0; it < n_iter; ++it) {
+      const int j = lo + it * n_groups + gid;
+      bool valid = j <= hi;
+      if (valid && ring) {
+        int back = (pos - j) % S;
         if (back < 0) back += S;
-        a = pos - back;
+        const int a = pos - back;
+        valid = a >= 0 && a <= pos && (window <= 0 || a > pos - window);
       }
-      valid = a >= 0 && a <= pos && (window <= 0 || a > pos - window);
+      float kf[CH], vf[CH];
+      if (valid) {
+        load_chunk(kb + static_cast<long long>(j) * Kv * D, d0, D, vec, kf);
+        load_chunk(vb + static_cast<long long>(j) * Kv * Dv, d0, Dv, vec, vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < CH; ++e) kf[e] = vf[e] = 0.f;
+      }
+      float s[GM];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        s[g] = 0.f;
+        if (g >= G) break;
+#pragma unroll
+        for (int e = 0; e < CH; ++e) s[g] = fmaf(Qs[g][d0 + e], kf[e], s[g]);
+      }
+      for (int off = lps / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+          s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+        }
+      if (!valid) continue;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        const float sg = softcap_f(s[g], softcap);
+        const float m_new = fmaxf(m[g], sg);
+        const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+        const float p = expf(sg - m_safe);
+        const float corr = merge_weight(m[g], m_safe);
+        l[g] = l[g] * corr + p;
+#pragma unroll
+        for (int e = 0; e < CH; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e] * corr);
+        m[g] = m_new;
+      }
     }
-    float s[kMaxG];
+
+    // merge the warp's groups (lanes with the same `sub` hold the same columns)
+    for (int off = lps; off < 32; off <<= 1)
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DT; ++d) {
-      const float kv = Ks[tid * L::k_ld + d];
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
+        const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
+        const float M = fmaxf(m[g], m_o);
+        const float Ms = M <= kNegInf / 2 ? 0.f : M;
+        const float wa = merge_weight(m[g], Ms), wb = merge_weight(m_o, Ms);
+        l[g] = wa * l[g] + wb * l_o;
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) s[g] = fmaf(Qs[g * DT + d], kv, s[g]);
-    }
+        for (int e = 0; e < CH; ++e) {
+          const float a_o = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+          acc[g][e] = wa * acc[g][e] + wb * a_o;
+        }
+        m[g] = M;
+      }
+    if (lane < lps) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      s[g] = valid ? softcap_f(s[g], softcap) : kNegInf;
-      float mx = s[g];
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        if (sub == 0) {
+          Wm[warp][g] = m[g];
+          Wl[warp][g] = l[g];
+        }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      if (lane == 0) red_max[warp * kMaxG + g] = mx;
+        for (int e = 0; e < CH; ++e)
+          if (d0 + e < Dv) Wacc[warp][g][d0 + e] = acc[g][e];
+      }
     }
     __syncthreads();
 
-    float corr[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float mx = red_max[g];
-#pragma unroll
-      for (int w = 1; w < kDecWarps; ++w) mx = fmaxf(mx, red_max[w * kMaxG + g]);
-      const float m_new = fmaxf(m[g], mx);
-      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-      const float p = valid ? expf(s[g] - m_safe) : 0.f;
-      Ps[g * kTS + tid] = p;
-      float rs = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      if (lane == 0) red_sum[warp * kMaxG + g] = rs;
-      corr[g] = m[g] <= kNegInf / 2 ? 0.f : expf(m[g] - m_safe);
-      m[g] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float rs = red_sum[g];
-#pragma unroll
-      for (int w = 1; w < kDecWarps; ++w) rs += red_sum[w * kMaxG + g];
-      l[g] = l[g] * corr[g] + rs;
-    }
-#pragma unroll
-    for (int r = 0; r < kOut; ++r) {
-      const int out = tid + r * kDecThreads;
-      const int g = out / DT, dv = out % DT;
-      if (g >= G) break;
-      float cg = 0.f;
-#pragma unroll
-      for (int gg = 0; gg < kMaxG; ++gg)
-        if (gg == g) cg = corr[gg];
-      float a = acc[r] * cg;
-      const float* pg = Ps + g * kTS;
-#pragma unroll 8
-      for (int j = 0; j < kTS; ++j) a = fmaf(pg[j], Vs[j * L::v_ld + dv], a);
-      acc[r] = a;
+    // merge the warps, in warp order, into the block's partial
+    for (int idx = tid; idx < G * Dv; idx += kDecThreads) {
+      const int g = idx / Dv, dv = idx % Dv;
+      float M = kNegInf;
+      for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, Wm[w][g]);
+      const float Ms = M <= kNegInf / 2 ? 0.f : M;
+      float L = 0.f, A = 0.f;
+      for (int w = 0; w < kDecWarps; ++w) {
+        const float wt = merge_weight(Wm[w][g], Ms);
+        L += wt * Wl[w][g];
+        A += wt * Wacc[w][g][dv];
+      }
+      float* dst = parts + (static_cast<long long>(g) * n_split + sp) * Dp;
+      dst[2 + dv] = A;
+      if (dv == 0) {
+        dst[0] = M;
+        dst[1] = L;
+      }
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < kOut; ++r) {
-    const int out = tid + r * kDecThreads;
-    const int g = out / DT, dv = out % DT;
-    if (g >= G) break;
-    if (dv >= Dv) continue;
-    float lg = 0.f;
-#pragma unroll
-    for (int gg = 0; gg < kMaxG; ++gg)
-      if (gg == g) lg = l[gg];
-    store_f(o + (static_cast<long long>(b) * H + kvh * G + g) * Dv + dv,
-            acc[r] / fmaxf(lg, 1e-30f));
+  // the last block of this (b, kv head) to finish merges the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&tickets[bkv], 1) == n_split - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int idx = tid; idx < G * Dv; idx += kDecThreads) {
+    const int g = idx / Dv, dv = idx % Dv;
+    const float* src = parts + static_cast<long long>(g) * n_split * Dp;
+    float M = kNegInf;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, __ldcg(src + s * Dp));
+    const float Ms = M <= kNegInf / 2 ? 0.f : M;
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float wt = merge_weight(__ldcg(src + s * Dp), Ms);
+      L += wt * __ldcg(src + s * Dp + 1);
+      A += wt * __ldcg(src + s * Dp + 2 + dv);
+    }
+    store_f(o + (static_cast<long long>(b) * H + kvh * G + g) * Dv + dv, A / fmaxf(L, 1e-30f));
   }
+  if (tid == 0) tickets[bkv] = 0;
 }
 
 // Opt in to the dynamic shared memory a kernel needs above 48 KB, once.
@@ -448,26 +983,108 @@ int launch_fa(const void* q, const void* k, const void* v, void* o, int B, int S
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DT>
-int launch_decode(const void* q, const void* kc, const void* vc, void* o, const void* pos, int B,
-                  int S, int Kv, int G, int D, int Dv, float scale, int window, int ring,
-                  float softcap, cudaStream_t s) {
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous (B, S, heads, width) bf16 tensor as TMA reads it: boxes of
+// 64 columns x 1 head x 64 rows, 128-byte swizzled, zero fill past every
+// edge. Returns 0, or the negated CUresult of the encoding.
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int width) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(width) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, kWgKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+template <int ND, int DV>
+int launch_fa_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
+                    int B, int Sq, int Sk, int H, int Kv, float scale, int causal, int window,
+                    float softcap, int q_offset, cudaStream_t s) {
   static bool ready = false;
-  auto kernel = flash_decode_kernel<T, DT>;
-  cudaError_t err = allow_smem(kernel, DecSmem<DT>::bytes, &ready);
+  auto kernel = flash_attention_wgmma_kernel<ND, DV>;
+  cudaError_t err = allow_smem(kernel, wg_smem_bytes(ND, DV), &ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B * Kv, kDecThreads, DecSmem<DT>::bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<T*>(o), static_cast<const int*>(pos), S, Kv, G, D, Dv, scale, window, ring,
-      softcap);
+  dim3 grid((Sq + kWgRows - 1) / kWgRows, B * H);
+  kernel<<<grid, kWgThreads, wg_smem_bytes(ND, DV), s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Kv, scale, causal, window, softcap,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int GM>
+int launch_decode(const void* q, const void* kc, const void* vc, void* o, const void* pos,
+                  void* part, void* tickets, int B, int S, int Kv, int G, int D, int Dv,
+                  float scale, int window, int ring, float softcap, int split, cudaStream_t s) {
+  constexpr int CH = 16 / sizeof(T);
+  const int need = (std::max(D, Dv) + CH - 1) / CH;
+  int lps = 1;
+  while (lps < need) lps *= 2;
+  const bool aligned = reinterpret_cast<uintptr_t>(kc) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(vc) % 16 == 0;
+  const int vec = aligned && D % CH == 0 && Dv % CH == 0;
+  dim3 grid(B * Kv, (S + split - 1) / split);
+  flash_decode_kernel<T, GM><<<grid, kDecThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<T*>(o), static_cast<const int*>(pos), static_cast<float*>(part),
+      static_cast<int*>(tickets), S, Kv, G, D, Dv, scale, window, ring, softcap, split, lps, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_decode_g(const void* q, const void* kc, const void* vc, void* o, const void* pos,
+                    void* part, void* tickets, int B, int S, int Kv, int G, int D, int Dv,
+                    float scale, int window, int ring, float softcap, int split, cudaStream_t s) {
+  if (G == 1)
+    return launch_decode<T, 1>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
+                               window, ring, softcap, split, s);
+  if (G <= 4)
+    return launch_decode<T, 4>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
+                               window, ring, softcap, split, s);
+  if (G <= 8)
+    return launch_decode<T, 8>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
+                               window, ring, softcap, split, s);
+  return launch_decode<T, kMaxG>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
+                                 window, ring, softcap, split, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). D and Dv at most
-// 128; H a multiple of Kv; B * H at most 65,535. window 0 = none; softcap
-// 0 = none. Returns a cudaError_t as int (0 = success).
+// K10 on CUDA cores. dtype: 0 = float32, 1 = bfloat16 (q, k, v and o
+// alike). D and Dv at most 128; H a multiple of Kv; B * H at most 65,535.
+// window 0 = none; softcap 0 = none. Returns a cudaError_t as int (0 =
+// success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H, int Kv, int D, int Dv,
                                    float scale, int causal, int window, float softcap,
@@ -490,25 +1107,56 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// pos: one int32 on the device. G = H / Kv at most 16.
+// K10 on tensor cores: bf16 q, k, v and o, contiguous, 16-byte aligned; D
+// and Dv multiples of 16 up to 128; H a multiple of Kv; B * H at most
+// 65,535. Returns a cudaError_t as int (0 = success), or a negated
+// CUresult if a tensor map could not be encoded.
+extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
+                                         int B, int Sq, int Sk, int H, int Kv, int D, int Dv,
+                                         float scale, int causal, int window, float softcap,
+                                         int q_offset, void* stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 128 ||
+      Dv > 128 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, B, Sq, H, D);
+  if (err == 0) err = make_map(&tk, k, B, Sk, Kv, D);
+  if (err == 0) err = make_map(&tv, v, B, Sk, Kv, Dv);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dv) {
+#define K10_DV(n)                                                                              \
+  case n:                                                                                      \
+    return D <= 64 ? launch_fa_wgmma<1, n>(tq, tk, tv, o, B, Sq, Sk, H, Kv, scale, causal,     \
+                                           window, softcap, q_offset, s)                       \
+                   : launch_fa_wgmma<2, n>(tq, tk, tv, o, B, Sq, Sk, H, Kv, scale, causal,     \
+                                           window, softcap, q_offset, s);
+    K10_DV(16) K10_DV(32) K10_DV(48) K10_DV(64) K10_DV(80) K10_DV(96) K10_DV(112) K10_DV(128)
+#undef K10_DV
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K11. pos: one int32 on the device. G = H / Kv at most 16. part: B * H *
+// ceil(S / split) * (Dv + 2) fp32 of scratch; tickets: B * Kv int32, 0
+// before the launch (the launch leaves them 0).
 extern "C" int flash_decode_fwd(int dtype, const void* q, const void* k_cache,
-                                const void* v_cache, void* o, const void* pos, int B, int S,
-                                int Kv, int G, int D, int Dv, float scale, int window, int ring,
-                                float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || Kv <= 0 || G <= 0 || G > kMaxG || D <= 0 || Dv <= 0 || D > 128 ||
-      Dv > 128 || static_cast<long long>(B) * Kv > 2147483647LL)
+                                const void* v_cache, void* o, const void* pos, void* part,
+                                void* tickets, int B, int S, int Kv, int G, int D, int Dv,
+                                float scale, int window, int ring, float softcap, int split,
+                                void* stream) {
+  if (B <= 0 || S <= 0 || Kv <= 0 || G <= 0 || G > kMaxG || D <= 0 || Dv <= 0 ||
+      D > kMaxDim || Dv > kMaxDim || split <= 0 || (S + split - 1) / split > 65535 ||
+      static_cast<long long>(B) * Kv > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool narrow = D <= 64 && Dv <= 64;
   if (dtype == 0)
-    return narrow ? launch_decode<float, 64>(q, k_cache, v_cache, o, pos, B, S, Kv, G, D, Dv,
-                                             scale, window, ring, softcap, s)
-                  : launch_decode<float, 128>(q, k_cache, v_cache, o, pos, B, S, Kv, G, D, Dv,
-                                              scale, window, ring, softcap, s);
+    return launch_decode_g<float>(q, k_cache, v_cache, o, pos, part, tickets, B, S, Kv, G, D,
+                                  Dv, scale, window, ring, softcap, split, s);
   if (dtype == 1)
-    return narrow ? launch_decode<__nv_bfloat16, 64>(q, k_cache, v_cache, o, pos, B, S, Kv, G,
-                                                     D, Dv, scale, window, ring, softcap, s)
-                  : launch_decode<__nv_bfloat16, 128>(q, k_cache, v_cache, o, pos, B, S, Kv, G,
-                                                      D, Dv, scale, window, ring, softcap, s);
+    return launch_decode_g<__nv_bfloat16>(q, k_cache, v_cache, o, pos, part, tickets, B, S, Kv,
+                                          G, D, Dv, scale, window, ring, softcap, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

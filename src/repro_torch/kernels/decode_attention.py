@@ -5,9 +5,13 @@ flash_decode`` and stands behind the port's ``decode_attention``
 (``models/attention.py``). The kernel is CUDA C++ in ``csrc/attention.cu``
 (its header states what bounds it), built by ``build.py`` and called
 through ctypes. It reads ``pos`` from an int32 on the device, so a decode
-step can later be captured in a CUDA graph, and it takes the window, the
-ring buffer, the softcap and the scale of ``repro/models/attention.py:158
-decode_attention``.
+step can be captured in a CUDA graph, and it takes the window, the ring
+buffer, the softcap and the scale of ``repro/models/attention.py:158
+decode_attention``. It splits the cache into ``SPLIT_SLOTS``-slot pieces,
+one block each, whose partial softmaxes the last block of each (batch, kv
+head) merges in split order: one launch, the same bits for the same
+inputs. The split count depends on S only, so a captured launch replays
+for any ``pos``.
 
 The wrapper takes the plain version (``ref.decode_attention_ref``) only
 for tensors on the CPU. A CUDA tensor gets the kernel or an exception;
@@ -29,6 +33,12 @@ from repro_torch.kernels.flash_attention import (
 
 FWD_LAUNCHES = 0
 MAX_GROUP = 16  # query heads a kv head (the kernel's registers)
+SPLIT_SLOTS = 64  # cache slots a block
+
+
+def n_splits(S: int) -> int:
+    """The kernel's splits of a cache of S slots (its grid's second axis)."""
+    return -(-S // SPLIT_SLOTS)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
@@ -65,12 +75,17 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
         raise TypeError(f"pos must be one int32 on the device, got {pos_t.dtype} "
                         f"{tuple(pos_t.shape)}")
     o = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    # each split's partial (m, l, acc[Dv]) for each query row, and a ticket
+    # per (batch, kv head), 0 before the launch
+    part = torch.empty((B * H * n_splits(S) * (Dv + 2),), dtype=torch.float32, device=q.device)
+    tickets = torch.zeros((B * Kv,), dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check_launch(
         _lib().flash_decode_fwd(DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-                                v_cache.data_ptr(), o.data_ptr(), pos_t.data_ptr(), B, S, Kv,
-                                G, D, Dv, scale, int(window or 0), int(bool(ring)),
-                                float(logit_softcap), stream),
+                                v_cache.data_ptr(), o.data_ptr(), pos_t.data_ptr(),
+                                part.data_ptr(), tickets.data_ptr(), B, S, Kv, G, D, Dv, scale,
+                                int(window or 0), int(bool(ring)), float(logit_softcap),
+                                SPLIT_SLOTS, stream),
         "flash_decode_fwd",
     )
     FWD_LAUNCHES += 1

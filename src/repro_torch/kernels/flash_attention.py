@@ -1,17 +1,22 @@
-"""The forward attention kernel (K10): wrapper and launch count.
+"""The forward attention kernel (K10): wrapper, route and launch counts.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:70
 flash_attention`` and stands behind the port's ``blockwise_attention``
-(``models/attention.py``), which the model calls. The kernel is CUDA C++
-in ``csrc/attention.cu`` (its header states what bounds it on the card),
-built by ``build.py`` and called through ctypes. It takes the scale and
-the query offset of ``repro/models/attention.py:84 blockwise_attention``
-and masks ragged tiles, so every call of the model's function on the
-card runs it.
+(``models/attention.py``), which the model calls. The kernels are CUDA
+C++ in ``csrc/attention.cu`` (its header states what bounds each on the
+card), built by ``build.py`` and called through ctypes. They take the
+scale and the query offset of ``repro/models/attention.py:84
+blockwise_attention`` and mask ragged tiles, so every call of the
+model's function on the card runs one of them.
 
-The wrapper takes the plain version (``ref.flash_attention_ref``) only
-for tensors on the CPU. A CUDA tensor gets the kernel or an exception;
-nothing falls back. ``FWD_LAUNCHES`` counts the kernel's launches.
+Two routes, chosen by a fixed rule (``route``), not by a fallback: bf16
+q, k and v with D and Dv multiples of 16, 16-byte aligned, go to the
+tensor-core kernel (``flash_attention_wgmma``); everything else (fp32,
+other widths) to the CUDA-core kernel (``flash_attention``). A failed
+build or launch raises. The wrapper takes the plain version
+(``ref.flash_attention_ref``) only for tensors on the CPU.
+``FWD_LAUNCHES`` counts every launch, ``WGMMA_LAUNCHES`` and
+``SIMT_LAUNCHES`` those of each route.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 FWD_LAUNCHES = 0
+WGMMA_LAUNCHES = 0
+SIMT_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -38,8 +45,11 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                         _F, _I, _I, _F, _I, _P]
     lib.flash_attention_fwd.restype = _I
-    lib.flash_decode_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _F, _I, _I, _F, _P]
+    lib.flash_attention_wgmma_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                              _F, _I, _I, _F, _I, _P]
+    lib.flash_attention_wgmma_fwd.restype = _I
+    lib.flash_decode_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _I, _I, _F, _I, _P]
     lib.flash_decode_fwd.restype = _I
     return lib
 
@@ -68,6 +78,17 @@ def check_kernel_inputs(what: str, *tensors) -> None:
         raise ValueError(f"{what}: the kernel takes contiguous tensors")
 
 
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a launch on the card takes: "wgmma" (tensor cores) for
+    bf16 with D and Dv multiples of 16 and 16-byte aligned tensors, else
+    "simt" (CUDA cores)."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if (q.dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window=None, logit_softcap: float = 0.0, q_offset: int = 0,
                     scale=None, block_kv: int = 512) -> torch.Tensor:
@@ -75,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     Dv) in q's dtype. ``window`` None or 0 is no window; ``scale`` None is
     D**-0.5. ``block_kv`` is the plain version's kv block (the kernel's
     tile is its own)."""
-    global FWD_LAUNCHES
+    global FWD_LAUNCHES, WGMMA_LAUNCHES, SIMT_LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, S, heads, D)")
     B, Sq, H, D = q.shape
@@ -96,12 +117,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"Sk={Sk}, B*H={B * H}")
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check_launch(
-        _lib().flash_attention_fwd(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                                   v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, Kv, D, Dv, scale,
-                                   int(bool(causal)), int(window or 0), float(logit_softcap),
-                                   int(q_offset), stream),
-        "flash_attention_fwd",
-    )
+    args = (B, Sq, Sk, H, Kv, D, Dv, scale, int(bool(causal)), int(window or 0),
+            float(logit_softcap), int(q_offset), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if route(q, k, v) == "wgmma":
+        build.check_launch(_lib().flash_attention_wgmma_fwd(*ptrs, *args),
+                           "flash_attention_wgmma_fwd")
+        WGMMA_LAUNCHES += 1
+    else:
+        build.check_launch(_lib().flash_attention_fwd(DTYPE_CODES[q.dtype], *ptrs, *args),
+                           "flash_attention_fwd")
+        SIMT_LAUNCHES += 1
     FWD_LAUNCHES += 1
     return o

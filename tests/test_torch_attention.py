@@ -185,6 +185,134 @@ def test_wrappers_refuse_what_no_kernel_takes():
         K11.flash_decode(q[:, 0], q, q, torch.zeros((), dtype=torch.int32, device="meta"))
 
 
+def test_one_term_bf16_p_would_not_match():
+    """The hazard the tensor-core K10 avoids: P.V with p rounded to bf16
+    once (what SDPA and FlashAttention do) computes another function than
+    the reference's fp32 p. Against JAX's ``blockwise_attention`` at
+    Whisper's 1,500 source frames, one term changes far more of the
+    bf16-rounded outputs than p = p_hi + p_lo (two bf16 terms, the
+    kernel's two register-A products)."""
+    B, Sq, Sk, H, D = 1, 64, 1500, 4, 64
+    (jq, jk, jv), (tq, tk, tv) = _inputs([(B, Sq, H, D), (B, Sk, H, D), (B, Sk, H, D)],
+                                         "bfloat16", 17)
+    want = torch.from_numpy(_np(jattn.blockwise_attention(jq, jk, jv, causal=False)).copy())
+    q, k, v = (t.double().permute(0, 2, 1, 3) for t in (tq, tk, tv))     # (B, H, S, D)
+    s = (q @ k.transpose(-1, -2)) * D ** -0.5
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).float()              # fp32 p
+    l = p.double().sum(dim=-1, keepdim=True)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+
+    def share_differing(pv):
+        out = (pv.double() @ v / l).permute(0, 2, 1, 3).bfloat16().float()
+        return float((out != want).double().mean())
+
+    one_term, two_terms = share_differing(hi), share_differing(hi.double() + lo.double())
+    assert one_term > 0.10, one_term
+    assert two_terms <= 0.02, two_terms
+
+
+def _split_decode(q, k_cache, v_cache, pos: int, *, window=None, ring=False, cap=0.0,
+                  scale=None):
+    """K11's split-S rule written out: each SPLIT_SLOTS-slot split's online
+    softmax over its valid slots (a split with none gives the neutral
+    partial m = -1e30, l = 0, acc = 0), then the merge in split order,
+    o = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30), M
+    guarded as m_safe. fp32 throughout."""
+    B, H, D = q.shape
+    S, Kv, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    G = H // Kv
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float().reshape(B, Kv, G, D) * scale
+    neg = ref.NEG_INF
+    parts = []
+    for sp in range(K11.n_splits(S)):
+        lo, hi = sp * K11.SPLIT_SLOTS, min(S, (sp + 1) * K11.SPLIT_SLOTS) - 1
+        if not ring:
+            hi = min(hi, pos)
+            if window:
+                lo = max(lo, pos - window + 1)
+        if lo > hi:
+            parts.append((torch.full((B, Kv, G), neg), torch.zeros(B, Kv, G),
+                          torch.zeros(B, Kv, G, Dv)))
+            continue
+        j = torch.arange(lo, hi + 1)
+        a = pos - torch.remainder(pos - j, S) if ring else j
+        valid = (a >= 0) & (a <= pos)
+        if window:
+            valid &= a > pos - window
+        s = torch.einsum("bkgd,bjkd->bkgj", qf, k_cache[:, lo:hi + 1].float())
+        if cap > 0:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(valid, s, neg)
+        m = s.amax(dim=-1)
+        m_safe = torch.where(m <= neg / 2, 0.0, m)
+        p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgj,bjkd->bkgd", p, v_cache[:, lo:hi + 1].float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    M_safe = torch.where(M <= neg / 2, 0.0, M)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:  # in split order
+        w = torch.where(m <= neg / 2, 0.0, torch.exp(m - M_safe))
+        L = L + w * l
+        A = A + w[..., None] * acc
+    return (A / torch.clamp(L, min=1e-30)[..., None]).reshape(B, H, Dv)
+
+
+SPLIT_CASES = [  # splits, B, H, Kv, D, pos, window, ring, softcap, scale
+    (1, 2, 4, 4, 16, "S-1", None, False, 0.0, None),
+    (3, 2, 4, 4, 16, "S-1", None, False, 0.0, None),
+    (3, 1, 4, 4, 16, "SPLIT", None, False, 0.0, None),     # a split edge at pos, a dead split
+    (3, 1, 4, 4, 16, "SPLIT-1", None, False, 0.0, None),
+    (3, 2, 8, 2, 16, 1000, 90, True, 20.0, 0.3),            # ring, window, softcap, G = 4
+    (3, 1, 4, 1, 8, 70, 30, False, 10.0, None),             # a window inside split 1, G = 4
+    (3, 2, 4, 2, 16, -1, None, False, 0.0, None),           # no valid slot: 0
+    ("n", 1, 2, 2, 16, "S-1", None, False, 0.0, None),      # the cross cache's 1,500 slots
+    ("n", 1, 2, 2, 16, 700, None, False, 0.0, None),        # its later splits dead
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_decode_rule_is_decode_attention(case):
+    splits, B, H, Kv, D, pos, window, ring, cap, scale = case
+    S = {1: K11.SPLIT_SLOTS, 3: 3 * K11.SPLIT_SLOTS - 5, "n": 1500}[splits]
+    pos = {"S-1": S - 1, "SPLIT": K11.SPLIT_SLOTS, "SPLIT-1": K11.SPLIT_SLOTS - 1}.get(pos, pos)
+    assert K11.n_splits(S) == (splits if splits != "n" else -(-1500 // K11.SPLIT_SLOTS))
+    (jq, jk, jv), (tq, tk, tv) = _inputs([(B, H, D), (B, S, Kv, D), (B, S, Kv, D)], "float32",
+                                         S + H + D)
+    want = jattn.decode_attention(jq, jk, jv, jnp.asarray(pos, jnp.int32), window=window,
+                                  ring=ring, logit_softcap=cap, query_scale=scale)
+    got = _split_decode(tq, tk, tv, pos, window=window, ring=ring, cap=cap, scale=scale)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+    if pos < 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+ROUTES = [  # dtype, D, Dv, route
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 16, 16, "wgmma"),
+    (torch.bfloat16, 96, 80, "wgmma"),
+    (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 24, 24, "simt"),
+    (torch.bfloat16, 64, 40, "simt"),
+    (torch.float32, 64, 64, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", ROUTES, ids=str)
+def test_k10_route_is_a_fixed_rule(dtype, D, Dv, want):
+    """bf16 with D and Dv multiples of 16 (16-byte aligned) takes the
+    tensor cores; fp32 and other widths the CUDA cores."""
+    q, k = torch.zeros(1, 4, 2, D, dtype=dtype), torch.zeros(1, 4, 2, D, dtype=dtype)
+    v = torch.zeros(1, 4, 2, Dv, dtype=dtype)
+    assert K10.route(q, k, v) == want
+    if want == "wgmma":  # a view 2 bytes into its storage is not aligned
+        flat = torch.zeros(q.numel() + 1, dtype=dtype)
+        assert K10.route(flat[1:].view(q.shape), k, v) == "simt"
+
+
 # ------------------------------------------------------------------ layers
 
 def _np(t):
