@@ -24,8 +24,12 @@ Phases, each printed as it ends:
    (n=5,308,416), at n=4,096 and at ragged sizes, and must give the
    plain versions' bits; the scatter-add runs twice for the same bits;
    K7's dequantize and K9's top-k unpack (the slow path's packed wire)
-   run at the same shapes, K9 also with repeated indices, and the
-   quantizer also with a scale for each client; all bitwise;
+   run at the same shapes, K9 also with repeated and out-of-range
+   indices and runs across its windows' edges (its starts and slots held
+   to the plain layout's, and replayed from one CUDA graph),
+   and the quantizer also with a scale for each client; all bitwise;
+   K9's device time by launch under the profiler; K2's dw product also
+   at ragged shapes (S·B = 37, H = 100 and 99) and with its occupancy;
    K10 (flash attention) and K11 (flash decode) in bf16 and fp32 at
    whisper-base's shapes (the encoder, B=4, 1,500 frames, 8 heads of 64;
    the decoder's cross-attention at Sq=4 and 448 against 1,500 frames;
@@ -243,9 +247,12 @@ def phase_build():
     log(f"[build] {len(build.SOURCES)} source(s) ready in {time.perf_counter() - t0:.2f} s "
         f"({len(logs)} compiled now) under {build.BUILD_DIR}")
     for name, text in logs.items():
+        entry = "?"  # the mangled name of the kernel ptxas reports on
         for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill" in line or ("ptxas info" in line and "Used" in line):
+                log(f"[build] {name}: {entry[:72]}: {line.strip()}")
 
 
 def cuda_ms(torch, fn, n: int) -> float:
@@ -601,6 +608,12 @@ def phase_scan_kernels(torch, timing: bool = True):
                  lambda: ref.lstm_scan_dw_ref(h0, ys, got[0]), lambda: hp.T @ dg,
                  B * H * gs + seqs * es + seqs * 4 * gs + 16 * H * H, prod),
             ]
+        if name == "encoder":
+            per_sm, sms = K.dw_blocks_per_sm(ys.dtype), torch.cuda.get_device_properties(
+                0).multi_processor_count
+            log(f"[kernels] lstm_scan_dw {tag}: {K.dw_grid(H)} blocks of {K.DW_TILE[0]} x "
+                f"{K.DW_TILE[1]}, {per_sm} resident an SM: {K.dw_grid(H) / (per_sm * sms):.3f} "
+                f"waves of {per_sm * sms} on {sms} SMs")
         for kname, kernel, plain, library, nbytes, ops in cases:
             t_k = cuda_ms(torch, kernel, 20)
             g_k = None
@@ -614,15 +627,47 @@ def phase_scan_kernels(torch, timing: bool = True):
                         f"CUDA graph ({e}); graph times of K2 not measured")
             t_p, g_p = cuda_ms(torch, plain, 3), graph_ms(torch, plain, 3)
             t_l = cuda_ms(torch, library, 10)
+            # the dw product's yardstick is one matmul: it captures
+            g_l = graph_ms(torch, library, 10) if kname == "lstm_scan_dw" else None
             bound_ms, bound_by = _bound(nbytes, ops)
             log(f"[kernels] {kname} {tag}: us per call eager/graph: kernel {_us(t_k)}/{_us(g_k)}, "
-                f"plain {_us(t_p)}/{_us(g_p)}, library {_us(t_l)} (eager); bound "
+                f"plain {_us(t_p)}/{_us(g_p)}, library {_us(t_l)}/{_us(g_l)}; bound "
                 f"{bound_ms * 1e3:.2f} us ({bound_by}, {ops} flop, {nbytes} B); "
-                f"eager time / bound {t_k / bound_ms:.2f}")
+                f"eager time / bound {t_k / bound_ms:.2f}, / library {t_k / t_l:.2f}")
             if name == "encoder":
                 rows[kname] = {"max_abs_err": errs[kname], "ms": t_k, "plain_ms": t_p,
                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_l}
+    phase_dw_ragged(torch, gen)
     return rows
+
+
+# the dw product's ragged shapes: S·B = 37 rows of n (slabs of 16), H = 100
+# (tiles of 64 x 128 of dw) with fp32 and bf16 ys, and H = 99, whose rows
+# are not 16-byte aligned (the kernel's element-wise route)
+DW_RAGGED = ((37, 1, 100, "float32"), (37, 1, 100, "bfloat16"), (37, 1, 99, "bfloat16"))
+
+
+def phase_dw_ragged(torch, gen) -> None:
+    """K2's dw product at DW_RAGGED against its plain version, twice for
+    the same bits."""
+    from repro_torch.kernels import lstm_scan as K
+    from repro_torch.kernels import ref
+
+    for S, B, H, dtype in DW_RAGGED:
+        tag = f"ragged S={S} B={B} H={H} {dtype} ys"
+        h0 = torch.randn((B, H), generator=gen, device="cuda") * 0.1
+        ys = (torch.randn((S, B, H), generator=gen, device="cuda") * 0.5).to(getattr(torch, dtype))
+        dg = torch.randn((S, B, 4 * H), generator=gen, device="cuda")
+        dw, again = K.lstm_scan_dw(h0, ys, dg), K.lstm_scan_dw(h0, ys, dg)
+        torch.cuda.synchronize()
+        if not torch.equal(dw, again):
+            raise AssertionError(f"lstm_scan_dw {tag}: two runs on the same inputs differ")
+        rel = _rel_err((dw,), (ref.lstm_scan_dw_ref(h0, ys, dg),))
+        if rel > SCAN_BWD_REL_TOL:
+            raise AssertionError(f"lstm_scan_dw {tag}: error relative to max {rel:.2e} > "
+                                 f"{SCAN_BWD_REL_TOL}")
+        log(f"[kernels] lstm_scan_dw {tag}: |err|/max {rel:.2e} (tol {SCAN_BWD_REL_TOL}); "
+            "bitwise repeatable")
 
 
 # the compression kernels' sizes: the paper's largest leaf (joint and
@@ -647,6 +692,114 @@ def _maybe_graph_ms(torch, fn, n: int, what: str):
         torch.cuda.synchronize()
         log(f"[kernels] {what}: not captured in a CUDA graph ({e}); graph time not measured")
         return None
+
+
+def _unpack_edge_payload(torch, gen, K: int, k: int, n: int, seg: int):
+    """(K, 2k + 1) int32 indices for K9: drawn with repeats, the first and
+    last entries of a row equal, and where a row has 12 or more entries,
+    repeats at both sides of the first window edge (``seg``; the middle
+    for n <= seg) and at n - 1, and indices out of range (-1, n,
+    2**31 - 1)."""
+    dup = torch.randint(0, n, (K, 2 * k + 1), generator=gen, device="cuda", dtype=torch.int32)
+    dup[:, -1] = dup[:, 0]
+    w = dup.shape[1]
+    if w >= 12:
+        edge = seg if n > seg else max(1, n // 2)
+        dup[:, 1:w // 2:7] = edge - 1
+        dup[:, 2:w // 2:7] = min(edge, n - 1)
+        dup[:, 3::11] = n - 1
+        dup[:, 4::13] = -1
+        dup[:, 5::17] = n
+        dup[:, 6::19] = 2**31 - 1
+    return dup
+
+
+# K9's routes the path's shapes do not take: int64 indices (clamped to
+# [-1, n] before the kernel, some past int32's range), the largest n the
+# kernel takes (36 Ki windows: the sort's shared histogram at its limit),
+# and k >= 2**21 (the window place in an array of its own).
+# (K, k, n, index dtype)
+UNPACK_ROUTES = ((1, 1000, 30_000_000, "int64"), (1, 4096, 75_497_472, "int32"),
+                 (1, 2**21 + 5, 4_194_304, "int32"))
+
+
+def _check_unpack_routes(torch, W, ref, gen) -> None:
+    for K, k, n, dtype in UNPACK_ROUTES:
+        tag = f"K={K} k={k} n={n} {dtype} indices"
+        idx = torch.randint(-3, n + 3, (K, k), generator=gen, device="cuda",
+                            dtype=getattr(torch, dtype))
+        if dtype == "int64":
+            idx[:, :3] = torch.tensor([2**32 + 5, -(2**40), 2**31], device="cuda")
+        vals = torch.randn((K, k), generator=gen, device="cuda")
+        got, scratch = W._topk_unpack_kernels(vals, idx, n)
+        _bitwise(torch, got, ref.topk_unpack_ref(vals, idx, n), f"topk_unpack {tag}")
+        _check_unpack_layout(torch, W, W.kernel_layout(scratch, K, k, n), idx, n, tag)
+        log(f"[kernels] topk_unpack {tag} ({-(-n // W.SEGMENT)} windows a row, "
+            f"{-(-k // W.UNPACK_CHUNK)} chunks): bitwise equal to the plain version, its layout "
+            "the plain one's")
+        del got, scratch
+
+
+def _check_unpack_layout(torch, W, layout, idx, n: int, tag: str) -> None:
+    """K9's starts bitwise the plain layout's; its slots the same after
+    each chunk's runs are put in payload order."""
+    starts, slots = layout
+    want_starts, want_slots = W.unpack_layout(idx, n)
+    _bitwise(torch, starts, want_starts, f"topk_unpack starts {tag}")
+    K, k = idx.shape
+    nseg = starts.shape[2] - 1
+    pos = torch.arange(k, device=idx.device)
+    chunk = pos // W.UNPACK_CHUNK
+    valid = (pos - chunk * W.UNPACK_CHUNK)[None] < starts[:, chunk, nseg]
+    j = torch.where(valid, slots, 0).long()
+    window = torch.gather(idx.long(), 1, j).div(W.SEGMENT, rounding_mode="floor")
+    span = (nseg + 1) * k  # a chunk's keys, below the next chunk's
+    key = torch.where(valid, chunk * span + window * k + j, chunk * span + nseg * k + pos)
+    ordered = torch.sort(key, dim=1).values % k
+    _bitwise(torch, torch.where(valid, ordered, -1).int(), want_slots, f"topk_unpack slots {tag}")
+
+
+def _check_unpack_graph(torch, W, values, idx, n: int, want, tag: str) -> None:
+    """K9 captured in one CUDA graph, replayed twice into a zeroed output:
+    the plain version's bits each time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        W.topk_unpack(values, idx, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = W.topk_unpack(values, idx, n)
+    for r in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _bitwise(torch, out, want, f"topk_unpack from a CUDA graph, replay {r + 1} {tag}")
+    del graph
+
+
+def _log_unpack_kernels(torch, W, values, idx, n: int, tag: str, calls: int = 20) -> None:
+    """Each of K9's launches alone: device time by kernel under the
+    profiler over ``calls`` wrapper calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    W.topk_unpack(values, idx, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            W.topk_unpack(values, idx, n)
+        torch.cuda.synchronize()
+    by_name = {name: t for name, (t, c) in _device_times(torch, prof).items()
+               if "topk_unpack" in name or "emset" in name}
+    if not by_name:
+        log(f"[kernels] topk_unpack {tag}: the profiler recorded no device events: "
+            "per-kernel times not measured")
+        return
+    parts = ", ".join(f"{name.replace('(anonymous namespace)::', '').split('(')[0]} "
+                      f"{t / calls:.2f}"
+                      for name, t in sorted(by_name.items(), key=lambda kv: -kv[1]))
+    log(f"[kernels] topk_unpack {tag}: device us a call by launch: {parts}; sum "
+        f"{sum(by_name.values()) / calls:.2f}")
 
 
 def phase_wire_kernels(torch):
@@ -739,13 +892,17 @@ def phase_wire_kernels(torch):
         _bitwise(torch, W.topk_unpack(vals, idx, n),
                  torch.zeros((K, n), device="cuda").scatter_(1, idx.long(), vals),
                  f"topk_unpack against scatter_ {tag}")
-        dup = torch.randint(0, n, (K, 2 * k + 1), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        dup[:, -1] = dup[:, 0]
+        dup = _unpack_edge_payload(torch, gen, K, k, n, W.SEGMENT)
         dvals = torch.randn(dup.shape, generator=gen, device="cuda")
-        _bitwise(torch, W.topk_unpack(dvals, dup, n), ref.topk_unpack_ref(dvals, dup, n),
-                 f"topk_unpack with duplicate indices {tag}")
+        want_dup = ref.topk_unpack_ref(dvals, dup, n)
+        got_dup, scratch = W._topk_unpack_kernels(dvals, dup, n)
+        layout = W.kernel_layout(scratch, K, dup.shape[1], n)
+        _bitwise(torch, got_dup, want_dup,
+                 f"topk_unpack with duplicate, out-of-range and window-edge indices {tag}")
+        _check_unpack_layout(torch, W, layout, dup, n, tag)
+        _check_unpack_graph(torch, W, dvals, dup, n, want_dup, tag)
         n_dup = K * dup.shape[1] - sum(int(torch.unique(r).numel()) for r in dup)
+        n_out = int(((dup < 0) | (dup >= n)).sum())
         dense = W.topk_scatter_add(vals, idx, weights, n)
         again = W.topk_scatter_add(vals, idx, weights, n)
         _bitwise(torch, dense, ref.topk_scatter_add_ref(vals, idx, weights, n),
@@ -756,10 +913,12 @@ def phase_wire_kernels(torch):
             f"included), nibble pack and unpack, dequantize (shared and per-client scale), "
             f"top-k scatter-add ({k} of each row, {shared} indices picked by more than one "
             f"client), top-k unpack ({k} of each row; and {dup.shape[1]} a row with {n_dup} "
-            f"repeated indices) bitwise equal to the plain versions; scatter-add bitwise "
-            f"repeatable")
+            f"repeated indices, {n_out} out of range, runs across window edges: its layout "
+            f"the plain one's, bitwise again from one CUDA graph) bitwise equal to the plain "
+            f"versions; scatter-add bitwise repeatable")
         if n != WIRE_SIZES[0]:
             continue
+        _check_unpack_routes(torch, W, ref, gen)
 
         # times at the largest leaf, as the main path calls each kernel
         sv, si, bounds = W.scatter_add_segments(vals, idx, weights, n)
@@ -788,14 +947,6 @@ def phase_wire_kernels(torch):
             log(f"[kernels] topk_scatter_add {tag}: deterministic index_add_ unavailable: {e}")
         finally:
             torch.use_deterministic_algorithms(was_deterministic)
-        usv, usi, ubounds = W.unpack_segments(vals, idx, n)
-        uout = torch.empty((K, n), device="cuda")
-
-        def unpack_kernel():  # the kernel alone, on the sorted payload
-            W._lib().topk_unpack(usv.data_ptr(), usi.data_ptr(), ubounds.data_ptr(),
-                                 uout.data_ptr(), K, k, n, W.SEGMENT,
-                                 torch.cuda.current_stream().cuda_stream)
-
         idx_long = idx.long()
 
         def library_unpack():  # the same function for distinct indices
@@ -805,6 +956,15 @@ def phase_wire_kernels(torch):
             return codes8 * scales[:, None]
 
         t_lib_unpack = cuda_ms(torch, library_unpack, 20)
+
+        def zeros():  # the output's write alone: the floor of K9's window pass
+            return torch.zeros((K, n), device="cuda")
+
+        log(f"[kernels] topk_unpack {tag}: library (scatter_ into zeros) from a CUDA graph "
+            f"{_us(graph_ms(torch, library_unpack, 20))} us; the output's write alone "
+            f"(torch.zeros of (K, n)) {_us(cuda_ms(torch, zeros, 20))}/"
+            f"{_us(graph_ms(torch, zeros, 20))} us eager/graph")
+        _log_unpack_kernels(torch, W, vals, idx, n, tag)
         t_lib_deq = cuda_ms(torch, library_dequantize, 50)
         m, nb, kn = K * k, (n + 1) // 2, K * n
         nseg = -(-n // W.SEGMENT)
@@ -831,11 +991,9 @@ def phase_wire_kernels(torch):
              lambda: ref.nibble_unpack_ref(packed, n), None, K * nb + kn, 4 * kn, 0),
             ("dequantize", "int8 codes, per-client scale", lambda: W.dequantize(codes8, scales),
              lambda: ref.dequantize_ref(codes8, scales), t_lib_deq, kn + 4 * K + 4 * kn, 0, kn),
-            ("topk_unpack", "wrapper as the path calls it: stable sort, searchsorted, kernel",
-             lambda: W.topk_unpack(vals, idx, n), lambda: ref.topk_unpack_ref(vals, idx, n),
-             t_lib_unpack, 8 * m + 4 * kn, 0, 0),
-            ("topk_unpack", "kernel alone, on the sorted payload", unpack_kernel, None, None,
-             8 * m + 4 * K * (nseg + 1) + 4 * kn, 0, 0),
+            ("topk_unpack", "wrapper as the path calls it: the chunk sort and the window "
+             "kernels", lambda: W.topk_unpack(vals, idx, n),
+             lambda: ref.topk_unpack_ref(vals, idx, n), t_lib_unpack, 8 * m + 4 * kn, 0, 0),
             ("topk_scatter_add", "kernel alone, on the sorted payload", scatter_kernel, None,
              None, 8 * m + 4 * (nseg + 1) + 4 * n, 0, m),
             ("topk_scatter_add", "wrapper as the path calls it: weights, sort, searchsorted, "

@@ -46,8 +46,15 @@
 //   global buffer; after the barrier each block stages the shares of its
 //   units in shared memory (all loads in flight at once) and sums them
 //   over the blocks in block order. The result is bitwise repeatable.
-// - The dw product is a tiled fp32 product over (t, b) in a fixed order,
-//   one 64 x 64 tile of dw per block, without atomics.
+// - The dw product is a register-blocked fp32 product on the CUDA cores
+//   (no tensor cores: TF32 or bf16 would change the numbers): a 64 x 128
+//   tile of dw per block of 128 threads, 8 x 8 outputs a thread, slabs of
+//   16 rows of n in a 2-stage ring of shared memory (cp.async for fp32
+//   rows, register loads widened in place for bf16 ys) whose next slab
+//   loads while this one's FMAs run; 3 blocks an SM, the encoder's 648
+//   blocks in 1.64 waves of 396. Each output is one fmaf chain over
+//   n = t * B + b in order, without atomics: bitwise repeatable, and its
+//   bits do not depend on the tiling.
 //
 // The grid barrier needs every block resident: the launch is
 // cooperative, and an occupancy check refuses a grid that cannot be
@@ -66,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -399,62 +407,179 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dw[m, c] = sum over n = t * B + b of h_prev[n, m] * dg[n, c], n in
-// order; h_prev[n] = h0[b] for t = 0, ys[t - 1, b] after. One 64 x 64
-// tile per block, 16 rows of n staged at a time, 4 x 4 outputs a thread.
-constexpr int kTile = 64, kTileN = 16;
+// order; h_prev[n] = h0[b] for t = 0, ys[t - 1, b] after. A register-
+// blocked SIMT product: a 64 (m) x 128 (c) tile of dw per block of 128
+// threads, 8 x 8 outputs a thread (per row of n four 16-byte shared loads
+// feed 64 FMAs), n staged in slabs of 16 rows through a 2-stage ring:
+// slab s + 1's copies are in flight while slab s's FMAs run. Each output
+// is one fmaf chain from 0 over n in order: rows past N are zeros, and
+// fmaf(0, 0, acc) is acc (acc is never -0).
+constexpr int kDwM = 64, kDwC = 128, kDwK = 16, kDwThreads = 128;
+// 3 blocks an SM (up to 168 registers a thread): at the encoder (H = 1152)
+// 18 x 36 = 648 blocks on 396 slots, 1.64 waves. Five an SM (96 registers,
+// the 648 blocks in one wave) spill the accumulators and ran slower on the
+// card (PERF.md).
+constexpr int kDwBlocksPerSm = 3;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 16 : 0;  // 0: fill with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// VEC: H % 4 == 0 and the pointers aligned, so every slab moves in runs of
+// 4: 16-byte cp.async copies of fp32 rows, and 8-byte register loads of
+// bf16 ys rows, widened into shared memory after the slab before's FMAs;
+// otherwise one element a load, through registers.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
     lstm_scan_dw_kernel(const float* __restrict__ h0, const T* __restrict__ ys,
                         const float* __restrict__ dg, float* __restrict__ dw, int S, int B,
                         int H) {
-  __shared__ __align__(16) float a_s[kTileN][kTile];
-  __shared__ __align__(16) float d_s[kTileN][kTile];
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kRunsA = kDwK * kDwM / 4 / kDwThreads, kRunsD = kDwK * kDwC / 4 / kDwThreads;
+  __shared__ __align__(16) float a_s[2][kDwK][kDwM];
+  __shared__ __align__(16) float d_s[2][kDwK][kDwC];
   const int N = S * B, H4 = 4 * H;
-  const int m0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < N; n0 += kTileN) {
-    constexpr int kPer = kTileN * kTile / kThreads;  // elements of each tile per thread
-    float a[kPer], d[kPer];
+  const int m0 = blockIdx.y * kDwM, c0 = blockIdx.x * kDwC;
+  // threads as (kDwM / 8) x (kDwC / 8): each takes rows ty*4 + {0..3} and
+  // kDwM/2 + ty*4 + {0..3}, columns tx*4 + {0..3} and kDwC/2 + tx*4 + {0..3}
+  static_assert((kDwM / 8) * (kDwC / 8) == kDwThreads, "one 8 x 8 block of dw a thread");
+  const int tid = threadIdx.x, tx = tid % (kDwC / 8), ty = tid / (kDwC / 8);
+  const int nslab = (N + kDwK - 1) / kDwK;
+  uint2 a_bf16[kBf16 && VEC ? kRunsA : 1];  // the bf16 runs of the slab in flight
+
+  // start slab s's loads into stage s % 2
+  auto stage = [&](int s) {
+    const int buf = s % 2;
+    if constexpr (VEC) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {  // every load in flight before the stores
-      const int e = threadIdx.x + i * kThreads, kk = e / kTile, x = e - kk * kTile, n = n0 + kk;
-      a[i] = d[i] = 0.0f;
-      if (n < N && m0 + x < H) {
-        a[i] = n < B ? h0[static_cast<size_t>(n) * H + m0 + x]
-                     : load_f(ys + static_cast<size_t>(n - B) * H + m0 + x);
+      for (int i = 0; i < kRunsA; ++i) {  // A: kDwK x kDwM values in runs of 4
+        const int u = tid + i * kDwThreads, r = u / (kDwM / 4), col = (u % (kDwM / 4)) * 4;
+        const int n = s * kDwK + r, m = m0 + col;
+        const bool ok = n < N && m < H;
+        if constexpr (kBf16) {
+          if (ok && n >= B) {
+            a_bf16[i] =
+                __ldg(reinterpret_cast<const uint2*>(ys + static_cast<size_t>(n - B) * H + m));
+            continue;
+          }
+        }
+        const float* src = !ok ? h0
+                           : n < B ? h0 + static_cast<size_t>(n) * H + m
+                                   : reinterpret_cast<const float*>(ys) +
+                                         static_cast<size_t>(n - B) * H + m;
+        cp_async16(&a_s[buf][r][col], src, ok);
       }
-      if (n < N && c0 + x < H4) d[i] = dg[static_cast<size_t>(n) * H4 + c0 + x];
-    }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads, kk = e / kTile, x = e - kk * kTile;
-      a_s[kk][x] = a[i];
-      d_s[kk][x] = d[i];
-    }
-    __syncthreads();
+      for (int i = 0; i < kRunsD; ++i) {  // D: kDwK x kDwC values in runs of 4
+        const int u = tid + i * kDwThreads, r = u / (kDwC / 4), col = (u % (kDwC / 4)) * 4;
+        const int n = s * kDwK + r, c = c0 + col;
+        const bool ok = n < N && c < H4;
+        cp_async16(&d_s[buf][r][col], ok ? dg + static_cast<size_t>(n) * H4 + c : dg, ok);
+      }
+    } else {
+      float a[kDwK * kDwM / kDwThreads], d[kDwK * kDwC / kDwThreads];
 #pragma unroll
-    for (int kk = 0; kk < kTileN; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 d = *reinterpret_cast<const float4*>(&d_s[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
+      for (int i = 0; i < kDwK * kDwM / kDwThreads; ++i) {  // every load before the stores
+        const int e = tid + i * kDwThreads, r = e / kDwM, m = m0 + e % kDwM, n = s * kDwK + r;
+        a[i] = 0.0f;
+        if (n < N && m < H) {
+          a[i] = n < B ? h0[static_cast<size_t>(n) * H + m]
+                       : load_f(ys + static_cast<size_t>(n - B) * H + m);
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kDwK * kDwC / kDwThreads; ++i) {
+        const int e = tid + i * kDwThreads, r = e / kDwC, c = c0 + e % kDwC, n = s * kDwK + r;
+        d[i] = n < N && c < H4 ? dg[static_cast<size_t>(n) * H4 + c] : 0.0f;
+      }
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], dv[q], acc[i][q]);
+      for (int i = 0; i < kDwK * kDwM / kDwThreads; ++i) {
+        const int e = tid + i * kDwThreads;
+        a_s[buf][e / kDwM][e % kDwM] = a[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kDwK * kDwC / kDwThreads; ++i) {
+        const int e = tid + i * kDwThreads;
+        d_s[buf][e / kDwC][e % kDwC] = d[i];
       }
     }
+  };
+  // finish slab s's loads: this thread's copies landed, its bf16 runs
+  // widened into the stage
+  auto land = [&](int s) {
+    cp_async_wait_all();
+    if constexpr (kBf16 && VEC) {
+#pragma unroll
+      for (int i = 0; i < kRunsA; ++i) {
+        const int u = tid + i * kDwThreads, r = u / (kDwM / 4), col = (u % (kDwM / 4)) * 4;
+        const int n = s * kDwK + r;
+        if (n < N && n >= B && m0 + col < H) {
+          const uint2 w = a_bf16[i];
+          // bf16 -> fp32 exactly: the 16 bits on top of a zero mantissa tail
+          *reinterpret_cast<float4*>(&a_s[s % 2][r][col]) =
+              make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                          __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+        }
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[i][q] = 0.0f;
+  }
+  stage(0);
+  land(0);
+  __syncthreads();
+  for (int s = 0; s < nslab; ++s) {
+    const int cur = s % 2;
+    if (s + 1 < nslab) stage(s + 1);
+#pragma unroll
+    for (int kk = 0; kk < kDwK; ++kk) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[cur][kk][ty * 4]);
+      const float4 a_hi = *reinterpret_cast<const float4*>(&a_s[cur][kk][kDwM / 2 + ty * 4]);
+      const float4 d_lo = *reinterpret_cast<const float4*>(&d_s[cur][kk][tx * 4]);
+      const float4 d_hi = *reinterpret_cast<const float4*>(&d_s[cur][kk][kDwC / 2 + tx * 4]);
+      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      const float dv[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(av[i], dv[q], acc[i][q]);
+      }
+    }
+    if (s + 1 < nslab) land(s + 1);
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : kDwM / 2 + ty * 4 + i - 4);
     if (m >= H) continue;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + tx * 4 + q;
-      if (c < H4) dw[static_cast<size_t>(m) * H4 + c] = acc[i][q];
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + half * (kDwC / 2) + tx * 4;
+      float* row = dw + static_cast<size_t>(m) * H4;
+      if constexpr (VEC) {
+        if (c < H4) {  // H4 % 4 == 0: a run of 4 is all in or all out
+          *reinterpret_cast<float4*>(row + c) =
+              make_float4(acc[i][half * 4], acc[i][half * 4 + 1], acc[i][half * 4 + 2],
+                          acc[i][half * 4 + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (c + q < H4) row[c + q] = acc[i][half * 4 + q];
+        }
+      }
     }
   }
 }
@@ -561,6 +686,28 @@ int launch_bwd(const void* xg, const void* w_hh, const void* h0, const void* c0,
   return coop_launch(kernel, (H + U - 1) / U, smem_bytes(p, bb, true), args, stream);
 }
 
+template <typename T>
+int launch_dw(const void* h0, const void* ys, const void* dgates, void* dw, int S, int B, int H,
+              cudaStream_t stream) {
+  const auto aligned = [](const void* p, unsigned bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const bool vec = H % 4 == 0 && aligned(h0, 16) && aligned(ys, 4 * sizeof(T)) &&
+                   aligned(dgates, 16) && aligned(dw, 16);
+  const dim3 grid((4 * H + kDwC - 1) / kDwC, (H + kDwM - 1) / kDwM);
+  const float* h0_p = static_cast<const float*>(h0);
+  const T* ys_p = static_cast<const T*>(ys);
+  const float* dg_p = static_cast<const float*>(dgates);
+  float* dw_p = static_cast<float*>(dw);
+  if (vec) {
+    lstm_scan_dw_kernel<T, true><<<grid, kDwThreads, 0, stream>>>(h0_p, ys_p, dg_p, dw_p, S, B, H);
+  } else {
+    lstm_scan_dw_kernel<T, false><<<grid, kDwThreads, 0, stream>>>(h0_p, ys_p, dg_p, dw_p, S, B,
+                                                                   H);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32 xg/ys/dys/dhT, 1 = bfloat16. w_hh, h0, c0, cs, dcT
@@ -604,18 +751,19 @@ extern "C" int lstm_scan_dw(int dtype, const void* h0, const void* ys, const voi
                             void* dw, int S, int B, int H, void* stream) {
   if (S <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((4 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  const float* h0_p = static_cast<const float*>(h0);
-  const float* dg_p = static_cast<const float*>(dgates);
-  float* dw_p = static_cast<float*>(dw);
-  if (dtype == 0) {
-    lstm_scan_dw_kernel<float><<<grid, kThreads, 0, s>>>(
-        h0_p, static_cast<const float*>(ys), dg_p, dw_p, S, B, H);
-  } else if (dtype == 1) {
-    lstm_scan_dw_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        h0_p, static_cast<const __nv_bfloat16*>(ys), dg_p, dw_p, S, B, H);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch_dw<float>(h0, ys, dgates, dw, S, B, H, s);
+  if (dtype == 1) return launch_dw<__nv_bfloat16>(h0, ys, dgates, dw, S, B, H, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dw kernel's resident blocks an SM (dtype as above; vec 1 for the
+// 16-byte route), into *blocks; returns a cudaError_t as int.
+extern "C" int lstm_scan_dw_blocks_per_sm(int dtype, int vec, int* blocks) {
+  const void* k = dtype == 0 ? (vec ? reinterpret_cast<const void*>(&lstm_scan_dw_kernel<float, true>)
+                                    : reinterpret_cast<const void*>(&lstm_scan_dw_kernel<float, false>))
+                             : (vec ? reinterpret_cast<const void*>(
+                                          &lstm_scan_dw_kernel<__nv_bfloat16, true>)
+                                    : reinterpret_cast<const void*>(
+                                          &lstm_scan_dw_kernel<__nv_bfloat16, false>));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kDwThreads, 0));
 }

@@ -8,7 +8,7 @@
 //       (their _nearest kernels included)
 //   K7  :66 nibble_pack_pallas, :90 nibble_unpack_pallas, :112 dequantize_pallas
 //   K8  :441 topk_scatter_add_pallas (_topk_scatter_add_seg_kernel, :418)
-//   K9  :352 topk_unpack_pallas, :387 topk_unpack_segmented_pallas (one kernel)
+//   K9  :352 topk_unpack_pallas, :387 topk_unpack_segmented_pallas (one call)
 //
 // Every kernel takes a leading client axis: x (K, n) with blockIdx.y as the
 // client, so that one launch serves all K clients of a leaf (the TPU
@@ -31,14 +31,29 @@
 //
 // dequantize (K7): code * scale, one IEEE product per element and thread.
 //
-// topk_unpack (K9): the wrapper sorts each client's (value, index) payload
-// by index with a stable sort and finds each 2048-wide output segment's
-// slice of the row with searchsorted (K8's layout, one row per client).
-// One block per (segment, client) zeroes its window in shared memory; the
-// thread at the last entry of each run of equal indices stores that
-// entry's value, so the pair last in payload order wins, as in the TPU
-// kernels' serial walk; the block writes every element of its window
-// once. No atomics.
+// topk_unpack (K9): bucket, don't sort the row. One call launches two
+// kernels on the caller's stream:
+//   sort   one block of 512 threads per chunk of 8,192 consecutive entries
+//          of a client's payload: a shared histogram of the row's 2048-wide
+//          output windows (an entry's rank in its window from the shared
+//          atomicAdd), its scan, and the chunk's entries placed by window
+//          in shared memory as 64-bit keys, (j + 1) in the high bits, the
+//          value's bits in the low word, the place in the window between
+//          them (or in a 16-bit array of its own when k >= 2**21); then
+//          the chunk's keys and its scan go out with coalesced stores.
+//          Indices outside [0, n) are dropped here.
+//   window one block of 128 threads per (window, client) gathers the
+//          window's run from every chunk of the row (the chunks' scans, a
+//          block scan of the run lengths, then the keys) and takes a
+//          shared 64-bit atomicMax per key into the window: the largest j
+//          wins with its value, an empty element keeps key 0, whose low
+//          word is +0.0f. The block then writes every element of its
+//          window once, two a thread and step.
+// The largest j is the pair last in payload order, as the TPU kernels'
+// serial walk stores it: bit for bit, and the same on every run whatever
+// order the atomics ran in. No global atomics, and no shape depends on the
+// data on the host, so a call captures in one CUDA graph. The sort's
+// shared memory holds the histogram: a row of at most 36 Ki windows.
 //
 // topk_scatter_add (K8): the wrapper sorts the weighted (value, index)
 // pairs of all clients by index with a stable sort and finds each
@@ -60,9 +75,14 @@
 // so it hashes every block twice (once per position it serves) and
 // throws one word away: twice the hash work the bound counts. Nearest and
 // streamed rounding, the nibble kernels, dequantize, the scatter-add and
-// the top-k unpack are bound by bytes. Nothing here is tuned yet: one
-// element (or byte) per thread, no vector loads. The top-k unpack's
-// wrapper sorts each row; the kernel alone moves the bound's bytes once.
+// the top-k unpack are bound by bytes. Nothing here is tuned yet but K9:
+// one element (or byte) per thread, no vector loads. K9's bound counts
+// the payload read once and the (K, n) output written once (93.4 MB at
+// K = 4, n = 5,308,416: 27.9 us); its two kernels add the 64-bit slots
+// written and read in order and the chunks' scans (about 18 MB at that
+// size, most of it in L2). The output is 91 % of the bound's bytes: the
+// window kernel's stores wait on its gather of a run from every chunk,
+// its cost above the write alone.
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes. Each
@@ -214,33 +234,179 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 constexpr int kSeg = 2048;
+// K9: one block of kSortThreads sorts a chunk of kChunk consecutive
+// entries of a row by window; one block of kWindowThreads a window
+constexpr int kSortThreads = 512, kSortPer = 16, kChunk = kSortThreads * kSortPer;
+constexpr int kWindowThreads = 128;
+// K9's slots pack (j + 1) << 11 | the place in the window above the value's
+// bits when k < 2**21, else keep the place in a 16-bit array of its own
+constexpr int kPackedJ = 1 << 21;
 
-// values and idx (K, k), each row sorted by index (stable), bounds (K, nseg + 1)
-// the first entry of each segment of the row -> out (K, n) fp32
-__global__ void __launch_bounds__(kThreads)
-    topk_unpack_kernel(const float* __restrict__ values, const int* __restrict__ idx,
-                       const int* __restrict__ bounds, float* __restrict__ out, int k,
-                       int n) {
-  __shared__ float window[kSeg];
-  const int row = blockIdx.y;
-  const int nseg = gridDim.x;
-  const int base = blockIdx.x * kSeg;
-  const int width = min(kSeg, n - base);
-  for (int t = threadIdx.x; t < width; t += kThreads) window[t] = 0.0f;
+// a[0..len) -> its exclusive scan in place, and a[len] = the total; every
+// thread of the block calls it, between barriers. warp_sums: THREADS / 32.
+template <int THREADS>
+__device__ __forceinline__ void block_exclusive_scan(int* a, int len, int* warp_sums) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int per = (len + THREADS - 1) / THREADS;
+  const int lo = min(len, static_cast<int>(threadIdx.x) * per), hi = min(len, lo + per);
+  int sum = 0;
+  for (int s = lo; s < hi; ++s) sum += a[s];
+  int incl = sum;  // inclusive scan over the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
-  const int* row_idx = idx + static_cast<size_t>(row) * k;
-  const float* row_val = values + static_cast<size_t>(row) * k;
-  const int start = bounds[row * (nseg + 1) + blockIdx.x];
-  const int end = bounds[row * (nseg + 1) + blockIdx.x + 1];
-  for (int j = start + threadIdx.x; j < end; j += kThreads) {
-    const int at = row_idx[j];
-    if (j + 1 < end && row_idx[j + 1] == at) continue;  // not the last of its run
-    const int off = at - base;
-    if (off >= 0 && off < width) window[off] = row_val[j];
+  if (warp == 0) {  // exclusive scan of the warps' totals
+    const int w = lane < THREADS / 32 ? warp_sums[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, wi, d);
+      if (lane >= d) wi += v;
+    }
+    if (lane < THREADS / 32) warp_sums[lane] = wi - w;
   }
   __syncthreads();
-  float* row_out = out + static_cast<size_t>(row) * n + base;
-  for (int t = threadIdx.x; t < width; t += kThreads) row_out[t] = window[t];
+  int run = warp_sums[warp] + incl - sum;
+  for (int s = lo; s < hi; ++s) {
+    const int c = a[s];
+    a[s] = run;
+    run += c;
+  }
+  if (threadIdx.x == THREADS - 1) a[len] = run;
+}
+
+// values and idx (K, k) -> each chunk of kChunk entries of a row sorted by
+// window: its entries in [0, n) counted in a shared histogram of the row's
+// windows (an entry's rank in its window from the shared atomicAdd), the
+// counts scanned, each entry's 64-bit key written to the chunk's slot
+// (first slot of its window + rank): (j + 1) in the high bits, the value's
+// bits in the low word, the place in the window between them (PACKED) or
+// in offs. starts (K, nchunk, nseg + 1): the chunk's first slot of each
+// window, and its count of entries in range. Indices outside [0, n) are
+// dropped here.
+template <bool PACKED>
+__global__ void __launch_bounds__(kSortThreads)
+    topk_unpack_sort_kernel(const float* __restrict__ values, const int* __restrict__ idx,
+                            int* __restrict__ starts, unsigned long long* __restrict__ keys,
+                            unsigned short* __restrict__ offs, int k, int n, int nseg) {
+  // the chunk's keys in window order, their places (PACKED: none), then
+  // the histogram (nseg + 1)
+  extern __shared__ __align__(16) unsigned long long sorted[];
+  unsigned short* places = reinterpret_cast<unsigned short*>(sorted + kChunk);
+  int* hist = reinterpret_cast<int*>(places + (PACKED ? 0 : kChunk));
+  __shared__ int warp_sums[kSortThreads / 32];
+  const int row = blockIdx.y, chunk = blockIdx.x;
+  for (int w = threadIdx.x; w <= nseg; w += kSortThreads) hist[w] = 0;
+  __syncthreads();
+  const size_t row_at = static_cast<size_t>(row) * k;
+  const int j0 = chunk * kChunk + threadIdx.x;
+  int at[kSortPer], rank[kSortPer];
+#pragma unroll
+  for (int e = 0; e < kSortPer; ++e) {  // every load in flight before the atomics
+    const int j = j0 + e * kSortThreads;
+    at[e] = j < k ? idx[row_at + j] : -1;
+  }
+#pragma unroll
+  for (int e = 0; e < kSortPer; ++e) {
+    if (at[e] >= n) at[e] = -1;  // dropped: -1
+    if (at[e] >= 0) rank[e] = atomicAdd(&hist[at[e] / kSeg], 1);
+  }
+  __syncthreads();
+  block_exclusive_scan<kSortThreads>(hist, nseg, warp_sums);
+  __syncthreads();
+  int* st = starts + (static_cast<size_t>(row) * gridDim.x + chunk) * (nseg + 1);
+  for (int w = threadIdx.x; w <= nseg; w += kSortThreads) st[w] = hist[w];
+#pragma unroll
+  for (int e = 0; e < kSortPer; ++e) {
+    if (at[e] < 0) continue;
+    const int j = j0 + e * kSortThreads;
+    const int p = hist[at[e] / kSeg] + rank[e];
+    const unsigned place = static_cast<unsigned>(at[e] % kSeg);
+    const unsigned long long order = static_cast<unsigned long long>(j) + 1ull;
+    const unsigned long long hi = PACKED ? order << 11 | place : order;
+    sorted[p] = hi << 32 | __float_as_uint(values[row_at + j]);
+    if (!PACKED) places[p] = static_cast<unsigned short>(place);
+  }
+  __syncthreads();
+  // the chunk's slots out in order: coalesced stores
+  const size_t slot0 = row_at + static_cast<size_t>(chunk) * kChunk;
+  for (int q = threadIdx.x; q < hist[nseg]; q += kSortThreads) {
+    keys[slot0 + q] = sorted[q];
+    if (!PACKED) offs[slot0 + q] = places[q];
+  }
+}
+
+// starts and the sorted slots from the kernel above -> out (K, n) fp32:
+// one block per (window, row) gathers the window's run from every chunk
+// and takes a shared 64-bit atomicMax per key into the window: the largest
+// j wins with its value, an empty element keeps key 0, whose low word is
+// +0.0f. Then every element of the window is written once.
+template <bool PACKED>
+__global__ void __launch_bounds__(kWindowThreads)
+    topk_unpack_window_kernel(const int* __restrict__ starts,
+                              const unsigned long long* __restrict__ keys,
+                              const unsigned short* __restrict__ offs, float* __restrict__ out,
+                              int k, int n, int nchunk) {
+  __shared__ __align__(16) unsigned long long window[kSeg];
+  __shared__ int run_at[kWindowThreads + 1];  // the runs' exclusive scan of lengths
+  __shared__ int run_from[kWindowThreads];    // each run's first slot in the row
+  __shared__ int warp_sums[kWindowThreads / 32];
+  const int row = blockIdx.y, w = blockIdx.x, nseg = gridDim.x;
+  const int base = w * kSeg;
+  const int width = min(kSeg, n - base);
+  ulonglong2* pairs = reinterpret_cast<ulonglong2*>(window);  // 16-byte shared accesses
+  for (int q = threadIdx.x; q < kSeg / 2; q += kWindowThreads) pairs[q] = make_ulonglong2(0, 0);
+  const size_t row_at = static_cast<size_t>(row) * k;
+  for (int b0 = 0; b0 < nchunk; b0 += kWindowThreads) {  // kWindowThreads chunks at a time
+    const int b = b0 + threadIdx.x;
+    int from = 0, len = 0;
+    if (b < nchunk) {
+      const int* st = starts + (static_cast<size_t>(row) * nchunk + b) * (nseg + 1) + w;
+      from = st[0];
+      len = st[1] - from;
+      from += b * kChunk;
+    }
+    run_from[threadIdx.x] = from;
+    run_at[threadIdx.x] = len;
+    __syncthreads();
+    block_exclusive_scan<kWindowThreads>(run_at, kWindowThreads, warp_sums);
+    __syncthreads();
+    for (int f = threadIdx.x; f < run_at[kWindowThreads]; f += kWindowThreads) {
+      int lo = 0, hi = kWindowThreads - 1;  // the last run starting at or before f
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (run_at[mid] <= f) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      const size_t slot = row_at + run_from[lo] + (f - run_at[lo]);
+      const unsigned long long key = keys[slot];
+      const int off = PACKED ? static_cast<int>(key >> 32) & (kSeg - 1) : offs[slot];
+      atomicMax(&window[off], key);
+    }
+    __syncthreads();
+  }
+  // the window once, two elements a thread and step (8-byte stores where
+  // the row's start allows, else 4-byte ones)
+  const size_t first = static_cast<size_t>(row) * n + base;
+  float* dst = out + first;
+  const auto v = [](unsigned long long key) { return __uint_as_float(static_cast<unsigned>(key)); };
+  if ((first & 1) == 0) {
+    float2* dst2 = reinterpret_cast<float2*>(dst);
+    for (int q = threadIdx.x; q < width / 2; q += kWindowThreads) {
+      const ulonglong2 p = pairs[q];
+      dst2[q] = make_float2(v(p.x), v(p.y));
+    }
+    if ((width & 1) && threadIdx.x == 0) dst[width - 1] = v(window[width - 1]);
+  } else {
+    for (int t = threadIdx.x; t < width; t += kWindowThreads) dst[t] = v(window[t]);
+  }
 }
 
 // values and idx (m,) sorted by index (stable), bounds (nseg + 1,) the
@@ -265,6 +431,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   for (int t = threadIdx.x; t < width; t += kThreads) out[base + t] = window[t];
+}
+
+// opt the sort kernel in to a histogram above 48 KB of shared memory (the
+// attribute is raised once for each larger size, outside any stream)
+template <bool PACKED>
+cudaError_t allow_sort_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&topk_unpack_sort_kernel<PACKED>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
 }
 
 template <int MODE, bool PACK4>
@@ -312,13 +491,39 @@ int dequantize(const int8_t* codes, const float* scale, int scale_stride, float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// seg: the caller's segment width, which must be this kernel's window
-int topk_unpack(const float* values, const int* idx, const int* bounds, float* out, int K,
-                int k, int n, int seg, cudaStream_t stream) {
+// scratch: 8-byte aligned int32 space as wire_pack.py's _scratch_parts
+// sizes it: the starts (K, nchunk, nseg + 1), then on an 8-byte boundary
+// the slots' 64-bit keys (K, k) and their 16-bit window places (K, k).
+// seg: the caller's window width, which must be this kernel's. Launches
+// the two kernels in turn on the stream.
+int topk_unpack(const float* values, const int* idx, int* scratch, float* out, int K, int k,
+                int n, int seg, cudaStream_t stream) {
   if (K <= 0 || K > 65535 || k <= 0 || n <= 0 || seg != kSeg)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kSeg - 1) / kSeg, K);
-  topk_unpack_kernel<<<grid, kThreads, 0, stream>>>(values, idx, bounds, out, k, n);
+  const int nseg = (n + kSeg - 1) / kSeg, nchunk = (k + kChunk - 1) / kChunk;
+  const size_t Kk = static_cast<size_t>(K) * k;
+  const size_t key_at = (static_cast<size_t>(K) * nchunk * (nseg + 1) + 1) / 2 * 2;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(scratch + key_at);
+  unsigned short* offs = reinterpret_cast<unsigned short*>(keys + Kk);
+  // the sort's shared memory: the chunk's keys, their places, the histogram
+  const size_t smem = kChunk * sizeof(unsigned long long) +
+                      (k < kPackedJ ? 0 : kChunk * sizeof(unsigned short)) +
+                      static_cast<size_t>(nseg + 1) * sizeof(int);
+  const bool packed = k < kPackedJ;
+  const cudaError_t err = packed ? allow_sort_smem<true>(smem) : allow_sort_smem<false>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);  // too many windows for a histogram
+  const dim3 chunks(nchunk, K), windows(nseg, K);
+  if (packed) {
+    topk_unpack_sort_kernel<true><<<chunks, kSortThreads, smem, stream>>>(values, idx, scratch,
+                                                                         keys, offs, k, n, nseg);
+    topk_unpack_window_kernel<true><<<windows, kWindowThreads, 0, stream>>>(scratch, keys, offs,
+                                                                            out, k, n, nchunk);
+  } else {
+    topk_unpack_sort_kernel<false><<<chunks, kSortThreads, smem, stream>>>(values, idx, scratch,
+                                                                          keys, offs, k, n, nseg);
+    topk_unpack_window_kernel<false><<<windows, kWindowThreads, 0, stream>>>(scratch, keys, offs,
+                                                                             out, k, n, nchunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

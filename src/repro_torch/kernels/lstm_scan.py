@@ -41,7 +41,9 @@ def _lib() -> ctypes.CDLL:
     lib.lstm_scan_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.lstm_scan_bwd.argtypes = [_I] + [_P] * 13 + [_I, _I, _I, _I, _P]
     lib.lstm_scan_dw.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _P]
-    for fn in (lib.lstm_scan_fwd, lib.lstm_scan_bwd, lib.lstm_scan_dw):
+    lib.lstm_scan_dw_blocks_per_sm.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    for fn in (lib.lstm_scan_fwd, lib.lstm_scan_bwd, lib.lstm_scan_dw,
+               lib.lstm_scan_dw_blocks_per_sm):
         fn.restype = _I
     return lib
 
@@ -179,6 +181,24 @@ def lstm_scan_dw(h0, ys, dgates):
             "lstm_scan_dw")
     SCAN_DW_LAUNCHES += 1
     return dw
+
+
+DW_TILE = (64, 128)  # the dw kernel's tile of (H, 4H), one block of 128 threads each
+
+
+def dw_grid(H: int) -> int:
+    """Blocks of one dw launch at width H."""
+    return -(-H // DW_TILE[0]) * -(-4 * H // DW_TILE[1])
+
+
+def dw_blocks_per_sm(dtype: torch.dtype, vec: bool = True) -> int:
+    """How many dw blocks an SM of the current card holds at once (the
+    16-byte route with ``vec``, else the element-wise one)."""
+    blocks = _I(0)
+    build.check_launch(_lib().lstm_scan_dw_blocks_per_sm(_DTYPE_CODES[dtype], int(vec),
+                                                         ctypes.byref(blocks)),
+                       "lstm_scan_dw occupancy")
+    return blocks.value
 
 
 class LSTMScanFn(torch.autograd.Function):

@@ -5,7 +5,7 @@ keyed quantizers (K5, ``:286``, ``:310``), the streamed and nearest
 quantizers (K6, ``:170``, ``:204``), the int4 nibble pack and unpack and
 the dequantization (K7, ``:66``, ``:90``, ``:112``), the top-k scatter-add
 (K8, ``:441``) and the top-k unpack (K9, ``:352`` and ``:387`` in one
-kernel), with the public wrappers of ``:491-611``. The kernels are CUDA C++ in
+call of two kernels), with the public wrappers of ``:491-611``. The kernels are CUDA C++ in
 ``csrc/wire_pack.cu`` (its header states what bounds them on the card),
 built by ``build.py`` and called through ctypes.
 
@@ -266,40 +266,94 @@ def dequantize(codes, scale):
     return out
 
 
-def unpack_segments(values, idx, n: int):
-    """K9's inputs: each client's payload sorted by index with a stable
-    sort (pairs that name one index keep their payload order), and the
-    first entry of each ``SEGMENT``-wide output window of each row by
-    searchsorted. Returns (sorted values (K, k) fp32, sorted indices
-    (K, k) int32, bounds (K, nseg + 1) int32)."""
-    si, order = torch.sort(idx.to(torch.int32), dim=1, stable=True)
-    nseg = (n + SEGMENT - 1) // SEGMENT
-    starts = torch.arange(nseg + 1, dtype=torch.int32, device=si.device) * SEGMENT
-    bounds = torch.searchsorted(si, starts.expand(si.shape[0], -1).contiguous(),
-                                out_int32=True)
-    return torch.gather(values.float(), 1, order).contiguous(), si.contiguous(), bounds
+UNPACK_CHUNK = 8192  # K9's entries of a row sorted by one block (kChunk in csrc/wire_pack.cu)
+# K9's sort keeps a chunk's 64-bit keys, their 16-bit places and a
+# histogram of the row's windows in shared memory: with 36 Ki windows that
+# is 229,444 B, inside the H100's 227 KB (232,448 B) a block
+_UNPACK_MAX_WINDOWS = 36 * 1024
+
+
+def unpack_layout(idx, n: int):
+    """K9's layout, plain (the card builds it in ``csrc/wire_pack.cu``):
+    each row of idx (K, k) cut into chunks of ``UNPACK_CHUNK`` entries,
+    and each chunk's entries in [0, n) sorted by their ``SEGMENT``-wide
+    output window. Returns (starts (K, nchunk, nseg + 1): the chunk's
+    first slot of each window, the last column its count of entries in
+    range; slots (K, k): each chunk's payload positions j in window order
+    from the chunk's first position on, -1 past its count). Here a
+    window's entries keep payload order; on the card their order is the
+    atomics'. Indices outside [0, n) are in no window."""
+    idx = idx.long()
+    K, k = idx.shape
+    nseg, nchunk = -(-n // SEGMENT), -(-k // UNPACK_CHUNK)
+    seg = torch.where((idx >= 0) & (idx < n), idx.div(SEGMENT, rounding_mode="floor"), nseg)
+    starts = torch.zeros((K, nchunk, nseg + 1), dtype=torch.int64, device=idx.device)
+    slots = torch.full((K, k), -1, dtype=torch.int64, device=idx.device)
+    for b in range(nchunk):
+        lo, hi = b * UNPACK_CHUNK, min(k, (b + 1) * UNPACK_CHUNK)
+        part = seg[:, lo:hi]
+        counts = torch.zeros((K, nseg + 1), dtype=torch.int64, device=idx.device)
+        counts.scatter_add_(1, part, torch.ones_like(part))
+        starts[:, b, 1:] = counts[:, :nseg].cumsum(1)
+        by_window, order = torch.sort(part, dim=1, stable=True)
+        slots[:, lo:hi] = torch.where(by_window < nseg, order + lo, -1)
+    return starts.int(), slots.int()
+
+
+def _scratch_parts(K: int, k: int, n: int) -> tuple:
+    """Where K9's layout lies in its int32 scratch (``topk_unpack`` in
+    csrc/wire_pack.cu): (the keys' first int32, the total int32 count).
+    The starts (K, nchunk, nseg + 1) come first, then the slots' 64-bit
+    keys (K, k) on an 8-byte boundary, then their 16-bit window places."""
+    nseg, nchunk = -(-n // SEGMENT), -(-k // UNPACK_CHUNK)
+    key_at = (K * nchunk * (nseg + 1) + 1) // 2 * 2
+    return key_at, key_at + 2 * K * k + (K * k + 1) // 2
+
+
+def _topk_unpack_kernels(values, idx, n: int):
+    """Launch K9 on the card: (out (K, n), its int32 scratch)."""
+    global TOPK_UNPACK_LAUNCHES
+    K, k = _check_rows(values, torch.float32, "values")
+    if idx.shape != values.shape:
+        raise ValueError(f"idx must be {tuple(values.shape)}, got {tuple(idx.shape)}")
+    if n <= 0 or -(-n // SEGMENT) > _UNPACK_MAX_WINDOWS or K * k >= 2**31 - 1:
+        raise ValueError(f"n={n}, K*k={K * k} is outside the kernel's range (n <= "
+                         f"{_UNPACK_MAX_WINDOWS * SEGMENT}, K*k < 2**31 - 1)")
+    if idx.dtype != torch.int32:
+        # an int64 index past int32's range must stay out of [0, n)
+        idx = idx.clamp(-1, n).to(torch.int32)
+    values, idx = values.contiguous(), idx.contiguous()
+    scratch = torch.empty(_scratch_parts(K, k, n)[1], dtype=torch.int32, device=values.device)
+    out = torch.empty((K, n), dtype=torch.float32, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    build.check_launch(
+        _lib().topk_unpack(values.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+                           out.data_ptr(), K, k, n, SEGMENT, stream),
+        "topk_unpack",
+    )
+    TOPK_UNPACK_LAUNCHES += 1
+    return out, scratch
+
+
+def kernel_layout(scratch, K: int, k: int, n: int):
+    """The layout a K9 launch built, read from its scratch as
+    ``unpack_layout`` gives it: (starts, slots), the slots being payload
+    positions j in window order within each chunk, in the atomics' order
+    inside a window, unspecified past the chunk's count."""
+    nseg, nchunk = -(-n // SEGMENT), -(-k // UNPACK_CHUNK)
+    key_at = _scratch_parts(K, k, n)[0]
+    starts = scratch[:K * nchunk * (nseg + 1)].view(K, nchunk, nseg + 1)
+    keys = scratch[key_at:key_at + 2 * K * k].view(torch.int64).view(K, k)
+    shift = 43 if k < 2**21 else 32  # the window place packed below j + 1, or not
+    return starts, ((keys >> shift) - 1).int()
 
 
 def topk_unpack(values, idx, n: int):
     """Top-k payloads -> dense rows: values (K, k) fp32 at flat indices idx
     (K, k) -> (K, n) fp32, zero elsewhere; of pairs in a row that name one
     index, the last in payload order wins; indices outside [0, n) are
-    dropped (K9)."""
-    global TOPK_UNPACK_LAUNCHES
+    dropped (K9). On the card one call launches two kernels (a sort of
+    each chunk by window, then one block a window); no host sync."""
     if not _on_card(values, idx):
         return ref.topk_unpack_ref(values, idx, n)
-    K, k = _check_rows(values, torch.float32, "values")
-    if idx.shape != values.shape:
-        raise ValueError(f"idx must be {tuple(values.shape)}, got {tuple(idx.shape)}")
-    if n <= 0 or n >= 2**31 - SEGMENT:
-        raise ValueError(f"n={n} is outside the kernel's range")
-    sv, si, bounds = unpack_segments(values, idx, n)
-    out = torch.empty((K, n), dtype=torch.float32, device=values.device)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    build.check_launch(
-        _lib().topk_unpack(sv.data_ptr(), si.data_ptr(), bounds.data_ptr(), out.data_ptr(),
-                           K, k, n, SEGMENT, stream),
-        "topk_unpack",
-    )
-    TOPK_UNPACK_LAUNCHES += 1
-    return out
+    return _topk_unpack_kernels(values, idx, n)[0]

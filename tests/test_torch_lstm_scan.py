@@ -125,6 +125,27 @@ def test_plain_backward_matches_pallas_on_the_same_residuals(S, B, H):
     _close_rel(K.lstm_scan_dw(*_t(h0, ys), dxg).numpy(), want[1], "dw_hh from the dw part")
 
 
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_plain_dw_matches_the_jax_backward_at_a_ragged_shape(dtype):
+    """dw_hh from the dw part against the Pallas backward's at S·B = 37 and
+    H = 100, ragged on every side of the card kernel's tiles (128 x 64 of
+    dw, slabs of 8 rows of n) and at its h0/ys seam (n < B reads h0), with
+    ys in fp32 and in bf16 as the bf16 forward stores it."""
+    S, B, H = 37, 1, 100
+    xg, w, h0, c0 = _case(S, B, H, seed=300)
+    xg_j = jnp.asarray(xg, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    ys, cs = lstm_scan_fused(xg_j, *map(jnp.asarray, (w, h0, c0)), interpret=True)
+    assert ys.dtype == xg_j.dtype
+    r = np.random.default_rng(6)
+    dys, dhT, dcT = (r.normal(size=s).astype(np.float32) for s in ((S, B, H), (B, H), (B, H)))
+    want = lstm_scan_bwd_fused(xg_j, *map(jnp.asarray, (w, h0, c0)), ys, cs,
+                               *map(jnp.asarray, (dys, dhT, dcT)), interpret=True)
+    ys_t = torch.from_numpy(np.array(ys, np.float32)).to(getattr(torch, dtype))
+    dw = K.lstm_scan_dw(torch.from_numpy(h0), ys_t, torch.from_numpy(np.array(want[0])))
+    assert dw.dtype == torch.float32 and dw.shape == (H, 4 * H)
+    _close_rel(dw.numpy(), want[1], f"dw_hh, {dtype} ys")
+
+
 @pytest.mark.parametrize("S,B,H", SHAPES[:3])
 def test_autograd_function_matches_jax_grad(S, B, H):
     xg, w, h0, c0 = _case(S, B, H, seed=200 + S)

@@ -214,11 +214,13 @@ def test_dequantize_is_the_pallas_kernel_bitwise(n):
 
 
 def _last_wins(vals, idx, n):
-    """The TPU kernels' serial loop: pairs stored in payload order."""
+    """The TPU kernels' serial loop: pairs stored in payload order (an
+    index outside [0, n) is dropped, as the port's plain version does)."""
     out = np.zeros((vals.shape[0], n), np.float32)
     for k in range(vals.shape[0]):
         for j in range(vals.shape[1]):
-            out[k, idx[k, j]] = vals[k, j]
+            if 0 <= idx[k, j] < n:
+                out[k, idx[k, j]] = vals[k, j]
     return out
 
 
@@ -245,24 +247,87 @@ def test_topk_unpack_keeps_the_last_pair_of_a_duplicate_index(n, k):
     assert (np.unique(idx[0]).size < k) and got[0, idx[0, 0]] == vals[0, -1]
 
 
-def test_unpack_segments_give_each_row_its_windows():
-    """K9's inputs as the wrapper builds them on the card: each row sorted
-    stably, and its bounds the first entry of each 2048-wide window; the
-    kernel's walk (the last of each run) gives the plain version."""
-    n, k = 9000, 6000
-    rng = np.random.default_rng(2)
-    idx = rng.integers(0, n, size=(K, k)).astype(np.int32)
-    vals = rng.standard_normal((K, k)).astype(np.float32)
-    sv, si, bounds = wire_pack.unpack_segments(_t(vals), _t(idx), n)
-    nseg = -(-n // wire_pack.SEGMENT)
-    assert bounds.shape == (K, nseg + 1) and si.dtype == bounds.dtype == torch.int32
-    out = np.zeros((K, n), np.float32)
-    sv, si, bounds = sv.numpy(), si.numpy(), bounds.numpy()
-    for r in range(K):
-        assert bounds[r, 0] == 0 and bounds[r, -1] == k and (np.diff(si[r]) >= 0).all()
+def _walk_layout(vals, idx, n):
+    """K9's window kernel over the plain layout: each window gathers its
+    run from every chunk, and the largest payload position j that names
+    an element wins it. Checks the layout on the way: each chunk's starts,
+    counts and window order."""
+    starts, slots = (t.numpy() for t in wire_pack.unpack_layout(_t(idx), n))
+    K_, k = idx.shape
+    nseg, seg_w, chunk = -(-n // wire_pack.SEGMENT), wire_pack.SEGMENT, wire_pack.UNPACK_CHUNK
+    nchunk = -(-k // chunk)
+    assert starts.shape == (K_, nchunk, nseg + 1) and starts.dtype == slots.dtype == np.int32
+    out = np.zeros((K_, n), np.float32)
+    for r in range(K_):
+        for b in range(nchunk):
+            part = idx[r, b * chunk:(b + 1) * chunk]
+            assert starts[r, b, 0] == 0 and starts[r, b, -1] == ((part >= 0) & (part < n)).sum()
+            assert (np.diff(starts[r, b]) >= 0).all()
+            assert (slots[r, b * chunk + starts[r, b, -1]:(b + 1) * chunk] == -1).all()
         for s in range(nseg):
-            for j in range(bounds[r, s], bounds[r, s + 1]):
-                if j + 1 < bounds[r, s + 1] and si[r, j + 1] == si[r, j]:
-                    continue
-                out[r, si[r, j]] = sv[r, j]
-    np.testing.assert_array_equal(out, _last_wins(vals, idx, n))
+            winner = {}
+            for b in range(nchunk):
+                js = slots[r, b * chunk + starts[r, b, s]:b * chunk + starts[r, b, s + 1]]
+                assert (np.diff(js) > 0).all()  # payload order inside a window
+                assert ((js >= b * chunk) & (js < (b + 1) * chunk)).all()
+                assert ((idx[r, js] >= s * seg_w) & (idx[r, js] < (s + 1) * seg_w)).all()
+                for j in js:
+                    winner[idx[r, j]] = max(winner.get(idx[r, j], -1), j)
+            for at, j in winner.items():
+                out[r, at] = vals[r, j]
+    return out
+
+
+def test_unpack_layout_gives_each_row_its_windows():
+    """K9's layout, plain (the kernels build it on the card, their order
+    inside a window aside): every entry in range in its chunk's run of its
+    window once, and the largest-j walk of it gives the serial loop's
+    result. Three chunks a row, the last one short."""
+    n, k = 9000, 2 * wire_pack.UNPACK_CHUNK + 1000
+    rng = np.random.default_rng(2)
+    idx = rng.integers(-50, n + 50, size=(K, k)).astype(np.int32)
+    vals = rng.standard_normal((K, k)).astype(np.float32)
+    want = _last_wins(vals, idx, n)
+    np.testing.assert_array_equal(_walk_layout(vals, idx, n), want)
+    np.testing.assert_array_equal(wire_pack.topk_unpack(_t(vals), _t(idx), n).numpy(), want)
+
+
+def _edge_case(name: str):
+    """(idx (K, k) int32, n): payloads whose windows' edges matter."""
+    rng = np.random.default_rng(len(name))
+    if name == "duplicates across a window edge":
+        n = 5000
+        idx = rng.integers(0, n, size=(K, 64))
+        idx[:, 1::4], idx[:, 3::4] = 2047, 2048  # both sides of the first edge, repeatedly
+        idx[1, -6:] = [4095, 4096, 4095, 4096, 2047, 2048]
+    elif name == "the last index of the row":
+        n = 4097  # its last window is one element wide
+        idx = rng.integers(0, n, size=(K, 40))
+        idx[:, ::3] = n - 1
+        idx[0, -1] = n - 2
+    elif name == "indices out of range dropped":
+        n = 3000
+        idx = rng.integers(0, n, size=(K, 48))
+        idx[:, :6] = [-1, n, n + 1, 2**31 - 1, -(2**31), 2 * n]
+        idx[1, -3:] = [-7, n - 1, n]
+    elif name == "every entry in one window":
+        n = 9000
+        idx = rng.integers(2048, 4096, size=(K, 3000))  # more entries than the window holds
+    else:  # a row whose entries are all out of range
+        n = 4097
+        idx = rng.integers(0, n, size=(K, 50))
+        idx[0] = rng.choice([-1, n, n + 2047, 10**6], size=50)
+    return idx.astype(np.int32), n
+
+
+@pytest.mark.parametrize("name", ["duplicates across a window edge", "the last index of the row",
+                                  "indices out of range dropped", "every entry in one window",
+                                  "a row all out of range"])
+def test_topk_unpack_at_window_edges(name):
+    idx, n = _edge_case(name)
+    vals = np.random.default_rng(n).standard_normal(idx.shape).astype(np.float32)
+    want = _last_wins(vals, idx, n)
+    got = wire_pack.topk_unpack(_t(vals), _t(idx), n)
+    assert got.dtype == torch.float32 and got.shape == (K, n)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(_walk_layout(vals, idx, n), want)
