@@ -17,7 +17,13 @@ Phases, each printed as it ends:
    a ragged small shape, and K2 (the full-sequence recurrence) at the
    paper's encoder and predictor layers, the decoder's encoder and a
    ragged small shape; every backward runs twice and must give the same
-   bits;
+   bits; K1 also with the host's cost of each piece of its launch path
+   (the PyTorch operators) and every refusal of its ``_check`` made on
+   the card; K2's backward gate recompute also alone, beside one fp32
+   matmul of the same product; K2's backward recurrence (that gate
+   recompute hoisted out of the steps, then the recurrence) also replayed
+   twice from one CUDA graph, at B=5, B=8 and H=1153 (a partial last
+   block), and its recurrence's phases timed by its timed instantiation;
    The compression plane's kernels (K5-K8: the quantizer, keyed,
    streamed and nearest, the int4 nibble pack and unpack, and the top-k
    scatter-add) run at K=4 clients on the paper's largest leaf
@@ -62,7 +68,8 @@ Phases, each printed as it ends:
    on the clean and hard splits): on the time loop (K1) with the chunked
    joint and with the fused joint kernels (``use_kernel=True``), then on
    K2 (``lstm.scan_dispatch=auto``) with the fused joint, whose loss is
-   held to the time loop's;
+   held to the time loop's and whose losses are printed beside the
+   step-wise backward's (PERF.md);
    then four compressed runs on the K2 path (int4 packed, int4 packed
    with error feedback, top-k 0.05 with error feedback, int8 with nearest
    rounding) and four runs of the slow path (SLOWPATH: robust
@@ -161,6 +168,10 @@ SCAN_BWD_REL_TOL = 1e-4
 # loop's, from the same seed: the time loop rounds h to bf16 every step,
 # K2 carries it in fp32 (as the JAX package's two paths do).
 SCAN_LOSS_RTOL = 5e-3
+# the K2 round's losses (K2 with K3/K4, rounds 1 and 2) with the backward
+# recurrence's step-wise design, which recomputed the gates inside each
+# step (PERF.md): the hoisted design keeps its bits
+STEPWISE_SCAN_LOSSES = (21.89535140991211, 22.191883087158203)
 
 # the paper-width round of phases 5 and 6: K=4 clients, b=4, 2 local
 # steps, FVN std 0.01; phase 5 ends with the final evaluation on 64
@@ -337,6 +348,7 @@ def phase_kernels(torch):
     aten = torch.ops.aten
     has_lib = hasattr(aten, "_thnn_fused_lstm_cell")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    _k1_refusals(torch)
     rows = {}
     for N, H in ((4, 1152), (32, 1152), (64, 1152), (5, 96)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -381,6 +393,9 @@ def phase_kernels(torch):
                     def lib_b():
                         return aten._thnn_fused_lstm_cell_backward_impl(
                             dh, dcn_l, cc, cy, ws, True)
+            def no_grad_cell():  # timed inside one no_grad block, as the evaluation calls it
+                return K.lstm_gates(gates, c)
+
             for name, kernel, plain, lib, nbytes, ops, err in (
                 ("lstm_gates_fwd", lambda: K.lstm_gates_fwd(gates, c),
                  lambda: ref.lstm_gates_ref(gates, c), lib_f, fwd_bytes,
@@ -389,19 +404,116 @@ def phase_kernels(torch):
                  lambda: ref.lstm_gates_bwd_ref(gates, c, dh, dcn), lib_b, bwd_bytes,
                  BWD_OPS_PER_UNIT * N * H, _max_err(torch, got_b, want_b)),
             ):
-                t = {what: (cuda_ms(torch, fn, 1000), graph_ms(torch, fn, 200))
-                     for what, fn in (("kernel", kernel), ("plain", plain), ("library", lib))
-                     if fn is not None}
+                # the forward also as the evaluation calls it: lstm_gates
+                # under no_grad, the same launch path without the Function
+                with torch.no_grad():  # no input requires grad: only lstm_gates notices
+                    t = {what: (cuda_ms(torch, fn, 1000), graph_ms(torch, fn, 200))
+                         for what, fn in (("kernel", kernel),
+                                          ("no_grad lstm_gates",
+                                           no_grad_cell if name == "lstm_gates_fwd" else None),
+                                          ("plain", plain), ("library", lib))
+                         if fn is not None}
                 t.setdefault("library", (None, None))
                 bound_ms, bound_by = _bound(nbytes, ops)
                 log(f"[kernels] {name} {tag}: max|err| {err:.2e}; us per call eager/graph: "
                     + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                     + f"; bound {bound_ms * 1e6:.1f} ns ({bound_by}, {nbytes} B)")
+                if t["library"][0] is not None:
+                    eager = ", ".join(f"{w} {t[w][0] / t['library'][0]:.2f}x" for w in
+                                      ("kernel", "no_grad lstm_gates") if w in t)
+                    log(f"[kernels] {name} {tag}: eager time / the library's eager time: "
+                        f"{eager}; graph time {_us(t['kernel'][1])} us")
                 if (N, H, dtype) == (4, 1152, torch.bfloat16):
                     rows[name] = {"max_abs_err": err, "ms": t["kernel"][0],
                                   "plain_ms": t["plain"][0], "bound_ms": bound_ms,
                                   "bound_by": bound_by, "library_ms": t["library"][0]}
+            if dtype == torch.bfloat16:
+                _k1_host_breakdown(torch, gates, c, lib_f, tag)
     return rows
+
+
+# host calls per item of the K1 launch path's breakdown
+K1_HOST_CALLS = 10_000
+
+
+def _k1_host_breakdown(torch, gates, c, lib_f, tag: str) -> None:
+    """What each piece of K1's launch path costs on the host, in us per
+    call (time.perf_counter_ns over K1_HOST_CALLS calls, then a
+    synchronize): the raw stream handle, the operator call (validation,
+    allocations and launch in C++), the path whole (``lstm_gates_fwd``,
+    and ``lstm_gates`` under no_grad), ``LSTMGatesFn.apply`` around it
+    (the path with grad on) and the library's fused cell."""
+    from repro_torch.kernels import lstm_gates as K
+
+    K.lstm_gates_fwd(gates, c)  # binds the operators
+    device, index = gates.device, gates.get_device()
+    getter = K._Ops.stream
+    stream = getter(index)
+    if stream != torch.cuda.current_stream(device).cuda_stream:
+        raise AssertionError("the raw stream handle is not the current stream's")
+    op = K._Ops.fwd
+    items = (
+        ("raw stream", lambda: getter(index)),
+        ("operator call", lambda: op(gates, c, stream)),
+        ("lstm_gates_fwd", lambda: K.lstm_gates_fwd(gates, c)),
+        ("lstm_gates under no_grad", lambda: K.lstm_gates(gates, c)),
+        ("LSTMGatesFn.apply", lambda: K.LSTMGatesFn.apply(gates, c)),
+        ("library fused cell", lib_f),
+    )
+    out = []
+    for what, fn in items:
+        if fn is None:
+            continue
+        # each item in one no_grad block (the evaluation's decode runs in
+        # one); none of the inputs requires grad, so only lstm_gates
+        # takes another path for it
+        with torch.no_grad():
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(K1_HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        out.append(f"{what} {(time.perf_counter_ns() - t0) / K1_HOST_CALLS / 1e3:.2f}")
+    log(f"[kernels] lstm_gates host breakdown {tag}, us per call on the host: " + "; ".join(out))
+
+
+def _k1_refusals(torch) -> None:
+    """Every refusal of K1's ``_check`` on the card: the wrappers raise the
+    same exception type as ``_check`` on the same inputs (the operators
+    make the refusals for tensors on CUDA)."""
+    from repro_torch.kernels import lstm_gates as K
+
+    def z(*shape, dtype=torch.float32, device="cuda"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    g, c = z(2, 8), z(2, 2)
+    cases = {
+        "gates (2, 7)": (z(2, 7), c), "gates 1-d": (z(8), c), "c (2, 3)": (g, z(2, 3)),
+        "c on the CPU": (g, z(2, 2, device="cpu")), "c on meta": (g, z(2, 2, device="meta")),
+        "float16 gates": (z(2, 8, dtype=torch.float16), c),
+        "bfloat16 c": (g, z(2, 2, dtype=torch.bfloat16)),
+        "gates not contiguous": (z(8, 2).t(), c), "N = 0": (z(0, 8), z(0, 2)),
+        "dh bfloat16": (g, c, z(2, 2, dtype=torch.bfloat16), c),
+        "dc_next (3, 2)": (g, c, c, z(3, 2)), "dc_next on the CPU": (g, c, c, z(2, 2, device="cpu")),
+        "dh not contiguous": (g, c, z(2, 2).t(), c),
+    }
+
+    def raised(fn, args):
+        try:
+            fn(*args)
+        except (ValueError, TypeError) as e:
+            return type(e)
+        return None
+
+    for what, args in cases.items():
+        want = raised(K._check, args)
+        got = raised(K.lstm_gates_fwd if len(args) == 2 else K.lstm_gates_bwd, args)
+        if want is None or got is not want:
+            raise AssertionError(f"lstm_gates {what}: the wrapper raised {got}, _check {want}")
+    torch.cuda.synchronize()
+    log(f"[kernels] lstm_gates: {len(cases)} refusals on the card raise _check's exception types")
 
 
 def phase_joint_kernels(torch):
@@ -518,6 +630,75 @@ def _rel_err(got, want) -> float:
 # one decode, and a ragged small shape
 SCAN_SHAPES = (("encoder", 64, 4, 1152), ("predictor", 33, 4, 1152),
                ("decode", 64, 64, 1152), ("ragged", 17, 3, 96))
+# the backward recurrence's other routes: B=5 and B=8 stage 8 rows at a
+# time (BB=8), and H=1153 leaves the last block of 9 units one unit
+SCAN_BWD_SHAPES = (("B=5", 17, 5, 1152), ("B=8", 17, 8, 1152), ("partial block", 17, 4, 1153))
+
+
+def _graph_outputs(torch, fn, replays: int = 2):
+    """The outputs of ``fn`` after each of ``replays`` replays of one CUDA
+    graph that captured one call, cloned after each replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    got = []
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        got.append([o.clone() for o in out])
+    return got
+
+
+def _check_scan_bwd(torch, K, ref, args, tag: str) -> tuple:
+    """The backward recurrence on ``args`` twice and from two replays of
+    one CUDA graph, all with the same bits, held to its plain version.
+    Returns (outputs, |err|/max, max|err|)."""
+    got, again = K.lstm_scan_bwd_rec(*args), K.lstm_scan_bwd_rec(*args)
+    replays = _graph_outputs(torch, lambda: K.lstm_scan_bwd_rec(*args))
+    torch.cuda.synchronize()
+    for other, what in ((again, "two launches"), *((r, f"graph replay {i + 1}")
+                                                   for i, r in enumerate(replays))):
+        if not all(torch.equal(x, y) for x, y in zip(got, other)):
+            raise AssertionError(f"lstm_scan_bwd {tag}: {what} on the same inputs differ")
+    want = ref.lstm_scan_bwd_rec_ref(*args)
+    rel = _rel_err(got, want)
+    if rel > SCAN_BWD_REL_TOL:
+        raise AssertionError(f"lstm_scan_bwd {tag}: error relative to max {rel:.2e} > "
+                             f"{SCAN_BWD_REL_TOL}")
+    return got, rel, _max_err(torch, got, want)
+
+
+def _log_scan_bwd_phases(torch, K, args, got, tag: str) -> None:
+    """The backward with its recurrence's timed instantiation on ``args``:
+    the same bits as the model's, the gate recompute's and the
+    recurrence's ms (CUDA events), and the recurrence's us a step in each
+    phase, the mean over the blocks and the slowest block; the prologue
+    and epilogue in us a launch."""
+    K.lstm_scan_bwd_phases(*args)  # the timed kernel's first launch loads it: not timed
+    out, gates_ms, rec_ms, times = K.lstm_scan_bwd_phases(*args)
+    if not all(torch.equal(x, y) for x, y in zip(out, got)):
+        raise AssertionError(f"lstm_scan_bwd {tag}: the timed instantiation's bits differ")
+    S = times.shape[1] - 1
+    us = times.double() / 1e3
+    per_step = us[:, :S].sum(dim=1) / S  # (blocks, phases)
+    parts = []
+    for i, phase in enumerate(K.BWD_PHASES):
+        once = phase in ("prologue", "epilogue")
+        col = us[:, S, i] if once else per_step[:, i]
+        parts.append(f"{phase} {float(col.mean()):.3f} (slowest block {float(col.max()):.3f}) "
+                     + ("us a launch" if once else "us a step"))
+    steps = sum(per_step[:, i] for i, phase in enumerate(K.BWD_PHASES)
+                if phase not in ("prologue", "epilogue"))
+    log(f"[kernels] lstm_scan_bwd {tag}: gate recompute {gates_ms * 1e3:.1f} us, recurrence "
+        f"{rec_ms * 1e3:.1f} us (timed, CUDA events); the recurrence's phases "
+        f"({times.shape[0]} blocks, thread 0's %globaltimer): " + "; ".join(parts)
+        + f"; all steps' phases {float(steps.mean()):.3f} (slowest block "
+        f"{float(steps.max()):.3f}) us a step")
 
 
 def phase_scan_kernels(torch, timing: bool = True):
@@ -557,21 +738,34 @@ def phase_scan_kernels(torch, timing: bool = True):
         if name != "decode":
             args = (xg, w, h0, c0, ys, cs, rnd(S, B, H).bfloat16(), rnd(B, H).bfloat16(),
                     rnd(B, H))
-            got, again = K.lstm_scan_bwd_rec(*args), K.lstm_scan_bwd_rec(*args)
+            got, rel_b, errs["lstm_scan_bwd"] = _check_scan_bwd(torch, K, ref, args, tag)
             dw, dw_again = K.lstm_scan_dw(h0, ys, got[0]), K.lstm_scan_dw(h0, ys, got[0])
             torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip((*got, dw), (*again, dw_again))):
-                raise AssertionError(f"lstm_scan_bwd {tag}: two runs on the same inputs differ")
-            want_b = ref.lstm_scan_bwd_rec_ref(*args)
+            if not torch.equal(dw, dw_again):
+                raise AssertionError(f"lstm_scan_dw {tag}: two runs on the same inputs differ")
             want_dw = ref.lstm_scan_dw_ref(h0, ys, got[0])
-            rel_b, rel_dw = _rel_err(got, want_b), _rel_err((dw,), (want_dw,))
-            if max(rel_b, rel_dw) > SCAN_BWD_REL_TOL:
-                raise AssertionError(f"lstm_scan_bwd {tag}: error relative to max: recurrence "
-                                     f"{rel_b:.2e}, dw {rel_dw:.2e} > {SCAN_BWD_REL_TOL}")
-            errs["lstm_scan_bwd"] = _max_err(torch, got, want_b)
+            rel_dw = _rel_err((dw,), (want_dw,))
+            if rel_dw > SCAN_BWD_REL_TOL:
+                raise AssertionError(f"lstm_scan_dw {tag}: error relative to max {rel_dw:.2e} > "
+                                     f"{SCAN_BWD_REL_TOL}")
             errs["lstm_scan_dw"] = _max_err(torch, (dw,), (want_dw,))
-            msg += (f"; bwd |err|/max {rel_b:.2e}, dw {rel_dw:.2e} (tol {SCAN_BWD_REL_TOL}); "
-                    "backward and dw bitwise repeatable")
+            # the gate recompute alone, twice, against its plain version
+            acts, acts_again = (K.lstm_scan_bwd_gates(xg, w, h0, ys) for _ in range(2))
+            torch.cuda.synchronize()
+            if not torch.equal(acts, acts_again):
+                raise AssertionError(f"lstm_scan_bwd_gates {tag}: two runs on the same inputs "
+                                     "differ")
+            want_acts = ref.lstm_scan_bwd_gates_ref(xg, w, h0, ys)
+            rel_g = _rel_err((acts,), (want_acts,))
+            if rel_g > SCAN_BWD_REL_TOL:
+                raise AssertionError(f"lstm_scan_bwd_gates {tag}: error relative to max "
+                                     f"{rel_g:.2e} > {SCAN_BWD_REL_TOL}")
+            errs["lstm_scan_bwd_gates"] = _max_err(torch, (acts,), (want_acts,))
+            msg += (f"; bwd |err|/max {rel_b:.2e}, its gate recompute {rel_g:.2e}, dw "
+                    f"{rel_dw:.2e} (tol {SCAN_BWD_REL_TOL}); backward (two launches, two graph "
+                    "replays), gate recompute and dw bitwise repeatable")
+            if name == "encoder":
+                _log_scan_bwd_phases(torch, K, args, got, tag)
         log(msg)
         if not timing or name == "ragged":
             continue
@@ -599,6 +793,11 @@ def phase_scan_kernels(torch, timing: bool = True):
             hp = torch.cat([h0[None], ys[:-1].float()]).reshape(-1, H)
             dg = got[0].reshape(-1, 4 * H)
             cases += [
+                # the gate recompute alone; its yardstick the product
+                # h_prev @ w_hh, one fp32 matmul
+                ("lstm_scan_bwd_gates", lambda: K.lstm_scan_bwd_gates(xg, w, h0, ys),
+                 lambda: ref.lstm_scan_bwd_gates_ref(xg, w, h0, ys), lambda: hp @ w,
+                 seqs * 4 * es + B * H * gs + seqs * es + 16 * H * H + seqs * 4 * gs, prod),
                 ("lstm_scan_bwd", lambda: K.lstm_scan_bwd_rec(*args),
                  lambda: ref.lstm_scan_bwd_rec_ref(*args), lib_fwd_bwd,
                  seqs * 4 * es + 16 * H * H + 2 * B * H * gs + seqs * (2 * es + gs)
@@ -627,8 +826,9 @@ def phase_scan_kernels(torch, timing: bool = True):
                         f"CUDA graph ({e}); graph times of K2 not measured")
             t_p, g_p = cuda_ms(torch, plain, 3), graph_ms(torch, plain, 3)
             t_l = cuda_ms(torch, library, 10)
-            # the dw product's yardstick is one matmul: it captures
-            g_l = graph_ms(torch, library, 10) if kname == "lstm_scan_dw" else None
+            # the products' yardsticks are one matmul each: they capture
+            g_l = graph_ms(torch, library, 10) if kname in ("lstm_scan_dw", "lstm_scan_bwd_gates") \
+                else None
             bound_ms, bound_by = _bound(nbytes, ops)
             log(f"[kernels] {kname} {tag}: us per call eager/graph: kernel {_us(t_k)}/{_us(g_k)}, "
                 f"plain {_us(t_p)}/{_us(g_p)}, library {_us(t_l)}/{_us(g_l)}; bound "
@@ -637,6 +837,15 @@ def phase_scan_kernels(torch, timing: bool = True):
             if name == "encoder":
                 rows[kname] = {"max_abs_err": errs[kname], "ms": t_k, "plain_ms": t_p,
                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_l}
+    for name, S, B, H in SCAN_BWD_SHAPES:
+        tag = f"{name} S={S} B={B} H={H}"
+        xg, w = rnd(S, B, 4 * H, scale=0.5).bfloat16(), rnd(H, 4 * H, scale=H ** -0.5)
+        h0, c0 = rnd(B, H, scale=0.1), rnd(B, H, scale=0.1)
+        ys, cs = K.lstm_scan_fwd(xg, w, h0, c0)
+        args = (xg, w, h0, c0, ys, cs, rnd(S, B, H).bfloat16(), rnd(B, H).bfloat16(), rnd(B, H))
+        _, rel, _ = _check_scan_bwd(torch, K, ref, args, tag)
+        log(f"[kernels] lstm_scan_bwd {tag}: |err|/max {rel:.2e} (tol {SCAN_BWD_REL_TOL}); "
+            "bitwise repeatable over two launches and two graph replays")
     phase_dw_ragged(torch, gen)
     return rows
 
@@ -1322,8 +1531,9 @@ def phase_paper_slowpath(torch, name: str, flags, uplink: int, kernels, loss_ref
     steps = args.clients * hist["local_steps"]  # client steps per round
     layers = cfg.enc_layers + cfg.pred_layers
     want = {k: 0 for k in watch.marks[0][0]}
-    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
-                lstm_scan_dw=layers * steps, rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
+    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
+                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
+                rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
                 rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
     want.update({k: N_LEAVES for k in kernels})
     watch.check_launches(want)
@@ -1388,8 +1598,9 @@ def _counts():
             "topk_scatter_add": KW.SCATTER_ADD_LAUNCHES,
             "topk_unpack": KW.TOPK_UNPACK_LAUNCHES,
             "lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
-            "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES, "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES,
-            "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
+            "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES,
+            "lstm_scan_bwd_gates": K2.SCAN_BWD_GATES_LAUNCHES,
+            "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES, "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
             "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_eg": KJ.BWD_EG_LAUNCHES,
             "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
             "rnnt_joint_bwd_w": KJ.BWD_W_LAUNCHES, **_attn_counts()}
@@ -1405,7 +1616,8 @@ def _zero_counts() -> None:
     KW.QUANTIZE_LAUNCHES = KW.PACK_LAUNCHES = KW.UNPACK_LAUNCHES = KW.SCATTER_ADD_LAUNCHES = 0
     KW.DEQUANTIZE_LAUNCHES = KW.TOPK_UNPACK_LAUNCHES = 0
     K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
-    K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_LAUNCHES = K2.SCAN_DW_LAUNCHES = 0
+    K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_GATES_LAUNCHES = K2.SCAN_BWD_LAUNCHES = 0
+    K2.SCAN_DW_LAUNCHES = 0
     KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KA
@@ -1462,8 +1674,8 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
     want.update(rnnt_joint_fwd=joint, rnnt_joint_bwd_eg=joint, rnnt_joint_bwd_reduce=joint,
                 rnnt_joint_bwd_w=joint)
     if mode == "auto":
-        want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
-                    lstm_scan_dw=layers * steps)
+        want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
+                    lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps)
     else:
         want.update(lstm_gates_fwd=loop_steps * steps, lstm_gates_bwd=loop_steps * steps)
     if trained != want:
@@ -1478,6 +1690,11 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
     if evaluated != want_eval:
         raise AssertionError(f"{tag} launches over the evaluation {evaluated}, expected "
                              f"{want_eval}")
+    if mode == "auto" and use_kernel and enc_layers is None:
+        same = tuple(hist["loss"]) == STEPWISE_SCAN_LOSSES
+        log(f"{tag} losses {hist['loss']} beside the step-wise backward's "
+            f"{list(STEPWISE_SCAN_LOSSES)}: "
+            + ("equal bit for bit" if same else "they differ"))
     wers = (hist["quality"], hist["quality_hard"])
     if not all(math.isfinite(x) and x >= 0 for x in wers):
         raise AssertionError(f"{tag} WER is not a finite non-negative number: {wers}")
@@ -1579,8 +1796,9 @@ def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_
     steps = args.clients * hist["local_steps"]  # client steps per round
     layers = cfg.enc_layers + cfg.pred_layers
     want = {k: 0 for k in watch.marks[0][0]}
-    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd=layers * steps,
-                lstm_scan_dw=layers * steps, rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
+    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
+                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
+                rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
                 rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
     want.update({k: N_LEAVES for k in WIRE_LAUNCHES[name]})
     watch.check_launches(want)
@@ -2153,6 +2371,12 @@ def main() -> int:
     rows.update(phase_scan_kernels(torch))
     rows.update(phase_wire_kernels(torch))
     rows.update(phase_attention_kernels(torch))
+    # the measurements' side streams each got a cuBLAS workspace that
+    # stays allocated: released, so that the paths' peak memory below
+    # counts only what the paths allocate
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    log(f"[kernels] cuBLAS workspaces released: {held - torch.cuda.memory_allocated()} B")
     mark("kernels")
     for mode in ("ref", "kernel"):
         phase_tiny_round(torch, mode)
@@ -2215,8 +2439,11 @@ def main() -> int:
         "lstm_gates_fwd": (gates, "src/repro/kernels/lstm_gates.py:43"),
         "lstm_gates_bwd": (gates, "src/repro/kernels/lstm_gates.py:92"),
         "lstm_scan_fwd": (scan, "src/repro/kernels/lstm_gates.py:202"),
-        # the recurrence of _scan_bwd_kernel (:235-279, :283-292)
+        # the recurrence of _scan_bwd_kernel (:235-279, :283-292): its gate
+        # recompute (two kernels) and the recurrence, one call
         "lstm_scan_bwd": (scan, "src/repro/kernels/lstm_gates.py:295"),
+        # of which the gate recompute alone (_scan_bwd_kernel, :260-263)
+        "lstm_scan_bwd_gates": (scan, "src/repro/kernels/lstm_gates.py:260"),
         # the dw_hh accumulation of _scan_bwd_kernel (:280-282)
         "lstm_scan_dw": (scan, "src/repro/kernels/lstm_gates.py:280"),
         "rnnt_joint_fwd": (joint, "src/repro/kernels/rnnt_joint.py:86"),

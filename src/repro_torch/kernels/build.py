@@ -3,10 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled by ``nvcc`` for ``sm_90a`` into
 ``<checkout>/build/repro_torch_kernels/lib<name>-<hash>.so``, where the
-hash is that of the source, so an edited source never loads a stale
-library. The library is then opened with ``ctypes``. Only sources in the
-repository are built, and a failed build raises with the compiler's
-output: there is no fallback.
+hash is that of the sources (and, for a library built against torch, of
+torch's version and C++ ABI flag), so an edited source or another torch
+never loads a stale library. The library is then opened with ``ctypes``. A library in
+``OP_SOURCES`` also links a C++ file that registers PyTorch operators
+around the ``.cu``'s entry points; it is compiled against torch's
+headers and libraries and loaded with ``torch.ops.load_library``
+(``load_ops``). Only sources in the repository are built, and a failed
+build raises with the compiler's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -19,9 +23,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("lstm_gates", "lstm_scan", "rnnt_joint", "wire_pack", "attention")
+# libraries whose entry points are PyTorch operators: the C++ file that
+# registers them, built beside csrc/<name>.cu
+OP_SOURCES = {"lstm_gates": "lstm_gates_op.cpp"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -37,8 +46,25 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(name: str) -> list:
+    return [CSRC / f"{name}.cu"] + ([CSRC / OP_SOURCES[name]] if name in OP_SOURCES else [])
+
+
+def _torch_flags() -> list:
+    """Compile against torch's headers with its C++ ABI, and link to the
+    libraries that hold the operator registry and the tensors."""
+    root = Path(torch.__file__).resolve().parent
+    lib = str(root / "lib")
+    return ["-I", str(root / "include"),
+            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            "-L", lib, "-lc10", "-ltorch_cpu", "-Xlinker", "-rpath", "-Xlinker", lib]
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    key = b"".join(f.read_bytes() for f in _sources(name))
+    if name in OP_SOURCES:  # compiled against torch's headers and ABI: bound to this torch
+        key += f"torch {torch.__version__} abi {int(torch._C._GLIBCXX_USE_CXX11_ABI)}".encode()
+    digest = hashlib.sha256(key).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -53,7 +79,9 @@ def build(names=SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources(name))]
+        if name in OP_SOURCES:
+            cmd += _torch_flags()
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     logs, failed = {}, []
@@ -73,6 +101,14 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.cache
+def load_ops(name: str) -> None:
+    """Build the library of ``csrc/<name>.cu`` and its ``OP_SOURCES``
+    file if needed, and register its operators under ``torch.ops``."""
+    build((name,))
+    torch.ops.load_library(str(library_path(name)))
 
 
 def check_launch(err: int, what: str) -> None:

@@ -40,21 +40,31 @@
 // - The forward publishes h_t (fp32) in a double-buffered global buffer,
 //   and all blocks meet at a grid-wide barrier each step. Loads of data
 //   that other blocks wrote bypass L1 (__ldcg), which is not coherent.
-// - The backward recomputes its units' gates from the stored ys (no
-//   exchange needed), then forms its share of dh_prev for all H from its
-//   own dgates and weight columns. The shares go to a double-buffered
-//   global buffer; after the barrier each block stages the shares of its
-//   units in shared memory (all loads in flight at once) and sums them
-//   over the blocks in block order. The result is bitwise repeatable.
-// - The dw product is a register-blocked fp32 product on the CUDA cores
-//   (no tensor cores: TF32 or bf16 would change the numbers): a 64 x 128
-//   tile of dw per block of 128 threads, 8 x 8 outputs a thread, slabs of
-//   16 rows of n in a 2-stage ring of shared memory (cp.async for fp32
-//   rows, register loads widened in place for bf16 ys) whose next slab
-//   loads while this one's FMAs run; 3 blocks an SM, the encoder's 648
-//   blocks in 1.64 waves of 396. Each output is one fmaf chain over
-//   n = t * B + b in order, without atomics: bitwise repeatable, and its
-//   bits do not depend on the tiling.
+// - The backward keeps the same partition and weight slice. Its gate
+//   recompute depends only on the saved (xg, ys, h0), so two kernels do it
+//   for every step before the recurrence (lstm_scan_gates_kernel: one
+//   slice of k of a tile a block; lstm_scan_gates_sum_kernel: the slices
+//   summed in order, the activations) and leave the activations in dxg,
+//   where step t reads them and writes dgates over them. The steps' chain
+//   is then the cell update, the block's share of dh_prev for all H from
+//   its own dgates and weight columns (share_product), and the exchange:
+//   each block stores its shares where their owner reads them, one
+//   contiguous region a chunk of rows, and after the grid barrier the
+//   owner stages its region with float4 loads and sums the shares in
+//   block order. A step's own operands load before the barrier. The
+//   result is bitwise repeatable, and has the bits of the step-wise
+//   design before it (PERF.md), which recomputed the gates inside each
+//   step.
+// - The dw product and the gate recompute's slices share one
+//   register-blocked fp32 tile product on the CUDA cores (tile_product;
+//   no tensor cores: TF32 or bf16 would change the numbers): a 64 x 128
+//   tile per block of 128 threads, 8 x 8 outputs a thread, slabs of 16
+//   values of k in a 2-stage ring of shared memory (cp.async for fp32
+//   rows, register loads widened for bf16 ys) whose next slab loads while
+//   this one's FMAs run; 3 blocks an SM, dw's 648 blocks at the encoder in
+//   1.64 waves of 396. Each kernel brings its own loader of the left
+//   operand. Each output is one fmaf chain over k in order, without
+//   atomics: bitwise repeatable, and its bits do not depend on the tiling.
 //
 // The grid barrier needs every block resident: the launch is
 // cooperative, and an occupancy check refuses a grid that cannot be
@@ -65,8 +75,9 @@
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes. Each
-// entry point launches one kernel on the caller's stream, allocates
-// nothing, and returns a cudaError_t as int (or the codes above).
+// entry point launches its kernels on the caller's stream (one, but two
+// for the backward's gate recompute), allocates nothing, and returns a
+// cudaError_t as int (or the codes above).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -74,6 +85,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <initializer_list>
 
 namespace cg = cooperative_groups;
 
@@ -103,6 +115,9 @@ __device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 template <typename T>
 __device__ __forceinline__ void store_f(T* p, float v);
 template <>
@@ -116,13 +131,76 @@ __device__ __forceinline__ void store_f<__nv_bfloat16>(__nv_bfloat16* p, float v
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// The backward recurrence's phases, as its timed instantiation counts
+// them: the prologue (the weight slice) and the epilogue once (row S of a
+// block's table), the others each step (row t).
+enum Phase {
+  kPrologue,
+  kOperands,
+  kStageShares,
+  kCell,
+  kProduct,
+  kStores,
+  kBarrier,
+  kEpilogue,
+  kPhases
+};
+
+// The timed instantiation's clock: thread 0 of the block adds the
+// nanoseconds (%globaltimer) since its last mark to the phase that ends
+// at the mark, in registers, and stores a row of its table when a step
+// ends (no load of device memory on the way). Compiled out when kOn is
+// false.
+template <bool kOn>
+struct PhaseClock {
+  unsigned long long* table;  // (S + 1, kPhases) of this block
+  unsigned long long last = 0, sums[kPhases] = {};
+  __device__ explicit PhaseClock(unsigned long long* t) : table(t) {
+    if constexpr (kOn) last = now();
+  }
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ void mark(Phase phase) {
+    if constexpr (kOn) {
+      if (threadIdx.x == 0) {
+        const unsigned long long t = now();
+        sums[phase] += t - last;
+        last = t;
+      }
+    }
+  }
+  // stores the sums of a step's phases into its row, and restarts them
+  __device__ void store(int row) {
+    if constexpr (kOn) {
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < kPhases; ++i) {
+          table[row * kPhases + i] = sums[i];
+          sums[i] = 0;
+        }
+      }
+    }
+  }
+  // the same for one phase (the prologue's and the epilogue's row)
+  __device__ void store(int row, Phase phase) {
+    if constexpr (kOn) {
+      if (threadIdx.x == 0) {
+        table[row * kPhases + phase] = sums[phase];
+        sums[phase] = 0;
+      }
+    }
+  }
+};
+
 // For idx < n, store(idx, load(idx)) over the block, each thread issuing
 // kBatch loads before any store: a store through a generic pointer may
 // alias a later load, so a plain loop would wait out each load's latency
 // in turn.
-template <typename Load, typename Store>
+template <int kBatch = 8, typename Load, typename Store>
 __device__ __forceinline__ void copy_batched(int n, Load load, Store store) {
-  constexpr int kBatch = 8;
   for (int base = threadIdx.x; base < n; base += kBatch * blockDim.x) {
     float v[kBatch];
 #pragma unroll
@@ -140,9 +218,10 @@ __device__ __forceinline__ void copy_batched(int n, Load load, Store store) {
 
 // w_s[col * P + k] = w_hh[k, g * H + j0 + u] for col = g * U + u; zero
 // past H (rows) and past the last unit (columns).
+template <int kBatch = 8>
 __device__ void load_weight(float* w_s, const float* __restrict__ w_hh, const Plan& p, int j0) {
   const int ncol = 4 * p.U;
-  copy_batched(
+  copy_batched<kBatch>(
       ncol * p.P,
       [&](int idx) {
         const int k = idx / ncol, col = idx - k * ncol;
@@ -174,36 +253,6 @@ __device__ void stage_rows(float* h_s, const T* __restrict__ src, int b0, const 
         }
       },
       [&](int idx, float v) { h_s[idx] = v; });
-}
-
-// h_s[r * P + q * U + u] = shares[q, b0 + r, j0 + u]: every block q's
-// share of dh for this block's units, rows b0.., zero past B and H.
-template <int BB>
-__device__ void stage_shares(float* h_s, const float* shares, int b0, const Plan& p, int nblk,
-                             int j0) {
-  const int per_row = nblk * p.U;
-  const size_t BH = static_cast<size_t>(p.B) * p.H;
-  copy_batched(
-      BB * per_row,
-      [&](int idx) {
-        const int r = idx / per_row, rest = idx - r * per_row, q = rest / p.U;
-        const int b = b0 + r, j = j0 + rest - q * p.U;
-        return (b < p.B && j < p.H) ? __ldcg(shares + q * BH + static_cast<size_t>(b) * p.H + j)
-                                    : 0.0f;
-      },
-      [&](int idx, float v) {
-        const int r = idx / per_row;
-        h_s[r * p.P + idx - r * per_row] = v;
-      });
-}
-
-// The staged shares of (row r, unit u) summed over the blocks in order.
-__device__ __forceinline__ float sum_shares(const float* h_s, int r, int u, const Plan& p,
-                                            int nblk) {
-  const float* q = h_s + r * p.P + u;
-  float s = 0.0f;
-  for (int k = 0; k < nblk; ++k) s += q[k * p.U];
-  return s;
 }
 
 // red[(r * 4U + col) * KS + ks] = the ks-th slice of sum_k h_s[r, k] w_s[col, k].
@@ -292,135 +341,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BB>
-__global__ void __launch_bounds__(kThreads)
-    lstm_scan_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ w_hh,
-                         const float* __restrict__ h0, const float* __restrict__ c0,
-                         const T* __restrict__ ys, const float* __restrict__ cs,
-                         const T* __restrict__ dys, const T* __restrict__ dhT,
-                         const float* __restrict__ dcT, float* __restrict__ dxg,
-                         float* __restrict__ dh0, float* __restrict__ dc0, float* pbuf, Plan p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  const int H = p.H, B = p.B, U = p.U, ncol = 4 * U;
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* h_s = w_s + ncol * p.P;
-  float* red = h_s + BB * p.P;
-  float* dg_s = red + BB * ncol * p.KS;  // (Bp, 4U) this step's dgates of the block's units
-  float* dc_s = dg_s + p.Bp * ncol;      // (B, U) the dc carry of the block's units
-  const size_t BH = static_cast<size_t>(B) * H;
-  const int nblk = gridDim.x, j0 = blockIdx.x * U;
-  load_weight(w_s, w_hh, p, j0);
-  for (int idx = threadIdx.x; idx < p.Bp * ncol; idx += blockDim.x) dg_s[idx] = 0.0f;
-
-  for (int t = p.S - 1; t >= 0; --t) {
-    const float* shares_in = pbuf + static_cast<size_t>((t + 1) & 1) * nblk * BH;
-    for (int b0 = 0; b0 < B; b0 += BB) {
-      __syncthreads();
-      if (t == 0) {
-        stage_rows<BB>(h_s, h0, b0, p, false);
-      } else {
-        stage_rows<BB>(h_s, ys + (t - 1) * BH, b0, p, false);
-      }
-      __syncthreads();
-      gate_dots<BB>(w_s, h_s, red, p);
-      __syncthreads();
-      if (t < p.S - 1) {  // h_s is free: stage the shares of dh from step t + 1
-        stage_shares<BB>(h_s, shares_in, b0, p, nblk, j0);
-        __syncthreads();
-      }
-      const int nb = min(BB, B - b0);
-      for (int item = threadIdx.x; item < nb * U; item += blockDim.x) {
-        const int r = item / U, u = item - r * U, j = j0 + u, b = b0 + r;
-        if (j >= H) continue;
-        float gs[4];
-        gate_sums(red, r, u, p, xg + (static_cast<size_t>(t) * B + b) * 4 * H, j, gs);
-        const float i = sigmoid(gs[0]), f = sigmoid(gs[1] + 1.0f), g = tanhf(gs[2]),
-                    o = sigmoid(gs[3]);
-        const size_t bj = static_cast<size_t>(b) * H + j;
-        const float c_prev = t == 0 ? c0[bj] : cs[(t - 1) * BH + bj];
-        const float tct = tanhf(f * c_prev + i * g);
-        float dh_carry, dc_carry;
-        if (t == p.S - 1) {
-          dh_carry = load_f(dhT + bj);
-          dc_carry = dcT[bj];
-        } else {
-          dh_carry = sum_shares(h_s, r, u, p, nblk);
-          dc_carry = dc_s[b * U + u];
-        }
-        const float dh = dh_carry + load_f(dys + t * BH + bj);
-        const float dc = dc_carry + dh * o * (1.0f - tct * tct);
-        // same operation order as the Pallas backward
-        const float dg[4] = {dc * g * i * (1.0f - i), dc * c_prev * f * (1.0f - f),
-                             dc * i * (1.0f - g * g), dh * tct * o * (1.0f - o)};
-        float* dxg_row = dxg + (static_cast<size_t>(t) * B + b) * 4 * H;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          dxg_row[q * H + j] = dg[q];
-          dg_s[b * ncol + q * U + u] = dg[q];
-        }
-        dc_s[b * U + u] = dc * f;
-      }
-    }
-    __syncthreads();
-    // this block's share of dh_prev[b, k] = sum over its columns of
-    // dgates[b, col] * w_hh[k, col], for every k
-    float* shares_out = pbuf + (static_cast<size_t>(t & 1) * nblk + blockIdx.x) * BH;
-    const int chunks = p.Bp / BB;
-    for (int item = threadIdx.x; item < chunks * H; item += blockDim.x) {
-      const int c = item / H, k = item - c * H, b0 = c * BB;
-      float acc[BB];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) acc[r] = 0.0f;
-      for (int col = 0; col < ncol; col += 4) {
-        const float w0 = w_s[col * p.P + k], w1 = w_s[(col + 1) * p.P + k],
-                    w2 = w_s[(col + 2) * p.P + k], w3 = w_s[(col + 3) * p.P + k];
-#pragma unroll
-        for (int r = 0; r < BB; ++r) {
-          const float4 d = *reinterpret_cast<const float4*>(dg_s + (b0 + r) * ncol + col);
-          acc[r] = fmaf(d.x, w0, acc[r]);
-          acc[r] = fmaf(d.y, w1, acc[r]);
-          acc[r] = fmaf(d.z, w2, acc[r]);
-          acc[r] = fmaf(d.w, w3, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        if (b0 + r < B) shares_out[static_cast<size_t>(b0 + r) * H + k] = acc[r];
-      }
-    }
-    grid.sync();  // every block's share of dh_prev is published
-  }
-  // dh0 = the shares of step 0 summed in block order; dc0 = the dc carry
-  for (int b0 = 0; b0 < B; b0 += BB) {
-    __syncthreads();
-    stage_shares<BB>(h_s, pbuf, b0, p, nblk, j0);
-    __syncthreads();
-    for (int item = threadIdx.x; item < min(BB, B - b0) * U; item += blockDim.x) {
-      const int r = item / U, u = item - r * U, j = j0 + u;
-      if (j >= H) continue;
-      const size_t bj = static_cast<size_t>(b0 + r) * H + j;
-      dh0[bj] = sum_shares(h_s, r, u, p, nblk);
-      dc0[bj] = dc_s[(b0 + r) * U + u];
-    }
-  }
-}
-
-// dw[m, c] = sum over n = t * B + b of h_prev[n, m] * dg[n, c], n in
-// order; h_prev[n] = h0[b] for t = 0, ys[t - 1, b] after. A register-
-// blocked SIMT product: a 64 (m) x 128 (c) tile of dw per block of 128
-// threads, 8 x 8 outputs a thread (per row of n four 16-byte shared loads
-// feed 64 FMAs), n staged in slabs of 16 rows through a 2-stage ring:
-// slab s + 1's copies are in flight while slab s's FMAs run. Each output
-// is one fmaf chain from 0 over n in order: rows past N are zeros, and
-// fmaf(0, 0, acc) is acc (acc is never -0).
-constexpr int kDwM = 64, kDwC = 128, kDwK = 16, kDwThreads = 128;
-// 3 blocks an SM (up to 168 registers a thread): at the encoder (H = 1152)
-// 18 x 36 = 648 blocks on 396 slots, 1.64 waves. Five an SM (96 registers,
-// the 648 blocks in one wave) spill the accumulators and ran slower on the
-// card (PERF.md).
-constexpr int kDwBlocksPerSm = 3;
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int src_bytes = valid ? 16 : 0;  // 0: fill with zeros, read nothing
@@ -432,103 +352,102 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// VEC: H % 4 == 0 and the pointers aligned, so every slab moves in runs of
-// 4: 16-byte cp.async copies of fp32 rows, and 8-byte register loads of
-// bf16 ys rows, widened into shared memory after the slab before's FMAs;
-// otherwise one element a load, through registers.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
-    lstm_scan_dw_kernel(const float* __restrict__ h0, const T* __restrict__ ys,
-                        const float* __restrict__ dg, float* __restrict__ dw, int S, int B,
-                        int H) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int kRunsA = kDwK * kDwM / 4 / kDwThreads, kRunsD = kDwK * kDwC / 4 / kDwThreads;
-  __shared__ __align__(16) float a_s[2][kDwK][kDwM];
-  __shared__ __align__(16) float d_s[2][kDwK][kDwC];
-  const int N = S * B, H4 = 4 * H;
-  const int m0 = blockIdx.y * kDwM, c0 = blockIdx.x * kDwC;
-  // threads as (kDwM / 8) x (kDwC / 8): each takes rows ty*4 + {0..3} and
-  // kDwM/2 + ty*4 + {0..3}, columns tx*4 + {0..3} and kDwC/2 + tx*4 + {0..3}
-  static_assert((kDwM / 8) * (kDwC / 8) == kDwThreads, "one 8 x 8 block of dw a thread");
-  const int tid = threadIdx.x, tx = tid % (kDwC / 8), ty = tid / (kDwC / 8);
-  const int nslab = (N + kDwK - 1) / kDwK;
-  uint2 a_bf16[kBf16 && VEC ? kRunsA : 1];  // the bf16 runs of the slab in flight
+// ---- The backward recurrence ----
+
+// The recurrence's block: 16 warps an SM (its registers allow them).
+constexpr int kBwdThreads = 512;
+// float4 loads of the staged shares a thread keeps in flight
+constexpr int kStageBatch = 8;
+
+// The exchange of dh shares: for each owner block, each chunk of BB rows
+// and each sending block q, the (BB, U) shares of q for the owner's units,
+// contiguous: q writes one run into each owner's region, and an owner
+// reads one contiguous region for a chunk.
+struct BwdPlan : Plan {
+  int NC;  // chunks of BB rows, Bp / BB
+  int QC;  // one (owner, chunk) region: blocks x BB x U floats, a multiple of 4
+};
+
+// Floats of the backward's exchange: two parities of (owner, chunk, QC).
+inline size_t bwd_exchange_floats(const BwdPlan& p) {
+  const size_t nblk = (p.H + p.U - 1) / p.U;
+  return 2 * nblk * p.NC * static_cast<size_t>(p.QC);
+}
+
+// ---- The register-blocked fp32 tile product ----
+//
+// The gate recompute's and the dw product's core: out[m, c] = sum over k
+// in [k_lo, k_hi), in order, of A[m, k] * Bm[k, c], for a kTileM (m) x
+// kTileC (c) tile a block of kTileThreads threads, 8 x 8 outputs a thread
+// (per k four 16-byte shared loads feed 64 FMAs). k runs in slabs of
+// kTileK through a 2-stage ring of shared memory: slab s + 1's loads are
+// in flight while slab s's FMAs run. Bm is row-major (k, H4) fp32 and
+// comes by 16-byte cp.async copies (VEC) or element loads; A comes through
+// the caller's loader. Each output is one fmaf chain from 0 over k in
+// order: operands past the edges are zeros, and fmaf(0, 0, acc) is acc
+// (acc is never -0), so the bits do not depend on the tiling. The products
+// are fp32 FMA on the CUDA cores: TF32 or bf16 tensor cores would change
+// the numbers.
+constexpr int kTileM = 64, kTileC = 128, kTileK = 16, kTileThreads = 128;
+// 3 blocks an SM (up to 168 registers a thread): dw's 648 blocks at the
+// encoder (H = 1152) in 1.64 waves of 396. Five an SM (96 registers, the
+// 648 blocks in one wave) spill the accumulators and ran slower on the
+// card (PERF.md).
+constexpr int kTileBlocksPerSm = 3;
+// float4 runs of an A slab a thread loads
+constexpr int kRunsA = kTileK * kTileM / 4 / kTileThreads;
+// A's slab in shared memory: a[kk][m] = A[m0 + m, k0 + kk]
+using ASlab = float[kTileK][kTileM];
+
+// stage_a(a, k0) starts the loads of A's slab k0 .. k0 + kTileK - 1 into
+// a; land_a(a, k0) finishes them once this thread's cp.async copies have
+// landed. out is row-major (M, H4); rows m0.. of it are the tile's.
+template <bool VEC, typename StageA, typename LandA>
+__device__ __forceinline__ void tile_product(StageA stage_a, LandA land_a,
+                                             const float* __restrict__ bm, int k_lo, int k_hi,
+                                             int H4, int c0, float* __restrict__ out, int m0,
+                                             int M) {
+  constexpr int kRunsB = kTileK * kTileC / 4 / kTileThreads;
+  __shared__ __align__(16) float a_s[2][kTileK][kTileM];
+  __shared__ __align__(16) float b_s[2][kTileK][kTileC];  // b_s[kk][c] = Bm[k0 + kk, c0 + c]
+  // threads as (kTileM / 8) x (kTileC / 8): rows ty * 4 + {0..3} and
+  // kTileM / 2 + ty * 4 + {0..3}, columns tx * 4 + {0..3} and kTileC / 2 +
+  // tx * 4 + {0..3}
+  static_assert((kTileM / 8) * (kTileC / 8) == kTileThreads, "one 8 x 8 block of outputs a thread");
+  const int tid = threadIdx.x, tx = tid % (kTileC / 8), ty = tid / (kTileC / 8);
+  const int nslab = (k_hi - k_lo + kTileK - 1) / kTileK;
 
   // start slab s's loads into stage s % 2
   auto stage = [&](int s) {
-    const int buf = s % 2;
+    const int buf = s % 2, k0 = k_lo + s * kTileK;
+    stage_a(a_s[buf], k0);
     if constexpr (VEC) {
 #pragma unroll
-      for (int i = 0; i < kRunsA; ++i) {  // A: kDwK x kDwM values in runs of 4
-        const int u = tid + i * kDwThreads, r = u / (kDwM / 4), col = (u % (kDwM / 4)) * 4;
-        const int n = s * kDwK + r, m = m0 + col;
-        const bool ok = n < N && m < H;
-        if constexpr (kBf16) {
-          if (ok && n >= B) {
-            a_bf16[i] =
-                __ldg(reinterpret_cast<const uint2*>(ys + static_cast<size_t>(n - B) * H + m));
-            continue;
-          }
-        }
-        const float* src = !ok ? h0
-                           : n < B ? h0 + static_cast<size_t>(n) * H + m
-                                   : reinterpret_cast<const float*>(ys) +
-                                         static_cast<size_t>(n - B) * H + m;
-        cp_async16(&a_s[buf][r][col], src, ok);
-      }
-#pragma unroll
-      for (int i = 0; i < kRunsD; ++i) {  // D: kDwK x kDwC values in runs of 4
-        const int u = tid + i * kDwThreads, r = u / (kDwC / 4), col = (u % (kDwC / 4)) * 4;
-        const int n = s * kDwK + r, c = c0 + col;
-        const bool ok = n < N && c < H4;
-        cp_async16(&d_s[buf][r][col], ok ? dg + static_cast<size_t>(n) * H4 + c : dg, ok);
+      for (int i = 0; i < kRunsB; ++i) {  // row kk, columns col .. col + 3
+        const int u = tid + i * kTileThreads, kk = u / (kTileC / 4), col = (u % (kTileC / 4)) * 4;
+        const int k = k0 + kk, c = c0 + col;
+        const bool ok = k < k_hi && c < H4;  // H4 % 4 == 0: a run is all in or all out
+        cp_async16(&b_s[buf][kk][col], ok ? bm + static_cast<size_t>(k) * H4 + c : bm, ok);
       }
     } else {
-      float a[kDwK * kDwM / kDwThreads], d[kDwK * kDwC / kDwThreads];
+      float b[kTileK * kTileC / kTileThreads];
 #pragma unroll
-      for (int i = 0; i < kDwK * kDwM / kDwThreads; ++i) {  // every load before the stores
-        const int e = tid + i * kDwThreads, r = e / kDwM, m = m0 + e % kDwM, n = s * kDwK + r;
-        a[i] = 0.0f;
-        if (n < N && m < H) {
-          a[i] = n < B ? h0[static_cast<size_t>(n) * H + m]
-                       : load_f(ys + static_cast<size_t>(n - B) * H + m);
-        }
+      for (int i = 0; i < kTileK * kTileC / kTileThreads; ++i) {  // every load before the stores
+        const int e = tid + i * kTileThreads, kk = e / kTileC, c = c0 + e % kTileC;
+        const int k = k0 + kk;
+        b[i] = k < k_hi && c < H4 ? bm[static_cast<size_t>(k) * H4 + c] : 0.0f;
       }
 #pragma unroll
-      for (int i = 0; i < kDwK * kDwC / kDwThreads; ++i) {
-        const int e = tid + i * kDwThreads, r = e / kDwC, c = c0 + e % kDwC, n = s * kDwK + r;
-        d[i] = n < N && c < H4 ? dg[static_cast<size_t>(n) * H4 + c] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kDwK * kDwM / kDwThreads; ++i) {
-        const int e = tid + i * kDwThreads;
-        a_s[buf][e / kDwM][e % kDwM] = a[i];
-      }
-#pragma unroll
-      for (int i = 0; i < kDwK * kDwC / kDwThreads; ++i) {
-        const int e = tid + i * kDwThreads;
-        d_s[buf][e / kDwC][e % kDwC] = d[i];
+      for (int i = 0; i < kTileK * kTileC / kTileThreads; ++i) {
+        const int e = tid + i * kTileThreads;
+        b_s[buf][e / kTileC][e % kTileC] = b[i];
       }
     }
   };
-  // finish slab s's loads: this thread's copies landed, its bf16 runs
-  // widened into the stage
+  // finish slab s's loads: this thread's copies landed, then A's loader
   auto land = [&](int s) {
     cp_async_wait_all();
-    if constexpr (kBf16 && VEC) {
-#pragma unroll
-      for (int i = 0; i < kRunsA; ++i) {
-        const int u = tid + i * kDwThreads, r = u / (kDwM / 4), col = (u % (kDwM / 4)) * 4;
-        const int n = s * kDwK + r;
-        if (n < N && n >= B && m0 + col < H) {
-          const uint2 w = a_bf16[i];
-          // bf16 -> fp32 exactly: the 16 bits on top of a zero mantissa tail
-          *reinterpret_cast<float4*>(&a_s[s % 2][r][col]) =
-              make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                          __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-        }
-      }
-    }
+    land_a(a_s[s % 2], k_lo + s * kTileK);
   };
 
   float acc[8][8];
@@ -537,24 +456,26 @@ __global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[i][q] = 0.0f;
   }
-  stage(0);
-  land(0);
+  if (nslab > 0) {
+    stage(0);
+    land(0);
+  }
   __syncthreads();
   for (int s = 0; s < nslab; ++s) {
     const int cur = s % 2;
     if (s + 1 < nslab) stage(s + 1);
 #pragma unroll
-    for (int kk = 0; kk < kDwK; ++kk) {
+    for (int kk = 0; kk < kTileK; ++kk) {
       const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[cur][kk][ty * 4]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&a_s[cur][kk][kDwM / 2 + ty * 4]);
-      const float4 d_lo = *reinterpret_cast<const float4*>(&d_s[cur][kk][tx * 4]);
-      const float4 d_hi = *reinterpret_cast<const float4*>(&d_s[cur][kk][kDwC / 2 + tx * 4]);
+      const float4 a_hi = *reinterpret_cast<const float4*>(&a_s[cur][kk][kTileM / 2 + ty * 4]);
+      const float4 b_lo = *reinterpret_cast<const float4*>(&b_s[cur][kk][tx * 4]);
+      const float4 b_hi = *reinterpret_cast<const float4*>(&b_s[cur][kk][kTileC / 2 + tx * 4]);
       const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float dv[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
+      const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(av[i], dv[q], acc[i][q]);
+        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
       }
     }
     if (s + 1 < nslab) land(s + 1);
@@ -562,12 +483,12 @@ __global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : kDwM / 2 + ty * 4 + i - 4);
-    if (m >= H) continue;
+    const int m = m0 + (i < 4 ? ty * 4 + i : kTileM / 2 + ty * 4 + i - 4);
+    if (m >= M) continue;
+    float* row = out + static_cast<size_t>(m) * H4;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int c = c0 + half * (kDwC / 2) + tx * 4;
-      float* row = dw + static_cast<size_t>(m) * H4;
+      const int c = c0 + half * (kTileC / 2) + tx * 4;
       if constexpr (VEC) {
         if (c < H4) {  // H4 % 4 == 0: a run of 4 is all in or all out
           *reinterpret_cast<float4*>(row + c) =
@@ -582,6 +503,404 @@ __global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
       }
     }
   }
+}
+
+// bf16 -> fp32 exactly, four values of an 8-byte run: the 16 bits on top
+// of a zero mantissa tail
+__device__ __forceinline__ float4 widen_bf16x4(uint2 w) {
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// The backward's gate recompute, hoisted out of the recurrence: for every
+// row n = t * B + b < N = S * B of h_prev (h0 at t = 0, ys[t - 1] after)
+// and column c = g * H + j, the gate activation of xg[n, c] + sum_k
+// h_prev[n, k] w_hh[k, c], written into dxg[n, c], where step t of the
+// recurrence reads it and writes dgates over it. It depends only on the
+// saved tensors, so it runs at the card's throughput, not inside the
+// steps' chain, and keeps the recurrence's bits before the hoist: the
+// plan's KS slices of Kc values of k, each an fmaf chain over k in order,
+// summed in slice order from 0, then added to xg. Two kernels: the
+// slices' products (lstm_scan_gates_kernel, one slice of a tile a block,
+// so the slices add parallelism), then their ordered sum with the
+// activations (lstm_scan_gates_sum_kernel).
+//
+// part[ks, n, c] = sum over k in slice ks, in order, of h_prev[n, k] *
+// w_hh[k, c]: the tile product with A = h_prev (n, k), whose rows run
+// along k, so a thread loads runs of them into registers and stores them
+// transposed into the slab. VEC: H % 4 == 0 and the pointers aligned, so
+// each run is one 16-byte (fp32) or 8-byte (bf16 ys) load, and w_hh's rows
+// come by cp.async.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
+    lstm_scan_gates_kernel(const float* __restrict__ h0, const T* __restrict__ ys,
+                           const float* __restrict__ w_hh, float* __restrict__ part, int S,
+                           int B, int H, int Kc) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int N = S * B, H4 = 4 * H, n0 = blockIdx.y * kTileM;
+  const int k_lo = blockIdx.z * Kc, k_hi = min(k_lo + Kc, H);  // this block's slice
+  float a_reg[kRunsA][4];
+  // h_prev[n0 + r, k0 + kq .. + 3] into registers, a run of 4 a load
+  auto stage_a = [&](ASlab&, int k0) {
+#pragma unroll
+    for (int i = 0; i < kRunsA; ++i) {
+      const int u = threadIdx.x + i * kTileThreads, r = u / (kTileK / 4);
+      const int n = n0 + r, k = k0 + (u % (kTileK / 4)) * 4;
+      if constexpr (VEC) {  // H % 4 == 0 and Kc % 4 == 0: a run is all in or all out
+        a_reg[i][0] = a_reg[i][1] = a_reg[i][2] = a_reg[i][3] = 0.0f;
+        if (n < N && k < k_hi) {
+          if (n < B || !kBf16) {
+            const float* src = n < B ? h0 + static_cast<size_t>(n) * H + k
+                                     : reinterpret_cast<const float*>(ys) +
+                                           static_cast<size_t>(n - B) * H + k;
+            const float4 v = *reinterpret_cast<const float4*>(src);
+            a_reg[i][0] = v.x, a_reg[i][1] = v.y, a_reg[i][2] = v.z, a_reg[i][3] = v.w;
+          } else {
+            const float4 v = widen_bf16x4(
+                __ldg(reinterpret_cast<const uint2*>(ys + static_cast<size_t>(n - B) * H + k)));
+            a_reg[i][0] = v.x, a_reg[i][1] = v.y, a_reg[i][2] = v.z, a_reg[i][3] = v.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a_reg[i][e] = 0.0f;
+          if (n < N && k + e < k_hi) {
+            a_reg[i][e] = n < B ? h0[static_cast<size_t>(n) * H + k + e]
+                                : load_f(ys + static_cast<size_t>(n - B) * H + k + e);
+          }
+        }
+      }
+    }
+  };
+  // the runs stored transposed: a[kq + e][r]
+  auto land_a = [&](ASlab& a, int) {
+#pragma unroll
+    for (int i = 0; i < kRunsA; ++i) {
+      const int u = threadIdx.x + i * kTileThreads, r = u / (kTileK / 4);
+      const int kq = (u % (kTileK / 4)) * 4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[kq + e][r] = a_reg[i][e];
+    }
+  };
+  tile_product<VEC>(stage_a, land_a, w_hh, k_lo, k_hi, H4, blockIdx.x * kTileC,
+                    part + static_cast<size_t>(blockIdx.z) * N * H4, n0, N);
+}
+
+// dxg[n, c] = the gate activation of xg[n, c] + the KS slices of part[:,
+// n, c] summed in slice order from 0; four columns a thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    lstm_scan_gates_sum_kernel(const float* __restrict__ part, const T* __restrict__ xg,
+                               float* __restrict__ dxg, int N, int H, int KS) {
+  const size_t total4 = static_cast<size_t>(N) * H;  // float4s of (N, 4H)
+  const size_t slice = static_cast<size_t>(N) * 4 * H;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < total4;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int ks = 0; ks < KS; ++ks) {
+      const float4 v = reinterpret_cast<const float4*>(part + ks * slice)[e];
+      sum[0] += v.x, sum[1] += v.y, sum[2] += v.z, sum[3] += v.w;
+    }
+    float act[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const size_t at = 4 * e + q;
+      const int g = static_cast<int>(at % (4 * static_cast<size_t>(H))) / H;
+      const float pre = load_f(xg + at) + sum[q];
+      act[q] = g == 2 ? tanhf(pre) : sigmoid(g == 1 ? pre + 1.0f : pre);
+    }
+    reinterpret_cast<float4*>(dxg)[e] = make_float4(act[0], act[1], act[2], act[3]);
+  }
+}
+
+// sh[0 .. n4 * 4) = src, the owner's region of one chunk (every block's
+// shares of dh for this block's units), as float4 loads from L2 (other
+// blocks wrote them: L1 is bypassed), kStageBatch in flight a thread.
+__device__ void stage_own_shares(float* sh, const float* src, int n4) {
+  const float4* src4 = reinterpret_cast<const float4*>(src);
+  float4* sh4 = reinterpret_cast<float4*>(sh);
+  for (int base = threadIdx.x; base < n4; base += kStageBatch * kBwdThreads) {
+    float4 v[kStageBatch];
+#pragma unroll
+    for (int i = 0; i < kStageBatch; ++i) {
+      const int idx = base + i * kBwdThreads;
+      if (idx < n4) v[i] = __ldcg(src4 + idx);
+    }
+#pragma unroll
+    for (int i = 0; i < kStageBatch; ++i) {
+      const int idx = base + i * kBwdThreads;
+      if (idx < n4) sh4[idx] = v[i];
+    }
+  }
+}
+
+// The staged shares of one (row, unit), q[blk * stride], summed over the
+// blocks in block order; loads go in batches ahead of their adds.
+__device__ __forceinline__ float sum_own_shares(const float* q, int stride, int nblk) {
+  constexpr int kBatch = 16;
+  float s = 0.0f;
+  int blk = 0;
+  for (; blk + kBatch <= nblk; blk += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) v[i] = q[(blk + i) * stride];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) s += v[i];
+  }
+  for (; blk < nblk; ++blk) s += q[blk * stride];
+  return s;
+}
+
+// This block's share of dh_prev for every k and the rows c0 .. c0 + BB of
+// a chunk: the sum over its 4U columns, in order, of dgates[b, col] *
+// w_hh[k, col], one fmaf chain an output, into so[(owner * BB + r) * U +
+// u] for k = owner * U + u (shared memory, for store_shares). A thread
+// takes 4 consecutive k: a column's 4 weights are one float4 (neighbouring
+// lanes on neighbouring addresses) and its BB dgates BB / 4 broadcast
+// float4s, for 4 x BB FMAs.
+template <int BB>
+__device__ void share_product(const float* w_s, const float* dg_s, float* so, const BwdPlan& p,
+                              int c0) {
+  const int H = p.H, U = p.U, ncol = 4 * U, quads = (H + 3) / 4;
+  for (int kq = threadIdx.x; kq < quads; kq += kBwdThreads) {
+    float acc[4][BB];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int r = 0; r < BB; ++r) acc[e][r] = 0.0f;
+    }
+    const float* wp = w_s + 4 * kq;  // zero past H, within the pitch P
+#pragma unroll 4
+    for (int col = 0; col < ncol; ++col) {
+      const float4 w4 = *reinterpret_cast<const float4*>(wp + col * p.P);
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+      float d[BB];
+#pragma unroll
+      for (int r = 0; r < BB; r += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(dg_s + col * p.Bp + c0 + r);
+        d[r] = x.x, d[r + 1] = x.y, d[r + 2] = x.z, d[r + 3] = x.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int r = 0; r < BB; ++r) acc[e][r] = fmaf(d[r], w[e], acc[e][r]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * kq + e;
+      if (k >= H) continue;
+      const int owner = k / U;
+      float* dst = so + owner * BB * U + (k - owner * U);
+#pragma unroll
+      for (int r = 0; r < BB; ++r) dst[r * U] = acc[e][r];
+    }
+  }
+}
+
+// The chunk's shares from shared memory into the exchange: the (BB, U)
+// run for each owner at its (owner, chunk) region, slot q (this block), in
+// float4 stores that neighbouring threads make to neighbouring addresses.
+template <int BB>
+__device__ void store_shares(const float* so, float* out, const BwdPlan& p, int c, int q) {
+  const int run4 = BB * p.U / 4, n4 = gridDim.x * run4;
+  const float4* so4 = reinterpret_cast<const float4*>(so);
+  for (int e = threadIdx.x; e < n4; e += kBwdThreads) {
+    const int owner = e / run4;
+    float* dst = out + (static_cast<size_t>(owner) * p.NC + c) * p.QC + q * BB * p.U;
+    reinterpret_cast<float4*>(dst)[e - owner * run4] = so4[e];
+  }
+}
+
+// The backward recurrence, after lstm_scan_gates_kernel has left every
+// step's gate activations in dxg. Block j owns U units as in the forward
+// and keeps their 4U columns of w_hh in shared memory. For t = S-1..0:
+// the step's own operands (its activations, c_{t-1}, dys[t]) load before
+// the wait; after it, the block stages its units' shares of dh from step
+// t + 1 (one contiguous region a chunk of rows), sums them in block order,
+// updates the cell and writes dgates over the activations; then it forms
+// its share of dh_prev for all H (share_product) and stores it in the
+// exchange's parity t & 1; the grid then meets before the next step's
+// staging (the step's own operands are in flight by then). The epilogue
+// sums step 0's shares into dh0. With kTimed, thread 0 records the
+// phases (PhaseClock).
+template <typename T, int BB, bool kTimed>
+__global__ void __launch_bounds__(kBwdThreads)
+    lstm_scan_bwd_kernel(const float* __restrict__ w_hh, const float* __restrict__ c0,
+                         const float* __restrict__ cs, const T* __restrict__ dys,
+                         const T* __restrict__ dhT, const float* __restrict__ dcT,
+                         float* __restrict__ dxg, float* __restrict__ dh0,
+                         float* __restrict__ dc0, float* xbuf, unsigned long long* times,
+                         BwdPlan p) {
+  cg::grid_group grid = cg::this_grid();
+  PhaseClock<kTimed> timer(times + static_cast<size_t>(blockIdx.x) * (p.S + 1) * kPhases);
+  extern __shared__ float4 smem4[];
+  const int H = p.H, B = p.B, U = p.U, ncol = 4 * U, tid = threadIdx.x;
+  const int nblk = gridDim.x, j0 = blockIdx.x * U;
+  const size_t BH = static_cast<size_t>(B) * H, H4 = 4 * static_cast<size_t>(H);
+  const size_t parity = static_cast<size_t>(nblk) * p.NC * p.QC;
+  const size_t mine = static_cast<size_t>(blockIdx.x) * p.NC * p.QC;
+  const int n4 = nblk * BB * U / 4;  // float4s of one (owner, chunk) region
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* sh = w_s + ncol * p.P;      // (blocks, BB, U) shares staged in, then out
+  float* dg_s = sh + p.QC;           // (4U, Bp) this step's dgates, column-major
+  float* dc_s = dg_s + ncol * p.Bp;  // (B, U) the dc carry
+  load_weight<32>(w_s, w_hh, p, j0);
+  for (int idx = tid; idx < ncol * p.Bp; idx += kBwdThreads) dg_s[idx] = 0.0f;
+  __syncthreads();
+  timer.mark(kPrologue);
+  timer.store(p.S, kPrologue);
+
+  const int cr = tid / U, cu = tid - cr * U, cj = j0 + cu;  // a cell thread's (row, unit)
+  for (int t = p.S - 1; t >= 0; --t) {
+    const bool last = t == p.S - 1;
+    for (int b0 = 0; b0 < B; b0 += BB) {
+      const int nb = min(BB, B - b0), b = b0 + cr;
+      const bool cell = tid < nb * U && cj < H;
+      const size_t bj = static_cast<size_t>(b) * H + cj;
+      float* dxg_row = dxg + (static_cast<size_t>(t) * B + b) * H4 + cj;
+      // no other block writes these: they load before the wait (dys as it
+      // is stored, so that no conversion waits for it there)
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c_prev = 0.0f;
+      T dy_raw = T();
+      if (cell) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) a[g] = dxg_row[g * H];
+        c_prev = t == 0 ? c0[bj] : cs[(t - 1) * BH + bj];
+        dy_raw = dys[t * BH + bj];
+      }
+      timer.mark(kOperands);
+      if (!last) {
+        if (b0 == 0) grid.sync();  // every block's shares of step t + 1 are stored
+        timer.mark(kBarrier);
+        stage_own_shares(sh, xbuf + ((t + 1) & 1) * parity + mine + (b0 / BB) * p.QC, n4);
+        __syncthreads();
+        timer.mark(kStageShares);
+      }
+      if (cell) {
+        const float i = a[0], f = a[1], g = a[2], o = a[3];
+        // f * c_prev + i * g contracted as nvcc compiled the step-wise
+        // design's source (whose bits this design keeps: PERF.md), written
+        // out so that no compiler choice moves them
+        const float tct = tanhf(fmaf(i, g, __fmul_rn(f, c_prev)));
+        float dh_carry, dc_carry;
+        if (last) {
+          dh_carry = load_f(dhT + bj);
+          dc_carry = dcT[bj];
+        } else {
+          dh_carry = sum_own_shares(sh + cr * U + cu, BB * U, nblk);
+          dc_carry = dc_s[b * U + cu];
+        }
+        const float dh = dh_carry + to_f(dy_raw);
+        const float dc = dc_carry + dh * o * (1.0f - tct * tct);
+        // same operation order as the Pallas backward
+        const float dg[4] = {dc * g * i * (1.0f - i), dc * c_prev * f * (1.0f - f),
+                             dc * i * (1.0f - g * g), dh * tct * o * (1.0f - o)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dxg_row[q * H] = dg[q];
+          dg_s[(q * U + cu) * p.Bp + b] = dg[q];
+        }
+        dc_s[b * U + cu] = dc * f;
+      }
+      __syncthreads();  // the staged shares are read; dgates are whole
+      timer.mark(kCell);
+    }
+    for (int c = 0; c < p.NC; ++c) {  // sh is free: the shares go out through it
+      share_product<BB>(w_s, dg_s, sh, p, c * BB);
+      __syncthreads();
+      timer.mark(kProduct);
+      store_shares<BB>(sh, xbuf + (t & 1) * parity, p, c, blockIdx.x);
+      __syncthreads();  // every thread's shares are stored; sh is free
+      timer.mark(kStores);
+    }
+    timer.store(t);
+  }
+  // dh0 = the shares of step 0 summed in block order; dc0 = the dc carry
+  grid.sync();
+  for (int b0 = 0; b0 < B; b0 += BB) {
+    const int nb = min(BB, B - b0);
+    stage_own_shares(sh, xbuf + mine + (b0 / BB) * p.QC, n4);
+    __syncthreads();
+    if (tid < nb * U && cj < H) {
+      const size_t bj = static_cast<size_t>(b0 + cr) * H + cj;
+      dh0[bj] = sum_own_shares(sh + cr * U + cu, BB * U, nblk);
+      dc0[bj] = dc_s[(b0 + cr) * U + cu];
+    }
+    __syncthreads();
+  }
+  timer.mark(kEpilogue);
+  timer.store(p.S, kEpilogue);
+}
+
+// dw[m, c] = sum over n = t * B + b of h_prev[n, m] * dg[n, c], n in
+// order; h_prev[n] = h0[b] for t = 0, ys[t - 1, b] after: the tile
+// product with A = h_prev^T (m, n), whose slab is rows of h_prev as they
+// lie, and Bm = dg. VEC: H % 4 == 0 and the pointers aligned, so every
+// slab moves in runs of 4: 16-byte cp.async copies of fp32 rows, and
+// 8-byte register loads of bf16 ys rows, widened into shared memory after
+// the slab before's FMAs; otherwise one element a load, through registers.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
+    lstm_scan_dw_kernel(const float* __restrict__ h0, const T* __restrict__ ys,
+                        const float* __restrict__ dg, float* __restrict__ dw, int S, int B,
+                        int H) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int N = S * B, m0 = blockIdx.y * kTileM;
+  uint2 a_bf16[kBf16 && VEC ? kRunsA : 1];  // the bf16 runs of the slab in flight
+  auto stage_a = [&](ASlab& a, int k0) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int i = 0; i < kRunsA; ++i) {  // row r of the slab, m .. m + 3
+        const int u = threadIdx.x + i * kTileThreads, r = u / (kTileM / 4);
+        const int col = (u % (kTileM / 4)) * 4, n = k0 + r, m = m0 + col;
+        const bool ok = n < N && m < H;
+        if constexpr (kBf16) {
+          if (ok && n >= B) {
+            a_bf16[i] =
+                __ldg(reinterpret_cast<const uint2*>(ys + static_cast<size_t>(n - B) * H + m));
+            continue;
+          }
+        }
+        const float* src = !ok ? h0
+                           : n < B ? h0 + static_cast<size_t>(n) * H + m
+                                   : reinterpret_cast<const float*>(ys) +
+                                         static_cast<size_t>(n - B) * H + m;
+        cp_async16(&a[r][col], src, ok);
+      }
+    } else {
+      float v[kTileK * kTileM / kTileThreads];
+#pragma unroll
+      for (int i = 0; i < kTileK * kTileM / kTileThreads; ++i) {  // every load before the stores
+        const int e = threadIdx.x + i * kTileThreads, m = m0 + e % kTileM, n = k0 + e / kTileM;
+        v[i] = 0.0f;
+        if (n < N && m < H) {
+          v[i] = n < B ? h0[static_cast<size_t>(n) * H + m]
+                       : load_f(ys + static_cast<size_t>(n - B) * H + m);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTileK * kTileM / kTileThreads; ++i) {
+        const int e = threadIdx.x + i * kTileThreads;
+        a[e / kTileM][e % kTileM] = v[i];
+      }
+    }
+  };
+  // the bf16 runs widened into the slab
+  auto land_a = [&](ASlab& a, int k0) {
+    if constexpr (kBf16 && VEC) {
+#pragma unroll
+      for (int i = 0; i < kRunsA; ++i) {
+        const int u = threadIdx.x + i * kTileThreads, r = u / (kTileM / 4);
+        const int col = (u % (kTileM / 4)) * 4, n = k0 + r;
+        if (n < N && n >= B && m0 + col < H) {
+          *reinterpret_cast<float4*>(&a[r][col]) = widen_bf16x4(a_bf16[i]);
+        }
+      }
+    }
+  };
+  tile_product<VEC>(stage_a, land_a, dg, 0, N, 4 * H, blockIdx.x * kTileC, dw, m0, H);
 }
 
 inline Plan make_plan(int S, int B, int H, int U, int BB) {
@@ -599,11 +918,24 @@ inline Plan make_plan(int S, int B, int H, int U, int BB) {
   return p;
 }
 
-inline size_t smem_bytes(const Plan& p, int BB, bool bwd) {
-  size_t floats = static_cast<size_t>(4 * p.U) * p.P + static_cast<size_t>(BB) * p.P +
-                  static_cast<size_t>(BB) * 4 * p.U * p.KS;
-  if (bwd) floats += static_cast<size_t>(p.Bp) * 4 * p.U + static_cast<size_t>(p.B) * p.U;
-  return floats * sizeof(float);
+inline size_t smem_bytes(const Plan& p, int BB) {
+  return (static_cast<size_t>(4 * p.U) * p.P + static_cast<size_t>(BB) * p.P +
+          static_cast<size_t>(BB) * 4 * p.U * p.KS) *
+         sizeof(float);
+}
+
+inline BwdPlan make_bwd_plan(int S, int B, int H, int U, int BB) {
+  BwdPlan p;
+  static_cast<Plan&>(p) = make_plan(S, B, H, U, BB);
+  const int nblk = (H + U - 1) / U;
+  p.NC = p.Bp / BB;
+  p.QC = (nblk * BB * U + 3) / 4 * 4;
+  return p;
+}
+
+inline size_t bwd_smem_bytes(const BwdPlan& p, int BB) {
+  const size_t ncol = 4 * p.U;
+  return (ncol * p.P + p.QC + ncol * p.Bp + static_cast<size_t>(p.B) * p.U) * sizeof(float);
 }
 
 inline int max_smem() {
@@ -613,17 +945,29 @@ inline int max_smem() {
   return bytes;
 }
 
-// The staging chunk: 4 rows for B <= 4, else 8 where shared memory holds
-// them, else 4. 0 when not even 4 fit.
-inline int pick_bb(int S, int B, int H, int U, bool bwd) {
+// The forward's staging chunk: 4 rows for B <= 4, else 8 where shared
+// memory holds them, else 4. 0 when not even 4 fit.
+inline int pick_bb(int S, int B, int H, int U) {
   const size_t limit = static_cast<size_t>(max_smem());
-  if (B > 4 && smem_bytes(make_plan(S, B, H, U, 8), 8, bwd) <= limit) return 8;
-  return smem_bytes(make_plan(S, B, H, U, 4), 4, bwd) <= limit ? 4 : 0;
+  if (B > 4 && smem_bytes(make_plan(S, B, H, U, 8), 8) <= limit) return 8;
+  return smem_bytes(make_plan(S, B, H, U, 4), 4) <= limit ? 4 : 0;
+}
+
+// The backward's chunk of rows (the cell threads, BB x U, at most one a
+// thread, and the staged shares), chosen as the forward's.
+inline int pick_bwd_bb(int S, int B, int H, int U) {
+  const size_t limit = static_cast<size_t>(max_smem());
+  for (int bb : {8, 4}) {
+    if ((bb == 8 && B <= 4) || bb * U > kBwdThreads) continue;
+    if (bwd_smem_bytes(make_bwd_plan(S, B, H, U, bb), bb) <= limit) return bb;
+  }
+  return 0;
 }
 
 // Opt in to the shared memory, check that the grid can be co-resident,
 // and launch cooperatively.
-int coop_launch(const void* kernel, int grid, size_t smem, void** args, cudaStream_t stream) {
+int coop_launch(const void* kernel, int grid, int threads, size_t smem, void** args,
+                cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
@@ -631,10 +975,10 @@ int coop_launch(const void* kernel, int grid, size_t smem, void** args, cudaStre
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (static_cast<long long>(per_sm) * sms < grid) return kErrNotResident;
-  err = cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, smem, stream);
+  err = cudaLaunchCooperativeKernel(kernel, grid, threads, args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -642,7 +986,7 @@ int coop_launch(const void* kernel, int grid, size_t smem, void** args, cudaStre
 template <typename T>
 int launch_fwd(const void* xg, const void* w_hh, const void* h0, const void* c0, void* ys,
                void* cs, void* hbuf, int S, int B, int H, int U, cudaStream_t stream) {
-  const int bb = pick_bb(S, B, H, U, false);
+  const int bb = pick_bb(S, B, H, U);
   if (bb == 0) return kErrSharedMemory;
   Plan p = make_plan(S, B, H, U, bb);
   const T* xg_p = static_cast<const T*>(xg);
@@ -655,22 +999,48 @@ int launch_fwd(const void* xg, const void* w_hh, const void* h0, const void* c0,
   void* args[] = {&xg_p, &w_p, &h0_p, &c0_p, &ys_p, &cs_p, &hb_p, &p};
   const void* kernel = bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 8>)
                                : reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 4>);
-  return coop_launch(kernel, (H + U - 1) / U, smem_bytes(p, bb, false), args, stream);
+  return coop_launch(kernel, (H + U - 1) / U, kThreads, smem_bytes(p, bb), args, stream);
 }
 
 template <typename T>
-int launch_bwd(const void* xg, const void* w_hh, const void* h0, const void* c0, const void* ys,
-               const void* cs, const void* dys, const void* dhT, const void* dcT, void* dxg,
-               void* dh0, void* dc0, void* pbuf, int S, int B, int H, int U,
-               cudaStream_t stream) {
-  const int bb = pick_bb(S, B, H, U, true);
-  if (bb == 0) return kErrSharedMemory;
-  Plan p = make_plan(S, B, H, U, bb);
+int launch_gates(const void* xg, const void* h0, const void* ys, const void* w_hh, void* part,
+                 void* dxg, int S, int B, int H, int U, cudaStream_t stream) {
+  const auto aligned = [](const void* p, unsigned bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const Plan p = make_plan(S, B, H, U, 4);  // the recurrence's slices of k
+  const bool vec = H % 4 == 0 && aligned(h0, 16) && aligned(ys, 4 * sizeof(T)) &&
+                   aligned(w_hh, 16) && aligned(part, 16);
+  const int N = S * B;
+  const dim3 grid((4 * H + kTileC - 1) / kTileC, (N + kTileM - 1) / kTileM, p.KS);
   const T* xg_p = static_cast<const T*>(xg);
-  const float* w_p = static_cast<const float*>(w_hh);
   const float* h0_p = static_cast<const float*>(h0);
-  const float* c0_p = static_cast<const float*>(c0);
   const T* ys_p = static_cast<const T*>(ys);
+  const float* w_p = static_cast<const float*>(w_hh);
+  float* part_p = static_cast<float*>(part);
+  if (vec) {
+    lstm_scan_gates_kernel<T, true>
+        <<<grid, kTileThreads, 0, stream>>>(h0_p, ys_p, w_p, part_p, S, B, H, p.Kc);
+  } else {
+    lstm_scan_gates_kernel<T, false>
+        <<<grid, kTileThreads, 0, stream>>>(h0_p, ys_p, w_p, part_p, S, B, H, p.Kc);
+  }
+  const size_t total4 = static_cast<size_t>(N) * H;
+  const unsigned blocks = static_cast<unsigned>(std::min<size_t>((total4 + 255) / 256, 4096));
+  lstm_scan_gates_sum_kernel<T><<<blocks, 256, 0, stream>>>(part_p, xg_p,
+                                                           static_cast<float*>(dxg), N, H, p.KS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* w_hh, const void* c0, const void* cs, const void* dys, const void* dhT,
+               const void* dcT, void* dxg, void* dh0, void* dc0, void* scratch, void* times, int S,
+               int B, int H, int U, cudaStream_t stream) {
+  const int bb = pick_bwd_bb(S, B, H, U);
+  if (bb == 0) return kErrSharedMemory;
+  BwdPlan p = make_bwd_plan(S, B, H, U, bb);
+  const float* w_p = static_cast<const float*>(w_hh);
+  const float* c0_p = static_cast<const float*>(c0);
   const float* cs_p = static_cast<const float*>(cs);
   const T* dys_p = static_cast<const T*>(dys);
   const T* dhT_p = static_cast<const T*>(dhT);
@@ -678,12 +1048,17 @@ int launch_bwd(const void* xg, const void* w_hh, const void* h0, const void* c0,
   float* dxg_p = static_cast<float*>(dxg);
   float* dh0_p = static_cast<float*>(dh0);
   float* dc0_p = static_cast<float*>(dc0);
-  float* pb_p = static_cast<float*>(pbuf);
-  void* args[] = {&xg_p,  &w_p,   &h0_p,  &c0_p,  &ys_p,  &cs_p, &dys_p,
-                  &dhT_p, &dcT_p, &dxg_p, &dh0_p, &dc0_p, &pb_p, &p};
-  const void* kernel = bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_bwd_kernel<T, 8>)
-                               : reinterpret_cast<const void*>(&lstm_scan_bwd_kernel<T, 4>);
-  return coop_launch(kernel, (H + U - 1) / U, smem_bytes(p, bb, true), args, stream);
+  float* xbuf_p = static_cast<float*>(scratch);
+  auto* times_p = static_cast<unsigned long long*>(times);
+  void* args[] = {&w_p,   &c0_p,  &cs_p,   &dys_p,   &dhT_p, &dcT_p, &dxg_p,
+                  &dh0_p, &dc0_p, &xbuf_p, &times_p, &p};
+  const void* kernel =
+      times != nullptr
+          ? (bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_bwd_kernel<T, 8, true>)
+                     : reinterpret_cast<const void*>(&lstm_scan_bwd_kernel<T, 4, true>))
+          : (bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_bwd_kernel<T, 8, false>)
+                     : reinterpret_cast<const void*>(&lstm_scan_bwd_kernel<T, 4, false>));
+  return coop_launch(kernel, (H + U - 1) / U, kBwdThreads, bwd_smem_bytes(p, bb), args, stream);
 }
 
 template <typename T>
@@ -694,16 +1069,17 @@ int launch_dw(const void* h0, const void* ys, const void* dgates, void* dw, int 
   };
   const bool vec = H % 4 == 0 && aligned(h0, 16) && aligned(ys, 4 * sizeof(T)) &&
                    aligned(dgates, 16) && aligned(dw, 16);
-  const dim3 grid((4 * H + kDwC - 1) / kDwC, (H + kDwM - 1) / kDwM);
+  const dim3 grid((4 * H + kTileC - 1) / kTileC, (H + kTileM - 1) / kTileM);
   const float* h0_p = static_cast<const float*>(h0);
   const T* ys_p = static_cast<const T*>(ys);
   const float* dg_p = static_cast<const float*>(dgates);
   float* dw_p = static_cast<float*>(dw);
   if (vec) {
-    lstm_scan_dw_kernel<T, true><<<grid, kDwThreads, 0, stream>>>(h0_p, ys_p, dg_p, dw_p, S, B, H);
+    lstm_scan_dw_kernel<T, true>
+        <<<grid, kTileThreads, 0, stream>>>(h0_p, ys_p, dg_p, dw_p, S, B, H);
   } else {
-    lstm_scan_dw_kernel<T, false><<<grid, kDwThreads, 0, stream>>>(h0_p, ys_p, dg_p, dw_p, S, B,
-                                                                   H);
+    lstm_scan_dw_kernel<T, false>
+        <<<grid, kTileThreads, 0, stream>>>(h0_p, ys_p, dg_p, dw_p, S, B, H);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -713,7 +1089,7 @@ int launch_dw(const void* h0, const void* ys, const void* dgates, void* dw, int 
 // dtype: 0 = float32 xg/ys/dys/dhT, 1 = bfloat16. w_hh, h0, c0, cs, dcT
 // and every gradient are float32. U is the number of hidden units per
 // block; the grid is ceil(H / U) blocks, all resident at once. hbuf is
-// (2, B, H) float32 scratch, pbuf (2, ceil(H / U), B, H). Returns a
+// the forward's (2, B, H) float32 scratch. Returns a
 // cudaError_t as int (0 = success), -1 when the weight slice does not fit
 // shared memory, -2 when the grid cannot be co-resident.
 extern "C" int lstm_scan_fwd(int dtype, const void* xg, const void* w_hh, const void* h0,
@@ -728,21 +1104,57 @@ extern "C" int lstm_scan_fwd(int dtype, const void* xg, const void* w_hh, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int lstm_scan_bwd(int dtype, const void* xg, const void* w_hh, const void* h0,
-                             const void* c0, const void* ys, const void* cs, const void* dys,
-                             const void* dhT, const void* dcT, void* dxg, void* dh0, void* dc0,
-                             void* pbuf, int S, int B, int H, int U, void* stream) {
+// The backward's gate recompute (lstm_scan_gates_kernel and its sum):
+// every step's gate activations into dxg (S, B, 4H) float32, from xg, h0,
+// ys and w_hh as lstm_scan_fwd takes them; part is
+// lstm_scan_bwd_gates_floats(S, B, H, U) float32 of scratch, the slices'
+// products. lstm_scan_bwd then runs the recurrence.
+extern "C" int lstm_scan_bwd_gates(int dtype, const void* xg, const void* h0, const void* ys,
+                                   const void* w_hh, void* part, void* dxg, int S, int B, int H,
+                                   int U, void* stream) {
+  if (S <= 0 || B <= 0 || H <= 0 || U <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_gates<float>(xg, h0, ys, w_hh, part, dxg, S, B, H, U, s);
+  if (dtype == 1) return launch_gates<__nv_bfloat16>(xg, h0, ys, w_hh, part, dxg, S, B, H, U, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gate recompute's scratch, in float32 elements: (KS, S * B, 4H).
+extern "C" long long lstm_scan_bwd_gates_floats(int S, int B, int H, int U) {
+  if (S <= 0 || B <= 0 || H <= 0 || U <= 0) return 0;
+  return static_cast<long long>(make_plan(S, B, H, U, 4).KS) * S * B * 4 * H;
+}
+
+// The backward recurrence, t = S-1..0, over the activations that
+// lstm_scan_bwd_gates left in dxg: dgates into dxg, dh0 and dc0 (B, H)
+// float32. dys and dhT in the dtype, cs, c0 and dcT float32. scratch:
+// lstm_scan_bwd_scratch_floats(S, B, H, U) float32, the exchange of dh
+// shares. times: null for the model's calls, else a
+// (grid, S + 1, kPhases) uint64 table that the timed instantiation fills
+// (Phase above).
+extern "C" int lstm_scan_bwd(int dtype, const void* w_hh, const void* c0, const void* cs,
+                             const void* dys, const void* dhT, const void* dcT, void* dxg,
+                             void* dh0, void* dc0, void* scratch, void* times, int S, int B,
+                             int H, int U, void* stream) {
   if (S <= 0 || B <= 0 || H <= 0 || U <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_bwd<float>(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT, dxg, dh0, dc0, pbuf, S,
-                             B, H, U, s);
+    return launch_bwd<float>(w_hh, c0, cs, dys, dhT, dcT, dxg, dh0, dc0, scratch, times, S, B, H,
+                             U, s);
   }
   if (dtype == 1) {
-    return launch_bwd<__nv_bfloat16>(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT, dxg, dh0, dc0,
-                                     pbuf, S, B, H, U, s);
+    return launch_bwd<__nv_bfloat16>(w_hh, c0, cs, dys, dhT, dcT, dxg, dh0, dc0, scratch, times,
+                                     S, B, H, U, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's scratch, in float32 elements: the exchange of dh shares
+// (1 when lstm_scan_bwd refuses the shape).
+extern "C" long long lstm_scan_bwd_scratch_floats(int S, int B, int H, int U) {
+  const int bb = S > 0 && B > 0 && H > 0 && U > 0 ? pick_bwd_bb(S, B, H, U) : 0;
+  if (bb == 0) return 1;
+  return static_cast<long long>(bwd_exchange_floats(make_bwd_plan(S, B, H, U, bb)));
 }
 
 // dw (H, 4H) float32 from h0 (B, H) float32, ys (S, B, H) in the dtype
@@ -765,5 +1177,5 @@ extern "C" int lstm_scan_dw_blocks_per_sm(int dtype, int vec, int* blocks) {
                                           &lstm_scan_dw_kernel<__nv_bfloat16, true>)
                                     : reinterpret_cast<const void*>(
                                           &lstm_scan_dw_kernel<__nv_bfloat16, false>));
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kDwThreads, 0));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kTileThreads, 0));
 }

@@ -5,8 +5,9 @@ lstm_scan_fused`` and ``:295 lstm_scan_bwd_fused``, joined there by
 ``lstm_scan_fused_vjp``. The kernels are CUDA C++ in
 ``csrc/lstm_scan.cu`` (its header states what bounds them on the card),
 built by ``build.py`` and called through ctypes: the forward scan, the
-backward recurrence and the ``dw_hh`` product, each with its launch
-counter (``SCAN_FWD_LAUNCHES``, ``SCAN_BWD_LAUNCHES``,
+backward's gate recompute, the backward recurrence and the ``dw_hh``
+product, each with its launch counter (``SCAN_FWD_LAUNCHES``,
+``SCAN_BWD_GATES_LAUNCHES``, ``SCAN_BWD_LAUNCHES``,
 ``SCAN_DW_LAUNCHES``).
 
 Everything is time-major, (S, B, ...), as in the TPU kernels. A wrapper
@@ -25,6 +26,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 SCAN_FWD_LAUNCHES = 0
+SCAN_BWD_GATES_LAUNCHES = 0
 SCAN_BWD_LAUNCHES = 0
 SCAN_DW_LAUNCHES = 0
 
@@ -39,12 +41,16 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("lstm_scan")
     lib.lstm_scan_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.lstm_scan_bwd.argtypes = [_I] + [_P] * 13 + [_I, _I, _I, _I, _P]
+    lib.lstm_scan_bwd_gates.argtypes = [_I] + [_P] * 6 + [_I, _I, _I, _I, _P]
+    lib.lstm_scan_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _I, _P]
     lib.lstm_scan_dw.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.lstm_scan_dw_blocks_per_sm.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    for fn in (lib.lstm_scan_fwd, lib.lstm_scan_bwd, lib.lstm_scan_dw,
+    for fn in (lib.lstm_scan_fwd, lib.lstm_scan_bwd_gates, lib.lstm_scan_bwd, lib.lstm_scan_dw,
                lib.lstm_scan_dw_blocks_per_sm):
         fn.restype = _I
+    for fn in (lib.lstm_scan_bwd_gates_floats, lib.lstm_scan_bwd_scratch_floats):
+        fn.argtypes = [_I, _I, _I, _I]
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -123,25 +129,98 @@ def lstm_scan_fwd(xg, w_hh, h0, c0):
     return ys, cs
 
 
+def lstm_scan_bwd_gates(xg, w_hh, h0, ys):
+    """The backward's gate recompute alone: every step's gate activations
+    [i|f|g|o] of ``xg + h_prev @ w_hh`` (S, B, 4H) fp32, h_prev being h0
+    at t=0 and ys[t-1] after, as ``lstm_scan_bwd_rec`` computes them
+    before its recurrence (two kernels on the card)."""
+    global SCAN_BWD_GATES_LAUNCHES
+    if not _check(xg, w_hh, h0, h0, seq=(ys,)):
+        return ref.lstm_scan_bwd_gates_ref(xg, w_hh, h0, ys)
+    acts = _launch_gates(xg, w_hh, h0, ys)
+    SCAN_BWD_GATES_LAUNCHES += 1
+    return acts
+
+
 def lstm_scan_bwd_rec(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT):
     """The backward recurrence, t = S-1..0, from the saved (ys, cs):
-    (dxg (S, B, 4H), dh0, dc0), fp32. ys, dys and dhT in xg's dtype."""
+    (dxg (S, B, 4H), dh0, dc0), fp32. ys, dys and dhT in xg's dtype. On
+    the card, every step's gate recompute at once (as
+    ``lstm_scan_bwd_gates``), then the recurrence over it, in place."""
     global SCAN_BWD_LAUNCHES
     if not _check(xg, w_hh, h0, c0, seq=(ys, dys), rows=(dhT,), fp32=(cs, dcT)):
         return ref.lstm_scan_bwd_rec_ref(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT)
+    out = _launch_rec(lstm_scan_bwd_gates(xg, w_hh, h0, ys), w_hh, c0, cs, dys, dhT, dcT)
+    SCAN_BWD_LAUNCHES += 1
+    return out
+
+
+# the backward recurrence's phases, as its timed instantiation counts them
+# (csrc/lstm_scan.cu, enum Phase): the prologue (the weight slice) and the
+# epilogue once a launch, the others each step
+BWD_PHASES = ("prologue", "step operands", "stage shares", "cell update", "share product",
+              "share stores", "barrier", "epilogue")
+
+
+def lstm_scan_bwd_phases(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT):
+    """The backward on the card with its recurrence's timed instantiation
+    (a measurement: neither ``SCAN_BWD_GATES_LAUNCHES`` nor
+    ``SCAN_BWD_LAUNCHES`` counts it). Returns
+    the outputs of ``lstm_scan_bwd_rec``, the milliseconds of the gate
+    recompute and of the recurrence (CUDA events), and an int64 (blocks,
+    S + 1, len(BWD_PHASES)) table of the nanoseconds thread 0 of each
+    block spent in each phase of the recurrence: row t for step t, row S
+    for the prologue and the epilogue."""
+    if not _check(xg, w_hh, h0, c0, seq=(ys, dys), rows=(dhT,), fp32=(cs, dcT)):
+        raise ValueError("the backward's phase timer runs on the card only")
+    S, H = xg.shape[0], xg.shape[2] // 4
+    blocks = -(-H // _units_per_block(xg.device.index or 0, H))
+    times = torch.zeros((blocks, S + 1, len(BWD_PHASES)), dtype=torch.int64, device=xg.device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    dxg = _launch_gates(xg, w_hh, h0, ys)
+    events[1].record()
+    out = _launch_rec(dxg, w_hh, c0, cs, dys, dhT, dcT, times)
+    events[2].record()
+    events[2].synchronize()
+    return out, events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2]), times
+
+
+def _launch_gates(xg, w_hh, h0, ys):
+    """The gate recompute's two kernels: the activations, into a new
+    (S, B, 4H) fp32 tensor."""
     S, B, H4 = xg.shape
     H = H4 // 4
     U = _units_per_block(xg.device.index or 0, H)
-    dxg = torch.empty((S, B, H4), dtype=torch.float32, device=xg.device)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=xg.device)
+    lib = _lib()
+    acts = torch.empty((S, B, H4), dtype=torch.float32, device=xg.device)
+    # the products of the plan's KS slices of k, summed by the second kernel
+    part = torch.empty(lib.lstm_scan_bwd_gates_floats(S, B, H, U), dtype=torch.float32,
+                       device=xg.device)
+    _launch(lib.lstm_scan_bwd_gates(_DTYPE_CODES[xg.dtype], xg.data_ptr(), h0.data_ptr(),
+                                    ys.data_ptr(), w_hh.data_ptr(), part.data_ptr(),
+                                    acts.data_ptr(), S, B, H, U, _stream(xg)),
+            "lstm_scan_bwd gates")
+    return acts
+
+
+def _launch_rec(dxg, w_hh, c0, cs, dys, dhT, dcT, times=None):
+    """The recurrence over the activations in ``dxg``, which it overwrites
+    with dgates: (dxg, dh0, dc0)."""
+    S, B, H4 = dxg.shape
+    H = H4 // 4
+    U = _units_per_block(dxg.device.index or 0, H)
+    lib = _lib()
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=dxg.device)
     dc0 = torch.empty_like(dh0)
-    pbuf = torch.empty((2, -(-H // U), B, H), dtype=torch.float32, device=xg.device)
-    _launch(_lib().lstm_scan_bwd(
-        _DTYPE_CODES[xg.dtype], xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        ys.data_ptr(), cs.data_ptr(), dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-        dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), pbuf.data_ptr(), S, B, H, U,
-        _stream(xg)), "lstm_scan_bwd")
-    SCAN_BWD_LAUNCHES += 1
+    # the exchange of dh shares between the blocks
+    scratch = torch.empty(lib.lstm_scan_bwd_scratch_floats(S, B, H, U), dtype=torch.float32,
+                          device=dxg.device)
+    _launch(lib.lstm_scan_bwd(
+        _DTYPE_CODES[dys.dtype], w_hh.data_ptr(), c0.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+        dhT.data_ptr(), dcT.data_ptr(), dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        scratch.data_ptr(), None if times is None else times.data_ptr(), S, B, H, U,
+        _stream(dxg)), "lstm_scan_bwd")
     return dxg, dh0, dc0
 
 

@@ -86,6 +86,14 @@ def _h_prev(h0, ys, dt):
     return torch.cat([h0[None].to(dt), ys[:-1].to(dt)])
 
 
+def lstm_scan_bwd_gates_ref(xg, w_hh, h0, ys):
+    """The backward recurrence's gates, recomputed for every step at once:
+    the activations [i|f|g|o] of ``xg + h_prev @ w_hh`` (S, B, 4H), with
+    h_prev as in the backward recurrence; fp32 (fp64 for fp64)."""
+    dt = _math_dtype(xg.dtype)
+    return torch.cat(_activations(xg.to(dt) + _h_prev(h0, ys, dt) @ w_hh.to(dt)), dim=-1)
+
+
 def lstm_scan_bwd_rec_ref(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT):
     """The backward recurrence of K2, t = S-1..0, from the saved (ys, cs)
     as ``repro/kernels/lstm_gates.py:235-292`` does: h_prev is the stored

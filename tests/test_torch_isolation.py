@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports jax or the JAX package ``repro``."""
+"""The port stands alone: no file of ``src/repro_torch/``, not
+``chip_smoke.py`` and no script of ``tools/`` imports jax or the JAX
+package ``repro``."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path: Path):

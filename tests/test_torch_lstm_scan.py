@@ -313,3 +313,50 @@ def test_rnnt_with_scan_chunk_matches_jax():
     """The RNN-T's ``scan_chunk`` (encoder T=24 in chunks of 8; the
     predictor's U+1=13 does not divide and runs one plain loop)."""
     _rnnt_loss_and_grads_match(*_rnnt_configs(scan_chunk=8), atol=1e-5)
+
+
+def test_backward_phase_timer_runs_on_the_card_only():
+    """The timed instantiation is a measurement of the CUDA kernel: on the
+    CPU it refuses, and neither it nor the plain backward counts a launch."""
+    xg, w, h0, c0 = _t(*_case(5, 3, 8, seed=31))
+    ys, cs = tref.lstm_scan_ref(xg, w, h0, c0)
+    args = (xg, w, h0, c0, ys, cs, torch.ones_like(ys), torch.ones_like(h0), torch.ones_like(c0))
+    launches = K.SCAN_BWD_LAUNCHES
+    with pytest.raises(ValueError, match="on the card only"):
+        K.lstm_scan_bwd_phases(*args)
+    got = K.lstm_scan_bwd_rec(*args)
+    want = tref.lstm_scan_bwd_rec_ref(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert K.SCAN_BWD_LAUNCHES == launches
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="not meta"):
+        K.lstm_scan_bwd_phases(*meta)
+
+
+@pytest.mark.parametrize("S,B,H", SHAPES[:3])
+def test_gate_recompute_reproduces_the_pallas_forward(S, B, H):
+    """The backward's gate recompute on the saved (ys, cs) of JAX's
+    ``lstm_scan_fused`` in interpret mode: its activations give back that
+    forward's cells and outputs, and the wrapper on the CPU is the plain
+    version, with no launch counted."""
+    xg, w, h0, c0 = _case(S, B, H, seed=200 + S)
+    ys, cs = (np.asarray(a) for a in lstm_scan_fused(*map(jnp.asarray, (xg, w, h0, c0)),
+                                                     interpret=True))
+    launches = K.SCAN_BWD_GATES_LAUNCHES
+    acts = K.lstm_scan_bwd_gates(*_t(xg, w, h0, ys))
+    assert K.SCAN_BWD_GATES_LAUNCHES == launches
+    assert acts.shape == (S, B, 4 * H) and acts.dtype == torch.float32
+    assert torch.equal(acts, tref.lstm_scan_bwd_gates_ref(*_t(xg, w, h0, ys)))
+    i, f, g, o = acts.numpy().reshape(S, B, 4, H).transpose(2, 0, 1, 3)
+    c_prev = np.concatenate([c0[None], cs[:-1]])
+    np.testing.assert_allclose(f * c_prev + i * g, cs, atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(o * np.tanh(cs), ys, atol=FWD_ATOL, rtol=0)
+
+
+def test_gate_recompute_refuses_what_the_backward_refuses():
+    xg, w, h0, _ = _t(*_case(5, 3, 8, seed=41))
+    ys = torch.zeros(5, 3, 8)
+    with pytest.raises(ValueError, match="sequence tensors"):
+        K.lstm_scan_bwd_gates(xg, w, h0, torch.zeros(5, 3, 7))
+    with pytest.raises(ValueError, match="several devices"):
+        K.lstm_scan_bwd_gates(xg, w, h0, ys.to("meta"))
