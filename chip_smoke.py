@@ -14,7 +14,9 @@ Phases, each printed as it ends:
    shapes the training and decoding paths give it, with its time beside
    its bound, the plain version's time and a PyTorch yardstick: K1 (LSTM
    gates), K3/K4 (the fused joint) at the paper-width client step and at
-   a ragged small shape, and K2 (the full-sequence recurrence) at the
+   a ragged small shape (K4's five launches each alone as well, its
+   products beside the same run's fp32 torch.matmul), and K2 (the
+   full-sequence recurrence) at the
    paper's encoder and predictor layers, the decoder's encoder and a
    ragged small shape; every backward runs twice and must give the same
    bits; K1 also with the host's cost of each piece of its launch path
@@ -23,7 +25,8 @@ Phases, each printed as it ends:
    matmul of the same product; K2's backward recurrence (that gate
    recompute hoisted out of the steps, then the recurrence) also replayed
    twice from one CUDA graph, at B=5, B=8 and H=1153 (a partial last
-   block), and its recurrence's phases timed by its timed instantiation;
+   block), and its recurrence's phases, and the forward's, timed by their
+   timed instantiations;
    The compression plane's kernels (K5-K8: the quantizer, keyed,
    streamed and nearest, the int4 nibble pack and unpack, and the top-k
    scatter-add) run at K=4 clients on the paper's largest leaf
@@ -229,6 +232,10 @@ SLOW_NORMAL_TOL = 1e-5
 WIRE_KERNELS = ("wire_quantize", "nibble_pack", "nibble_unpack", "dequantize",
                 "topk_scatter_add", "topk_unpack")
 N_LEAVES = 35
+# the joint's kernels (K3, then K4's five launches), each launched once a
+# client step on use_kernel=True
+JOINT_KERNELS = ("rnnt_joint_fwd", "rnnt_joint_bwd_h", "rnnt_joint_bwd_dlogits",
+                 "rnnt_joint_bwd_dh", "rnnt_joint_bwd_reduce", "rnnt_joint_bwd_dw")
 
 
 def log(msg: str) -> None:
@@ -520,8 +527,11 @@ def phase_joint_kernels(torch):
     """K3 and K4 against their plain versions at the paper-width client
     step (B=4, T'=64, U1=33, J=640, V=4096; bf16 e and g, fp32 W and b)
     and at a ragged small shape (B=3, T=24, U1=13, J=64, V=64, fp32): the
-    whole backward, then each of its three kernels alone. The backward
-    runs twice and must give the same bits. Returns {kernel: row at the
+    whole backward, then each of its five launches alone on the same
+    inputs as its plain version. The backward runs twice and must give
+    the same bits. Each launch is timed beside its bound, its plain version
+    and, for the products, the same run's fp32 ``torch.matmul`` of its
+    product (TF32 off), a yardstick. Returns {kernel: row at the
     paper-width shape}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rnnt_joint as K
@@ -530,6 +540,10 @@ def phase_joint_kernels(torch):
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def rel(got, want) -> float:
+        return max(float((x - y).abs().max()) / (float(y.abs().max()) + 1e-30)
+                   for x, y in zip(got, want))
 
     rows = {}
     for B, T, U1, J, V, dtype in ((4, 64, 33, 640, 4096, torch.bfloat16),
@@ -551,72 +565,96 @@ def phase_joint_kernels(torch):
         err_f = _max_err(torch, got_f, want_f)
         if err_f > JOINT_FWD_ATOL:
             raise AssertionError(f"rnnt_joint_fwd {tag}: max|err| {err_f:.2e} > {JOINT_FWD_ATOL}")
-        abs_b, rel_b = {}, {}
-        for name, x, y in zip(("de", "dg", "dw", "db"), got_b, want_b):
-            abs_b[name] = float((x - y).abs().max())
-            rel_b[name] = abs_b[name] / (float(y.abs().max()) + 1e-30)
+        rel_b = {name: rel((x,), (y,)) for name, x, y in zip(("de", "dg", "dw", "db"), got_b,
+                                                              want_b)}
         if max(rel_b.values()) > JOINT_BWD_REL_TOL:
             raise AssertionError(f"rnnt_joint_bwd {tag}: error relative to max {rel_b} > "
                                  f"{JOINT_BWD_REL_TOL}")
         log(f"[kernels] rnnt_joint {tag}: fwd max|err| {err_f:.2e} (tol {JOINT_FWD_ATOL}); "
             f"bwd |err|/max " + ", ".join(f"{k} {v:.2e}" for k, v in rel_b.items())
             + f" (tol {JOINT_BWD_REL_TOL}); backward bitwise repeatable")
-        # the backward's kernels one by one: eg gives dpre, reduce sums it
-        # (each held to the plain version on the same input), w gives dW, db
-        dpre = ref.rnnt_joint_bwd_dpre_ref(*bwd_args)
-        parts = {"rnnt_joint_bwd_eg": ((K._bwd_eg(*bwd_args),), (dpre,)),
-                 "rnnt_joint_bwd_reduce": (K._bwd_reduce(dpre),
-                                           ref.rnnt_joint_bwd_reduce_ref(dpre))}
-        err_part = {}
-        for name, (got, want) in parts.items():
-            err_part[name] = _max_err(torch, got, want)
-            rel = max(float((x - y).abs().max()) / (float(y.abs().max()) + 1e-30)
-                      for x, y in zip(got, want))
-            if rel > JOINT_BWD_REL_TOL:
-                raise AssertionError(f"{name} {tag}: error relative to max {rel:.2e} > "
-                                     f"{JOINT_BWD_REL_TOL}")
-            log(f"[kernels] {name} {tag}: |err|/max {rel:.2e} (tol {JOINT_BWD_REL_TOL})")
-
-        # bytes: each input read once, each output written once; operations:
-        # the products (the forward's (N x J)(J x V), the backward's two each)
+        # the backward's five launches one by one, each on the kernel's
+        # input before it, held to its plain version on that input
+        e, g, w, b, labels, lse, dbl, dlb = bwd_args
+        h = K._bwd_h(e, g, U1)
+        dlogits, dh_fix = K._bwd_dlogits(h, w, b, labels, lse, dbl, dlb)
+        dpre = K._bwd_dh(dlogits, dh_fix, labels, w, h)
+        # dh's operand at v=0 and at the label (the design before rounded
+        # them otherwise for dh): the same cotangents to the tolerance
+        at = torch.stack([dlogits[..., 0], dlogits.gather(
+            -1, labels[:, None, :, None].long().expand(B, T, U1, 1))[..., 0]], dim=-1)
+        r_fix = rel((dh_fix,), (at,))
+        if r_fix > JOINT_BWD_REL_TOL:
+            raise AssertionError(f"rnnt_joint_bwd_dlogits {tag}: dh's operand at v=0 and at "
+                                 f"the label, error relative to max {r_fix:.2e}")
         N = B * T * U1
-        in_bytes = (B * T * J + B * U1 * J) * inputs[0].element_size() + (J * V + V) * 4 \
-            + B * U1 * 4
-        lattice = N * 4
-        n_eager, n_graph = (20, 10) if N * J * V > 10**9 else (200, 100)
-        h = rnd(N, J).tanh()
-        t_prod = (cuda_ms(torch, lambda: torch.matmul(h, inputs[2]), n_eager),
-                  graph_ms(torch, lambda: torch.matmul(h, inputs[2]), n_graph))
-        log(f"[kernels] rnnt_joint {tag}: yardstick, the ({N} x {J})(x {V}) fp32 product "
-            f"alone (torch.matmul, TF32 off): us per call eager/graph "
-            f"{_us(t_prod[0])}/{_us(t_prod[1])}")
-        for name, kernel, plain, nbytes, ops, err in (
+        h2, d2 = h.reshape(N, J), dlogits.reshape(N, V)
+        # (name, kernel, plain, the fp32 product of a products' launch or
+        # None, bytes, operations)
+        in_bytes = (B * T * J + B * U1 * J) * e.element_size()
+        lattice, hb, db_, wb = N * 4, N * J * 4, N * V * 4, J * V * 4
+        launches = (
             ("rnnt_joint_fwd", lambda: K.rnnt_joint_fwd(*inputs),
-             lambda: ref.rnnt_joint_fwd_ref(*inputs), in_bytes + 3 * lattice, 2 * N * J * V,
-             err_f),
-            ("rnnt_joint_bwd_eg", lambda: K._bwd_eg(*bwd_args),
-             lambda: ref.rnnt_joint_bwd_dpre_ref(*bwd_args),
-             in_bytes + 3 * lattice + N * J * 4, 4 * N * J * V,
-             err_part["rnnt_joint_bwd_eg"]),
+             lambda: ref.rnnt_joint_fwd_ref(*inputs), lambda: torch.matmul(h2, w),
+             in_bytes + wb + V * 4 + B * U1 * 4 + 3 * lattice, 2 * N * J * V),
+            ("rnnt_joint_bwd_h", lambda: K._bwd_h(e, g, U1),
+             lambda: ref.rnnt_joint_h_ref(e, g), None, in_bytes + hb, N * J),
+            ("rnnt_joint_bwd_dlogits",
+             lambda: K._bwd_dlogits(h, w, b, labels, lse, dbl, dlb)[0],
+             lambda: ref.rnnt_joint_dlogits_ref(h, w, b, labels, lse, dbl, dlb),
+             lambda: torch.matmul(h2, w), hb + wb + V * 4 + B * U1 * 4 + 3 * lattice + db_,
+             2 * N * J * V),
+            ("rnnt_joint_bwd_dh", lambda: K._bwd_dh(dlogits, dh_fix, labels, w, h),
+             lambda: ref.rnnt_joint_dpre_ref(dlogits, w, h), lambda: torch.matmul(d2, w.T),
+             db_ + wb + 2 * hb, 2 * N * J * V),
             ("rnnt_joint_bwd_reduce", lambda: K._bwd_reduce(dpre),
-             lambda: ref.rnnt_joint_bwd_reduce_ref(dpre),
-             (N + B * T + B * U1) * J * 4, 2 * N * J, err_part["rnnt_joint_bwd_reduce"]),
-            ("rnnt_joint_bwd_w", lambda: K._bwd_w(*bwd_args),
-             lambda: ref.rnnt_joint_bwd_w_ref(*bwd_args),
-             in_bytes + 3 * lattice + (J * V + V) * 4, 4 * N * J * V,
-             max(abs_b["dw"], abs_b["db"])),
-        ):
+             lambda: ref.rnnt_joint_bwd_reduce_ref(dpre), None,
+             (N + B * T + B * U1) * J * 4, 2 * N * J),
+            ("rnnt_joint_bwd_dw", lambda: K._bwd_dw(h, dlogits),
+             lambda: ref.rnnt_joint_dw_ref(h, dlogits), lambda: torch.matmul(h2.T, d2),
+             hb + db_ + wb + V * 4, 2 * N * J * V),
+        )
+        errs = {"rnnt_joint_fwd": err_f}
+        for name, kernel, plain, _, _, _ in launches[1:]:
+            got, want = kernel(), plain()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            torch.cuda.synchronize()
+            errs[name] = _max_err(torch, got, want)
+            r = rel(got, want)
+            if r > JOINT_BWD_REL_TOL:
+                raise AssertionError(f"{name} {tag}: error relative to max {r:.2e} > "
+                                     f"{JOINT_BWD_REL_TOL}")
+            log(f"[kernels] {name} {tag}: |err|/max {r:.2e} (tol {JOINT_BWD_REL_TOL})"
+                + (f"; dh's operand at v=0 and the label {r_fix:.2e}"
+                   if name == "rnnt_joint_bwd_dlogits" else ""))
+
+        n_eager, n_graph = (20, 10) if N * J * V > 10**9 else (200, 100)
+        whole = {what: (cuda_ms(torch, fn, n_eager), graph_ms(torch, fn, n_graph))
+                 for what, fn in (("kernels", lambda: K.rnnt_joint_bwd(*bwd_args)),
+                                  ("plain", lambda: ref.rnnt_joint_bwd_ref(*bwd_args)))}
+        bound_ms, bound_by = _bound(in_bytes + wb + V * 4 + B * U1 * 4 + 3 * lattice
+                                    + (B * T * J + B * U1 * J + J * V + V) * 4, 6 * N * J * V)
+        log(f"[kernels] rnnt_joint_bwd {tag}, the whole backward (5 launches; scratch h "
+            f"{hb} B, dlogits {db_} B, dh_fix {lattice * 2} B): ms per call eager/graph: "
+            + ", ".join(f"{w_} {e_:.3f}/{g_:.3f}" for w_, (e_, g_) in whole.items())
+            + f"; bound {bound_ms:.3f} ms ({bound_by}, {6 * N * J * V} flop)")
+        for name, kernel, plain, product, nbytes, ops in launches:
             t = {what: (cuda_ms(torch, fn, n_eager), graph_ms(torch, fn, n_graph))
-                 for what, fn in (("kernel", kernel), ("plain", plain))}
+                 for what, fn in (("kernel", kernel), ("plain", plain),
+                                  ("torch.matmul", product)) if fn is not None}
+            t.setdefault("torch.matmul", (None, None))
             bound_ms, bound_by = _bound(nbytes, ops)
-            log(f"[kernels] {name} {tag}: max|err| {err:.2e}; us per call eager/graph: "
-                + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
+            log(f"[kernels] {name} {tag}: max|err| {errs[name]:.2e}; us per call eager/graph: "
+                + ", ".join(f"{w_} {_us(e_)}/{_us(g_)}" for w_, (e_, g_) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops} flop, {nbytes} B); "
-                f"graph time / bound {t['kernel'][1] / bound_ms:.2f}")
+                f"graph time / bound {t['kernel'][1] / bound_ms:.2f}"
+                + (f", eager time / torch.matmul's {t['kernel'][0] / t['torch.matmul'][0]:.2f}"
+                   if product is not None else ""))
             if dtype == torch.bfloat16:
-                rows[name] = {"max_abs_err": err, "ms": t["kernel"][0],
+                rows[name] = {"max_abs_err": errs[name], "ms": t["kernel"][0],
                               "plain_ms": t["plain"][0], "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": None}
+                              "bound_by": bound_by, "library_ms": t["torch.matmul"][0]}
+        del h, dlogits, dh_fix, dpre, h2, d2
     return rows
 
 
@@ -701,6 +739,30 @@ def _log_scan_bwd_phases(torch, K, args, got, tag: str) -> None:
         f"{float(steps.max()):.3f}) us a step")
 
 
+def _log_scan_fwd_phases(torch, K, args, got, tag: str) -> None:
+    """The forward's timed instantiation on ``args``: the same bits as the
+    model's, its ms (CUDA events), and its us a step in each phase, the
+    mean over the blocks and the slowest block; the prologue in us a
+    launch."""
+    K.lstm_scan_fwd_phases(*args)  # the timed kernel's first launch loads it: not timed
+    out, ms, times = K.lstm_scan_fwd_phases(*args)
+    if not all(torch.equal(x, y) for x, y in zip(out, got)):
+        raise AssertionError(f"lstm_scan_fwd {tag}: the timed instantiation's bits differ")
+    S = times.shape[1] - 1
+    us = times.double() / 1e3
+    per_step = us[:, :S].sum(dim=1) / S  # (blocks, phases)
+    parts = []
+    for i, phase in enumerate(K.FWD_PHASES):
+        col = us[:, S, i] if phase == "prologue" else per_step[:, i]
+        parts.append(f"{phase} {float(col.mean()):.3f} (slowest block {float(col.max()):.3f}) "
+                     + ("us a launch" if phase == "prologue" else "us a step"))
+    steps = sum(per_step[:, i] for i, phase in enumerate(K.FWD_PHASES) if phase != "prologue")
+    log(f"[kernels] lstm_scan_fwd {tag}: {ms * 1e3:.1f} us (timed, CUDA events); its phases "
+        f"({times.shape[0]} blocks, thread 0's %globaltimer): " + "; ".join(parts)
+        + f"; all steps' phases {float(steps.mean()):.3f} (slowest block "
+        f"{float(steps.max()):.3f}) us a step")
+
+
 def phase_scan_kernels(torch, timing: bool = True):
     """K2's three kernels against their plain versions at SCAN_SHAPES,
     bf16 xg and fp32 w_hh: the forward, then (but for decoding, which has
@@ -766,6 +828,7 @@ def phase_scan_kernels(torch, timing: bool = True):
                     "replays), gate recompute and dw bitwise repeatable")
             if name == "encoder":
                 _log_scan_bwd_phases(torch, K, args, got, tag)
+                _log_scan_fwd_phases(torch, K, (xg, w, h0, c0), (ys, cs), tag)
         log(msg)
         if not timing or name == "ragged":
             continue
@@ -1533,8 +1596,7 @@ def phase_paper_slowpath(torch, name: str, flags, uplink: int, kernels, loss_ref
     want = {k: 0 for k in watch.marks[0][0]}
     want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
                 lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
-                rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
-                rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
+                **{k: steps for k in JOINT_KERNELS})
     want.update({k: N_LEAVES for k in kernels})
     watch.check_launches(want)
     participants = [m["participants"] for m in tap.metrics]
@@ -1601,9 +1663,11 @@ def _counts():
             "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES,
             "lstm_scan_bwd_gates": K2.SCAN_BWD_GATES_LAUNCHES,
             "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES, "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
-            "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_eg": KJ.BWD_EG_LAUNCHES,
+            "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_h": KJ.BWD_H_LAUNCHES,
+            "rnnt_joint_bwd_dlogits": KJ.BWD_DLOGITS_LAUNCHES,
+            "rnnt_joint_bwd_dh": KJ.BWD_DH_LAUNCHES,
             "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
-            "rnnt_joint_bwd_w": KJ.BWD_W_LAUNCHES, **_attn_counts()}
+            "rnnt_joint_bwd_dw": KJ.BWD_DW_LAUNCHES, **_attn_counts()}
 
 
 def _zero_counts() -> None:
@@ -1618,7 +1682,8 @@ def _zero_counts() -> None:
     K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
     K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_GATES_LAUNCHES = K2.SCAN_BWD_LAUNCHES = 0
     K2.SCAN_DW_LAUNCHES = 0
-    KJ.FWD_LAUNCHES = KJ.BWD_EG_LAUNCHES = KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_W_LAUNCHES = 0
+    KJ.FWD_LAUNCHES = KJ.BWD_H_LAUNCHES = KJ.BWD_DLOGITS_LAUNCHES = KJ.BWD_DH_LAUNCHES = 0
+    KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_DW_LAUNCHES = 0
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KA
 
@@ -1671,8 +1736,7 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
     loop_steps = cfg.enc_layers * t_enc + cfg.pred_layers * (corpus.u_max + 1)
     joint = steps if use_kernel else 0  # one launch of each joint kernel per client step
     want = {k: 0 for k in total}
-    want.update(rnnt_joint_fwd=joint, rnnt_joint_bwd_eg=joint, rnnt_joint_bwd_reduce=joint,
-                rnnt_joint_bwd_w=joint)
+    want.update({k: joint for k in JOINT_KERNELS})
     if mode == "auto":
         want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
                     lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps)
@@ -1691,10 +1755,10 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
         raise AssertionError(f"{tag} launches over the evaluation {evaluated}, expected "
                              f"{want_eval}")
     if mode == "auto" and use_kernel and enc_layers is None:
-        same = tuple(hist["loss"]) == STEPWISE_SCAN_LOSSES
-        log(f"{tag} losses {hist['loss']} beside the step-wise backward's "
-            f"{list(STEPWISE_SCAN_LOSSES)}: "
-            + ("equal bit for bit" if same else "they differ"))
+        if tuple(hist["loss"]) != STEPWISE_SCAN_LOSSES:
+            raise AssertionError(f"{tag} losses {hist['loss']} are not the step-wise "
+                                 f"backward's {list(STEPWISE_SCAN_LOSSES)} bit for bit")
+        log(f"{tag} losses {hist['loss']} equal the step-wise backward's bit for bit")
     wers = (hist["quality"], hist["quality_hard"])
     if not all(math.isfinite(x) and x >= 0 for x in wers):
         raise AssertionError(f"{tag} WER is not a finite non-negative number: {wers}")
@@ -1798,8 +1862,7 @@ def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_
     want = {k: 0 for k in watch.marks[0][0]}
     want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
                 lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
-                rnnt_joint_fwd=steps, rnnt_joint_bwd_eg=steps,
-                rnnt_joint_bwd_reduce=steps, rnnt_joint_bwd_w=steps)
+                **{k: steps for k in JOINT_KERNELS})
     want.update({k: N_LEAVES for k in WIRE_LAUNCHES[name]})
     watch.check_launches(want)
     if hist["uplink_bytes_client"] != uplink:
@@ -2447,10 +2510,17 @@ def main() -> int:
         # the dw_hh accumulation of _scan_bwd_kernel (:280-282)
         "lstm_scan_dw": (scan, "src/repro/kernels/lstm_gates.py:280"),
         "rnnt_joint_fwd": (joint, "src/repro/kernels/rnnt_joint.py:86"),
-        "rnnt_joint_bwd_eg": (joint, "src/repro/kernels/rnnt_joint.py:175"),
+        # K4 (rnnt_joint_bwd_fused, :251) in five launches: h, which both of
+        # its kernels recompute (_bwd_eg_kernel :175, _bwd_w_kernel :218)
+        "rnnt_joint_bwd_h": (joint, "src/repro/kernels/rnnt_joint.py:175"),
+        # the logits and their cotangent (_dlogits, :148, in both kernels)
+        "rnnt_joint_bwd_dlogits": (joint, "src/repro/kernels/rnnt_joint.py:148"),
+        # dh and dpre (_bwd_eg_kernel)
+        "rnnt_joint_bwd_dh": (joint, "src/repro/kernels/rnnt_joint.py:175"),
         # the de/dg sums of _bwd_eg_kernel's last step and of the dg partials
         "rnnt_joint_bwd_reduce": (joint, "src/repro/kernels/rnnt_joint.py:211"),
-        "rnnt_joint_bwd_w": (joint, "src/repro/kernels/rnnt_joint.py:218"),
+        # dW and db (_bwd_w_kernel)
+        "rnnt_joint_bwd_dw": (joint, "src/repro/kernels/rnnt_joint.py:218"),
         # K5 (keyed) and K6 (streamed, nearest, :170 and :204) in one template
         "wire_quantize": (wire, "src/repro/kernels/wire_pack.py:286"),
         "nibble_pack": (wire, "src/repro/kernels/wire_pack.py:66"),

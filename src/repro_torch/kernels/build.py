@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled by ``nvcc`` for ``sm_90a`` into
 ``<checkout>/build/repro_torch_kernels/lib<name>-<hash>.so``, where the
-hash is that of the sources (and, for a library built against torch, of
-torch's version and C++ ABI flag), so an edited source or another torch
-never loads a stale library. The library is then opened with ``ctypes``. A library in
+hash is that of the sources and of every header under ``csrc/`` (and, for
+a library built against torch, of torch's version and C++ ABI flag), so an
+edited source or header or another torch never loads a stale library. The library is then opened with ``ctypes``. A library in
 ``OP_SOURCES`` also links a C++ file that registers PyTorch operators
 around the ``.cu``'s entry points; it is compiled against torch's
 headers and libraries and loaded with ``torch.ops.load_library``
@@ -50,6 +50,12 @@ def _sources(name: str) -> list:
     return [CSRC / f"{name}.cu"] + ([CSRC / OP_SOURCES[name]] if name in OP_SOURCES else [])
 
 
+def _headers() -> list:
+    """The headers a source may include (``csrc/*.cuh``): every library's
+    name hashes them all."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _torch_flags() -> list:
     """Compile against torch's headers with its C++ ABI, and link to the
     libraries that hold the operator registry and the tensors."""
@@ -61,7 +67,7 @@ def _torch_flags() -> list:
 
 
 def library_path(name: str) -> Path:
-    key = b"".join(f.read_bytes() for f in _sources(name))
+    key = b"".join(f.read_bytes() for f in _sources(name) + _headers())
     if name in OP_SOURCES:  # compiled against torch's headers and ABI: bound to this torch
         key += f"torch {torch.__version__} abi {int(torch._C._GLIBCXX_USE_CXX11_ABI)}".encode()
     digest = hashlib.sha256(key).hexdigest()[:12]

@@ -33,13 +33,21 @@
 //   the whole sequence (U = ceil(H / SMs): 9 units, 166 KB at H = 1152,
 //   128 blocks, one per SM). Rows are padded to a pitch P with P/4 odd,
 //   so the float4 reads of 8 lanes on 8 columns hit distinct banks.
-// - Each step stages B rows of h (fp32) in shared memory, BB rows at a
-//   time (B = 64 in decoding does not fit beside the weight), and splits
-//   each gate column's dot product over KS slices of k; the slices are
-//   summed in a fixed order.
-// - The forward publishes h_t (fp32) in a double-buffered global buffer,
-//   and all blocks meet at a grid-wide barrier each step. Loads of data
-//   that other blocks wrote bypass L1 (__ldcg), which is not coherent.
+// - The forward (512 threads) publishes h_t (fp32) in a double-buffered
+//   global buffer, and all blocks meet at a grid-wide barrier each step.
+//   After it, a block stages the B rows of h_{t-1}, BB rows at a time (B
+//   = 64 in decoding does not fit beside the weight), in one round of
+//   float4 loads that bypass L1 (__ldcg: other blocks wrote them, and L1
+//   is not coherent). Each gate column's dot product is split over KS
+//   slices of k, KS and the slice length Kc fixed by make_plan for every
+//   kernel of this file (the bits depend on them): one fmaf chain for
+//   each (slice, column, row), a thread a (slice, column) with the chunk's
+//   rows, neighbouring lanes on neighbouring columns, so a warp's loads of
+//   h are broadcasts. Then one thread for
+//   each (row, unit, gate) sums its slices in order and applies the
+//   activation; the four gates of a unit meet by warp shuffles for the
+//   cell update, whose c_{t-1} stays in shared memory. The next step's xg
+//   loads before the barrier.
 // - The backward keeps the same partition and weight slice. Its gate
 //   recompute depends only on the saved (xg, ys, h0), so two kernels do it
 //   for every step before the recurrence (lstm_scan_gates_kernel: one
@@ -56,15 +64,16 @@
 //   design before it (PERF.md), which recomputed the gates inside each
 //   step.
 // - The dw product and the gate recompute's slices share one
-//   register-blocked fp32 tile product on the CUDA cores (tile_product;
-//   no tensor cores: TF32 or bf16 would change the numbers): a 64 x 128
-//   tile per block of 128 threads, 8 x 8 outputs a thread, slabs of 16
-//   values of k in a 2-stage ring of shared memory (cp.async for fp32
-//   rows, register loads widened for bf16 ys) whose next slab loads while
-//   this one's FMAs run; 3 blocks an SM, dw's 648 blocks at the encoder in
-//   1.64 waves of 396. Each kernel brings its own loader of the left
-//   operand. Each output is one fmaf chain over k in order, without
-//   atomics: bitwise repeatable, and its bits do not depend on the tiling.
+//   register-blocked fp32 tile product on the CUDA cores
+//   (csrc/tile_product.cuh, which K4's products use too; no tensor cores:
+//   TF32 or bf16 would change the numbers): a 64 x 128 tile per block of
+//   128 threads, 8 x 8 outputs a thread, slabs of 16 values of k in a
+//   2-stage ring of shared memory (cp.async for fp32 rows, register loads
+//   widened for bf16 ys) whose next slab loads while this one's FMAs run;
+//   3 blocks an SM, dw's 648 blocks at the encoder in 1.64 waves of 396.
+//   Each kernel brings its own loader of the left operand. Each output is
+//   one fmaf chain over k in order, without atomics: bitwise repeatable,
+//   and its bits do not depend on the tiling.
 //
 // The grid barrier needs every block resident: the launch is
 // cooperative, and an occupancy check refuses a grid that cannot be
@@ -87,11 +96,17 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "tile_product.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+// The slices of k of every gate column's dot product (Plan::KS) are
+// derived from this count, the forward's block size when it was first
+// written; every kernel here keeps those slices, since the bits depend on
+// them.
+constexpr int kSliceThreads = 256;
 constexpr int kErrSharedMemory = -1;  // the weight slice does not fit shared memory
 constexpr int kErrNotResident = -2;   // the grid cannot be co-resident
 
@@ -146,12 +161,25 @@ enum Phase {
   kPhases
 };
 
+// The forward's phases, counted the same way: the prologue (the weight
+// slice and the first xg) once, in row S, the others each step.
+enum FwdPhase {
+  kFwdPrologue,
+  kFwdOperands,
+  kFwdBarrier,
+  kFwdStage,
+  kFwdDots,
+  kFwdCell,
+  kFwdStores,
+  kFwdPhases
+};
+
 // The timed instantiation's clock: thread 0 of the block adds the
 // nanoseconds (%globaltimer) since its last mark to the phase that ends
 // at the mark, in registers, and stores a row of its table when a step
 // ends (no load of device memory on the way). Compiled out when kOn is
 // false.
-template <bool kOn>
+template <bool kOn, int kPhases>
 struct PhaseClock {
   unsigned long long* table;  // (S + 1, kPhases) of this block
   unsigned long long last = 0, sums[kPhases] = {};
@@ -163,7 +191,7 @@ struct PhaseClock {
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     return t;
   }
-  __device__ void mark(Phase phase) {
+  __device__ void mark(int phase) {
     if constexpr (kOn) {
       if (threadIdx.x == 0) {
         const unsigned long long t = now();
@@ -185,7 +213,7 @@ struct PhaseClock {
     }
   }
   // the same for one phase (the prologue's and the epilogue's row)
-  __device__ void store(int row, Phase phase) {
+  __device__ void store(int row, int phase) {
     if constexpr (kOn) {
       if (threadIdx.x == 0) {
         table[row * kPhases + phase] = sums[phase];
@@ -235,42 +263,85 @@ __device__ void load_weight(float* w_s, const float* __restrict__ w_hh, const Pl
       });
 }
 
-// h_s[r * P + k] = src[(b0 + r) * H + k] as fp32, zero past B and H.
-// ``coherent`` reads bypass L1, for rows other blocks wrote this launch.
-template <int BB, typename T>
-__device__ void stage_rows(float* h_s, const T* __restrict__ src, int b0, const Plan& p,
-                           bool coherent) {
-  copy_batched(
-      BB * p.P,
-      [&](int idx) {
-        const int r = idx / p.P, k = idx - r * p.P, b = b0 + r;
-        if (b >= p.B || k >= p.H) return 0.0f;
-        const T* q = src + static_cast<size_t>(b) * p.H + k;
-        if constexpr (sizeof(T) == 4) {
-          return coherent ? __ldcg(reinterpret_cast<const float*>(q)) : load_f(q);
-        } else {
-          return load_f(q);
-        }
-      },
-      [&](int idx, float v) { h_s[idx] = v; });
+// ---- The forward ----
+
+// The forward's block: 16 warps an SM, as the backward's.
+constexpr int kFwdThreads = 512;
+
+// The forward's row pitch of the weight columns and h rows: KS slices of
+// Kc, so that every slice's chain runs over Kc values (zeros past H), with
+// P/4 odd as make_plan's pitch.
+inline int fwd_pitch(const Plan& p) {
+  int P = p.KS * p.Kc;  // >= make_plan's pitch, a multiple of 4
+  if ((P / 4) % 2 == 0) P += 4;
+  return P;
 }
 
-// red[(r * 4U + col) * KS + ks] = the ks-th slice of sum_k h_s[r, k] w_s[col, k].
+// Rows b0 .. b0 + nb of h (B, H) fp32 into h_s (pitch P): VEC (H % 4 == 0
+// and src 16-byte aligned) a float4 a row for each thread in one round,
+// every load issued before any store; ``coherent`` loads bypass L1, for rows
+// other blocks wrote this launch. Columns past H keep their zeros.
 template <int BB>
-__device__ void gate_dots(const float* w_s, const float* h_s, float* red, const Plan& p) {
-  const int ncol = 4 * p.U;
-  for (int item = threadIdx.x; item < ncol * p.KS; item += blockDim.x) {
-    const int ks = item / ncol, col = item - ks * ncol;
-    const int k0 = ks * p.Kc, k1 = min(k0 + p.Kc, p.P);
+__device__ __forceinline__ void stage_h(float* h_s, const float* src, int b0, int nb, int H,
+                                        int P, bool vec, bool coherent) {
+  const size_t base = static_cast<size_t>(b0) * H;
+  if (vec) {
+    const int q4 = H / 4;
+    for (int k4 = threadIdx.x; k4 < q4; k4 += kFwdThreads) {
+      float4 v[BB];
+#pragma unroll
+      for (int r = 0; r < BB; ++r) {
+        if (r < nb) {
+          const float4* q =
+              reinterpret_cast<const float4*>(src + base + static_cast<size_t>(r) * H) + k4;
+          v[r] = coherent ? __ldcg(q) : *q;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < BB; ++r) {
+        if (r < nb) *reinterpret_cast<float4*>(h_s + r * P + 4 * k4) = v[r];
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < H; k += kFwdThreads) {
+      float v[BB];
+#pragma unroll
+      for (int r = 0; r < BB; ++r) {
+        if (r < nb) {
+          const float* q = src + base + static_cast<size_t>(r) * H + k;
+          v[r] = coherent ? __ldcg(q) : *q;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < BB; ++r) {
+        if (r < nb) h_s[r * P + k] = v[r];
+      }
+    }
+  }
+}
+
+// red[(r * 4U + col) * KS + ks] = the ks-th slice of sum_k h_s[r, k] w_s[col,
+// k]: one fmaf chain over the slice's Kc values of k in order for each
+// (slice, column, row). A thread takes a (slice, column) and the chunk's BB
+// rows, item = ks * 4U + col: neighbouring lanes take neighbouring
+// columns, so a warp's loads of h are broadcasts and a weight loaded from
+// shared memory feeds BB chains. (Items of fewer rows, more of them, ran
+// slower on the card: PERF.md.)
+template <int BB>
+__device__ __forceinline__ void fwd_gate_dots(const float* w_s, const float* h_s, float* red,
+                                              int ncol, int KS, int Kc, int P) {
+  for (int item = threadIdx.x; item < ncol * KS; item += kFwdThreads) {
+    const int col = item % ncol, ks = item / ncol;
+    const float* wp = w_s + col * P + ks * Kc;
+    const float* hp = h_s + ks * Kc;
     float acc[BB];
 #pragma unroll
     for (int r = 0; r < BB; ++r) acc[r] = 0.0f;
-    const float* wp = w_s + col * p.P;
-    for (int k = k0; k < k1; k += 4) {
+    for (int k = 0; k < Kc; k += 4) {
       const float4 w4 = *reinterpret_cast<const float4*>(wp + k);
 #pragma unroll
       for (int r = 0; r < BB; ++r) {
-        const float4 h4 = *reinterpret_cast<const float4*>(h_s + r * p.P + k);
+        const float4 h4 = *reinterpret_cast<const float4*>(hp + r * P + k);
         acc[r] = fmaf(h4.x, w4.x, acc[r]);
         acc[r] = fmaf(h4.y, w4.y, acc[r]);
         acc[r] = fmaf(h4.z, w4.z, acc[r]);
@@ -278,78 +349,117 @@ __device__ void gate_dots(const float* w_s, const float* h_s, float* red, const 
       }
     }
 #pragma unroll
-    for (int r = 0; r < BB; ++r) red[(r * ncol + col) * p.KS + ks] = acc[r];
+    for (int r = 0; r < BB; ++r) red[(r * ncol + col) * KS + ks] = acc[r];
   }
 }
 
-// The four gate pre-activations of (row r of the chunk, unit u):
-// xg + the slices of the dot product summed in order.
-template <typename T>
-__device__ __forceinline__ void gate_sums(const float* red, int r, int u, const Plan& p,
-                                          const T* xg_row, int j, float out[4]) {
-  const int ncol = 4 * p.U;
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float* q = red + (r * ncol + g * p.U + u) * p.KS;
-    float s = 0.0f;
-    for (int ks = 0; ks < p.KS; ++ks) s += q[ks];
-    out[g] = load_f(xg_row + g * p.H + j) + s;
-  }
-}
-
-template <typename T, int BB>
-__global__ void __launch_bounds__(kThreads)
+// The forward recurrence. Block j owns U units as the backward does and
+// keeps their 4U columns of w_hh in shared memory (pitch P = fwd_pitch).
+// For each step t and each chunk of BB rows: stage h_{t-1} (h0 at t = 0,
+// then hbuf's parity t & 1), the slices' dot products (fwd_gate_dots), then
+// one thread for each (row cr, unit cu, gate cg): its gate's pre-activation,
+// xg + the KS slices summed in order from 0, and its activation; the four
+// gates of a unit sit on neighbouring lanes and meet by shuffles for the
+// cell update (c_{t-1} in shared memory c_s). Gate cg = 0 stores c, 1 ys, 2
+// h_t into hbuf's parity (t + 1) & 1. The next step's xg (chunk 0) loads
+// before the grid barrier. With kTimed, thread 0 records the phases
+// (PhaseClock, FwdPhase).
+template <typename T, int BB, bool kTimed>
+__global__ void __launch_bounds__(kFwdThreads)
     lstm_scan_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ w_hh,
                          const float* __restrict__ h0, const float* __restrict__ c0,
-                         T* __restrict__ ys, float* __restrict__ cs, float* hbuf, Plan p) {
+                         T* __restrict__ ys, float* __restrict__ cs, float* hbuf,
+                         unsigned long long* times, Plan p) {
   cg::grid_group grid = cg::this_grid();
+  PhaseClock<kTimed, kFwdPhases> timer(times + static_cast<size_t>(blockIdx.x) * (p.S + 1) *
+                                                   kFwdPhases);
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* h_s = w_s + 4 * p.U * p.P;
-  float* red = h_s + BB * p.P;
-  const int H = p.H, B = p.B, U = p.U;
-  const size_t BH = static_cast<size_t>(B) * H;
+  const int H = p.H, B = p.B, U = p.U, P = p.P, KS = p.KS, ncol = 4 * U, tid = threadIdx.x;
+  const size_t BH = static_cast<size_t>(B) * H, H4 = 4 * static_cast<size_t>(H);
   const int j0 = blockIdx.x * U;
-  load_weight(w_s, w_hh, p, j0);
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* h_s = w_s + ncol * P;     // (BB, P) h_{t-1}, zero past H
+  float* red = h_s + BB * P;       // (BB, 4U, KS) the slices' sums
+  float* c_s = red + BB * ncol * KS;  // (B, U) c_{t-1}
+  load_weight<32>(w_s, w_hh, p, j0);
+  for (int idx = tid; idx < BB * P; idx += kFwdThreads) h_s[idx] = 0.0f;
+  for (int idx = tid; idx < B * U; idx += kFwdThreads) {
+    const int b = idx / U, j = j0 + idx - b * U;
+    c_s[idx] = j < H ? c0[static_cast<size_t>(b) * H + j] : 0.0f;
+  }
+  // a cell thread's (row, unit, gate); its warp holds whole units
+  const int cgate = tid & 3, cu = (tid >> 2) % U, cr = (tid >> 2) / U, cj = j0 + cu;
+  const bool vec = H % 4 == 0;
+  // the gate's xg of step t, row b0 + cr, as it is stored, so that no
+  // conversion waits for the load before the barrier (0 off the cell threads)
+  auto load_x = [&](int t, int b0) {
+    return cr < min(BB, B - b0) && cj < H
+               ? xg[(static_cast<size_t>(t) * B + b0 + cr) * H4 + cgate * H + cj]
+               : T();
+  };
+  T x_next = load_x(0, 0);
+  __syncthreads();
+  timer.mark(kFwdPrologue);
+  timer.store(p.S, kFwdPrologue);
+
   for (int t = 0; t < p.S; ++t) {
-    const float* hsrc = t == 0 ? h0 : hbuf + (t & 1) * BH;
     float* hdst = hbuf + ((t + 1) & 1) * BH;
     for (int b0 = 0; b0 < B; b0 += BB) {
-      __syncthreads();  // the weight is staged; h_s and red are free
-      stage_rows<BB>(h_s, hsrc, b0, p, t > 0);
-      __syncthreads();
-      gate_dots<BB>(w_s, h_s, red, p);
-      __syncthreads();
       const int nb = min(BB, B - b0);
-      for (int item = threadIdx.x; item < nb * U; item += blockDim.x) {
-        const int r = item / U, u = item - r * U, j = j0 + u, b = b0 + r;
-        if (j >= H) continue;
-        float gs[4];
-        gate_sums(red, r, u, p, xg + (static_cast<size_t>(t) * B + b) * 4 * H, j, gs);
-        const float i = sigmoid(gs[0]), f = sigmoid(gs[1] + 1.0f), g = tanhf(gs[2]),
-                    o = sigmoid(gs[3]);
-        const size_t bj = static_cast<size_t>(b) * H + j;
-        const float c_prev = t == 0 ? c0[bj] : cs[(t - 1) * BH + bj];
-        const float c_new = f * c_prev + i * g;
-        const float h_new = o * tanhf(c_new);
-        cs[t * BH + bj] = c_new;
-        store_f(ys + t * BH + bj, h_new);
-        hdst[bj] = h_new;
+      const T x = b0 == 0 ? x_next : load_x(t, b0);
+      if (t == 0) {
+        stage_h<BB>(h_s, h0, b0, nb, H, P, false, false);
+      } else {
+        stage_h<BB>(h_s, hbuf + (t & 1) * BH, b0, nb, H, P, vec, true);
       }
+      __syncthreads();
+      timer.mark(kFwdStage);
+      fwd_gate_dots<BB>(w_s, h_s, red, ncol, KS, p.Kc, P);
+      __syncthreads();
+      timer.mark(kFwdDots);
+      const bool cell = cr < nb && cj < H;
+      const size_t bj = static_cast<size_t>(b0 + cr) * H + cj;
+      float c_prev = 0.0f, act = 0.0f;
+      if (cell) {
+        c_prev = c_s[(b0 + cr) * U + cu];
+        const float* q = red + (cr * ncol + cgate * U + cu) * KS;
+        float s = 0.0f;
+        for (int ks = 0; ks < KS; ++ks) s += q[ks];
+        const float pre = to_f(x) + s;
+        act = cgate == 2 ? tanhf(pre) : sigmoid(cgate == 1 ? pre + 1.0f : pre);
+      }
+      const int lane0 = (tid & 31) & ~3;
+      const float i = __shfl_sync(0xffffffffu, act, lane0),
+                  f = __shfl_sync(0xffffffffu, act, lane0 + 1),
+                  g = __shfl_sync(0xffffffffu, act, lane0 + 2),
+                  o = __shfl_sync(0xffffffffu, act, lane0 + 3);
+      // f * c_prev + i * g contracted as nvcc compiled the design before
+      // this one (whose bits this design keeps: PERF.md), written out so
+      // that no compiler choice moves them
+      const float c_new = fmaf(i, g, __fmul_rn(f, c_prev));
+      const float h_new = o * tanhf(c_new);
+      timer.mark(kFwdCell);
+      if (cell) {
+        if (cgate == 0) {
+          cs[t * BH + bj] = c_new;
+          c_s[(b0 + cr) * U + cu] = c_new;
+        } else if (cgate == 1) {
+          store_f(ys + t * BH + bj, h_new);
+        } else if (cgate == 2) {
+          hdst[bj] = h_new;
+        }
+      }
+      timer.mark(kFwdStores);
+      if (b0 + BB < B) __syncthreads();  // h_s and red are free for the next chunk
     }
-    grid.sync();  // h_t is published to every block
+    if (t + 1 < p.S) {
+      x_next = load_x(t + 1, 0);  // in flight across the barrier
+      timer.mark(kFwdOperands);
+      grid.sync();  // h_t is published to every block
+      timer.mark(kFwdBarrier);
+    }
+    timer.store(t);
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;  // 0: fill with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ---- The backward recurrence ----
@@ -374,135 +484,36 @@ inline size_t bwd_exchange_floats(const BwdPlan& p) {
   return 2 * nblk * p.NC * static_cast<size_t>(p.QC);
 }
 
-// ---- The register-blocked fp32 tile product ----
-//
-// The gate recompute's and the dw product's core: out[m, c] = sum over k
-// in [k_lo, k_hi), in order, of A[m, k] * Bm[k, c], for a kTileM (m) x
-// kTileC (c) tile a block of kTileThreads threads, 8 x 8 outputs a thread
-// (per k four 16-byte shared loads feed 64 FMAs). k runs in slabs of
-// kTileK through a 2-stage ring of shared memory: slab s + 1's loads are
-// in flight while slab s's FMAs run. Bm is row-major (k, H4) fp32 and
-// comes by 16-byte cp.async copies (VEC) or element loads; A comes through
-// the caller's loader. Each output is one fmaf chain from 0 over k in
-// order: operands past the edges are zeros, and fmaf(0, 0, acc) is acc
-// (acc is never -0), so the bits do not depend on the tiling. The products
-// are fp32 FMA on the CUDA cores: TF32 or bf16 tensor cores would change
-// the numbers.
-constexpr int kTileM = 64, kTileC = 128, kTileK = 16, kTileThreads = 128;
-// 3 blocks an SM (up to 168 registers a thread): dw's 648 blocks at the
-// encoder (H = 1152) in 1.64 waves of 396. Five an SM (96 registers, the
-// 648 blocks in one wave) spill the accumulators and ran slower on the
-// card (PERF.md).
-constexpr int kTileBlocksPerSm = 3;
+// ---- The register-blocked fp32 tile product (csrc/tile_product.cuh) ----
+
+constexpr int kTileM = tile::kM, kTileC = tile::kC, kTileK = tile::kK;
+constexpr int kTileThreads = tile::kThreads, kTileBlocksPerSm = tile::kBlocksPerSm;
 // float4 runs of an A slab a thread loads
 constexpr int kRunsA = kTileK * kTileM / 4 / kTileThreads;
-// A's slab in shared memory: a[kk][m] = A[m0 + m, k0 + kk]
-using ASlab = float[kTileK][kTileM];
+using tile::ASlab;
 
-// stage_a(a, k0) starts the loads of A's slab k0 .. k0 + kTileK - 1 into
-// a; land_a(a, k0) finishes them once this thread's cp.async copies have
-// landed. out is row-major (M, H4); rows m0.. of it are the tile's.
+// out[m, c] = sum over k in [k_lo, k_hi), in order, of A[m, k] * Bm[k, c]
+// for the block's tile: Bm row-major (k, H4) fp32, by 16-byte cp.async
+// copies (VEC) or element loads; A through the caller's loader: stage_a(a,
+// k0) starts the loads of A's slab k0 .. k0 + kTileK - 1 into a, land_a(a,
+// k0) finishes them once this thread's cp.async copies have landed. out is
+// row-major (M, H4); rows m0.. of it are the tile's.
 template <bool VEC, typename StageA, typename LandA>
 __device__ __forceinline__ void tile_product(StageA stage_a, LandA land_a,
                                              const float* __restrict__ bm, int k_lo, int k_hi,
                                              int H4, int c0, float* __restrict__ out, int m0,
                                              int M) {
-  constexpr int kRunsB = kTileK * kTileC / 4 / kTileThreads;
-  __shared__ __align__(16) float a_s[2][kTileK][kTileM];
-  __shared__ __align__(16) float b_s[2][kTileK][kTileC];  // b_s[kk][c] = Bm[k0 + kk, c0 + c]
-  // threads as (kTileM / 8) x (kTileC / 8): rows ty * 4 + {0..3} and
-  // kTileM / 2 + ty * 4 + {0..3}, columns tx * 4 + {0..3} and kTileC / 2 +
-  // tx * 4 + {0..3}
-  static_assert((kTileM / 8) * (kTileC / 8) == kTileThreads, "one 8 x 8 block of outputs a thread");
-  const int tid = threadIdx.x, tx = tid % (kTileC / 8), ty = tid / (kTileC / 8);
-  const int nslab = (k_hi - k_lo + kTileK - 1) / kTileK;
-
-  // start slab s's loads into stage s % 2
-  auto stage = [&](int s) {
-    const int buf = s % 2, k0 = k_lo + s * kTileK;
-    stage_a(a_s[buf], k0);
-    if constexpr (VEC) {
-#pragma unroll
-      for (int i = 0; i < kRunsB; ++i) {  // row kk, columns col .. col + 3
-        const int u = tid + i * kTileThreads, kk = u / (kTileC / 4), col = (u % (kTileC / 4)) * 4;
-        const int k = k0 + kk, c = c0 + col;
-        const bool ok = k < k_hi && c < H4;  // H4 % 4 == 0: a run is all in or all out
-        cp_async16(&b_s[buf][kk][col], ok ? bm + static_cast<size_t>(k) * H4 + c : bm, ok);
-      }
-    } else {
-      float b[kTileK * kTileC / kTileThreads];
-#pragma unroll
-      for (int i = 0; i < kTileK * kTileC / kTileThreads; ++i) {  // every load before the stores
-        const int e = tid + i * kTileThreads, kk = e / kTileC, c = c0 + e % kTileC;
-        const int k = k0 + kk;
-        b[i] = k < k_hi && c < H4 ? bm[static_cast<size_t>(k) * H4 + c] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kTileK * kTileC / kTileThreads; ++i) {
-        const int e = tid + i * kTileThreads;
-        b_s[buf][e / kTileC][e % kTileC] = b[i];
-      }
-    }
-  };
-  // finish slab s's loads: this thread's copies landed, then A's loader
-  auto land = [&](int s) {
-    cp_async_wait_all();
-    land_a(a_s[s % 2], k_lo + s * kTileK);
-  };
-
+  tile::RowSlab<kTileC, VEC> b;
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[i][q] = 0.0f;
-  }
-  if (nslab > 0) {
-    stage(0);
-    land(0);
-  }
-  __syncthreads();
-  for (int s = 0; s < nslab; ++s) {
-    const int cur = s % 2;
-    if (s + 1 < nslab) stage(s + 1);
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[cur][kk][ty * 4]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&a_s[cur][kk][kTileM / 2 + ty * 4]);
-      const float4 b_lo = *reinterpret_cast<const float4*>(&b_s[cur][kk][tx * 4]);
-      const float4 b_hi = *reinterpret_cast<const float4*>(&b_s[cur][kk][kTileC / 2 + tx * 4]);
-      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
-      }
-    }
-    if (s + 1 < nslab) land(s + 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : kTileM / 2 + ty * 4 + i - 4);
-    if (m >= M) continue;
-    float* row = out + static_cast<size_t>(m) * H4;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = c0 + half * (kTileC / 2) + tx * 4;
-      if constexpr (VEC) {
-        if (c < H4) {  // H4 % 4 == 0: a run of 4 is all in or all out
-          *reinterpret_cast<float4*>(row + c) =
-              make_float4(acc[i][half * 4], acc[i][half * 4 + 1], acc[i][half * 4 + 2],
-                          acc[i][half * 4 + 3]);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (c + q < H4) row[c + q] = acc[i][half * 4 + q];
-        }
-      }
-    }
-  }
+  tile::mainloop<0>(
+      [&](ASlab& a, tile::BSlab& bs, int s) {
+        const int k0 = k_lo + s * kTileK;
+        stage_a(a, k0);
+        b.stage(bs, bm, H4, k0, k_hi, c0, H4);
+      },
+      [&](ASlab& a, tile::BSlab&, int s) { land_a(a, k_lo + s * kTileK); }, tile::NoSlabHook(),
+      (k_hi - k_lo + kTileK - 1) / kTileK, acc, nullptr);
+  tile::store<VEC>(acc, out, H4, m0, M, c0, H4);
 }
 
 // bf16 -> fp32 exactly, four values of an 8-byte run: the 16 bits on top
@@ -734,7 +745,7 @@ __global__ void __launch_bounds__(kBwdThreads)
                          float* __restrict__ dc0, float* xbuf, unsigned long long* times,
                          BwdPlan p) {
   cg::grid_group grid = cg::this_grid();
-  PhaseClock<kTimed> timer(times + static_cast<size_t>(blockIdx.x) * (p.S + 1) * kPhases);
+  PhaseClock<kTimed, kPhases> timer(times + static_cast<size_t>(blockIdx.x) * (p.S + 1) * kPhases);
   extern __shared__ float4 smem4[];
   const int H = p.H, B = p.B, U = p.U, ncol = 4 * U, tid = threadIdx.x;
   const int nblk = gridDim.x, j0 = blockIdx.x * U;
@@ -867,7 +878,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
                            : n < B ? h0 + static_cast<size_t>(n) * H + m
                                    : reinterpret_cast<const float*>(ys) +
                                          static_cast<size_t>(n - B) * H + m;
-        cp_async16(&a[r][col], src, ok);
+        tile::cp_async16(&a[r][col], src, ok);
       }
     } else {
       float v[kTileK * kTileM / kTileThreads];
@@ -912,15 +923,24 @@ inline Plan make_plan(int S, int B, int H, int U, int BB) {
   // P also holds one row of dh shares, one per unit of every block
   p.P = (std::max(H, (H + U - 1) / U * U) + 3) / 4 * 4;
   if ((p.P / 4) % 2 == 0) p.P += 4;  // P/4 odd: 8 columns' float4 reads on distinct banks
-  p.KS = std::max(1, std::min(kThreads / (4 * U), p.P / 4));
+  p.KS = std::max(1, std::min(kSliceThreads / (4 * U), p.P / 4));
   p.Kc = ((p.P + p.KS - 1) / p.KS + 3) / 4 * 4;
   p.Bp = (B + BB - 1) / BB * BB;
   return p;
 }
 
-inline size_t smem_bytes(const Plan& p, int BB) {
+// The forward's plan: make_plan's slices, its own pitch.
+inline Plan make_fwd_plan(int S, int B, int H, int U, int BB) {
+  Plan p = make_plan(S, B, H, U, BB);
+  p.P = fwd_pitch(p);
+  return p;
+}
+
+// The forward's shared memory: the weight slice, BB rows of h, the
+// slices' sums and the (B, U) cell states.
+inline size_t fwd_smem_bytes(const Plan& p, int BB) {
   return (static_cast<size_t>(4 * p.U) * p.P + static_cast<size_t>(BB) * p.P +
-          static_cast<size_t>(BB) * 4 * p.U * p.KS) *
+          static_cast<size_t>(BB) * 4 * p.U * p.KS + static_cast<size_t>(p.B) * p.U) *
          sizeof(float);
 }
 
@@ -945,12 +965,16 @@ inline int max_smem() {
   return bytes;
 }
 
-// The forward's staging chunk: 4 rows for B <= 4, else 8 where shared
-// memory holds them, else 4. 0 when not even 4 fit.
+// The forward's chunk of rows: 4 for B <= 4, else 8 where shared memory
+// holds them, else 4; its cell threads (BB x U x 4 gates) within the
+// block. 0 when not even 4 fit.
 inline int pick_bb(int S, int B, int H, int U) {
   const size_t limit = static_cast<size_t>(max_smem());
-  if (B > 4 && smem_bytes(make_plan(S, B, H, U, 8), 8) <= limit) return 8;
-  return smem_bytes(make_plan(S, B, H, U, 4), 4) <= limit ? 4 : 0;
+  for (int bb : {8, 4}) {
+    if ((bb == 8 && B <= 4) || bb * U * 4 > kFwdThreads) continue;
+    if (fwd_smem_bytes(make_fwd_plan(S, B, H, U, bb), bb) <= limit) return bb;
+  }
+  return 0;
 }
 
 // The backward's chunk of rows (the cell threads, BB x U, at most one a
@@ -985,10 +1009,11 @@ int coop_launch(const void* kernel, int grid, int threads, size_t smem, void** a
 
 template <typename T>
 int launch_fwd(const void* xg, const void* w_hh, const void* h0, const void* c0, void* ys,
-               void* cs, void* hbuf, int S, int B, int H, int U, cudaStream_t stream) {
+               void* cs, void* hbuf, void* times, int S, int B, int H, int U,
+               cudaStream_t stream) {
   const int bb = pick_bb(S, B, H, U);
   if (bb == 0) return kErrSharedMemory;
-  Plan p = make_plan(S, B, H, U, bb);
+  Plan p = make_fwd_plan(S, B, H, U, bb);
   const T* xg_p = static_cast<const T*>(xg);
   const float* w_p = static_cast<const float*>(w_hh);
   const float* h0_p = static_cast<const float*>(h0);
@@ -996,10 +1021,15 @@ int launch_fwd(const void* xg, const void* w_hh, const void* h0, const void* c0,
   T* ys_p = static_cast<T*>(ys);
   float* cs_p = static_cast<float*>(cs);
   float* hb_p = static_cast<float*>(hbuf);
-  void* args[] = {&xg_p, &w_p, &h0_p, &c0_p, &ys_p, &cs_p, &hb_p, &p};
-  const void* kernel = bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 8>)
-                               : reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 4>);
-  return coop_launch(kernel, (H + U - 1) / U, kThreads, smem_bytes(p, bb), args, stream);
+  auto* times_p = static_cast<unsigned long long*>(times);
+  void* args[] = {&xg_p, &w_p, &h0_p, &c0_p, &ys_p, &cs_p, &hb_p, &times_p, &p};
+  const void* kernel =
+      times != nullptr
+          ? (bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 8, true>)
+                     : reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 4, true>))
+          : (bb == 8 ? reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 8, false>)
+                     : reinterpret_cast<const void*>(&lstm_scan_fwd_kernel<T, 4, false>));
+  return coop_launch(kernel, (H + U - 1) / U, kFwdThreads, fwd_smem_bytes(p, bb), args, stream);
 }
 
 template <typename T>
@@ -1089,17 +1119,19 @@ int launch_dw(const void* h0, const void* ys, const void* dgates, void* dw, int 
 // dtype: 0 = float32 xg/ys/dys/dhT, 1 = bfloat16. w_hh, h0, c0, cs, dcT
 // and every gradient are float32. U is the number of hidden units per
 // block; the grid is ceil(H / U) blocks, all resident at once. hbuf is
-// the forward's (2, B, H) float32 scratch. Returns a
-// cudaError_t as int (0 = success), -1 when the weight slice does not fit
-// shared memory, -2 when the grid cannot be co-resident.
+// the forward's (2, B, H) float32 scratch. times: null for the model's
+// calls, else a (grid, S + 1, kFwdPhases) uint64 table that the timed
+// instantiation fills (FwdPhase above). Returns a cudaError_t as int (0 =
+// success), -1 when the weight slice does not fit shared memory, -2 when
+// the grid cannot be co-resident.
 extern "C" int lstm_scan_fwd(int dtype, const void* xg, const void* w_hh, const void* h0,
-                             const void* c0, void* ys, void* cs, void* hbuf, int S, int B,
-                             int H, int U, void* stream) {
+                             const void* c0, void* ys, void* cs, void* hbuf, void* times, int S,
+                             int B, int H, int U, void* stream) {
   if (S <= 0 || B <= 0 || H <= 0 || U <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(xg, w_hh, h0, c0, ys, cs, hbuf, S, B, H, U, s);
+  if (dtype == 0) return launch_fwd<float>(xg, w_hh, h0, c0, ys, cs, hbuf, times, S, B, H, U, s);
   if (dtype == 1) {
-    return launch_fwd<__nv_bfloat16>(xg, w_hh, h0, c0, ys, cs, hbuf, S, B, H, U, s);
+    return launch_fwd<__nv_bfloat16>(xg, w_hh, h0, c0, ys, cs, hbuf, times, S, B, H, U, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

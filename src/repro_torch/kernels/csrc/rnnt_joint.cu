@@ -16,23 +16,25 @@
 //   dpre    = (dlogits @ Wᵀ)·(1 − h²)
 //   de[b,t] = Σ_u dpre,  dg[b,u] = Σ_t dpre,  dW = Σ_n h ⊗ dlogits,  db = Σ_n dlogits.
 //
-// The (B, T, U1, V) logits never exist in device memory, in either
-// direction: the forward writes 3 floats per lattice point.
+// The forward never holds the (B, T, U1, V) logits in device memory: it
+// writes 3 floats per lattice point. The backward writes their cotangent
+// once and reads it twice.
 //
 // Bound on an H100 SXM: the operations. The forward is one
 // (N × J)·(J × V) product, N = B·T·U1; at the paper-width client step
 // (N = 8,448, J = 640, V = 4,096) that is 44.3 GFLOP, 0.66 ms at the
 // 67 TFLOP/s fp32 rate, while its inputs are about 11 MB (W is 10.5 MB
-// and stays in the 50 MB L2). The backward recomputes the logits twice
-// and adds the dh and dW products: 177 GFLOP, 2.64 ms. The kernels use
-// fp32 FMA on the CUDA cores (no tensor cores: TF32 or bf16 wgmma would
-// change the numbers), so this is the bound they are held to.
+// and stays in the 50 MB L2). The backward computes the logits once and
+// adds the dh and dW products: 133 GFLOP, 1.98 ms; its dlogits (138.4 MB
+// at that width) written once and read twice move 415 MB, about 0.12 ms
+// at 3.35 TB/s. The kernels use fp32 FMA on the CUDA cores (no tensor
+// cores: TF32 or bf16 wgmma would change the numbers), so this is the
+// bound they are held to.
 //
 // Design. The TPU kernel walks a (b, t-tile, u-tile, v-slab) grid in
 // order and carries the online max/sum-exp and the dh sum in scratch
-// from one grid step to the next. Here blocks run in parallel and in no
-// order, so each block owns its work and loops over the sequential axis
-// itself:
+// from one grid step to the next, and keeps the logits out of HBM because
+// its VMEM is small. Here blocks run in parallel and in no order:
 //
 // - joint_fwd_kernel (K3): one block per tile of kM consecutive lattice
 //   points (the flattened (b, t, u) index, so a ragged T or U1 wastes
@@ -40,21 +42,27 @@
 //   the tile stays in shared memory; W streams through shared memory in
 //   (kKC × kTV) chunks for each vocab slab; each thread keeps a 4 × 4
 //   register tile of logits; the online max and sum-exp of each row are
-//   reduced across its warp with shuffles. Ragged V is masked.
-// - joint_bwd_eg_kernel (K4, the counterpart of _bwd_eg_kernel): the
-//   same tiles; per slab it recomputes the logits, forms dlogits in
-//   shared memory and adds dlogits·W_slabᵀ to dh, held in shared memory
-//   for the whole tile. It writes dpre per lattice point; then
-//   joint_bwd_reduce_kernel takes de and dg as sums over u and over t
-//   in a fixed order (the TPU sums its dg partials outside the kernel
-//   too, rnnt_joint.py:309). No atomics.
-// - joint_bwd_w_kernel (K4, the counterpart of _bwd_w_kernel): one
-//   block per vocab slab of kTVW columns. Its (J × kTVW) dW and its db
-//   stay on chip while the whole lattice streams past, one tile at a
-//   time, so each column is summed by one block in one order. No atomics.
-//
-// h rows are padded to a multiple of 4 floats, so the products read h
-// from shared memory 16 bytes at a time.
+//   reduced across its warp with shuffles. Ragged V is masked. h rows are
+//   padded to a multiple of 4 floats, so the product reads h from shared
+//   memory 16 bytes at a time.
+// - K4 is five launches, the three products on the register-blocked
+//   fp32 tile product of csrc/tile_product.cuh (64 x 128 tiles of 128
+//   threads, 8 x 8 outputs a thread, 3 blocks an SM), each at the card's
+//   occupancy, with scratch the wrapper allocates: h (N × J fp32,
+//   21,626,880 B at the paper width), dlogits (N × V fp32, 138,412,032 B)
+//   and dh_fix (N × 2 fp32, 67,584 B). joint_h_kernel writes h = tanh(e +
+//   g) once; joint_dlogits_kernel computes h·W and writes dlogits from the
+//   logits in its epilogue, and dh_fix, dh's operand at v = 0 and at the
+//   label (see dlogit_dh); joint_dh_kernel computes dlogits·Wᵀ with those
+//   two values replaced and writes dpre = dh·(1 − h²);
+//   joint_bwd_reduce_kernel takes de and dg as sums over u and over t in
+//   a fixed order (the TPU sums its dg partials outside the kernel too,
+//   rnnt_joint.py:309); joint_dw_kernel computes hᵀ·dlogits into dW, and
+//   its first row of tiles sums db from the same dlogits slabs. No
+//   atomics. Each logit is one fmaf chain over j in order, dh one chain
+//   for each 128-column vocab slab and dW and db one for each 32-point
+//   lattice tile, added into running sums in order: the bits of the
+//   design before, which recomputed the logits in two kernels.
 //
 // Every sum is taken in a fixed order, so the backward gives the same
 // bits on every run. Math is fp32 with expf/logf/tanhf (no fast math);
@@ -71,13 +79,16 @@
 
 #include <math.h>
 
+#include <cstdint>
+
+#include "tile_product.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps; warp ty owns rows 4·ty .. 4·ty + 3
 constexpr int kM = 32;         // lattice points per tile
 constexpr int kKC = 32;        // rows of W per streamed chunk
-constexpr int kTV = 128;       // vocab slab of the forward and the eg kernel
-constexpr int kTVW = 32;       // vocab slab of one block of the w kernel
+constexpr int kTV = 128;       // vocab slab of the forward and of the dh runs
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -112,13 +123,10 @@ __host__ __device__ __forceinline__ int padded(int J) { return (J + 3) & ~3; }
 
 // Fill hs (kM × padded(J)) with h = tanh(e + g) for the tile starting
 // at n0 (zero rows past N), one warp per row, and the tile's per-row
-// labels, lse and cotangents (the last three only when lse is given).
+// labels.
 template <typename T>
 __device__ void load_tile(const Lattice& L, const T* __restrict__ e, const T* __restrict__ g,
-                          const int* __restrict__ labels, const float* __restrict__ lse,
-                          const float* __restrict__ dblank, const float* __restrict__ dlabel,
-                          long long n0, float* hs, int* lbl_s, float* lse_s, float* dbl_s,
-                          float* dlb_s) {
+                          const int* __restrict__ labels, long long n0, float* hs, int* lbl_s) {
   const int J = L.J, Jp = padded(J);
   const int lane = threadIdx.x & 31;
   for (int m = threadIdx.x >> 5; m < kM; m += kThreads / 32) {
@@ -136,22 +144,15 @@ __device__ void load_tile(const Lattice& L, const T* __restrict__ e, const T* __
       for (int j = lane; j < Jp; j += 32) hrow[j] = 0.f;
       if (lane == 0) lbl_s[m] = -1;
     }
-    if (lse != nullptr && lane == 0) {
-      const bool ok = n < L.N;
-      lse_s[m] = ok ? lse[n] : 0.f;
-      dbl_s[m] = ok ? dblank[n] : 0.f;
-      dlb_s[m] = ok ? dlabel[n] : 0.f;
-    }
   }
 }
 
-// Rows j0 .. j0 + kKC of W, columns v0 .. v0 + 32·NC, into ws (row
-// stride 32·NC + 1, so that reading a column across a warp is free of
-// bank conflicts); zero past J and V.
-template <int NC>
+// Rows j0 .. j0 + kKC of W, columns v0 .. v0 + kTV, into ws (row stride
+// kTV + 1, so that reading a column across a warp is free of bank
+// conflicts); zero past J and V.
 __device__ void load_w_chunk(const Lattice& L, const float* __restrict__ w, int j0, int v0,
                              float* ws) {
-  constexpr int width = 32 * NC, stride = width + 1;
+  constexpr int width = kTV, stride = width + 1;
   for (int idx = threadIdx.x; idx < kKC * width; idx += kThreads) {
     const int r = idx / width, c = idx - r * width;
     const int j = j0 + r, v = v0 + c;
@@ -160,14 +161,14 @@ __device__ void load_w_chunk(const Lattice& L, const float* __restrict__ w, int 
 }
 
 // acc[i][c] = Σ_j hs[4·ty + i][j] · W[j][v0 + tx + 32·c]: the tile's
-// logits for one vocab slab of 32·NC columns, without the bias. Four
+// logits for one vocab slab of kTV = 32·NC columns, without the bias. Four
 // values of j at a time: one 16-byte load of h per row (the padding
 // columns of h and the rows of W past J are zero).
-template <int NC>
+constexpr int NC = kTV / 32;
 __device__ __forceinline__ void slab_logits(const Lattice& L, const float* hs,
                                             const float* __restrict__ w, int v0, float* ws,
                                             float acc[4][NC]) {
-  constexpr int stride = 32 * NC + 1;
+  constexpr int stride = kTV + 1;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int Jp = padded(L.J);
 #pragma unroll
@@ -176,7 +177,7 @@ __device__ __forceinline__ void slab_logits(const Lattice& L, const float* hs,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   for (int j0 = 0; j0 < Jp; j0 += kKC) {
     __syncthreads();  // the previous chunk's readers are done with ws
-    load_w_chunk<NC>(L, w, j0, v0, ws);
+    load_w_chunk(L, w, j0, v0, ws);
     __syncthreads();
     const int kmax = min(kKC, Jp - j0);  // a multiple of 4
     const float* hrow = hs + (4 * ty) * Jp + j0;
@@ -202,13 +203,27 @@ __device__ __forceinline__ void slab_logits(const Lattice& L, const float* hs,
 }
 
 // The softmax cotangent of one logit (rnnt_joint.py:148-172), in the
-// TPU kernel's order of operations.
+// TPU kernel's order of operations: -(dbl + dlb)·exp(logit − lse), + dbl
+// at v = 0, + dlb at the label. The design before this one (whose bits
+// this design keeps: PERF.md) computed it in two kernels, and nvcc
+// contracted the product with the sums differently in each: as dlogit
+// for dW and db, as dlogit_dh for dh. The two differ only at v = 0 and at
+// the label. Both are written out so that no compiler choice moves them.
 __device__ __forceinline__ float dlogit(float logit, float lse, float dbl, float dlb, int v,
                                         int label) {
-  float d = -(dbl + dlb) * expf(logit - lse);
-  if (v == 0) d += dbl;
-  if (v == label) d += dlb;
+  const float p = expf(logit - lse), m = -(dbl + dlb);
+  float d = v == 0 ? fmaf(m, p, dbl) : __fmul_rn(m, p);
+  if (v == label) d = __fadd_rn(d, dlb);
   return d;
+}
+__device__ __forceinline__ float dlogit_dh(float logit, float lse, float dbl, float dlb, int v,
+                                           int label) {
+  const float p = expf(logit - lse), m = -(dbl + dlb);
+  if (v == 0) {
+    const float d = fmaf(m, p, dbl);
+    return v == label ? __fadd_rn(d, dlb) : d;
+  }
+  return v == label ? fmaf(m, p, dlb) : __fmul_rn(m, p);
 }
 
 template <typename T>
@@ -226,8 +241,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const long long n0 = static_cast<long long>(blockIdx.x) * kM;
 
-  load_tile(L, e, g, labels, nullptr, nullptr, nullptr, n0, hs, lbl_s, nullptr, nullptr,
-            nullptr);
+  load_tile(L, e, g, labels, n0, hs, lbl_s);
   for (int m = threadIdx.x; m < kM; m += kThreads) blk_s[m] = lab_s[m] = 0.f;
 
   float m_run[4], l_run[4];
@@ -236,9 +250,9 @@ __global__ void __launch_bounds__(kThreads)
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
   }
-  float acc[4][4];
+  float acc[4][NC];
   for (int v0 = 0; v0 < L.V; v0 += kTV) {
-    slab_logits<4>(L, hs, w, v0, ws, acc);
+    slab_logits(L, hs, w, v0, ws, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = 4 * ty + i;
@@ -276,73 +290,199 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- The backward (K4): three tile products over a materialized dlogits ----
+
+// The design before this one summed dh over 128-column vocab slabs (kTV)
+// and dW and db over 32-point lattice tiles (kM), each slab's or tile's
+// fmaf chain added into a running sum in order; the products keep those
+// runs, so they keep its bits: runs of kDhChunk and kDwChunk slabs of k.
+constexpr int kDhChunk = kTV / tile::kK;
+constexpr int kDwChunk = kM / tile::kK;
+
+// h[n, j] = tanh(e[b, t, j] + g[b, u, j]) for the lattice point n = (b, t,
+// u) of the block.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    joint_bwd_eg_kernel(Lattice L, const T* __restrict__ e, const T* __restrict__ g,
-                        const float* __restrict__ w, const float* __restrict__ bias,
-                        const int* __restrict__ labels, const float* __restrict__ lse,
-                        const float* __restrict__ dblank, const float* __restrict__ dlabel,
-                        float* __restrict__ dpre_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int J = L.J;
-  float* hs = smem;                         // kM × padded(J)
-  float* dhs = hs + kM * padded(J);         // kM × J
-  float* ws = dhs + kM * J;                 // kKC × (kTV + 1)
-  float* ds = ws + kKC * (kTV + 1);         // kM × kTV
-  float* lse_s = ds + kM * kTV;             // kM
-  float* dbl_s = lse_s + kM;                // kM
-  float* dlb_s = dbl_s + kM;                // kM
-  int* lbl_s = reinterpret_cast<int*>(dlb_s + kM);  // kM
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const long long n0 = static_cast<long long>(blockIdx.x) * kM;
+__global__ void __launch_bounds__(128)
+    joint_h_kernel(Lattice L, const T* __restrict__ e, const T* __restrict__ g,
+                   float* __restrict__ h) {
+  const long long n = blockIdx.x;
+  const long long bt = n / L.U1, b = bt / L.T, u = n - bt * L.U1;
+  const T* er = e + bt * L.J;
+  const T* gr = g + (b * L.U1 + u) * L.J;
+  float* hr = h + n * L.J;
+  for (int j = threadIdx.x; j < L.J; j += blockDim.x) hr[j] = tanhf(to_f(er[j]) + to_f(gr[j]));
+}
 
-  load_tile(L, e, g, labels, lse, dblank, dlabel, n0, hs, lbl_s, lse_s, dbl_s, dlb_s);
-  for (int idx = threadIdx.x; idx < kM * J; idx += kThreads) dhs[idx] = 0.f;
-
-  float acc[4][4];
-  for (int v0 = 0; v0 < L.V; v0 += kTV) {
-    slab_logits<4>(L, hs, w, v0, ws, acc);
+// dlogits[n, v] = dlogit(h[n] · W[:, v] + bias[v]): the tile product with A
+// = h (its rows run along k = j) and B = W as it lies; each logit is one
+// fmaf chain over j in order from 0, as the design before computed it.
+// dh_fix[n] = dlogit_dh at v = 0 and at the label of n, the two values of
+// dh's operand that differ from dlogits.
+template <bool VEC>
+__global__ void __launch_bounds__(tile::kThreads, tile::kBlocksPerSm)
+    joint_dlogits_kernel(Lattice L, const float* __restrict__ h, const float* __restrict__ w,
+                         const float* __restrict__ bias, const int* __restrict__ labels,
+                         const float* __restrict__ lse, const float* __restrict__ dblank,
+                         const float* __restrict__ dlabel, float* __restrict__ dlogits,
+                         float2* __restrict__ dh_fix) {
+  const long long m0 = static_cast<long long>(blockIdx.y) * tile::kM;
+  const int c0 = blockIdx.x * tile::kC;
+  tile::ColSlab<tile::kM, VEC> a;
+  tile::RowSlab<tile::kC, VEC> bw;
+  float acc[8][8];
+  tile::mainloop<0>(
+      [&](tile::ASlab&, tile::BSlab& bs, int s) {
+        const int k0 = s * tile::kK;
+        a.stage(h, L.J, k0, L.J, m0, L.N);
+        bw.stage(bs, w, L.V, k0, L.J, c0, L.V);
+      },
+      [&](tile::ASlab& as, tile::BSlab&, int) { a.land(as); }, tile::NoSlabHook(),
+      (L.J + tile::kK - 1) / tile::kK, acc, nullptr);
+  float bv[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 4 * ty + i;
-      const bool row = n0 + m < L.N;
+  for (int q = 0; q < 8; ++q) {
+    const int v = c0 + tile::col(q);
+    bv[q] = v < L.V ? bias[v] : 0.f;
+  }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int v = v0 + tx + 32 * c;
-        ds[m * kTV + tx + 32 * c] =
-            (row && v < L.V)
-                ? dlogit(acc[i][c] + bias[v], lse_s[m], dbl_s[m], dlb_s[m], v, lbl_s[m])
-                : 0.f;
+  for (int i = 0; i < 8; ++i) {
+    const long long n = m0 + tile::row(i);
+    if (n >= L.N) continue;
+    const long long bt = n / L.U1, b = bt / L.T, u = n - bt * L.U1;
+    const int label = labels[b * L.U1 + u];
+    const float ls = lse[n], dbl = dblank[n], dlb = dlabel[n];
+    float* out = dlogits + n * L.V;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + tile::col(half * 4);
+      float d[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = c + q;
+        const float logit = acc[i][half * 4 + q] + bv[half * 4 + q];
+        d[q] = dlogit(logit, ls, dbl, dlb, v, label);
+        if (v == 0) dh_fix[n].x = dlogit_dh(logit, ls, dbl, dlb, v, label);
+        if (v == label) dh_fix[n].y = dlogit_dh(logit, ls, dbl, dlb, v, label);
       }
-    }
-    // dh[m][j] += Σ_v ds[m][v] · W[j][v0 + v], W streamed again by rows of J
-    const int vmax = min(kTV, L.V - v0);
-    for (int j0 = 0; j0 < J; j0 += kKC) {
-      __syncthreads();  // ds is written; the previous chunk's readers are done
-      load_w_chunk<4>(L, w, j0, v0, ws);
-      __syncthreads();
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* wrow = ws + tx * (kTV + 1);
-      const float* drow = ds + (4 * ty) * kTV;
-      for (int v = 0; v < vmax; ++v) {
-        const float wv = wrow[v];
+      if constexpr (VEC) {
+        if (c < L.V) *reinterpret_cast<float4*>(out + c) = make_float4(d[0], d[1], d[2], d[3]);
+      } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = fmaf(drow[i * kTV + v], wv, a[i]);
-      }
-      if (j0 + tx < J) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dhs[(4 * ty + i) * J + j0 + tx] += a[i];
+        for (int q = 0; q < 4; ++q) {
+          if (c + q < L.V) out[c + q] = d[q];
+        }
       }
     }
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kM * J; idx += kThreads) {
-    const int m = idx / J;
-    if (n0 + m < L.N) {
-      const float h = hs[m * padded(J) + idx - m * J];
-      dpre_out[n0 * J + idx] = dhs[idx] * (1.f - h * h);
+}
+
+// dpre[n, j] = (dlogits[n] · W[j, :]) · (1 − h[n, j]²): the tile product
+// with A = dlogits, its values at v = 0 and at the label replaced by
+// dh_fix's, and B = Wᵀ, both read along their rows of V, in runs of
+// kDhChunk slabs (a 128-column vocab slab each) added into a running sum in
+// shared memory (run: tile::kRunFloats floats).
+template <bool VEC>
+__global__ void __launch_bounds__(tile::kThreads, tile::kBlocksPerSm)
+    joint_dh_kernel(Lattice L, const float* __restrict__ dlogits,
+                    const float2* __restrict__ dh_fix, const int* __restrict__ labels,
+                    const float* __restrict__ w, const float* __restrict__ h,
+                    float* __restrict__ dpre) {
+  extern __shared__ __align__(16) float run[];
+  using ASlabLoader = tile::ColSlab<tile::kM, VEC>;
+  const long long m0 = static_cast<long long>(blockIdx.y) * tile::kM;
+  const int c0 = blockIdx.x * tile::kC;
+  ASlabLoader a;
+  tile::ColSlab<tile::kC, VEC> bt;
+  // the label and dh_fix of the row of each of this thread's A runs
+  int label[ASlabLoader::kRuns];
+  float2 fix[ASlabLoader::kRuns];
+#pragma unroll
+  for (int i = 0; i < ASlabLoader::kRuns; ++i) {
+    const long long n = m0 + ASlabLoader::x(i);
+    label[i] = -1;  // past N: the run stays zero
+    fix[i] = make_float2(0.f, 0.f);
+    if (n < L.N) {
+      const long long bt_ = n / L.U1, b = bt_ / L.T, u = n - bt_ * L.U1;
+      label[i] = labels[b * L.U1 + u];
+      fix[i] = dh_fix[n];
     }
   }
+  float acc[8][8];
+  tile::mainloop<kDhChunk>(
+      [&](tile::ASlab&, tile::BSlab&, int s) {
+        const int k0 = s * tile::kK;
+        a.stage(dlogits, L.V, k0, L.V, m0, L.N);
+#pragma unroll
+        for (int i = 0; i < ASlabLoader::kRuns; ++i) {
+          const int k = k0 + ASlabLoader::kq(i);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k + e == 0 && label[i] >= 0) a.r[i][e] = fix[i].x;
+            if (k + e == label[i]) a.r[i][e] = fix[i].y;
+          }
+        }
+        bt.stage(w, L.V, k0, L.V, c0, L.J);
+      },
+      [&](tile::ASlab& as, tile::BSlab& bs, int) {
+        a.land(as);
+        bt.land(bs);
+      },
+      tile::NoSlabHook(), (L.V + tile::kK - 1) / tile::kK, acc, run);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long n = m0 + tile::row(i);
+    if (n >= L.N) continue;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = c0 + tile::col(q);
+      if (j < L.J) {
+        const size_t at = static_cast<size_t>(n) * L.J + j;
+        const float hv = h[at];
+        // dh·(1 − h·h) contracted as nvcc compiled the design before this
+        // one (whose bits this design keeps: PERF.md), written out
+        dpre[at] = acc[i][q] * fmaf(-hv, hv, 1.f);
+      }
+    }
+  }
+}
+
+// dW[j, v] = Σ_n h[n, j] · dlogits[n, v] and db[v] = Σ_n dlogits[n, v]: the
+// tile product with A = hᵀ (h's rows as they lie) and B = dlogits, in runs
+// of kDwChunk slabs (a 32-point lattice tile each) added into a running sum
+// in shared memory (run: tile::kRunFloats floats). The blocks of the first
+// row of tiles also sum db from the dlogits slabs they hold, thread c
+// column c, in the same runs.
+template <bool VEC>
+__global__ void __launch_bounds__(tile::kThreads, tile::kBlocksPerSm)
+    joint_dw_kernel(Lattice L, const float* __restrict__ h, const float* __restrict__ dlogits,
+                    float* __restrict__ dw, float* __restrict__ db) {
+  extern __shared__ __align__(16) float run[];
+  const int m0 = blockIdx.y * tile::kM, c0 = blockIdx.x * tile::kC;
+  const int nslab = static_cast<int>((L.N + tile::kK - 1) / tile::kK);
+  const bool sums_db = blockIdx.y == 0;
+  tile::RowSlab<tile::kM, VEC> ah;
+  tile::RowSlab<tile::kC, VEC> bd;
+  float db_part = 0.f, db_run = 0.f, acc[8][8];
+  tile::mainloop<kDwChunk>(
+      [&](tile::ASlab& as, tile::BSlab& bs, int s) {
+        const int k0 = s * tile::kK;
+        ah.stage(as, h, L.J, k0, L.N, m0, L.J);
+        bd.stage(bs, dlogits, L.V, k0, L.N, c0, L.V);
+      },
+      [&](tile::ASlab&, tile::BSlab&, int) {},
+      [&](const tile::BSlab& bs, int s) {
+        if (sums_db) {
+#pragma unroll
+          for (int kk = 0; kk < tile::kK; ++kk) db_part += bs[kk][threadIdx.x];
+          if ((s + 1) % kDwChunk == 0 || s + 1 == nslab) {
+            db_run += db_part;
+            db_part = 0.f;
+          }
+        }
+      },
+      nslab, acc, run);
+  tile::store<VEC>(acc, dw, L.V, m0, L.J, c0, L.V);
+  if (sums_db && c0 + static_cast<int>(threadIdx.x) < L.V) db[c0 + threadIdx.x] = db_run;
 }
 
 // de[b, t, j] = Σ_u dpre[b, t, u, j] and dg[b, u, j] = Σ_t dpre[b, t, u, j],
@@ -370,84 +510,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    joint_bwd_w_kernel(Lattice L, const T* __restrict__ e, const T* __restrict__ g,
-                       const float* __restrict__ w, const float* __restrict__ bias,
-                       const int* __restrict__ labels, const float* __restrict__ lse,
-                       const float* __restrict__ dblank, const float* __restrict__ dlabel,
-                       float* __restrict__ dw, float* __restrict__ db) {
-  extern __shared__ __align__(16) float smem[];
-  const int J = L.J;
-  const int Jp = padded(J);
-  float* dws = smem;                        // J × kTVW
-  float* hs = dws + J * kTVW;               // kM × Jp (16-byte aligned: kTVW = 32)
-  float* ws = hs + kM * Jp;                 // kKC × (kTVW + 1)
-  float* ds = ws + kKC * (kTVW + 1);        // kM × kTVW
-  float* lse_s = ds + kM * kTVW;            // kM
-  float* dbl_s = lse_s + kM;                // kM
-  float* dlb_s = dbl_s + kM;                // kM
-  int* lbl_s = reinterpret_cast<int*>(dlb_s + kM);  // kM
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int v0 = blockIdx.x * kTVW;
-  const int v = v0 + tx;
-
-  for (int idx = threadIdx.x; idx < J * kTVW; idx += kThreads) dws[idx] = 0.f;
-  float db_acc = 0.f;  // column v, kept by warp 0
-  float acc[4][1];
-  for (long long n0 = 0; n0 < L.N; n0 += kM) {
-    __syncthreads();  // the previous tile's readers are done with hs and ds
-    load_tile(L, e, g, labels, lse, dblank, dlabel, n0, hs, lbl_s, lse_s, dbl_s, dlb_s);
-    slab_logits<1>(L, hs, w, v0, ws, acc);  // starts with a barrier: hs is complete
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 4 * ty + i;
-      ds[m * kTVW + tx] =
-          (n0 + m < L.N && v < L.V)
-              ? dlogit(acc[i][0] + bias[v], lse_s[m], dbl_s[m], dlb_s[m], v, lbl_s[m])
-              : 0.f;
-    }
-    __syncthreads();
-    // dW[j][v] += Σ_m hs[m][j] · ds[m][v], for j = jt + 4·ty + i: one
-    // 16-byte load of h per m
-    for (int jt = 0; jt < Jp; jt += 32) {
-      const int jb = jt + 4 * ty;
-      if (jb >= Jp) break;
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int m = 0; m < kM; ++m) {
-        const float dv = ds[m * kTVW + tx];
-        const float4 h4 = *reinterpret_cast<const float4*>(hs + m * Jp + jb);
-        a[0] = fmaf(h4.x, dv, a[0]);
-        a[1] = fmaf(h4.y, dv, a[1]);
-        a[2] = fmaf(h4.z, dv, a[2]);
-        a[3] = fmaf(h4.w, dv, a[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (jb + i < J) dws[(jb + i) * kTVW + tx] += a[i];
-    }
-    if (ty == 0) {
-      float s = 0.f;
-      for (int m = 0; m < kM; ++m) s += ds[m * kTVW + tx];
-      db_acc += s;
-    }
-  }
-  __syncthreads();
-  if (v < L.V) {
-    for (int j = ty; j < J; j += kThreads / 32)
-      dw[static_cast<long long>(j) * L.V + v] = dws[j * kTVW + tx];
-    if (ty == 0) db[v] = db_acc;
-  }
-}
-
 size_t fwd_smem(int J) { return sizeof(float) * (kM * padded(J) + kKC * (kTV + 1) + 3 * kM); }
-size_t eg_smem(int J) {
-  return sizeof(float) * (kM * padded(J) + kM * J + kKC * (kTV + 1) + kM * kTV + 4 * kM);
-}
-size_t w_smem(int J) {
-  return sizeof(float) *
-         (J * kTVW + kM * padded(J) + kKC * (kTVW + 1) + kM * kTVW + 4 * kM);
-}
 
 // Allow the kernel more than the default 48 KB of dynamic shared
 // memory. The attribute belongs to the current device, so it is set on
@@ -475,48 +538,37 @@ cudaError_t launch_fwd(const Lattice& L, const void* e, const void* g, const flo
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_eg(const Lattice& L, const void* e, const void* g, const float* w,
-                          const float* b, const int* labels, const float* lse,
-                          const float* dblank, const float* dlabel, float* dpre,
-                          cudaStream_t s) {
-  const size_t smem = eg_smem(L.J);
-  cudaError_t err = allow_smem(joint_bwd_eg_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const unsigned int blocks = static_cast<unsigned int>((L.N + kM - 1) / kM);
-  joint_bwd_eg_kernel<T><<<blocks, kThreads, smem, s>>>(
-      L, static_cast<const T*>(e), static_cast<const T*>(g), w, b, labels, lse, dblank, dlabel,
-      dpre);
-  return cudaGetLastError();
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The products' grid: tiles of (rows, columns)
+dim3 tile_grid(long long rows, long long cols) {
+  return dim3(static_cast<unsigned>((cols + tile::kC - 1) / tile::kC),
+              static_cast<unsigned>((rows + tile::kM - 1) / tile::kM));
 }
 
-template <typename T>
-cudaError_t launch_bwd_w(const Lattice& L, const void* e, const void* g, const float* w,
-                         const float* b, const int* labels, const float* lse,
-                         const float* dblank, const float* dlabel, float* dw, float* db,
-                         cudaStream_t s) {
-  const size_t smem = w_smem(L.J);
-  cudaError_t err = allow_smem(joint_bwd_w_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const unsigned int blocks = static_cast<unsigned int>((L.V + kTVW - 1) / kTVW);
-  joint_bwd_w_kernel<T><<<blocks, kThreads, smem, s>>>(
-      L, static_cast<const T*>(e), static_cast<const T*>(g), w, b, labels, lse, dblank, dlabel,
-      dw, db);
+// One launch of a product kernel, in its VEC or element-wise route.
+template <typename KVec, typename KElem, typename... Args>
+cudaError_t launch_product(KVec kvec, KElem kelem, bool vec, dim3 grid, size_t smem,
+                           cudaStream_t s, Args... args) {
+  if (smem > 0) {
+    cudaError_t err = allow_smem(vec ? kvec : kelem, smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (vec) {
+    kvec<<<grid, tile::kThreads, smem, s>>>(args...);
+  } else {
+    kelem<<<grid, tile::kThreads, smem, s>>>(args...);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory per block, in bytes, of kernel 0 (forward),
-// 1 (eg backward) or 2 (w backward) at joint width J; the wrapper
-// refuses a J whose kernels would not fit the card.
-extern "C" long long rnnt_joint_smem_bytes(int kernel, int J) {
-  switch (kernel) {
-    case 0: return static_cast<long long>(fwd_smem(J));
-    case 1: return static_cast<long long>(eg_smem(J));
-    case 2: return static_cast<long long>(w_smem(J));
-    default: return -1;
-  }
+// Dynamic shared memory per block, in bytes, of the forward kernel at
+// joint width J; the wrapper refuses a J whose forward would not fit the
+// card. The backward's kernels take the same shared memory at every J.
+extern "C" long long rnnt_joint_fwd_smem_bytes(int J) {
+  return static_cast<long long>(fwd_smem(J));
 }
 
 // dtype: 0 = float32 e and g, 1 = bfloat16. w, b, lse, the cotangents
@@ -541,27 +593,61 @@ extern "C" int rnnt_joint_fwd(int dtype, const void* e, const void* g, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dpre (B, T, U1, J) float32 through the eg kernel.
-extern "C" int rnnt_joint_bwd_eg(int dtype, const void* e, const void* g, const void* w,
-                                 const void* b, const void* labels, const void* lse,
-                                 const void* dblank, const void* dlabel, void* dpre, int B,
-                                 int T, int U1, int J, int V, void* stream) {
+// h (B, T, U1, J) float32 = tanh(e + g) through the h kernel (dtype as
+// rnnt_joint_fwd's).
+extern "C" int rnnt_joint_bwd_h(int dtype, const void* e, const void* g, void* h, int B, int T,
+                                int U1, int J, void* stream) {
+  if (bad_shape(B, T, U1, J, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(L.N);
+  float* hp = static_cast<float*>(h);
+  if (dtype == 0) {
+    joint_h_kernel<float><<<blocks, 128, 0, s>>>(L, static_cast<const float*>(e),
+                                                 static_cast<const float*>(g), hp);
+  } else if (dtype == 1) {
+    joint_h_kernel<__nv_bfloat16><<<blocks, 128, 0, s>>>(
+        L, static_cast<const __nv_bfloat16*>(e), static_cast<const __nv_bfloat16*>(g), hp);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dlogits (B, T, U1, V) float32 and dh_fix (B, T, U1, 2) float32 (dh's
+// operand at v = 0 and at the label) from h (B, T, U1, J) float32 and the
+// forward's inputs and lse, through the dlogits kernel.
+extern "C" int rnnt_joint_bwd_dlogits(const void* h, const void* w, const void* b,
+                                      const void* labels, const void* lse, const void* dblank,
+                                      const void* dlabel, void* dlogits, void* dh_fix, int B,
+                                      int T, int U1, int J, int V, void* stream) {
   if (bad_shape(B, T, U1, J, V)) return static_cast<int>(cudaErrorInvalidValue);
   const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, V};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wp = static_cast<const float*>(w);
-  const float* bp = static_cast<const float*>(b);
-  const int* lp = static_cast<const int*>(labels);
-  const float* sp = static_cast<const float*>(lse);
-  const float* d0 = static_cast<const float*>(dblank);
-  const float* d1 = static_cast<const float*>(dlabel);
-  float* pp = static_cast<float*>(dpre);
-  if (dtype == 0)
-    return static_cast<int>(launch_bwd_eg<float>(L, e, g, wp, bp, lp, sp, d0, d1, pp, s));
-  if (dtype == 1)
-    return static_cast<int>(
-        launch_bwd_eg<__nv_bfloat16>(L, e, g, wp, bp, lp, sp, d0, d1, pp, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = J % 4 == 0 && V % 4 == 0 && aligned16(h) && aligned16(w) &&
+                   aligned16(dlogits);
+  return static_cast<int>(launch_product(
+      joint_dlogits_kernel<true>, joint_dlogits_kernel<false>, vec, tile_grid(L.N, V), 0,
+      static_cast<cudaStream_t>(stream), L, static_cast<const float*>(h),
+      static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<const int*>(labels), static_cast<const float*>(lse),
+      static_cast<const float*>(dblank), static_cast<const float*>(dlabel),
+      static_cast<float*>(dlogits), static_cast<float2*>(dh_fix)));
+}
+
+// dpre (B, T, U1, J) float32 from dlogits, dh_fix, the labels, W and h
+// through the dh kernel.
+extern "C" int rnnt_joint_bwd_dh(const void* dlogits, const void* dh_fix, const void* labels,
+                                 const void* w, const void* h, void* dpre, int B, int T, int U1,
+                                 int J, int V, void* stream) {
+  if (bad_shape(B, T, U1, J, V)) return static_cast<int>(cudaErrorInvalidValue);
+  const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, V};
+  const bool vec = V % 4 == 0 && aligned16(dlogits) && aligned16(w);
+  return static_cast<int>(launch_product(
+      joint_dh_kernel<true>, joint_dh_kernel<false>, vec, tile_grid(L.N, J),
+      tile::kRunFloats * sizeof(float), static_cast<cudaStream_t>(stream), L,
+      static_cast<const float*>(dlogits), static_cast<const float2*>(dh_fix),
+      static_cast<const int*>(labels), static_cast<const float*>(w),
+      static_cast<const float*>(h), static_cast<float*>(dpre)));
 }
 
 // de (B, T, J) and dg (B, U1, J) from dpre (B, T, U1, J) through the
@@ -579,26 +665,16 @@ extern "C" int rnnt_joint_bwd_reduce(const void* dpre, void* de, void* dg, int B
   return static_cast<int>(cudaGetLastError());
 }
 
-// dw (J, V) and db (V,) through the w kernel.
-extern "C" int rnnt_joint_bwd_w(int dtype, const void* e, const void* g, const void* w,
-                                const void* b, const void* labels, const void* lse,
-                                const void* dblank, const void* dlabel, void* dw, void* db,
-                                int B, int T, int U1, int J, int V, void* stream) {
+// dw (J, V) and db (V,) float32 from h and dlogits through the dw kernel.
+extern "C" int rnnt_joint_bwd_dw(const void* h, const void* dlogits, void* dw, void* db, int B,
+                                 int T, int U1, int J, int V, void* stream) {
   if (bad_shape(B, T, U1, J, V)) return static_cast<int>(cudaErrorInvalidValue);
   const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, V};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wp = static_cast<const float*>(w);
-  const float* bp = static_cast<const float*>(b);
-  const int* lp = static_cast<const int*>(labels);
-  const float* sp = static_cast<const float*>(lse);
-  const float* d0 = static_cast<const float*>(dblank);
-  const float* d1 = static_cast<const float*>(dlabel);
-  float* o0 = static_cast<float*>(dw);
-  float* o1 = static_cast<float*>(db);
-  if (dtype == 0)
-    return static_cast<int>(launch_bwd_w<float>(L, e, g, wp, bp, lp, sp, d0, d1, o0, o1, s));
-  if (dtype == 1)
-    return static_cast<int>(
-        launch_bwd_w<__nv_bfloat16>(L, e, g, wp, bp, lp, sp, d0, d1, o0, o1, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = J % 4 == 0 && V % 4 == 0 && aligned16(h) && aligned16(dlogits) &&
+                   aligned16(dw);
+  return static_cast<int>(launch_product(
+      joint_dw_kernel<true>, joint_dw_kernel<false>, vec, tile_grid(J, V),
+      tile::kRunFloats * sizeof(float), static_cast<cudaStream_t>(stream), L,
+      static_cast<const float*>(h), static_cast<const float*>(dlogits),
+      static_cast<float*>(dw), static_cast<float*>(db)));
 }

@@ -8,7 +8,9 @@ built by ``build.py`` and called through ctypes: the forward scan, the
 backward's gate recompute, the backward recurrence and the ``dw_hh``
 product, each with its launch counter (``SCAN_FWD_LAUNCHES``,
 ``SCAN_BWD_GATES_LAUNCHES``, ``SCAN_BWD_LAUNCHES``,
-``SCAN_DW_LAUNCHES``).
+``SCAN_DW_LAUNCHES``). The forward and the backward recurrence each have
+a timed instantiation that records the time of each phase of a step
+(``lstm_scan_fwd_phases``, ``lstm_scan_bwd_phases``).
 
 Everything is time-major, (S, B, ...), as in the TPU kernels. A wrapper
 takes the plain version (``ref.py``) only for tensors on the CPU. A CUDA
@@ -40,7 +42,7 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("lstm_scan")
-    lib.lstm_scan_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.lstm_scan_fwd.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _I, _P]
     lib.lstm_scan_bwd_gates.argtypes = [_I] + [_P] * 6 + [_I, _I, _I, _I, _P]
     lib.lstm_scan_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _I, _P]
     lib.lstm_scan_dw.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _P]
@@ -116,6 +118,40 @@ def lstm_scan_fwd(xg, w_hh, h0, c0):
     global SCAN_FWD_LAUNCHES
     if not _check(xg, w_hh, h0, c0):
         return ref.lstm_scan_ref(xg, w_hh, h0, c0)
+    out = _launch_fwd(xg, w_hh, h0, c0)
+    SCAN_FWD_LAUNCHES += 1
+    return out
+
+
+# the forward's phases, as its timed instantiation counts them
+# (csrc/lstm_scan.cu, enum FwdPhase): the prologue (the weight slice) once
+# a launch, the others each step
+FWD_PHASES = ("prologue", "step operands", "barrier", "stage h", "gate dots", "cell update",
+              "stores")
+
+
+def lstm_scan_fwd_phases(xg, w_hh, h0, c0):
+    """The forward on the card in its timed instantiation (a measurement:
+    ``SCAN_FWD_LAUNCHES`` does not count it). Returns the outputs of
+    ``lstm_scan_fwd``, its milliseconds (CUDA events) and an int64
+    (blocks, S + 1, len(FWD_PHASES)) table of the nanoseconds thread 0 of
+    each block spent in each phase: row t for step t, row S for the
+    prologue."""
+    if not _check(xg, w_hh, h0, c0):
+        raise ValueError("the forward's phase timer runs on the card only")
+    S, H = xg.shape[0], xg.shape[2] // 4
+    blocks = -(-H // _units_per_block(xg.device.index or 0, H))
+    times = torch.zeros((blocks, S + 1, len(FWD_PHASES)), dtype=torch.int64, device=xg.device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    out = _launch_fwd(xg, w_hh, h0, c0, times)
+    events[1].record()
+    events[1].synchronize()
+    return out, events[0].elapsed_time(events[1]), times
+
+
+def _launch_fwd(xg, w_hh, h0, c0, times=None):
+    """The forward kernel: (ys, cs)."""
     S, B, H4 = xg.shape
     H = H4 // 4
     U = _units_per_block(xg.device.index or 0, H)
@@ -124,8 +160,8 @@ def lstm_scan_fwd(xg, w_hh, h0, c0):
     hbuf = torch.empty((2, B, H), dtype=torch.float32, device=xg.device)
     _launch(_lib().lstm_scan_fwd(_DTYPE_CODES[xg.dtype], xg.data_ptr(), w_hh.data_ptr(),
                                  h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), cs.data_ptr(),
-                                 hbuf.data_ptr(), S, B, H, U, _stream(xg)), "lstm_scan_fwd")
-    SCAN_FWD_LAUNCHES += 1
+                                 hbuf.data_ptr(), None if times is None else times.data_ptr(),
+                                 S, B, H, U, _stream(xg)), "lstm_scan_fwd")
     return ys, cs
 
 

@@ -212,6 +212,38 @@ def rnnt_joint_bwd_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8
             *rnnt_joint_bwd_w_ref(*args))
 
 
+# K4's launches on the card, one plain version each; they hold the whole
+# (B, T, U1, V) dlogits, as the kernels do: h, dlogits, dpre, then
+# rnnt_joint_bwd_reduce_ref, then dW and db.
+
+def rnnt_joint_h_ref(e, g):
+    """h = tanh(e + g) (B, T, U1, J) at every lattice point, in the math
+    dtype."""
+    dt = _math_dtype(e.dtype)
+    return torch.tanh(e.to(dt)[:, :, None, :] + g.to(dt)[:, None, :, :])
+
+
+def rnnt_joint_dlogits_ref(h, w, b, labels, lse, dblank, dlabel):
+    """The logits' cotangent (B, T, U1, V) from h (B, T, U1, J): the
+    logits h @ w + b through ``_dlogits``."""
+    dt = h.dtype
+    return _dlogits(h @ w.to(dt) + b.to(dt), lse, dblank, dlabel, labels.long())
+
+
+def rnnt_joint_dpre_ref(dlogits, w, h):
+    """dpre = (dlogits @ wᵀ)·(1 − h²) (B, T, U1, J), the gradient at
+    tanh's input."""
+    return (dlogits @ w.to(dlogits.dtype).T) * (1.0 - h * h)
+
+
+def rnnt_joint_dw_ref(h, dlogits):
+    """(dw (J, V), db (V,)): hᵀ·dlogits and the sum of dlogits over every
+    lattice point."""
+    J, V = h.shape[-1], dlogits.shape[-1]
+    d = dlogits.reshape(-1, V)
+    return h.reshape(-1, J).T @ d, d.sum(dim=0)
+
+
 # ----------------------------------------------------- compression plane
 # The counterparts of repro/kernels/ref.py:76-131 and :204 (nibble pack,
 # dequantize, quantize, top-k unpack, scatter-add) and :147-201 (the

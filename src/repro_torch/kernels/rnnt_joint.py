@@ -10,9 +10,13 @@ card), built by ``build.py`` and called through ctypes.
 A wrapper takes the plain version (``ref.py``) only for tensors on the
 CPU. CUDA tensors get the kernels or an exception; nothing falls back.
 Each kernel has a launch counter, raised where it launches:
-``FWD_LAUNCHES`` (K3), and ``BWD_EG_LAUNCHES``, ``BWD_REDUCE_LAUNCHES``
-and ``BWD_W_LAUNCHES`` (the three kernels of K4), so that a run can show
-that its joint went through every one of them.
+``FWD_LAUNCHES`` (K3), and ``BWD_H_LAUNCHES``, ``BWD_DLOGITS_LAUNCHES``,
+``BWD_DH_LAUNCHES``, ``BWD_REDUCE_LAUNCHES`` and ``BWD_DW_LAUNCHES`` (the
+five kernels of K4), so that a run can show that its joint went through
+every one of them. K4 allocates three scratch tensors a call, h (B, T,
+U1, J), dlogits (B, T, U1, V) and dh_fix (B, T, U1, 2) in fp32:
+160,106,496 B at the paper-width client step (B=4, T'=64, U1=33, J=640,
+V=4,096).
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ import torch
 from repro_torch.kernels import build, ref
 
 FWD_LAUNCHES = 0
-BWD_EG_LAUNCHES = 0
+BWD_H_LAUNCHES = 0
+BWD_DLOGITS_LAUNCHES = 0
+BWD_DH_LAUNCHES = 0
 BWD_REDUCE_LAUNCHES = 0
-BWD_W_LAUNCHES = 0
+BWD_DW_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_KERNELS = {"rnnt_joint_fwd": 0, "rnnt_joint_bwd_eg": 1, "rnnt_joint_bwd_w": 2}
+# rows of the products' tiles, and the most tiles a grid's y axis holds
+_TILE_ROWS, _GRID_Y = 64, 65535
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -38,34 +45,37 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("rnnt_joint")
-    lib.rnnt_joint_smem_bytes.argtypes = [_I, _I]
-    lib.rnnt_joint_smem_bytes.restype = ctypes.c_longlong
+    lib.rnnt_joint_fwd_smem_bytes.argtypes = [_I]
+    lib.rnnt_joint_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.rnnt_joint_fwd.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [_P]
-    lib.rnnt_joint_bwd_eg.argtypes = [_I] + [_P] * 9 + [_I] * 5 + [_P]
+    lib.rnnt_joint_bwd_h.argtypes = [_I] + [_P] * 3 + [_I] * 4 + [_P]
+    lib.rnnt_joint_bwd_dlogits.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+    lib.rnnt_joint_bwd_dh.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.rnnt_joint_bwd_reduce.argtypes = [_P] * 3 + [_I] * 4 + [_P]
-    lib.rnnt_joint_bwd_w.argtypes = [_I] + [_P] * 10 + [_I] * 5 + [_P]
-    for fn in (lib.rnnt_joint_fwd, lib.rnnt_joint_bwd_eg, lib.rnnt_joint_bwd_reduce,
-               lib.rnnt_joint_bwd_w):
+    lib.rnnt_joint_bwd_dw.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    for fn in (lib.rnnt_joint_fwd, lib.rnnt_joint_bwd_h, lib.rnnt_joint_bwd_dlogits,
+               lib.rnnt_joint_bwd_dh, lib.rnnt_joint_bwd_reduce, lib.rnnt_joint_bwd_dw):
         fn.restype = _I
     return lib
 
 
 @functools.cache
 def _smem_refusal(device_index: int, J: int) -> str | None:
-    """Why the kernels cannot run at joint width J on this card, or None
-    when their shared memory fits it."""
+    """Why the forward kernel cannot run at joint width J on this card, or
+    None when its shared memory fits it (it holds a tile's h rows). The
+    backward's kernels take the same shared memory at every J."""
     limit = torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
-    for name, kernel in _SMEM_KERNELS.items():
-        need = _lib().rnnt_joint_smem_bytes(kernel, J)
-        if need > limit:
-            return f"{name} needs {need} B of shared memory at J={J}; the card gives a " \
-                   f"block {limit} B"
+    need = _lib().rnnt_joint_fwd_smem_bytes(J)
+    if need > limit:
+        return f"rnnt_joint_fwd needs {need} B of shared memory at J={J}; the card gives a " \
+               f"block {limit} B"
     return None
 
 
 def _check(e, g, w, b, labels, lse=None, dblank=None, dlabel=None) -> bool:
     """Validate shapes and types; True when the kernels must run (CUDA),
-    False for the plain version (CPU). Raises on anything else."""
+    False for the plain version (CPU). Raises on anything else. The
+    forward's shared memory rule is the forward's own (``_smem_refusal``)."""
     if e.dim() != 3 or g.dim() != 3 or w.dim() != 2 or b.dim() != 1 or labels.dim() != 2:
         raise ValueError("the joint takes e (B, T, J), g (B, U1, J), w (J, V), b (V,) and "
                          "labels (B, U1)")
@@ -98,12 +108,10 @@ def _check(e, g, w, b, labels, lse=None, dblank=None, dlabel=None) -> bool:
         raise TypeError(f"the kernels take int32 labels, got {labels.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernels take contiguous tensors")
-    if min(B, T, U1, J, V) == 0 or B * T * U1 * J >= 2**31 or J * V >= 2**31:
+    if min(B, T, U1, J, V) == 0 or B * T * U1 * J >= 2**31 or J * V >= 2**31 \
+            or -(-B * T * U1 // _TILE_ROWS) > _GRID_Y:
         raise ValueError(f"shape (B, T, U1, J, V) = {(B, T, U1, J, V)} is outside the "
                          "kernels' range")
-    refusal = _smem_refusal(device.index, J)
-    if refusal:
-        raise ValueError(refusal)
     return True
 
 
@@ -119,6 +127,9 @@ def rnnt_joint_fwd(e, g, w, b, labels):
     if not _check(e, g, w, b, labels):
         return ref.rnnt_joint_fwd_ref(e, g, w, b, labels)
     B, T, U1, J, V = _dims(e, g, w)
+    refusal = _smem_refusal(e.device.index, J)
+    if refusal:
+        raise ValueError(refusal)
     blank, label, lse = (torch.empty((B, T, U1), dtype=torch.float32, device=e.device)
                          for _ in range(3))
     stream = torch.cuda.current_stream(e.device).cuda_stream
@@ -131,65 +142,103 @@ def rnnt_joint_fwd(e, g, w, b, labels):
     return blank, label, lse
 
 
-def _bwd_eg(e, g, w, b, labels, lse, dblank, dlabel):
-    """dpre (B, T, U1, J) float32, the gradient at tanh's input, through
-    the eg kernel, on checked CUDA tensors."""
-    global BWD_EG_LAUNCHES
-    B, T, U1, J, V = _dims(e, g, w)
-    dpre = torch.empty((B, T, U1, J), dtype=torch.float32, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bwd_h(e, g, U1):
+    """h (B, T, U1, J) float32 = tanh(e + g) through the h kernel, on
+    checked CUDA tensors (the plain version: ``ref.rnnt_joint_h_ref``)."""
+    global BWD_H_LAUNCHES
+    B, T, J = e.shape
+    h = torch.empty((B, T, U1, J), dtype=torch.float32, device=e.device)
     build.check_launch(
-        _lib().rnnt_joint_bwd_eg(_DTYPE_CODES[e.dtype], e.data_ptr(), g.data_ptr(),
-                                 w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                                 dblank.data_ptr(), dlabel.data_ptr(), dpre.data_ptr(),
-                                 B, T, U1, J, V, stream),
-        "rnnt_joint_bwd_eg")
-    BWD_EG_LAUNCHES += 1
+        _lib().rnnt_joint_bwd_h(_DTYPE_CODES[e.dtype], e.data_ptr(), g.data_ptr(), h.data_ptr(),
+                                B, T, U1, J, _stream(e)),
+        "rnnt_joint_bwd_h")
+    BWD_H_LAUNCHES += 1
+    return h
+
+
+def _bwd_dlogits(h, w, b, labels, lse, dblank, dlabel):
+    """(dlogits (B, T, U1, V), dh_fix (B, T, U1, 2)) float32 through the
+    dlogits kernel, on checked CUDA tensors: dlogits as
+    ``ref.rnnt_joint_dlogits_ref``, and dh's operand at v=0 and at the
+    label, which the design before rounded otherwise (csrc/rnnt_joint.cu,
+    ``dlogit_dh``)."""
+    global BWD_DLOGITS_LAUNCHES
+    B, T, U1, J = h.shape
+    V = w.shape[1]
+    dlogits = torch.empty((B, T, U1, V), dtype=torch.float32, device=h.device)
+    dh_fix = torch.empty((B, T, U1, 2), dtype=torch.float32, device=h.device)
+    build.check_launch(
+        _lib().rnnt_joint_bwd_dlogits(h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                      labels.data_ptr(), lse.data_ptr(), dblank.data_ptr(),
+                                      dlabel.data_ptr(), dlogits.data_ptr(), dh_fix.data_ptr(),
+                                      B, T, U1, J, V, _stream(h)),
+        "rnnt_joint_bwd_dlogits")
+    BWD_DLOGITS_LAUNCHES += 1
+    return dlogits, dh_fix
+
+
+def _bwd_dh(dlogits, dh_fix, labels, w, h):
+    """dpre (B, T, U1, J) float32, the gradient at tanh's input, through
+    the dh kernel, on checked CUDA tensors (``ref.rnnt_joint_dpre_ref``)."""
+    global BWD_DH_LAUNCHES
+    B, T, U1, J = h.shape
+    dpre = torch.empty_like(h)
+    build.check_launch(
+        _lib().rnnt_joint_bwd_dh(dlogits.data_ptr(), dh_fix.data_ptr(), labels.data_ptr(),
+                                 w.data_ptr(), h.data_ptr(), dpre.data_ptr(), B, T, U1, J,
+                                 w.shape[1], _stream(h)),
+        "rnnt_joint_bwd_dh")
+    BWD_DH_LAUNCHES += 1
     return dpre
 
 
 def _bwd_reduce(dpre):
     """(de (B, T, J), dg (B, U1, J)) float32, the sums of dpre over U1
-    and over T, through the reduce kernel, on a checked CUDA tensor."""
+    and over T, through the reduce kernel, on a checked CUDA tensor
+    (``ref.rnnt_joint_bwd_reduce_ref``)."""
     global BWD_REDUCE_LAUNCHES
     B, T, U1, J = dpre.shape
     de = torch.empty((B, T, J), dtype=torch.float32, device=dpre.device)
     dg = torch.empty((B, U1, J), dtype=torch.float32, device=dpre.device)
-    stream = torch.cuda.current_stream(dpre.device).cuda_stream
     build.check_launch(
         _lib().rnnt_joint_bwd_reduce(dpre.data_ptr(), de.data_ptr(), dg.data_ptr(),
-                                     B, T, U1, J, stream),
+                                     B, T, U1, J, _stream(dpre)),
         "rnnt_joint_bwd_reduce")
     BWD_REDUCE_LAUNCHES += 1
     return de, dg
 
 
-def _bwd_w(e, g, w, b, labels, lse, dblank, dlabel):
-    """(dw (J, V), db (V,)) float32 through the w kernel, on checked CUDA
-    tensors."""
-    global BWD_W_LAUNCHES
-    B, T, U1, J, V = _dims(e, g, w)
-    dw = torch.empty((J, V), dtype=torch.float32, device=e.device)
-    db = torch.empty((V,), dtype=torch.float32, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+def _bwd_dw(h, dlogits):
+    """(dw (J, V), db (V,)) float32 through the dw kernel, on checked CUDA
+    tensors (``ref.rnnt_joint_dw_ref``)."""
+    global BWD_DW_LAUNCHES
+    B, T, U1, J = h.shape
+    V = dlogits.shape[-1]
+    dw = torch.empty((J, V), dtype=torch.float32, device=h.device)
+    db = torch.empty((V,), dtype=torch.float32, device=h.device)
     build.check_launch(
-        _lib().rnnt_joint_bwd_w(_DTYPE_CODES[e.dtype], e.data_ptr(), g.data_ptr(),
-                                w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                                dblank.data_ptr(), dlabel.data_ptr(), dw.data_ptr(),
-                                db.data_ptr(), B, T, U1, J, V, stream),
-        "rnnt_joint_bwd_w")
-    BWD_W_LAUNCHES += 1
+        _lib().rnnt_joint_bwd_dw(h.data_ptr(), dlogits.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                 B, T, U1, J, V, _stream(h)),
+        "rnnt_joint_bwd_dw")
+    BWD_DW_LAUNCHES += 1
     return dw, db
 
 
 def rnnt_joint_bwd(e, g, w, b, labels, lse, dblank, dlabel):
     """The backward recomputed from the forward's lse: (de, dg, dw, db)
     in float32, for the cotangents (dblank, dlabel) of (blank_lp,
-    label_lp)."""
+    label_lp). On the card five launches: h, dlogits, dpre, its sums, and
+    dW with db."""
     args = (e, g, w, b, labels, lse, dblank, dlabel)
     if not _check(*args):
         return ref.rnnt_joint_bwd_ref(*args)
-    return (*_bwd_reduce(_bwd_eg(*args)), *_bwd_w(*args))
+    h = _bwd_h(e, g, labels.shape[1])
+    dlogits, dh_fix = _bwd_dlogits(h, w, b, labels, lse, dblank, dlabel)
+    return (*_bwd_reduce(_bwd_dh(dlogits, dh_fix, labels, w, h)), *_bwd_dw(h, dlogits))
 
 
 class RNNTJointFn(torch.autograd.Function):

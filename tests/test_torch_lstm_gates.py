@@ -201,3 +201,18 @@ def test_operator_library_is_bound_to_the_torch_it_was_built_against(monkeypatch
     monkeypatch.setattr(torch, "__version__", torch.__version__ + ".other")
     after = build.library_path("lstm_gates"), build.library_path("lstm_scan")
     assert after[0] != before[0] and after[1] == before[1]
+
+
+def test_library_names_hash_the_shared_headers(monkeypatch, tmp_path):
+    """The sources include csrc/tile_product.cuh: an edited header names
+    another library for every source, so a stale build never loads."""
+    from repro_torch.kernels import build
+
+    assert build.CSRC / "tile_product.cuh" in build._headers()
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "_headers", lambda: [header])
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    header.write_text("// two\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after[name] != before[name] for name in build.SOURCES)

@@ -333,6 +333,23 @@ def test_backward_phase_timer_runs_on_the_card_only():
         K.lstm_scan_bwd_phases(*meta)
 
 
+def test_forward_phase_timer_runs_on_the_card_only():
+    """The forward's timed instantiation is a measurement of the CUDA
+    kernel: on the CPU it refuses, and neither it nor the plain forward
+    counts a launch."""
+    xg, w, h0, c0 = _t(*_case(5, 3, 8, seed=32))
+    launches = K.SCAN_FWD_LAUNCHES
+    with pytest.raises(ValueError, match="on the card only"):
+        K.lstm_scan_fwd_phases(xg, w, h0, c0)
+    got = K.lstm_scan_fwd(xg, w, h0, c0)
+    want = tref.lstm_scan_ref(xg, w, h0, c0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert K.SCAN_FWD_LAUNCHES == launches
+    assert len(K.FWD_PHASES) == len(set(K.FWD_PHASES)) and K.FWD_PHASES[0] == "prologue"
+    with pytest.raises(ValueError, match="not meta"):
+        K.lstm_scan_fwd_phases(*(a.to("meta") for a in (xg, w, h0, c0)))
+
+
 @pytest.mark.parametrize("S,B,H", SHAPES[:3])
 def test_gate_recompute_reproduces_the_pallas_forward(S, B, H):
     """The backward's gate recompute on the saved (ys, cs) of JAX's

@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.ops import _joint_ref_chunked
 from repro.kernels.rnnt_joint import rnnt_joint_bwd_fused, rnnt_joint_fused
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rnnt_joint as K
 
 # fp32 forward: J-term dot products and a V-term log-sum-exp, summed in
@@ -166,7 +167,8 @@ def test_wrapper_refuses_bad_inputs(case):
     elif case == "meta_device":
         e, g, w, b, lbl = (x.to("meta") for x in (e, g, w, b, lbl))
     def counts():
-        return (K.FWD_LAUNCHES, K.BWD_EG_LAUNCHES, K.BWD_REDUCE_LAUNCHES, K.BWD_W_LAUNCHES)
+        return (K.FWD_LAUNCHES, K.BWD_H_LAUNCHES, K.BWD_DLOGITS_LAUNCHES, K.BWD_DH_LAUNCHES,
+                K.BWD_REDUCE_LAUNCHES, K.BWD_DW_LAUNCHES)
 
     launches = counts()
     with pytest.raises(error):
@@ -175,3 +177,108 @@ def test_wrapper_refuses_bad_inputs(case):
     blank, label, lse = K.rnnt_joint_fwd(*args)
     K.rnnt_joint_bwd(*args, lse, blank, label)
     assert counts() == launches  # the plain version is no launch
+
+
+def _pieces(e, g, w, b, labels, lse, dblank, dlabel):
+    """The backward as the card runs it, one plain version a launch: h,
+    dlogits, dpre, de and dg, then dW and db."""
+    h = tref.rnnt_joint_h_ref(e, g)
+    dlogits = tref.rnnt_joint_dlogits_ref(h, w, b, labels, lse, dblank, dlabel)
+    return (*tref.rnnt_joint_bwd_reduce_ref(tref.rnnt_joint_dpre_ref(dlogits, w, h)),
+            *tref.rnnt_joint_dw_ref(h, dlogits))
+
+
+@pytest.mark.parametrize("B,T,U1,J,V,tq,tu,tv", PALLAS_SHAPES)
+def test_plain_backward_pieces_match_pallas(B, T, U1, J, V, tq, tu, tv):
+    """The five launches' plain versions, composed, against the Pallas
+    backward in interpret mode."""
+    arrays = _inputs(B, T, U1, J, V, seed=B * T + V + 1)
+    dbl, dlb = _cotangents(B, T, U1, seed=10)
+    jarrays = tuple(map(jnp.asarray, arrays))
+    _, _, lse = rnnt_joint_fused(*jarrays, tq=tq, tu=tu, tv=tv, interpret=True,
+                                 return_lse=True)
+    want = rnnt_joint_bwd_fused(*jarrays, lse, jnp.asarray(dbl), jnp.asarray(dlb),
+                                tq=tq, tu=tu, tv=tv, interpret=True)
+    got = _pieces(*_torch(*arrays, np.array(lse), dbl, dlb))
+    for name, a, b in zip(("de", "dg", "dw", "db"), got, want):
+        assert a.dtype == torch.float32
+        _assert_rel(a.numpy(), b, name)
+
+
+@pytest.mark.parametrize("B,T,U1,J,V", RAGGED_SHAPES)
+def test_plain_backward_pieces_match_chunked_vjp_at_ragged_shapes(B, T, U1, J, V):
+    arrays = _inputs(B, T, U1, J, V, seed=U1 + 2)
+    dbl, dlb = _cotangents(B, T, U1, seed=U1 + 3)
+    e, g, w, b, lbl = map(jnp.asarray, arrays)
+    _, vjp = jax.vjp(lambda e_, g_, w_, b_: _joint_ref_chunked(e_, g_, w_, b_, lbl), e, g, w, b)
+    want = vjp((jnp.asarray(dbl), jnp.asarray(dlb)))
+    _, _, lse = K.rnnt_joint_fwd(*_torch(*arrays))
+    got = _pieces(*_torch(*arrays), lse, *_torch(dbl, dlb))
+    for name, a, b in zip(("de", "dg", "dw", "db"), got, want):
+        _assert_rel(a.numpy(), b, name)
+
+
+@pytest.mark.parametrize("B,T,U1,J,V", [PALLAS_SHAPES[0][:5], *RAGGED_SHAPES])
+def test_plain_dlogits_match_the_vjp_of_jax_log_softmax(B, T, U1, J, V):
+    """The dlogits launch's plain version against JAX's VJP of the blank
+    and label log-probs of the same logits."""
+    arrays = _inputs(B, T, U1, J, V, seed=J + V)
+    dbl, dlb = _cotangents(B, T, U1, seed=J)
+    e, g, w, b, lbl = _torch(*arrays)
+    h = tref.rnnt_joint_h_ref(e, g)
+    logits = (h @ w + b).numpy()
+    _, _, lse = K.rnnt_joint_fwd(e, g, w, b, lbl)
+    got = tref.rnnt_joint_dlogits_ref(h, w, b, lbl, lse, *_torch(dbl, dlb))
+
+    def log_probs(x):
+        lp = jax.nn.log_softmax(x, axis=-1)
+        idx = jnp.broadcast_to(jnp.asarray(arrays[4])[:, None, :, None], (B, T, U1, 1))
+        return lp[..., 0], jnp.take_along_axis(lp, idx, axis=-1)[..., 0]
+
+    _, vjp = jax.vjp(log_probs, jnp.asarray(logits))
+    (want,) = vjp((jnp.asarray(dbl), jnp.asarray(dlb)))
+    _assert_rel(got.numpy(), want, "dlogits")
+
+
+@pytest.mark.parametrize("B,T,U1,J,V", [(2, 4, 3, 8, 16), *RAGGED_SHAPES])
+def test_plain_backward_pieces_compose_to_the_plain_backward(B, T, U1, J, V):
+    """On the CPU the wrapper's backward is the chunked plain version; the
+    pieces the card runs compose to it (fp32 sums over another chunking:
+    within 1e-6 of each gradient's largest entry)."""
+    arrays = _torch(*_inputs(B, T, U1, J, V, seed=7))
+    _, _, lse = K.rnnt_joint_fwd(*arrays)
+    cot = _torch(*_cotangents(B, T, U1, seed=8))
+    want = K.rnnt_joint_bwd(*arrays, lse, *cot)
+    got = _pieces(*arrays, lse, *cot)
+    for name, a, b in zip(("de", "dg", "dw", "db"), got, want):
+        top = float(b.abs().max())
+        np.testing.assert_allclose(a.numpy() / top, b.numpy() / top, atol=1e-6, rtol=0,
+                                   err_msg=name)
+    h = tref.rnnt_joint_h_ref(*arrays[:2])
+    assert h.shape == (B, T, U1, J)
+    assert tref.rnnt_joint_dlogits_ref(h, *arrays[2:], lse, *cot).shape == (B, T, U1, V)
+
+
+@pytest.mark.parametrize("J,need", [(640, 100_000), (4096, 600_000)])
+def test_shared_memory_rule_is_the_forwards_only(monkeypatch, J, need):
+    """K3 holds a tile's h rows in shared memory, so its wrapper refuses a
+    J whose forward would not fit the card; the backward's kernels take the
+    same shared memory at every J, so the rule asks for the forward alone."""
+    asked = []
+
+    class Lib:
+        def rnnt_joint_fwd_smem_bytes(self, j):
+            asked.append(j)
+            return need
+
+    class Props:
+        shared_memory_per_block_optin = 232_448
+
+    monkeypatch.setattr(K, "_lib", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda index: Props())
+    refusal = K._smem_refusal.__wrapped__(0, J)
+    assert asked == [J]
+    if need > Props.shared_memory_per_block_optin:
+        assert refusal.startswith(f"rnnt_joint_fwd needs {need} B") and f"J={J}" in refusal
+    else:
+        assert refusal is None
