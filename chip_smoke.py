@@ -13,9 +13,11 @@ Phases, each printed as it ends:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the training and decoding paths give it, with its time beside
    its bound, the plain version's time and a PyTorch yardstick: K1 (LSTM
-   gates), K3/K4 (the fused joint) at the paper-width client step and at
-   a ragged small shape (K4's five launches each alone as well, its
-   products beside the same run's fp32 torch.matmul), and K2 (the
+   gates), K3/K4 (the fused joint) at the paper-width client step, at
+   a ragged small shape and at a J that is not a multiple of 4 (K3's three
+   launches and K4's five each alone as well, the products beside the same
+   run's fp32 torch.matmul; K3 twice and replayed from one CUDA graph for
+   the same bits), and K2 (the
    full-sequence recurrence) at the
    paper's encoder and predictor layers, the decoder's encoder and a
    ragged small shape; every backward runs twice and must give the same
@@ -31,13 +33,18 @@ Phases, each printed as it ends:
    streamed and nearest, the int4 nibble pack and unpack, and the top-k
    scatter-add) run at K=4 clients on the paper's largest leaf
    (n=5,308,416), at n=4,096 and at ragged sizes, and must give the
-   plain versions' bits; the scatter-add runs twice for the same bits;
+   plain versions' bits; the scatter-add runs twice for the same bits,
+   also with -0.0 values, negative and zero weights and indices out of
+   range, from one CUDA graph at the largest leaf, and at n=10**8 (K=4,
+   1 % a row: its rows sorted by window groups);
    K7's dequantize and K9's top-k unpack (the slow path's packed wire)
    run at the same shapes, K9 also with repeated and out-of-range
    indices and runs across its windows' edges (its starts and slots held
-   to the plain layout's, and replayed from one CUDA graph),
+   to the plain layout's, and replayed from one CUDA graph), and past the
+   sort's histogram (n=75,497,473 and 2·10⁸, by window groups),
    and the quantizer also with a scale for each client; all bitwise;
-   K9's device time by launch under the profiler; K2's dw product also
+   K8's and K9's device time by launch under the profiler; K10 refusing a
+   grad-requiring call; K2's dw product also
    at ragged shapes (S·B = 37, H = 100 and 99) and with its occupancy;
    K10 (flash attention) and K11 (flash decode) in bf16 and fp32 at
    whisper-base's shapes (the encoder, B=4, 1,500 frames, 8 heads of 64;
@@ -156,6 +163,10 @@ JOINT_FWD_ATOL = 1e-4
 # Gradients in fp32, relative to each gradient's largest entry: sums of
 # V products (dh) and of B·T·U1 products (dW, db) in another order.
 JOINT_BWD_REL_TOL = 1e-4
+# K3/K4's shapes: the paper-width client step, a ragged small shape, and a
+# J that is not a multiple of 4 (B, T, U1, J, V, e and g's dtype name)
+JOINT_SHAPES = ((4, 64, 33, 640, 4096, "bfloat16"), (3, 24, 13, 64, 64, "float32"),
+                (2, 16, 9, 30, 200, "float32"))
 
 # K2 against its plain versions, all with bf16 xg and fp32 w_hh. ys in
 # bf16: both carry h in fp32, with the 1152-term sums in another order,
@@ -200,7 +211,7 @@ COMPRESSED = (
 WIRE_LAUNCHES = {
     "int4_packed": ("wire_quantize", "nibble_unpack"),
     "int4_packed_ef": ("wire_quantize", "nibble_pack", "nibble_unpack"),
-    "topk5_ef": ("topk_scatter_add",),
+    "topk5_ef": ("topk_scatter_add", "topk_scatter_add_sort", "topk_scatter_add_sum"),
     "int8_nearest": ("wire_quantize",),
 }
 # the slow path's paper-width runs (a robust aggregator or a delta
@@ -230,11 +241,13 @@ SLOWPATH = (
 # held cuda against cpu at this tolerance, the others bit for bit
 SLOW_NORMAL_TOL = 1e-5
 WIRE_KERNELS = ("wire_quantize", "nibble_pack", "nibble_unpack", "dequantize",
-                "topk_scatter_add", "topk_unpack")
+                "topk_scatter_add", "topk_scatter_add_sort", "topk_scatter_add_sum",
+                "topk_unpack")
 N_LEAVES = 35
-# the joint's kernels (K3, then K4's five launches), each launched once a
-# client step on use_kernel=True
-JOINT_KERNELS = ("rnnt_joint_fwd", "rnnt_joint_bwd_h", "rnnt_joint_bwd_dlogits",
+# the joint's kernels (K3's calls and its three launches, then K4's five),
+# each launched once a client step on use_kernel=True
+JOINT_KERNELS = ("rnnt_joint_fwd", "rnnt_joint_fwd_h", "rnnt_joint_fwd_logits",
+                 "rnnt_joint_fwd_lse", "rnnt_joint_bwd_h", "rnnt_joint_bwd_dlogits",
                  "rnnt_joint_bwd_dh", "rnnt_joint_bwd_reduce", "rnnt_joint_bwd_dw")
 
 
@@ -525,14 +538,16 @@ def _k1_refusals(torch) -> None:
 
 def phase_joint_kernels(torch):
     """K3 and K4 against their plain versions at the paper-width client
-    step (B=4, T'=64, U1=33, J=640, V=4096; bf16 e and g, fp32 W and b)
-    and at a ragged small shape (B=3, T=24, U1=13, J=64, V=64, fp32): the
-    whole backward, then each of its five launches alone on the same
-    inputs as its plain version. The backward runs twice and must give
-    the same bits. Each launch is timed beside its bound, its plain version
-    and, for the products, the same run's fp32 ``torch.matmul`` of its
-    product (TF32 off), a yardstick. Returns {kernel: row at the
-    paper-width shape}."""
+    step (B=4, T'=64, U1=33, J=640, V=4096; bf16 e and g, fp32 W and b),
+    at a ragged small shape (B=3, T=24, U1=13, J=64, V=64, fp32) and at a
+    J that is not a multiple of 4 (B=2, T=16, U1=9, J=30, V=200, fp32):
+    the whole forward and backward, then each of K3's three launches and
+    K4's five alone on the same inputs as its plain version. The forward
+    and the backward run twice and must give the same bits, and the
+    forward is replayed twice from one CUDA graph for them too. Each launch
+    is timed beside its bound, its plain version and, for the products, the
+    same run's fp32 ``torch.matmul`` of its product (TF32 off), a
+    yardstick. Returns {kernel: row at the paper-width shape}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rnnt_joint as K
 
@@ -546,14 +561,15 @@ def phase_joint_kernels(torch):
                    for x, y in zip(got, want))
 
     rows = {}
-    for B, T, U1, J, V, dtype in ((4, 64, 33, 640, 4096, torch.bfloat16),
-                                  (3, 24, 13, 64, 64, torch.float32)):
-        tag = f"B={B} T={T} U1={U1} J={J} V={V} {str(dtype).split('.')[1]}"
+    for B, T, U1, J, V, dname in JOINT_SHAPES:
+        dtype = getattr(torch, dname)
+        tag = f"B={B} T={T} U1={U1} J={J} V={V} {dname}"
         inputs = (rnd(B, T, J, scale=0.5).to(dtype), rnd(B, U1, J, scale=0.5).to(dtype),
                   rnd(J, V, scale=J ** -0.5), rnd(V, scale=0.1),
                   torch.randint(0, V, (B, U1), generator=gen, device="cuda",
                                 dtype=torch.int32))
         got_f = K.rnnt_joint_fwd(*inputs)
+        _check_joint_fwd_bits(torch, K, inputs, got_f, tag)
         bwd_args = (*inputs, got_f[2], rnd(B, T, U1), rnd(B, T, U1))
         got_b = K.rnnt_joint_bwd(*bwd_args)
         again = K.rnnt_joint_bwd(*bwd_args)
@@ -572,10 +588,14 @@ def phase_joint_kernels(torch):
                                  f"{JOINT_BWD_REL_TOL}")
         log(f"[kernels] rnnt_joint {tag}: fwd max|err| {err_f:.2e} (tol {JOINT_FWD_ATOL}); "
             f"bwd |err|/max " + ", ".join(f"{k} {v:.2e}" for k, v in rel_b.items())
-            + f" (tol {JOINT_BWD_REL_TOL}); backward bitwise repeatable")
-        # the backward's five launches one by one, each on the kernel's
-        # input before it, held to its plain version on that input
+            + f" (tol {JOINT_BWD_REL_TOL}); forward (twice, and two replays of one CUDA "
+            "graph) and backward bitwise repeatable")
+        # K3's three launches and the backward's five one by one, each on
+        # the kernel's input before it, held to its plain version on that
+        # input
         e, g, w, b, labels, lse, dbl, dlb = bwd_args
+        hf = K._fwd_h(e, g, U1)
+        logits = K._fwd_logits(hf, w, b)
         h = K._bwd_h(e, g, U1)
         dlogits, dh_fix = K._bwd_dlogits(h, w, b, labels, lse, dbl, dlb)
         dpre = K._bwd_dh(dlogits, dh_fix, labels, w, h)
@@ -589,37 +609,51 @@ def phase_joint_kernels(torch):
                                  f"the label, error relative to max {r_fix:.2e}")
         N = B * T * U1
         h2, d2 = h.reshape(N, J), dlogits.reshape(N, V)
-        # (name, kernel, plain, the fp32 product of a products' launch or
-        # None, bytes, operations)
         in_bytes = (B * T * J + B * U1 * J) * e.element_size()
         lattice, hb, db_, wb = N * 4, N * J * 4, N * V * 4, J * V * 4
+        # (name, kernel, plain, the fp32 product of a products' launch or
+        # None, bytes, operations, exponentials)
         launches = (
             ("rnnt_joint_fwd", lambda: K.rnnt_joint_fwd(*inputs),
              lambda: ref.rnnt_joint_fwd_ref(*inputs), lambda: torch.matmul(h2, w),
-             in_bytes + wb + V * 4 + B * U1 * 4 + 3 * lattice, 2 * N * J * V),
+             in_bytes + wb + V * 4 + B * U1 * 4 + 3 * lattice, 2 * N * J * V, 0),
+            ("rnnt_joint_fwd_h", lambda: K._fwd_h(e, g, U1),
+             lambda: ref.rnnt_joint_h_ref(e, g), None, in_bytes + hb, N * J, 0),
+            ("rnnt_joint_fwd_logits", lambda: K._fwd_logits(hf, w, b),
+             lambda: ref.rnnt_joint_logits_ref(hf, w, b), lambda: torch.matmul(h2, w),
+             hb + wb + V * 4 + db_, 2 * N * J * V, 0),
+            ("rnnt_joint_fwd_lse", lambda: K._fwd_lse(logits, labels),
+             lambda: ref.rnnt_joint_lse_ref(logits, labels), None,
+             db_ + B * U1 * 4 + 3 * lattice, 0, N * V),
             ("rnnt_joint_bwd_h", lambda: K._bwd_h(e, g, U1),
-             lambda: ref.rnnt_joint_h_ref(e, g), None, in_bytes + hb, N * J),
+             lambda: ref.rnnt_joint_h_ref(e, g), None, in_bytes + hb, N * J, 0),
             ("rnnt_joint_bwd_dlogits",
              lambda: K._bwd_dlogits(h, w, b, labels, lse, dbl, dlb)[0],
              lambda: ref.rnnt_joint_dlogits_ref(h, w, b, labels, lse, dbl, dlb),
              lambda: torch.matmul(h2, w), hb + wb + V * 4 + B * U1 * 4 + 3 * lattice + db_,
-             2 * N * J * V),
+             2 * N * J * V, 0),
             ("rnnt_joint_bwd_dh", lambda: K._bwd_dh(dlogits, dh_fix, labels, w, h),
              lambda: ref.rnnt_joint_dpre_ref(dlogits, w, h), lambda: torch.matmul(d2, w.T),
-             db_ + wb + 2 * hb, 2 * N * J * V),
+             db_ + wb + 2 * hb, 2 * N * J * V, 0),
             ("rnnt_joint_bwd_reduce", lambda: K._bwd_reduce(dpre),
              lambda: ref.rnnt_joint_bwd_reduce_ref(dpre), None,
-             (N + B * T + B * U1) * J * 4, 2 * N * J),
+             (N + B * T + B * U1) * J * 4, 2 * N * J, 0),
             ("rnnt_joint_bwd_dw", lambda: K._bwd_dw(h, dlogits),
              lambda: ref.rnnt_joint_dw_ref(h, dlogits), lambda: torch.matmul(h2.T, d2),
-             hb + db_ + wb + V * 4, 2 * N * J * V),
+             hb + db_ + wb + V * 4, 2 * N * J * V, 0),
         )
         errs = {"rnnt_joint_fwd": err_f}
-        for name, kernel, plain, _, _, _ in launches[1:]:
+        for name, kernel, plain, _, _, _, _ in launches[1:]:
             got, want = kernel(), plain()
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
             torch.cuda.synchronize()
             errs[name] = _max_err(torch, got, want)
+            if name.startswith("rnnt_joint_fwd"):  # log-probs and logits: absolute
+                if errs[name] > JOINT_FWD_ATOL:
+                    raise AssertionError(f"{name} {tag}: max|err| {errs[name]:.2e} > "
+                                         f"{JOINT_FWD_ATOL}")
+                log(f"[kernels] {name} {tag}: max|err| {errs[name]:.2e} (tol {JOINT_FWD_ATOL})")
+                continue
             r = rel(got, want)
             if r > JOINT_BWD_REL_TOL:
                 raise AssertionError(f"{name} {tag}: error relative to max {r:.2e} > "
@@ -638,15 +672,16 @@ def phase_joint_kernels(torch):
             f"{hb} B, dlogits {db_} B, dh_fix {lattice * 2} B): ms per call eager/graph: "
             + ", ".join(f"{w_} {e_:.3f}/{g_:.3f}" for w_, (e_, g_) in whole.items())
             + f"; bound {bound_ms:.3f} ms ({bound_by}, {6 * N * J * V} flop)")
-        for name, kernel, plain, product, nbytes, ops in launches:
+        for name, kernel, plain, product, nbytes, ops, exps in launches:
             t = {what: (cuda_ms(torch, fn, n_eager), graph_ms(torch, fn, n_graph))
                  for what, fn in (("kernel", kernel), ("plain", plain),
                                   ("torch.matmul", product)) if fn is not None}
             t.setdefault("torch.matmul", (None, None))
-            bound_ms, bound_by = _bound(nbytes, ops)
+            bound_ms, bound_by = _bound(nbytes, ops, exps=exps)
             log(f"[kernels] {name} {tag}: max|err| {errs[name]:.2e}; us per call eager/graph: "
                 + ", ".join(f"{w_} {_us(e_)}/{_us(g_)}" for w_, (e_, g_) in t.items())
-                + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops} flop, {nbytes} B); "
+                + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops} flop, {exps} exp, "
+                f"{nbytes} B); "
                 f"graph time / bound {t['kernel'][1] / bound_ms:.2f}"
                 + (f", eager time / torch.matmul's {t['kernel'][0] / t['torch.matmul'][0]:.2f}"
                    if product is not None else ""))
@@ -654,8 +689,17 @@ def phase_joint_kernels(torch):
                 rows[name] = {"max_abs_err": errs[name], "ms": t["kernel"][0],
                               "plain_ms": t["plain"][0], "bound_ms": bound_ms,
                               "bound_by": bound_by, "library_ms": t["torch.matmul"][0]}
-        del h, dlogits, dh_fix, dpre, h2, d2
+        del h, dlogits, dh_fix, dpre, h2, d2, hf, logits
     return rows
+
+
+def _check_joint_fwd_bits(torch, K, inputs, got, tag: str) -> None:
+    """K3 a second time, and replayed twice from one CUDA graph: the
+    first call's bits each time."""
+    runs = [K.rnnt_joint_fwd(*inputs), *_graph_outputs(torch, lambda: K.rnnt_joint_fwd(*inputs))]
+    for what, outs in zip(("a second call", "replay 1", "replay 2"), runs):
+        if not all(torch.equal(x, y) for x, y in zip(outs, got)):
+            raise AssertionError(f"rnnt_joint_fwd {tag}: {what} differs from the first call")
 
 
 def _rel_err(got, want) -> float:
@@ -674,8 +718,9 @@ SCAN_BWD_SHAPES = (("B=5", 17, 5, 1152), ("B=8", 17, 8, 1152), ("partial block",
 
 
 def _graph_outputs(torch, fn, replays: int = 2):
-    """The outputs of ``fn`` after each of ``replays`` replays of one CUDA
-    graph that captured one call, cloned after each replay."""
+    """The outputs of ``fn`` (a tensor or a tuple of them) after each of
+    ``replays`` replays of one CUDA graph that captured one call, zeroed
+    before each replay and cloned after it."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -684,8 +729,11 @@ def _graph_outputs(torch, fn, replays: int = 2):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fn()
+    out = out if isinstance(out, (tuple, list)) else (out,)
     got = []
     for _ in range(replays):
+        for o in out:
+            o.zero_()
         graph.replay()
         torch.cuda.synchronize()
         got.append([o.clone() for o in out])
@@ -966,12 +1014,13 @@ def _maybe_graph_ms(torch, fn, n: int, what: str):
         return None
 
 
-def _unpack_edge_payload(torch, gen, K: int, k: int, n: int, seg: int):
+def _unpack_edge_payload(torch, gen, K: int, k: int, n: int, seg: int, group: int = 0):
     """(K, 2k + 1) int32 indices for K9: drawn with repeats, the first and
     last entries of a row equal, and where a row has 12 or more entries,
     repeats at both sides of the first window edge (``seg``; the middle
-    for n <= seg) and at n - 1, and indices out of range (-1, n,
-    2**31 - 1)."""
+    for n <= seg), at both sides of the first window group's edge
+    (``group`` elements, where n is past it) and at n - 1, and indices out
+    of range (-1, n, 2**31 - 1)."""
     dup = torch.randint(0, n, (K, 2 * k + 1), generator=gen, device="cuda", dtype=torch.int32)
     dup[:, -1] = dup[:, 0]
     w = dup.shape[1]
@@ -983,19 +1032,40 @@ def _unpack_edge_payload(torch, gen, K: int, k: int, n: int, seg: int):
         dup[:, 4::13] = -1
         dup[:, 5::17] = n
         dup[:, 6::19] = 2**31 - 1
+        if 0 < group < n:
+            dup[:, w // 2::23] = group - 1
+            dup[:, w // 2 + 1::29] = group
     return dup
 
 
 # K9's routes the path's shapes do not take: int64 indices (clamped to
-# [-1, n] before the kernel, some past int32's range), the largest n the
-# kernel takes (36 Ki windows: the sort's shared histogram at its limit),
-# and k >= 2**21 (the window place in an array of its own).
+# [-1, n] before the kernel, some past int32's range), the largest n of one
+# histogram (36 Ki windows: the sort's shared histogram at its limit),
+# k >= 2**21 (the window place in an array of its own), and the rows the
+# sort takes by window groups: one element past the histogram's limit,
+# about 2·10⁸, and a group edge with k >= 2**21.
 # (K, k, n, index dtype)
 UNPACK_ROUTES = ((1, 1000, 30_000_000, "int64"), (1, 4096, 75_497_472, "int32"),
-                 (1, 2**21 + 5, 4_194_304, "int32"))
+                 (1, 2**21 + 5, 4_194_304, "int32"), (1, 4096, 75_497_473, "int32"),
+                 (2, 2**21 + 5, 70_000_000, "int32"))
+# the grouped route on the duplicate / out-of-range / window-edge payload,
+# K=1: (k, n); the payload has 2k + 1 entries a row
+UNPACK_GROUPED = ((755_000, 75_497_473), (2_000_000, 200_000_000))
 
 
 def _check_unpack_routes(torch, W, ref, gen) -> None:
+    for k, n in UNPACK_GROUPED:
+        tag = f"K=1 k={2 * k + 1} n={n} duplicate, out-of-range and window-edge indices"
+        dup = _unpack_edge_payload(torch, gen, 1, k, n, W.SEGMENT,
+                                   W.UNPACK_GROUP_WINDOWS * W.SEGMENT)
+        vals = torch.randn(dup.shape, generator=gen, device="cuda")
+        got, scratch = W._topk_unpack_kernels(vals, dup, n)
+        _bitwise(torch, got, ref.topk_unpack_ref(vals, dup, n), f"topk_unpack {tag}")
+        _check_unpack_layout(torch, W, W.kernel_layout(scratch, 1, dup.shape[1], n), dup, n, tag)
+        log(f"[kernels] topk_unpack {tag} ({-(-n // W.SEGMENT)} windows a row, sorted by "
+            f"window groups of {W.UNPACK_GROUP_WINDOWS}): bitwise equal to the plain version, "
+            "its layout the plain one's")
+        del got, scratch, dup, vals
     for K, k, n, dtype in UNPACK_ROUTES:
         tag = f"K={K} k={k} n={n} {dtype} indices"
         idx = torch.randint(-3, n + 3, (K, k), generator=gen, device="cuda",
@@ -1010,6 +1080,26 @@ def _check_unpack_routes(torch, W, ref, gen) -> None:
             f"{-(-k // W.UNPACK_CHUNK)} chunks): bitwise equal to the plain version, its layout "
             "the plain one's")
         del got, scratch
+
+
+def _check_scatter_add_large(torch, W, ref, gen) -> None:
+    """K8 at SCATTER_ADD_LARGE against its plain version bitwise, twice and
+    from one CUDA graph."""
+    K, n = SCATTER_ADD_LARGE
+    k = n // 100
+    pool = torch.randperm(n, generator=gen, device="cuda")[:2 * k]
+    idx = torch.stack([pool[torch.randperm(2 * k, generator=gen, device="cuda")[:k]]
+                       for _ in range(K)]).to(torch.int32)
+    vals = torch.randn((K, k), generator=gen, device="cuda")
+    weights = torch.tensor([4.0, 2.0, 3.0, 1.0], device="cuda")
+    tag = f"K={K} k={k} n={n}"
+    _check_scatter_add(torch, W, ref, vals, idx, weights, n, tag, graph=True)
+    shared = K * k - int(torch.unique(idx).numel())
+    log(f"[kernels] topk_scatter_add {tag} ({-(-n // W.SEGMENT)} windows, sorted by window "
+        f"groups of {W.UNPACK_GROUP_WINDOWS}; {shared} indices picked by more than one "
+        "client): bitwise equal to the plain version, twice and from one CUDA graph")
+    _log_launch_times(torch, "topk_scatter_add", lambda: W.topk_scatter_add(vals, idx, weights, n),
+                      ("topk_unpack", "topk_scatter_add"), tag, calls=5)
 
 
 def _check_unpack_layout(torch, W, layout, idx, n: int, tag: str) -> None:
@@ -1050,28 +1140,52 @@ def _check_unpack_graph(torch, W, values, idx, n: int, want, tag: str) -> None:
     del graph
 
 
-def _log_unpack_kernels(torch, W, values, idx, n: int, tag: str, calls: int = 20) -> None:
-    """Each of K9's launches alone: device time by kernel under the
-    profiler over ``calls`` wrapper calls."""
+def _log_launch_times(torch, what: str, fn, names, tag: str, calls: int = 20) -> None:
+    """Each launch of a wrapper's call alone: device time by kernel (names
+    holding one of ``names``, and any memset) under the profiler over
+    ``calls`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
-    W.topk_unpack(values, idx, n)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            W.topk_unpack(values, idx, n)
+            fn()
         torch.cuda.synchronize()
-    by_name = {name: t for name, (t, c) in _device_times(torch, prof).items()
-               if "topk_unpack" in name or "emset" in name}
+    by_name = {name.replace("(anonymous namespace)::", "").split("(")[0]: t / calls
+               for name, (t, c) in _device_times(torch, prof).items()
+               if any(k in name for k in names) or "emset" in name}
     if not by_name:
-        log(f"[kernels] topk_unpack {tag}: the profiler recorded no device events: "
+        log(f"[kernels] {what} {tag}: the profiler recorded no device events: "
             "per-kernel times not measured")
         return
-    parts = ", ".join(f"{name.replace('(anonymous namespace)::', '').split('(')[0]} "
-                      f"{t / calls:.2f}"
-                      for name, t in sorted(by_name.items(), key=lambda kv: -kv[1]))
-    log(f"[kernels] topk_unpack {tag}: device us a call by launch: {parts}; sum "
-        f"{sum(by_name.values()) / calls:.2f}")
+    parts = ", ".join(f"{name} {t:.2f}" for name, t in sorted(by_name.items(),
+                                                               key=lambda kv: -kv[1]))
+    log(f"[kernels] {what} {tag}: device us a call by launch: {parts}; sum "
+        f"{sum(by_name.values()):.2f}")
+
+
+def _check_scatter_add(torch, W, ref, values, idx, weights, n: int, tag: str,
+                       graph: bool = False):
+    """K8 against its plain version bitwise, twice for the same bits and,
+    with ``graph``, replayed twice from one CUDA graph into a zeroed
+    output. Returns the kernel's output."""
+    dense = W.topk_scatter_add(values, idx, weights, n)
+    again = W.topk_scatter_add(values, idx, weights, n)
+    want = ref.topk_scatter_add_ref(values, idx, weights, n)
+    _bitwise(torch, dense, want, f"topk_scatter_add {tag}")
+    _bitwise(torch, again, dense, f"topk_scatter_add twice {tag}")
+    if graph:
+        replays = _graph_outputs(torch, lambda: W.topk_scatter_add(values, idx, weights, n))
+        for r, (out,) in enumerate(replays):
+            _bitwise(torch, out, want, f"topk_scatter_add from a CUDA graph, replay {r + 1} {tag}")
+    return dense
+
+
+# K8 past the histogram's windows: K=4 clients, k = 1 % of n a row, the
+# rows drawn from one pool of 2k indices (distinct within a row, shared
+# across rows), the sort by window groups
+SCATTER_ADD_LARGE = (4, 100_000_000)
 
 
 def phase_wire_kernels(torch):
@@ -1175,32 +1289,32 @@ def phase_wire_kernels(torch):
         _check_unpack_graph(torch, W, dvals, dup, n, want_dup, tag)
         n_dup = K * dup.shape[1] - sum(int(torch.unique(r).numel()) for r in dup)
         n_out = int(((dup < 0) | (dup >= n)).sum())
-        dense = W.topk_scatter_add(vals, idx, weights, n)
-        again = W.topk_scatter_add(vals, idx, weights, n)
-        _bitwise(torch, dense, ref.topk_scatter_add_ref(vals, idx, weights, n),
-                 f"topk_scatter_add {tag}")
-        _bitwise(torch, again, dense, f"topk_scatter_add twice {tag}")
+        dense = _check_scatter_add(torch, W, ref, vals, idx, weights, n, tag,
+                                   graph=n == WIRE_SIZES[0])
+        # negative and zero weights, -0.0 values, indices out of range
+        signed = vals.clone()
+        signed[:, ::5] = -0.0
+        bad_idx = idx.clone()
+        bad_idx[:, 1::9], bad_idx[:, 2::9], bad_idx[:, 3::9] = -1, n, 2**31 - 1
+        _check_scatter_add(torch, W, ref, signed, bad_idx,
+                           torch.tensor([-1.5, 0.0, 2.0, -0.0], device="cuda"), n,
+                           f"{tag} with -0.0 values, weights -1.5, 0, 2, -0 and indices "
+                           "out of range")
         shared = K * k - int(torch.unique(idx).numel())
         log(f"[kernels] wire {tag}: quantizer ({len(calls)} variants, per-client scales "
             f"included), nibble pack and unpack, dequantize (shared and per-client scale), "
             f"top-k scatter-add ({k} of each row, {shared} indices picked by more than one "
-            f"client), top-k unpack ({k} of each row; and {dup.shape[1]} a row with {n_dup} "
+            f"client; again with -0.0 values, negative and zero weights and indices out of "
+            f"range{'; replayed from one CUDA graph' if n == WIRE_SIZES[0] else ''}), top-k unpack ({k} of each row; and {dup.shape[1]} a row with {n_dup} "
             f"repeated indices, {n_out} out of range, runs across window edges: its layout "
             f"the plain one's, bitwise again from one CUDA graph) bitwise equal to the plain "
             f"versions; scatter-add bitwise repeatable")
         if n != WIRE_SIZES[0]:
             continue
         _check_unpack_routes(torch, W, ref, gen)
+        _check_scatter_add_large(torch, W, ref, gen)
 
         # times at the largest leaf, as the main path calls each kernel
-        sv, si, bounds = W.scatter_add_segments(vals, idx, weights, n)
-        out = torch.empty(n, device="cuda")
-
-        def scatter_kernel():  # the kernel alone, on the sorted payload
-            W._lib().topk_scatter_add(sv.data_ptr(), si.data_ptr(), bounds.data_ptr(),
-                                      out.data_ptr(), n, W.SEGMENT,
-                                      torch.cuda.current_stream().cuda_stream)
-
         flat_idx = idx.reshape(-1).long()
 
         def library_scatter():  # the same function by index_add_, deterministic
@@ -1236,10 +1350,13 @@ def phase_wire_kernels(torch):
             f"{_us(graph_ms(torch, library_unpack, 20))} us; the output's write alone "
             f"(torch.zeros of (K, n)) {_us(cuda_ms(torch, zeros, 20))}/"
             f"{_us(graph_ms(torch, zeros, 20))} us eager/graph")
-        _log_unpack_kernels(torch, W, vals, idx, n, tag)
+        _log_launch_times(torch, "topk_unpack", lambda: W.topk_unpack(vals, idx, n),
+                          ("topk_unpack",), tag)
+        _log_launch_times(torch, "topk_scatter_add",
+                          lambda: W.topk_scatter_add(vals, idx, weights, n),
+                          ("topk_unpack", "topk_scatter_add"), tag)
         t_lib_deq = cuda_ms(torch, library_dequantize, 50)
         m, nb, kn = K * k, (n + 1) // 2, K * n
-        nseg = -(-n // W.SEGMENT)
         keyed_int_ops = K * (nb * WIRE_BLOCK_INT_OPS + n * WIRE_ELEM_INT_OPS)
         cases = (
             # (name, variant, kernel, plain, library, bytes, int ops, fp ops);
@@ -1264,12 +1381,11 @@ def phase_wire_kernels(torch):
             ("dequantize", "int8 codes, per-client scale", lambda: W.dequantize(codes8, scales),
              lambda: ref.dequantize_ref(codes8, scales), t_lib_deq, kn + 4 * K + 4 * kn, 0, kn),
             ("topk_unpack", "wrapper as the path calls it: the chunk sort and the window "
-             "kernels", lambda: W.topk_unpack(vals, idx, n),
+             "kernels (one histogram, as before the window groups: 58.4 / 55.2 us on an H100 "
+             "80GB HBM3 at 700 W)", lambda: W.topk_unpack(vals, idx, n),
              lambda: ref.topk_unpack_ref(vals, idx, n), t_lib_unpack, 8 * m + 4 * kn, 0, 0),
-            ("topk_scatter_add", "kernel alone, on the sorted payload", scatter_kernel, None,
-             None, 8 * m + 4 * (nseg + 1) + 4 * n, 0, m),
-            ("topk_scatter_add", "wrapper as the path calls it: weights, sort, searchsorted, "
-             "kernel", lambda: W.topk_scatter_add(vals, idx, weights, n),
+            ("topk_scatter_add", "wrapper as the path calls it: the chunk sort and the "
+             "window sums", lambda: W.topk_scatter_add(vals, idx, weights, n),
              lambda: ref.topk_scatter_add_ref(vals, idx, weights, n), library_scatter,
              8 * m + 4 * K + 4 * n, 0, 2 * m),
         )
@@ -1658,12 +1774,16 @@ def _counts():
     return {"wire_quantize": KW.QUANTIZE_LAUNCHES, "nibble_pack": KW.PACK_LAUNCHES,
             "nibble_unpack": KW.UNPACK_LAUNCHES, "dequantize": KW.DEQUANTIZE_LAUNCHES,
             "topk_scatter_add": KW.SCATTER_ADD_LAUNCHES,
+            "topk_scatter_add_sort": KW.SCATTER_ADD_SORT_LAUNCHES,
+            "topk_scatter_add_sum": KW.SCATTER_ADD_SUM_LAUNCHES,
             "topk_unpack": KW.TOPK_UNPACK_LAUNCHES,
             "lstm_gates_fwd": K1.FWD_LAUNCHES, "lstm_gates_bwd": K1.BWD_LAUNCHES,
             "lstm_scan_fwd": K2.SCAN_FWD_LAUNCHES,
             "lstm_scan_bwd_gates": K2.SCAN_BWD_GATES_LAUNCHES,
             "lstm_scan_bwd": K2.SCAN_BWD_LAUNCHES, "lstm_scan_dw": K2.SCAN_DW_LAUNCHES,
-            "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_bwd_h": KJ.BWD_H_LAUNCHES,
+            "rnnt_joint_fwd": KJ.FWD_LAUNCHES, "rnnt_joint_fwd_h": KJ.FWD_H_LAUNCHES,
+            "rnnt_joint_fwd_logits": KJ.FWD_LOGITS_LAUNCHES,
+            "rnnt_joint_fwd_lse": KJ.FWD_LSE_LAUNCHES, "rnnt_joint_bwd_h": KJ.BWD_H_LAUNCHES,
             "rnnt_joint_bwd_dlogits": KJ.BWD_DLOGITS_LAUNCHES,
             "rnnt_joint_bwd_dh": KJ.BWD_DH_LAUNCHES,
             "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
@@ -1679,10 +1799,12 @@ def _zero_counts() -> None:
 
     KW.QUANTIZE_LAUNCHES = KW.PACK_LAUNCHES = KW.UNPACK_LAUNCHES = KW.SCATTER_ADD_LAUNCHES = 0
     KW.DEQUANTIZE_LAUNCHES = KW.TOPK_UNPACK_LAUNCHES = 0
+    KW.SCATTER_ADD_SORT_LAUNCHES = KW.SCATTER_ADD_SUM_LAUNCHES = 0
     K1.FWD_LAUNCHES = K1.BWD_LAUNCHES = 0
     K2.SCAN_FWD_LAUNCHES = K2.SCAN_BWD_GATES_LAUNCHES = K2.SCAN_BWD_LAUNCHES = 0
     K2.SCAN_DW_LAUNCHES = 0
-    KJ.FWD_LAUNCHES = KJ.BWD_H_LAUNCHES = KJ.BWD_DLOGITS_LAUNCHES = KJ.BWD_DH_LAUNCHES = 0
+    KJ.FWD_LAUNCHES = KJ.FWD_H_LAUNCHES = KJ.FWD_LOGITS_LAUNCHES = KJ.FWD_LSE_LAUNCHES = 0
+    KJ.BWD_H_LAUNCHES = KJ.BWD_DLOGITS_LAUNCHES = KJ.BWD_DH_LAUNCHES = 0
     KJ.BWD_REDUCE_LAUNCHES = KJ.BWD_DW_LAUNCHES = 0
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KA
@@ -1987,6 +2109,33 @@ def _attn_times(torch, kernel, plain, lib, n: int) -> dict:
 K10_BF16_DIFF_MAX = 0.02
 
 
+def _k10_refuses_grad(torch, KA) -> None:
+    """K10 has no backward: on the card a call in grad mode with an input
+    that requires grad raises before any launch; the same call under
+    torch.no_grad() launches."""
+    q = torch.randn((1, 16, 2, 64), device="cuda").to(torch.bfloat16).requires_grad_()
+    kv = q.detach()
+    before = KA.FWD_LAUNCHES
+    for args in ((q, kv, kv), (kv, kv, q)):
+        try:
+            KA.flash_attention(*args)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError("flash_attention returned an output without a gradient for "
+                                 "an input that requires one")
+    if KA.FWD_LAUNCHES != before:
+        raise AssertionError("flash_attention launched before refusing a grad-requiring call")
+    with torch.no_grad():
+        out = KA.flash_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    if KA.FWD_LAUNCHES != before + 1 or out.requires_grad:
+        raise AssertionError("flash_attention under no_grad did not launch once")
+    log("[kernels] flash_attention: a call in grad mode with q (or v) requiring grad raises "
+        "on the card (no launch); under torch.no_grad() it launches")
+
+
 def phase_attention_kernels(torch):
     """K10 and K11 against their plain versions at K10_SHAPES and
     K11_SHAPES (and K11 at the split edges of the self cache), in bf16 and
@@ -2004,6 +2153,7 @@ def phase_attention_kernels(torch):
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(16)
+    _k10_refuses_grad(torch, KA)
     rows = {}
     for name, B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale in K10_SHAPES:
         for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -2509,7 +2659,12 @@ def main() -> int:
         "lstm_scan_bwd_gates": (scan, "src/repro/kernels/lstm_gates.py:260"),
         # the dw_hh accumulation of _scan_bwd_kernel (:280-282)
         "lstm_scan_dw": (scan, "src/repro/kernels/lstm_gates.py:280"),
+        # K3 (rnnt_joint_fused, :86) in three launches: h, the logits and
+        # their running log-sum-exp of its _kernel (:42, :52, :58)
         "rnnt_joint_fwd": (joint, "src/repro/kernels/rnnt_joint.py:86"),
+        "rnnt_joint_fwd_h": (joint, "src/repro/kernels/rnnt_joint.py:42"),
+        "rnnt_joint_fwd_logits": (joint, "src/repro/kernels/rnnt_joint.py:52"),
+        "rnnt_joint_fwd_lse": (joint, "src/repro/kernels/rnnt_joint.py:58"),
         # K4 (rnnt_joint_bwd_fused, :251) in five launches: h, which both of
         # its kernels recompute (_bwd_eg_kernel :175, _bwd_w_kernel :218)
         "rnnt_joint_bwd_h": (joint, "src/repro/kernels/rnnt_joint.py:175"),

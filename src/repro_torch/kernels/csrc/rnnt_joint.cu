@@ -16,58 +16,64 @@
 //   dpre    = (dlogits @ Wᵀ)·(1 − h²)
 //   de[b,t] = Σ_u dpre,  dg[b,u] = Σ_t dpre,  dW = Σ_n h ⊗ dlogits,  db = Σ_n dlogits.
 //
-// The forward never holds the (B, T, U1, V) logits in device memory: it
-// writes 3 floats per lattice point. The backward writes their cotangent
-// once and reads it twice.
+// The forward writes the (B, T, U1, V) logits once and reads them once;
+// the backward writes their cotangent once and reads it twice.
 //
 // Bound on an H100 SXM: the operations. The forward is one
 // (N × J)·(J × V) product, N = B·T·U1; at the paper-width client step
 // (N = 8,448, J = 640, V = 4,096) that is 44.3 GFLOP, 0.66 ms at the
 // 67 TFLOP/s fp32 rate, while its inputs are about 11 MB (W is 10.5 MB
-// and stays in the 50 MB L2). The backward computes the logits once and
-// adds the dh and dW products: 133 GFLOP, 1.98 ms; its dlogits (138.4 MB
-// at that width) written once and read twice move 415 MB, about 0.12 ms
-// at 3.35 TB/s. The kernels use fp32 FMA on the CUDA cores (no tensor
-// cores: TF32 or bf16 wgmma would change the numbers), so this is the
-// bound they are held to.
+// and stays in the 50 MB L2); its logits scratch (138.4 MB written and
+// read, about 0.08 ms at 3.35 TB/s) is not counted, as the function does
+// not need it. The backward computes the logits once and adds the dh and
+// dW products: 133 GFLOP, 1.98 ms; its dlogits (138.4 MB at that width)
+// written once and read twice move 415 MB, about 0.12 ms at 3.35 TB/s.
+// The kernels use fp32 FMA on the CUDA cores (no tensor cores: TF32 or
+// bf16 wgmma would change the numbers), so this is the bound they are
+// held to.
 //
 // Design. The TPU kernel walks a (b, t-tile, u-tile, v-slab) grid in
 // order and carries the online max/sum-exp and the dh sum in scratch
 // from one grid step to the next, and keeps the logits out of HBM because
-// its VMEM is small. Here blocks run in parallel and in no order:
+// its VMEM is small. Here blocks run in parallel and in no order, and
+// every product runs on the register-blocked fp32 tile product of
+// csrc/tile_product.cuh (64 x 128 tiles of 128 threads, 8 x 8 outputs a
+// thread, 3 blocks an SM), each at the card's occupancy, with scratch the
+// wrapper allocates:
 //
-// - joint_fwd_kernel (K3): one block per tile of kM consecutive lattice
-//   points (the flattened (b, t, u) index, so a ragged T or U1 wastes
-//   at most one partial tile: 8,448 points are 264 full tiles). h for
-//   the tile stays in shared memory; W streams through shared memory in
-//   (kKC × kTV) chunks for each vocab slab; each thread keeps a 4 × 4
-//   register tile of logits; the online max and sum-exp of each row are
-//   reduced across its warp with shuffles. Ragged V is masked. h rows are
-//   padded to a multiple of 4 floats, so the product reads h from shared
-//   memory 16 bytes at a time.
-// - K4 is five launches, the three products on the register-blocked
-//   fp32 tile product of csrc/tile_product.cuh (64 x 128 tiles of 128
-//   threads, 8 x 8 outputs a thread, 3 blocks an SM), each at the card's
-//   occupancy, with scratch the wrapper allocates: h (N × J fp32,
-//   21,626,880 B at the paper width), dlogits (N × V fp32, 138,412,032 B)
-//   and dh_fix (N × 2 fp32, 67,584 B). joint_h_kernel writes h = tanh(e +
-//   g) once; joint_dlogits_kernel computes h·W and writes dlogits from the
-//   logits in its epilogue, and dh_fix, dh's operand at v = 0 and at the
-//   label (see dlogit_dh); joint_dh_kernel computes dlogits·Wᵀ with those
-//   two values replaced and writes dpre = dh·(1 − h²);
+// - K3 is three launches. joint_h_kernel writes h = tanh(e + g) (N × J
+//   fp32, 21,626,880 B at the paper width); joint_logits_kernel computes
+//   h·W + bias into logits (N × V fp32, 138,412,032 B), each logit one
+//   fmaf chain over j in order from 0 plus the bias; joint_lse_kernel,
+//   one warp a lattice point, takes the log-sum-exp over V in 128-column
+//   slabs in slab order (lane tx holds columns v0 + tx + 32c, c = 0..3: the
+//   slab's max by a shuffle tree, its sum of exponentials by lane in c
+//   order then by the xor tree, merged into the running sum as l·e^(m −
+//   m') + s), and the blank and label log-probs. The design before, one
+//   block a 32-point tile with h in shared memory and W streamed through
+//   it, took these sums in this order: this design keeps its bits, at 3
+//   blocks an SM where it held 2, with shared memory that no longer grows
+//   with J.
+// - K4 is five launches: joint_h_kernel again; joint_dlogits_kernel
+//   computes h·W and writes dlogits from the logits in its epilogue
+//   (N × V fp32), and dh_fix (N × 2 fp32, 67,584 B), dh's operand at v = 0
+//   and at the label (see dlogit_dh); joint_dh_kernel computes dlogits·Wᵀ
+//   with those two values replaced and writes dpre = dh·(1 − h²);
 //   joint_bwd_reduce_kernel takes de and dg as sums over u and over t in
 //   a fixed order (the TPU sums its dg partials outside the kernel too,
 //   rnnt_joint.py:309); joint_dw_kernel computes hᵀ·dlogits into dW, and
 //   its first row of tiles sums db from the same dlogits slabs. No
-//   atomics. Each logit is one fmaf chain over j in order, dh one chain
-//   for each 128-column vocab slab and dW and db one for each 32-point
-//   lattice tile, added into running sums in order: the bits of the
-//   design before, which recomputed the logits in two kernels.
+//   atomics. Each logit is one fmaf chain over j in order from 0, dh one
+//   chain for each 128-column vocab slab and dW and db one for each
+//   32-point lattice tile, added into running sums in order: the bits of
+//   the design before, which recomputed the logits in two kernels.
 //
-// Every sum is taken in a fixed order, so the backward gives the same
-// bits on every run. Math is fp32 with expf/logf/tanhf (no fast math);
-// e and g may be fp32 or bf16, W, bias, lse and the cotangents are fp32,
-// labels int32 in [0, V).
+// Every (N × V) index is 64-bit.
+//
+// Every sum is taken in a fixed order, so the forward and the backward
+// give the same bits on every run. Math is fp32 with expf/logf/tanhf (no
+// fast math); e and g may be fp32 or bf16, W, bias, lse and the cotangents
+// are fp32, labels int32 in [0, V).
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes. Each
@@ -85,10 +91,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps; warp ty owns rows 4·ty .. 4·ty + 3
-constexpr int kM = 32;         // lattice points per tile
-constexpr int kKC = 32;        // rows of W per streamed chunk
-constexpr int kTV = 128;       // vocab slab of the forward and of the dh runs
+constexpr int kThreads = 256;  // 8 warps: the log-sum-exp's lattice points a block
+// the lattice tile and vocab slab of the designs before, whose sums these
+// keep: dW's and db's runs, and the forward's and dh's slabs
+constexpr int kM = 32;
+constexpr int kTV = 128;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -116,92 +123,6 @@ struct Lattice {
   int T, U1, J, V;
 };
 
-// Row stride of the h tile in shared memory: J rounded up to 4, so that
-// four consecutive h values of a row load as one 16-byte access; the
-// padding columns hold zeros.
-__host__ __device__ __forceinline__ int padded(int J) { return (J + 3) & ~3; }
-
-// Fill hs (kM × padded(J)) with h = tanh(e + g) for the tile starting
-// at n0 (zero rows past N), one warp per row, and the tile's per-row
-// labels.
-template <typename T>
-__device__ void load_tile(const Lattice& L, const T* __restrict__ e, const T* __restrict__ g,
-                          const int* __restrict__ labels, long long n0, float* hs, int* lbl_s) {
-  const int J = L.J, Jp = padded(J);
-  const int lane = threadIdx.x & 31;
-  for (int m = threadIdx.x >> 5; m < kM; m += kThreads / 32) {
-    const long long n = n0 + m;
-    float* hrow = hs + m * Jp;
-    if (n < L.N) {
-      const long long bt = n / L.U1;  // b·T + t
-      const long long b = bt / L.T, u = n - bt * L.U1;
-      const T* er = e + bt * J;
-      const T* gr = g + (b * L.U1 + u) * J;
-      for (int j = lane; j < Jp; j += 32)
-        hrow[j] = j < J ? tanhf(to_f(er[j]) + to_f(gr[j])) : 0.f;
-      if (lane == 0) lbl_s[m] = labels[b * L.U1 + u];
-    } else {
-      for (int j = lane; j < Jp; j += 32) hrow[j] = 0.f;
-      if (lane == 0) lbl_s[m] = -1;
-    }
-  }
-}
-
-// Rows j0 .. j0 + kKC of W, columns v0 .. v0 + kTV, into ws (row stride
-// kTV + 1, so that reading a column across a warp is free of bank
-// conflicts); zero past J and V.
-__device__ void load_w_chunk(const Lattice& L, const float* __restrict__ w, int j0, int v0,
-                             float* ws) {
-  constexpr int width = kTV, stride = width + 1;
-  for (int idx = threadIdx.x; idx < kKC * width; idx += kThreads) {
-    const int r = idx / width, c = idx - r * width;
-    const int j = j0 + r, v = v0 + c;
-    ws[r * stride + c] = (j < L.J && v < L.V) ? w[static_cast<long long>(j) * L.V + v] : 0.f;
-  }
-}
-
-// acc[i][c] = Σ_j hs[4·ty + i][j] · W[j][v0 + tx + 32·c]: the tile's
-// logits for one vocab slab of kTV = 32·NC columns, without the bias. Four
-// values of j at a time: one 16-byte load of h per row (the padding
-// columns of h and the rows of W past J are zero).
-constexpr int NC = kTV / 32;
-__device__ __forceinline__ void slab_logits(const Lattice& L, const float* hs,
-                                            const float* __restrict__ w, int v0, float* ws,
-                                            float acc[4][NC]) {
-  constexpr int stride = kTV + 1;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int Jp = padded(L.J);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  for (int j0 = 0; j0 < Jp; j0 += kKC) {
-    __syncthreads();  // the previous chunk's readers are done with ws
-    load_w_chunk(L, w, j0, v0, ws);
-    __syncthreads();
-    const int kmax = min(kKC, Jp - j0);  // a multiple of 4
-    const float* hrow = hs + (4 * ty) * Jp + j0;
-    for (int k = 0; k < kmax; k += 4) {
-      float4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)  // one address per warp: broadcast
-        a[i] = *reinterpret_cast<const float4*>(hrow + i * Jp + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float bw[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) bw[c] = ws[(k + kk) * stride + tx + 32 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(av, bw[c], acc[i][c]);
-        }
-      }
-    }
-  }
-}
-
 // The softmax cotangent of one logit (rnnt_joint.py:148-172), in the
 // TPU kernel's order of operations: -(dbl + dlb)·exp(logit − lse), + dbl
 // at v = 0, + dlb at the label. The design before this one (whose bits
@@ -226,67 +147,79 @@ __device__ __forceinline__ float dlogit_dh(float logit, float lse, float dbl, fl
   return v == label ? fmaf(m, p, dlb) : __fmul_rn(m, p);
 }
 
-template <typename T>
+// ---- The forward (K3): h, the logits on the tile product, their log-sum-exp ----
+
+// logits[n, v] = h[n] · W[:, v] + bias[v]: the tile product with A = h (its
+// rows run along k = j) and B = W as it lies, as joint_dlogits_kernel
+// computes it; each logit is one fmaf chain over j in order from 0, then
+// one add of the bias, as the design before computed it.
+template <bool VEC>
+__global__ void __launch_bounds__(tile::kThreads, tile::kBlocksPerSm)
+    joint_logits_kernel(Lattice L, const float* __restrict__ h, const float* __restrict__ w,
+                        const float* __restrict__ bias, float* __restrict__ logits) {
+  const long long m0 = static_cast<long long>(blockIdx.y) * tile::kM;
+  const int c0 = blockIdx.x * tile::kC;
+  tile::ColSlab<tile::kM, VEC> a;
+  tile::RowSlab<tile::kC, VEC> bw;
+  float acc[8][8];
+  tile::mainloop<0>(
+      [&](tile::ASlab&, tile::BSlab& bs, int s) {
+        const int k0 = s * tile::kK;
+        a.stage(h, L.J, k0, L.J, m0, L.N);
+        bw.stage(bs, w, L.V, k0, L.J, c0, L.V);
+      },
+      [&](tile::ASlab& as, tile::BSlab&, int) { a.land(as); }, tile::NoSlabHook(),
+      (L.J + tile::kK - 1) / tile::kK, acc, nullptr);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int v = c0 + tile::col(q);
+    const float bv = v < L.V ? bias[v] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][q] = __fadd_rn(acc[i][q], bv);
+  }
+  tile::store<VEC>(acc, logits, L.V, m0, L.N, c0, L.V);
+}
+
+// blank, label and lse of lattice point n from its logits row, one warp a
+// point, in the design before's order: V in kTV-column slabs in slab
+// order; lane tx holds columns v0 + tx + 32c (c = 0..3, -inf past V); the
+// slab's max by the shuffle tree; each lane's exponentials summed in c
+// order from 0, then across the warp by the xor tree; the running sum l
+// and max m merged as l·e^(m − m') + s with one fma (as nvcc contracted
+// it); lse = m + log(max(l, 1e-30)). Every rounding is written out.
 __global__ void __launch_bounds__(kThreads)
-    joint_fwd_kernel(Lattice L, const T* __restrict__ e, const T* __restrict__ g,
-                     const float* __restrict__ w, const float* __restrict__ bias,
-                     const int* __restrict__ labels, float* __restrict__ blank_out,
-                     float* __restrict__ label_out, float* __restrict__ lse_out) {
-  extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                             // kM × padded(J)
-  float* ws = hs + kM * padded(L.J);            // kKC × (kTV + 1)
-  float* blk_s = ws + kKC * (kTV + 1);          // kM
-  float* lab_s = blk_s + kM;                    // kM
-  int* lbl_s = reinterpret_cast<int*>(lab_s + kM);  // kM
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const long long n0 = static_cast<long long>(blockIdx.x) * kM;
-
-  load_tile(L, e, g, labels, n0, hs, lbl_s);
-  for (int m = threadIdx.x; m < kM; m += kThreads) blk_s[m] = lab_s[m] = 0.f;
-
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
-  float acc[4][NC];
+    joint_lse_kernel(Lattice L, const float* __restrict__ logits, const int* __restrict__ labels,
+                     float* __restrict__ blank_out, float* __restrict__ label_out,
+                     float* __restrict__ lse_out) {
+  constexpr int NC = kTV / 32;
+  const int tx = threadIdx.x & 31;
+  const long long n = static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  if (n >= L.N) return;  // the whole warp
+  const float* row = logits + n * L.V;
+  float m_run = -INFINITY, l_run = 0.f;
+#pragma unroll 2
   for (int v0 = 0; v0 < L.V; v0 += kTV) {
-    slab_logits(L, hs, w, v0, ws, acc);
+    float lg[NC], mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 4 * ty + i;
-      const int label = lbl_s[m];
-      float lg[4], mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int v = v0 + tx + 32 * c;
-        lg[c] = v < L.V ? acc[i][c] + bias[v] : -INFINITY;
-        mx = fmaxf(mx, lg[c]);
-        if (v == 0) blk_s[m] = lg[c];
-        if (v == label) lab_s[m] = lg[c];
-      }
-      const float nm = fmaxf(m_run[i], warp_max(mx));  // finite: column v0 < V is in the slab
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s += expf(lg[c] - nm);
-      l_run[i] = l_run[i] * expf(m_run[i] - nm) + warp_sum(s);
-      m_run[i] = nm;
+    for (int c = 0; c < NC; ++c) {
+      const int v = v0 + tx + 32 * c;
+      lg[c] = v < L.V ? row[v] : -INFINITY;
+      mx = fmaxf(mx, lg[c]);
     }
+    const float nm = fmaxf(m_run, warp_max(mx));  // finite: column v0 < V is in the slab
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s = __fadd_rn(s, expf(__fsub_rn(lg[c], nm)));
+    l_run = fmaf(l_run, expf(__fsub_rn(m_run, nm)), warp_sum(s));
+    m_run = nm;
   }
-  __syncthreads();  // blk_s / lab_s
   if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 4 * ty + i;
-      const long long n = n0 + m;
-      if (n < L.N) {
-        const float s = m_run[i] + logf(fmaxf(l_run[i], 1e-30f));
-        blank_out[n] = blk_s[m] - s;
-        label_out[n] = lab_s[m] - s;
-        lse_out[n] = s;
-      }
-    }
+    const long long bt = n / L.U1, b = bt / L.T, u = n - bt * L.U1;
+    const int label = labels[b * L.U1 + u];
+    const float s = __fadd_rn(m_run, logf(fmaxf(l_run, 1e-30f)));
+    blank_out[n] = __fsub_rn(row[0], s);
+    label_out[n] = __fsub_rn(label >= 0 && label < L.V ? row[label] : 0.f, s);
+    lse_out[n] = s;
   }
 }
 
@@ -300,7 +233,7 @@ constexpr int kDhChunk = kTV / tile::kK;
 constexpr int kDwChunk = kM / tile::kK;
 
 // h[n, j] = tanh(e[b, t, j] + g[b, u, j]) for the lattice point n = (b, t,
-// u) of the block.
+// u) of the block: the first launch of K3 and of K4.
 template <typename T>
 __global__ void __launch_bounds__(128)
     joint_h_kernel(Lattice L, const T* __restrict__ e, const T* __restrict__ g,
@@ -510,8 +443,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t fwd_smem(int J) { return sizeof(float) * (kM * padded(J) + kKC * (kTV + 1) + 3 * kM); }
-
 // Allow the kernel more than the default 48 KB of dynamic shared
 // memory. The attribute belongs to the current device, so it is set on
 // every launch (microseconds, next to a kernel of milliseconds).
@@ -523,19 +454,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 bool bad_shape(int B, int T, int U1, int J, int V) {
   return B <= 0 || T <= 0 || U1 <= 0 || J <= 0 || V <= 0;
-}
-
-template <typename T>
-cudaError_t launch_fwd(const Lattice& L, const void* e, const void* g, const float* w,
-                       const float* b, const int* labels, float* blank, float* label,
-                       float* lse, cudaStream_t s) {
-  const size_t smem = fwd_smem(L.J);
-  cudaError_t err = allow_smem(joint_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const unsigned int blocks = static_cast<unsigned int>((L.N + kM - 1) / kM);
-  joint_fwd_kernel<T><<<blocks, kThreads, smem, s>>>(
-      L, static_cast<const T*>(e), static_cast<const T*>(g), w, b, labels, blank, label, lse);
-  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -564,39 +482,16 @@ cudaError_t launch_product(KVec kvec, KElem kelem, bool vec, dim3 grid, size_t s
 
 }  // namespace
 
-// Dynamic shared memory per block, in bytes, of the forward kernel at
-// joint width J; the wrapper refuses a J whose forward would not fit the
-// card. The backward's kernels take the same shared memory at every J.
-extern "C" long long rnnt_joint_fwd_smem_bytes(int J) {
-  return static_cast<long long>(fwd_smem(J));
-}
-
 // dtype: 0 = float32 e and g, 1 = bfloat16. w, b, lse, the cotangents
 // and every output are float32; labels int32 (B, U1). Tensors are
 // contiguous: e (B, T, J), g (B, U1, J), w (J, V), b (V,), blank, label,
-// lse, dblank, dlabel (B, T, U1). Returns a cudaError_t as int.
-extern "C" int rnnt_joint_fwd(int dtype, const void* e, const void* g, const void* w,
-                              const void* b, const void* labels, void* blank, void* label,
-                              void* lse, int B, int T, int U1, int J, int V, void* stream) {
-  if (bad_shape(B, T, U1, J, V)) return static_cast<int>(cudaErrorInvalidValue);
-  const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, V};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wp = static_cast<const float*>(w);
-  const float* bp = static_cast<const float*>(b);
-  const int* lp = static_cast<const int*>(labels);
-  float* o0 = static_cast<float*>(blank);
-  float* o1 = static_cast<float*>(label);
-  float* o2 = static_cast<float*>(lse);
-  if (dtype == 0) return static_cast<int>(launch_fwd<float>(L, e, g, wp, bp, lp, o0, o1, o2, s));
-  if (dtype == 1)
-    return static_cast<int>(launch_fwd<__nv_bfloat16>(L, e, g, wp, bp, lp, o0, o1, o2, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// lse, dblank, dlabel (B, T, U1). Each entry point returns a cudaError_t
+// as int.
 
-// h (B, T, U1, J) float32 = tanh(e + g) through the h kernel (dtype as
-// rnnt_joint_fwd's).
-extern "C" int rnnt_joint_bwd_h(int dtype, const void* e, const void* g, void* h, int B, int T,
-                                int U1, int J, void* stream) {
+// h (B, T, U1, J) float32 = tanh(e + g) through the h kernel: the first
+// launch of the forward and of the backward.
+extern "C" int rnnt_joint_h(int dtype, const void* e, const void* g, void* h, int B, int T,
+                            int U1, int J, void* stream) {
   if (bad_shape(B, T, U1, J, 1)) return static_cast<int>(cudaErrorInvalidValue);
   const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -611,6 +506,36 @@ extern "C" int rnnt_joint_bwd_h(int dtype, const void* e, const void* g, void* h
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// logits (B, T, U1, V) float32 = h·w + b from h (B, T, U1, J) float32
+// through the logits kernel.
+extern "C" int rnnt_joint_fwd_logits(const void* h, const void* w, const void* b,
+                                     void* logits, int B, int T, int U1, int J, int V,
+                                     void* stream) {
+  if (bad_shape(B, T, U1, J, V)) return static_cast<int>(cudaErrorInvalidValue);
+  const Lattice L{static_cast<long long>(B) * T * U1, T, U1, J, V};
+  const bool vec = J % 4 == 0 && V % 4 == 0 && aligned16(h) && aligned16(w) &&
+                   aligned16(logits);
+  return static_cast<int>(launch_product(
+      joint_logits_kernel<true>, joint_logits_kernel<false>, vec, tile_grid(L.N, V), 0,
+      static_cast<cudaStream_t>(stream), L, static_cast<const float*>(h),
+      static_cast<const float*>(w), static_cast<const float*>(b), static_cast<float*>(logits)));
+}
+
+// blank, label and lse (B, T, U1) float32 from the logits (B, T, U1, V)
+// and the labels through the log-sum-exp kernel.
+extern "C" int rnnt_joint_fwd_lse(const void* logits, const void* labels, void* blank,
+                                  void* label, void* lse, int B, int T, int U1, int V,
+                                  void* stream) {
+  if (bad_shape(B, T, U1, 1, V)) return static_cast<int>(cudaErrorInvalidValue);
+  const Lattice L{static_cast<long long>(B) * T * U1, T, U1, 1, V};
+  constexpr int per_block = kThreads / 32;
+  joint_lse_kernel<<<static_cast<unsigned>((L.N + per_block - 1) / per_block), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      L, static_cast<const float*>(logits), static_cast<const int*>(labels),
+      static_cast<float*>(blank), static_cast<float*>(label), static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }
 

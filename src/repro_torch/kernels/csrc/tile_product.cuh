@@ -1,6 +1,7 @@
 // The register-blocked fp32 tile product shared by csrc/lstm_scan.cu
-// (K2's gate recompute and dw_hh product) and csrc/rnnt_joint.cu (K4's
-// three products). build.py hashes this header into every library.
+// (K2's gate recompute and dw_hh product) and csrc/rnnt_joint.cu (K3's
+// logits and K4's three products). build.py hashes this header into every
+// library.
 //
 // out[m, c] = the sum over k, in order, of A[m, k] * B[k, c], for a kM (m)
 // x kC (c) tile a block of kThreads threads, 8 x 8 outputs a thread (per k

@@ -31,8 +31,9 @@
 //
 // dequantize (K7): code * scale, one IEEE product per element and thread.
 //
-// topk_unpack (K9): bucket, don't sort the row. One call launches two
-// kernels on the caller's stream:
+// The top-k kernels bucket each client row's payload by output window;
+// they never sort a row. One call launches two kernels on the caller's
+// stream, the first the same for both:
 //   sort   one block of 512 threads per chunk of 8,192 consecutive entries
 //          of a client's payload: a shared histogram of the row's 2048-wide
 //          output windows (an entry's rank in its window from the shared
@@ -41,28 +42,37 @@
 //          value's bits in the low word, the place in the window between
 //          them (or in a 16-bit array of its own when k >= 2**21); then
 //          the chunk's keys and its scan go out with coalesced stores.
-//          Indices outside [0, n) are dropped here.
-//   window one block of 128 threads per (window, client) gathers the
-//          window's run from every chunk of the row (the chunks' scans, a
-//          block scan of the run lengths, then the keys) and takes a
-//          shared 64-bit atomicMax per key into the window: the largest j
-//          wins with its value, an empty element keeps key 0, whose low
-//          word is +0.0f. The block then writes every element of its
-//          window once, two a thread and step.
-// The largest j is the pair last in payload order, as the TPU kernels'
-// serial walk stores it: bit for bit, and the same on every run whatever
-// order the atomics ran in. No global atomics, and no shape depends on the
-// data on the host, so a call captures in one CUDA graph. The sort's
-// shared memory holds the histogram: a row of at most 36 Ki windows.
-//
-// topk_scatter_add (K8): the wrapper sorts the weighted (value, index)
-// pairs of all clients by index with a stable sort and finds each
-// 2048-wide output segment's slice with searchsorted, as the TPU wrapper
-// does. One block per segment zeroes its window in shared memory; each
-// thread that starts a run of equal indices sums the run in order from 0
-// (client order, as the stable sort keeps it) and stores the sum; the
-// block writes the window out. No atomics: the sums are bitwise
-// repeatable and in the reference's order.
+//          Indices outside [0, n) are dropped here. The histogram holds
+//          at most 36 Ki windows (n <= 75,497,472); a longer row is sorted
+//          by window groups of 32 Ki windows, one block per (chunk, group):
+//          each block reads the whole chunk, counts its entries in the
+//          groups before its own (the group's first slot in the chunk),
+//          and sorts those of its group as above. The groups' runs lie in
+//          group order, so the layout is the one the single histogram
+//          gives.
+//   topk_unpack (K9): one block of 128 threads per (window, client)
+//          gathers the window's run from every chunk of the row (the
+//          chunks' scans, a block scan of the run lengths, then the keys)
+//          and takes a shared 64-bit atomicMax per key into the window:
+//          the largest j wins with its value, an empty element keeps key
+//          0, whose low word is +0.0f. The block then writes every element
+//          of its window once, two a thread and step. The largest j is the
+//          pair last in payload order, as the TPU kernels' serial walk
+//          stores it: bit for bit, and the same on every run whatever
+//          order the atomics ran in.
+//   topk_scatter_add (K8): one block of 128 threads per window walks the
+//          clients in client order; for each it gathers that client's run
+//          of the window from every chunk as K9 does and adds
+//          weight · value (two IEEE operations) into a shared window that
+//          starts at +0.0f. A client's indices are distinct (a top-k
+//          selection), so no element is touched twice in one client's
+//          step and no atomics are needed; a barrier separates the
+//          clients. An index several clients picked sums in client order
+//          from 0, as the reference's serial scatter does. The window is
+//          written out once.
+// No global atomics, and no shape depends on the data on the host, so a
+// call captures in one CUDA graph. The range is int32's: n < 2**31 - 2048,
+// K·k < 2**31 - 1.
 //
 // Bound on an H100 SXM. wire_quantize keyed: operations. A size-n draw
 // needs ceil(n/2) threefry2x32 blocks, each serving two positions (pair
@@ -75,8 +85,10 @@
 // so it hashes every block twice (once per position it serves) and
 // throws one word away: twice the hash work the bound counts. Nearest and
 // streamed rounding, the nibble kernels, dequantize, the scatter-add and
-// the top-k unpack are bound by bytes. Nothing here is tuned yet but K9:
-// one element (or byte) per thread, no vector loads. K9's bound counts
+// the top-k unpack are bound by bytes. Nothing here is tuned yet but K8
+// and K9: one element (or byte) per thread, no vector loads. K8's bound
+// counts the payloads and weights read once and the (n,) output written
+// once; its two kernels add the keys as K9's do. K9's bound counts
 // the payload read once and the (K, n) output written once (93.4 MB at
 // K = 4, n = 5,308,416: 27.9 us); its two kernels add the 64-bit slots
 // written and read in order and the chunks' scans (about 18 MB at that
@@ -234,13 +246,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 constexpr int kSeg = 2048;
-// K9: one block of kSortThreads sorts a chunk of kChunk consecutive
+// K8 and K9: one block of kSortThreads sorts a chunk of kChunk consecutive
 // entries of a row by window; one block of kWindowThreads a window
 constexpr int kSortThreads = 512, kSortPer = 16, kChunk = kSortThreads * kSortPer;
 constexpr int kWindowThreads = 128;
-// K9's slots pack (j + 1) << 11 | the place in the window above the value's
+// the slots pack (j + 1) << 11 | the place in the window above the value's
 // bits when k < 2**21, else keep the place in a 16-bit array of its own
 constexpr int kPackedJ = 1 << 21;
+// the sort's histogram holds a row of at most kMaxWindows windows (with
+// the chunk's keys and places, 229,444 B of the H100's 232,448 B a block);
+// a longer row is sorted by groups of kGroupWindows windows (212,996 B)
+constexpr int kMaxWindows = 36 * 1024, kGroupWindows = 32 * 1024;
 
 // a[0..len) -> its exclusive scan in place, and a[len] = the total; every
 // thread of the block calls it, between barriers. warp_sums: THREADS / 32.
@@ -287,20 +303,28 @@ __device__ __forceinline__ void block_exclusive_scan(int* a, int len, int* warp_
 // bits in the low word, the place in the window between them (PACKED) or
 // in offs. starts (K, nchunk, nseg + 1): the chunk's first slot of each
 // window, and its count of entries in range. Indices outside [0, n) are
-// dropped here.
-template <bool PACKED>
+// dropped here. GROUPED: block x is (chunk x % nchunk, window group x /
+// nchunk); it histograms the group's windows only, and its slots start
+// after the chunk's entries in the groups before (counted here too).
+template <bool PACKED, bool GROUPED>
 __global__ void __launch_bounds__(kSortThreads)
     topk_unpack_sort_kernel(const float* __restrict__ values, const int* __restrict__ idx,
                             int* __restrict__ starts, unsigned long long* __restrict__ keys,
-                            unsigned short* __restrict__ offs, int k, int n, int nseg) {
+                            unsigned short* __restrict__ offs, int k, int n, int nseg,
+                            int nchunk) {
   // the chunk's keys in window order, their places (PACKED: none), then
-  // the histogram (nseg + 1)
+  // the histogram (nw + 1)
   extern __shared__ __align__(16) unsigned long long sorted[];
   unsigned short* places = reinterpret_cast<unsigned short*>(sorted + kChunk);
   int* hist = reinterpret_cast<int*>(places + (PACKED ? 0 : kChunk));
   __shared__ int warp_sums[kSortThreads / 32];
-  const int row = blockIdx.y, chunk = blockIdx.x;
-  for (int w = threadIdx.x; w <= nseg; w += kSortThreads) hist[w] = 0;
+  __shared__ int below;  // GROUPED: the chunk's entries in the groups before
+  const int row = blockIdx.y;
+  const int chunk = GROUPED ? blockIdx.x % nchunk : blockIdx.x;
+  const int w_lo = GROUPED ? blockIdx.x / nchunk * kGroupWindows : 0;
+  const int nw = GROUPED ? min(kGroupWindows, nseg - w_lo) : nseg;  // the windows histogrammed
+  for (int w = threadIdx.x; w <= nw; w += kSortThreads) hist[w] = 0;
+  if (GROUPED && threadIdx.x == 0) below = 0;
   __syncthreads();
   const size_t row_at = static_cast<size_t>(row) * k;
   const int j0 = chunk * kChunk + threadIdx.x;
@@ -310,21 +334,33 @@ __global__ void __launch_bounds__(kSortThreads)
     const int j = j0 + e * kSortThreads;
     at[e] = j < k ? idx[row_at + j] : -1;
   }
+  int mine_below = 0;
 #pragma unroll
   for (int e = 0; e < kSortPer; ++e) {
     if (at[e] >= n) at[e] = -1;  // dropped: -1
-    if (at[e] >= 0) rank[e] = atomicAdd(&hist[at[e] / kSeg], 1);
+    if (GROUPED && at[e] >= 0) {
+      const int w = at[e] / kSeg - w_lo;
+      if (w < 0) ++mine_below;
+      if (w < 0 || w >= nw) at[e] = -1;  // another group's
+    }
+    if (at[e] >= 0) rank[e] = atomicAdd(&hist[at[e] / kSeg - w_lo], 1);
+  }
+  if constexpr (GROUPED) {
+    for (int o = 16; o > 0; o >>= 1) mine_below += __shfl_xor_sync(0xffffffffu, mine_below, o);
+    if (threadIdx.x % 32 == 0) atomicAdd(&below, mine_below);
   }
   __syncthreads();
-  block_exclusive_scan<kSortThreads>(hist, nseg, warp_sums);
+  block_exclusive_scan<kSortThreads>(hist, nw, warp_sums);
   __syncthreads();
-  int* st = starts + (static_cast<size_t>(row) * gridDim.x + chunk) * (nseg + 1);
-  for (int w = threadIdx.x; w <= nseg; w += kSortThreads) st[w] = hist[w];
+  const int base = GROUPED ? below : 0;
+  int* st = starts + (static_cast<size_t>(row) * nchunk + chunk) * (nseg + 1) + w_lo;
+  const int n_st = nw + (w_lo + nw == nseg ? 1 : 0);  // the last group writes the count
+  for (int w = threadIdx.x; w < n_st; w += kSortThreads) st[w] = base + hist[w];
 #pragma unroll
   for (int e = 0; e < kSortPer; ++e) {
     if (at[e] < 0) continue;
     const int j = j0 + e * kSortThreads;
-    const int p = hist[at[e] / kSeg] + rank[e];
+    const int p = hist[at[e] / kSeg - w_lo] + rank[e];
     const unsigned place = static_cast<unsigned>(at[e] % kSeg);
     const unsigned long long order = static_cast<unsigned long long>(j) + 1ull;
     const unsigned long long hi = PACKED ? order << 11 | place : order;
@@ -333,35 +369,27 @@ __global__ void __launch_bounds__(kSortThreads)
   }
   __syncthreads();
   // the chunk's slots out in order: coalesced stores
-  const size_t slot0 = row_at + static_cast<size_t>(chunk) * kChunk;
-  for (int q = threadIdx.x; q < hist[nseg]; q += kSortThreads) {
+  const size_t slot0 = row_at + static_cast<size_t>(chunk) * kChunk + base;
+  for (int q = threadIdx.x; q < hist[nw]; q += kSortThreads) {
     keys[slot0 + q] = sorted[q];
     if (!PACKED) offs[slot0 + q] = places[q];
   }
 }
 
-// starts and the sorted slots from the kernel above -> out (K, n) fp32:
-// one block per (window, row) gathers the window's run from every chunk
-// and takes a shared 64-bit atomicMax per key into the window: the largest
-// j wins with its value, an empty element keeps key 0, whose low word is
-// +0.0f. Then every element of the window is written once.
-template <bool PACKED>
-__global__ void __launch_bounds__(kWindowThreads)
-    topk_unpack_window_kernel(const int* __restrict__ starts,
-                              const unsigned long long* __restrict__ keys,
-                              const unsigned short* __restrict__ offs, float* __restrict__ out,
-                              int k, int n, int nchunk) {
-  __shared__ __align__(16) unsigned long long window[kSeg];
+// visit(key, place in the window) for each key of window w of a row: its
+// run in every chunk of the row, kWindowThreads chunks at a time (the
+// runs' lengths scanned, then one key a thread and step). Every thread of
+// the block calls it; it ends on a barrier.
+template <bool PACKED, typename Visit>
+__device__ __forceinline__ void window_keys(const int* __restrict__ starts,
+                                            const unsigned long long* __restrict__ keys,
+                                            const unsigned short* __restrict__ offs, int row,
+                                            int w, int nseg, int k, int nchunk, Visit visit) {
   __shared__ int run_at[kWindowThreads + 1];  // the runs' exclusive scan of lengths
   __shared__ int run_from[kWindowThreads];    // each run's first slot in the row
   __shared__ int warp_sums[kWindowThreads / 32];
-  const int row = blockIdx.y, w = blockIdx.x, nseg = gridDim.x;
-  const int base = w * kSeg;
-  const int width = min(kSeg, n - base);
-  ulonglong2* pairs = reinterpret_cast<ulonglong2*>(window);  // 16-byte shared accesses
-  for (int q = threadIdx.x; q < kSeg / 2; q += kWindowThreads) pairs[q] = make_ulonglong2(0, 0);
   const size_t row_at = static_cast<size_t>(row) * k;
-  for (int b0 = 0; b0 < nchunk; b0 += kWindowThreads) {  // kWindowThreads chunks at a time
+  for (int b0 = 0; b0 < nchunk; b0 += kWindowThreads) {
     const int b = b0 + threadIdx.x;
     int from = 0, len = 0;
     if (b < nchunk) {
@@ -387,63 +415,141 @@ __global__ void __launch_bounds__(kWindowThreads)
       }
       const size_t slot = row_at + run_from[lo] + (f - run_at[lo]);
       const unsigned long long key = keys[slot];
-      const int off = PACKED ? static_cast<int>(key >> 32) & (kSeg - 1) : offs[slot];
-      atomicMax(&window[off], key);
+      visit(key, PACKED ? static_cast<int>(key >> 32) & (kSeg - 1) : offs[slot]);
     }
     __syncthreads();
   }
-  // the window once, two elements a thread and step (8-byte stores where
-  // the row's start allows, else 4-byte ones)
-  const size_t first = static_cast<size_t>(row) * n + base;
-  float* dst = out + first;
-  const auto v = [](unsigned long long key) { return __uint_as_float(static_cast<unsigned>(key)); };
-  if ((first & 1) == 0) {
+}
+
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  return __uint_as_float(static_cast<unsigned>(key));
+}
+
+// Write a window to dst once, two elements a thread and step: pair(q)
+// gives elements 2q and 2q + 1, one(t) element t (8-byte stores where dst
+// is 8-byte aligned, else 4-byte ones).
+template <typename Pair, typename One>
+__device__ __forceinline__ void store_window(float* __restrict__ dst, int width, bool even,
+                                             Pair pair, One one) {
+  if (even) {
     float2* dst2 = reinterpret_cast<float2*>(dst);
-    for (int q = threadIdx.x; q < width / 2; q += kWindowThreads) {
-      const ulonglong2 p = pairs[q];
-      dst2[q] = make_float2(v(p.x), v(p.y));
-    }
-    if ((width & 1) && threadIdx.x == 0) dst[width - 1] = v(window[width - 1]);
+    for (int q = threadIdx.x; q < width / 2; q += kWindowThreads) dst2[q] = pair(q);
+    if ((width & 1) && threadIdx.x == 0) dst[width - 1] = one(width - 1);
   } else {
-    for (int t = threadIdx.x; t < width; t += kWindowThreads) dst[t] = v(window[t]);
+    for (int t = threadIdx.x; t < width; t += kWindowThreads) dst[t] = one(t);
   }
 }
 
-// values and idx (m,) sorted by index (stable), bounds (nseg + 1,) the
-// first entry of each segment -> out (n,) fp32
-__global__ void __launch_bounds__(kThreads)
-    topk_scatter_add_kernel(const float* __restrict__ values, const int* __restrict__ idx,
-                            const int* __restrict__ bounds, float* __restrict__ out, int n) {
-  __shared__ float window[kSeg];
-  const int base = blockIdx.x * kSeg;
-  const int width = min(kSeg, n - base);
-  for (int t = threadIdx.x; t < width; t += kThreads) window[t] = 0.0f;
-  __syncthreads();
-  const int start = bounds[blockIdx.x];
-  const int end = bounds[blockIdx.x + 1];
-  for (int j = start + threadIdx.x; j < end; j += kThreads) {
-    const int at = idx[j];
-    if (j > start && idx[j - 1] == at) continue;  // not the first of its run
-    float sum = 0.0f;
-    for (int q = j; q < end && idx[q] == at; ++q) sum += values[q];
-    const int off = at - base;
-    if (off >= 0 && off < width) window[off] = sum;
+// starts and the sorted slots from the sort kernel -> out (K, n) fp32:
+// one block per (window, row) gathers the window's run from every chunk
+// and takes a shared 64-bit atomicMax per key into the window: the largest
+// j wins with its value, an empty element keeps key 0, whose low word is
+// +0.0f. Then every element of the window is written once.
+template <bool PACKED>
+__global__ void __launch_bounds__(kWindowThreads)
+    topk_unpack_window_kernel(const int* __restrict__ starts,
+                              const unsigned long long* __restrict__ keys,
+                              const unsigned short* __restrict__ offs, float* __restrict__ out,
+                              int k, int n, int nchunk) {
+  __shared__ __align__(16) unsigned long long window[kSeg];
+  const int row = blockIdx.y, w = blockIdx.x, nseg = gridDim.x;
+  const int base = w * kSeg;
+  ulonglong2* pairs = reinterpret_cast<ulonglong2*>(window);  // 16-byte shared accesses
+  for (int q = threadIdx.x; q < kSeg / 2; q += kWindowThreads) pairs[q] = make_ulonglong2(0, 0);
+  window_keys<PACKED>(starts, keys, offs, row, w, nseg, k, nchunk,
+                      [&](unsigned long long key, int off) { atomicMax(&window[off], key); });
+  const size_t first = static_cast<size_t>(row) * n + base;
+  const auto pair = [&](int q) {
+    const ulonglong2 p = pairs[q];
+    return make_float2(key_value(p.x), key_value(p.y));
+  };
+  const auto one = [&](int t) { return key_value(window[t]); };
+  store_window(out + first, min(kSeg, n - base), (first & 1) == 0, pair, one);
+}
+
+// starts and the sorted slots of K rows -> out (n,) fp32, the weighted sum
+// of the rows: one block per window walks the rows in client order and
+// adds weight · value of each key of the row's window into a shared window
+// that starts at +0.0f (a row's indices are distinct: one add an element
+// and row, no atomics; the window kernel's gather ends on a barrier).
+template <bool PACKED>
+__global__ void __launch_bounds__(kWindowThreads)
+    topk_scatter_add_window_kernel(const int* __restrict__ starts,
+                                   const unsigned long long* __restrict__ keys,
+                                   const unsigned short* __restrict__ offs,
+                                   const float* __restrict__ weights, float* __restrict__ out,
+                                   int K, int k, int n, int nchunk) {
+  __shared__ __align__(16) float window[kSeg];
+  const int w = blockIdx.x, nseg = gridDim.x;
+  const int base = w * kSeg;
+  float4* quads = reinterpret_cast<float4*>(window);
+  for (int q = threadIdx.x; q < kSeg / 4; q += kWindowThreads)
+    quads[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int row = 0; row < K; ++row) {
+    const float wt = weights[row];
+    window_keys<PACKED>(starts, keys, offs, row, w, nseg, k, nchunk,
+                        [&](unsigned long long key, int off) {
+                          window[off] = __fadd_rn(window[off], __fmul_rn(wt, key_value(key)));
+                        });
   }
-  __syncthreads();
-  for (int t = threadIdx.x; t < width; t += kThreads) out[base + t] = window[t];
+  const float2* pairs = reinterpret_cast<const float2*>(window);
+  const auto pair = [&](int q) { return pairs[q]; };
+  const auto one = [&](int t) { return window[t]; };
+  store_window(out + base, min(kSeg, n - base), true, pair, one);
 }
 
 // opt the sort kernel in to a histogram above 48 KB of shared memory (the
 // attribute is raised once for each larger size, outside any stream)
-template <bool PACKED>
+template <bool PACKED, bool GROUPED>
 cudaError_t allow_sort_smem(size_t bytes) {
   static size_t allowed = 48 * 1024;
   if (bytes <= allowed) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&topk_unpack_sort_kernel<PACKED>),
+      reinterpret_cast<const void*>(&topk_unpack_sort_kernel<PACKED, GROUPED>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err == cudaSuccess) allowed = bytes;
   return err;
+}
+
+// Where the top-k layout lies in the int32 scratch that wire_pack.py's
+// _scratch_parts sizes: the starts (K, nchunk, nseg + 1), then on an
+// 8-byte boundary the slots' 64-bit keys (K, k) and their 16-bit window
+// places (K, k).
+struct TopkLayout {
+  int nseg, nchunk;
+  int* starts;
+  unsigned long long* keys;
+  unsigned short* offs;
+  TopkLayout(int* scratch, int K, int k, int n)
+      : nseg((n + kSeg - 1) / kSeg), nchunk((k + kChunk - 1) / kChunk), starts(scratch) {
+    const size_t key_at = (static_cast<size_t>(K) * nchunk * (nseg + 1) + 1) / 2 * 2;
+    keys = reinterpret_cast<unsigned long long*>(scratch + key_at);
+    offs = reinterpret_cast<unsigned short*>(keys + static_cast<size_t>(K) * k);
+  }
+};
+
+// The sort kernel over every chunk of the K rows: one histogram of the
+// row's windows, or groups of kGroupWindows past kMaxWindows.
+template <bool PACKED>
+cudaError_t launch_sort(const float* values, const int* idx, const TopkLayout& L, int K, int k,
+                        int n, cudaStream_t stream) {
+  const bool grouped = L.nseg > kMaxWindows;
+  const size_t smem = kChunk * sizeof(unsigned long long) +
+                      (PACKED ? 0 : kChunk * sizeof(unsigned short)) +
+                      static_cast<size_t>((grouped ? kGroupWindows : L.nseg) + 1) * sizeof(int);
+  const cudaError_t err =
+      grouped ? allow_sort_smem<PACKED, true>(smem) : allow_sort_smem<PACKED, false>(smem);
+  if (err != cudaSuccess) return err;
+  if (grouped) {
+    const int groups = (L.nseg + kGroupWindows - 1) / kGroupWindows;
+    topk_unpack_sort_kernel<PACKED, true><<<dim3(L.nchunk * groups, K), kSortThreads, smem,
+                                            stream>>>(values, idx, L.starts, L.keys, L.offs, k,
+                                                      n, L.nseg, L.nchunk);
+  } else {
+    topk_unpack_sort_kernel<PACKED, false><<<dim3(L.nchunk, K), kSortThreads, smem, stream>>>(
+        values, idx, L.starts, L.keys, L.offs, k, n, L.nseg, L.nchunk);
+  }
+  return cudaGetLastError();
 }
 
 template <int MODE, bool PACK4>
@@ -492,37 +598,46 @@ int dequantize(const int8_t* codes, const float* scale, int scale_stride, float*
 }
 
 // scratch: 8-byte aligned int32 space as wire_pack.py's _scratch_parts
-// sizes it: the starts (K, nchunk, nseg + 1), then on an 8-byte boundary
-// the slots' 64-bit keys (K, k) and their 16-bit window places (K, k).
-// seg: the caller's window width, which must be this kernel's. Launches
-// the two kernels in turn on the stream.
+// sizes it (TopkLayout). seg: the caller's window width, which must be
+// this kernel's. Launches the sort and the window kernels in turn.
 int topk_unpack(const float* values, const int* idx, int* scratch, float* out, int K, int k,
                 int n, int seg, cudaStream_t stream) {
   if (K <= 0 || K > 65535 || k <= 0 || n <= 0 || seg != kSeg)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nseg = (n + kSeg - 1) / kSeg, nchunk = (k + kChunk - 1) / kChunk;
-  const size_t Kk = static_cast<size_t>(K) * k;
-  const size_t key_at = (static_cast<size_t>(K) * nchunk * (nseg + 1) + 1) / 2 * 2;
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(scratch + key_at);
-  unsigned short* offs = reinterpret_cast<unsigned short*>(keys + Kk);
-  // the sort's shared memory: the chunk's keys, their places, the histogram
-  const size_t smem = kChunk * sizeof(unsigned long long) +
-                      (k < kPackedJ ? 0 : kChunk * sizeof(unsigned short)) +
-                      static_cast<size_t>(nseg + 1) * sizeof(int);
+  const TopkLayout L(scratch, K, k, n);
   const bool packed = k < kPackedJ;
-  const cudaError_t err = packed ? allow_sort_smem<true>(smem) : allow_sort_smem<false>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);  // too many windows for a histogram
-  const dim3 chunks(nchunk, K), windows(nseg, K);
+  const cudaError_t err = packed ? launch_sort<true>(values, idx, L, K, k, n, stream)
+                                 : launch_sort<false>(values, idx, L, K, k, n, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 windows(L.nseg, K);
   if (packed) {
-    topk_unpack_sort_kernel<true><<<chunks, kSortThreads, smem, stream>>>(values, idx, scratch,
-                                                                         keys, offs, k, n, nseg);
-    topk_unpack_window_kernel<true><<<windows, kWindowThreads, 0, stream>>>(scratch, keys, offs,
-                                                                            out, k, n, nchunk);
+    topk_unpack_window_kernel<true><<<windows, kWindowThreads, 0, stream>>>(
+        L.starts, L.keys, L.offs, out, k, n, L.nchunk);
   } else {
-    topk_unpack_sort_kernel<false><<<chunks, kSortThreads, smem, stream>>>(values, idx, scratch,
-                                                                          keys, offs, k, n, nseg);
-    topk_unpack_window_kernel<false><<<windows, kWindowThreads, 0, stream>>>(scratch, keys, offs,
-                                                                             out, k, n, nchunk);
+    topk_unpack_window_kernel<false><<<windows, kWindowThreads, 0, stream>>>(
+        L.starts, L.keys, L.offs, out, k, n, L.nchunk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weighted sum of K top-k payloads: values and idx (K, k), weights
+// (K,) fp32 -> out (n,) fp32; scratch and seg as topk_unpack's. Launches
+// the sort and the scatter-add window kernels in turn.
+int topk_scatter_add(const float* values, const int* idx, const float* weights, int* scratch,
+                     float* out, int K, int k, int n, int seg, cudaStream_t stream) {
+  if (K <= 0 || K > 65535 || k <= 0 || n <= 0 || seg != kSeg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TopkLayout L(scratch, K, k, n);
+  const bool packed = k < kPackedJ;
+  const cudaError_t err = packed ? launch_sort<true>(values, idx, L, K, k, n, stream)
+                                 : launch_sort<false>(values, idx, L, K, k, n, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (packed) {
+    topk_scatter_add_window_kernel<true><<<L.nseg, kWindowThreads, 0, stream>>>(
+        L.starts, L.keys, L.offs, weights, out, K, k, n, L.nchunk);
+  } else {
+    topk_scatter_add_window_kernel<false><<<L.nseg, kWindowThreads, 0, stream>>>(
+        L.starts, L.keys, L.offs, weights, out, K, k, n, L.nchunk);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -538,15 +653,6 @@ int nibble_unpack(const int8_t* packed, int8_t* codes, int K, int n, cudaStream_
   if (K <= 0 || n <= 0 || K > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(((n + 1) / 2 + kThreads - 1) / kThreads, K);
   nibble_unpack_kernel<<<grid, kThreads, 0, stream>>>(packed, codes, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// seg: the caller's segment width, which must be this kernel's window
-int topk_scatter_add(const float* values, const int* idx, const int* bounds, float* out, int n,
-                     int seg, cudaStream_t stream) {
-  if (n <= 0 || seg != kSeg) return static_cast<int>(cudaErrorInvalidValue);
-  const int nseg = (n + kSeg - 1) / kSeg;
-  topk_scatter_add_kernel<<<nseg, kThreads, 0, stream>>>(values, idx, bounds, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

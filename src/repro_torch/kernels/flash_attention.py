@@ -14,7 +14,10 @@ q, k and v with D and Dv multiples of 16, 16-byte aligned, go to the
 tensor-core kernel (``flash_attention_wgmma``); everything else (fp32,
 other widths) to the CUDA-core kernel (``flash_attention``). A failed
 build or launch raises. The wrapper takes the plain version
-(``ref.flash_attention_ref``) only for tensors on the CPU.
+(``ref.flash_attention_ref``) only for tensors on the CPU, where it is
+differentiable. The kernels have no backward: on the card a call that
+autograd would have to differentiate raises (``refuses_grad``), rather
+than return an output with no ``grad_fn``.
 ``FWD_LAUNCHES`` counts every launch, ``WGMMA_LAUNCHES`` and
 ``SIMT_LAUNCHES`` those of each route.
 """
@@ -78,6 +81,14 @@ def check_kernel_inputs(what: str, *tensors) -> None:
         raise ValueError(f"{what}: the kernel takes contiguous tensors")
 
 
+def refuses_grad(*tensors) -> bool:
+    """True when a call on the card must be refused: grad mode is on and
+    an input requires grad, so autograd would need a backward the kernels
+    do not have (``repro/models/attention.py:blockwise_attention`` is
+    differentiable under ``jax.grad``)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a launch on the card takes: "wgmma" (tensor cores) for
     bf16 with D and Dv multiples of 16 and 16-byte aligned tensors, else
@@ -110,6 +121,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                                        logit_softcap=logit_softcap, q_offset=q_offset,
                                        scale=scale, block_kv=block_kv)
     check_kernel_inputs("flash_attention", q, k, v)
+    if refuses_grad(q, k, v):
+        raise RuntimeError("flash_attention: the kernel has no backward; on the card call it "
+                           "under torch.no_grad() or with inputs that do not require grad")
     if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes D and Dv up to {MAX_HEAD_DIM}, got {D} and {Dv}")
     if Sq == 0 or Sk == 0 or B * H > 65535:

@@ -18,7 +18,31 @@ few operators; its words are held bitwise to ``jax.random``.
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+
+# ATen's CPU tanh is MKL VML's, run on the intra-op (OpenMP) threads in
+# chunks of _VML_GRAIN elements. In fresh processes under load its first
+# use gave one chunk wrong by up to 8.8e-5 (about EP accuracy, where ATen
+# asks for HA) in about 1 process in 125, and every later call was exact;
+# one call on every intra-op thread first removed it. ``tanh`` makes that
+# call once for each calling thread, thread count and dtype before its
+# first use of the path.
+_VML_GRAIN = 2048
+_TANH_WARM: set = set()
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``torch.tanh``; on the CPU, after every intra-op thread of the
+    caller's pool has run it once."""
+    if x.device.type == "cpu":
+        key = (threading.get_ident(), torch.get_num_threads(), x.dtype)
+        if key not in _TANH_WARM:
+            torch.tanh(torch.zeros(2 * _VML_GRAIN * key[1], dtype=x.dtype))
+            _TANH_WARM.add(key)
+    return torch.tanh(x)
 
 
 def _math_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -30,7 +54,7 @@ def _math_dtype(dtype: torch.dtype) -> torch.dtype:
 def _activations(gates: torch.Tensor):
     H = gates.shape[-1] // 4
     gi, gf, gg, go = gates.to(_math_dtype(gates.dtype)).split(H, dim=-1)
-    return torch.sigmoid(gi), torch.sigmoid(gf + 1.0), torch.tanh(gg), torch.sigmoid(go)
+    return torch.sigmoid(gi), torch.sigmoid(gf + 1.0), tanh(gg), torch.sigmoid(go)
 
 
 def lstm_gates_ref(gates: torch.Tensor, c: torch.Tensor):
@@ -38,7 +62,7 @@ def lstm_gates_ref(gates: torch.Tensor, c: torch.Tensor):
     gate; c (N, H). Returns (h_new in the gate dtype, c_new in c's dtype)."""
     i, f, g, o = _activations(gates)
     c_new = f * c.to(i.dtype) + i * g
-    h_new = o * torch.tanh(c_new)
+    h_new = o * tanh(c_new)
     return h_new.to(gates.dtype), c_new.to(c.dtype)
 
 
@@ -50,7 +74,7 @@ def lstm_gates_bwd_ref(gates, c, dh, dc_next):
     i, f, g, o = _activations(gates)
     cf = c.to(i.dtype)
     dh = dh.to(i.dtype)
-    t = torch.tanh(f * cf + i * g)
+    t = tanh(f * cf + i * g)
     dc = dc_next.to(i.dtype) + dh * o * (1.0 - t * t)
     dgates = torch.cat(
         [dc * g * i * (1.0 - i), dc * cf * f * (1.0 - f), dc * i * (1.0 - g * g),
@@ -74,7 +98,7 @@ def lstm_scan_ref(xg, w_hh, h0, c0):
     for t in range(xg.shape[0]):
         i, f, g, o = _activations(xg[t].to(dt) + h @ w)
         c = f * c + i * g
-        h = o * torch.tanh(c)
+        h = o * tanh(c)
         ys.append(h.to(xg.dtype))
         cs.append(c)
     return torch.stack(ys), torch.stack(cs)
@@ -108,7 +132,7 @@ def lstm_scan_bwd_rec_ref(xg, w_hh, h0, c0, ys, cs, dys, dhT, dcT):
     dxg = torch.empty(xg.shape, dtype=dt, device=xg.device)
     for t in reversed(range(xg.shape[0])):
         i, f, g, o = _activations(xg[t].to(dt) + h_prev[t] @ w)
-        tct = torch.tanh(f * c_prev[t] + i * g)
+        tct = tanh(f * c_prev[t] + i * g)
         dh = dh + dys[t].to(dt)
         dc = dc + dh * o * (1.0 - tct * tct)
         dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev[t] * f * (1.0 - f),
@@ -141,7 +165,7 @@ def _joint_chunks(e, g, w, b, labels, u_chunk: int):
     e, w, b = e.to(dt), w.to(dt), b.to(dt)
     for u0 in range(0, g.shape[1], u_chunk):
         g_c = g[:, u0:u0 + u_chunk].to(dt)
-        h = torch.tanh(e[:, :, None, :] + g_c[:, None, :, :])
+        h = tanh(e[:, :, None, :] + g_c[:, None, :, :])
         yield u0, h, h @ w + b, labels[:, u0:u0 + u_chunk].long()
 
 
@@ -154,6 +178,74 @@ def _dlogits(logits, lse, dblank, dlabel, lbl):
     d[..., :1] += dbl
     idx = lbl[:, None, :, None].expand(*logits.shape[:3], 1)
     return d.scatter_add(-1, idx, dlb)
+
+
+# K3's launches on the card, one plain version each: h (rnnt_joint_h_ref,
+# below, K4's first launch too), the (B, T, U1, V) logits, then their
+# log-sum-exp in the kernel's order.
+
+LSE_SLAB = 128  # K3's log-sum-exp slab (kTV in csrc/rnnt_joint.cu): 32 lanes x 4 columns
+
+
+def _exp32(x):
+    """exp of fp32 values, taken in fp64 and rounded once to fp32: a
+    fixed rounding (the card's expf may differ from it by an ulp)."""
+    return torch.exp(x.double()).float()
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) of fp32 tensors: the product is exact in fp64, the
+    sum rounded there, then to fp32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lane_xor_sum(x):
+    """The warp's xor-tree sum over the last axis of 32 lanes: at each of
+    the strides 16, 8, 4, 2, 1 a lane adds its partner's value to its own
+    (every lane ends with the same bits)."""
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., lane ^ o]
+    return x[..., 0]
+
+
+def rnnt_joint_logits_ref(h, w, b):
+    """The logits (B, T, U1, V) = h @ w + b from h (B, T, U1, J)."""
+    dt = h.dtype
+    return h @ w.to(dt) + b.to(dt)
+
+
+def rnnt_joint_lse_ref(logits, labels):
+    """K3's log-sum-exp launch written out in its order: for each
+    lattice point, V in ``LSE_SLAB``-column slabs in slab order; lane tx
+    of 32 holds columns v0 + tx + 32c (c = 0..3, -inf past V); the slab's
+    max; each lane's exponentials e^(x - m') summed in c order, then
+    across the lanes by the xor tree; the running sum merged as
+    fmaf(l, e^(m - m'), s); lse = m + log(max(l, 1e-30)). exp and log are
+    ``_exp32``'s. logits (B, T, U1, V) fp32, labels (B, U1) -> (blank_lp,
+    label_lp, lse), each (B, T, U1) fp32; a label outside [0, V) reads 0."""
+    B, T, U1, V = logits.shape
+    x = logits.float().reshape(-1, V)
+    N, S = x.shape[0], -(-V // LSE_SLAB)
+    pad = torch.full((N, S * LSE_SLAB - V), -torch.inf, device=x.device)
+    slabs = torch.cat([x, pad], dim=1).reshape(N, S, LSE_SLAB // 32, 32)  # [n, slab, c, lane]
+    m = torch.full((N,), -torch.inf, device=x.device)
+    l = torch.zeros(N, device=x.device)
+    for s in range(S):
+        lg = slabs[:, s]
+        nm = torch.maximum(m, lg.amax(dim=(1, 2)))
+        e = _exp32(lg - nm[:, None, None])
+        lane = e[:, 0]
+        for c in range(1, LSE_SLAB // 32):
+            lane = lane + e[:, c]
+        l = _fma32(l, _exp32(m - nm), _lane_xor_sum(lane))
+        m = nm
+    lse = m + torch.log(torch.clamp(l, min=1e-30).double()).float()
+    lbl = labels.long()[:, None, :].expand(B, T, U1).reshape(-1)
+    ok = (lbl >= 0) & (lbl < V)
+    at = torch.gather(x, 1, torch.where(ok, lbl, 0)[:, None])[:, 0]
+    label = torch.where(ok, at, torch.zeros_like(at)) - lse
+    return tuple(t.reshape(B, T, U1) for t in (x[:, 0] - lse, label, lse))
 
 
 def rnnt_joint_fwd_ref(e, g, w, b, labels, u_chunk: int = 8):
@@ -213,14 +305,14 @@ def rnnt_joint_bwd_ref(e, g, w, b, labels, lse, dblank, dlabel, u_chunk: int = 8
 
 
 # K4's launches on the card, one plain version each; they hold the whole
-# (B, T, U1, V) dlogits, as the kernels do: h, dlogits, dpre, then
-# rnnt_joint_bwd_reduce_ref, then dW and db.
+# (B, T, U1, V) dlogits, as the kernels do: h (K3's first launch too),
+# dlogits, dpre, then rnnt_joint_bwd_reduce_ref, then dW and db.
 
 def rnnt_joint_h_ref(e, g):
     """h = tanh(e + g) (B, T, U1, J) at every lattice point, in the math
     dtype."""
     dt = _math_dtype(e.dtype)
-    return torch.tanh(e.to(dt)[:, :, None, :] + g.to(dt)[:, None, :, :])
+    return tanh(e.to(dt)[:, :, None, :] + g.to(dt)[:, None, :, :])
 
 
 def rnnt_joint_dlogits_ref(h, w, b, labels, lse, dblank, dlabel):
@@ -366,12 +458,15 @@ def topk_scatter_add_ref(values, idx, weights, n: int):
     Clients are added one after another, so an index that several
     clients picked sums in client order from 0, as the reference's serial
     scatter does; within a client's row the indices are distinct (a
-    top-k selection), so each add touches one element once."""
-    out = torch.zeros(n, dtype=torch.float32, device=values.device)
+    top-k selection), so each add touches one element once. Indices
+    outside [0, n) are dropped (a top-k selection never gives one; JAX's
+    ``.at[].add`` would wrap a negative one)."""
+    out = torch.zeros(n + 1, dtype=torch.float32, device=values.device)  # n: the dropped
     vals = weights.float()[:, None] * values.float()
+    at = torch.where((idx >= 0) & (idx < n), idx.long(), n)
     for k in range(values.shape[0]):
-        out.index_add_(0, idx[k].long(), vals[k])
-    return out
+        out.index_add_(0, at[k], vals[k])
+    return out[:n]
 
 
 def dequantize_ref(codes, scale):
@@ -444,7 +539,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
         k_pos = j0 + torch.arange(bk, device=q.device)
         s = qf @ kf[:, :, j0:j0 + bk].transpose(-1, -2)                  # (B, H, Sq, bk)
         if logit_softcap > 0:
-            s = logit_softcap * torch.tanh(s / logit_softcap)
+            s = logit_softcap * tanh(s / logit_softcap)
         mask = torch.ones((Sq, bk), dtype=torch.bool, device=q.device)
         if causal:
             mask &= k_pos[None, :] <= q_pos[:, None]
@@ -491,7 +586,7 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *, window=None, ring: bool = 
     vf = v_cache.float().permute(0, 2, 1, 3)                           # (B, Kv, S, Dv)
     s = qf @ kf                                                        # (B, Kv, G, S)
     if logit_softcap > 0:
-        s = logit_softcap * torch.tanh(s / logit_softcap)
+        s = logit_softcap * tanh(s / logit_softcap)
     valid = decode_valid(S, torch.as_tensor(pos, device=q.device), window=window, ring=ring)
     s = torch.where(valid, s, NEG_INF)
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)

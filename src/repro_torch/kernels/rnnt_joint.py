@@ -10,13 +10,15 @@ card), built by ``build.py`` and called through ctypes.
 A wrapper takes the plain version (``ref.py``) only for tensors on the
 CPU. CUDA tensors get the kernels or an exception; nothing falls back.
 Each kernel has a launch counter, raised where it launches:
-``FWD_LAUNCHES`` (K3), and ``BWD_H_LAUNCHES``, ``BWD_DLOGITS_LAUNCHES``,
-``BWD_DH_LAUNCHES``, ``BWD_REDUCE_LAUNCHES`` and ``BWD_DW_LAUNCHES`` (the
-five kernels of K4), so that a run can show that its joint went through
-every one of them. K4 allocates three scratch tensors a call, h (B, T,
-U1, J), dlogits (B, T, U1, V) and dh_fix (B, T, U1, 2) in fp32:
-160,106,496 B at the paper-width client step (B=4, T'=64, U1=33, J=640,
-V=4,096).
+``FWD_H_LAUNCHES``, ``FWD_LOGITS_LAUNCHES`` and ``FWD_LSE_LAUNCHES`` (the
+three kernels of K3; ``FWD_LAUNCHES`` counts its calls), and
+``BWD_H_LAUNCHES``, ``BWD_DLOGITS_LAUNCHES``, ``BWD_DH_LAUNCHES``,
+``BWD_REDUCE_LAUNCHES`` and ``BWD_DW_LAUNCHES`` (the five kernels of K4),
+so that a run can show that its joint went through every one of them.
+Both allocate scratch in fp32 a call, live only inside the call: K3 h (B,
+T, U1, J) and the logits (B, T, U1, V), 160,038,912 B at the paper-width
+client step (B=4, T'=64, U1=33, J=640, V=4,096); K4 h, dlogits (B, T, U1,
+V) and dh_fix (B, T, U1, 2), 160,106,496 B.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 FWD_LAUNCHES = 0
+FWD_H_LAUNCHES = 0
+FWD_LOGITS_LAUNCHES = 0
+FWD_LSE_LAUNCHES = 0
 BWD_H_LAUNCHES = 0
 BWD_DLOGITS_LAUNCHES = 0
 BWD_DH_LAUNCHES = 0
@@ -45,37 +50,26 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("rnnt_joint")
-    lib.rnnt_joint_fwd_smem_bytes.argtypes = [_I]
-    lib.rnnt_joint_fwd_smem_bytes.restype = ctypes.c_longlong
-    lib.rnnt_joint_fwd.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [_P]
-    lib.rnnt_joint_bwd_h.argtypes = [_I] + [_P] * 3 + [_I] * 4 + [_P]
+    lib.rnnt_joint_h.argtypes = [_I] + [_P] * 3 + [_I] * 4 + [_P]
+    lib.rnnt_joint_fwd_logits.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    lib.rnnt_joint_fwd_lse.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     lib.rnnt_joint_bwd_dlogits.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.rnnt_joint_bwd_dh.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.rnnt_joint_bwd_reduce.argtypes = [_P] * 3 + [_I] * 4 + [_P]
     lib.rnnt_joint_bwd_dw.argtypes = [_P] * 4 + [_I] * 5 + [_P]
-    for fn in (lib.rnnt_joint_fwd, lib.rnnt_joint_bwd_h, lib.rnnt_joint_bwd_dlogits,
-               lib.rnnt_joint_bwd_dh, lib.rnnt_joint_bwd_reduce, lib.rnnt_joint_bwd_dw):
+    for fn in (lib.rnnt_joint_h, lib.rnnt_joint_fwd_logits, lib.rnnt_joint_fwd_lse,
+               lib.rnnt_joint_bwd_dlogits, lib.rnnt_joint_bwd_dh, lib.rnnt_joint_bwd_reduce,
+               lib.rnnt_joint_bwd_dw):
         fn.restype = _I
     return lib
-
-
-@functools.cache
-def _smem_refusal(device_index: int, J: int) -> str | None:
-    """Why the forward kernel cannot run at joint width J on this card, or
-    None when its shared memory fits it (it holds a tile's h rows). The
-    backward's kernels take the same shared memory at every J."""
-    limit = torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
-    need = _lib().rnnt_joint_fwd_smem_bytes(J)
-    if need > limit:
-        return f"rnnt_joint_fwd needs {need} B of shared memory at J={J}; the card gives a " \
-               f"block {limit} B"
-    return None
 
 
 def _check(e, g, w, b, labels, lse=None, dblank=None, dlabel=None) -> bool:
     """Validate shapes and types; True when the kernels must run (CUDA),
     False for the plain version (CPU). Raises on anything else. The
-    forward's shared memory rule is the forward's own (``_smem_refusal``)."""
+    kernels index the (N, V) scratch (the logits, dlogits) in 64 bits;
+    the range below keeps N·J and J·V inside int32 and N = B·T·U1 rows,
+    64 a tile, inside the products' grid."""
     if e.dim() != 3 or g.dim() != 3 or w.dim() != 2 or b.dim() != 1 or labels.dim() != 2:
         raise ValueError("the joint takes e (B, T, J), g (B, U1, J), w (J, V), b (V,) and "
                          "labels (B, U1)")
@@ -115,47 +109,79 @@ def _check(e, g, w, b, labels, lse=None, dblank=None, dlabel=None) -> bool:
     return True
 
 
-def _dims(e, g, w):
-    B, T, J = e.shape
-    return B, T, g.shape[1], J, w.shape[1]
-
-
-def rnnt_joint_fwd(e, g, w, b, labels):
-    """e (B, T, J), g (B, U1, J), w (J, V), b (V,), labels (B, U1) ->
-    (blank_lp, label_lp, lse), each (B, T, U1) float32."""
-    global FWD_LAUNCHES
-    if not _check(e, g, w, b, labels):
-        return ref.rnnt_joint_fwd_ref(e, g, w, b, labels)
-    B, T, U1, J, V = _dims(e, g, w)
-    refusal = _smem_refusal(e.device.index, J)
-    if refusal:
-        raise ValueError(refusal)
-    blank, label, lse = (torch.empty((B, T, U1), dtype=torch.float32, device=e.device)
-                         for _ in range(3))
-    stream = torch.cuda.current_stream(e.device).cuda_stream
-    build.check_launch(
-        _lib().rnnt_joint_fwd(_DTYPE_CODES[e.dtype], e.data_ptr(), g.data_ptr(), w.data_ptr(),
-                              b.data_ptr(), labels.data_ptr(), blank.data_ptr(),
-                              label.data_ptr(), lse.data_ptr(), B, T, U1, J, V, stream),
-        "rnnt_joint_fwd")
-    FWD_LAUNCHES += 1
-    return blank, label, lse
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _bwd_h(e, g, U1):
+def _h(e, g, U1):
     """h (B, T, U1, J) float32 = tanh(e + g) through the h kernel, on
-    checked CUDA tensors (the plain version: ``ref.rnnt_joint_h_ref``)."""
-    global BWD_H_LAUNCHES
+    checked CUDA tensors (the plain version: ``ref.rnnt_joint_h_ref``).
+    The callers count the launch."""
     B, T, J = e.shape
     h = torch.empty((B, T, U1, J), dtype=torch.float32, device=e.device)
     build.check_launch(
-        _lib().rnnt_joint_bwd_h(_DTYPE_CODES[e.dtype], e.data_ptr(), g.data_ptr(), h.data_ptr(),
-                                B, T, U1, J, _stream(e)),
-        "rnnt_joint_bwd_h")
+        _lib().rnnt_joint_h(_DTYPE_CODES[e.dtype], e.data_ptr(), g.data_ptr(), h.data_ptr(),
+                            B, T, U1, J, _stream(e)),
+        "rnnt_joint_h")
+    return h
+
+
+def _fwd_h(e, g, U1):
+    """K3's first launch: h through the h kernel."""
+    global FWD_H_LAUNCHES
+    h = _h(e, g, U1)
+    FWD_H_LAUNCHES += 1
+    return h
+
+
+def _fwd_logits(h, w, b):
+    """The logits (B, T, U1, V) float32 = h·w + b through the logits
+    kernel, on checked CUDA tensors (``ref.rnnt_joint_logits_ref``)."""
+    global FWD_LOGITS_LAUNCHES
+    B, T, U1, J = h.shape
+    V = w.shape[1]
+    logits = torch.empty((B, T, U1, V), dtype=torch.float32, device=h.device)
+    build.check_launch(
+        _lib().rnnt_joint_fwd_logits(h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                     logits.data_ptr(), B, T, U1, J, V, _stream(h)),
+        "rnnt_joint_fwd_logits")
+    FWD_LOGITS_LAUNCHES += 1
+    return logits
+
+
+def _fwd_lse(logits, labels):
+    """(blank_lp, label_lp, lse), each (B, T, U1) float32, from the
+    logits through the log-sum-exp kernel, on checked CUDA tensors
+    (``ref.rnnt_joint_lse_ref``)."""
+    global FWD_LSE_LAUNCHES
+    B, T, U1, V = logits.shape
+    blank, label, lse = (torch.empty((B, T, U1), dtype=torch.float32, device=logits.device)
+                         for _ in range(3))
+    build.check_launch(
+        _lib().rnnt_joint_fwd_lse(logits.data_ptr(), labels.data_ptr(), blank.data_ptr(),
+                                  label.data_ptr(), lse.data_ptr(), B, T, U1, V,
+                                  _stream(logits)),
+        "rnnt_joint_fwd_lse")
+    FWD_LSE_LAUNCHES += 1
+    return blank, label, lse
+
+
+def rnnt_joint_fwd(e, g, w, b, labels):
+    """e (B, T, J), g (B, U1, J), w (J, V), b (V,), labels (B, U1) ->
+    (blank_lp, label_lp, lse), each (B, T, U1) float32. On the card three
+    launches: h, the logits, their log-sum-exp."""
+    global FWD_LAUNCHES
+    if not _check(e, g, w, b, labels):
+        return ref.rnnt_joint_fwd_ref(e, g, w, b, labels)
+    out = _fwd_lse(_fwd_logits(_fwd_h(e, g, labels.shape[1]), w, b), labels)
+    FWD_LAUNCHES += 1
+    return out
+
+
+def _bwd_h(e, g, U1):
+    """K4's first launch: h through the h kernel."""
+    global BWD_H_LAUNCHES
+    h = _h(e, g, U1)
     BWD_H_LAUNCHES += 1
     return h
 

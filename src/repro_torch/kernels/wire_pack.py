@@ -5,9 +5,12 @@ keyed quantizers (K5, ``:286``, ``:310``), the streamed and nearest
 quantizers (K6, ``:170``, ``:204``), the int4 nibble pack and unpack and
 the dequantization (K7, ``:66``, ``:90``, ``:112``), the top-k scatter-add
 (K8, ``:441``) and the top-k unpack (K9, ``:352`` and ``:387`` in one
-call of two kernels), with the public wrappers of ``:491-611``. The kernels are CUDA C++ in
-``csrc/wire_pack.cu`` (its header states what bounds them on the card),
-built by ``build.py`` and called through ctypes.
+call), with the public wrappers of ``:491-611``. K8 and K9 are two
+launches a call each, the first shared: each client row's payload
+bucketed by output window (``unpack_layout`` is its plain version). The
+kernels are CUDA C++ in ``csrc/wire_pack.cu`` (its header states what
+bounds them on the card), built by ``build.py`` and called through
+ctypes.
 
 Each wrapper takes a leading client axis: x (K, n), key words (K, 2), a
 scale shared by the clients or one each (K,), so that one launch serves
@@ -15,9 +18,11 @@ all K clients of a leaf where the reference vmaps a one-client kernel. A
 wrapper takes the plain version (``ref.py``) only for tensors on the CPU;
 CUDA tensors get the kernel or an exception, and nothing falls back. ``QUANTIZE_LAUNCHES`` (K5 and K6,
 one templated kernel), ``PACK_LAUNCHES``, ``UNPACK_LAUNCHES`` (K7) and
-``DEQUANTIZE_LAUNCHES`` (K7), ``SCATTER_ADD_LAUNCHES`` (K8) and
-``TOPK_UNPACK_LAUNCHES`` (K9) count the launches, so that a run can show
-that its compression went through the kernels.
+``DEQUANTIZE_LAUNCHES`` (K7), ``SCATTER_ADD_SORT_LAUNCHES`` and
+``SCATTER_ADD_SUM_LAUNCHES`` (K8's two kernels; ``SCATTER_ADD_LAUNCHES``
+counts its calls) and ``TOPK_UNPACK_LAUNCHES`` (K9's calls) count the
+launches, so that a run can show that its compression went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ QUANTIZE_LAUNCHES = 0
 PACK_LAUNCHES = 0
 UNPACK_LAUNCHES = 0
 SCATTER_ADD_LAUNCHES = 0
+SCATTER_ADD_SORT_LAUNCHES = 0
+SCATTER_ADD_SUM_LAUNCHES = 0
 DEQUANTIZE_LAUNCHES = 0
 TOPK_UNPACK_LAUNCHES = 0
 
@@ -49,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     lib.nibble_pack.argtypes = [_P, _P, _I, _I, _P]
     lib.nibble_unpack.argtypes = [_P, _P, _I, _I, _P]
     lib.dequantize.argtypes = [_P, _P, _I, _P, _I, _I, _P]
-    lib.topk_scatter_add.argtypes = [_P, _P, _P, _P, _I, _I, _P]
+    lib.topk_scatter_add.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.topk_unpack.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
     for fn in (lib.wire_quantize, lib.nibble_pack, lib.nibble_unpack, lib.dequantize,
                lib.topk_scatter_add, lib.topk_unpack):
@@ -204,47 +211,32 @@ def nibble_unpack(packed, n: int):
     return out
 
 
-def scatter_add_segments(values, idx, weights, n: int):
-    """The kernel's inputs, built as the reference's wrapper builds them
-    (``repro/kernels/wire_pack.py:448-450``, ``:607-608``): the weighted
-    values and their indices flattened client-major, sorted by index with
-    a stable sort (an index several clients picked keeps client order),
-    and the first entry of each ``SEGMENT``-wide output window by
-    searchsorted.
-    Returns (sorted values (m,) fp32, sorted indices (m,) int32, bounds
-    (nseg + 1,) int32)."""
-    flat_vals = (weights.float()[:, None] * values.float()).reshape(-1)
-    flat_idx = idx.reshape(-1).to(torch.int32)
-    order = torch.argsort(flat_idx, stable=True)
-    starts = torch.arange((n + SEGMENT - 1) // SEGMENT + 1, dtype=torch.int32,
-                          device=flat_idx.device) * SEGMENT
-    si = flat_idx[order].contiguous()
-    bounds = torch.searchsorted(si, starts, out_int32=True)
-    return flat_vals[order].contiguous(), si, bounds
-
-
 def topk_scatter_add(values, idx, weights, n: int):
     """Stacked top-k payloads -> their weighted sum: values (K, k) fp32,
-    idx (K, k) int flat indices, weights (K,) -> dense (n,) fp32; an index
-    several clients picked sums in client order (K8)."""
-    global SCATTER_ADD_LAUNCHES
+    idx (K, k) int flat indices, distinct within a row, weights (K,) ->
+    dense (n,) fp32; an index several clients picked sums in client order
+    from 0; indices outside [0, n) are dropped (K8). On the card one call
+    launches two kernels (each row bucketed by window, then one block a
+    window adds the rows in client order); no host sync."""
+    global SCATTER_ADD_LAUNCHES, SCATTER_ADD_SORT_LAUNCHES, SCATTER_ADD_SUM_LAUNCHES
     if not _on_card(values, idx, weights):
         return ref.topk_scatter_add_ref(values, idx, weights, n)
-    _check_rows(values, torch.float32, "values")
-    if idx.shape != values.shape or weights.shape != (values.shape[0],):
-        raise ValueError(f"idx must be {tuple(values.shape)} and weights "
-                         f"({values.shape[0]},), got {tuple(idx.shape)}, "
-                         f"{tuple(weights.shape)}")
-    if n <= 0 or n >= 2**31 - 2048:
-        raise ValueError(f"n={n} is outside the kernel's range")
-    sv, si, bounds = scatter_add_segments(values, idx, weights, n)
+    K, k = _check_rows(values, torch.float32, "values")
+    if idx.shape != values.shape or weights.shape != (K,):
+        raise ValueError(f"idx must be {tuple(values.shape)} and weights ({K},), got "
+                         f"{tuple(idx.shape)}, {tuple(weights.shape)}")
+    values, idx = _topk_operands(values, idx, n)
+    weights = weights.to(torch.float32).contiguous()
+    scratch = torch.empty(_scratch_parts(K, k, n)[1], dtype=torch.int32, device=values.device)
     out = torch.empty(n, dtype=torch.float32, device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     build.check_launch(
-        _lib().topk_scatter_add(sv.data_ptr(), si.data_ptr(), bounds.data_ptr(),
-                                out.data_ptr(), n, SEGMENT, stream),
+        _lib().topk_scatter_add(values.data_ptr(), idx.data_ptr(), weights.data_ptr(),
+                                scratch.data_ptr(), out.data_ptr(), K, k, n, SEGMENT, stream),
         "topk_scatter_add",
     )
+    SCATTER_ADD_SORT_LAUNCHES += 1
+    SCATTER_ADD_SUM_LAUNCHES += 1
     SCATTER_ADD_LAUNCHES += 1
     return out
 
@@ -266,48 +258,77 @@ def dequantize(codes, scale):
     return out
 
 
-UNPACK_CHUNK = 8192  # K9's entries of a row sorted by one block (kChunk in csrc/wire_pack.cu)
-# K9's sort keeps a chunk's 64-bit keys, their 16-bit places and a
-# histogram of the row's windows in shared memory: with 36 Ki windows that
-# is 229,444 B, inside the H100's 227 KB (232,448 B) a block
-_UNPACK_MAX_WINDOWS = 36 * 1024
+UNPACK_CHUNK = 8192  # K8's and K9's entries of a row sorted by one block (kChunk in csrc/wire_pack.cu)
+# the sort's shared histogram holds a row of at most UNPACK_MAX_WINDOWS
+# windows; a longer row is sorted by groups of UNPACK_GROUP_WINDOWS windows
+# (kMaxWindows, kGroupWindows in csrc/wire_pack.cu)
+UNPACK_MAX_WINDOWS = 36 * 1024
+UNPACK_GROUP_WINDOWS = 32 * 1024
 
 
 def unpack_layout(idx, n: int):
-    """K9's layout, plain (the card builds it in ``csrc/wire_pack.cu``):
-    each row of idx (K, k) cut into chunks of ``UNPACK_CHUNK`` entries,
-    and each chunk's entries in [0, n) sorted by their ``SEGMENT``-wide
-    output window. Returns (starts (K, nchunk, nseg + 1): the chunk's
-    first slot of each window, the last column its count of entries in
-    range; slots (K, k): each chunk's payload positions j in window order
-    from the chunk's first position on, -1 past its count). Here a
-    window's entries keep payload order; on the card their order is the
-    atomics'. Indices outside [0, n) are in no window."""
+    """K8's and K9's layout, plain (the card builds it in
+    ``csrc/wire_pack.cu``): each row of idx (K, k) cut into chunks of
+    ``UNPACK_CHUNK`` entries, and each chunk's entries in [0, n) sorted by
+    their ``SEGMENT``-wide output window. Returns (starts (K, nchunk, nseg
+    + 1): the chunk's first slot of each window, the last column its count
+    of entries in range; slots (K, k): each chunk's payload positions j in
+    window order from the chunk's first position on, -1 past its count).
+    Here a window's entries keep payload order; on the card their order is
+    the atomics'. Indices outside [0, n) are in no window. A row of more
+    than ``UNPACK_MAX_WINDOWS`` windows is sorted as the card sorts it, one
+    group of ``UNPACK_GROUP_WINDOWS`` windows at a time, each group's run
+    after the runs of the groups before: the same layout."""
     idx = idx.long()
     K, k = idx.shape
     nseg, nchunk = -(-n // SEGMENT), -(-k // UNPACK_CHUNK)
+    width = nseg if nseg <= UNPACK_MAX_WINDOWS else UNPACK_GROUP_WINDOWS
     seg = torch.where((idx >= 0) & (idx < n), idx.div(SEGMENT, rounding_mode="floor"), nseg)
     starts = torch.zeros((K, nchunk, nseg + 1), dtype=torch.int64, device=idx.device)
     slots = torch.full((K, k), -1, dtype=torch.int64, device=idx.device)
     for b in range(nchunk):
         lo, hi = b * UNPACK_CHUNK, min(k, (b + 1) * UNPACK_CHUNK)
         part = seg[:, lo:hi]
-        counts = torch.zeros((K, nseg + 1), dtype=torch.int64, device=idx.device)
-        counts.scatter_add_(1, part, torch.ones_like(part))
-        starts[:, b, 1:] = counts[:, :nseg].cumsum(1)
-        by_window, order = torch.sort(part, dim=1, stable=True)
-        slots[:, lo:hi] = torch.where(by_window < nseg, order + lo, -1)
+        below = [0] * K  # each row's entries in the chunk's groups before
+        for w_lo in range(0, nseg, width):
+            w_hi = min(nseg, w_lo + width)
+            mine = (part >= w_lo) & (part < w_hi)
+            key = torch.where(mine, part, nseg)
+            counts = torch.zeros((K, nseg + 1), dtype=torch.int64, device=idx.device)
+            counts.scatter_add_(1, key, mine.long())
+            starts[:, b, w_lo + 1:w_hi + 1] = (torch.tensor(below, device=idx.device)[:, None]
+                                               + counts[:, w_lo:w_hi].cumsum(1))
+            order = torch.sort(key, dim=1, stable=True).indices
+            for r in range(K):
+                m = int(mine[r].sum())
+                slots[r, lo + below[r]:lo + below[r] + m] = order[r, :m] + lo
+                below[r] += m
     return starts.int(), slots.int()
 
 
 def _scratch_parts(K: int, k: int, n: int) -> tuple:
-    """Where K9's layout lies in its int32 scratch (``topk_unpack`` in
-    csrc/wire_pack.cu): (the keys' first int32, the total int32 count).
+    """Where K8's and K9's layout lies in their int32 scratch
+    (``TopkLayout`` in csrc/wire_pack.cu): (the keys' first int32, the
+    total int32 count).
     The starts (K, nchunk, nseg + 1) come first, then the slots' 64-bit
     keys (K, k) on an 8-byte boundary, then their 16-bit window places."""
     nseg, nchunk = -(-n // SEGMENT), -(-k // UNPACK_CHUNK)
     key_at = (K * nchunk * (nseg + 1) + 1) // 2 * 2
     return key_at, key_at + 2 * K * k + (K * k + 1) // 2
+
+
+def _topk_operands(values, idx, n: int):
+    """K8's and K9's payload as their kernels take it, on the card: values
+    (K, k) fp32 and idx (K, k) int32, contiguous. Raises outside the
+    kernels' int32 range."""
+    K, k = values.shape
+    if n <= 0 or n >= 2**31 - SEGMENT or K * k >= 2**31 - 1:
+        raise ValueError(f"n={n}, K*k={K * k} is outside the kernels' range (n < "
+                         f"2**31 - {SEGMENT}, K*k < 2**31 - 1)")
+    if idx.dtype != torch.int32:
+        # an int64 index past int32's range must stay out of [0, n)
+        idx = idx.clamp(-1, n).to(torch.int32)
+    return values.contiguous(), idx.contiguous()
 
 
 def _topk_unpack_kernels(values, idx, n: int):
@@ -316,13 +337,7 @@ def _topk_unpack_kernels(values, idx, n: int):
     K, k = _check_rows(values, torch.float32, "values")
     if idx.shape != values.shape:
         raise ValueError(f"idx must be {tuple(values.shape)}, got {tuple(idx.shape)}")
-    if n <= 0 or -(-n // SEGMENT) > _UNPACK_MAX_WINDOWS or K * k >= 2**31 - 1:
-        raise ValueError(f"n={n}, K*k={K * k} is outside the kernel's range (n <= "
-                         f"{_UNPACK_MAX_WINDOWS * SEGMENT}, K*k < 2**31 - 1)")
-    if idx.dtype != torch.int32:
-        # an int64 index past int32's range must stay out of [0, n)
-        idx = idx.clamp(-1, n).to(torch.int32)
-    values, idx = values.contiguous(), idx.contiguous()
+    values, idx = _topk_operands(values, idx, n)
     scratch = torch.empty(_scratch_parts(K, k, n)[1], dtype=torch.int32, device=values.device)
     out = torch.empty((K, n), dtype=torch.float32, device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
@@ -336,7 +351,7 @@ def _topk_unpack_kernels(values, idx, n: int):
 
 
 def kernel_layout(scratch, K: int, k: int, n: int):
-    """The layout a K9 launch built, read from its scratch as
+    """The layout a K8 or K9 launch built, read from its scratch as
     ``unpack_layout`` gives it: (starts, slots), the slots being payload
     positions j in window order within each chunk, in the atomics' order
     inside a window, unspecified past the chunk's count."""
@@ -344,8 +359,9 @@ def kernel_layout(scratch, K: int, k: int, n: int):
     key_at = _scratch_parts(K, k, n)[0]
     starts = scratch[:K * nchunk * (nseg + 1)].view(K, nchunk, nseg + 1)
     keys = scratch[key_at:key_at + 2 * K * k].view(torch.int64).view(K, k)
-    shift = 43 if k < 2**21 else 32  # the window place packed below j + 1, or not
-    return starts, ((keys >> shift) - 1).int()
+    high = (keys >> 32) & 0xFFFFFFFF  # the key's high word, unsigned
+    order = high >> 11 if k < 2**21 else high  # the window place packed below j + 1, or not
+    return starts, (order - 1).int()
 
 
 def topk_unpack(values, idx, n: int):
@@ -353,7 +369,8 @@ def topk_unpack(values, idx, n: int):
     (K, k) -> (K, n) fp32, zero elsewhere; of pairs in a row that name one
     index, the last in payload order wins; indices outside [0, n) are
     dropped (K9). On the card one call launches two kernels (a sort of
-    each chunk by window, then one block a window); no host sync."""
+    each chunk by window, by window group past ``UNPACK_MAX_WINDOWS``
+    windows, then one block a window); no host sync."""
     if not _on_card(values, idx):
         return ref.topk_unpack_ref(values, idx, n)
     return _topk_unpack_kernels(values, idx, n)[0]

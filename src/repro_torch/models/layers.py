@@ -18,6 +18,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ref import tanh
 from torch.utils.checkpoint import checkpoint
 
 
@@ -163,7 +165,7 @@ def chunked_softmax_xent(h, unembed, targets, mask=None, chunk: int = 256,
             mask[:, i * c:(i + 1) * c]
         logits = (hh @ w).float()
         if logit_softcap > 0:
-            logits = logit_softcap * torch.tanh(logits / logit_softcap)
+            logits = logit_softcap * tanh(logits / logit_softcap)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, tt[..., None].long())[..., 0]
         tot = tot + ((lse - gold) * mm).sum()

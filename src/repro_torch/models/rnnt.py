@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.asr.rnnt_loss import rnnt_loss_from_logprobs
 from repro_torch.asr.specaugment import SpecAugmentConfig, spec_augment
+from repro_torch.kernels.ref import tanh
 from repro_torch.kernels.rnnt_joint import rnnt_joint
 from repro_torch.models.layers import dense_init, embed_init
 from repro_torch.models.lstm import (LSTMLayer, lstm_stack, lstm_stack_init_state,
@@ -72,7 +73,7 @@ class RNNTConfig:
 def _joint_chunk(e, g, w, b, lbl):
     """(blank, label) log-probs of one U chunk: e (B, T, J), g (B, c, J),
     lbl (B, c) -> two (B, T, c) fp32."""
-    h = torch.tanh(e[:, :, None, :] + g[:, None, :, :])           # (B, T, c, J)
+    h = tanh(e[:, :, None, :] + g[:, None, :, :])                 # (B, T, c, J)
     logits = (h @ w).float() + b                                   # (B, T, c, V)
     lse = torch.logsumexp(logits, dim=-1)
     idx = lbl[:, None, :, None].expand(*logits.shape[:3], 1)
@@ -150,7 +151,7 @@ class RNNT(nn.Module):
         (B, V) fp32 logits."""
         e = enc_t @ self.joint_enc.to(enc_t.dtype)
         g = pred_u @ self.joint_pred.to(pred_u.dtype)
-        h = torch.tanh(e + g)
+        h = tanh(e + g)
         return (h @ self.joint_out.to(h.dtype)).float() + self.joint_bias.float()
 
     def greedy_decode(self, features, frame_len, max_symbols: int = 4):

@@ -185,6 +185,25 @@ def test_wrappers_refuse_what_no_kernel_takes():
         K11.flash_decode(q[:, 0], q, q, torch.zeros((), dtype=torch.int32, device="meta"))
 
 
+@pytest.mark.parametrize("grad_mode,needs", [(True, "q"), (True, "k"), (True, "v"),
+                                             (True, ""), (False, "qkv")])
+def test_k10_refuses_grad_on_the_card_by_a_fixed_rule(grad_mode, needs):
+    """K10 has no backward: on the card it refuses a call that autograd
+    would differentiate (grad mode on and an input requiring grad), by
+    ``refuses_grad``; on the CPU the plain version is differentiable."""
+    q, k, v = (torch.randn(1, 4, 2, 8, requires_grad=name in needs) for name in "qkv")
+    with torch.set_grad_enabled(grad_mode):
+        refused = K10.refuses_grad(q, k, v)
+        launches = K10.FWD_LAUNCHES
+        out = K10.flash_attention(q, k, v)
+    assert refused == (grad_mode and needs != "")
+    assert K10.FWD_LAUNCHES == launches  # the plain version is no launch
+    assert out.requires_grad == refused
+    if out.requires_grad:
+        grads = torch.autograd.grad(out.sum(), [t for t in (q, k, v) if t.requires_grad])
+        assert all(torch.isfinite(g).all() for g in grads)
+
+
 def test_one_term_bf16_p_would_not_match():
     """The hazard the tensor-core K10 avoids: P.V with p rounded to bf16
     once (what SDPA and FlashAttention do) computes another function than

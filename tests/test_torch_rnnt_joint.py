@@ -167,7 +167,8 @@ def test_wrapper_refuses_bad_inputs(case):
     elif case == "meta_device":
         e, g, w, b, lbl = (x.to("meta") for x in (e, g, w, b, lbl))
     def counts():
-        return (K.FWD_LAUNCHES, K.BWD_H_LAUNCHES, K.BWD_DLOGITS_LAUNCHES, K.BWD_DH_LAUNCHES,
+        return (K.FWD_LAUNCHES, K.FWD_H_LAUNCHES, K.FWD_LOGITS_LAUNCHES, K.FWD_LSE_LAUNCHES,
+                K.BWD_H_LAUNCHES, K.BWD_DLOGITS_LAUNCHES, K.BWD_DH_LAUNCHES,
                 K.BWD_REDUCE_LAUNCHES, K.BWD_DW_LAUNCHES)
 
     launches = counts()
@@ -259,26 +260,121 @@ def test_plain_backward_pieces_compose_to_the_plain_backward(B, T, U1, J, V):
     assert tref.rnnt_joint_dlogits_ref(h, *arrays[2:], lse, *cot).shape == (B, T, U1, V)
 
 
-@pytest.mark.parametrize("J,need", [(640, 100_000), (4096, 600_000)])
-def test_shared_memory_rule_is_the_forwards_only(monkeypatch, J, need):
-    """K3 holds a tile's h rows in shared memory, so its wrapper refuses a
-    J whose forward would not fit the card; the backward's kernels take the
-    same shared memory at every J, so the rule asks for the forward alone."""
-    asked = []
+def _forward_launches(e, g, w, b, labels):
+    """K3 as the card runs it, one plain version a launch: h, the logits,
+    their log-sum-exp in the kernel's order."""
+    h = tref.rnnt_joint_h_ref(e, g)
+    return tref.rnnt_joint_lse_ref(tref.rnnt_joint_logits_ref(h, w, b), labels)
 
-    class Lib:
-        def rnnt_joint_fwd_smem_bytes(self, j):
-            asked.append(j)
-            return need
 
-    class Props:
-        shared_memory_per_block_optin = 232_448
+@pytest.mark.parametrize("B,T,U1,J,V,tq,tu,tv", PALLAS_SHAPES[:3])
+def test_plain_forward_launches_match_pallas(B, T, U1, J, V, tq, tu, tv):
+    """K3's three launches' plain versions, composed, against the Pallas
+    forward in interpret mode (FWD_ATOL: the same sums in another order)."""
+    arrays = _inputs(B, T, U1, J, V, seed=B * T + V + 2)
+    got = _forward_launches(*_torch(*arrays))
+    want = rnnt_joint_fused(*map(jnp.asarray, arrays), tq=tq, tu=tu, tv=tv, interpret=True,
+                            return_lse=True)
+    for name, a, b in zip(("blank", "label", "lse"), got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=FWD_ATOL, rtol=0,
+                                   err_msg=name)
 
-    monkeypatch.setattr(K, "_lib", lambda: Lib())
-    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda index: Props())
-    refusal = K._smem_refusal.__wrapped__(0, J)
-    assert asked == [J]
-    if need > Props.shared_memory_per_block_optin:
-        assert refusal.startswith(f"rnnt_joint_fwd needs {need} B") and f"J={J}" in refusal
-    else:
-        assert refusal is None
+
+@pytest.mark.parametrize("B,T,U1,J,V", RAGGED_SHAPES)
+def test_plain_forward_launches_match_dense_oracle_at_ragged_shapes(B, T, U1, J, V):
+    arrays = _inputs(B, T, U1, J, V, seed=U1)
+    blank, label, lse = _forward_launches(*_torch(*arrays))
+    want_blank, want_label = jref.rnnt_joint_ref(*map(jnp.asarray, arrays))
+    e, g, w, b, _ = arrays
+    logits = np.tanh(e[:, :, None, :].astype(np.float64) + g[:, None, :, :]) @ w + b
+    mx = logits.max(-1)
+    want_lse = mx + np.log(np.exp(logits - mx[..., None]).sum(-1))
+    np.testing.assert_allclose(blank.numpy(), np.asarray(want_blank), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(label.numpy(), np.asarray(want_label), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=FWD_ATOL, rtol=0)
+
+
+def _lse_in_order_numpy(logits, labels):
+    """K3's log-sum-exp launch lane by lane in numpy: 128-column slabs in
+    order; lane tx of 32 holds columns v0 + tx + 32c, c = 0..3 (-inf past
+    V); the slab's max; each lane's sum of exp(x - m') in c order from 0,
+    then the xor tree across the lanes; l = fma(l, exp(m - m'), s) (the
+    product exact in float64, one rounding there, one to float32); exp and
+    log taken in float64 and rounded once to float32."""
+    B, T, U1, V = logits.shape
+    x = logits.reshape(-1, V).astype(np.float32)
+    N = x.shape[0]
+
+    def exp32(a):
+        return np.exp(a.astype(np.float64)).astype(np.float32)
+
+    m = np.full(N, -np.inf, np.float32)
+    l = np.zeros(N, np.float32)
+    for v0 in range(0, V, 128):
+        lanes = np.full((N, 32, 4), -np.inf, np.float32)
+        for tx in range(32):
+            for c in range(4):
+                if v0 + tx + 32 * c < V:
+                    lanes[:, tx, c] = x[:, v0 + tx + 32 * c]
+        nm = np.maximum(m, lanes.max(axis=(1, 2)))
+        s = np.zeros((N, 32), np.float32)
+        for c in range(4):
+            s = s + exp32(lanes[:, :, c] - nm[:, None])
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, np.arange(32) ^ o]
+        l = (l.astype(np.float64) * exp32(m - nm) + s[:, 0]).astype(np.float32)
+        m = nm
+    lse = m + np.log(np.maximum(l, np.float32(1e-30)).astype(np.float64)).astype(np.float32)
+    lbl = np.broadcast_to(labels[:, None, :], (B, T, U1)).reshape(-1)
+    ok = (lbl >= 0) & (lbl < V)
+    at = np.where(ok, x[np.arange(N), np.where(ok, lbl, 0)], np.float32(0.0))
+    return tuple(a.reshape(B, T, U1) for a in (x[:, 0] - lse, at - lse, lse))
+
+
+@pytest.mark.parametrize("B,T,U1,V,scale", [(2, 3, 4, 300, 3.0), (1, 2, 3, 128, 1.0),
+                                            (2, 2, 2, 1, 1.0), (1, 3, 2, 129, 20.0),
+                                            (1, 2, 5, 1000, 0.1)])
+def test_plain_lse_launch_is_its_order_written_out(B, T, U1, V, scale):
+    """The log-sum-exp launch's plain version gives the bits of the same
+    order written out lane by lane in numpy, labels out of range (-1, V)
+    included."""
+    r = np.random.default_rng(V)
+    logits = (r.standard_normal((B, T, U1, V)) * scale).astype(np.float32)
+    labels = r.integers(-1, V + 1, (B, U1)).astype(np.int32)
+    labels[0, 0], labels[-1, -1] = -1, V
+    got = tref.rnnt_joint_lse_ref(*_torch(logits, labels))
+    want = _lse_in_order_numpy(logits, labels)
+    for name, a, b in zip(("blank", "label", "lse"), got, want):
+        np.testing.assert_array_equal(a.numpy().view(np.uint32), b.view(np.uint32),
+                                      err_msg=name)
+
+
+def test_plain_tanh_is_the_same_on_first_and_second_use():
+    """The plain versions' tanh (MKL VML behind ATen on the CPU) was off by
+    up to 8.8e-5 on one 2,048-element chunk in about 1 fresh process in
+    125 under load, on its first use; ``ref.tanh`` warms every intra-op
+    thread first. A handful of fresh processes: h's first and second
+    computation agree bit for bit, and with float64's tanh."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import numpy as np, torch\n"
+        "from repro_torch.kernels import ref\n"
+        "r = np.random.default_rng(0)\n"
+        "e = torch.from_numpy((r.standard_normal((2, 32, 24)) * 2).astype(np.float32))\n"
+        "g = torch.from_numpy((r.standard_normal((2, 16, 24)) * 2).astype(np.float32))\n"
+        "h1, h2 = ref.rnnt_joint_h_ref(e, g), ref.rnnt_joint_h_ref(e, g)\n"
+        "want = np.tanh(e.double().numpy()[:, :, None] + g.double().numpy()[:, None])\n"
+        "print(bool(torch.equal(h1, h2)), float(np.abs(h1.double().numpy() - want).max()))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, text=True,
+                              env=env) for _ in range(4)]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=120)
+        assert proc.returncode == 0
+        same, err = out.split()
+        assert same == "True" and float(err) < 1e-6, out

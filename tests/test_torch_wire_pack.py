@@ -118,31 +118,61 @@ def test_topk_scatter_add_is_the_jax_plain_version(n, k):
     np.testing.assert_allclose(got, want, rtol=SCATTER_RTOL, atol=0)
 
 
-def test_scatter_add_segments_hold_every_entry_once_in_client_order():
-    """The kernel's inputs (the wrapper builds them the same way on the
-    card): a walk over each segment's slice, summing each run of equal
-    indices from 0 as the kernel does, gives the plain version's bits."""
-    n, k = 9000, 3000
-    vals, idx, weights = _payload(n, k, 1)
-    sv, si, bounds = wire_pack.scatter_add_segments(_t(vals), _t(idx), _t(weights), n)
-    assert si.dtype == bounds.dtype == torch.int32
-    nseg = -(-n // wire_pack.SEGMENT)
-    assert bounds.shape == (nseg + 1,) and int(bounds[0]) == 0 and int(bounds[-1]) == si.numel()
+def _scatter_add_windows(vals, idx, weights, n):
+    """K8 as the card computes it, written out over the plain layout: one
+    window at a time, the clients in client order, each client's run of
+    the window from every chunk; each entry adds weight * value (float32
+    product, then float32 sum) into a window that starts at +0.0."""
+    starts, slots = (t.numpy() for t in wire_pack.unpack_layout(_t(idx), n))
+    K_ = idx.shape[0]
+    nseg, chunk = -(-n // wire_pack.SEGMENT), wire_pack.UNPACK_CHUNK
     out = np.zeros(n, np.float32)
-    sv, si, bounds = sv.numpy(), si.numpy(), bounds.numpy()
     for s in range(nseg):
-        for j in range(bounds[s], bounds[s + 1]):
-            assert s * wire_pack.SEGMENT <= si[j] < (s + 1) * wire_pack.SEGMENT
-            if j > bounds[s] and si[j - 1] == si[j]:
-                continue
-            acc, q = np.float32(0.0), j
-            while q < bounds[s + 1] and si[q] == si[j]:
-                acc = np.float32(acc + sv[q])
-                q += 1
-            out[si[j]] = acc
+        lo = s * wire_pack.SEGMENT
+        window = np.zeros(min(wire_pack.SEGMENT, n - lo), np.float32)
+        for r in range(K_):
+            for b in range(starts.shape[1]):
+                for j in slots[r, b * chunk + starts[r, b, s]:b * chunk + starts[r, b, s + 1]]:
+                    at = idx[r, j] - lo
+                    window[at] = np.float32(window[at] + np.float32(weights[r] * vals[r, j]))
+        out[lo:lo + window.size] = window
+    return out
+
+
+SCATTER_CASES = ["shared indices", "out of range", "negative and zero weights",
+                 "-0.0 values", "several chunks", "window groups"]
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_add_windows_hold_every_entry_once_in_client_order(case, monkeypatch):
+    """The window-by-client walk over the layout (K8's sum kernel, plain)
+    gives the plain version's bits: indices repeated across clients and
+    summed in client order from 0, indices out of range dropped, negative
+    and zero weights, -0.0 values (0.0 + -0.0 is +0.0), rows of several
+    chunks, and a row sorted by window groups."""
+    n, k = 9000, 600
+    if case == "several chunks":
+        n, k = 60_000, 2 * wire_pack.UNPACK_CHUNK + 700
+    vals, idx, weights = _payload(n, k, len(case))
+    if case == "out of range":
+        idx[:, ::13] = -1
+        idx[1, 5::17] = n
+        idx[2, 3] = 2**31 - 1
+    elif case == "negative and zero weights":
+        weights = np.array([-2.5, 0.0, 3.0], np.float32)
+    elif case == "-0.0 values":
+        vals[:, ::3] = -0.0
+        weights = np.array([1.0, -0.0, 2.0], np.float32)
+    elif case == "window groups":  # the layout by groups of 2 windows past 2 windows
+        monkeypatch.setattr(wire_pack, "UNPACK_MAX_WINDOWS", 2)
+        monkeypatch.setattr(wire_pack, "UNPACK_GROUP_WINDOWS", 2)
     want = ref.topk_scatter_add_ref(_t(vals), _t(idx), _t(weights), n).numpy()
-    np.testing.assert_array_equal(out, want)
-    assert (np.diff(si) >= 0).all()
+    got = _scatter_add_windows(vals, idx, weights, n)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    dense = wire_pack.topk_scatter_add(_t(vals), _t(idx), _t(weights), n).numpy()
+    np.testing.assert_array_equal(dense.view(np.uint32), want.view(np.uint32))
+    if case == "-0.0 values":
+        assert (np.signbit(want) == (want < 0)).all()  # no -0.0 comes out
 
 
 def test_wrappers_refuse_mixed_devices_and_bad_bits():
@@ -290,6 +320,28 @@ def test_unpack_layout_gives_each_row_its_windows():
     want = _last_wins(vals, idx, n)
     np.testing.assert_array_equal(_walk_layout(vals, idx, n), want)
     np.testing.assert_array_equal(wire_pack.topk_unpack(_t(vals), _t(idx), n).numpy(), want)
+
+
+@pytest.mark.parametrize("max_windows,group_windows", [(1, 1), (2, 2), (3, 2), (4, 3)])
+def test_unpack_layout_by_window_groups_is_one_histograms(max_windows, group_windows,
+                                                          monkeypatch):
+    """Past ``UNPACK_MAX_WINDOWS`` windows a row is sorted one group of
+    ``UNPACK_GROUP_WINDOWS`` windows at a time, each group's run after the
+    groups' before: the layout of one histogram of the row, bit for bit,
+    and its walk the serial loop's."""
+    n, k = 9000, 2 * wire_pack.UNPACK_CHUNK + 1000
+    rng = np.random.default_rng(max_windows)
+    idx = rng.integers(-50, n + 50, size=(K, k)).astype(np.int32)
+    idx[:, ::7] = rng.choice([2047, 2048, 4095, 4096, 6143, 6144], size=idx[:, ::7].shape)
+    vals = rng.standard_normal((K, k)).astype(np.float32)
+    assert wire_pack.UNPACK_GROUP_WINDOWS <= wire_pack.UNPACK_MAX_WINDOWS
+    one = wire_pack.unpack_layout(_t(idx), n)
+    monkeypatch.setattr(wire_pack, "UNPACK_MAX_WINDOWS", max_windows)
+    monkeypatch.setattr(wire_pack, "UNPACK_GROUP_WINDOWS", group_windows)
+    grouped = wire_pack.unpack_layout(_t(idx), n)
+    for a, b in zip(one, grouped):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(_walk_layout(vals, idx, n), _last_wins(vals, idx, n))
 
 
 def _edge_case(name: str):
