@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import keys as keys_lib
 from repro_torch.core.compression import jax_leaf_order
+from repro_torch.kernels import threefry_normal
 
 Aggregator = Callable[..., dict]
 
@@ -151,11 +152,13 @@ def clipped_mean(deltas: dict, n_k, pmask, hypers, key) -> dict:
     scale = torch.clamp(clip / torch.sqrt(torch.clamp(sq, min=1e-24)), max=1.0)
     w = torch.where(finite, scale, 0.0) * pmask / m
     noise_std = torch.tensor(hypers["dp_sigma"] * hypers["dp_clip"], **f32) / m
-    lkeys = keys_lib.split(key.cpu(), len(names)).to(device)
     out = {}
-    for i, name in enumerate(names):
+    for name in names:
         d = deltas[name]
         out[name] = _client_fold(w, torch.where(torch.isfinite(d), d, 0.0).float())
-        if sigma != 0.0:
-            out[name] = out[name] + noise_std * keys_lib.normal(lkeys[i], d.shape[1:])
+    if sigma != 0.0:  # one normal kernel launch for every leaf
+        noisy = threefry_normal.normal_axpy([out[n] for n in names],
+                                            keys_lib.split(key.cpu(), len(names)),
+                                            [noise_std] * len(names))
+        out = dict(zip(names, noisy))
     return {name: out[name] for name in deltas}

@@ -20,8 +20,9 @@ raises.
 The corrupted-client mask is multiplied by the participation mask: a
 dropped client is never a corrupted contributor. Corruption changes no
 wire bytes: a corrupted participant still uploads a full payload. The
-draws are the reference's threefry draws (``core/keys.py``): the mask
-bitwise, the gaussian noise to ``normal``'s tolerance.
+draws are the reference's threefry draws (``core/keys.py``), bit for bit:
+the mask, and the gaussian noise (one normal kernel launch a call on the
+card, ``kernels/threefry_normal.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.core import keys as keys_lib
 from repro_torch.core.compression import jax_leaf_order
+from repro_torch.kernels import threefry_normal
 
 # the in-round delta corruptions and the data-plane kind
 DELTA_KINDS = ("sign_flip", "gaussian", "zero", "stale")
@@ -95,14 +97,15 @@ def gaussian(deltas: dict, key, scale: float, stale) -> dict:
     the reference's tree order draws from ``split(key, L)[i]`` over the
     whole (K, ...) leaf."""
     names = jax_leaf_order(deltas)
-    device = deltas[names[0]].device
-    lkeys = keys_lib.split(key.cpu(), len(names)).to(device)
-    out = {}
-    for i, name in enumerate(names):
+    lkeys = keys_lib.split(key.cpu(), len(names))
+    d32s, scales = [], []
+    for name in names:
         d32 = deltas[name].float()
         axes = tuple(range(1, d32.dim()))
-        rms = torch.sqrt(d32.square().mean(dim=axes, keepdim=True) + 1e-12)
-        out[name] = d32 + scale * rms * keys_lib.normal(lkeys[i], d32.shape)
+        rms = torch.sqrt(d32.square().mean(dim=axes) + 1e-12)
+        d32s.append(d32)
+        scales.append(scale * rms)
+    out = dict(zip(names, threefry_normal.normal_axpy(d32s, lkeys, scales)))
     return {name: out[name] for name in deltas}
 
 

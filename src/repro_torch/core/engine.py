@@ -23,9 +23,9 @@ class RoundEngine(NamedTuple):
 
 
 def build_round_engine(plan: FederatedPlan, task: FederatedTask, seed: int) -> RoundEngine:
-    """``seed`` seeds every client's per-step generators (FVN noise and
-    SpecAugment masks) and is the compression plane's threefry base key,
-    ``PRNGKey(seed)``, as the reference's ``base_key`` is."""
+    """``PRNGKey(seed)`` is the round's threefry base key, as the
+    reference's ``base_key`` is: every client step's key (FVN noise and
+    SpecAugment masks) and the server plane's keys derive from it."""
     return RoundEngine(
         plan=plan,
         init_state=functools.partial(init_server_state, plan),

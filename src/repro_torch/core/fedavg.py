@@ -26,12 +26,12 @@ chooses:
   order ``aggregation.weighted_mean`` does, so the two give the same bits.
 
 The randomness of client k's local step s in round r comes from the
-reference's key ``fvn_key(PRNGKey(seed), r, k, s)``: its data key
-``fold_in(·, 1)`` draws SpecAugment's masks as JAX's do, bit for bit
-(``repro/core/fedavg.py:389-391``). FVN's noise still comes from a
-generator seeded by the same four numbers (``fvn.step_seed``), so it is
-not JAX's. The server plane's draws are the reference's threefry draws
-(``core/keys.py``) from the same base key.
+reference's key ``fvn_key(PRNGKey(seed), r, k, s)``, as JAX's does, bit
+for bit (``repro/core/fedavg.py:389-391``): FVN's noise from the key
+itself (``fvn.perturb``: one normal kernel launch a step on the card),
+SpecAugment's masks from its data key ``fold_in(·, 1)``. The server
+plane's draws are the reference's threefry draws (``core/keys.py``) from
+the same base key.
 """
 
 from __future__ import annotations
@@ -169,19 +169,15 @@ def _client_update(loss_fn: Callable, client_opt: Optimizer, sigma: Optional[flo
     (S_local, b, ...). ``sigma`` is the FVN std (None disables the
     perturbation). Returns (delta = w^r - w_hat, mean loss over the
     steps that hold examples)."""
-    device = next(iter(params.values())).device
     base_key = keys_lib.PRNGKey(seed)
     n_steps = client_batch["weight"].shape[0]
     p, opt_state = params, client_opt.init(params)
     losses, ns = [], []
     for s in range(n_steps):
         step_batch = {k: v[s] for k, v in client_batch.items()}
-        p_eval = p
-        if sigma is not None:
-            noise = torch.Generator(device=device).manual_seed(
-                fvn_lib.step_seed(seed, round_idx, client_idx, s))
-            p_eval = fvn_lib.perturb(p, noise, sigma)
-        data_key = keys_lib.fold_in(fvn_lib.fvn_key(base_key, round_idx, client_idx, s), 1)
+        key = fvn_lib.fvn_key(base_key, round_idx, client_idx, s)
+        p_eval = p if sigma is None else fvn_lib.perturb(p, key, sigma)
+        data_key = keys_lib.fold_in(key, 1)
         leaves = {k: v.detach().requires_grad_() for k, v in p_eval.items()}
         loss, _ = loss_fn(leaves, step_batch, data_key)
         grads = torch.autograd.grad(loss, list(leaves.values()))

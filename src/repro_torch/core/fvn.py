@@ -2,11 +2,12 @@
 
 The port of ``repro/core/fvn.py``. Each client draws its own Gaussian
 weight noise at each local step, all from N(0, sigma(round)), with sigma
-on a linear ramp over rounds (E7). The reference folds (round, client,
-step) into a JAX key; here the same four numbers seed a
-``torch.Generator`` (``step_seed``), so the noise is deterministic per
-(seed, round, client, step) and distinct across them. The two packages
-never draw the same bits.
+on a linear ramp over rounds (E7). The noise is the reference's: the
+client step's key ``fvn_key(PRNGKey(seed), round, client, step)`` split
+into one key per tensor in JAX's tree order, then ``jax.random.normal``
+per tensor, bit for bit, drawn and added by the normal kernel in one
+launch a client step (``kernels/threefry_normal.py``; its plain version
+on the CPU).
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import keys
+from repro_torch.core.compression import jax_leaf_order
 from repro_torch.core.plan import FVNConfig
+from repro_torch.kernels import threefry_normal
 
 
 def fvn_sigma(cfg: FVNConfig, round_idx: int) -> float:
@@ -36,17 +39,14 @@ def fvn_key(base_key: torch.Tensor, round_idx: int, client_idx: int, step_idx: i
     return keys.fold_in(k, step_idx)
 
 
-def step_seed(seed: int, round_idx: int, client_idx: int, step_idx: int) -> int:
-    """A 64-bit seed for FVN's generator at one (round, client, step)."""
-    state = np.random.SeedSequence([seed, round_idx, client_idx, step_idx])
-    return int(state.generate_state(1, np.uint64)[0])
-
-
-def perturb(params: dict, generator: torch.Generator, sigma: float) -> dict:
-    """params + N(0, sigma): one independent draw per tensor, in the
-    dict's order, on the generator's device."""
-    return {
-        k: (p.float() + sigma * torch.randn(p.shape, generator=generator, device=p.device))
-        .to(p.dtype)
-        for k, p in params.items()
-    }
+def perturb(params: dict, key: torch.Tensor, sigma: float) -> dict:
+    """params + N(0, sigma), ``repro/core/fvn.py:40-48``: tensor i of
+    JAX's tree order (``jax_leaf_order``) draws ``jax.random.normal``
+    from ``split(key, L)[i]``, and (p.float() + sigma · noise) is cast
+    back to p's dtype. One kernel launch for all the tensors on the card."""
+    names = jax_leaf_order(params)
+    lkeys = keys.split(key.cpu(), len(names))
+    noisy = threefry_normal.normal_axpy([params[n] for n in names], lkeys,
+                                        [sigma] * len(names))
+    out = dict(zip(names, noisy))
+    return {name: out[name] for name in params}

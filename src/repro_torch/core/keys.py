@@ -19,13 +19,15 @@ A key is its two 32-bit words as an int64 tensor of shape ``(..., 2)``
 default of the jax that ``requirements.txt`` pins (``jax_threefry_
 partitionable=False``): ``split(key, n)`` is one block over the counters
 ``iota(2n)`` halved, ``uniform`` is ``ref.threefry_uniform_ref`` scaled,
-and ``normal`` is ``sqrt(2) * erfinv(uniform(lo, 1))`` with ``lo`` the
-float32 after -1. ``split`` and ``uniform`` equal JAX's bit for bit.
-``normal`` takes PyTorch's ``erfinv``, which is not XLA's float32
-polynomial: the draws agree to about 2e-5 (a few ulps of draws up to
-about 5 in size), and only some of them bit for bit. ``randint`` draws one
-scalar as ``jax.random.randint`` does, bit for bit; the client step's
-SpecAugment masks come from it (``repro/asr/specaugment.py:23-53``).
+and ``normal`` is ``sqrt(2) * erf_inv(uniform(lo, 1))`` with ``lo`` the
+float32 after -1 and XLA's float32 ``erf_inv`` restated operation by
+operation (``ref.uniform_to_normal``). ``split``, ``uniform`` and
+``normal`` equal JAX's bit for bit (``normal`` as jax 0.9.0 compiles it on
+the CPU). ``randint`` draws one scalar as ``jax.random.randint`` does, bit
+for bit; the client step's SpecAugment masks come from it
+(``repro/asr/specaugment.py:23-53``). Large draws on the card (FVN, the
+gaussian adversary, the DP noise) go through the normal kernel
+(``kernels/threefry_normal.py``) instead, which gives the same bits.
 
 A single key on the CPU (shape ``(2,)``) is hashed with Python integers:
 the client step folds and splits a few dozen scalar keys, and a threefry
@@ -38,11 +40,12 @@ import math
 
 import torch
 
-from repro_torch.kernels.ref import bits_to_uniform, threefry2x32_pair, threefry_random_bits_at
+from repro_torch.kernels.ref import (NORMAL_LO, bits_to_uniform, threefry2x32_pair,
+                                     threefry_bits_ref, uniform_to_normal)
 
 _M32 = 0xFFFFFFFF
 # jax.random.normal's lower end: the float32 after -1 toward 0
-_NORMAL_LO = -(1.0 - 2.0 ** -24)
+_NORMAL_LO = NORMAL_LO
 
 
 def PRNGKey(seed: int) -> torch.Tensor:
@@ -87,10 +90,8 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
 
 def _bits(key: torch.Tensor, shape) -> torch.Tensor:
     """The 32-bit words of ``jax.random.bits(key, shape)`` (int64)."""
-    n = math.prod(shape)
     kd = key.to(torch.int64)
-    pos = torch.arange(n, dtype=torch.int64, device=kd.device)
-    return threefry_random_bits_at(kd[..., 0:1], kd[..., 1:2], pos, n).reshape(
+    return threefry_bits_ref(kd[..., 0:1], kd[..., 1:2], math.prod(shape)).reshape(
         *key.shape[:-1], *shape)
 
 
@@ -110,11 +111,9 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
 
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: key (..., 2) -> (...,
-    *shape) float32, sqrt(2) * erfinv of a uniform draw on [lo, 1) with
-    lo the float32 after -1 toward 0."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return torch.erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=torch.float32,
-                                          device=u.device)
+    *shape) float32, sqrt(2) * erf_inv of a uniform draw on [lo, 1) with
+    lo the float32 after -1 toward 0, bit for bit."""
+    return uniform_to_normal(bits_to_uniform(_bits(key, tuple(shape))))
 
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1

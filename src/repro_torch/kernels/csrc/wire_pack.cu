@@ -16,16 +16,23 @@
 // clients (stride 0) or one per client (stride 1): client k reads
 // scale[k * stride].
 //
-// wire_quantize (K5 and K6, one template). Per element p of client k:
+// wire_quantize (K5 and K6, one entry point). Per element p of client k:
 //   y    = clip(x / s, -levels, levels)      IEEE division, clamp first
 //   code = floor(y) + [u < y - floor(y)]     stochastic, or
 //   code = rint(y)                           nearest (half to even, as jnp.round)
 // with u read from a streamed field (K6) or drawn here (K5) from the
 // client's key words (k0, k1) and p: the threefry2x32 hash of
-// repro/kernels/ref.py:173-212 on uint32, bit for bit, so K5's codes equal
-// the reference's, not only in distribution. With pack4 a thread makes one
-// wire byte from elements 2i (low nibble) and 2i+1 (high nibble); an odd
-// n pads the last high nibble with 0.
+// repro/kernels/ref.py:173-212 on uint32 (threefry.cuh), bit for bit, so
+// K5's codes equal the reference's, not only in distribution. With pack4
+// a wire byte holds elements 2i (low nibble) and 2i+1 (high nibble); an
+// odd n pads the last high nibble with 0. K6 (wire_quantize_kernel): a
+// thread takes 8 consecutive elements of a row, with 16-byte loads and
+// an 8-byte store of codes or a 4-byte store of bytes where the row's
+// run is whole and aligned, element by element at a ragged tail. K5
+// (wire_quantize_keyed_kernel): a thread owns 8 consecutive threefry
+// blocks, hashes each once and quantizes both positions it serves (pair
+// and pair + half); when half is odd a high-half byte spans two blocks,
+// and its codes meet in shared memory (the kernel's comment).
 //
 // nibble_pack / nibble_unpack (K7): one thread per byte.
 //
@@ -81,12 +88,12 @@
 // 3 more for its second counter; each element adds 2 for its mantissa
 // fill. On the card's 64 INT32 lanes per SM (16.7 Tops/s at 1.98 GHz)
 // that is about 50 us at K=4 and n=5,308,416, against 28 us to move x in
-// and the bytes out. This kernel computes each element's block itself,
-// so it hashes every block twice (once per position it serves) and
-// throws one word away: twice the hash work the bound counts. Nearest and
-// streamed rounding, the nibble kernels, dequantize, the scatter-add and
-// the top-k unpack are bound by bytes. Nothing here is tuned yet but K8
-// and K9: one element (or byte) per thread, no vector loads. K8's bound
+// and the bytes out. The kernel hashes each block once, as the bound
+// counts, and one block more per 2,048 when half is odd (a byte across
+// two blocks of threads). Nearest and streamed rounding, the nibble
+// kernels, dequantize, the scatter-add and the top-k unpack are bound by
+// bytes. The nibble kernels and dequantize take one element (or byte) a
+// thread, with no vector loads. K8's bound
 // counts the payloads and weights read once and the (n,) output written
 // once; its two kernels add the keys as K9's do. K9's bound counts
 // the payload read once and the (K, n) output written once (93.4 MB at
@@ -104,107 +111,193 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
 enum Rounding { kNearest = 0, kStreamed = 1, kKeyed = 2 };
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
+// K6: consecutive elements of a row a thread (two 16-byte loads of x, and
+// of u when streamed; one 8-byte store of codes or 4-byte store of bytes)
+constexpr int kElems = 8;
+// K5: consecutive threefry blocks of a row a thread, each hashed once
+constexpr int kPairs = 8;
 
-// one threefry2x32 block (jax's 20-round schedule, ref.py:156-171)
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0,
-                                             uint32_t c1, uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  const uint32_t inj[5][2] = {{k1, ks2}, {ks2, k0}, {k0, k1}, {k1, ks2}, {ks2, k0}};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][j]);
-      x1 ^= x0;
-    }
-    x0 += inj[i][0];
-    x1 += inj[i][1] + static_cast<uint32_t>(i + 1);
-  }
-  o0 = x0;
-  o1 = x1;
-}
-
-// the uniform at flat position p of a size-n draw (ref.py:173-202)
-__device__ __forceinline__ float keyed_uniform(uint32_t k0, uint32_t k1, uint32_t p,
-                                               uint32_t n) {
-  const uint32_t half = (n + 1u) / 2u;
-  const bool lo = p < half;
-  const uint32_t pair = lo ? p : p - half;
-  const uint32_t c1 = pair + half < n ? pair + half : 0u;
-  uint32_t o0, o1;
-  threefry2x32(k0, k1, pair, c1, o0, o1);
-  const uint32_t bits = lo ? o0 : o1;
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
-
+// y = clip(x / s, ±levels); rint(y) (nearest), or floor(y) + [u < y - floor(y)]
 template <int MODE>
-__device__ __forceinline__ int8_t quantize_one(float x, float s, float levels, const float* u_row,
-                                               uint32_t k0, uint32_t k1, uint32_t p,
-                                               uint32_t n) {
+__device__ __forceinline__ int quantize_code(float x, float s, float levels, float u) {
   float y = __fdiv_rn(x, s);
   y = y < -levels ? -levels : (y > levels ? levels : y);
   if constexpr (MODE == kNearest) {
-    return static_cast<int8_t>(static_cast<int>(rintf(y)));
-  }
-  float u;
-  if constexpr (MODE == kStreamed) {
-    u = u_row[p];
-  } else {
-    u = keyed_uniform(k0, k1, p, n);
+    return static_cast<int>(rintf(y));
   }
   const float lo = floorf(y);
-  const float code = lo + (u < y - lo ? 1.0f : 0.0f);
-  return static_cast<int8_t>(static_cast<int>(code));
+  return static_cast<int>(lo + (u < y - lo ? 1.0f : 0.0f));
 }
 
 __device__ __forceinline__ int8_t pack_byte(int even, int odd) {
   return static_cast<int8_t>(static_cast<uint8_t>((even & 0xF) | ((odd & 0xF) << 4)));
 }
 
-// x (K, n) fp32, scale () fp32, u (K, n) fp32 or null, keys (K, 2) uint32 or
-// null -> out (K, n) int8 codes, or (K, (n+1)/2) int8 nibble bytes (PACK4)
+__device__ __forceinline__ uint32_t code_byte(int c) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(c)));
+}
+
+__device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// v[j] = row[start + j] for start + j < limit (0 past it): 16-byte loads
+// where the run is whole and aligned
+template <int N>
+__device__ __forceinline__ void load_run(const float* __restrict__ row, uint32_t start,
+                                         uint32_t limit, float (&v)[N]) {
+  if (start + N <= limit && aligned(row + start, 16)) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(row + start + j);
+      v[j] = q.x;
+      v[j + 1] = q.y;
+      v[j + 2] = q.z;
+      v[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = start + j < limit ? row[start + j] : 0.0f;
+  }
+}
+
+// row[start + j] = c[j] for start + j < limit: one 4- or 8-byte store
+// where the run is whole and aligned
+template <int N>
+__device__ __forceinline__ void store_codes(int8_t* __restrict__ row, uint32_t start,
+                                            uint32_t limit, const int (&c)[N]) {
+  if (start + N <= limit && aligned(row + start, N)) {
+    uint32_t w[N / 4];
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      w[j] = code_byte(c[4 * j]) | code_byte(c[4 * j + 1]) << 8 |
+             code_byte(c[4 * j + 2]) << 16 | code_byte(c[4 * j + 3]) << 24;
+    if constexpr (N == 8) {
+      *reinterpret_cast<uint2*>(row + start) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(row + start) = w[0];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (start + j < limit) row[start + j] = static_cast<int8_t>(c[j]);
+  }
+}
+
+// K6 (nearest, streamed). x (K, n) fp32, scale[k * scale_stride], u (K, n)
+// fp32 (streamed) -> out (K, n) int8 codes, or (K, (n+1)/2) nibble bytes
+// (PACK4). A thread takes kElems consecutive elements of row blockIdx.y.
 template <int MODE, bool PACK4>
 __global__ void __launch_bounds__(kThreads)
     wire_quantize_kernel(const float* __restrict__ x, const float* __restrict__ scale,
                          int scale_stride, const float* __restrict__ u,
-                         const uint32_t* __restrict__ keys, int8_t* __restrict__ out, int n,
-                         float levels) {
+                         int8_t* __restrict__ out, int n, float levels) {
   const int k = blockIdx.y;
-  const int n_out = PACK4 ? (n + 1) / 2 : n;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_out) return;
-  const float s = scale[k * scale_stride];
-  const float* x_row = x + static_cast<size_t>(k) * n;
-  const float* u_row = MODE == kStreamed ? u + static_cast<size_t>(k) * n : nullptr;
-  uint32_t k0 = 0, k1 = 0;
-  if (MODE == kKeyed) {
-    k0 = keys[2 * k];
-    k1 = keys[2 * k + 1];
-  }
   const uint32_t un = static_cast<uint32_t>(n);
-  if (PACK4) {
-    const int p = 2 * i;
-    const int even = quantize_one<MODE>(x_row[p], s, levels, u_row, k0, k1, p, un);
-    const int odd = p + 1 < n
-                        ? quantize_one<MODE>(x_row[p + 1], s, levels, u_row, k0, k1, p + 1, un)
-                        : 0;
-    out[static_cast<size_t>(k) * n_out + i] = pack_byte(even, odd);
+  const uint32_t i0 = (blockIdx.x * kThreads + threadIdx.x) * kElems;
+  if (i0 >= un) return;
+  const float s = scale[k * scale_stride];
+  float xv[kElems], uv[kElems];
+  load_run<kElems>(x + static_cast<size_t>(k) * n, i0, un, xv);
+  if constexpr (MODE == kStreamed) load_run<kElems>(u + static_cast<size_t>(k) * n, i0, un, uv);
+  int c[kElems];
+#pragma unroll
+  for (int j = 0; j < kElems; ++j)
+    c[j] = quantize_code<MODE>(xv[j], s, levels, MODE == kStreamed ? uv[j] : 0.0f);
+  if constexpr (PACK4) {
+    // odd n: the last byte's high nibble is 0 (c past n is unused)
+    int b[kElems / 2];
+#pragma unroll
+    for (int j = 0; j < kElems / 2; ++j)
+      b[j] = static_cast<uint8_t>(pack_byte(c[2 * j], i0 + 2 * j + 1 < un ? c[2 * j + 1] : 0));
+    const uint32_t nb = (un + 1u) / 2u;
+    store_codes<kElems / 2>(out + static_cast<size_t>(k) * nb, i0 / 2, nb, b);
   } else {
-    out[static_cast<size_t>(k) * n + i] =
-        quantize_one<MODE>(x_row[i], s, levels, u_row, k0, k1, i, un);
+    store_codes<kElems>(out + static_cast<size_t>(k) * n, i0, un, c);
+  }
+}
+
+__device__ __forceinline__ int keyed_code(float x, float s, float levels, uint32_t word) {
+  return quantize_code<kKeyed>(x, s, levels, threefry::bits_to_unit(word));
+}
+
+// K5 (keyed). x (K, n) fp32, scale[k * scale_stride], keys (K, 2) uint32
+// -> out as wire_quantize_kernel's. A thread owns kPairs consecutive
+// threefry blocks p.. of row blockIdx.y (threefry.cuh), hashes each once
+// and quantizes both positions it serves: the low half's p.., the high
+// half's p + half... Low bytes pair blocks (2i, 2i + 1). When half is
+// even so do the high bytes; when it is odd a high byte pairs blocks
+// (2i - 1, 2i): the high codes go through shared memory, and the block's
+// first byte takes the code before its range, hashed for it alone (the
+// block before's last second word, or for block 0 position half - 1, the
+// byte that straddles the halves). The low side leaves that byte out.
+template <bool PACK4>
+__global__ void __launch_bounds__(kThreads)
+    wire_quantize_keyed_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                               int scale_stride, const uint32_t* __restrict__ keys,
+                               int8_t* __restrict__ out, int n, float levels) {
+  __shared__ int8_t high[kThreads * kPairs];
+  const int k = blockIdx.y;
+  const uint32_t un = static_cast<uint32_t>(n);
+  const uint32_t half = (un + 1u) / 2u;
+  const uint32_t block0 = blockIdx.x * (kThreads * kPairs);
+  const uint32_t p = block0 + threadIdx.x * kPairs;
+  const float s = scale[k * scale_stride];
+  const uint32_t k0 = keys[2 * k], k1 = keys[2 * k + 1];
+  const float* x_row = x + static_cast<size_t>(k) * n;
+  float xl[kPairs], xh[kPairs];
+  load_run<kPairs>(x_row, p, half, xl);
+  load_run<kPairs>(x_row + half, p, un - half, xh);
+  int lo[kPairs], hi[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    lo[j] = hi[j] = 0;
+    if (p + j < half) {
+      uint32_t o0, o1;
+      threefry::threefry_pair(k0, k1, p + j, un, o0, o1);
+      lo[j] = keyed_code(xl[j], s, levels, o0);
+      if (p + j + half < un) hi[j] = keyed_code(xh[j], s, levels, o1);
+    }
+  }
+  if constexpr (!PACK4) {
+    int8_t* row = out + static_cast<size_t>(k) * n;
+    store_codes<kPairs>(row, p, half, lo);
+    store_codes<kPairs>(row + half, p, un - half, hi);
+  } else {
+    const uint32_t nb = (un + 1u) / 2u;
+    int8_t* row = out + static_cast<size_t>(k) * nb;
+#pragma unroll
+    for (int j = 0; j < kPairs; j += 2)
+      if (p + j + 1 < half) row[(p + j) / 2] = pack_byte(lo[j], lo[j + 1]);
+    if (half % 2u == 0u) {
+#pragma unroll
+      for (int j = 0; j < kPairs; j += 2)
+        if (half + p + j < un) row[(half + p + j) / 2] = pack_byte(hi[j], hi[j + 1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) high[threadIdx.x * kPairs + j] = static_cast<int8_t>(hi[j]);
+      int before = 0;  // the code at position half + block0 - 1
+      if (threadIdx.x == 0) {
+        const uint32_t q = half + block0 - 1u;
+        if (q < un)
+          before = keyed_code(x_row[q], s, levels, threefry::threefry_word(k0, k1, q, un));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kPairs; j += 2) {
+        const uint32_t r = threadIdx.x * kPairs + j;  // even: a byte's high nibble
+        const uint32_t q = half + block0 + r - 1u;     // its low nibble's position
+        if (q < un) row[q / 2] = pack_byte(r == 0 ? before : high[r - 1], high[r]);
+      }
+    }
   }
 }
 
@@ -556,10 +649,20 @@ template <int MODE, bool PACK4>
 void launch_quantize(const float* x, const float* scale, int scale_stride, const float* u,
                      const uint32_t* keys, int8_t* out, int K, int n, float levels,
                      cudaStream_t stream) {
-  const int n_out = PACK4 ? (n + 1) / 2 : n;
-  const dim3 grid((n_out + kThreads - 1) / kThreads, K);
-  wire_quantize_kernel<MODE, PACK4><<<grid, kThreads, 0, stream>>>(x, scale, scale_stride, u,
-                                                                  keys, out, n, levels);
+  if constexpr (MODE == kKeyed) {
+    const long long half = (static_cast<long long>(n) + 1) / 2;
+    const dim3 grid(static_cast<unsigned>((half + kThreads * kPairs - 1) / (kThreads * kPairs)),
+                    K);
+    wire_quantize_keyed_kernel<PACK4><<<grid, kThreads, 0, stream>>>(x, scale, scale_stride,
+                                                                    keys, out, n, levels);
+  } else {
+    const dim3 grid(
+        static_cast<unsigned>((static_cast<long long>(n) + kThreads * kElems - 1) /
+                              (kThreads * kElems)),
+        K);
+    wire_quantize_kernel<MODE, PACK4><<<grid, kThreads, 0, stream>>>(x, scale, scale_stride, u,
+                                                                    out, n, levels);
+  }
 }
 
 }  // namespace

@@ -18,6 +18,7 @@ few operators; its words are held bitwise to ``jax.random``.
 
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -390,14 +391,157 @@ def bits_to_uniform(bits):
     return f - 1.0
 
 
+def threefry_bits_ref(k0, k1, n: int):
+    """The n 32-bit words of ``jax.random.bits(key, (n,))`` (non-
+    partitionable), each threefry block hashed once: block ``pair`` <
+    half gives position pair its first word and position pair + half its
+    second, the odd n's last second word dropped (its counter 0). Equal
+    to ``threefry_random_bits_at`` at every position; K5 and the normal
+    kernel pair positions this way (``csrc/threefry.cuh``)."""
+    half = (n + 1) // 2
+    device = k0.device if isinstance(k0, torch.Tensor) else None
+    pair = torch.arange(half, dtype=torch.int64, device=device)
+    c1 = pair + half
+    o0, o1 = threefry2x32_pair(k0, k1, pair, torch.where(c1 < n, c1, torch.zeros_like(c1)))
+    o0, o1 = torch.broadcast_tensors(o0, o1)
+    return torch.cat([o0, o1], dim=-1)[..., :n]
+
+
 def threefry_uniform_ref(key_data, n: int):
     """Key words (..., 2) in [0, 2**32) -> (..., n) float32, equal bit for
     bit to ``jax.random.uniform(key, (n,))`` for each key (with
     ``jax_threefry_partitionable`` off)."""
     kd = key_data.to(torch.int64)
-    pos = torch.arange(n, dtype=torch.int64, device=kd.device)
-    bits = threefry_random_bits_at(kd[..., 0:1], kd[..., 1:2], pos, n)
-    return bits_to_uniform(bits)
+    return bits_to_uniform(threefry_bits_ref(kd[..., 0:1], kd[..., 1:2], n))
+
+
+# jax.random.normal in float32 (jax/_src/random.py ``_normal_real``):
+# sqrt(2) * erf_inv(u), u uniform on [lo, 1) with lo the float32 after -1
+# toward 0, i.e. max(lo, f * 2 + lo) from the [0, 1) fill f (the width
+# 1 - lo rounds to 2 in float32). XLA lowers erf_inv to Giles's
+# polynomial in w = -log1p(-x * x) (xla/hlo/builder/lib/math.cc ErfInv32)
+# and its CPU backend emits log1p as Cephes's rational form for |y| <
+# sqrt(2) - 1, else Eigen's float log of 1 + y, with every multiply-add
+# whose product has no other use contracted to one fused multiply-add.
+# The functions below restate that program operation by operation, as
+# jax 0.9.0 compiles it on the CPU: each fused multiply-add is ``_fma32``
+# (the product exact in fp64, one rounding of the sum there, then to fp32),
+# the square root and the division are taken in fp64 and rounded once
+# (both then correctly rounded; ATen's CPU float sqrt is not, on some
+# inputs), every other operation is one IEEE float32 operation. Held over
+# all 2**23 values the uniform can give: equal to jax.random.normal bit
+# for bit, and the same bits with each ``_fma32`` taken as the correctly
+# rounded fma (tests/test_torch_threefry_normal.py). Without the fused
+# multiply-adds, or with a float64 log1p in place of XLA's, some values
+# move by an ulp. csrc/threefry_normal.cu writes the same operations with
+# fmaf, __fsqrt_rn and __fdiv_rn.
+NORMAL_LO = -(1.0 - 2.0 ** -24)
+_SQRT2_F32 = 1.4142135  # np.float32(np.sqrt(2))
+_LOG1P_CEPHES_MAX = 0.41421357  # sqrt(2) - 1 in float32
+_LOG1P_CEPHES_Q = (15.062909, 83.04757, 221.7624, 309.09872, 216.42789, 60.11866)
+_LOG1P_CEPHES_P = (4.527e-05, 0.49854103, 6.5787325, 29.911919, 60.94967, 57.112965,
+                   20.039553)
+_LOG_SQRTHF = 0.70710677
+_LOG_P = (0.070376836, -0.1151461, 0.116769984, -0.12420141, 0.14249323, -0.16668057,
+          0.20000714, -0.24999994, 0.3333333)
+_LOG_Q1, _LOG_Q2 = -0.00021219444, 0.693359375
+_FLT_MIN = 1.1754944e-38
+_ERF_INV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _f32(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def xla_log1p_f32(y):
+    """XLA's CPU log1p of float32 y (here y = -x * x in (-1, 0])."""
+    c = lambda v: _f32(v, y)  # noqa: E731
+    one = c(1.0)
+    # |y| < sqrt(2) - 1: y - y²/2 + y³ P(y)/Q(y)
+    y2 = y * y
+    q = y + c(_LOG1P_CEPHES_Q[0])
+    for v in _LOG1P_CEPHES_Q[1:]:
+        q = _fma32(q, y, c(v))
+    p = _fma32(c(_LOG1P_CEPHES_P[0]), y, c(_LOG1P_CEPHES_P[1]))
+    for v in _LOG1P_CEPHES_P[2:]:
+        p = _fma32(p, y, c(v))
+    r = (p.double() / q.double()).float()
+    small = y + _fma32(y2, c(-0.5), (y * y2) * r)
+    # otherwise Eigen's log of x = 1 + y: x = m 2^e, m in [sqrt(1/2), sqrt(2))
+    x = y + one
+    bits = torch.maximum(x, c(_FLT_MIN)).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + one
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    below = m < c(_LOG_SQRTHF)
+    e = e - below.float()
+    t = (m - one) + torch.where(below, m, torch.zeros_like(m))
+    t2 = t * t
+    t3 = t2 * t
+    a = _fma32(_fma32(t, c(_LOG_P[0]), c(_LOG_P[1])), t, c(_LOG_P[2]))
+    b = _fma32(_fma32(t, c(_LOG_P[3]), c(_LOG_P[4])), t, c(_LOG_P[5]))
+    d = _fma32(_fma32(t, c(_LOG_P[6]), c(_LOG_P[7])), t, c(_LOG_P[8]))
+    poly = _fma32(_fma32(_fma32(a, t3, b), t3, d), t3, e * c(_LOG_Q1))
+    large = _fma32(e, c(_LOG_Q2), (t - t2 * c(0.5)) + poly)
+    large = torch.where(x == 0, c(-math.inf), large)
+    large = torch.where(x < 0, c(math.nan), large)
+    large = torch.where(x == math.inf, x, large)
+    return torch.where(torch.abs(y) < c(_LOG1P_CEPHES_MAX), small, large)
+
+
+def xla_erf_inv_f32(x):
+    """XLA's float32 ErfInv: w = -log1p(-x·x); below 5, w - 2.5 and the
+    first 9 coefficients, else sqrt(w) - 3 and the other 9, in Horner
+    form with fused multiply-adds; then p · x (±inf at x = ±1)."""
+    return erf_inv_from_log1p(x, xla_log1p_f32(x * -x))
+
+
+def erf_inv_from_log1p(x, lg):
+    """XLA's ErfInv32 of x after its log1p: ``lg`` = log1p(-x·x) = -w."""
+    c = lambda v: _f32(v, x)  # noqa: E731
+    lt = lg > c(-5.0)
+    w = torch.where(lt, c(-2.5) - lg, torch.sqrt((-lg).double()).float() - c(3.0))
+    coef = lambda i: torch.where(lt, c(_ERF_INV_W_LT5[i]), c(_ERF_INV_W_GE5[i]))  # noqa: E731
+    p = _fma32(coef(0), w, coef(1))
+    for i in range(2, 9):
+        p = _fma32(w, p, coef(i))
+    p = torch.where(torch.abs(x) == 1.0, c(math.inf), p)
+    return x * p
+
+
+def uniform_to_normal(f):
+    """[0, 1) float32 fills -> jax.random.normal's float32 values."""
+    lo = _f32(NORMAL_LO, f)
+    u = torch.maximum(lo, _fma32(f, _f32(2.0, f), lo))
+    return _f32(_SQRT2_F32, f) * xla_erf_inv_f32(u)
+
+
+def threefry_normal_ref(key_data, n: int):
+    """Key words (..., 2) -> (..., n) float32, equal bit for bit to
+    ``jax.random.normal(key, (n,))`` for each key (non-partitionable
+    threefry, jax 0.9.0's CPU program)."""
+    return uniform_to_normal(threefry_uniform_ref(key_data, n))
+
+
+def normal_axpy_ref(xs, key_data, scales):
+    """The normal kernel's plain version: for each leaf i,
+    (x_i.float() + scales[i] · normal(key_data[i], x_i.numel())).to(x_i.dtype),
+    the product and then the sum as two IEEE float32 operations (JAX's
+    ``p.astype(f32) + sigma * normal``). ``scales[i]`` is a float, a
+    0-dim tensor, or a (K,) tensor whose entry k scales the k-th of K
+    equal slices of the flattened leaf (the gaussian adversary's per-
+    client RMS)."""
+    out = []
+    for x, kd, s in zip(xs, key_data, scales):
+        z = threefry_normal_ref(kd.to(x.device), x.numel())
+        s = torch.as_tensor(s, dtype=torch.float32).to(x.device)
+        if s.dim() == 1:
+            z = z.reshape(s.shape[0], -1)
+            s = s[:, None]
+        out.append((x.float().reshape(z.shape) + s * z).reshape(x.shape).to(x.dtype))
+    return out
 
 
 def nibble_pack_ref(codes):

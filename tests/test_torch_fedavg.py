@@ -1,8 +1,9 @@
 """The port's FedAvg round on the parity plane against the JAX engine:
 two rounds at the tiny asr-rnnt config (K=3, S=2, b=2) from carried
 parameters, with SpecAugment on (its masks drawn from the reference's
-key in both packages, with the non-partitionable threefry) and FVN off;
-the server optimizers, FVN and CFMQ on their own."""
+key in both packages, with the non-partitionable threefry), FVN off and
+FVN on (a fixed std and a ramp: its noise drawn from the same keys); the
+server optimizers, FVN and CFMQ on their own."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ from repro.core import FVNConfig as JaxFVN
 from repro.core import build_round_engine as jax_engine
 from repro.core.cfmq import cfmq as jax_cfmq
 from repro.core.cfmq import plan_wire_accounting as jax_wire_accounting
+from repro.core.fvn import fvn_key as jax_fvn_key
 from repro.core.fvn import fvn_sigma as jax_fvn_sigma
 from repro.core.task import default_corpus as jax_default_corpus
 from repro.core.task import task_for_config
@@ -27,7 +29,7 @@ from repro.models import rnnt as jrnnt
 from repro_torch import optim as toptim
 from repro_torch.convert import params_from_jax
 from repro_torch.core import cfmq as tcfmq
-from repro_torch.core import fedavg, fvn
+from repro_torch.core import fedavg, fvn, keys
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.plan import FederatedPlan, FVNConfig
 from repro_torch.core.task import FederatedTask, default_corpus, get_task
@@ -56,8 +58,13 @@ def reference():
     aggregated delta is params_before - params_after. One compiled
     engine for the module, run with the non-partitionable threefry (the
     pinned jax's default; F2a), restored after."""
+    return _jax_rounds(JaxPlan(**PLAN))
+
+
+def _jax_rounds(plan):
+    """Two rounds of the JAX engine under ``plan`` from the tiny config's
+    parameters and the sampler's first two round batches."""
     tcfg, jcfg = _tiny_configs(specaug=True)
-    plan = JaxPlan(**PLAN)
     before_flag = jax.config.jax_threefry_partitionable
     jax.config.update("jax_threefry_partitionable", False)
     try:
@@ -161,10 +168,11 @@ def test_fvn_with_zero_sigma_is_exactly_the_fvn_off_round(reference):
 def test_fvn_noise_is_deterministic_distinct_and_scaled():
     sigma = 0.02
     params = {"a": torch.zeros(300, 200), "b": torch.zeros(5000)}
+    base = keys.PRNGKey(7)
 
     def noise(round_idx, client, step):
-        g = torch.Generator().manual_seed(fvn.step_seed(7, round_idx, client, step))
-        return torch.cat([v.flatten() for v in fvn.perturb(params, g, sigma).values()])
+        key = fvn.fvn_key(base, round_idx, client, step)
+        return torch.cat([v.flatten() for v in fvn.perturb(params, key, sigma).values()])
 
     n = noise(2, 1, 0)
     assert torch.equal(n, noise(2, 1, 0))
@@ -172,6 +180,54 @@ def test_fvn_noise_is_deterministic_distinct_and_scaled():
         assert not torch.equal(n, other)
     assert abs(float(n.std()) / sigma - 1.0) < 0.05
     assert abs(float(n.mean())) < 0.05 * sigma
+
+
+# FVN on: a fixed std, and a ramp (round 0 at sigma 0, round 1 at 0.01)
+FVN_PLANES = {"fixed 0.01": dict(enabled=True, std=0.01),
+              "ramp to 0.03 over 3 rounds": dict(enabled=True, std=0.03, ramp_rounds=3)}
+
+
+@pytest.fixture(scope="module", params=sorted(FVN_PLANES))
+def fvn_reference(request):
+    """The reference's two rounds with FVN on (one compiled engine per
+    plane)."""
+    cfg = FVN_PLANES[request.param]
+    return dict(_jax_rounds(JaxPlan(**PLAN, fvn=JaxFVN(**cfg))), fvn=cfg)
+
+
+def test_fvn_rounds_match_jax(fvn_reference, reference):
+    """Two rounds with FVN on against the JAX engine: each client step's
+    key (FVN's noise key and, folded with 1, SpecAugment's data key) is
+    the reference's bit for bit, and the loss and every parameter agree
+    at the FVN-off round's tolerances. XLA contracts ``p + sigma * noise``
+    into one fused multiply-add under jit, which the port takes as two
+    IEEE operations (JAX's eager call gives the port's bits,
+    tests/test_torch_threefry_normal.py): the noisy parameters may differ
+    by an ulp. The noise moves the result by far more than that: the
+    params leave the FVN-off round's by more than 100 x PARAM_ATOL."""
+    task, rounds = fvn_reference["task"], fvn_reference["rounds"]
+    base, jbase = keys.PRNGKey(1), jax.random.PRNGKey(1)
+    for r, k, st in ((0, 0, 0), (1, 2, 1), (1, 1, 0)):
+        jkey = jax_fvn_key(jbase, r, k, st)
+        tkey = fvn.fvn_key(base, r, k, st)
+        assert tkey.tolist() == np.asarray(jkey).tolist()
+        assert keys.fold_in(tkey, 1).tolist() == np.asarray(jax.random.fold_in(jkey, 1)).tolist()
+    engine = build_round_engine(FederatedPlan(**PLAN, fvn=FVNConfig(**fvn_reference["fvn"])),
+                                task, seed=1)
+    state = engine.init_state(fvn_reference["params0"])
+    for r, (batch, want) in enumerate(zip(fvn_reference["batches"], rounds)):
+        state, metrics = engine.step(state, _torch_batch(batch))
+        np.testing.assert_allclose(metrics["loss"], want["metrics"]["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(metrics["delta_norm"], want["metrics"]["delta_norm"],
+                                   rtol=LOSS_RTOL)
+        moved = 0.0
+        for name, p in state.params.items():
+            np.testing.assert_allclose(p.numpy(), want["params"][name].numpy(),
+                                       atol=PARAM_ATOL, rtol=0, err_msg=f"round {r} {name}")
+            off = reference["rounds"][r]["params"][name].numpy()
+            moved = max(moved, float(np.abs(want["params"][name].numpy() - off).max()))
+        if fvn.fvn_sigma(FVNConfig(**fvn_reference["fvn"]), r) > 0:
+            assert moved > 100 * PARAM_ATOL, (r, moved)
 
 
 def test_cfmq_and_wire_accounting_match_jax_exactly(reference):

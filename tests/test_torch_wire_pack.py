@@ -220,6 +220,38 @@ def test_per_client_scales_are_the_pallas_kernels_bitwise(n, bits):
         np.testing.assert_array_equal(nearest_packed[k].numpy(), np.asarray(want))
 
 
+# K5's packing edges: the odd n's last block (its second word unused), n
+# of 1 to 3, one n of each residue mod 4 (when half = (n+1)//2 is odd, a
+# high-half byte spans two threefry blocks), and a few blocks of threads
+EDGE_SIZES = (1, 2, 3, 4, 5, 6, 7, 65, 513)
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("scales", ("shared", "per-client"))
+def test_keyed_quantize_at_packing_edges_is_the_jax_reference_bitwise(n, bits, scales):
+    """Codes and wire buffers against JAX's plain oracles (the streamed
+    threefry uniform, then quantize and pack), row by row; the Pallas
+    kernels equal those oracles (test_keyed_quantize_is_the_pallas_kernel_
+    bitwise holds the port to them at SIZES)."""
+    x, scale = _rows(n, 5 * n + bits)
+    if scales == "per-client":
+        x[1] *= 3.0
+        scale = _client_scales(x)
+    kd = _keys(2 * n + 7)
+    ts, tkd = _t(np.asarray(scale)), _t(kd.astype(np.int64))
+    codes = wire_pack.quantize_with_scale_keyed(_t(x), ts, tkd, bits)
+    packed = wire_pack.quantize_pack_keyed(_t(x), ts, tkd, bits)
+    assert packed.shape == (K, (n + 1) // 2 if bits == 4 else n)
+    for k in range(K):
+        sk = jnp.float32(scale[k] if scales == "per-client" else scale)
+        u = jref.threefry_uniform_ref(jnp.asarray(kd[k]), n)
+        want = jref.quantize_codes_with_scale_ref(jnp.asarray(x[k]), sk, u, 2.0 ** (bits - 1) - 1)
+        np.testing.assert_array_equal(codes[k].numpy(), np.asarray(want))
+        want = jref.quantize_pack_ref(jnp.asarray(x[k]), sk, u, bits)
+        np.testing.assert_array_equal(packed[k].numpy(), np.asarray(want))
+
+
 def test_a_scale_of_the_wrong_length_is_refused():
     x = torch.ones(3, 5)
     with pytest.raises(ValueError, match="3 clients"):
