@@ -160,13 +160,16 @@ WIRE_ELEM_INT_OPS = 2
 # the quantizer's fp32 operations per element: the division, clamp and
 # rounding
 WIRE_QUANT_FP_OPS = 8
-# the normal kernel's fp32 operations per element, counted in
-# csrc/threefry_normal.cu with a fused multiply-add as 2: XLA's CPU log1p
-# 67 (both of its branches: Cephes's 30, Eigen's log 36, the choice 1),
-# the erf_inv polynomial's common branch 20, the fill and the uniform 5,
-# the scaled sum 2. Its int32 operations are K5's: a threefry block a
-# pair of elements and the fill's 2 an element.
-NORMAL_ELEM_FP_OPS = 94
+# the normal kernel's fp32 operations, counted in csrc/threefry_normal.cu
+# with a fused multiply-add as 2: one branch of XLA's CPU log1p a draw,
+# Cephes's 30 where |y| < sqrt(2) - 1 and Eigen's log 36 elsewhere
+# (counted from the run's draws), and for every element the erf_inv
+# polynomial's common branch 20, the fill and the uniform 5, the scaled
+# sum 2. Its int32 operations are K5's: a threefry block a pair of
+# elements and the fill's 2 an element.
+NORMAL_CEPHES_FP_OPS = 30
+NORMAL_EIGEN_FP_OPS = 36
+NORMAL_ELEM_FP_OPS = 27
 
 # gate operations per hidden unit, counted in csrc/lstm_gates.cu
 # (a sigmoid is 4, a tanh 1)
@@ -1013,6 +1016,8 @@ def phase_dw_ragged(torch, gen) -> None:
 # the compression kernels' sizes: the paper's largest leaf (joint and
 # encoder w_hh, 1152 x 4608), a 4,096-element leaf, and ragged sizes
 WIRE_SIZES = (5_308_416, 4096, 1, 65, 4097)
+# K7 at n = 10**8, even (the flat runs) and odd (a row at a time)
+K7_LARGE = (100_000_000, 100_000_001)
 WIRE_CLIENTS = 4
 WIRE_TOPK_FRAC = 0.05
 
@@ -1219,6 +1224,31 @@ NORMAL_RAGGED = ((1, "float32", "value"), (2, "bfloat16", "device"), (3, "float3
 NORMAL_SMALL_LEAVES = 70
 
 
+def normal_edges(KN):
+    """The normal kernel's run edges (``KN.RUN_EDGES``) as leaf specs:
+    fp32 and bf16 in turn, and in turn the kinds of scale that fit n (four
+    equal slices only where 4 divides n)."""
+    specs = []
+    for i, n in enumerate(KN.RUN_EDGES):
+        kinds = ("value", "device", "slices") if n % 4 == 0 else ("value", "device")
+        specs.append((n, ("float32", "bfloat16")[i % 2], kinds[i % len(kinds)]))
+    return tuple(specs)
+
+
+# XLA's log1p takes Cephes's branch where |y| < this (y = -u·u)
+NORMAL_CEPHES_BELOW = 0.41421357
+
+
+def _cephes_draws(torch, ref, f) -> int:
+    """The draws among the [0, 1) fills ``f`` whose log1p takes Cephes's
+    branch: |u·u| < sqrt(2) - 1 for u = max(lo, f · 2 + lo), the sum in
+    fp64 and rounded once (exact, as the fmaf)."""
+    lo = torch.tensor(ref.NORMAL_LO, dtype=torch.float32, device=f.device)
+    u = torch.maximum(lo, (f.double() * 2.0 + lo.double()).float())
+    below = torch.tensor(NORMAL_CEPHES_BELOW, dtype=torch.float32, device=f.device)
+    return int(((u * -u).abs() < below).sum())
+
+
 def _normal_case(torch, gen, spec):
     """(tensors, scales) of a table: values N(0, 1) from ``gen``."""
     xs, scales = [], []
@@ -1239,7 +1269,9 @@ def phase_normal_kernel(torch):
     rnnt-librispeech's 35 leaves (fp32, the parameters a client step
     perturbs, through fvn.perturb as the step calls it and through the
     wrapper), at ragged sizes with bf16 leaves and every kind of scale,
-    and over 70 small leaves (two launches). At the paper's table its time
+    over 70 small leaves (two launches), at its run edges (normal_edges)
+    and on leaves off the 16-byte grid; its device normal on all 2**23
+    fills (threefry_normal_words). At the paper's table its time
     (eager and from a CUDA graph) beside its bound, its plain version, the
     per-leaf path before it (``torch.randn``, ``sigma *``, ``+`` a leaf)
     and one ``torch.randn`` of as many values, a reference point (no
@@ -1268,12 +1300,18 @@ def phase_normal_kernel(torch):
              "threefry_normal twice")
     log(f"[kernels] threefry_normal paper table ({len(xs)} leaves, {n_elems} fp32 elements, "
         f"sigma {sigma}): bitwise equal to its plain version, through the wrapper and through "
-        f"fvn.perturb, and on a second call")
+        f"fvn.perturb, and on a second call; the leaves whose half (n + 1) // 2 is a multiple "
+        f"of 4 (every run of the normal kernel whole and aligned) "
+        f"{sum((x.numel() + 1) // 2 % 4 == 0 for x in xs)} of {len(xs)}; K7 on these leaves: "
+        f"n even (the nibble kernels' flat runs) {sum(x.numel() % 2 == 0 for x in xs)}, n a "
+        f"multiple of 16 (no dequantize run across a row's end) "
+        f"{sum(x.numel() % 16 == 0 for x in xs)}")
     del got, want, perturbed
     for spec, tag in ((NORMAL_RAGGED, "ragged"),
                       (tuple((3 + i, "bfloat16" if i % 3 else "float32",
                               ("value", "device")[i % 2]) for i in range(NORMAL_SMALL_LEAVES)),
-                       f"{NORMAL_SMALL_LEAVES} small leaves")):
+                       f"{NORMAL_SMALL_LEAVES} small leaves"),
+                      (normal_edges(KN), "run edges")):
         rx, rs = _normal_case(torch, gen, spec)
         rk = keys.split(keys.fold_in(key, len(spec)), len(spec))
         before = KN.NORMAL_LAUNCHES
@@ -1288,6 +1326,10 @@ def phase_normal_kernel(torch):
             f"value, from the device and over equal slices; {launches} launch(es)): bitwise "
             f"equal to its plain version")
         del rx, got
+    _check_normal_offsets(torch, gen, KN, ref, keys, key)
+    _check_normal_words(torch, KN, ref)
+    n_cephes = sum(_cephes_draws(torch, ref, ref.threefry_uniform_ref(k.to("cuda"), x.numel()))
+                   for x, k in zip(xs, lkeys))
 
     def kernel():
         return KN.normal_axpy(xs, lkeys, [sigma] * len(xs))
@@ -1314,8 +1356,10 @@ def phase_normal_kernel(torch):
     g_r = _maybe_graph_ms(torch, randn_alone, 10, "torch.randn")
     nbytes = sum(2 * x.numel() * x.element_size() for x in xs) + 8 * len(xs)
     blocks = sum((x.numel() + 1) // 2 for x in xs)
+    n_eigen = n_elems - n_cephes
     int_ops = blocks * WIRE_BLOCK_INT_OPS + n_elems * WIRE_ELEM_INT_OPS
-    fp_ops = n_elems * NORMAL_ELEM_FP_OPS
+    fp_ops = (n_cephes * NORMAL_CEPHES_FP_OPS + n_eigen * NORMAL_EIGEN_FP_OPS
+              + n_elems * NORMAL_ELEM_FP_OPS)
     t_b, t_i, t_f = nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S
     bound_ms = max(t_b, t_i, t_f) * 1e3
     bound_by = "bytes" if t_b >= max(t_i, t_f) else "operations"
@@ -1325,10 +1369,43 @@ def phase_normal_kernel(torch):
         f"for {len(xs)} leaves, {3 * len(xs)} launches) {t_old:.4f}/{_ms(g_old)}; torch.randn "
         f"of {n_elems} values (a reference point) {t_r:.4f}/{_ms(g_r)}; bound {bound_ms:.4f} "
         f"({bound_by}: {nbytes} B {t_b * 1e3:.4f} ms, {int_ops} int32 ops {t_i * 1e3:.4f} ms, "
-        f"{fp_ops} fp32 ops {t_f * 1e3:.4f} ms); eager time / bound {t_k / bound_ms:.2f}")
+        f"{fp_ops} fp32 ops {t_f * 1e3:.4f} ms with one log1p branch a draw, Cephes's for "
+        f"{n_cephes} of {n_elems} draws ({n_cephes / n_elems:.4f})); eager time / bound "
+        f"{t_k / bound_ms:.2f}")
     return {"threefry_normal": {"max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
                                 "bound_ms": bound_ms, "bound_by": bound_by,
                                 "library_ms": None}}
+
+
+def _check_normal_offsets(torch, gen, KN, ref, keys, key) -> None:
+    """Leaves whose data starts off the 16-byte grid (views 1 and 4,097
+    elements into a tensor, fp32 and bf16) against the plain version, bit
+    for bit: every run takes the kernel's element-by-element path."""
+    for dname in ("float32", "bfloat16"):
+        base = torch.randn(2 * 4_096 + 1, generator=gen, device="cuda").to(getattr(torch, dname))
+        views = [base[1:4_097], base[4_097:]]
+        vk = keys.split(keys.fold_in(key, 7), len(views))
+        for x, g, w in zip(views, KN.normal_axpy(views, vk, [0.01, 0.01]),
+                           ref.normal_axpy_ref(views, vk, [0.01, 0.01])):
+            _bitwise(torch, g, w, f"threefry_normal {dname} view at offset "
+                     f"{x.storage_offset()}")
+    log("[kernels] threefry_normal leaves off the 16-byte grid (fp32 and bf16 views 1 and "
+        "4,097 elements in): bitwise equal to its plain version")
+
+
+def _check_normal_words(torch, KN, ref) -> None:
+    """The kernel's normal (threefry_normal_words, its device code over
+    given words) on all 2**23 fills, words f << 9, against the plain
+    version's ref.uniform_to_normal, bit for bit; and the share of the
+    fills whose log1p takes Cephes's branch."""
+    words = torch.arange(2**23, device="cuda", dtype=torch.int64) << 9
+    signed = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    f = ref.bits_to_uniform(words)
+    _bitwise(torch, KN.word_normals(signed), ref.uniform_to_normal(f),
+             "threefry_normal_words on all 2**23 fills")
+    log(f"[kernels] threefry_normal's device normal on all 2**23 fills (words f << 9, "
+        f"threefry_normal_words): bitwise equal to ref.uniform_to_normal; Cephes's log1p "
+        f"branch for {_cephes_draws(torch, ref, f)} of {2**23} fills")
 
 
 # K5's and K6's edges beyond WIRE_SIZES: n of 2 and 3, one n of each
@@ -1374,12 +1451,42 @@ def _check_quantizer_edges(torch, W, ref, gen) -> None:
         del x, u
 
 
+def _check_k7(torch, W, ref, gen, K: int, n: int) -> None:
+    """K7's three kernels against their plain versions at (K, n), bit for
+    bit: int4 codes packed and unpacked, int8 codes dequantized with a
+    shared scale and with one a client."""
+    codes = torch.randint(-8, 8, (K, n), generator=gen, device="cuda", dtype=torch.int8)
+    packed = W.nibble_pack(codes)
+    _bitwise(torch, packed, ref.nibble_pack_ref(codes), f"nibble_pack K={K} n={n}")
+    _bitwise(torch, W.nibble_unpack(packed, n), ref.nibble_unpack_ref(packed, n),
+             f"nibble_unpack K={K} n={n}")
+    _bitwise(torch, W.nibble_unpack(packed, n), codes, f"nibble pack then unpack K={K} n={n}")
+    del packed
+    codes = torch.randint(-127, 128, (K, n), generator=gen, device="cuda", dtype=torch.int8)
+    scales = torch.rand(K, generator=gen, device="cuda") * 1e-3 + 1e-5
+    for what, scale in (("per-client", scales), ("shared", scales[1])):
+        _bitwise(torch, W.dequantize(codes, scale), ref.dequantize_ref(codes, scale),
+                 f"dequantize {what} scale K={K} n={n}")
+
+
+def _check_k7_edges(torch, W, ref, gen) -> None:
+    """K7 at n = 10**8 (K7_LARGE: the flat runs of an even n, the rows of
+    an odd one) at K = 4, and at its run edges (``W.K7_RUN_EDGES``) at
+    K = 3 (odd n: every row but the first off the 16-byte grid)."""
+    for K, sizes in ((WIRE_CLIENTS, K7_LARGE), (3, W.K7_RUN_EDGES)):
+        for n in sizes:
+            _check_k7(torch, W, ref, gen, K, n)
+        log(f"[kernels] K7 (nibble pack, unpack, dequantize with a shared and a per-client "
+            f"scale) K={K} n={', '.join(map(str, sizes))}: bitwise equal to the plain versions")
+
+
 def phase_wire_kernels(torch):
     """The compression kernels against their plain versions at K=4 clients
-    and WIRE_SIZES: the quantizer in each rounding (keyed, streamed,
+    and WIRE_SIZES with K7's run edges: the quantizer in each rounding (keyed, streamed,
     nearest) giving int8 codes and int4 nibble bytes, the nibble pack and
     unpack, and the top-k scatter-add (5% of each row, with indices shared
-    across clients), all bitwise; the scatter-add twice for the same bits.
+    across clients), all bitwise; the scatter-add twice for the same bits;
+    K7 also at n = 10**8 (K=4, even and odd) and its run edges at K=3.
     At the largest leaf each kernel's time (eager and from a CUDA graph)
     beside its bound, its plain version and, for the scatter-add, a
     library yardstick. Returns {kernel: row at the largest leaf}."""
@@ -1389,7 +1496,7 @@ def phase_wire_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(3)
     K = WIRE_CLIENTS
     rows = {}
-    for n in WIRE_SIZES:
+    for n in WIRE_SIZES + W.K7_RUN_EDGES:
         tag = f"K={K} n={n}"
         # correlated clients, as a round's deltas are: shared top-k picks
         base = torch.randn(n, generator=gen, device="cuda") * 1e-3
@@ -1500,6 +1607,7 @@ def phase_wire_kernels(torch):
         _check_unpack_routes(torch, W, ref, gen)
         _check_scatter_add_large(torch, W, ref, gen)
         _check_quantizer_edges(torch, W, ref, gen)
+        _check_k7_edges(torch, W, ref, gen)
 
         # times at the largest leaf, as the main path calls each kernel
         flat_idx = idx.reshape(-1).long()

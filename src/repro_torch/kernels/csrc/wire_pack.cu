@@ -7,6 +7,7 @@
 //   K6  :170 quantize_with_scale_pallas, :204 quantize_pack4_pallas
 //       (their _nearest kernels included)
 //   K7  :66 nibble_pack_pallas, :90 nibble_unpack_pallas, :112 dequantize_pallas
+//       (16-byte runs a thread)
 //   K8  :441 topk_scatter_add_pallas (_topk_scatter_add_seg_kernel, :418)
 //   K9  :352 topk_unpack_pallas, :387 topk_unpack_segmented_pallas (one call)
 //
@@ -34,9 +35,24 @@
 // and pair + half); when half is odd a high-half byte spans two blocks,
 // and its codes meet in shared memory (the kernel's comment).
 //
-// nibble_pack / nibble_unpack (K7): one thread per byte.
+// nibble_pack / nibble_unpack (K7): a thread takes 16 wire bytes and their
+// 32 codes, with vector loads and stores where the run is whole and
+// aligned (pack: two 16-byte loads, one 16-byte store; unpack: two runs of
+// 8 bytes, 256 bytes apart, each an 8-byte load and a 16-byte store, so
+// that a warp's store covers 512 consecutive bytes). An even n is one flat
+// row of K·n codes (byte j is codes 2j and 2j + 1 whatever the client), so
+// every run but the last is whole; an odd n is taken a row at a time, each
+// row's last byte padded with a 0 high nibble, its runs aligned only where
+// the row's start is.
 //
-// dequantize (K7): code * scale, one IEEE product per element and thread.
+// dequantize (K7): code * scale, one IEEE product an element. A thread
+// takes 16 codes of the flat (K·n) array as four runs of 4, 128 codes
+// apart (a warp's store covers 2 KB in four 512-byte pieces; 16
+// consecutive codes a thread, its stores 64 bytes apart across the warp,
+// ran slower than one code a thread): a 4-byte load and a 16-byte store
+// where the run is whole and under one scale (shared, or one row's),
+// element by element with each element's row scale where a run crosses a
+// row's end under per-client scales.
 //
 // The top-k kernels bucket each client row's payload by output window;
 // they never sort a row. One call launches two kernels on the caller's
@@ -92,8 +108,9 @@
 // counts, and one block more per 2,048 when half is odd (a byte across
 // two blocks of threads). Nearest and streamed rounding, the nibble
 // kernels, dequantize, the scatter-add and the top-k unpack are bound by
-// bytes. The nibble kernels and dequantize take one element (or byte) a
-// thread, with no vector loads. K8's bound
+// bytes: the nibble kernels move K·n + K·(n+1)/2 bytes (31.9 MB, 9.51 us
+// at K = 4, n = 5,308,416), dequantize K·n + 4·K·n (106.2 MB, 31.7 us);
+// their 16-byte runs issue one load or store a 16 bytes. K8's bound
 // counts the payloads and weights read once and the (n,) output written
 // once; its two kernels add the keys as K9's do. K9's bound counts
 // the payload read once and the (K, n) output written once (93.4 MB at
@@ -301,41 +318,145 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// codes (K, n) int8 in [-8, 7] -> (K, (n+1)/2) int8
-__global__ void __launch_bounds__(kThreads)
-    nibble_pack_kernel(const int8_t* __restrict__ codes, int8_t* __restrict__ out, int n) {
-  const int k = blockIdx.y;
-  const int nb = (n + 1) / 2;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= nb) return;
-  const int8_t* row = codes + static_cast<size_t>(k) * n;
-  const int even = row[2 * i];
-  const int odd = 2 * i + 1 < n ? row[2 * i + 1] : 0;
-  out[static_cast<size_t>(k) * nb + i] = pack_byte(even, odd);
+// K7: a thread's run, 16 bytes of int8 (16 codes, or 16 wire bytes that
+// hold 32 codes)
+constexpr int kRun = 16;
+
+// the 4 wire bytes of 8 codes: a = codes 0..3, b = codes 4..7 (little
+// endian); each byte's low nibble is the even code, its high the odd
+__device__ __forceinline__ uint32_t pack_word(uint32_t a, uint32_t b) {
+  a &= 0x0F0F0F0Fu;
+  b &= 0x0F0F0F0Fu;
+  a |= a >> 4;  // bytes 0 and 2: (c0 | c1 << 4), (c2 | c3 << 4)
+  b |= b >> 4;
+  return __byte_perm(a, b, 0x6420);
 }
 
-// packed (K, (n+1)/2) int8 -> codes (K, n) int8, sign extended
-__global__ void __launch_bounds__(kThreads)
-    nibble_unpack_kernel(const int8_t* __restrict__ packed, int8_t* __restrict__ codes, int n) {
-  const int k = blockIdx.y;
-  const int nb = (n + 1) / 2;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= nb) return;
-  const int b = static_cast<uint8_t>(packed[static_cast<size_t>(k) * nb + i]);
-  int8_t* row = codes + static_cast<size_t>(k) * n;
-  row[2 * i] = static_cast<int8_t>(((b & 0xF) ^ 8) - 8);
-  if (2 * i + 1 < n) row[2 * i + 1] = static_cast<int8_t>((((b >> 4) & 0xF) ^ 8) - 8);
+// the 8 sign-extended codes of 4 wire bytes w: lo = codes 0..3, hi = 4..7
+__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  // each nibble in its own byte, sign extended byte by byte: (v ^ 8) - 8
+  const uint32_t e = __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  const uint32_t o = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  lo = __byte_perm(e, o, 0x5140);
+  hi = __byte_perm(e, o, 0x7362);
 }
 
-// codes (K, n) int8, scale[k * scale_stride] -> out (K, n) fp32
+__device__ __forceinline__ int8_t unpack_nibble(int b) {
+  return static_cast<int8_t>(((b & 0xF) ^ 8) - 8);
+}
+
+// codes (rows, m) int8 in [-8, 7] -> (rows, (m+1)/2) int8 wire bytes, row
+// blockIdx.y. A thread takes the wire bytes 16t..16t+15 of its row: two
+// 16-byte loads of 32 codes and one 16-byte store where the run is whole
+// and aligned, byte by byte otherwise (an odd m's last byte takes 0 for
+// its high nibble). An even n is launched as one row of K·n codes: byte j
+// of the flat output is codes 2j and 2j + 1 whatever the row, so every run
+// but the last is whole, and aligned with the tensors. An odd n is
+// launched a row each, its pad nibble at the row's end.
+__global__ void __launch_bounds__(kThreads)
+    nibble_pack_kernel(const int8_t* __restrict__ codes, int8_t* __restrict__ out, int64_t m) {
+  const int64_t nb = (m + 1) / 2;
+  const int64_t b0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kRun;
+  if (b0 >= nb) return;
+  const int8_t* src = codes + blockIdx.y * m;
+  int8_t* dst = out + blockIdx.y * nb;
+  if (2 * b0 + 2 * kRun <= m && aligned(src + 2 * b0, 16) && aligned(dst + b0, 16)) {
+    const uint4 c0 = *reinterpret_cast<const uint4*>(src + 2 * b0);
+    const uint4 c1 = *reinterpret_cast<const uint4*>(src + 2 * b0 + kRun);
+    *reinterpret_cast<uint4*>(dst + b0) =
+        make_uint4(pack_word(c0.x, c0.y), pack_word(c0.z, c0.w), pack_word(c1.x, c1.y),
+                   pack_word(c1.z, c1.w));
+  } else {
+    for (int64_t i = b0; i < b0 + kRun && i < nb; ++i)
+      dst[i] = pack_byte(src[2 * i], 2 * i + 1 < m ? src[2 * i + 1] : 0);
+  }
+}
+
+// packed (rows, (m+1)/2) int8 -> codes (rows, m) int8, sign extended, rows
+// as nibble_pack_kernel's. A warp takes 512 consecutive wire bytes of its
+// row, a thread 16 of them as two runs of 8, 256 bytes apart, so that each
+// warp instruction covers consecutive memory: an 8-byte load and the
+// 16-byte store of its 16 codes where the run is whole and aligned, byte
+// by byte otherwise.
+__global__ void __launch_bounds__(kThreads)
+    nibble_unpack_kernel(const int8_t* __restrict__ packed, int8_t* __restrict__ codes,
+                         int64_t m) {
+  const int64_t nb = (m + 1) / 2;
+  const int lane = threadIdx.x % 32;
+  const int64_t w0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane) * kRun;
+  const int8_t* src = packed + blockIdx.y * nb;
+  int8_t* dst = codes + blockIdx.y * m;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t b0 = w0 + 256 * h + 8 * lane;
+    if (b0 >= nb) break;
+    if (2 * b0 + 16 <= m && aligned(src + b0, 8) && aligned(dst + 2 * b0, 16)) {
+      const uint2 w = *reinterpret_cast<const uint2*>(src + b0);
+      uint4 c;
+      unpack_word(w.x, c.x, c.y);
+      unpack_word(w.y, c.z, c.w);
+      *reinterpret_cast<uint4*>(dst + 2 * b0) = c;
+    } else {
+      for (int64_t i = b0; i < b0 + 8 && i < nb; ++i) {
+        const int b = static_cast<uint8_t>(src[i]);
+        dst[2 * i] = unpack_nibble(b);
+        if (2 * i + 1 < m) dst[2 * i + 1] = unpack_nibble(b >> 4);
+      }
+    }
+  }
+}
+
+// codes (K, n) int8, scale[k * scale_stride] -> out (K, n) fp32, one IEEE
+// product an element, over the flat (K·n) array, so that the runs stay
+// aligned whatever n is. A warp takes 512 consecutive codes, a thread 16
+// of them as four runs of 4, 128 codes apart, so that each warp
+// instruction covers consecutive memory: a 4-byte load and a 16-byte
+// store where the run is whole, aligned and under one scale (a shared
+// scale, or one row's), element by element otherwise, each element with
+// its own row's scale.
 __global__ void __launch_bounds__(kThreads)
     dequantize_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scale,
-                      int scale_stride, float* __restrict__ out, int n) {
-  const int k = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const size_t at = static_cast<size_t>(k) * n + i;
-  out[at] = __fmul_rn(static_cast<float>(codes[at]), scale[k * scale_stride]);
+                      int scale_stride, float* __restrict__ out, int64_t n, int64_t total) {
+  const int lane = threadIdx.x % 32;
+  const int64_t w0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane) * kRun;
+  const bool narrow = total <= 0xFFFFFFFFll;  // 32-bit row divisions
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int64_t e0 = w0 + 128 * q + 4 * lane;
+    if (e0 >= total) break;
+    // the run's first row and place in it (one row for a shared scale)
+    int64_t k = 0, r = e0;
+    if (scale_stride != 0) {
+      k = narrow ? static_cast<uint32_t>(e0) / static_cast<uint32_t>(n) : e0 / n;
+      r = e0 - k * n;
+    }
+    if (e0 + 4 <= total && (scale_stride == 0 || r + 4 <= n) && aligned(codes + e0, 4) &&
+        aligned(out + e0, 16)) {
+      const float s = scale[k * scale_stride];
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + e0);
+      *reinterpret_cast<float4*>(out + e0) =
+          make_float4(__fmul_rn(static_cast<float>(static_cast<int8_t>(w)), s),
+                      __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 8)), s),
+                      __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 16)), s),
+                      __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 24)), s));
+    } else {
+      for (int64_t e = e0; e < e0 + 4 && e < total; ++e, ++r) {
+        if (scale_stride != 0 && r == n) {
+          r = 0;
+          ++k;
+        }
+        out[e] = __fmul_rn(static_cast<float>(codes[e]), scale[k * scale_stride]);
+      }
+    }
+  }
+}
+
+// blocks of kThreads threads for `units` runs of kRun; 0 past the grid's
+// range
+__host__ inline unsigned run_blocks(int64_t units) {
+  const int64_t runs = (units + kRun - 1) / kRun;
+  const int64_t blocks = (runs + kThreads - 1) / kThreads;
+  return blocks < 0x7FFFFFFF ? static_cast<unsigned>(blocks) : 0u;
 }
 
 constexpr int kSeg = 2048;
@@ -695,8 +816,10 @@ int dequantize(const int8_t* codes, const float* scale, int scale_stride, float*
                int n, cudaStream_t stream) {
   if (K <= 0 || n <= 0 || K > 65535 || (scale_stride != 0 && scale_stride != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads, K);
-  dequantize_kernel<<<grid, kThreads, 0, stream>>>(codes, scale, scale_stride, out, n);
+  const int64_t total = static_cast<int64_t>(K) * n;
+  const unsigned blocks = run_blocks(total);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  dequantize_kernel<<<blocks, kThreads, 0, stream>>>(codes, scale, scale_stride, out, n, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -745,17 +868,24 @@ int topk_scatter_add(const float* values, const int* idx, const float* weights, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// an even n is one row of K·n codes (the flat pairing), an odd n K rows
 int nibble_pack(const int8_t* codes, int8_t* out, int K, int n, cudaStream_t stream) {
   if (K <= 0 || n <= 0 || K > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(((n + 1) / 2 + kThreads - 1) / kThreads, K);
-  nibble_pack_kernel<<<grid, kThreads, 0, stream>>>(codes, out, n);
+  const int rows = n % 2 ? K : 1;
+  const int64_t m = n % 2 ? n : static_cast<int64_t>(K) * n;
+  const unsigned blocks = run_blocks((m + 1) / 2);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  nibble_pack_kernel<<<dim3(blocks, rows), kThreads, 0, stream>>>(codes, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 int nibble_unpack(const int8_t* packed, int8_t* codes, int K, int n, cudaStream_t stream) {
   if (K <= 0 || n <= 0 || K > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(((n + 1) / 2 + kThreads - 1) / kThreads, K);
-  nibble_unpack_kernel<<<grid, kThreads, 0, stream>>>(packed, codes, n);
+  const int rows = n % 2 ? K : 1;
+  const int64_t m = n % 2 ? n : static_cast<int64_t>(K) * n;
+  const unsigned blocks = run_blocks((m + 1) / 2);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  nibble_unpack_kernel<<<dim3(blocks, rows), kThreads, 0, stream>>>(packed, codes, m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,10 @@ The wrapper takes the plain version only for tensors on the CPU. On CUDA
 tensors it launches the kernel or raises: a failed build or launch is an
 exception, and nothing falls back. One launch serves up to
 ``max_leaves()`` (64) tensors; ``NORMAL_LAUNCHES`` counts the launches.
+
+``word_normals`` runs the kernel's normal over given 32-bit words (its own
+launch, counted in ``WORDS_LAUNCHES``): a check that holds the device code
+to ``ref.uniform_to_normal`` on every fill, which no path calls.
 """
 
 from __future__ import annotations
@@ -28,6 +32,15 @@ import torch
 from repro_torch.kernels import build, ref
 
 NORMAL_LAUNCHES = 0
+WORDS_LAUNCHES = 0
+
+# leaf sizes at the kernel's run edges, for the checks that hold it to its
+# plain version: a thread takes 4 threefry blocks (8 draws), a block 256
+# threads, and a half's run of 4 is one 16-byte (fp32) or 8-byte (bf16)
+# access where it is whole and aligned. n = 2·4 ± 1 and 256·4·2 ± 1, odd
+# halves (6, 10, 4,094, 4,098), halves even but not a multiple of 4 (12,
+# 16,388, 1,000,004: the high half's runs off the grid)
+RUN_EDGES = (6, 7, 8, 9, 10, 12, 2_047, 2_048, 2_049, 4_094, 4_098, 16_388, 1_000_004)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,6 +61,9 @@ def _lib() -> ctypes.CDLL:
     lib.threefry_normal_axpy.argtypes = [ctypes.POINTER(_Leaf), ctypes.c_int, ctypes.c_void_p]
     lib.threefry_normal_axpy.restype = ctypes.c_int
     lib.threefry_normal_max_leaves.restype = ctypes.c_int
+    lib.threefry_normal_words.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p]
+    lib.threefry_normal_words.restype = ctypes.c_int
     return lib
 
 
@@ -127,3 +143,28 @@ def normal_axpy(xs, key_data: torch.Tensor, scales) -> list:
                                                        stream), "threefry_normal_axpy")
         NORMAL_LAUNCHES += 1
     return outs
+
+
+def word_normals(words: torch.Tensor) -> torch.Tensor:
+    """words (n,) int32 holding 32-bit threefry words -> (n,) float32,
+    jax.random.normal's value of each word: the plain version
+    (``ref.uniform_to_normal`` of the word's fill) on the CPU, the normal
+    kernel's device code on CUDA."""
+    global WORDS_LAUNCHES
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise TypeError(f"word_normals takes a 1-d int32 tensor, got {words.dtype} "
+                        f"{tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return ref.uniform_to_normal(ref.bits_to_uniform(words.to(torch.int64) & 0xFFFFFFFF))
+    if words.device.type != "cuda":
+        raise ValueError(f"word_normals runs on CUDA or the CPU, not {words.device}")
+    words = words.contiguous()
+    out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
+    if words.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    build.check_launch(_lib().threefry_normal_words(words.data_ptr(), out.data_ptr(),
+                                                    words.numel(), stream),
+                       "threefry_normal_words")
+    WORDS_LAUNCHES += 1
+    return out

@@ -45,6 +45,11 @@ TOPK_UNPACK_LAUNCHES = 0
 
 _NEAREST, _STREAMED, _KEYED = 0, 1, 2
 SEGMENT = 2048  # K8's and K9's output window per block (kSeg in csrc/wire_pack.cu)
+# K7's run edges, the sizes at which its kernels change path, for the
+# checks that hold them to their plain versions: a thread takes 16 codes or
+# wire bytes, so n around 16 and 32, odd (a row at a time, rows off the
+# 16-byte grid) and even (flat runs across rows)
+K7_RUN_EDGES = (15, 16, 17, 31, 32, 33)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 

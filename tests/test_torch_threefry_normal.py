@@ -106,7 +106,10 @@ def test_xla_erf_inv_at_the_endpoints():
     assert torch.isinf(got[-2:]).all() and bool(torch.isfinite(got[:-2]).all())
 
 
-NORMAL_SHAPES = [(1,), (4,), (5,), (64, 513), (1001,), (3, 7)]
+# and the kernel's run edges (threefry_normal.RUN_EDGES), one of them as
+# two rows
+NORMAL_SHAPES = ([(1,), (4,), (5,), (64, 513), (1001,), (3, 7)]
+                 + [(n,) for n in threefry_normal.RUN_EDGES] + [(2, 2_047)])
 
 
 @pytest.mark.parametrize("shape", NORMAL_SHAPES)
@@ -119,6 +122,38 @@ def test_threefry_normal_and_keys_normal_are_jax_normal_bitwise(non_partitionabl
         n = int(np.prod(shape))
         np.testing.assert_array_equal(_bits(ref.threefry_normal_ref(tkey, n)),
                                       want.reshape(-1))
+
+
+@pytest.mark.parametrize("n", threefry_normal.RUN_EDGES)
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_normal_axpy_at_run_edges_is_jax_bitwise(non_partitionable, n, dtype):
+    """The scaled sum at the kernel's run edges, fp32 and bf16 leaves,
+    against JAX's ``(x.astype(f32) + sigma * normal).astype(dtype)``."""
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    kd = keys.split(keys.PRNGKey(n), 2)
+    got = threefry_normal.normal_axpy([tx], kd[1:2], [0.01])[0]
+    assert got.dtype == tx.dtype
+    jz = jax.random.normal(jax.random.wrap_key_data(jnp.asarray(kd[1].numpy().astype(np.uint32))),
+                           (n,))
+    jx = jnp.asarray(tx.float().numpy())
+    want = (jx + jnp.float32(0.01) * jz).astype(getattr(jnp, dtype))
+    np.testing.assert_array_equal(_bits(got.float()), _bits(np.asarray(want.astype(jnp.float32))))
+
+
+@pytest.mark.parametrize("chunk", range(FILL_CHUNKS))
+def test_word_normals_on_every_fill_are_jax_normal_bitwise(chunk):
+    """word_normals (the kernel's normal over given words; here its plain
+    version) of the words f << 9 for every 23-bit fill f: sqrt(2) ·
+    erf_inv of the uniform, jax's value of the word, bit for bit."""
+    per = 2**23 // FILL_CHUNKS
+    fills = torch.arange(chunk * per, (chunk + 1) * per, dtype=torch.int64)
+    words = fills << 9
+    got = threefry_normal.word_normals(torch.where(words >= 2**31, words - 2**32, words)
+                                       .to(torch.int32))
+    u = _uniform_values(chunk)
+    want = np.float32(np.sqrt(np.float32(2.0))) * np.asarray(jax.jit(jax.lax.erf_inv)(u.numpy()))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def test_threefry_bits_hash_each_block_once_at_every_position():

@@ -275,6 +275,41 @@ def test_dequantize_is_the_pallas_kernel_bitwise(n):
         np.testing.assert_array_equal(shared[k].numpy().view(np.uint32), want.view(np.uint32))
 
 
+# K7's run edges (wire_pack.K7_RUN_EDGES): at K = 3 an odd n starts rows 1
+# and 2 off the 16-byte grid, and a flat run of an even n crosses rows
+@pytest.mark.parametrize("n", wire_pack.K7_RUN_EDGES)
+@pytest.mark.parametrize("clients", (2, 3))
+def test_nibble_pack_and_unpack_at_run_edges_are_the_pallas_kernels_bitwise(n, clients):
+    codes = np.random.default_rng(7 * n + clients).integers(-8, 8, size=(clients, n)).astype(
+        np.int8)
+    packed = wire_pack.nibble_pack(_t(codes))
+    assert packed.shape == (clients, (n + 1) // 2)
+    for k in range(clients):
+        want = np.asarray(jwp.nibble_pack_pallas(jnp.asarray(codes[k]), interpret=True))
+        np.testing.assert_array_equal(packed[k].numpy(), want)
+        back = np.asarray(jwp.nibble_unpack_pallas(jnp.asarray(want), n, interpret=True))
+        np.testing.assert_array_equal(wire_pack.nibble_unpack(packed, n)[k].numpy(), back)
+    assert torch.equal(wire_pack.nibble_unpack(packed, n), _t(codes))
+
+
+@pytest.mark.parametrize("n", wire_pack.K7_RUN_EDGES)
+@pytest.mark.parametrize("clients", (2, 3))
+@pytest.mark.parametrize("scales", ("shared", "per-client"))
+def test_dequantize_at_run_edges_is_the_pallas_kernel_bitwise(n, clients, scales):
+    rng = np.random.default_rng(11 * n + clients)
+    codes = rng.integers(-127, 128, size=(clients, n)).astype(np.int8)
+    scale = (rng.random(clients, dtype=np.float32) * np.float32(1e-3)
+             + np.float32(1e-5)).astype(np.float32)
+    got = wire_pack.dequantize(_t(codes), _t(scale) if scales == "per-client"
+                               else torch.tensor(scale[0]))
+    assert got.dtype == torch.float32 and got.shape == (clients, n)
+    for k in range(clients):
+        sk = scale[k] if scales == "per-client" else scale[0]
+        want = np.asarray(jwp.dequantize_pallas(jnp.asarray(codes[k]), jnp.float32(sk),
+                                                interpret=True))
+        np.testing.assert_array_equal(got[k].numpy().view(np.uint32), want.view(np.uint32))
+
+
 def _last_wins(vals, idx, n):
     """The TPU kernels' serial loop: pairs stored in payload order (an
     index outside [0, n) is dropped, as the port's plain version does)."""
