@@ -14,12 +14,14 @@ Phases, each printed as it ends:
    shapes the training and decoding paths give it, with its time beside
    its bound, the plain version's time and a PyTorch yardstick: K1 (LSTM
    gates), K3/K4 (the fused joint) at the paper-width client step, at
-   a ragged small shape and at a J that is not a multiple of 4 (K3's three
+   a ragged small shape, at a J that is not a multiple of 4 and at the
+   fedsgd round's one step over 32 examples (B=32; K3's three
    launches and K4's five each alone as well, the products beside the same
    run's fp32 torch.matmul; K3 twice and replayed from one CUDA graph for
    the same bits), and K2 (the
    full-sequence recurrence) at the
-   paper's encoder and predictor layers, the decoder's encoder and a
+   paper's encoder and predictor layers (at B=4, and at the fedsgd
+   round's B=32), the decoder's encoder and a
    ragged small shape; every backward runs twice and must give the same
    bits; K1 also with the host's cost of each piece of its launch path
    (the PyTorch operators) and every refusal of its ``_check`` made on
@@ -49,7 +51,9 @@ Phases, each printed as it ends:
    indices and runs across its windows' edges (its starts and slots held
    to the plain layout's, and replayed from one CUDA graph), and past the
    sort's histogram (n=75,497,473 and 2·10⁸, by window groups),
-   and the quantizer also with a scale for each client; all bitwise;
+   and the quantizer also with a scale for each client; the keyed
+   quantizer and K7 also at K=1 (the fedsgd aggregate's compress) at the
+   same sizes; all bitwise;
    K8's and K9's device time by launch under the profiler; K10 refusing a
    grad-requiring call; K2's dw product also
    at ragged shapes (S·B = 37, H = 100 and 99) and with its occupancy;
@@ -78,7 +82,12 @@ Phases, each printed as it ends:
    for the planes that draw through ``normal`` (a stated tolerance);
    whisper-base's smoke config served on the card and on the CPU (fp32
    and bf16): prefill over a 4-token prompt (6 K10 launches) and 8 decode
-   steps (4 K11 launches each), the logits held to each other;
+   steps (4 K11 launches each), the logits held to each other; the
+   experiment ladder's round paths at the tiny config (a fedsgd round with
+   FVN, one with an int4 packed uplink at participation 0.75, an IID round,
+   a label-shuffle round, a yogi and a momentum server) on the card and on
+   the CPU, held to each other, and the fedsgd aggregate's K = 1 compress
+   of the same tiny deltas bitwise;
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -102,6 +111,14 @@ Phases, each printed as it ends:
    the participants and corrupted clients of each round, and server
    parameters of the packed int4 run and its unpacked twin equal bit for
    bit after every round;
+   then the experiment ladder's runs (PAPER_LADDER): E0 on IID rounds with
+   its final evaluation, E10 with SpecAugment's masks doubled, the
+   label-shuffle adversary at rate 0.5 (each round's corrupted clients
+   those of a second host sampler from the seed), the fedsgd engine (one
+   forward and backward over the round's 32 examples: each K2 kernel once
+   a layer, each joint kernel and the normal kernel once a round) and the
+   fedsgd engine with an int4 packed uplink (its three plane kernels 35
+   times a round), each two rounds with exact launch counts;
    then whisper-base served at full width (70,857,216 bf16 parameters,
    random from a seed) through the model bundle: 4 utterances of 1,500
    frames, Whisper's 4-token prompt, prefill (18 K10 launches, 6 of them
@@ -113,7 +130,11 @@ Phases, each printed as it ends:
    every K10 launch of the serve on the tensor-core route;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
-   kernels that fill it;
+   kernels that fill it; and one more K2 round with the host's Python
+   calls traced (``with_stack=True``): the host time under each of the
+   port's functions (the sampler, the copy to the card, the clients' loss
+   forward, ``torch.autograd.grad``, local optimizer and FVN, the server
+   stage);
 7. the tuner's LSTM autotune at the paper's width, not kept.
 
 The line before the last is a JSON object listing every kernel; the
@@ -182,10 +203,12 @@ JOINT_FWD_ATOL = 1e-4
 # Gradients in fp32, relative to each gradient's largest entry: sums of
 # V products (dh) and of B·T·U1 products (dW, db) in another order.
 JOINT_BWD_REL_TOL = 1e-4
-# K3/K4's shapes: the paper-width client step, a ragged small shape, and a
-# J that is not a multiple of 4 (B, T, U1, J, V, e and g's dtype name)
+# K3/K4's shapes: the paper-width client step, a ragged small shape, a J
+# that is not a multiple of 4, and the fedsgd round's one step over the
+# K·S·b = 32 examples of a paper-width round (B, T, U1, J, V, e and g's
+# dtype name); the kernels line's rows are the first shape's
 JOINT_SHAPES = ((4, 64, 33, 640, 4096, "bfloat16"), (3, 24, 13, 64, 64, "float32"),
-                (2, 16, 9, 30, 200, "float32"))
+                (2, 16, 9, 30, 200, "float32"), (32, 64, 33, 640, 4096, "bfloat16"))
 
 # K2 against its plain versions, all with bf16 xg and fp32 w_hh. ys in
 # bf16: both carry h in fp32, with the 1152-term sums in another order,
@@ -562,8 +585,9 @@ def _k1_refusals(torch) -> None:
 def phase_joint_kernels(torch):
     """K3 and K4 against their plain versions at the paper-width client
     step (B=4, T'=64, U1=33, J=640, V=4096; bf16 e and g, fp32 W and b),
-    at a ragged small shape (B=3, T=24, U1=13, J=64, V=64, fp32) and at a
-    J that is not a multiple of 4 (B=2, T=16, U1=9, J=30, V=200, fp32):
+    at a ragged small shape (B=3, T=24, U1=13, J=64, V=64, fp32), at a
+    J that is not a multiple of 4 (B=2, T=16, U1=9, J=30, V=200, fp32)
+    and at the fedsgd round's shape (B=32, the paper's T', U1, J, V):
     the whole forward and backward, then each of K3's three launches and
     K4's five alone on the same inputs as its plain version. The forward
     and the backward run twice and must give the same bits, and the
@@ -586,7 +610,7 @@ def phase_joint_kernels(torch):
     rows = {}
     for B, T, U1, J, V, dname in JOINT_SHAPES:
         dtype = getattr(torch, dname)
-        tag = f"B={B} T={T} U1={U1} J={J} V={V} {dname}"
+        tag = f"B={B} T={T} U1={U1} J={J} V={V} {dname}" + (" (fedsgd)" if B == 32 else "")
         inputs = (rnd(B, T, J, scale=0.5).to(dtype), rnd(B, U1, J, scale=0.5).to(dtype),
                   rnd(J, V, scale=J ** -0.5), rnd(V, scale=0.1),
                   torch.randint(0, V, (B, U1), generator=gen, device="cuda",
@@ -708,7 +732,7 @@ def phase_joint_kernels(torch):
                 f"graph time / bound {t['kernel'][1] / bound_ms:.2f}"
                 + (f", eager time / torch.matmul's {t['kernel'][0] / t['torch.matmul'][0]:.2f}"
                    if product is not None else ""))
-            if dtype == torch.bfloat16:
+            if (B, T, U1, J, V, dname) == JOINT_SHAPES[0]:
                 rows[name] = {"max_abs_err": errs[name], "ms": t["kernel"][0],
                               "plain_ms": t["plain"][0], "bound_ms": bound_ms,
                               "bound_by": bound_by, "library_ms": t["torch.matmul"][0]}
@@ -732,9 +756,11 @@ def _rel_err(got, want) -> float:
 
 # K2's shapes: the paper's encoder layer (S=T'=64) and predictor layer
 # (S=U+1=33) in a client step of b=4, the encoder over the 64 examples of
-# one decode, and a ragged small shape
+# one decode, a ragged small shape, and the encoder and predictor layers
+# of the fedsgd round's one step over the K·S·b = 32 examples of a round
 SCAN_SHAPES = (("encoder", 64, 4, 1152), ("predictor", 33, 4, 1152),
-               ("decode", 64, 64, 1152), ("ragged", 17, 3, 96))
+               ("decode", 64, 64, 1152), ("ragged", 17, 3, 96),
+               ("fedsgd encoder", 64, 32, 1152), ("fedsgd predictor", 33, 32, 1152))
 # the backward recurrence's other routes: B=5 and B=8 stage 8 rows at a
 # time (BB=8), and H=1153 leaves the last block of 9 units one unit
 SCAN_BWD_SHAPES = (("B=5", 17, 5, 1152), ("B=8", 17, 8, 1152), ("partial block", 17, 4, 1153))
@@ -1464,7 +1490,7 @@ def _check_k7(torch, W, ref, gen, K: int, n: int) -> None:
     del packed
     codes = torch.randint(-127, 128, (K, n), generator=gen, device="cuda", dtype=torch.int8)
     scales = torch.rand(K, generator=gen, device="cuda") * 1e-3 + 1e-5
-    for what, scale in (("per-client", scales), ("shared", scales[1])):
+    for what, scale in (("per-client", scales), ("shared", scales[min(1, K - 1)])):
         _bitwise(torch, W.dequantize(codes, scale), ref.dequantize_ref(codes, scale),
                  f"dequantize {what} scale K={K} n={n}")
 
@@ -1478,6 +1504,33 @@ def _check_k7_edges(torch, W, ref, gen) -> None:
             _check_k7(torch, W, ref, gen, K, n)
         log(f"[kernels] K7 (nibble pack, unpack, dequantize with a shared and a per-client "
             f"scale) K={K} n={', '.join(map(str, sizes))}: bitwise equal to the plain versions")
+
+
+def _check_k1(torch, W, ref, gen) -> None:
+    """The fedsgd round's compress at K = 1 (the aggregate as one client's
+    delta): the keyed quantizer (int8 and int4 codes, int4 nibble bytes)
+    with the row's own scale and with a shared one, K7's pack, unpack and
+    dequantize, at WIRE_SIZES and K7's run edges, bit for bit."""
+    sizes = WIRE_SIZES + W.K7_RUN_EDGES
+    for n in sizes:
+        x = torch.randn((1, n), generator=gen, device="cuda") * 1e-3
+        x[:, ::97] = 0.0
+        keys = torch.randint(0, 2**32, (1, 2), generator=gen, device="cuda", dtype=torch.int64)
+        draws = ref.threefry_uniform_ref(keys, n)
+        for bits in (8, 4):
+            lv = 2.0 ** (bits - 1) - 1.0
+            row = x.abs().amax(dim=1) / lv  # pack_leaf's scale: the row's absmax
+            for what, scale in (("row", row), ("shared", row[0] * 0.9)):
+                tag = f"wire_quantize keyed int{bits} K=1 n={n} {what} scale"
+                _bitwise(torch, W.quantize_with_scale_keyed(x, scale, keys, bits),
+                         ref.quantize_codes_with_scale_ref(x, scale, draws, lv), f"{tag} codes")
+                _bitwise(torch, W.quantize_pack_keyed(x, scale, keys, bits),
+                         ref.quantize_pack_ref(x, scale, draws, bits), f"{tag} wire buffer")
+        _check_k7(torch, W, ref, gen, 1, n)
+        del x, draws
+    log(f"[kernels] K=1 (the fedsgd aggregate) n={', '.join(map(str, sizes))}: the keyed "
+        f"quantizer (int8 and int4 codes and wire buffers, the row's scale and a shared one), "
+        f"nibble pack and unpack, dequantize bitwise equal to the plain versions")
 
 
 def phase_wire_kernels(torch):
@@ -1608,6 +1661,7 @@ def phase_wire_kernels(torch):
         _check_scatter_add_large(torch, W, ref, gen)
         _check_quantizer_edges(torch, W, ref, gen)
         _check_k7_edges(torch, W, ref, gen)
+        _check_k1(torch, W, ref, gen)
 
         # times at the largest leaf, as the main path calls each kernel
         flat_idx = idx.reshape(-1).long()
@@ -1809,6 +1863,27 @@ def phase_tiny_compressed(torch):
             _bitwise(torch, got, out["cpu"][name], f"tiny aggregate {kw} {name}")
         log(f"[tiny compressed] {kw}: the aggregate{' and the residuals' if new_ef else ''} of "
             f"{len(shapes)} leaves, {K} clients: bitwise equal on cuda and cpu")
+    # the fedsgd round's compress: the aggregate as one client's delta (K = 1
+    # rows), the leaf keys split from the round's compression key (1, 2)
+    one = {n: d[:1] for n, d in deltas.items()}
+    for _, _, kw, _ in COMPRESSED + (("int8", None, dict(kind="int8"), None),):
+        if kw.get("error_feedback"):
+            continue  # the fedsgd engine refuses error feedback
+        compress = C.make_compressor(C.CompressionConfig(**kw))
+        out = {}
+        for device in ("cuda", "cpu"):
+            _zero_counts()
+            got = compress({n: d.to(device) for n, d in one.items()}, ckeys[:1])
+            out[device] = ({n: v.cpu() for n, v in got.items()}, _counts())
+        for name, got in out["cuda"][0].items():
+            _bitwise(torch, got, out["cpu"][0][name], f"tiny K=1 compress {kw} {name}")
+        launched = {k: v for k, v in out["cuda"][1].items() if v}
+        if not launched or set(launched.values()) != {len(shapes)} or any(out["cpu"][1].values()):
+            raise AssertionError(f"tiny K=1 compress {kw}: launches cuda {launched}, expected "
+                                 f"{len(shapes)} a kernel")
+        log(f"[tiny compressed] {kw} at K=1 (the fedsgd aggregate): {len(shapes)} leaves "
+            f"bitwise equal on cuda and cpu; " + ", ".join(f"{k} {v}" for k, v in launched.items())
+            + " launches on the card")
 
 
 def phase_tiny_slowpath(torch):
@@ -1864,6 +1939,129 @@ def phase_tiny_slowpath(torch):
                 f"n_k {out['cpu']['n_k'].tolist()}: the aggregate of {len(shapes)} leaves "
                 + (f"within {SLOW_NORMAL_TOL} (normal draws)" if normal else "bitwise equal")
                 + " on cuda and cpu")
+
+
+# the tiny ladder rounds of phase 4 (asr-rnnt, K=3, b=2, data limit 4, so
+# S=2): (name, plan fields); each through the training entry point
+TINY_LADDER = (
+    ("fedsgd_fvn", dict(engine="fedsgd", fvn=dict(enabled=True, std=0.01)), {}),
+    # the aggregate compressed at K = 1 through K5, K7's unpack and dequantize
+    ("fedsgd_fvn_int4_packed_p75", dict(engine="fedsgd", fvn=dict(enabled=True, std=0.01),
+                                        compression=dict(kind="int4", packed=True),
+                                        cohort=dict(participation=0.75)), {}),
+    ("iid", dict(fvn=dict(enabled=True, std=0.01)), dict(iid=True)),
+    ("label_shuffle_50", dict(corruption=dict(kind="label_shuffle", rate=0.5)), {}),
+    ("yogi_server", dict(server_optimizer="yogi", server_lr=0.01), {}),
+    ("momentum_server", dict(server_optimizer="momentum", server_lr=0.5), {}),
+)
+TINY_PARAM_ATOL = 1e-5
+# int4 stochastic rounding: the card's and the CPU's aggregates differ by
+# float rounding, so a code may flip where a uniform lies within an ulp of
+# the fraction it is compared with; an element may then differ by one code
+# step (the leaf's largest update / 7) plus TINY_PARAM_ATOL, and at most
+# TINY_FLIP_SHARE of them by more than TINY_PARAM_ATOL (tests/test_torch_fedsgd.py's rule)
+TINY_FLIP_SHARE = 1e-3
+
+
+def _tiny_ladder_plan(fields: dict):
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.corruption import CorruptionConfig
+    from repro_torch.core.plan import CohortConfig, FederatedPlan, FVNConfig
+
+    fields = dict(dict(server_optimizer="sgd", server_lr=1.0), **fields)
+    for name, cls in (("fvn", FVNConfig), ("corruption", CorruptionConfig),
+                      ("compression", CompressionConfig), ("cohort", CohortConfig)):
+        if name in fields:
+            fields[name] = cls(**fields[name])
+    return FederatedPlan(clients_per_round=3, local_batch_size=2, data_limit=4, client_lr=0.05,
+                         **fields)
+
+
+def _tiny_params_err(name: str, p_c: dict, p_h: dict, params: dict, compressed: bool) -> float:
+    """The largest difference of the server parameters, card against CPU;
+    under a compressed plan each leaf within one code step and at most
+    TINY_FLIP_SHARE of the elements past TINY_PARAM_ATOL."""
+    err = flips = total = 0
+    for k in p_c:
+        diff = (p_c[k] - p_h[k]).abs()
+        err = max(err, float(diff.max()))
+        if not compressed:
+            continue
+        code_step = float((p_h[k] - params[k]).abs().max()) / 7
+        if float(diff.max()) > code_step + TINY_PARAM_ATOL:
+            raise AssertionError(f"tiny {name}: {k} differs by {float(diff.max()):.2e}, more "
+                                 f"than one code step {code_step:.2e}")
+        flips += int((diff > TINY_PARAM_ATOL).sum())
+        total += diff.numel()
+    if compressed and flips > TINY_FLIP_SHARE * total:
+        raise AssertionError(f"tiny {name}: {flips} of {total} elements past {TINY_PARAM_ATOL}")
+    if not compressed and err > TINY_PARAM_ATOL:
+        raise AssertionError(f"tiny {name}: server parameters differ by {err:.2e} "
+                             f"(> {TINY_PARAM_ATOL})")
+    return err
+
+
+def phase_tiny_ladder(torch):
+    """The ladder's new round paths at the tiny config through the training
+    entry point, on the card and on the CPU from the same parameters (K2 on
+    the card, its plain version on the CPU, under 'kernel'): a fedsgd round
+    with FVN on, the same with an int4 packed stochastic uplink at
+    participation 0.75, an IID round, a label-shuffle round at rate 0.5,
+    and rounds with a yogi and a momentum server. Held at the tiny round's
+    tolerances: the loss to 1e-4 relative, the server parameters to
+    TINY_PARAM_ATOL (under int4, to one code step for at most
+    TINY_FLIP_SHARE of the elements)."""
+    from repro_torch.core.task import FederatedTask, get_task
+    from repro_torch.launch import train
+
+    _dispatch("kernel")
+    tiny = get_task("asr-rnnt")
+    params = tiny.init_params(torch.Generator().manual_seed(0))
+
+    class FixedInit(FederatedTask):
+        """The tiny task, its parameters drawn once on the CPU."""
+
+        def init_params(self, generator):
+            return {k: v.to(generator.device) for k, v in params.items()}
+
+    task = FixedInit(tiny.name, tiny.config, tiny.make_corpus)
+    corpus = task.make_corpus(0)
+    for name, fields, kw in TINY_LADDER:
+        plan = _tiny_ladder_plan(fields)
+        out = {}
+        for device in ("cuda", "cpu"):
+            _zero_counts()
+            state, hist = train.run_federated(task, corpus, plan, 1, device=device,
+                                              eval_examples=0, log=lambda line: None, **kw)
+            out[device] = (hist, {k: v.cpu() for k, v in state.params.items()}, _counts())
+        (h_c, p_c, n_c), (h_h, p_h, n_h) = out["cuda"], out["cpu"]
+        loss_c, loss_h = h_c["loss"], h_h["loss"]
+        if not all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(loss_c, loss_h)):
+            raise AssertionError(f"tiny {name}: loss cuda {loss_c} vs cpu {loss_h}")
+        compressed = plan.compression.kind != "none"
+        err = _tiny_params_err(name, p_c, p_h, params, compressed)
+        moved = max(float((p_h[k] - params[k]).abs().max()) for k in p_h)
+        if not moved > 0:
+            raise AssertionError(f"tiny {name}: the server parameters did not move")
+        for k in ("corrupted_total", "participants_mean", "uplink_bytes_total"):
+            if h_c[k] != h_h[k]:
+                raise AssertionError(f"tiny {name}: {k} cuda {h_c[k]} vs cpu {h_h[k]}")
+        if (name == "label_shuffle_50") != (h_h["corrupted_total"] > 0):
+            raise AssertionError(f"tiny {name}: corrupted clients {h_h['corrupted_total']}")
+        if compressed:
+            n_leaves = len(p_c)
+            # the compress ran on the card's kernels once a leaf, on the CPU on none
+            if any(n_c[k] != n_leaves for k in FEDSGD_WIRE) or any(n_h[k] for k in FEDSGD_WIRE):
+                raise AssertionError(f"tiny {name}: wire launches cuda "
+                                     f"{ {k: n_c[k] for k in FEDSGD_WIRE} } (expected "
+                                     f"{n_leaves} each), cpu { {k: n_h[k] for k in FEDSGD_WIRE} }")
+            if not h_h["participants_mean"] < plan.clients_per_round:
+                raise AssertionError(f"tiny {name}: the drawn cohort dropped no client")
+        log(f"[tiny ladder] {name}: loss cuda {loss_c[0]:.6f} cpu {loss_h[0]:.6f}; server "
+            f"parameters max|err| {err:.2e} (moved up to {moved:.2e}); participants "
+            f"{h_h['participants_mean']}, corrupted {h_h['corrupted_total']}"
+            + (f"; {', '.join(FEDSGD_WIRE)} {len(p_c)} launches each on the card"
+               if compressed else ""))
 
 
 class _RoundTap:
@@ -2318,19 +2516,282 @@ def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_
     return watch.marks[-1][0]
 
 
-def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None):
+# the experiment ladder's paper-width runs of phase 5, each on K2 with the
+# fused joint, K=4, b=4, two rounds: (name, CLI flags after PAPER_ARGV, or
+# None for a plan of core/experiments.py's ladder)
+PAPER_LADDER = (
+    ("e0_iid", None),
+    ("e10_specaug2", None),
+    ("label_shuffle_50", ["--corrupt-kind", "label_shuffle", "--corrupt-rate", "0.5"]),
+    ("fedsgd", ["--engine", "fedsgd"]),
+    ("fedsgd_int4_packed", ["--engine", "fedsgd", "--compression", "int4", "--packed-wire"]),
+)
+# the plane kernels the compressed fedsgd round launches once per leaf: the
+# aggregate compressed as one client's delta, packed, unpacked, dequantized
+FEDSGD_WIRE = ("wire_quantize", "nibble_unpack", "dequantize")
+
+
+class _Tap:
+    """Wraps ``owner.name`` while the context is open: each call's
+    arguments and result go to ``record``."""
+
+    def __init__(self, owner, name: str, record):
+        self.owner, self.name, self.record = owner, name, record
+        self.saved = getattr(owner, name)
+
+    def __enter__(self):
+        saved, record = self.saved, self.record
+
+        def tapped(*args, **kwargs):
+            out = saved(*args, **kwargs)
+            record(args, out)
+            return out
+
+        setattr(self.owner, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+
+
+def phase_paper_ladder(torch, name: str, flags):
+    """Two rounds of rnnt-librispeech on K2 with the fused joint through
+    the training entry point, under one of the ladder's new paths: the E0
+    plan of ``ladder(clients_per_round=4, local_batch_size=4)`` with
+    local_steps=2 under ``iid=True`` (with the final evaluation), E10's
+    plan under ``specaug_scale=2.0``, the label-shuffle adversary at rate
+    0.5, the fedsgd engine, and the fedsgd engine with an int4 packed
+    uplink. The counts are set to 0 before the run and read after each
+    round and after the evaluation, and must be exact: a fedavg round
+    launches each K2 kernel once a layer, each joint kernel and the normal
+    kernel once a client step, as the K2 run does; a fedsgd round once for
+    its one step, and with int4 each of FEDSGD_WIRE once per leaf. Returns
+    ({kernel: launches over the run}, the last round's seconds)."""
+    from repro_torch.core.experiments import ladder
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import rnnt
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    cfg, rounds = task.config, 2
+    corpus = task.make_corpus(0)
+    args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)] + (flags or []))
+    plan, kw, eval_examples = train.build_plan(args), {}, 0
+    tag = f"[paper ladder {name}]"
+    if name == "e0_iid":
+        plan = dataclasses.replace(ladder(clients_per_round=4, local_batch_size=4)["E0"],
+                                   local_steps=2)
+        kw, eval_examples = dict(iid=True), EVAL_EXAMPLES
+    elif name == "e10_specaug2":
+        plan = ladder(clients_per_round=4, local_batch_size=4, data_limit=8)["E10"]
+        kw = dict(specaug_scale=2.0)
+    marks, n_k, shuffled, masks = [], [], [], []
+
+    def after_round(line):
+        log(f"{tag} {line}")
+        marks.append((_counts(), torch.cuda.max_memory_allocated()))
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _Tap(train, "pack_round", lambda a, rb: n_k.append(rb.n_k.tolist())), \
+            _Tap(pipeline.FederatedSampler, "next_round",
+                 lambda a, rb: shuffled.append(a[0].corrupted_counts[-1:])), \
+            _Tap(rnnt, "spec_augment",
+                 lambda a, out: masks.append((a[2].freq_masks, a[2].time_masks))):
+        _, hist = train.run_federated(task, corpus, plan, rounds, seed=args.seed, device="cuda",
+                                      eval_every=0, eval_examples=eval_examples,
+                                      log=after_round, **kw)
+    torch.cuda.synchronize()
+    total = _counts()
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"{tag} losses are not finite: {hist['loss']}")
+    fedsgd = plan.engine == "fedsgd"
+    steps = 1 if fedsgd else plan.clients_per_round * hist["local_steps"]  # a round's
+    layers = cfg.enc_layers + cfg.pred_layers
+    want = {k: 0 for k in total}
+    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
+                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
+                **{k: steps for k in JOINT_KERNELS}, threefry_normal=steps)
+    if plan.compression.kind != "none":
+        want.update({k: N_LEAVES for k in FEDSGD_WIRE})
+    prev = {k: 0 for k in total}
+    for r, (mark, _) in enumerate(marks):
+        got = {k: mark[k] - prev[k] for k in total}
+        if got != want:
+            raise AssertionError(f"{tag} launches in round {r + 1} {got}, expected {want}")
+        prev = mark
+    evaluated = {k: total[k] - prev[k] for k in total}
+    t_enc = corpus.t_max // cfg.time_stride
+    want_eval = {k: 0 for k in total}
+    if eval_examples:
+        want_eval.update(lstm_scan_fwd=2 * cfg.enc_layers,
+                         lstm_gates_fwd=2 * cfg.pred_layers * (1 + t_enc * 4))
+        wers = (hist["quality"], hist["quality_hard"])
+        if not all(math.isfinite(x) and x >= 0 for x in wers):
+            raise AssertionError(f"{tag} WER is not a finite non-negative number: {wers}")
+        log(f"{tag} final evaluation ({eval_examples} examples of each split): "
+            f"{hist['eval_s'] * 1e3:.1f} ms, WER {wers[0]:.4f} clean, {wers[1]:.4f} hard")
+    if evaluated != want_eval:
+        raise AssertionError(f"{tag} launches over the evaluation {evaluated}, expected "
+                             f"{want_eval}")
+    # the masks of every client step's SpecAugment in the run: E10's scale
+    # doubles the config's 2 and 2
+    want_masks = (4, 4) if name == "e10_specaug2" else (cfg.specaug.freq_masks,
+                                                        cfg.specaug.time_masks)
+    if len(masks) != steps * rounds or set(masks) != {want_masks}:
+        raise AssertionError(f"{tag} SpecAugment ran {len(masks)} times (expected "
+                             f"{steps * rounds}) with (frequency, time) masks {set(masks)}, "
+                             f"expected {want_masks}")
+    if name == "e10_specaug2":
+        log(f"{tag} SpecAugment ran {len(masks)} times in the run, each with 4 frequency and "
+            f"4 time masks")
+    if name == "e0_iid" and (len(n_k) != rounds or any(n != [8.0] * 4 for n in n_k)):
+        raise AssertionError(f"{tag} the IID rounds' n_k {n_k}, expected 8 for each client")
+    if hist["participants_mean"] != plan.clients_per_round:
+        raise AssertionError(f"{tag} participants {hist['participants_mean']}")
+    if name == "label_shuffle_50":
+        host = pipeline.FederatedSampler(
+            task.make_corpus(0), clients_per_round=args.clients, local_batch_size=args.batch,
+            data_limit=args.data_limit, seed=args.seed, label_shuffle_rate=0.5)
+        for _ in range(rounds):
+            host.next_round()
+        got = [c for counts in shuffled for c in counts]
+        if got != host.corrupted_counts or hist["corrupted_total"] != sum(got):
+            raise AssertionError(f"{tag} corrupted clients a round {got} (total "
+                                 f"{hist['corrupted_total']}), the host sampler's "
+                                 f"{host.corrupted_counts}")
+        log(f"{tag} corrupted clients a round {got}, equal to a second host sampler's from "
+            f"seed {args.seed}")
+    if plan.compression.kind != "none":
+        uplink = COMPRESSED[0][3]  # int4 packed, per reporting client
+        if hist["uplink_bytes_client"] != uplink or \
+                hist["uplink_bytes_total"] != uplink * args.clients * rounds:
+            raise AssertionError(f"{tag} uplink {hist['uplink_bytes_client']} B per client, "
+                                 f"{hist['uplink_bytes_total']} B in all; expected {uplink} "
+                                 "per client")
+    per_s = [e / t for e, t in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} engine {plan.engine}, {plan.compression.kind} uplink, "
+        f"{steps} forward/backward a round: losses {hist['loss']}; ms per round "
+        f"{[round(x * 1e3, 1) for x in hist['round_s']]}; client examples per second {per_s}; "
+        f"peak memory over the training rounds {marks[-1][1]} B; uplink "
+        f"{hist['uplink_bytes_client']} B per client; launches per round: "
+        + ", ".join(f"{k} {v}" for k, v in want.items() if v))
+    return total, hist["round_s"][-1]
+
+
+def _python_spans(prof) -> list:
+    """(file, function, start us, end us, thread) of each Python call that
+    torch.profiler's stack tracing recorded in the port's files and in
+    torch.autograd: the ``python_function`` events of its trace."""
+    trace = ROOT / "build" / "host_parts_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    with open(trace) as f:
+        events = json.load(f)
+    trace.unlink()
+    spans = []
+    for e in events["traceEvents"] if isinstance(events, dict) else events:
+        if e.get("cat") != "python_function" or "dur" not in e:
+            continue
+        where, sep, fn = e["name"].partition("): ")
+        path = where.rsplit("(", 1)[0]
+        if sep and ("repro_torch/" in path or path.endswith("torch/autograd/__init__.py")):
+            spans.append((path, fn, float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                          e.get("tid")))
+    return spans
+
+
+# the host parts of a K2 round: (part, the port's file, function), each
+# summed over its calls; the local optimizer is the optimizer calls inside
+# the clients' updates, the server stage the round body's time outside them
+HOST_PARTS = (
+    ("sampler (pipeline.next_round)", "repro_torch/data/pipeline.py", "next_round"),
+    ("copy to the card (train._to_device)", "repro_torch/launch/train.py", "_to_device"),
+    ("clients' loss forward (task.loss_fn)", "repro_torch/core/task.py", "loss_fn"),
+    ("clients' torch.autograd.grad", "torch/autograd/__init__.py", "grad"),
+    ("clients' fvn.perturb", "repro_torch/core/fvn.py", "perturb"),
+)
+
+
+def phase_host_parts(torch, round_s: float):
+    """One K2 round (the K2 run's configuration) under torch.profiler with
+    the host's Python calls traced (``with_stack=True``): the host seconds
+    under each of the port's functions (HOST_PARTS, the clients' local
+    optimizer and the server stage), beside the round's wall time and busy
+    share. Stack tracing slows the host: the profiled round is printed
+    beside the unprofiled ``round_s``. Measures only; the package is
+    unchanged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    args = train.parse_args(PAPER_ARGV + ["--rounds", "1"])
+    corpus = task.make_corpus(0)
+    tag = "[host parts auto use_kernel=True]"
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        _, hist = train.run_federated(task, corpus, train.build_plan(args), 1, seed=args.seed,
+                                      device="cuda", eval_every=0, eval_examples=0,
+                                      log=lambda line: None)
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    spans = _python_spans(prof)
+    device_s = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    parse_s = time.perf_counter() - t1
+
+    def total(path: str, fn: str, inside=None) -> float:
+        out = 0.0
+        for p, f, a, b, th in spans:
+            if f == fn and p.endswith(path) and (
+                    inside is None or any(th == t and s <= a and b <= e for s, e, t in inside)):
+                out += b - a
+        return out / 1e6
+
+    clients = [(a, b, th) for p, f, a, b, th in spans
+               if f == "_client_update" and p.endswith("repro_torch/core/fedavg.py")]
+    client_s = sum(b - a for a, b, _ in clients) / 1e6
+    body_s = total("repro_torch/core/fedavg.py", "_fedavg_round_body")
+    parts = {part: total(path, fn) for part, path, fn in HOST_PARTS}
+    parts["clients' local optimizer (sgd update, apply_updates)"] = sum(
+        total("repro_torch/optim/optimizers.py", fn, clients) for fn in ("update", "apply_updates"))
+    inner = sum(v for k, v in parts.items() if k.startswith("clients'"))
+    parts["clients' rest of _client_update (the loop, the delta)"] = client_s - inner
+    parts["server stage (the round body outside the clients: the mean, Adam, the metrics' "
+          "syncs)"] = body_s - client_s
+    wall = hist["round_s"][0]
+    if not clients or body_s <= 0:
+        raise AssertionError(f"{tag} the profiler traced no client update ({len(spans)} Python "
+                             "spans of the port)")
+    log(f"{tag} one round ({len(clients)} clients' updates; {len(spans)} Python spans of the "
+        f"port, read in {parse_s:.1f} s): round wall time {wall * 1e3:.1f} ms under the profiler "
+        f"(unprofiled {round_s * 1e3:.1f} ms), the run {run_s * 1e3:.1f} ms; device kernel time "
+        f"{device_s * 1e3:.1f} ms, busy share {device_s / round_s:.3f} of the unprofiled round, "
+        f"{device_s / wall:.3f} of the profiled one")
+    for part, sec in parts.items():
+        log(f"{tag}   {sec * 1e3:9.2f} ms  {sec / wall:6.3f} of the profiled round  {part}")
+
+
+def phase_profile(torch, round_s: float, use_kernel: bool, mode: str, enc_layers=None,
+                  flags=()):
     """One more paper-width round on its own under torch.profiler, with
     no final evaluation: the device's kernel time against the wall time
     of the counted run's last round (the busy share), and the kernels
-    that fill it."""
+    that fill it. ``flags`` are further CLI flags (the fedsgd engine)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train
 
     _dispatch(mode)
     task = _paper_task(use_kernel, enc_layers)
-    args = train.parse_args(PAPER_ARGV + ["--rounds", "1"])
-    tag = f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}]"
+    args = train.parse_args(PAPER_ARGV + ["--rounds", "1", *flags])
+    tag = (f"[profile {mode} use_kernel={use_kernel} enc_layers={task.config.enc_layers}"
+           + "".join(f" {f}" for f in flags) + "]")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
         _, hist = train.run_federated(task, task.make_corpus(0), train.build_plan(args), 1,
                                       seed=args.seed, device="cuda", eval_every=0,
@@ -2906,6 +3367,7 @@ def main() -> int:
     phase_tiny_compressed(torch)
     phase_tiny_slowpath(torch)
     phase_tiny_encdec(torch)
+    phase_tiny_ladder(torch)
     mark("tiny phases")
     _, round_s_chunked, _ = phase_paper_width(torch, False, "ref")
     k1_launches, round_s_loop, loss_loop = phase_paper_width(torch, True, "ref")
@@ -2938,11 +3400,20 @@ def main() -> int:
             wire_launches[k] += counts[k]
     del params_packed
     mark("slow-path runs")
+    # the experiment ladder's runs, each its own path
+    ladder_round_s = {}
+    for name, flags in PAPER_LADDER:
+        counts, ladder_round_s[name] = phase_paper_ladder(torch, name, flags)
+        for k in WIRE_KERNELS:
+            wire_launches[k] += counts[k]
+    mark("ladder runs")
     attn_launches = phase_whisper_serve(torch)
     mark("whisper-base serve")
     phase_profile(torch, round_s_chunked, False, "ref")
     phase_profile(torch, round_s_loop, True, "ref")
     phase_profile(torch, round_s_scan, True, "auto")
+    phase_profile(torch, ladder_round_s["fedsgd"], True, "auto", flags=["--engine", "fedsgd"])
+    phase_host_parts(torch, round_s_scan)
     mark("profiles")
     phase_autotune(torch)
     mark("autotune")

@@ -13,9 +13,10 @@ the server receives, the clients' post-compression deltas
   zeros before its first report). The cache stores the honest stream of
   every participant, corrupted ones too, so a replay is one round old.
 
-``label_shuffle`` is a data-plane adversary (the reference's sampler
-permutes transcripts); it is not ported, and a plan that asks for it
-raises.
+``label_shuffle`` is a data-plane adversary: the sampler permutes the
+selected clients' transcripts host-side (``data/synthetic.py``,
+``FederatedSampler(label_shuffle_rate=...)``), and in the round it is the
+identity; the driver reports its counts from the sampler.
 
 The corrupted-client mask is multiplied by the participation mask: a
 dropped client is never a corrupted contributor. Corruption changes no

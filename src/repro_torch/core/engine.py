@@ -1,8 +1,10 @@
 """RoundEngine — the port's single entry point to a round engine.
 
 The port of ``repro/core/engine.py``'s ``build_round_engine`` for the
-``fedavg`` engine. The plan is validated when it is built
-(``FederatedPlan.__post_init__``), so an engine exists only for a plan
+``fedavg`` and ``fedsgd`` engines. The plan's fields are validated when
+it is built (``FederatedPlan.__post_init__``), and the engine-capability
+checks (the fedsgd refusals of ``repro/core/engine.py:71-93``) when
+``make_round_step`` builds the round, so an engine exists only for a plan
 the port runs in full.
 """
 

@@ -1,9 +1,10 @@
-"""FedAvg round engine (paper Alg. 1).
+"""FedAvg round engine (paper Alg. 1), and the large-model fedsgd engine.
 
 The port of ``repro/core/fedavg.py``'s fedavg round (``:148-355``,
-``:526-634``): client deltas -> cohort mask -> uplink compression ->
-corruption -> aggregator -> server optimizer (Adam in the paper), the
-aggregated delta the server optimizer's pseudo-gradient. Each stage is a
+``:526-634``) and its fedsgd round (``:665-775``). FedAvg: client
+deltas -> cohort mask -> uplink compression -> corruption -> aggregator
+-> server optimizer (Adam in the paper), the aggregated delta the server
+optimizer's pseudo-gradient. Each stage is a
 plane of ``ServerPlane``: the cohort (``core/cohort.py``), the compressor
 (``core/compression.py``), the adversary (``core/corruption.py``) and the
 aggregator (``core/aggregation.py``).
@@ -24,6 +25,15 @@ chooses:
   client's delta into the mean as soon as it exists, so only one client's
   parameters, gradients and delta are alive at a time; it adds in the
   order ``aggregation.weighted_mean`` does, so the two give the same bits.
+
+The fedsgd round collapses the K clients into one example-weighted
+forward and backward at the round-start weights over the cohort-masked
+round batch flattened to K·S·b examples: FVN's noise is drawn once, at
+``fvn_key(PRNGKey(seed), r, 0, 0)``, the delta is ``client_lr * grad``,
+and a compressed plan compresses that aggregate with the round's
+compression key as one client would (``make_compressor`` at K = 1). No
+per-client delta exists, so robust aggregators, error feedback and delta
+adversaries need the fedavg engine (``_check_fedsgd_*``).
 
 The randomness of client k's local step s in round r comes from the
 reference's key ``fvn_key(PRNGKey(seed), r, k, s)``, as JAX's does, bit
@@ -330,12 +340,7 @@ def _fedavg_round_body(loss_fn, client_opt, server_opt, sigma, seed, state: Serv
     return ServerState(params, opt_state, state.round_idx + 1, ef, stale), metrics
 
 
-def make_round_step(loss_fn: Callable, plan: FederatedPlan, seed: int):
-    """Returns round_step(state, round_batch) -> (state, metrics).
-
-    round_batch leaves: (K, S_local, b, ...) tensors on the parameters'
-    device; "weight" (K, S_local, b) marks real examples (the paper's
-    n_k weighting)."""
+def _make_fedavg_round(loss_fn: Callable, plan: FederatedPlan, seed: int):
     client_opt = sgd(plan.client_lr)
     server_opt = make_server_optimizer(plan)
     plane = _plan_server_plane(plan)
@@ -347,3 +352,104 @@ def make_round_step(loss_fn: Callable, plan: FederatedPlan, seed: int):
                                   round_batch, plane, latency_fn)
 
     return round_step
+
+
+def _check_fedsgd_aggregator(aggregator: str) -> None:
+    if aggregator != "weighted_mean":
+        raise ValueError(
+            "fedsgd collapses clients into one weighted forward/backward — "
+            "per-client deltas never exist, so robust aggregators "
+            f"({aggregator!r}) need the fedavg engine"
+        )
+
+
+def _check_fedsgd_compression(compression: Optional[CompressionConfig]) -> None:
+    if compression is not None and compression.error_feedback:
+        raise ValueError(
+            "error feedback keeps a per-client compression residual, but "
+            "fedsgd collapses clients into one weighted forward/backward — "
+            "per-client deltas never exist; use the fedavg engine"
+        )
+
+
+def _check_fedsgd_corruption(kind: str) -> None:
+    if kind in DELTA_KINDS:
+        raise ValueError(
+            "delta corruptions transform per-client deltas, but fedsgd "
+            "collapses clients into one weighted forward/backward — use "
+            f"the fedavg engine for corruption kind {kind!r} (the "
+            "data-plane 'label_shuffle' adversary works on either engine)"
+        )
+
+
+def _fedsgd_round_body(loss_fn, server_opt, sigma, client_lr: float, seed: int,
+                       state: ServerState, round_batch: dict, plane: ServerPlane,
+                       latency_fn=None):
+    """One fedsgd round: the cohort-masked round batch flattened to
+    K·S·b examples, one forward and backward at the (FVN-perturbed)
+    round-start weights, wbar = client_lr · grad (compressed as one
+    client's delta under a compressed plan), the server optimizer. The
+    metrics carry the reference's keys."""
+    K, S = round_batch["weight"].shape[:2]
+    base_key = keys_lib.PRNGKey(seed)
+    ckey, qkey, _, _ = _plane_keys(base_key, state.round_idx)
+    round_batch, pmask = _apply_cohort(plane, ckey, round_batch)
+    flat = {k: v.reshape((K * S * v.shape[2],) + v.shape[3:]) for k, v in round_batch.items()}
+    key = fvn_lib.fvn_key(base_key, state.round_idx, 0, 0)
+    p_eval = state.params if sigma is None else fvn_lib.perturb(state.params, key, sigma)
+    leaves = {k: v.detach().requires_grad_() for k, v in p_eval.items()}
+    loss, _ = loss_fn(leaves, flat, keys_lib.fold_in(key, 1))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    # the delta of the one-step client update
+    wbar = {k: client_lr * g.float() for k, g in zip(leaves, grads)}
+    del leaves, grads, p_eval
+    if plane.compression.kind != "none":
+        # the aggregate compressed as one client's delta (the reference's
+        # server-side proxy; the wire bytes still count each reporting client)
+        wbar = {k: v[0] for k, v in plane.compress({k: v[None] for k, v in wbar.items()},
+                                                    qkey[None]).items()}
+    updates, opt_state = server_opt.update(wbar, state.opt_state, state.params)
+    params = apply_updates(state.params, updates)
+    metrics = {
+        "loss": float(loss.detach()),
+        "examples": float(flat["weight"].sum()),
+        "delta_norm": math.sqrt(sum(float(x.square().sum()) for x in wbar.values())),
+        # delta corruptions are fedavg-only; label_shuffle is counted host-side
+        "corrupted": 0.0,
+        **_wire_metrics(plane.compression, state.params, int(pmask.sum()), K),
+        "sim_time_s": _sim_time_s(latency_fn, base_key, state.round_idx, pmask, K),
+        "server_steps": 1.0,
+        "staleness_mean": 0.0,
+    }
+    return ServerState(params, opt_state, state.round_idx + 1, state.ef, state.stale), metrics
+
+
+def _make_fedsgd_round(loss_fn: Callable, plan: FederatedPlan, seed: int):
+    """The large-model engine: one local step at the round-start weights
+    for every client, collapsed into one example-weighted forward and
+    backward (``repro/core/fedavg.py:665-692``)."""
+    _check_fedsgd_aggregator(plan.aggregation.name)
+    _check_fedsgd_compression(plan.compression)
+    _check_fedsgd_corruption(plan.corruption.kind)
+    server_opt = make_server_optimizer(plan)
+    plane = _plan_server_plane(plan)
+    latency_fn = make_latency_fn(plan.latency) if plan.latency.enabled else None
+
+    def round_step(state: ServerState, round_batch: dict):
+        sigma = fvn_lib.fvn_sigma(plan.fvn, state.round_idx) if plan.fvn.enabled else None
+        return _fedsgd_round_body(loss_fn, server_opt, sigma, plan.client_lr, seed, state,
+                                  round_batch, plane, latency_fn)
+
+    return round_step
+
+
+def make_round_step(loss_fn: Callable, plan: FederatedPlan, seed: int):
+    """Returns round_step(state, round_batch) -> (state, metrics) of the
+    plan's engine.
+
+    round_batch leaves: (K, S_local, b, ...) tensors on the parameters'
+    device; "weight" (K, S_local, b) marks real examples (the paper's
+    n_k weighting)."""
+    if plan.engine == "fedsgd":
+        return _make_fedsgd_round(loss_fn, plan, seed)
+    return _make_fedavg_round(loss_fn, plan, seed)

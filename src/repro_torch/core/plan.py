@@ -1,14 +1,16 @@
 """FederatedPlan — the experiment configuration of the paper's Alg. 1.
 
-The port of ``repro/core/plan.py`` for the ``fedavg`` engine with an Adam
-or SGD server. The server plane's configs are the reference's own:
+The port of ``repro/core/plan.py`` for the ``fedavg`` and ``fedsgd``
+engines and the four server optimizers (``adam``, ``sgd``, ``momentum``,
+``yogi``). The server plane's configs are the reference's own:
 ``CohortConfig`` (partial participation, stragglers), ``CompressionConfig``
 (the uplink), ``AggregatorConfig`` (the aggregation rule and its knobs),
-``CorruptionConfig`` (the adversary) and ``LatencyConfig`` (simulated
-arrival times). A plan that asks for what the port does not run yet (the
-fedsgd or async engine, a momentum or yogi server, the data-plane
-``label_shuffle`` adversary) raises ``NotImplementedError`` naming the
-ROADMAP item that ports it, so no setting is ever ignored.
+``CorruptionConfig`` (the adversary, the data-plane ``label_shuffle``
+among them) and ``LatencyConfig`` (simulated arrival times). The
+experiment ladder E0–E10 is expressed as plans (``core/experiments.py``).
+A plan for the buffered-async engine, which the port does not run yet,
+raises ``NotImplementedError`` naming the ROADMAP item that ports it, so
+no setting is ever ignored.
 """
 
 from __future__ import annotations
@@ -64,11 +66,8 @@ class AggregatorConfig:
                 "dp_sigma": self.dp_sigma}
 
 
-# field -> (the values the port runs, the ROADMAP item that ports the others)
-_PARITY = {
-    "engine": (("fedavg",), "M5 (fedsgd) / M7 (async)"),
-    "server_optimizer": (("adam", "sgd"), "M2 (momentum, yogi)"),
-}
+ENGINES = ("fedavg", "fedsgd", "async")
+SERVER_OPTIMIZERS = ("adam", "sgd", "momentum", "yogi")
 _CONFIGS = {"cohort": CohortConfig, "compression": CompressionConfig,
             "aggregation": AggregatorConfig, "corruption": CorruptionConfig,
             "latency": LatencyConfig}
@@ -83,13 +82,13 @@ class FederatedPlan:
     data_limit: Optional[int] = None  # paper §4.2.1 non-IID dial (None = no limit)
     client_sampling: str = "uniform"  # see repro_torch.data.strategies
     client_lr: float = 0.008  # paper's coarse-swept client SGD lr
-    server_optimizer: str = "adam"  # "adam" | "sgd"
+    server_optimizer: str = "adam"  # "adam" | "sgd" | "momentum" | "yogi"
     server_lr: float = 1e-3
     server_warmup_rounds: int = 0  # linear ramp-up (Baseline style)
     server_decay_rounds: int = 0  # >0: exponential decay (E9/E10 style)
     server_decay_rate: float = 0.9
     fvn: FVNConfig = dataclasses.field(default_factory=FVNConfig)
-    engine: str = "fedavg"
+    engine: str = "fedavg"  # "fedavg" | "fedsgd" (one collapsed forward/backward)
     # server plane: cohort -> compression -> corruption -> aggregation
     cohort: CohortConfig = dataclasses.field(default_factory=CohortConfig)
     compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
@@ -106,17 +105,15 @@ class FederatedPlan:
             if not isinstance(getattr(self, name), cls):
                 raise TypeError(f"{name} must be a {cls.__name__}, got "
                                 f"{getattr(self, name)!r}")
-        for name, (allowed, item) in _PARITY.items():
-            value = getattr(self, name)
-            if value not in allowed:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported; the port runs {name} in {allowed} "
-                    f"until ROADMAP {item} is ported")
-        if self.corruption.kind == "label_shuffle":
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown engine {self.engine!r}; available: {ENGINES}")
+        if self.engine == "async":
             raise NotImplementedError(
-                "corruption kind 'label_shuffle' poisons the data plane (the sampler's "
-                "transcript shuffle), which is not ported; see ROADMAP §1 (M3's "
-                "data/synthetic.py)")
+                "engine='async' (the buffered-async FedBuff engine) is not ported; the port "
+                "runs engine in ('fedavg', 'fedsgd') until ROADMAP M7 is ported")
+        if self.server_optimizer not in SERVER_OPTIMIZERS:
+            raise ValueError(f"unknown server optimizer {self.server_optimizer!r}; "
+                             f"available: {SERVER_OPTIMIZERS}")
         if self.aggregation.name not in available_aggregators():
             raise ValueError(f"unknown aggregator {self.aggregation.name!r}; available: "
                              f"{available_aggregators()}")
@@ -140,5 +137,5 @@ def server_lr_schedule(plan: FederatedPlan):
 def make_server_optimizer(plan: FederatedPlan):
     from repro_torch import optim
 
-    make = {"adam": optim.adam, "sgd": optim.sgd}[plan.server_optimizer]
-    return make(server_lr_schedule(plan))
+    # each of SERVER_OPTIMIZERS is the optimizer of that name
+    return getattr(optim, plan.server_optimizer)(server_lr_schedule(plan))

@@ -65,6 +65,24 @@ class FederatedTask:
         return wer(refs, hyps)
 
 
+def scaled_task(task: FederatedTask, specaug_scale: float) -> FederatedTask:
+    """The task around a specaug-scaled config (E10-style regularization,
+    ``repro/launch/train.py:81-95``): both mask counts times the scale,
+    rounded, at least 1. Defined only for a config with a ``specaug``
+    policy."""
+    cfg = task.config
+    if getattr(cfg, "specaug", None) is None:
+        raise ValueError(
+            f"specaug_scale={specaug_scale} but task {task.name!r} "
+            f"({type(cfg).__name__}) has no specaug policy")
+    sa = cfg.specaug
+    cfg = dataclasses.replace(
+        cfg, specaug=dataclasses.replace(
+            sa, freq_masks=max(1, int(round(sa.freq_masks * specaug_scale))),
+            time_masks=max(1, int(round(sa.time_masks * specaug_scale)))))
+    return dataclasses.replace(task, config=cfg)
+
+
 def default_corpus(seed: int = 0):
     """The shared container-scale speaker corpus, bitwise equal to
     ``repro.core.task.default_corpus``."""

@@ -1,6 +1,6 @@
 """Data substrate: the synthetic speaker-split corpus and federated round batching."""
 from repro_torch.data.corpus import CorpusConfig, SpeakerCorpus, make_speaker_corpus
-from repro_torch.data.pipeline import FederatedSampler, RoundBatch
+from repro_torch.data.pipeline import FederatedSampler, RoundBatch, pack_round
 from repro_torch.data.strategies import available_strategies, get_strategy, register_strategy
 
 __all__ = [
@@ -9,6 +9,7 @@ __all__ = [
     "make_speaker_corpus",
     "FederatedSampler",
     "RoundBatch",
+    "pack_round",
     "available_strategies",
     "get_strategy",
     "register_strategy",

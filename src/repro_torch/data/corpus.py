@@ -1,8 +1,8 @@
 """Synthetic speaker-split ASR corpus (the Librispeech stand-in).
 
 The port's own copy of ``repro/data/corpus.py``: numpy only, and the
-same seed gives bitwise-equal arrays. ``VirtualPopulation`` and the IID
-pool are not ported yet.
+same seed gives bitwise-equal arrays, and ``iid_pool`` the IID baseline's
+global pool. ``VirtualPopulation`` waits for ROADMAP M9.
 
 The paper trains on Librispeech split by its 2338 speakers; speaker
 splits are non-IID through differences in voice, vocabulary, recording
@@ -123,6 +123,15 @@ class SpeakerCorpus:
     @property
     def num_speakers(self) -> int:
         return len(self.speakers)
+
+    def iid_pool(self):
+        """Flatten all speakers into one pool (central/Baseline training):
+        each speaker's n real rows, in speaker order."""
+        feats = np.concatenate([s["features"] for s in self.speakers])
+        labels = np.concatenate([s["labels"] for s in self.speakers])
+        label_len = np.concatenate([s["label_len"] for s in self.speakers])
+        frame_len = np.concatenate([s["frame_len"] for s in self.speakers])
+        return dict(features=feats, labels=labels, label_len=label_len, frame_len=frame_len)
 
     def eval_split(self, num_examples: int, seed: int = 1234, hard: bool = False):
         """Held-out eval set; ``hard=True`` mimics the *Other* sets by

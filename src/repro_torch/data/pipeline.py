@@ -1,9 +1,10 @@
 """Federated round batching: client selection, data limiting, packing.
 
 The port's own copy of ``repro/data/pipeline.py`` for plain corpora:
-numpy only, and the same seed packs bitwise-equal round batches. The
-label-shuffle adversary, the legacy per-example packer and virtual
-populations are not ported yet.
+numpy only, and the same seed packs bitwise-equal round batches, with the
+data-plane ``label_shuffle`` adversary (``label_shuffle_rate``) and the
+IID packer ``pack_round``. Virtual populations wait for ROADMAP M9; the
+legacy per-example packer, the reference's parity oracle, is left out.
 
 A round batch is a fixed-shape set of arrays:
     features : (K, S, B, T, F)   S = local steps, B = local batch
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.data.strategies import get_strategy
+from repro_torch.data.synthetic import label_shuffle
 
 
 @dataclasses.dataclass
@@ -57,6 +59,7 @@ class FederatedSampler:
         seed: int = 0,
         max_steps=None,
         strategy: str = "uniform",
+        label_shuffle_rate: float = 0.0,
     ):
         self.corpus = corpus
         self.K = clients_per_round
@@ -65,6 +68,13 @@ class FederatedSampler:
         self.local_epochs = local_epochs
         self.rng = np.random.default_rng(seed)
         self._select = get_strategy(strategy)
+        # the label_shuffle adversary: each round, Bernoulli(rate)-selected
+        # clients get their round labels permuted among their real
+        # examples. Its own RNG keeps the selection and packing stream
+        # byte-identical to an uncorrupted run at rate 0.
+        self.label_shuffle_rate = float(label_shuffle_rate)
+        self._corrupt_rng = np.random.default_rng((seed + 1) * 0xC0FFEE)
+        self.corrupted_counts: list = []
         # per-client cursors, created on first visit; each client's
         # first order is seeded by its own id
         self._seed = seed
@@ -134,7 +144,29 @@ class FederatedSampler:
             n_k[j] = m
         return ex, n_k
 
+    def _shuffle_labels(self, rb: RoundBatch) -> RoundBatch:
+        """The label_shuffle adversary on Bernoulli-selected clients, in
+        place on the freshly packed (copied, contiguous) arrays; the
+        round's corrupted-client count is appended to
+        ``corrupted_counts``."""
+        K = rb.labels.shape[0]
+        hit = self._corrupt_rng.random(K) < self.label_shuffle_rate
+        # (K, S, b, ...) -> (K, S*b, ...) views onto the same memory
+        labels = rb.labels.reshape(K, -1, rb.labels.shape[-1])
+        label_len = rb.label_len.reshape(K, -1)
+        mask = rb.mask.reshape(K, -1)
+        for k in np.flatnonzero(hit):
+            label_shuffle(labels[k], label_len[k], mask[k] > 0, self._corrupt_rng)
+        self.corrupted_counts.append(int(hit.sum()))
+        return rb
+
     def next_round(self) -> RoundBatch:
+        rb = self._next_round()
+        if self.label_shuffle_rate > 0.0:
+            rb = self._shuffle_labels(rb)
+        return rb
+
+    def _next_round(self) -> RoundBatch:
         K, b, S = self.K, self.b, self.steps
         chosen = np.asarray(self._select(self.rng, self.corpus, K), np.int64)
         ex, n_k = self._gather_indices(chosen)
@@ -163,3 +195,19 @@ class FederatedSampler:
             mask.reshape(K, S, b),
             n_k,
         )
+
+
+def pack_round(examples: dict, K: int, steps: int, batch: int) -> RoundBatch:
+    """Pack a flat example dict into a (K, steps, batch, ...) round — the
+    IID baseline's rounds, drawn from the global pool; a pool shorter
+    than K·steps·batch wraps around (``np.resize``)."""
+    need = K * steps * batch
+    n = examples["labels"].shape[0]
+    idx = np.resize(np.arange(n), need)
+    feats = examples["features"][idx].reshape(K, steps, batch, *examples["features"].shape[1:])
+    labels = examples["labels"][idx].reshape(K, steps, batch, -1)
+    label_len = examples["label_len"][idx].reshape(K, steps, batch)
+    frame_len = examples["frame_len"][idx].reshape(K, steps, batch)
+    mask = np.ones((K, steps, batch), np.float32)
+    n_k = np.full((K,), steps * batch, np.float32)
+    return RoundBatch(feats, labels, label_len, frame_len, mask, n_k)

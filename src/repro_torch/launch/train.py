@@ -15,6 +15,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
         --aggregator trimmed_mean --corrupt-kind sign_flip --corrupt-rate 0.25 \\
         --participation 0.75 --compression int4 --packed-wire
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 --iid --fvn-std 0.01
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 --engine fedsgd
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
+        --corrupt-kind label_shuffle --corrupt-rate 0.5
 
 The history is a summary row of ``core/metrics.py``'s schema (WER as
 ``quality``/``quality_hard``), with the per-round curves as extras. A
@@ -27,7 +31,12 @@ reference's (``repro/launch/cli.py:83-125``): the cohort
 aggregator (``--aggregator``, ``--trim-frac``, ``--dp-clip``,
 ``--dp-sigma``), the adversary (``--corrupt-kind``, ``--corrupt-rate``,
 ``--corrupt-scale``) and the latency model (``--latency``,
-``--latency-base-s``, ``--latency-spread``).
+``--latency-base-s``, ``--latency-spread``). ``--iid`` trains on IID
+rounds packed from the shuffled global pool (the paper's E0 baseline),
+``--engine fedsgd`` collapses each round's clients into one forward and
+backward, and ``--corrupt-kind label_shuffle`` poisons the sampled
+clients' transcripts in the data plane. ``run_federated``'s
+``specaug_scale`` scales SpecAugment's mask counts (E10).
 """
 
 from __future__ import annotations
@@ -48,8 +57,8 @@ from repro_torch.core.corruption import CorruptionConfig, available_corruptions
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.metrics import empty_spread, summary_row
 from repro_torch.core.plan import AggregatorConfig, CohortConfig, FederatedPlan, FVNConfig
-from repro_torch.core.task import FederatedTask, get_task
-from repro_torch.data import FederatedSampler, available_strategies
+from repro_torch.core.task import FederatedTask, get_task, scaled_task
+from repro_torch.data import FederatedSampler, available_strategies, pack_round
 
 
 def resolve_device(device: str | None) -> torch.device:
@@ -72,14 +81,31 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def _check_iid_corruption(plan: FederatedPlan, iid: bool) -> None:
+    if iid and plan.corruption.kind == "label_shuffle":
+        raise ValueError(
+            "label_shuffle corrupts labels inside the FederatedSampler, but "
+            "--iid packs rounds from the global pool and bypasses the "
+            "sampler — the adversary would silently never fire. Use a "
+            "non-IID run (or a delta corruption kind, which is engine-side "
+            "and composes with --iid)")
+
+
 def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
-                  seed: int = 0, device: str | None = None, eval_every: int = 0,
-                  eval_examples: int = 64, log=print):
+                  seed: int = 0, device: str | None = None, iid: bool = False,
+                  eval_every: int = 0, eval_examples: int = 64,
+                  specaug_scale: float = 1.0, log=print):
     """Returns (state, history): a summary row (final loss, WER, CFMQ,
     the exact wire bytes) with the per-round losses and times as
     extras. Every ``eval_every`` rounds, and at the end, the model is
     decoded on ``eval_examples`` examples of each eval split; with
-    ``eval_examples=0`` there is no final decode and the WER is NaN."""
+    ``eval_examples=0`` there is no final decode and the WER is NaN.
+    ``iid`` packs every round from a fresh permutation of the global pool
+    (the E0 baseline); ``specaug_scale`` scales SpecAugment's mask counts
+    (E10)."""
+    _check_iid_corruption(plan, iid)
+    if specaug_scale != 1.0:
+        task = scaled_task(task, specaug_scale)
     device = resolve_device(device)
     params = task.init_params(torch.Generator(device=device).manual_seed(seed))
     n_params = sum(p.numel() for p in params.values())
@@ -89,7 +115,10 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
         corpus, clients_per_round=plan.clients_per_round,
         local_batch_size=plan.local_batch_size, data_limit=plan.data_limit,
         local_epochs=plan.local_epochs, seed=seed, max_steps=plan.local_steps,
-        strategy=plan.client_sampling)
+        strategy=plan.client_sampling,
+        label_shuffle_rate=(plan.corruption.rate if plan.corruption.kind == "label_shuffle"
+                            else 0.0))
+    rng = np.random.default_rng(seed)  # the IID rounds' permutations
     up_per_client, down_per_round = plan_wire_accounting(plan, params)
 
     t0 = time.perf_counter()
@@ -97,7 +126,15 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
     losses, examples, round_s = [], [], []
     participants, corrupted, sim_times, server_steps, staleness = [], [], [], [], []
     for r in range(rounds):
-        batch = _to_device(sampler.next_round().engine_batch(), device)
+        if iid:
+            # a fresh IID shuffle of the global pool each round
+            pool = corpus.iid_pool()
+            idx = rng.permutation(pool["labels"].shape[0])
+            rb = pack_round({k: v[idx] for k, v in pool.items()}, plan.clients_per_round,
+                            sampler.steps, plan.local_batch_size)
+        else:
+            rb = sampler.next_round()
+        batch = _to_device(rb.engine_batch(), device)
         t_round = time.perf_counter()
         state, metrics = engine.step(state, batch)  # metrics are host floats: synced
         round_s.append(time.perf_counter() - t_round)
@@ -126,6 +163,9 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
                  model_bytes=n_params * plan.param_bytes,
                  local_steps=mu / plan.local_batch_size, alpha=plan.alpha,
                  payload_bytes=measured_payload(plan, params, float(np.mean(participants))))
+    if plan.corruption.kind == "label_shuffle":
+        # the data-plane adversary: its counts live on the sampler
+        corrupted = [float(c) for c in sampler.corrupted_counts]
     steps_total = sum(server_steps)
     history = summary_row(
         rounds=rounds,
@@ -180,6 +220,7 @@ def build_plan(args) -> FederatedPlan:
                                     scale=args.corrupt_scale),
         latency=LatencyConfig(enabled=args.latency, base_s=args.latency_base_s,
                               spread=args.latency_spread),
+        engine=args.engine,
     )
 
 
@@ -197,7 +238,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fvn-ramp", type=int, default=0)
     ap.add_argument("--server-lr", type=float, default=0.01)
     ap.add_argument("--client-lr", type=float, default=0.05)
+    ap.add_argument("--iid", action="store_true",
+                    help="pack each round from a fresh shuffle of the global pool (E0)")
     ap.add_argument("--client-sampling", default="uniform", choices=available_strategies())
+    ap.add_argument("--engine", default="fedavg", choices=["fedavg", "fedsgd", "async"],
+                    help="barrier FedAvg or FedSGD (async is not ported: the plan refuses it)")
     comp = ap.add_argument_group("compression")
     comp.add_argument("--compression", default="none", choices=list(KINDS),
                       help="uplink delta compression (exact wire bytes in CFMQ)")
@@ -223,7 +268,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     cor = ap.add_argument_group("corruption")
     cor.add_argument("--corrupt-kind", default="none",
                      choices=["none", "label_shuffle"] + available_corruptions(),
-                     help="adversary: a delta corruption (label_shuffle is not ported)")
+                     help="adversary: a delta corruption, or label_shuffle (the data "
+                          "plane's transcript shuffle)")
     cor.add_argument("--corrupt-rate", type=float, default=0.0,
                      help="P(participating client is corrupted) per round")
     cor.add_argument("--corrupt-scale", type=float, default=1.0,
@@ -250,7 +296,8 @@ def main(argv=None):
     name = args.task or ("asr-rnnt" if args.preset == "tiny" else rnnt_librispeech.ARCH_ID)
     task = get_task(name)
     _, hist = run_federated(task, task.make_corpus(args.seed), build_plan(args), args.rounds,
-                            seed=args.seed, device=args.device, eval_every=args.eval_every)
+                            seed=args.seed, device=args.device, iid=args.iid,
+                            eval_every=args.eval_every)
     curves = ("loss", "round_s", "examples")
     print(json.dumps({k: v for k, v in hist.items() if k not in curves}, indent=1))
     if args.out:

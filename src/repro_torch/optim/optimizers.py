@@ -1,10 +1,12 @@
 """Gradient-transformation optimizers as functions over dicts of tensors.
 
-The port of ``repro/optim/optimizers.py`` for the two optimizers the
-FedAvg parity plane uses: ``sgd`` (the client optimizer) and ``adam``
-(the paper's server optimizer). As in the reference, an ``Optimizer``
-is a pair ``init(params) -> state`` and ``update(grads, state, params)
--> (updates, state)``, and ``apply_updates`` adds the (already negated)
+The port of ``repro/optim/optimizers.py``: ``sgd`` (the paper's client
+optimizer), ``adam`` (its server optimizer), ``momentum`` (with
+Nesterov), ``adamw`` and ``yogi`` (the adaptive federated servers), and
+the transformations ``clip_by_global_norm``, ``chain`` and
+``scale_by_schedule``. As in the reference, an ``Optimizer`` is a pair
+``init(params) -> state`` and ``update(grads, state, params) ->
+(updates, state)``, and ``apply_updates`` adds the (already negated)
 updates. Every call returns new tensors; nothing is updated in place.
 Scalar coefficients are computed in float32, as the reference computes
 them.
@@ -25,6 +27,18 @@ Params = dict
 class Optimizer:
     init: Callable
     update: Callable
+
+
+def _zeros_like(params: Params) -> Params:
+    return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """The fp32 L2 norm over every tensor, summed tensor by tensor in the
+    reference's tree order."""
+    from repro_torch.core.compression import jax_leaf_order
+
+    return torch.sqrt(sum(tree[k].float().square().sum() for k in jax_leaf_order(tree)))
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
@@ -52,6 +66,27 @@ def sgd(learning_rate) -> Optimizer:
     return Optimizer(init, update)
 
 
+class MomentumState(NamedTuple):
+    count: int
+    trace: Params
+
+
+def momentum(learning_rate, decay: float = 0.9, nesterov: bool = False) -> Optimizer:
+    def init(params):
+        return MomentumState(count=0, trace=_zeros_like(params))
+
+    def update(grads, state, params=None):
+        lr = _resolve_lr(learning_rate, state.count)
+        trace = {k: decay * state.trace[k] + g.float() for k, g in grads.items()}
+        if nesterov:
+            upd = {k: -(lr * (decay * trace[k] + g.float())) for k, g in grads.items()}
+        else:
+            upd = {k: -lr * t for k, t in trace.items()}
+        return upd, MomentumState(count=state.count + 1, trace=trace)
+
+    return Optimizer(init, update)
+
+
 class AdamState(NamedTuple):
     count: int
     mu: Params
@@ -62,8 +97,7 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -
     """Adam — the paper's server optimizer (Reddi et al. adaptive FL)."""
 
     def init(params):
-        zeros = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        return AdamState(count=0, mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
+        return AdamState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
 
     def update(grads, state, params=None):
         count = state.count + 1
@@ -76,5 +110,88 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -
         upd = {k: -lr * (mu[k] * mu_hat_scale) / ((nu[k] * nu_hat_scale).sqrt() + eps)
                for k in mu}
         return upd, AdamState(count=count, mu=mu, nu=nu)
+
+    return Optimizer(init, update)
+
+
+def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
+    base = adam(learning_rate, b1, b2, eps)
+
+    def update(grads, state, params):
+        upd, state = base.update(grads, state, params)
+        # lr * weight_decay in float32, as the reference's traced lr makes it
+        decay = float(np.float32(_resolve_lr(learning_rate, state.count - 1))
+                      * np.float32(weight_decay))
+        return {k: u - decay * params[k].float() for k, u in upd.items()}, state
+
+    return Optimizer(base.init, update)
+
+
+def yogi(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3) -> Optimizer:
+    """Yogi (additive second moment) — from Adaptive Federated Optimization."""
+
+    def init(params):
+        return AdamState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
+
+    def update(grads, state, params=None):
+        count = state.count + 1
+        lr = _resolve_lr(learning_rate, state.count)
+        mu = {k: b1 * state.mu[k] + (1 - b1) * g.float() for k, g in grads.items()}
+        nu = {}
+        for k, g in grads.items():
+            g2 = g.float().square()
+            nu[k] = state.nu[k] - (1 - b2) * torch.sign(state.nu[k] - g2) * g2
+        c = np.float32(count)
+        mu_hat_scale = float(np.float32(1.0) / (np.float32(1.0) - np.float32(b1) ** c))
+        upd = {k: -lr * (mu[k] * mu_hat_scale) / (nu[k].abs().sqrt() + eps) for k in mu}
+        return upd, AdamState(count=count, mu=mu, nu=nu)
+
+    return Optimizer(init, update)
+
+
+class ClipState(NamedTuple):
+    inner: object
+
+
+def clip_by_global_norm(inner: Optimizer, max_norm: float) -> Optimizer:
+    def init(params):
+        return ClipState(inner=inner.init(params))
+
+    def update(grads, state, params=None):
+        scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
+        grads = {k: g * scale for k, g in grads.items()}
+        upd, inner_state = inner.update(grads, state.inner, params)
+        return upd, ClipState(inner=inner_state)
+
+    return Optimizer(init, update)
+
+
+class ChainState(NamedTuple):
+    states: tuple
+
+
+def chain(*optimizers: Optimizer) -> Optimizer:
+    """Compose transformations left-to-right on the update stream."""
+
+    def init(params):
+        return ChainState(states=tuple(o.init(params) for o in optimizers))
+
+    def update(grads, state, params=None):
+        upd, new_states = grads, []
+        for o, s in zip(optimizers, state.states):
+            upd, s = o.update(upd, s, params)
+            new_states.append(s)
+        return upd, ChainState(states=tuple(new_states))
+
+    return Optimizer(init, update)
+
+
+def scale_by_schedule(schedule) -> Optimizer:
+    def init(params):
+        return ScaleState(count=0)
+
+    def update(grads, state, params=None):
+        s = schedule(state.count)
+        return {k: g * s for k, g in grads.items()}, ScaleState(count=state.count + 1)
 
     return Optimizer(init, update)

@@ -1,9 +1,10 @@
-"""Learning-rate schedules of the paper's experiments.
+"""Learning-rate and noise schedules of the paper's experiments.
 
-The port of the schedules in ``repro/optim/schedules.py`` that the
-server's learning-rate plan uses (``repro/core/plan.py:163-175``). Each
-is a ``count -> float`` function of an integer step count, computed in
-float32 as the reference computes it.
+The port of ``repro/optim/schedules.py``: the Baseline's (E0) linear
+ramp-up, the cost-reduced configs' (E9/E10) shorter ramp-up with
+exponential decay, FVN's linear ramp to a target (E7) and a step
+function. Each is a ``count -> float`` function of an integer step
+count, computed in float32 as the reference computes it.
 """
 
 from __future__ import annotations
@@ -39,5 +40,27 @@ def linear_rampup_exp_decay(peak: float, warmup_steps: int, decay_steps: int, de
         decay = _F(decay_rate) ** (np.maximum(c - _F(warmup_steps), _F(0.0))
                                    / _F(max(decay_steps, 1)))
         return float(_F(peak) * warm * decay)
+
+    return schedule
+
+
+def linear_ramp_to(target: float, ramp_steps: int, start: float = 0.0):
+    """Linear start->target over ramp_steps then hold — FVN sigma ramp (E7)."""
+
+    def schedule(count):
+        frac = np.minimum(_F(count) / _F(max(ramp_steps, 1)), _F(1.0))
+        return float(_F(start) + _F(target - start) * frac)
+
+    return schedule
+
+
+def piecewise(boundaries, values):
+    """Step function: values[i] for count in [boundaries[i-1], boundaries[i])."""
+    assert len(values) == len(boundaries) + 1
+    table = np.asarray(values, np.float32)
+
+    def schedule(count):
+        idx = int(np.sum(np.asarray(boundaries, np.int32) <= np.int32(count)))
+        return float(table[idx])
 
     return schedule

@@ -1,8 +1,9 @@
 """The port's training driver: a tiny CPU run end to end, its summary
 row (the JAX package's schema, WER as the quality), evaluation during
 and after training, no quiet CPU fallback, and no plan setting off the
-parity plane that runs anyway: what is not ported raises, the server
-plane's settings build and run."""
+parity plane that runs anyway: what is not ported (the async engine)
+raises, the server plane's settings, the other server optimizers, the
+fedsgd engine and the label-shuffle adversary build and run."""
 
 import dataclasses
 import json
@@ -22,6 +23,7 @@ from repro_torch.core.corruption import CorruptionConfig
 from repro_torch.core.metrics import SUMMARY_KEYS
 from repro_torch.core.plan import AggregatorConfig, CohortConfig, FederatedPlan
 from repro_torch.core.task import get_task
+from repro_torch.data import pack_round
 from repro_torch.launch import train
 
 
@@ -94,11 +96,7 @@ def test_history_is_a_summary_row_with_wer():
 
 
 @pytest.mark.parametrize("setting", [
-    {"server_optimizer": "momentum"},
-    {"corruption": CorruptionConfig(kind="label_shuffle", rate=0.5)},
     {"engine": "async"},
-    {"engine": "fedsgd"},
-    {"server_optimizer": "yogi"},
 ])
 def test_every_non_parity_plan_setting_raises(setting):
     """What the port does not run yet raises, naming the ROADMAP item."""
@@ -112,10 +110,17 @@ def test_every_non_parity_plan_setting_raises(setting):
     {"aggregation": AggregatorConfig(name="trimmed_mean", trim_frac=0.25)},
     {"corruption": CorruptionConfig(kind="sign_flip", rate=0.5, scale=3.0)},
     {"latency": LatencyConfig(enabled=True)},
-], ids=["participation", "stragglers", "trimmed_mean", "sign_flip", "latency"])
+    {"server_optimizer": "momentum"},
+    {"server_optimizer": "yogi"},
+    {"engine": "fedsgd"},
+    {"corruption": CorruptionConfig(kind="label_shuffle", rate=0.5)},
+], ids=["participation", "stragglers", "trimmed_mean", "sign_flip", "latency", "momentum",
+        "yogi", "fedsgd", "label_shuffle"])
 def test_a_server_plane_setting_builds_and_runs(setting):
-    """The server plane's settings are ported: the plan builds and a tiny
-    round runs on the CPU with finite losses and the plane's metrics."""
+    """The server plane's settings, the momentum and yogi servers, the
+    fedsgd engine and the label-shuffle adversary are ported: the plan
+    builds and a tiny round runs on the CPU with finite losses and the
+    plane's metrics."""
     task = get_task("asr-rnnt")
     plan = FederatedPlan(clients_per_round=4, local_batch_size=2, data_limit=2, **setting)
     _, hist = train.run_federated(task, task.make_corpus(0), plan, rounds=1, device="cpu",
@@ -154,8 +159,13 @@ def test_server_plane_flags_build_the_plan():
     for bad in (["--aggregator", "mean"], ["--corrupt-kind", "flip"]):
         with pytest.raises(SystemExit):
             train.parse_args(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build_plan(train.parse_args(["--corrupt-kind", "label_shuffle"]))
+    shuffled = train.build_plan(train.parse_args(["--corrupt-kind", "label_shuffle",
+                                                  "--corrupt-rate", "0.5"]))
+    assert shuffled.corruption == CorruptionConfig("label_shuffle", 0.5, 1.0)
+    assert train.build_plan(train.parse_args(["--engine", "fedsgd"])).engine == "fedsgd"
+    assert train.parse_args(["--iid"]).iid and base.engine == "fedavg"
+    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+        train.build_plan(train.parse_args(["--engine", "async"]))
 
 
 def test_the_slow_path_cli_runs_two_tiny_rounds_on_the_cpu(capsys):
@@ -222,3 +232,17 @@ def test_a_compressed_cpu_run_reports_jax_wire_bytes(capsys):
     assert hist["wire_bytes_total"] == 2 * (2 * 4 * n + 2 * up)
     assert hist["payload_bytes"] == (2 * 4 * n + 2 * up) / 2
     assert all(math.isfinite(x) for x in hist["loss"])
+
+
+def test_the_iid_cli_runs_two_tiny_rounds_on_the_cpu(capsys, monkeypatch):
+    """--iid, the E0 baseline's command: the driver packs both rounds from
+    the shuffled global pool, every client reporting its full S·b."""
+    packed = []
+    monkeypatch.setattr(train, "pack_round", lambda *a: packed.append(a[1:]) or pack_round(*a))
+    hist = train.main(["--task", "asr-rnnt", "--device", "cpu", "--rounds", "2", "--clients",
+                       "3", "--batch", "2", "--data-limit", "2", "--eval-every", "0", "--iid"])
+    assert all(math.isfinite(x) for x in hist["loss"]) and hist["participants_mean"] == 3.0
+    assert hist["examples"] == [6.0, 6.0] and hist["corrupted_total"] == 0
+    assert packed == [(3, 1, 2)] * 2
+    summary = json.loads(capsys.readouterr().out.split("\n", 2)[2])
+    assert summary["participants_mean"] == hist["participants_mean"]
