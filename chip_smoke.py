@@ -119,6 +119,23 @@ Phases, each printed as it ends:
    a layer, each joint kernel and the normal kernel once a round) and the
    fedsgd engine with an int4 packed uplink (its three plane kernels 35
    times a round), each two rounds with exact launch counts;
+   then the async engine (core/async_engine.py): two waves at the
+   sync-parity plane (a buffer of K = 4, one device tier, no jitter), whose
+   losses must equal K2_ROUND_LOSSES and whose server parameters after wave
+   2 must equal the K2 sync run's bit for bit, one flush at staleness 0 a
+   wave; three waves with a buffer of 3, the staleness discount, the
+   latency model and an int4 packed uplink (the flushes and staleness of
+   the buffer's arithmetic, simulated seconds against the barrier's, the
+   K2 round's launches plus the materialized compressor's three plane
+   kernels 35 times a wave, the exact uplink bytes, the third wave
+   profiled); two K2 rounds with the per-client plane on (a panel of 6
+   clients, 4 examples each: each round's measure timed with its exact
+   K1, K2 and K3 launches, a finite spread) and a checkpoint directory
+   (each save timed; the restored parameters bitwise the final ones); the
+   sweep runner's async_vs_sync and client_eval smoke grids at the tiny
+   task, each with its --check; and a paper-width async_vs_sync pair
+   through SweepRunner (B=3, 3 rounds, latency on) held to
+   check_async_vs_sync;
    then whisper-base served at full width (70,857,216 bf16 parameters,
    random from a seed) through the model bundle: 4 utterances of 1,500
    frames, Whisper's 4-token prompt, prefill (18 K10 launches, 6 of them
@@ -145,6 +162,7 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -204,11 +222,13 @@ JOINT_FWD_ATOL = 1e-4
 # V products (dh) and of B·T·U1 products (dW, db) in another order.
 JOINT_BWD_REL_TOL = 1e-4
 # K3/K4's shapes: the paper-width client step, a ragged small shape, a J
-# that is not a multiple of 4, and the fedsgd round's one step over the
-# K·S·b = 32 examples of a paper-width round (B, T, U1, J, V, e and g's
+# that is not a multiple of 4, the fedsgd round's one step over the
+# K·S·b = 32 examples of a paper-width round, and the per-client panel's
+# forward over its C·n = 6·4 = 24 examples (B, T, U1, J, V, e and g's
 # dtype name); the kernels line's rows are the first shape's
 JOINT_SHAPES = ((4, 64, 33, 640, 4096, "bfloat16"), (3, 24, 13, 64, 64, "float32"),
-                (2, 16, 9, 30, 200, "float32"), (32, 64, 33, 640, 4096, "bfloat16"))
+                (2, 16, 9, 30, 200, "float32"), (32, 64, 33, 640, 4096, "bfloat16"),
+                (24, 64, 33, 640, 4096, "bfloat16"))
 
 # K2 against its plain versions, all with bf16 xg and fp32 w_hh. ys in
 # bf16: both carry h in fp32, with the 1152-term sums in another order,
@@ -406,7 +426,8 @@ def _assert_close(torch, got, want, gate_dtype, what):
 def phase_kernels(torch):
     """K1 forward and backward against the plain version at the full-width
     training step (N=4, H=1152), a larger batch (N=32), the decoding batch
-    (N=64) and a ragged H (N=5, H=96), in bf16 and fp32 gates. Returns
+    (N=64), the per-client panel's decoding batch (N=24) and a ragged H
+    (N=5, H=96), in bf16 and fp32 gates. Returns
     {kernel: row at the training path's shape}."""
     from repro_torch.kernels import lstm_gates as K
     from repro_torch.kernels import ref
@@ -416,7 +437,7 @@ def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     _k1_refusals(torch)
     rows = {}
-    for N, H in ((4, 1152), (32, 1152), (64, 1152), (5, 96)):
+    for N, H in ((4, 1152), (32, 1152), (64, 1152), (24, 1152), (5, 96)):
         for dtype in (torch.bfloat16, torch.float32):
             def rnd(*shape, dt=torch.float32, scale=1.0):
                 return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
@@ -610,7 +631,7 @@ def phase_joint_kernels(torch):
     rows = {}
     for B, T, U1, J, V, dname in JOINT_SHAPES:
         dtype = getattr(torch, dname)
-        tag = f"B={B} T={T} U1={U1} J={J} V={V} {dname}" + (" (fedsgd)" if B == 32 else "")
+        tag = f"B={B} T={T} U1={U1} J={J} V={V} {dname}" + {32: " (fedsgd)", 24: " (panel)"}.get(B, "")
         inputs = (rnd(B, T, J, scale=0.5).to(dtype), rnd(B, U1, J, scale=0.5).to(dtype),
                   rnd(J, V, scale=J ** -0.5), rnd(V, scale=0.1),
                   torch.randint(0, V, (B, U1), generator=gen, device="cuda",
@@ -756,11 +777,13 @@ def _rel_err(got, want) -> float:
 
 # K2's shapes: the paper's encoder layer (S=T'=64) and predictor layer
 # (S=U+1=33) in a client step of b=4, the encoder over the 64 examples of
-# one decode, a ragged small shape, and the encoder and predictor layers
-# of the fedsgd round's one step over the K·S·b = 32 examples of a round
+# one decode, a ragged small shape, the encoder and predictor layers of
+# the fedsgd round's one step over the K·S·b = 32 examples of a round, and
+# those of the per-client panel's forward over its C·n = 24 examples
 SCAN_SHAPES = (("encoder", 64, 4, 1152), ("predictor", 33, 4, 1152),
                ("decode", 64, 64, 1152), ("ragged", 17, 3, 96),
-               ("fedsgd encoder", 64, 32, 1152), ("fedsgd predictor", 33, 32, 1152))
+               ("fedsgd encoder", 64, 32, 1152), ("fedsgd predictor", 33, 32, 1152),
+               ("panel encoder", 64, 24, 1152), ("panel predictor", 33, 24, 1152))
 # the backward recurrence's other routes: B=5 and B=8 stage 8 rows at a
 # time (BB=8), and H=1153 leaves the last block of 9 units one unit
 SCAN_BWD_SHAPES = (("B=5", 17, 5, 1152), ("B=8", 17, 8, 1152), ("partial block", 17, 4, 1153))
@@ -2065,15 +2088,21 @@ def phase_tiny_ladder(torch):
 
 
 class _RoundTap:
-    """Wraps the round engine's round body: keeps each round's metrics
-    and, with ``keep_params``, the server parameters after it, which
-    ``snapshot`` copies to the host outside the round's timing."""
+    """Wraps the round engine's round body (the fedavg engine's, or with
+    ``engine="async"`` the async engine's wave): keeps each round's
+    metrics and, with ``keep_params``, the server parameters after it,
+    which ``snapshot`` copies to the host outside the round's timing."""
 
-    def __init__(self, keep_params: bool):
-        from repro_torch.core import fedavg
+    BODIES = {"fedavg": ("repro_torch.core.fedavg", "_fedavg_round_body"),
+              "async": ("repro_torch.core.async_engine", "_async_round_body")}
 
-        self.fedavg, self.keep, self.metrics, self.params = fedavg, keep_params, [], []
-        self.saved, self.pending = fedavg._fedavg_round_body, None
+    def __init__(self, keep_params: bool, engine: str = "fedavg"):
+        import importlib
+
+        module, self.name = self.BODIES[engine]
+        self.owner = importlib.import_module(module)
+        self.keep, self.metrics, self.params = keep_params, [], []
+        self.saved, self.pending = getattr(self.owner, self.name), None
 
     def __enter__(self):
         def tapped(*args, **kwargs):
@@ -2082,7 +2111,7 @@ class _RoundTap:
             self.pending = state.params if self.keep else None
             return state, metrics
 
-        self.fedavg._fedavg_round_body = tapped
+        setattr(self.owner, self.name, tapped)
         return self
 
     def snapshot(self) -> None:
@@ -2091,7 +2120,7 @@ class _RoundTap:
             self.pending = None
 
     def __exit__(self, *exc):
-        self.fedavg._fedavg_round_body = self.saved
+        setattr(self.owner, self.name, self.saved)
 
 
 class _RunWatch:
@@ -2172,6 +2201,15 @@ def _log_profile(tag: str, by_name: dict, round_s: float, profiled_s: float,
             f"of which its hand-written kernels {wire_s * 1e3:.3f} ms ({wire_s / device_s:.4f})")
 
 
+def _k2_launches(cfg, steps: int) -> dict:
+    """A K2 round's launches over ``steps`` client steps: each K2 kernel
+    once a layer, each joint kernel and the normal kernel (FVN) once."""
+    layers = cfg.enc_layers + cfg.pred_layers
+    return dict(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
+                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
+                **{k: steps for k in JOINT_KERNELS}, threefry_normal=steps)
+
+
 def phase_paper_slowpath(torch, name: str, flags, uplink: int, kernels, loss_ref: float,
                          keep_params: bool = False, params_ref=None):
     """FedAvg rounds of rnnt-librispeech on the slow path (a robust
@@ -2205,13 +2243,11 @@ def phase_paper_slowpath(torch, name: str, flags, uplink: int, kernels, loss_ref
     spans = timer.ms()
     plane_ms = [spans[2 * r] + spans[2 * r + 1] for r in range(rounds)]
     steps = args.clients * hist["local_steps"]  # client steps per round
-    layers = cfg.enc_layers + cfg.pred_layers
     want = {k: 0 for k in watch.marks[0][0]}
-    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
-                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
-                **{k: steps for k in JOINT_KERNELS},
-                threefry_normal=steps + (plan.corruption.kind == "gaussian")
-                + (plan.aggregation.dp_sigma > 0))  # FVN a step; the adversary, the DP noise
+    want.update(_k2_launches(cfg, steps))
+    # the normal kernel: FVN a step; the gaussian adversary and the DP noise a round
+    want["threefry_normal"] += ((plan.corruption.kind == "gaussian")
+                                + (plan.aggregation.dp_sigma > 0))
     want.update({k: N_LEAVES for k in kernels})
     watch.check_launches(want)
     participants = [m["participants"] for m in tap.metrics]
@@ -2323,7 +2359,8 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
     be exact: under 'ref' every LSTM step is a K1 launch; under 'auto'
     every layer is one K2 launch of each kernel, and only the decoder's
     per-step predictor runs K1. Returns ({kernel: launches over the whole
-    run}, the last round's seconds, the first round's loss)."""
+    run}, the last round's seconds, the first round's loss, the server
+    parameters after the last round on the host)."""
     from repro_torch.launch import train
     from repro_torch.models.lstm import _scan_kernel_eligible
 
@@ -2346,9 +2383,9 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
 
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    _, hist = train.run_federated(task, corpus, train.build_plan(args), rounds, seed=args.seed,
-                                  device="cuda", eval_every=args.eval_every,
-                                  eval_examples=EVAL_EXAMPLES, log=after_round)
+    state, hist = train.run_federated(task, corpus, train.build_plan(args), rounds,
+                                      seed=args.seed, device="cuda", eval_every=args.eval_every,
+                                      eval_examples=EVAL_EXAMPLES, log=after_round)
     torch.cuda.synchronize()
     total = _counts()
     trained, train_peak = marks[-1]
@@ -2401,7 +2438,8 @@ def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
         f"{hist['eval_s'] * 1e3:.1f} ms, WER {wers[0]:.4f} clean, {wers[1]:.4f} hard; "
         f"launches {({k: v for k, v in evaluated.items() if v})} (2 decodes); "
         f"peak memory {torch.cuda.max_memory_allocated()} B")
-    return total, hist["round_s"][-1], hist["loss"][0]
+    return (total, hist["round_s"][-1], hist["loss"][0],
+            {k: v.detach().cpu() for k, v in state.params.items()})
 
 
 class _PlaneTimer:
@@ -2485,12 +2523,8 @@ def phase_paper_compressed(torch, name: str, flags, kw: dict, uplink: int, loss_
         _, hist = train.run_federated(task, corpus, plan, rounds, seed=args.seed, device="cuda",
                                       eval_every=0, eval_examples=0, log=watch)
     plane_ms = timer.ms()
-    steps = args.clients * hist["local_steps"]  # client steps per round
-    layers = cfg.enc_layers + cfg.pred_layers
     want = {k: 0 for k in watch.marks[0][0]}
-    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
-                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
-                **{k: steps for k in JOINT_KERNELS}, threefry_normal=steps)
+    want.update(_k2_launches(cfg, args.clients * hist["local_steps"]))
     want.update({k: N_LEAVES for k in WIRE_LAUNCHES[name]})
     watch.check_launches(want)
     if hist["uplink_bytes_client"] != uplink:
@@ -2608,11 +2642,8 @@ def phase_paper_ladder(torch, name: str, flags):
         raise AssertionError(f"{tag} losses are not finite: {hist['loss']}")
     fedsgd = plan.engine == "fedsgd"
     steps = 1 if fedsgd else plan.clients_per_round * hist["local_steps"]  # a round's
-    layers = cfg.enc_layers + cfg.pred_layers
     want = {k: 0 for k in total}
-    want.update(lstm_scan_fwd=layers * steps, lstm_scan_bwd_gates=layers * steps,
-                lstm_scan_bwd=layers * steps, lstm_scan_dw=layers * steps,
-                **{k: steps for k in JOINT_KERNELS}, threefry_normal=steps)
+    want.update(_k2_launches(cfg, steps))
     if plan.compression.kind != "none":
         want.update({k: N_LEAVES for k in FEDSGD_WIRE})
     prev = {k: 0 for k in total}
@@ -2678,6 +2709,365 @@ def phase_paper_ladder(torch, name: str, flags):
         f"{hist['uplink_bytes_client']} B per client; launches per round: "
         + ", ".join(f"{k} {v}" for k, v in want.items() if v))
     return total, hist["round_s"][-1]
+
+
+# the async engine's paper-width runs of phase 5 (PAPER_ARGV: K=4, b=4, 2
+# local steps, FVN 0.01; K2 with the fused joint): the sync-parity plane
+# (B = K, one device tier, no jitter) over 2 waves, then a buffer of 3 that
+# does not divide K, with the staleness discount, the latency model and an
+# int4 packed uplink, over 3 waves
+ASYNC_PARITY_ARGV = ["--engine", "async", "--buffer-size", "4"]
+ASYNC_ARGV = ["--engine", "async", "--buffer-size", "3", "--staleness-beta", "0.5",
+              "--latency", "--compression", "int4", "--packed-wire"]
+# the plane kernels the materialized int4 packed compressor launches once
+# per leaf a wave (the payload stage of the slow path)
+ASYNC_WIRE = ("wire_quantize", "nibble_unpack", "dequantize")
+
+
+def _buffer_stream(K: int, B: int, waves: int):
+    """The flushes and staleness_mean of each wave of a buffer of B under K
+    full-participation arrivals a wave, as the engine's arrival loop counts
+    them (every client of a wave downloads the wave's opening version)."""
+    slots, version, out = [], 0, []
+    for _ in range(waves):
+        v0, flushes, stale = version, 0, []
+        for _ in range(K):
+            slots.append(v0)
+            if len(slots) == B:
+                stale += [version - v for v in slots]
+                slots, version, flushes = [], version + 1, flushes + 1
+        out.append((float(flushes), sum(stale) / max(len(stale), 1)))
+    return out
+
+
+def phase_paper_async_parity(torch, params_sync: dict):
+    """Two waves of rnnt-librispeech through the training entry point on
+    the async engine at the sync-parity plane (``--buffer-size 4`` = K, one
+    device tier, no jitter), K2 with the fused joint: each wave flushes
+    once at staleness 0, so its losses must equal K2_ROUND_LOSSES and its
+    server parameters after wave 2 the K2 sync run's (``params_sync``) bit
+    for bit; each wave launches exactly the K2 round's kernels. Returns the
+    waves' seconds."""
+    from repro_torch.core.cohort import LatencyConfig
+    from repro_torch.launch import train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    cfg, rounds = task.config, 2
+    args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)] + ASYNC_PARITY_ARGV)
+    plan = dataclasses.replace(train.build_plan(args), latency=LatencyConfig(
+        spread=0.0, tier_speeds=(1.0,), tier_probs=(1.0,)))
+    tag = "[paper async parity B=K]"
+    marks = []
+
+    def after_round(line):
+        log(f"{tag} {line}")
+        marks.append((_counts(), torch.cuda.max_memory_allocated()))
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _RoundTap(False, "async") as tap:
+        state, hist = train.run_federated(task, task.make_corpus(0), plan, rounds,
+                                          seed=args.seed, device="cuda", eval_every=0,
+                                          eval_examples=0, log=after_round)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in marks[0][0]}
+    want.update(_k2_launches(cfg, args.clients * hist["local_steps"]))
+    prev = {k: 0 for k in want}
+    for r, (mark, _) in enumerate(marks):
+        got = {k: mark[k] - prev[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{tag} launches in wave {r + 1} {got}, expected {want}")
+        prev = mark
+    if tuple(hist["loss"]) != K2_ROUND_LOSSES:
+        raise AssertionError(f"{tag} losses {hist['loss']} are not K2_ROUND_LOSSES "
+                             f"{list(K2_ROUND_LOSSES)} bit for bit")
+    bad = [k for k in params_sync if not torch.equal(state.params[k].cpu(), params_sync[k])]
+    if bad:
+        err = max(float((state.params[k].cpu() - params_sync[k]).abs().max()) for k in bad)
+        raise AssertionError(f"{tag} server parameters after wave {rounds} differ from the K2 "
+                             f"sync run's in {len(bad)} tensors, by up to {err:.3e}: {bad[:4]}")
+    stream = [(m["server_steps"], m["staleness_mean"], m["sim_time_s"]) for m in tap.metrics]
+    if stream != [(1.0, 0.0, plan.latency.base_s)] * rounds:
+        raise AssertionError(f"{tag} (server steps, staleness_mean, sim_time_s) a wave "
+                             f"{stream}, expected one flush at staleness 0 a wave")
+    per_s = [e / t for e, t in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} losses {hist['loss']} equal K2_ROUND_LOSSES bit for bit; server parameters "
+        f"after wave {rounds} equal the K2 sync run's bit for bit ({len(params_sync)} tensors); "
+        f"(server steps, staleness_mean, sim_time_s) a wave {stream}; ms per wave "
+        f"{[round(x * 1e3, 1) for x in hist['round_s']]}; client examples per second {per_s}; "
+        f"peak memory over the waves {marks[-1][1]} B; launches per wave: "
+        + ", ".join(f"{k} {v}" for k, v in want.items() if v))
+    return hist["round_s"]
+
+
+def phase_paper_async(torch):
+    """Three waves of rnnt-librispeech on the async engine with a buffer of
+    3 at K = 4 (so arrivals carry across waves), the staleness discount
+    (beta 0.5), the latency model and an int4 packed uplink, K2 with the
+    fused joint: two counted waves and a third under torch.profiler. Each
+    wave launches the K2 round's kernels and each of ASYNC_WIRE once per
+    leaf; its flushes and staleness_mean are the buffer's arithmetic
+    (``_buffer_stream``); its simulated seconds are at most the barrier's
+    (the wave's slowest arrival, drawn from the same key), and less in all;
+    the uplink per reporting client is exact. Returns {kernel: launches
+    over the run}."""
+    from repro_torch.core import keys
+    from repro_torch.core.cohort import make_latency_fn
+    from repro_torch.core.fedavg import _latency_key
+    from repro_torch.launch import train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    cfg, rounds = task.config, 3
+    args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds)] + ASYNC_ARGV)
+    plan = train.build_plan(args)
+    K, B = plan.clients_per_round, plan.asynchrony.resolve_buffer(plan.clients_per_round)
+    tag = f"[paper async B={B}]"
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _RoundTap(False, "async") as tap:
+        watch = _RunWatch(torch, tag, rounds, tap)
+        _, hist = train.run_federated(task, task.make_corpus(0), plan, rounds, seed=args.seed,
+                                      device="cuda", eval_every=0, eval_examples=0, log=watch)
+    want = {k: 0 for k in watch.marks[0][0]}
+    want.update(_k2_launches(cfg, K * hist["local_steps"]), **{k: N_LEAVES for k in ASYNC_WIRE})
+    watch.check_launches(want)
+    stream = [(m["server_steps"], m["staleness_mean"]) for m in tap.metrics]
+    expect = _buffer_stream(K, B, rounds)
+    if [f for f, _ in stream] != [f for f, _ in expect] or not all(
+            math.isclose(s, e, rel_tol=1e-6) for (_, s), (_, e) in zip(stream, expect)):
+        raise AssertionError(f"{tag} (flushes, staleness_mean) a wave {stream}, the buffer's "
+                             f"arithmetic gives {expect}")
+    latency = make_latency_fn(plan.latency)
+    base = keys.PRNGKey(args.seed + 1)
+    barrier = [float(latency(_latency_key(base, r), K).max()) for r in range(rounds)]
+    sim = [m["sim_time_s"] for m in tap.metrics]
+    if any(s > b for s, b in zip(sim, barrier)) or not sum(sim) < sum(barrier):
+        raise AssertionError(f"{tag} simulated seconds a wave {sim} against the barrier's "
+                             f"{barrier}")
+    uplink = COMPRESSED[0][3]  # int4 packed, per reporting client
+    if hist["uplink_bytes_client"] != uplink or \
+            hist["uplink_bytes_total"] != uplink * K * rounds or \
+            [m["participants"] for m in tap.metrics] != [K] * rounds:
+        raise AssertionError(f"{tag} uplink {hist['uplink_bytes_client']} B per client, "
+                             f"{hist['uplink_bytes_total']} B in all; expected {uplink}")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"{tag} losses are not finite: {hist['loss']}")
+    per_s = [e / t for e, t in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} {plan.asynchrony}, {plan.compression}: losses {hist['loss']}; (flushes, "
+        f"staleness_mean) a wave {stream}; simulated seconds a wave {sim} (sum {sum(sim)}) "
+        f"against the barrier's {barrier} (sum {sum(barrier)}); ms per wave "
+        f"{[round(x * 1e3, 1) for x in hist['round_s']]} (wave 3 profiled); client examples "
+        f"per second {per_s}; peak memory over waves 1 and 2 {watch.marks[1][1]} B, over "
+        f"all {watch.marks[-1][1]} B; uplink {uplink} B per reporting client; launches per "
+        f"wave: " + ", ".join(f"{k} {v}" for k, v in want.items() if v))
+    _log_profile(tag, _device_times(torch, watch.prof), hist["round_s"][1], hist["round_s"][2],
+                 what="wave")
+    return watch.marks[-1][0]
+
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """The forwards the per-client panel launches (K1's, K2's and K3's)
+    take their plain versions, on the card, inside the block: each module's
+    forward wrapper, which its entry points (``lstm_gates``,
+    ``LSTMScanFn``, ``RNNTJointFn``) call by name, is swapped for the
+    plain function of the same contract and put back after."""
+    from repro_torch.kernels import lstm_gates as K1
+    from repro_torch.kernels import lstm_scan as K2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rnnt_joint as KJ
+
+    swaps = ((K1, "lstm_gates_fwd", ref.lstm_gates_ref), (K2, "lstm_scan_fwd", ref.lstm_scan_ref),
+             (KJ, "rnnt_joint_fwd", ref.rnnt_joint_fwd_ref))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def phase_paper_client_eval(torch):
+    """Two K2 rounds of rnnt-librispeech through the training entry point
+    with the per-client plane on (``--client-eval 6``, 4 examples each) and
+    a checkpoint directory under build/: each round's panel measure timed
+    (synchronised) with its exact launches (one forward over the 24
+    examples: each K2 layer and K3 once; one greedy decode: the encoder's
+    K2 layers once, the predictor's K1 steps), a finite spread with
+    p10 <= p90; the last round's panel measured again on the final
+    parameters with the plain versions on the card (``_plain_on_card``, no
+    launch): each client's WER equal, its loss within SCAN_LOSS_RTOL (K2
+    carries h in fp32 as its plain version does; their bf16 ys may differ
+    by an ulp); then the checkpointer: each save timed, and
+    ``restore_latest`` of the last round timed and held to the run's final
+    parameters bit for bit, with the files' bytes."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.clienteval import ClientEvalPlane
+    from repro_torch.core.metrics import SPREAD_KEYS
+    from repro_torch.launch import train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    cfg, rounds = task.config, 2
+    corpus = task.make_corpus(0)
+    args = train.parse_args(PAPER_ARGV + ["--rounds", str(rounds), "--client-eval", "6"])
+    tag = "[paper client eval]"
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    measures, saves = [], []
+
+    planes = []
+
+    def timed(fn, record, counted: bool):
+        def call(*a, **kw):
+            if counted:
+                planes.append(a[0])
+            torch.cuda.synchronize()
+            before, t0 = _counts(), time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            after = _counts()
+            record.append((time.perf_counter() - t0,
+                           {k: after[k] - before[k] for k in after} if counted else None))
+            return out
+        return call
+
+    measure, save = ClientEvalPlane.measure, Checkpointer.save
+    ClientEvalPlane.measure = timed(measure, measures, True)
+    Checkpointer.save = timed(save, saves, False)
+    try:
+        state, hist = train.run_federated(
+            task, corpus, train.build_plan(args), rounds, seed=args.seed, device="cuda",
+            eval_every=0, eval_examples=0, client_eval=args.client_eval,
+            client_eval_examples=args.client_eval_examples, ckpt_dir=str(ckdir),
+            log=lambda line: log(f"{tag} {line}"))
+    finally:
+        ClientEvalPlane.measure, Checkpointer.save = measure, save
+    t_enc = corpus.t_max // cfg.time_stride
+    want = {k: 0 for k in measures[0][1]}
+    want.update(lstm_scan_fwd=2 * cfg.enc_layers + cfg.pred_layers,
+                lstm_gates_fwd=cfg.pred_layers * (1 + t_enc * 4),
+                **{k: 1 for k in JOINT_KERNELS if k.startswith("rnnt_joint_fwd")})
+    for r, (_, got) in enumerate(measures):
+        if got != want:
+            raise AssertionError(f"{tag} the panel's launches in round {r + 1} {got}, "
+                                 f"expected {want}")
+    spread = {k: hist[k] for k in SPREAD_KEYS}
+    curves = hist["client_eval"]
+    if len(measures) != rounds or spread["clients_tracked"] != args.client_eval or \
+            not all(math.isfinite(v) for v in spread.values()) or \
+            not spread["client_loss_p10"] <= spread["client_loss_p90"] or \
+            not spread["client_quality_p10"] <= spread["client_quality_p90"] or \
+            [len(c) for c in curves["client_loss"]] != [args.client_eval] * rounds:
+        raise AssertionError(f"{tag} spread {spread}, curves {curves}")
+    log(f"{tag} panel {curves['client_ids']} x {args.client_eval_examples} examples: ms a "
+        f"round {[round(t * 1e3, 1) for t, _ in measures]} (synchronised); launches a round "
+        + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+        + f"; spread {spread}; training ms per round "
+        f"{[round(x * 1e3, 1) for x in hist['round_s']]}")
+
+    plane, last = planes[-1], planes[-1].history[-1]
+    before = _counts()
+    with _plain_on_card():
+        plain_loss = plane.task.client_loss(state.params, plane.batch)
+        plain_quality = plane.task.client_quality(state.params, plane.batch)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    rel = np.abs(last["client_loss"] - plain_loss) / np.abs(plain_loss)
+    if launched or not np.array_equal(last["client_quality"], plain_quality) or \
+            not np.all(rel <= SCAN_LOSS_RTOL):
+        raise AssertionError(
+            f"{tag} the last round's panel on the kernels (loss {last['client_loss']}, "
+            f"WER {last['client_quality']}) against the plain versions on the card (loss "
+            f"{plain_loss}, WER {plain_quality}; relative loss gaps {rel}, tol "
+            f"{SCAN_LOSS_RTOL}; launches in the plain run {launched})")
+    log(f"{tag} the last round's panel against the plain versions on the card: WER equal "
+        f"{plain_quality.tolist()}, loss {last['client_loss'].tolist()} vs "
+        f"{plain_loss.tolist()}, largest relative gap {float(rel.max()):.3e} "
+        f"(tol {SCAN_LOSS_RTOL})")
+
+    ckpt = Checkpointer(str(ckdir))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, extra = ckpt.restore_latest(state.params)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    bad = [k for k in state.params if restored[k].device != state.params[k].device
+           or not torch.equal(restored[k], state.params[k])]
+    if bad or ckpt.latest_round() != rounds or extra["round"] != rounds:
+        raise AssertionError(f"{tag} the restored checkpoint (round {ckpt.latest_round()}) "
+                             f"differs from the final parameters in {bad[:4]}")
+    base = ckdir / f"ckpt_{rounds}"
+    nbytes = [os.path.getsize(f"{base}.{ext}") for ext in ("npz", "json")]
+    log(f"[checkpoint] {len(saves)} saves of {hist['n_params']} fp32 parameters "
+        f"({4 * hist['n_params']} B): ms {[round(t * 1e3, 1) for t, _ in saves]} (from the "
+        f"card, synchronised); restore_latest {t_restore * 1e3:.1f} ms (to the card); files "
+        f"{nbytes[0]} B npz, {nbytes[1]} B json; the restored parameters equal the final "
+        f"ones bit for bit; extra {extra}")
+    shutil.rmtree(ckdir)
+
+
+def phase_tiny_sweeps(torch):
+    """The sweep runner's smoke grids on the card at the tiny task, each
+    with its ``--check``: async_vs_sync (two pairs, 10 rounds, K=8, B=5) and
+    client_eval (three rungs, 6 rounds, a panel of 6). Returns {grid: wall
+    seconds}."""
+    from repro_torch.launch import sweeps
+
+    _dispatch("auto")
+    walls = {}
+    for grid in ("async_vs_sync", "client_eval"):
+        tag = f"[sweeps {grid}]"
+        t0 = time.perf_counter()
+        frontier = sweeps.run_grid(grid, smoke=True, check=True, device="cuda",
+                                   out=str(ROOT / "build" / f"sweep_{grid}_torch.json"),
+                                   log=lambda line, tag=tag: log(f"{tag} {line}"))
+        walls[grid] = time.perf_counter() - t0
+        log(f"{tag} --check holds on the card: {frontier['n_points']} points in "
+            f"{walls[grid]:.1f} s (the rows' wall_s "
+            f"{[round(r['wall_s'], 2) for r in frontier['points']]})")
+    return walls
+
+
+def phase_paper_sweep_pair(torch):
+    """A paper-width async_vs_sync pair through ``SweepRunner`` (K=4, B=3,
+    3 rounds, the latency model on, K2 with the fused joint, 4 evaluation
+    examples a split; the async arm's server lr scaled by B/K as the grid
+    scales it), held to ``check_async_vs_sync``: equal CFMQ and wire bytes,
+    fewer simulated seconds for the async arm."""
+    from repro_torch.core.plan import AsyncConfig
+    from repro_torch.launch import sweeps, train
+
+    _dispatch("auto")
+    task = _paper_task(True)
+    args = train.parse_args(PAPER_ARGV + ["--rounds", "3", "--latency"])
+    sync, B = train.build_plan(args), 3
+    asyn = dataclasses.replace(sync, engine="async", server_lr=sync.server_lr * B / args.clients,
+                               asynchrony=AsyncConfig(buffer_size=B, staleness_beta=0.5))
+    points = [sweeps.SweepPoint(id=f"{name}_paper", plan=plan, rounds=3, seed=args.seed,
+                                meta={"pair": "paper", "engine": plan.engine})
+              for name, plan in (("sync", sync), ("async", asyn))]
+    tag = "[paper sweep pair]"
+    runner = sweeps.SweepRunner(task=task, corpus=task.make_corpus(0), eval_examples=4,
+                                device="cuda")
+    t0 = time.perf_counter()
+    rows = runner.run(points, log=lambda line: log(f"{tag} {line}"))
+    wall = time.perf_counter() - t0
+    sweeps.check_async_vs_sync({"points": rows}, log=lambda line: log(f"{tag} {line}"))
+    log(f"{tag} check_async_vs_sync holds in {wall:.1f} s: "
+        + "; ".join(f"{r['id']} sim_time_s {r['sim_time_s']}, server steps "
+                    f"{r['server_steps_total']}, final loss {r['final_loss']}, cfmq_bytes "
+                    f"{r['cfmq_bytes']}, wire bytes {r['wire_bytes_total']}, wall "
+                    f"{r['wall_s']:.2f} s" for r in rows))
 
 
 def _python_spans(prof) -> list:
@@ -3369,9 +3759,9 @@ def main() -> int:
     phase_tiny_encdec(torch)
     phase_tiny_ladder(torch)
     mark("tiny phases")
-    _, round_s_chunked, _ = phase_paper_width(torch, False, "ref")
-    k1_launches, round_s_loop, loss_loop = phase_paper_width(torch, True, "ref")
-    launches, round_s_scan, loss_scan = phase_paper_width(torch, True, "auto")
+    round_s_chunked = phase_paper_width(torch, False, "ref")[1]
+    k1_launches, round_s_loop, loss_loop, _ = phase_paper_width(torch, True, "ref")
+    launches, round_s_scan, loss_scan, params_scan = phase_paper_width(torch, True, "auto")
     if not math.isclose(loss_scan, loss_loop, rel_tol=SCAN_LOSS_RTOL):
         raise AssertionError(f"first-round loss on K2 {loss_scan} against the time loop's "
                              f"{loss_loop}: more than {SCAN_LOSS_RTOL} apart")
@@ -3407,6 +3797,17 @@ def main() -> int:
         for k in WIRE_KERNELS:
             wire_launches[k] += counts[k]
     mark("ladder runs")
+    # the async engine, the per-client plane, the checkpointer and the sweep
+    # runner, each its own path
+    phase_paper_async_parity(torch, params_scan)
+    del params_scan
+    counts = phase_paper_async(torch)
+    for k in WIRE_KERNELS:
+        wire_launches[k] += counts[k]
+    phase_paper_client_eval(torch)
+    phase_tiny_sweeps(torch)
+    phase_paper_sweep_pair(torch)
+    mark("async, client-eval, checkpoint and sweep runs")
     attn_launches = phase_whisper_serve(torch)
     mark("whisper-base serve")
     phase_profile(torch, round_s_chunked, False, "ref")

@@ -90,9 +90,27 @@ def measured_payload(plan, params: dict, mean_participants: float) -> Optional[f
                         plan.clients_per_round)
 
 
-def round_wire_bytes(up_per_client: int, down_per_round: int, participants: int) -> int:
+def round_wire_bytes(up_per_client: int, down_per_round: int, participants) -> int:
     """Exact bytes one round puts on the wire."""
-    return int(down_per_round) + int(up_per_client) * int(participants)
+    return int(down_per_round) + int(up_per_client) * int(round(float(participants)))
+
+
+def accumulate_wire_bytes(up_per_client: int, down_per_round: int, participants) -> int:
+    """The exact wire bytes of a run from its rounds' participant counts."""
+    return sum(round_wire_bytes(up_per_client, down_per_round, p) for p in participants)
+
+
+def seconds_to_target(losses, sim_times_s, target: float) -> Optional[float]:
+    """CFMQ's wall-clock axis: the simulated seconds until the loss curve
+    first reaches ``target`` (round r costs the cumulative simulated time
+    through r), or None if it never does, which keeps a run that never
+    converges off the frontier."""
+    total = 0.0
+    for loss, t in zip(losses, sim_times_s):
+        total += float(t)
+        if float(loss) <= target:
+            return total
+    return None
 
 
 def cfmq(

@@ -1,7 +1,9 @@
 """FedAvg round engine (paper Alg. 1), and the large-model fedsgd engine.
 
 The port of ``repro/core/fedavg.py``'s fedavg round (``:148-355``,
-``:526-634``) and its fedsgd round (``:665-775``). FedAvg: client
+``:526-634``) and its fedsgd round (``:665-775``); the buffered-async
+engine (``core/async_engine.py``) shares its cohort, client updates and
+payload stage. FedAvg: client
 deltas -> cohort mask -> uplink compression -> corruption -> aggregator
 -> server optimizer (Adam in the paper), the aggregated delta the server
 optimizer's pseudo-gradient. Each stage is a
@@ -76,6 +78,10 @@ class ServerState(NamedTuple):
     # the stale adversary's cache (plan.corruption.kind == "stale"): each
     # participant's last honest post-compression delta, {name: (K, ...)}
     stale: Optional[dict] = None
+    # the async engine's buffer of pending staleness-tagged deltas
+    # (plan.engine == "async", an ``async_engine.AsyncBuffer``): it
+    # persists across waves
+    abuf: Optional[object] = None
 
 
 class ServerPlane(NamedTuple):
@@ -101,8 +107,13 @@ def init_server_state(plan: FederatedPlan, params: dict) -> ServerState:
     K = plan.clients_per_round
     ef = _client_axis_zeros(params, K) if plan.compression.error_feedback else None
     stale = _client_axis_zeros(params, K) if plan.corruption.kind == "stale" else None
+    abuf = None
+    if plan.engine == "async":
+        from repro_torch.core.async_engine import init_async_buffer
+
+        abuf = init_async_buffer(params, plan.asynchrony.resolve_buffer(K))
     return ServerState(params=params, opt_state=make_server_optimizer(plan).init(params),
-                       round_idx=0, ef=ef, stale=stale)
+                       round_idx=0, ef=ef, stale=stale, abuf=abuf)
 
 
 def _code_fast_path(plane: ServerPlane) -> bool:
@@ -337,7 +348,7 @@ def _fedavg_round_body(loss_fn, client_opt, server_opt, sigma, seed, state: Serv
         "server_steps": 1.0,
         "staleness_mean": 0.0,
     }
-    return ServerState(params, opt_state, state.round_idx + 1, ef, stale), metrics
+    return ServerState(params, opt_state, state.round_idx + 1, ef, stale, state.abuf), metrics
 
 
 def _make_fedavg_round(loss_fn: Callable, plan: FederatedPlan, seed: int):
@@ -421,7 +432,8 @@ def _fedsgd_round_body(loss_fn, server_opt, sigma, client_lr: float, seed: int,
         "server_steps": 1.0,
         "staleness_mean": 0.0,
     }
-    return ServerState(params, opt_state, state.round_idx + 1, state.ef, state.stale), metrics
+    return ServerState(params, opt_state, state.round_idx + 1, state.ef, state.stale,
+                       state.abuf), metrics
 
 
 def _make_fedsgd_round(loss_fn: Callable, plan: FederatedPlan, seed: int):
@@ -450,6 +462,10 @@ def make_round_step(loss_fn: Callable, plan: FederatedPlan, seed: int):
     round_batch leaves: (K, S_local, b, ...) tensors on the parameters'
     device; "weight" (K, S_local, b) marks real examples (the paper's
     n_k weighting)."""
+    if plan.engine == "async":
+        from repro_torch.core.async_engine import make_async_round
+
+        return make_async_round(loss_fn, plan, seed)
     if plan.engine == "fedsgd":
         return _make_fedsgd_round(loss_fn, plan, seed)
     return _make_fedavg_round(loss_fn, plan, seed)

@@ -2,8 +2,9 @@
 
 The port's copy of ``repro/core/metrics.py:56-106`` (``SUMMARY_KEYS``,
 ``summary_row``) and of ``repro/core/clienteval.py:34-59``
-(``SPREAD_KEYS``, ``empty_spread``): the per-client evaluation plane is
-not ported, so every run reports the empty fairness spread.
+(``SPREAD_KEYS``, ``empty_spread``): a run without the per-client
+evaluation plane (``core/clienteval.py``) reports the empty fairness
+spread.
 """
 
 from __future__ import annotations

@@ -1,16 +1,15 @@
 """FederatedPlan — the experiment configuration of the paper's Alg. 1.
 
-The port of ``repro/core/plan.py`` for the ``fedavg`` and ``fedsgd``
-engines and the four server optimizers (``adam``, ``sgd``, ``momentum``,
-``yogi``). The server plane's configs are the reference's own:
+The port of ``repro/core/plan.py`` for its three engines (``fedavg``,
+``fedsgd`` and the buffered-async ``async``) and the four server
+optimizers (``adam``, ``sgd``, ``momentum``, ``yogi``). The server plane's
+configs are the reference's own:
 ``CohortConfig`` (partial participation, stragglers), ``CompressionConfig``
 (the uplink), ``AggregatorConfig`` (the aggregation rule and its knobs),
 ``CorruptionConfig`` (the adversary, the data-plane ``label_shuffle``
-among them) and ``LatencyConfig`` (simulated arrival times). The
+among them), ``LatencyConfig`` (simulated arrival times) and
+``AsyncConfig`` (the async engine's buffer and staleness discount). The
 experiment ladder E0–E10 is expressed as plans (``core/experiments.py``).
-A plan for the buffered-async engine, which the port does not run yet,
-raises ``NotImplementedError`` naming the ROADMAP item that ports it, so
-no setting is ever ignored.
 """
 
 from __future__ import annotations
@@ -66,11 +65,28 @@ class AggregatorConfig:
                 "dp_sigma": self.dp_sigma}
 
 
+@dataclasses.dataclass(frozen=True)
+class AsyncConfig:
+    """The buffered-async engine (``engine="async"``, FedBuff-style): the
+    server buffers arriving client deltas and steps when ``buffer_size`` of
+    them are in, each delta discounted by its staleness
+    ``exp(-beta * log1p(s))`` == ``1 / (1 + s)**beta``, ``s`` the server
+    versions applied since that client downloaded. ``buffer_size=0``
+    resolves to the plan's K (one flush a wave under full participation:
+    the sync-parity configuration)."""
+
+    buffer_size: int = 0  # B; 0 resolves to clients_per_round
+    staleness_beta: float = 0.5  # staleness discount exponent
+
+    def resolve_buffer(self, clients_per_round: int) -> int:
+        return self.buffer_size if self.buffer_size > 0 else clients_per_round
+
+
 ENGINES = ("fedavg", "fedsgd", "async")
 SERVER_OPTIMIZERS = ("adam", "sgd", "momentum", "yogi")
 _CONFIGS = {"cohort": CohortConfig, "compression": CompressionConfig,
             "aggregation": AggregatorConfig, "corruption": CorruptionConfig,
-            "latency": LatencyConfig}
+            "latency": LatencyConfig, "asynchrony": AsyncConfig}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,13 +104,15 @@ class FederatedPlan:
     server_decay_rounds: int = 0  # >0: exponential decay (E9/E10 style)
     server_decay_rate: float = 0.9
     fvn: FVNConfig = dataclasses.field(default_factory=FVNConfig)
-    engine: str = "fedavg"  # "fedavg" | "fedsgd" (one collapsed forward/backward)
+    engine: str = "fedavg"  # "fedavg" | "fedsgd" (one collapsed forward/backward) | "async"
     # server plane: cohort -> compression -> corruption -> aggregation
     cohort: CohortConfig = dataclasses.field(default_factory=CohortConfig)
     compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
     aggregation: AggregatorConfig = dataclasses.field(default_factory=AggregatorConfig)
     corruption: CorruptionConfig = dataclasses.field(default_factory=CorruptionConfig)
-    # simulated arrival times: enabled prices a round in seconds too
+    # the async engine's buffer, and the simulated arrival times that order
+    # its update stream; latency.enabled prices a sync round in seconds too
+    asynchrony: AsyncConfig = dataclasses.field(default_factory=AsyncConfig)
     latency: LatencyConfig = dataclasses.field(default_factory=LatencyConfig)
     # CFMQ constants (paper §4.3.1)
     alpha: float = 1.0
@@ -107,10 +125,6 @@ class FederatedPlan:
                                 f"{getattr(self, name)!r}")
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; available: {ENGINES}")
-        if self.engine == "async":
-            raise NotImplementedError(
-                "engine='async' (the buffered-async FedBuff engine) is not ported; the port "
-                "runs engine in ('fedavg', 'fedsgd') until ROADMAP M7 is ported")
         if self.server_optimizer not in SERVER_OPTIMIZERS:
             raise ValueError(f"unknown server optimizer {self.server_optimizer!r}; "
                              f"available: {SERVER_OPTIMIZERS}")

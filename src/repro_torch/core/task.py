@@ -5,7 +5,8 @@ the speaker-split corpus. A task bundles the model (an ``RNNT``
 template on the ``meta`` device), how to draw its parameters, its
 functional loss, the corpus it trains on, and its evaluation: greedy
 decoding and WER on the clean and hard eval splits
-(``repro/core/task.py:141-163``). Two tasks exist:
+(``repro/core/task.py:141-163``), and the per-client evaluation plane's
+hooks (``client_loss``, ``client_quality``). Two tasks exist:
 
 - ``asr-rnnt``: the container-scale config of ``repro/core/task.py:352-368``
   on the shared 48-speaker corpus;
@@ -54,15 +55,52 @@ class FederatedTask:
         return {"quality": self._decode_wer(params, corpus.eval_split(n)),
                 "quality_hard": self._decode_wer(params, corpus.eval_split(n, hard=True))}
 
-    def _decode_wer(self, params: dict, ev: dict) -> float:
+    def _decode(self, params: dict, features: np.ndarray, frame_len: np.ndarray) -> np.ndarray:
+        """Greedy-decoded token ids (N, T'·4) on the host."""
         device = next(iter(params.values())).device
-        hyp = rnnt.greedy_decode(self.config, params,
-                                 torch.from_numpy(ev["features"]).to(device),
-                                 torch.from_numpy(ev["frame_len"]).to(device))
+        hyp = rnnt.greedy_decode(self.config, params, torch.from_numpy(features).to(device),
+                                 torch.from_numpy(frame_len).to(device))
+        return np.asarray(hyp.cpu())
+
+    def _decode_wer(self, params: dict, ev: dict) -> float:
+        hyp = self._decode(params, ev["features"], ev["frame_len"])
         refs = [ev["labels"][i, : ev["label_len"][i]].tolist()
                 for i in range(ev["labels"].shape[0])]
-        hyps = [h[h != 0].tolist() for h in np.asarray(hyp.cpu())]
+        hyps = [h[h != 0].tolist() for h in hyp]
         return wer(refs, hyps)
+
+    def client_loss(self, params: dict, batch: dict) -> np.ndarray:
+        """(C,) the loss of each tracked client over its examples
+        (``per_client_eval_batch``'s (C, n, ...) layout), SpecAugment off
+        (no key), as the reference's ``loss_fn(p, b_c)`` under a vmap over
+        the clients: one forward over the flattened C·n batch, each
+        client's weighted mean of the per-example losses."""
+        C, n = batch["weight"].shape
+        device = next(iter(params.values())).device
+        flat = {k: torch.from_numpy(np.ascontiguousarray(v.reshape((C * n,) + v.shape[2:])))
+                .to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            _, aux = self.loss_fn(params, flat)
+        w = flat["weight"].reshape(C, n)
+        nll = aux["nll"].float().reshape(C, n)
+        loss = (nll * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
+        return loss.cpu().double().numpy()
+
+    def client_quality(self, params: dict, batch: dict) -> np.ndarray:
+        """(C,) WER of each tracked client: one greedy decode over the
+        flattened C·n batch, then each client's WER over its real examples
+        on the host (``repro/core/task.py:236-257``); 0.0 for a client with
+        none."""
+        C, n = batch["weight"].shape
+        feats = batch["features"].reshape((C * n,) + batch["features"].shape[2:])
+        hyp = self._decode(params, feats, batch["frame_len"].reshape(C * n)).reshape(C, n, -1)
+        out = np.zeros((C,), np.float64)
+        for c in range(C):
+            real = np.flatnonzero(batch["weight"][c] > 0)
+            refs = [batch["labels"][c, i, : batch["label_len"][c, i]].tolist() for i in real]
+            hyps = [hyp[c, i][hyp[c, i] != 0].tolist() for i in real]
+            out[c] = wer(refs, hyps) if refs else 0.0
+        return out
 
 
 def scaled_task(task: FederatedTask, specaug_scale: float) -> FederatedTask:

@@ -1,6 +1,7 @@
 """Data substrate: the synthetic speaker-split corpus and federated round batching."""
 from repro_torch.data.corpus import CorpusConfig, SpeakerCorpus, make_speaker_corpus
-from repro_torch.data.pipeline import FederatedSampler, RoundBatch, pack_round
+from repro_torch.data.pipeline import (FederatedSampler, RoundBatch, pack_round,
+                                       per_client_eval_batch)
 from repro_torch.data.strategies import available_strategies, get_strategy, register_strategy
 
 __all__ = [
@@ -10,6 +11,7 @@ __all__ = [
     "FederatedSampler",
     "RoundBatch",
     "pack_round",
+    "per_client_eval_batch",
     "available_strategies",
     "get_strategy",
     "register_strategy",

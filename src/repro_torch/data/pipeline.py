@@ -2,8 +2,10 @@
 
 The port's own copy of ``repro/data/pipeline.py`` for plain corpora:
 numpy only, and the same seed packs bitwise-equal round batches, with the
-data-plane ``label_shuffle`` adversary (``label_shuffle_rate``) and the
-IID packer ``pack_round``. Virtual populations wait for ROADMAP M9; the
+data-plane ``label_shuffle`` adversary (``label_shuffle_rate``), the
+IID packer ``pack_round``, a forced step count (``steps``, with
+``RoundBatch.pad_steps``) and the per-client evaluation batch
+(``per_client_eval_batch``). Virtual populations wait for ROADMAP M9; the
 legacy per-example packer, the reference's parity oracle, is left out.
 
 A round batch is a fixed-shape set of arrays:
@@ -44,6 +46,20 @@ class RoundBatch:
                 "frame_len": self.frame_len, "label_len": self.label_len,
                 "weight": self.mask}
 
+    def pad_steps(self, steps: int) -> "RoundBatch":
+        """Weight-0 local steps appended up to ``steps``: exact no-ops under
+        the engine's n_k weighting (a step's loss and gradient are 0)."""
+        S = self.mask.shape[1]
+        if steps <= S:
+            return self
+
+        def pad(a):
+            return np.concatenate([a, np.zeros((a.shape[0], steps - S) + a.shape[2:], a.dtype)],
+                                  axis=1)
+
+        return RoundBatch(pad(self.features), pad(self.labels), pad(self.label_len),
+                          pad(self.frame_len), pad(self.mask), self.n_k)
+
 
 class FederatedSampler:
     """Selects K clients per round and packs their (possibly limited)
@@ -58,6 +74,7 @@ class FederatedSampler:
         local_epochs: int = 1,
         seed: int = 0,
         max_steps=None,
+        steps: Optional[int] = None,
         strategy: str = "uniform",
         label_shuffle_rate: float = 0.0,
     ):
@@ -80,8 +97,11 @@ class FederatedSampler:
         self._seed = seed
         self._cursors: dict = {}
         self._orders: dict = {}
-        self.steps = self.natural_steps(corpus, local_batch_size, data_limit=data_limit,
-                                        local_epochs=local_epochs, max_steps=max_steps)
+        # ``steps`` forces the local-step count S (a sweep pads its points
+        # to one shape); else the count the data needs
+        self.steps = int(steps) if steps is not None else self.natural_steps(
+            corpus, local_batch_size, data_limit=data_limit, local_epochs=local_epochs,
+            max_steps=max_steps)
 
     @staticmethod
     def natural_steps(corpus, local_batch_size: int, data_limit: Optional[int] = None,
@@ -195,6 +215,36 @@ class FederatedSampler:
             mask.reshape(K, S, b),
             n_k,
         )
+
+
+def per_client_eval_batch(corpus, client_ids, n: int = 4) -> dict:
+    """The per-client evaluation plane's batch (``core/clienteval.py``):
+    each tracked client's first ``n`` arena examples in the engine-batch
+    layout with a leading client axis,
+
+        features : (C, n, T, F)    labels : (C, n, U)
+        frame_len, label_len, weight : (C, n)
+
+    The first examples, not a draw, so the panel measures the same
+    utterances every round. A client with fewer than ``n`` examples pads
+    with weight-0 slots (a clipped gather, then zeroed)."""
+    ids = np.asarray(client_ids, np.int64)
+    counts = np.asarray(corpus.counts, np.int64)[ids]
+    cols = np.arange(n, dtype=np.int64)[None, :]
+    pad = cols >= counts[:, None]
+    ex = np.minimum(cols, np.maximum(counts[:, None] - 1, 0))
+    rows = ids[:, None]
+    feats = corpus.arena_features[rows, ex]
+    labels = corpus.arena_labels[rows, ex]
+    label_len = corpus.arena_label_len[rows, ex]
+    frame_len = corpus.arena_frame_len[rows, ex]
+    if pad.any():
+        feats[pad] = 0.0
+        labels[pad] = 0
+        label_len[pad] = 0
+        frame_len[pad] = 0
+    return {"features": feats, "labels": labels, "frame_len": frame_len,
+            "label_len": label_len, "weight": (~pad).astype(np.float32)}
 
 
 def pack_round(examples: dict, K: int, steps: int, batch: int) -> RoundBatch:

@@ -38,6 +38,13 @@ def test_the_serving_path_is_walked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
 
+@pytest.mark.parametrize("module", ["core/async_engine.py", "core/clienteval.py",
+                                    "checkpoint/checkpointer.py", "launch/cli.py",
+                                    "launch/sweeps.py", "launch/train.py"])
+def test_the_engines_and_drivers_are_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_reference_package(path):
     roots = set(_imported_roots(path))

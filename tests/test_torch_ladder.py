@@ -34,11 +34,9 @@ PARAM_ATOL = 1e-5  # the server parameters after the driver's rounds
 
 
 def _as_dict(plan) -> dict:
-    """A plan's fields with each nested config as a dict; the reference's
-    async engine knobs (``asynchrony``) have no counterpart until M7."""
+    """A plan's fields with each nested config as a dict."""
     return {f.name: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
-            for f in dataclasses.fields(plan) if f.name != "asynchrony"
-            for v in (getattr(plan, f.name),)}
+            for f in dataclasses.fields(plan) for v in (getattr(plan, f.name),)}
 
 
 @pytest.mark.parametrize("kw", [{}, dict(clients_per_round=4, local_batch_size=4,

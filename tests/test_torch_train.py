@@ -1,9 +1,10 @@
 """The port's training driver: a tiny CPU run end to end, its summary
 row (the JAX package's schema, WER as the quality), evaluation during
 and after training, no quiet CPU fallback, and no plan setting off the
-parity plane that runs anyway: what is not ported (the async engine)
-raises, the server plane's settings, the other server optimizers, the
-fedsgd engine and the label-shuffle adversary build and run."""
+parity plane that runs anyway: what an engine cannot run raises when the
+engine is built, the server plane's settings, the other server
+optimizers, the fedsgd and async engines and the label-shuffle adversary
+build and run."""
 
 import dataclasses
 import json
@@ -21,7 +22,7 @@ from repro_torch.core.cohort import LatencyConfig
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.corruption import CorruptionConfig
 from repro_torch.core.metrics import SUMMARY_KEYS
-from repro_torch.core.plan import AggregatorConfig, CohortConfig, FederatedPlan
+from repro_torch.core.plan import AggregatorConfig, AsyncConfig, CohortConfig, FederatedPlan
 from repro_torch.core.task import get_task
 from repro_torch.data import pack_round
 from repro_torch.launch import train
@@ -96,12 +97,19 @@ def test_history_is_a_summary_row_with_wer():
 
 
 @pytest.mark.parametrize("setting", [
-    {"engine": "async"},
+    ({"engine": "async", "asynchrony": AsyncConfig(buffer_size=-1)}, "buffer_size"),
+    ({"engine": "async", "asynchrony": AsyncConfig(staleness_beta=-1.0)}, "staleness_beta"),
+    ({"engine": "fedsgd", "aggregation": AggregatorConfig(name="trimmed_mean")}, "fedsgd"),
 ])
 def test_every_non_parity_plan_setting_raises(setting):
-    """What the port does not run yet raises, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedPlan(**setting)
+    """Every plan setting is ported since the async engine was; what an
+    engine cannot run raises, with the reference's reason, when the
+    driver builds the engine, before any round."""
+    setting, match = setting
+    task = get_task("asr-rnnt")
+    with pytest.raises(ValueError, match=match):
+        train.run_federated(task, task.make_corpus(0), FederatedPlan(**setting), rounds=1,
+                            device="cpu", log=lambda *_: None)
 
 
 @pytest.mark.parametrize("setting", [
@@ -114,8 +122,10 @@ def test_every_non_parity_plan_setting_raises(setting):
     {"server_optimizer": "yogi"},
     {"engine": "fedsgd"},
     {"corruption": CorruptionConfig(kind="label_shuffle", rate=0.5)},
+    {"engine": "async", "asynchrony": AsyncConfig(buffer_size=3),
+     "latency": LatencyConfig(enabled=True)},
 ], ids=["participation", "stragglers", "trimmed_mean", "sign_flip", "latency", "momentum",
-        "yogi", "fedsgd", "label_shuffle"])
+        "yogi", "fedsgd", "label_shuffle", "async"])
 def test_a_server_plane_setting_builds_and_runs(setting):
     """The server plane's settings, the momentum and yogi servers, the
     fedsgd engine and the label-shuffle adversary are ported: the plan
@@ -164,8 +174,10 @@ def test_server_plane_flags_build_the_plan():
     assert shuffled.corruption == CorruptionConfig("label_shuffle", 0.5, 1.0)
     assert train.build_plan(train.parse_args(["--engine", "fedsgd"])).engine == "fedsgd"
     assert train.parse_args(["--iid"]).iid and base.engine == "fedavg"
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        train.build_plan(train.parse_args(["--engine", "async"]))
+    asyn = train.build_plan(train.parse_args(["--engine", "async", "--buffer-size", "3",
+                                              "--staleness-beta", "2"]))
+    assert asyn.engine == "async" and asyn.asynchrony == AsyncConfig(3, 2.0)
+    assert base.asynchrony == AsyncConfig()
 
 
 def test_the_slow_path_cli_runs_two_tiny_rounds_on_the_cpu(capsys):
@@ -246,3 +258,36 @@ def test_the_iid_cli_runs_two_tiny_rounds_on_the_cpu(capsys, monkeypatch):
     assert packed == [(3, 1, 2)] * 2
     summary = json.loads(capsys.readouterr().out.split("\n", 2)[2])
     assert summary["participants_mean"] == hist["participants_mean"]
+
+
+def test_tiny_asr_setup_is_the_references_config_and_corpus():
+    """The config-first pieces: the asr-rnnt task's config (the reference's
+    fields; ``scan_unroll`` is the JAX scan's own) and its corpus's arenas
+    bitwise."""
+    import numpy as np
+
+    from repro.launch.train import tiny_asr_setup as jax_tiny_asr_setup
+
+    cfg, corpus = train.tiny_asr_setup(0)
+    jcfg, jcorpus = jax_tiny_asr_setup(0)
+    assert cfg == get_task("asr-rnnt").config
+    want = {k: v for k, v in dataclasses.asdict(jcfg).items() if k != "scan_unroll"}
+    assert dataclasses.asdict(cfg) == want
+    for name in ("arena_features", "arena_frame_len", "arena_labels", "arena_label_len"):
+        np.testing.assert_array_equal(getattr(corpus, name), getattr(jcorpus, name))
+
+
+def test_run_federated_asr_is_run_federated_on_the_configs_task():
+    """One tiny round through the config-first entry point gives the task
+    driver's row bit for bit; its IID label-shuffle refusal is the
+    driver's."""
+    cfg, corpus = train.tiny_asr_setup(0)
+    plan = FederatedPlan(clients_per_round=2, local_batch_size=2, data_limit=2)
+    kw = dict(seed=0, device="cpu", eval_examples=0, log=lambda *_: None)
+    _, got = train.run_federated_asr(cfg, corpus, plan, 1, **kw)
+    _, want = train.run_federated(get_task("asr-rnnt"), corpus, plan, 1, **kw)
+    assert got["loss"] == want["loss"] and got["cfmq_bytes"] == want["cfmq_bytes"]
+    shuffled = dataclasses.replace(plan, corruption=CorruptionConfig(kind="label_shuffle",
+                                                                     rate=0.5))
+    with pytest.raises(ValueError, match="bypasses the sampler"):
+        train.run_federated_asr(cfg, corpus, shuffled, 1, iid=True, **kw)
