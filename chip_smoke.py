@@ -54,8 +54,9 @@ Phases, each printed as it ends:
    and the quantizer also with a scale for each client; the keyed
    quantizer and K7 also at K=1 (the fedsgd aggregate's compress) at the
    same sizes; all bitwise;
-   K8's and K9's device time by launch under the profiler; K10 refusing a
-   grad-requiring call; K2's dw product also
+   K8's and K9's device time by launch under the profiler; K10 under
+   autograd (one forward with its log-sum-exp, one backward call, the
+   gradients bitwise those of direct calls); K2's dw product also
    at ragged shapes (S·B = 37, H = 100 and 99) and with its occupancy;
    K10 (flash attention) and K11 (flash decode) in bf16 and fp32 at
    whisper-base's shapes (the encoder, B=4, 1,500 frames, 8 heads of 64;
@@ -72,6 +73,13 @@ Phases, each printed as it ends:
    every fp32 one on the CUDA-core route; each K11 launch twice for the
    same bits, and K11 replayed from one CUDA graph while pos advances on
    the device, each replay held to the plain version;
+   K10's backward (csrc/attention_bwd.cu) against its plain version in
+   bf16 and fp32 at whisper-base's training shapes (the encoder, 4 x 384
+   frames; the decoder's causal self-attention over 48 tokens and its
+   cross-attention, 48 against 384) and at the ragged GQA row and the rows
+   with no valid key above, the forward's o bitwise unchanged by its
+   log-sum-exp write, each call twice for the same bits, timed beside the
+   plain version, SDPA's backward and the bound;
 4. one tiny FedAvg round (FVN on) and one tiny greedy decode on the card
    against the same on the CPU, under each LSTM dispatch ('ref': the time loop;
    'kernel': K2 on the card, its plain version on the CPU); the
@@ -87,7 +95,11 @@ Phases, each printed as it ends:
    FVN, one with an int4 packed uplink at participation 0.75, an IID round,
    a label-shuffle round, a yogi and a momentum server) on the card and on
    the CPU, held to each other, and the fedsgd aggregate's K = 1 compress
-   of the same tiny deltas bitwise;
+   of the same tiny deltas bitwise; an asr-encdec round (the reference's
+   encdec-tiny, FVN on) on the card (K10's CUDA-core route and its
+   backward, exact launches) and on the CPU under each dispatch; the
+   latency model's arrival times from keys on the card bitwise the CPU's,
+   and XLA's exp restated (ref.xla_exp_f32) the same on both;
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -145,6 +157,15 @@ Phases, each printed as it ends:
    teacher-forced decode_train over the same 64 tokens (12 K10 launches)
    and one teacher-forced loss_fn forward at 448 positions (18 K10);
    every K10 launch of the serve on the tensor-core route;
+   then whisper-base trained at full width through the training entry
+   point on a corpus at its widths (frames 512 wide, T = 384, U = 48;
+   its build timed and sized): two FedAvg rounds (K=4, b=4, 2 local
+   steps, FVN 0.01) with exact launches (K10's forward, on the tensor
+   cores, and its backward, 18 each a client step), the perplexity
+   evaluation (16 examples of each split) and the per-client panel (6 x
+   4), one round profiled (busy share), and the first round again with
+   K10's forward and backward swapped for their plain versions on the
+   card, its loss within WHISPER_LOSS_RTOL;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it; and one more K2 round with the host's Python
@@ -1829,6 +1850,84 @@ def phase_tiny_round(torch, mode: str):
         f"{err:.2e}")
 
 
+def phase_tiny_encdec_round(torch, mode: str):
+    """One FedAvg round of the asr-encdec task (the reference's
+    encdec-tiny, fp32, FVN on) on the card and on the CPU from the same
+    parameters and batch, under the LSTM dispatch ``mode`` (the enc-dec has
+    no LSTM: the round is the same under both): on the card every
+    attention runs K10's CUDA-core route (head width 8) under autograd,
+    three forward launches and three backward calls a client step; the loss
+    and the aggregated delta agree with the CPU's plain versions."""
+    from repro_torch.core.engine import build_round_engine
+    from repro_torch.core.plan import FederatedPlan, FVNConfig
+    from repro_torch.core.task import get_task
+    from repro_torch.data import FederatedSampler
+
+    _dispatch(mode)
+    task = get_task("asr-encdec")
+    K, b = 2, 2
+    plan = FederatedPlan(clients_per_round=K, local_batch_size=b, data_limit=4,
+                         client_lr=0.05, server_optimizer="sgd", server_lr=1.0,
+                         fvn=FVNConfig(enabled=True, std=0.01))
+    params = task.init_params(torch.Generator().manual_seed(0))
+    rb = FederatedSampler(task.make_corpus(0), K, b, data_limit=4, seed=0).next_round()
+    batch = rb.engine_batch()
+    steps = K * rb.mask.shape[1]
+    cfg = task.config
+    calls = steps * (cfg.enc_layers + 2 * cfg.dec_layers)
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = {k: v.to(device) for k, v in params.items()}
+        engine = build_round_engine(plan, task, seed=1)
+        _zero_counts()
+        state, metrics = engine.step(engine.init_state(p),
+                                     {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        if device == "cuda":
+            _check_attn(f"[tiny encdec round {mode}]",
+                        {**_k10(calls, "simt", bwd=calls), "flash_decode": 0})
+        out[device] = (metrics["loss"], {k: (p[k] - state.params[k]).cpu() for k in p})
+    (loss_c, delta_c), (loss_h, delta_h) = out["cuda"], out["cpu"]
+    if not math.isclose(loss_c, loss_h, rel_tol=1e-4):
+        raise AssertionError(f"tiny encdec round loss: cuda {loss_c} vs cpu {loss_h}")
+    err = max(float((delta_c[k] - delta_h[k]).abs().max()) for k in delta_c)
+    if err > 1e-5:
+        raise AssertionError(f"tiny encdec round aggregated delta differs by {err:.2e} (> 1e-5)")
+    log(f"[tiny encdec round {mode}] loss cuda {loss_c:.6f} cpu {loss_h:.6f}; aggregated delta "
+        f"max|err| {err:.2e}; K10 {calls} forward launches (CUDA-core route) and {calls} "
+        f"backward calls over {steps} client steps")
+
+
+def phase_tiny_latency(torch):
+    """The async engine's arrival times and staleness discount, XLA's CPU
+    exp and log1p restated (ref.xla_exp_f32, ref.xla_log1p_f32): the
+    latency model's times drawn from keys on the card equal the CPU's bit
+    for bit (K = 256, 20 rounds' keys, two spreads), as does xla_exp_f32
+    over a grid of every 4,099th float32 of [-87.8, 88.7]."""
+    import numpy as np
+
+    from repro_torch.core import keys
+    from repro_torch.core.cohort import LatencyConfig, make_latency_fn
+    from repro_torch.kernels import ref
+
+    for spread in (0.25, 0.3):
+        fn = make_latency_fn(LatencyConfig(enabled=True, spread=spread))
+        for r in range(20):
+            key = keys.fold_in(keys.PRNGKey(3), r)
+            got, want = fn(key.cuda(), 256), fn(key, 256)
+            if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"[latency] arrival times from a key on the card differ "
+                                     f"from the CPU's (spread {spread}, round {r})")
+    hi = np.array([87.8, 88.7], np.float32).view(np.uint32)
+    x = np.concatenate([(np.arange(0, hi[0], 4099, dtype=np.uint32) | np.uint32(0x80000000)),
+                        np.arange(0, hi[1], 4099, dtype=np.uint32)]).view(np.float32)
+    xt = torch.from_numpy(x)
+    if not torch.equal(ref.xla_exp_f32(xt.cuda()).cpu(), ref.xla_exp_f32(xt)):
+        raise AssertionError("[latency] xla_exp_f32 on the card differs from the CPU's")
+    log(f"[latency] arrival times from keys on the card equal the CPU's bit for bit (K=256, 20 "
+        f"keys, spreads 0.25 and 0.3); xla_exp_f32 on the card equals the CPU's on {x.size} "
+        f"float32 values")
+
+
 def phase_tiny_decode(torch, mode: str):
     """Greedy decoding of the tiny config (fp32) on the card and on the
     CPU from the same parameters, under the same LSTM dispatch: the token
@@ -2169,7 +2268,7 @@ def _device_times(torch, prof) -> dict:
 
 
 # substrings of the hand-written kernels' names, and of the plane's among them
-_OURS = ("lstm_gates", "lstm_scan", "joint_", "flash_attention", "flash_decode",
+_OURS = ("lstm_gates", "lstm_scan", "joint_", "flash_attention", "fa_bwd_", "flash_decode",
          "threefry_normal")
 _WIRE = ("wire_quantize", "nibble_", "dequantize_kernel", "topk_scatter_add", "topk_unpack")
 
@@ -2349,6 +2448,7 @@ def _zero_counts() -> None:
     from repro_torch.kernels import flash_attention as KA
 
     KA.FWD_LAUNCHES = KA.WGMMA_LAUNCHES = KA.SIMT_LAUNCHES = KD.FWD_LAUNCHES = 0
+    KA.BWD_LAUNCHES = 0
 
 
 def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
@@ -3268,31 +3368,142 @@ def _attn_times(torch, kernel, plain, lib, n: int) -> dict:
 K10_BF16_DIFF_MAX = 0.02
 
 
-def _k10_refuses_grad(torch, KA) -> None:
-    """K10 has no backward: on the card a call in grad mode with an input
-    that requires grad raises before any launch; the same call under
-    torch.no_grad() launches."""
-    q = torch.randn((1, 16, 2, 64), device="cuda").to(torch.bfloat16).requires_grad_()
-    kv = q.detach()
-    before = KA.FWD_LAUNCHES
-    for args in ((q, kv, kv), (kv, kv, q)):
-        try:
-            KA.flash_attention(*args)
-        except RuntimeError as e:
-            if "no backward" not in str(e):
-                raise
-        else:
-            raise AssertionError("flash_attention returned an output without a gradient for "
-                                 "an input that requires one")
-    if KA.FWD_LAUNCHES != before:
-        raise AssertionError("flash_attention launched before refusing a grad-requiring call")
-    with torch.no_grad():
-        out = KA.flash_attention(q, kv, kv)
+def _k10_grad_path(torch, KA) -> None:
+    """On the card a call in grad mode with an input that requires grad
+    runs through K10Function: one forward launch (with the log-sum-exp),
+    then one backward call when autograd asks, whose gradients equal a
+    direct call of the backward on the same inputs bit for bit; the same
+    call under torch.no_grad() launches the forward alone."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = (torch.randn((2, 48, 8, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn((2, 48, 8, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    before = (KA.FWD_LAUNCHES, KA.BWD_LAUNCHES)
+    out = KA.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    if KA.FWD_LAUNCHES != before + 1 or out.requires_grad:
-        raise AssertionError("flash_attention under no_grad did not launch once")
-    log("[kernels] flash_attention: a call in grad mode with q (or v) requiring grad raises "
-        "on the card (no launch); under torch.no_grad() it launches")
+    moved = (KA.FWD_LAUNCHES - before[0], KA.BWD_LAUNCHES - before[1])
+    o, lse = KA.flash_attention_fwd_lse(q.detach(), k.detach(), v.detach(), causal=True)
+    want = KA.flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, do, causal=True)
+    if moved != (1, 1) or not torch.equal(out.detach(), o) or \
+            not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"flash_attention under autograd: launches (fwd, bwd) {moved}, "
+                             "expected (1, 1), or its output or gradients differ from direct "
+                             "calls of the forward and the backward")
+    before = (KA.FWD_LAUNCHES, KA.BWD_LAUNCHES)
+    with torch.no_grad():
+        out = KA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if (KA.FWD_LAUNCHES - before[0], KA.BWD_LAUNCHES - before[1]) != (1, 0) or \
+            out.requires_grad:
+        raise AssertionError("flash_attention under no_grad did not launch its forward alone")
+    log("[kernels] flash_attention: in grad mode with inputs that require grad, one forward "
+        "launch (with the log-sum-exp) and one backward call, the gradients bitwise those of "
+        "direct calls; under torch.no_grad() the forward alone")
+
+
+# K10's backward at the whisper-base training shapes (b=4 utterances of 384
+# frames, 48 target tokens, 8 heads of 64: the encoder's self-attention, the
+# decoder's causal self-attention and its cross-attention) and K10_SHAPES'
+# ragged GQA row with a window, softcap and query offset and its rows with
+# no valid key. Each gradient is held relative to its largest entry: fp32 at
+# sums in another order, bf16 at one bf16 ulp of the largest entry (the
+# kernel and the plain version round the same fp32 sums to bf16).
+K10_BWD_SHAPES = (
+    ("train encoder", 4, 384, 384, 8, 8, 64, 64, False, None, 0.0, 0, None),
+    ("train causal self", 4, 48, 48, 8, 8, 64, 64, True, None, 0.0, 0, None),
+    ("train cross", 4, 48, 384, 8, 8, 64, 64, False, None, 0.0, 0, None),
+) + tuple(sh for sh in K10_SHAPES if sh[0] in ("gqa window softcap", "no valid key"))
+ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
+# the forward's log-sum-exp against the plain version's: fp32 sums in
+# another order (and the tensor-core route's ex2.approx), rows of O(10)
+ATTN_LSE_ATOL = 1e-4
+
+
+def phase_attention_bwd(torch):
+    """K10's backward (csrc/attention_bwd.cu) against its plain version
+    (ref.flash_attention_bwd_ref) at K10_BWD_SHAPES in bf16 and fp32: the
+    forward's o bitwise the same with and without the log-sum-exp, that
+    log-sum-exp against the plain version's (+inf exactly on the rows with
+    no valid key, whose gradients are 0), dq, dk and dv within
+    ATTN_BWD_TOL, a second call bitwise the first; its time eager and from
+    a CUDA graph beside the plain version's, SDPA's backward (a yardstick
+    the port never calls) and the bound. Returns {kernel: row} at the
+    training encoder shape in bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as KA
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = {}
+    for name, B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale in K10_BWD_SHAPES:
+        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dtype) for sh in
+                       ((B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, Dv)))
+            do = torch.randn((B, Sq, H, Dv), generator=gen, device="cuda").to(dtype)
+            kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=off, scale=scale)
+            tag = f"flash_attention_bwd {name} {dname}"
+            o_alone = KA.flash_attention(q, k, v, **kw)
+            o, lse = KA.flash_attention_fwd_lse(q, k, v, **kw)
+            if not torch.equal(o, o_alone):
+                raise AssertionError(f"{tag}: the forward's o moved with the log-sum-exp write")
+            _, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            dead = (~ref.attention_mask(Sq, Sk, causal, window, off, "cpu").any(dim=1)).cuda()
+            live = ~torch.isinf(lse_ref)
+            lse_err = float((lse[live] - lse_ref[live]).abs().max())
+            if not torch.equal(torch.isinf(lse), ~live) or bool(live[:, :, dead].any()) or \
+                    lse_err > ATTN_LSE_ATOL:
+                raise AssertionError(f"{tag}: log-sum-exp off by {lse_err:.2e} (atol "
+                                     f"{ATTN_LSE_ATOL}) or +inf on other rows than the dead")
+            got = KA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            errs = [_rel(torch, g, w) for g, w in zip(got, want)]
+            if any(g.dtype != dtype or g.shape != w.shape for g, w in zip(got, want)) or \
+                    max(errs) > ATTN_BWD_TOL[dname]:
+                raise AssertionError(f"{tag}: dq, dk, dv relative errors {errs} (tol "
+                                     f"{ATTN_BWD_TOL[dname]}) or the shape/dtype contract broke")
+            if dead.any() and float(got[0][:, dead].float().abs().max()) != 0.0:
+                raise AssertionError(f"{tag}: rows with no valid key have a nonzero dq")
+            again = KA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError(f"{tag}: a second call gave other bits")
+            n_valid = int(ref.attention_mask(Sq, Sk, causal, window, off, "cpu").sum()) * B * H
+            es = q.element_size()
+            nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * B * Sq * H * Dv) * es \
+                + 4 * B * H * Sq  # q, k, v, o, do in; dq, dk, dv out; the lse
+            # S and dP recomputed, dV, dK and dQ: five products over the valid pairs
+            flops = 2 * n_valid * (3 * D + 2 * Dv)
+            bf16 = dtype == torch.bfloat16
+            bound_ms, bound_by = _bound(nbytes, 0 if bf16 else flops, flops if bf16 else 0,
+                                        n_valid)
+            lib = None
+            if not window and not cap and off == 0 and (not causal or Sq == Sk) and H == Kv:
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale)
+                do_t = do.transpose(1, 2)
+                lib = _sdpa(torch, lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                               retain_graph=True), tag)
+            n = 10 if Sq * Sk > 100_000 else 50
+            t = _attn_times(torch, lambda: KA.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                            lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                            lib, n)
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            log(f"[attention] {tag} (B={B} Sq={Sq} Sk={Sk} H={H} Kv={Kv} D={D} Dv={Dv}): "
+                f"o bitwise unchanged by the lse write, lse max|err| {lse_err:.2e}, dq/dk/dv "
+                f"relative errors {', '.join(f'{e:.2e}' for e in errs)} (max|err| {err:.2e})"
+                + (f", {int(dead.sum())} rows with no valid key: lse +inf, dq 0"
+                   if dead.any() else "")
+                + "; bitwise repeatable; us per call eager/graph: "
+                + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
+                + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop, "
+                  f"{n_valid} exp)")
+            if (name, dname) == ("train encoder", "bfloat16"):
+                rows["flash_attention_bwd"] = {
+                    "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"][0]}
+    return rows
 
 
 def phase_attention_kernels(torch):
@@ -3312,7 +3523,7 @@ def phase_attention_kernels(torch):
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(16)
-    _k10_refuses_grad(torch, KA)
+    _k10_grad_path(torch, KA)
     rows = {}
     for name, B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale in K10_SHAPES:
         for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -3339,13 +3550,7 @@ def phase_attention_kernels(torch):
             if bf16 and name == "encoder" and differ > K10_BF16_DIFF_MAX:
                 raise AssertionError(f"{tag}: {differ:.4f} of the outputs differ from the plain "
                                      f"version's bf16 result (at most {K10_BF16_DIFF_MAX})")
-            qp = off + torch.arange(Sq)
-            kp = torch.arange(Sk)
-            mask = torch.ones((Sq, Sk), dtype=torch.bool)
-            if causal:
-                mask &= kp[None] <= qp[:, None]
-            if window:
-                mask &= kp[None] > qp[:, None] - window
+            mask = ref.attention_mask(Sq, Sk, causal, window, off, "cpu")
             dead = (~mask.any(dim=1)).cuda()
             if dead.any() and float(got[:, dead].float().abs().max()) != 0.0:
                 raise AssertionError(f"{tag}: rows with no valid key are not 0")
@@ -3471,13 +3676,15 @@ def _attn_counts() -> dict:
     from repro_torch.kernels import flash_attention as KA
 
     return {"flash_attention": KA.FWD_LAUNCHES, "flash_attention_wgmma": KA.WGMMA_LAUNCHES,
-            "flash_attention_simt": KA.SIMT_LAUNCHES, "flash_decode": KD.FWD_LAUNCHES}
+            "flash_attention_simt": KA.SIMT_LAUNCHES, "flash_attention_bwd": KA.BWD_LAUNCHES,
+            "flash_decode": KD.FWD_LAUNCHES}
 
 
-def _k10(n: int, route: str = "wgmma") -> dict:
-    """K10's expected counts: ``n`` launches, all on ``route``."""
+def _k10(n: int, route: str = "wgmma", bwd: int = 0) -> dict:
+    """K10's expected counts: ``n`` forward launches, all on ``route``, and
+    ``bwd`` calls of its backward."""
     return {"flash_attention": n, "flash_attention_wgmma": n if route == "wgmma" else 0,
-            "flash_attention_simt": n if route == "simt" else 0}
+            "flash_attention_simt": n if route == "simt" else 0, "flash_attention_bwd": bwd}
 
 
 def _check_attn(tag: str, want: dict) -> None:
@@ -3717,6 +3924,163 @@ def phase_whisper_serve(torch):
     return launches
 
 
+# whisper-base's federated training in phase 5: K=4 clients, b=4, 2 local
+# steps (data limit 8), FVN std 0.01, two rounds, then the perplexity
+# evaluation on 16 examples of each split and the per-client panel (6
+# clients x 4 examples)
+WHISPER_ARGV = ["--task", "whisper-base", "--clients", "4", "--batch", "4", "--data-limit", "8",
+                "--fvn-std", "0.01", "--eval-every", "0"]
+WHISPER_EVAL_EXAMPLES = 16
+# the first round's loss on the kernels against the same round with K10's
+# forward and backward swapped for their plain versions on the card: the
+# bf16 attention outputs differ by an ulp in at most 2 % of entries
+# (K10_BF16_DIFF_MAX) and the gradients by an ulp (ATTN_BWD_TOL), carried
+# through 12 layers and a local SGD step in bf16
+WHISPER_LOSS_RTOL = 5e-3
+
+
+@contextlib.contextmanager
+def _plain_attention_on_card():
+    """Every attention of the model (``models/attention.py``'s
+    ``blockwise_attention`` calls ``flash_attention`` by name) takes K10's
+    plain version on the card inside the block, under autograd: its
+    forward and its backward are plain PyTorch."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    saved = attention.flash_attention
+    attention.flash_attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+def phase_whisper_train(torch):
+    """whisper-base trained at full width (70,857,216 bf16 parameters,
+    random from a seed) through the training entry point on a corpus at its
+    widths (``whisper_width_corpus``: frames 512 wide, T = 384, U = 48,
+    51,865 word-pieces; its build timed and sized): two FedAvg rounds with
+    FVN, exact launches (K10's forward 18 a client step, all on the tensor
+    cores, and its backward 18; the normal kernel once), round times,
+    examples per second and peak memory; the final perplexity evaluation
+    (16 examples of each split, 36 K10 launches) and the per-client panel
+    (6 x 4, 216 K10 launches: its loss and its perplexity), each timed; one more round under
+    torch.profiler (device time, busy share); the first round again with
+    K10's forward and backward swapped for their plain versions on the card
+    (no K10 launch), its loss within WHISPER_LOSS_RTOL of the kernels'.
+    Returns the training rounds' launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.clienteval import ClientEvalPlane
+    from repro_torch.core.task import get_task
+    from repro_torch.launch import train
+
+    task = get_task("whisper-base")
+    cfg, rounds = task.config, 2
+    tag = "[whisper-base train]"
+    t0 = time.perf_counter()
+    corpus = task.make_corpus(0)
+    build_s = time.perf_counter() - t0
+    arena = sum(a.nbytes for a in (corpus.arena_features, corpus.arena_labels,
+                                   corpus.arena_label_len, corpus.arena_frame_len))
+    log(f"{tag} corpus built in {build_s:.1f} s: token codebook {corpus.codebook.nbytes} B, "
+        f"arena {tuple(corpus.arena_features.shape)} {arena} B on the host "
+        f"({int(corpus.counts.sum())} utterances, T={corpus.t_max}, U={corpus.u_max})")
+    args = train.parse_args(WHISPER_ARGV + ["--rounds", str(rounds)])
+    plan = train.build_plan(args)
+    marks = []
+
+    def after_round(line):
+        log(f"{tag} {line}")
+        marks.append((_counts(), torch.cuda.max_memory_allocated()))
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, hist = train.run_federated(task, corpus, plan, rounds, seed=0, device="cuda",
+                                      eval_every=0, eval_examples=WHISPER_EVAL_EXAMPLES,
+                                      log=after_round)
+    torch.cuda.synchronize()
+    total = _counts()
+    trained, train_peak = marks[-1]
+    evaluated = {k: total[k] - trained[k] for k in total}
+    steps = args.clients * hist["local_steps"] * rounds
+    calls = cfg.enc_layers + 2 * cfg.dec_layers
+    want = {k: 0 for k in total}
+    want.update(_k10(calls * steps, bwd=calls * steps), threefry_normal=steps)
+    if trained != want:
+        raise AssertionError(f"{tag} launches over the training rounds {trained}, expected "
+                             f"{want} ({steps} client steps)")
+    want_eval = {k: 0 for k in total}
+    want_eval.update(_k10(2 * calls))
+    if evaluated != want_eval:
+        raise AssertionError(f"{tag} launches over the evaluation {evaluated}, expected "
+                             f"{want_eval}")
+    ppl = (hist["quality"], hist["quality_hard"])
+    if not all(math.isfinite(x) for x in hist["loss"]) or hist["quality_metric"] != "ppl" or \
+            not all(math.isfinite(x) and x >= 1.0 for x in ppl) or \
+            hist["n_params"] != 70_857_216:
+        raise AssertionError(f"{tag} losses {hist['loss']}, {hist['quality_metric']} {ppl}, "
+                             f"{hist['n_params']} parameters")
+
+    plane = ClientEvalPlane(task, corpus, clients=6, n=4)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = plane.measure(state.params)
+    torch.cuda.synchronize()
+    panel_s = time.perf_counter() - t0
+    # the loss and the perplexity hooks each run every client's forward,
+    # as the reference's plane does (its jitted loss, then client_quality's)
+    panel_calls = 2 * len(plane.client_ids) * calls
+    want_panel = {k: 0 for k in total}
+    want_panel.update(_k10(panel_calls))
+    if _counts() != want_panel or not all(map(math.isfinite, rec["client_loss"])) or \
+            not all(rec["client_quality"] >= 1.0):
+        raise AssertionError(f"{tag} panel launches {_counts()}, expected {want_panel}; "
+                             f"losses {rec['client_loss']}, perplexities {rec['client_quality']}")
+    del state
+
+    args1 = train.parse_args(WHISPER_ARGV + ["--rounds", "1"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+        _, hist_prof = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
+                                           device="cuda", eval_every=0, eval_examples=0,
+                                           log=lambda line: None)
+        torch.cuda.synchronize()
+    _log_profile(tag, _device_times(torch, prof), hist["round_s"][-1], hist_prof["round_s"][0])
+    _zero_counts()
+    with _plain_attention_on_card():
+        _, hist_plain = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
+                                            device="cuda", eval_every=0, eval_examples=0,
+                                            log=lambda line: None)
+    torch.cuda.synchronize()
+    plain_k10 = {k: v for k, v in _counts().items() if k.startswith("flash_attention") and v}
+    loss_k, loss_p = hist["loss"][0], hist_plain["loss"][0]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    if plain_k10 or rel > WHISPER_LOSS_RTOL:
+        raise AssertionError(f"{tag} first-round loss on K10 {loss_k} against the plain "
+                             f"attention on the card {loss_p}: relative gap {rel:.3e} (tol "
+                             f"{WHISPER_LOSS_RTOL}); K10 launches in the plain run {plain_k10}")
+    per_s = [e / t for e, t in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} {hist['n_params']} parameters ({cfg.pdtype}), K={args.clients} b={args.batch} "
+        f"{hist['local_steps']} local steps, FVN {args.fvn_std}: losses {hist['loss']}; ms per "
+        f"round {[round(t * 1e3, 1) for t in hist['round_s']]}; client examples per second "
+        f"{per_s}; peak memory over the training rounds {train_peak} B")
+    log(f"{tag} launches per client step over {steps} client steps: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in trained.items() if v))
+    log(f"{tag} final evaluation ({WHISPER_EVAL_EXAMPLES} examples of each split): "
+        f"{hist['eval_s'] * 1e3:.1f} ms, perplexity {ppl[0]:.2f} clean, {ppl[1]:.2f} hard; "
+        f"launches {({k: v for k, v in evaluated.items() if v})}")
+    log(f"{tag} panel {plane.client_ids.tolist()} x 4 examples: {panel_s * 1e3:.1f} ms "
+        f"(synchronised), {panel_calls} K10 launches; losses "
+        f"{[round(float(x), 4) for x in rec['client_loss']]}, spread {plane.spread()}")
+    log(f"{tag} first-round loss on K10 {loss_k} vs K10's plain versions on the card {loss_p}: "
+        f"relative gap {rel:.3e} (tol {WHISPER_LOSS_RTOL}), no K10 launch in the plain run; "
+        f"its round {hist_plain['round_s'][0] * 1e3:.1f} ms against the kernels' last "
+        f"{hist['round_s'][-1] * 1e3:.1f} ms")
+    return trained
+
+
 def main() -> int:
     try:
         import torch
@@ -3744,6 +4108,7 @@ def main() -> int:
     rows.update(phase_normal_kernel(torch))
     rows.update(phase_wire_kernels(torch))
     rows.update(phase_attention_kernels(torch))
+    rows.update(phase_attention_bwd(torch))
     # the measurements' side streams each got a cuBLAS workspace that
     # stays allocated: released, so that the paths' peak memory below
     # counts only what the paths allocate
@@ -3754,6 +4119,8 @@ def main() -> int:
     for mode in ("ref", "kernel"):
         phase_tiny_round(torch, mode)
         phase_tiny_decode(torch, mode)
+        phase_tiny_encdec_round(torch, mode)
+    phase_tiny_latency(torch)
     phase_tiny_compressed(torch)
     phase_tiny_slowpath(torch)
     phase_tiny_encdec(torch)
@@ -3810,6 +4177,8 @@ def main() -> int:
     mark("async, client-eval, checkpoint and sweep runs")
     attn_launches = phase_whisper_serve(torch)
     mark("whisper-base serve")
+    train_launches = phase_whisper_train(torch)
+    mark("whisper-base training")
     phase_profile(torch, round_s_chunked, False, "ref")
     phase_profile(torch, round_s_loop, True, "ref")
     phase_profile(torch, round_s_scan, True, "auto")
@@ -3822,11 +4191,12 @@ def main() -> int:
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3, K4 and the
     # normal kernel (FVN) under 'auto'; K5-K9 in the compressed and
     # slow-path runs (their launches summed); K10 and K11 in the
-    # whisper-base serve
+    # whisper-base serve; K10's backward in the whisper-base training
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
     launches.update(attn_launches)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     gates, scan, joint, wire, attn, normal = (
         "src/repro_torch/kernels/csrc/" + f for f in
         ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu", "wire_pack.cu", "attention.cu",
@@ -3871,6 +4241,10 @@ def main() -> int:
         "flash_attention_wgmma": (attn, "src/repro/kernels/flash_attention.py:70"),
         "flash_attention_simt": (attn, "src/repro/kernels/flash_attention.py:70"),
         "flash_decode": (attn, "src/repro/kernels/decode_attention.py:62"),
+        # no pallas_call: jax.grad of the model's jnp attention
+        # (blockwise_attention), which the training path differentiates
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
+                                "src/repro/models/attention.py:84"),
         # no pallas_call: FVN's jax.random.normal and its scaled sum, which
         # XLA fuses (perturb, :40-48; the gaussian adversary's and the DP
         # noise's the same)

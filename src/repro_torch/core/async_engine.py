@@ -69,6 +69,7 @@ from repro_torch.core.fedavg import (
     _wire_metrics,
 )
 from repro_torch.core.plan import FederatedPlan, make_server_optimizer
+from repro_torch.kernels.ref import xla_exp_f32, xla_log1p_f32
 from repro_torch.optim import apply_updates, sgd
 
 
@@ -96,10 +97,12 @@ def init_async_buffer(params: dict, buffer_size: int) -> AsyncBuffer:
 
 
 def staleness_discount(staleness, beta: float) -> torch.Tensor:
-    """``1/(1+s)**beta`` as ``exp(-beta * log1p(s))`` in fp32 on the host:
-    exactly 1.0 at s == 0 for any beta and at beta == 0 for any s."""
+    """``1/(1+s)**beta`` as ``exp(-beta * log1p(s))`` in fp32 on the host,
+    with XLA's CPU exp and log1p (``ref.xla_exp_f32``, ``ref.xla_log1p_f32``),
+    so the discount equals the reference's bit for bit: exactly 1.0 at
+    s == 0 for any beta and at beta == 0 for any s."""
     s = torch.as_tensor(staleness, dtype=torch.float32).cpu()
-    return torch.exp(torch.tensor(-beta, dtype=torch.float32) * torch.log1p(s))
+    return xla_exp_f32(torch.tensor(-beta, dtype=torch.float32) * xla_log1p_f32(s))
 
 
 def _flush(plane: ServerPlane, server_opt, buf: AsyncBuffer, params: dict, opt_state,

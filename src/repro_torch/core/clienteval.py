@@ -7,10 +7,12 @@ is built, packs each one's first ``n`` arena examples once
 (``data.per_client_eval_batch``: the same utterances every round, so the
 curves move only because the model moved) and measures each round
 
-- ``client_loss``: (C,) the task loss of each tracked client (one
-  forward over the panel, ``FederatedTask.client_loss``);
-- ``client_quality``: (C,) the task's metric of each client, WER through
-  one greedy decode over the panel (``FederatedTask.client_quality``).
+- ``client_loss``: (C,) the task loss of each tracked client
+  (``FederatedTask.client_loss``: each client's loss over its examples,
+  as the reference's vmap over the client axis);
+- ``client_quality``: (C,) the task's metric of each client
+  (``FederatedTask.client_quality``): WER through one greedy decode over
+  the panel for the RNN-T, clipped perplexity for the enc-dec.
 
 ``fairness_spread`` reduces the last round's panel to the summary
 schema's fields (p10/p90/gap of loss and quality, ``clients_tracked``;

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import keys as keys_lib
+from repro_torch.kernels.ref import xla_exp_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +61,14 @@ def tier_assignments(key: torch.Tensor, K: int, tier_probs) -> torch.Tensor:
 def draw_latencies(key: torch.Tensor, K: int, base_s: float, spread: float, tier_speeds,
                    tier_probs) -> torch.Tensor:
     """(K,) float32 simulated upload arrival times, seconds from the round's
-    start."""
+    start, on the key's device, equal bit for bit to the reference's
+    jitted program: XLA folds the spread into the normal's √2 (``keys.normal``
+    with ``scale``) and takes its CPU exp (``ref.xla_exp_f32``), so two
+    arrivals sort as they do there."""
     tkey, jkey = keys_lib.split(key, 2)
     tiers = tier_assignments(tkey, K, tier_probs)
     speed = torch.tensor(tier_speeds, dtype=torch.float32, device=tiers.device)[tiers.long()]
-    jitter = torch.exp(spread * keys_lib.normal(jkey, (K,)))
+    jitter = xla_exp_f32(keys_lib.normal(jkey, (K,), scale=spread))
     return base_s * speed * jitter
 
 

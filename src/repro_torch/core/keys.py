@@ -109,11 +109,13 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     return torch.maximum(lo, (f.double() * width.double() + lo.double()).float())
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
+def normal(key: torch.Tensor, shape, scale: float = 1.0) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: key (..., 2) -> (...,
     *shape) float32, sqrt(2) * erf_inv of a uniform draw on [lo, 1) with
-    lo the float32 after -1 toward 0, bit for bit."""
-    return uniform_to_normal(bits_to_uniform(_bits(key, tuple(shape))))
+    lo the float32 after -1 toward 0, bit for bit. ``scale``: ``scale *
+    normal`` as a jitted program computes it with a constant scale, the
+    constants folded (``ref.uniform_to_normal``)."""
+    return uniform_to_normal(bits_to_uniform(_bits(key, tuple(shape))), scale)
 
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1

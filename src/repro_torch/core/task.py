@@ -1,26 +1,47 @@
 """FederatedTask — the engine's task-level entry point.
 
-The port of ``repro/core/task.py`` for the paper's task: the RNN-T on
-the speaker-split corpus. A task bundles the model (an ``RNNT``
-template on the ``meta`` device), how to draw its parameters, its
-functional loss, the corpus it trains on, and its evaluation: greedy
-decoding and WER on the clean and hard eval splits
-(``repro/core/task.py:141-163``), and the per-client evaluation plane's
-hooks (``client_loss``, ``client_quality``). Two tasks exist:
+The port of ``repro/core/task.py``. A task bundles the model (a
+``ModelBundle`` of ``models/model_zoo.py``, built with ``device=None``:
+the parameters live where the caller's generator draws them, the batch
+where the round engine puts it), the batch adapter that maps the
+engine's round-batch layout ({features, labels, frame_len, label_len,
+weight}) onto the model's, the corpus it trains on, its quality metric
+and its evaluation hooks, all chosen by the model's kind
+(``_KIND_ADAPTERS``, ``repro/core/task.py:264-272``):
 
-- ``asr-rnnt``: the container-scale config of ``repro/core/task.py:352-368``
-  on the shared 48-speaker corpus;
+- ``rnnt``: the engine layout as it is; WER by greedy decoding on the
+  clean and hard eval splits (``:141-163``), per client over the panel
+  (``:236-257``);
+- ``audio`` (the enc-dec): ``features`` read as precomputed frame
+  embeddings and ``labels`` as the tokens (``_encdec_adapt``, ``:118``);
+  perplexity, exp of the loss clipped at ``_PPL_CLIP`` (``_ppl_evaluate``
+  ``:166``, ``_ppl_client_quality`` ``:207``).
+
+``client_loss`` is the per-client evaluation plane's loss of each tracked
+client (``core/clienteval.py``), as the reference's ``vmap(loss_fn)``
+over the panel's clients. The registry (``register_task``,
+``available_tasks``, ``get_task(name, seed)``, ``task_for_config``) names:
+
+- ``asr-rnnt``: the container-scale RNN-T of ``:352-368`` on the shared
+  48-speaker corpus;
 - ``rnnt-librispeech``: the paper's model at full width
   (``configs/rnnt_librispeech.py``) on a corpus at the paper's widths
   (128 log-mel bins, 4096 word-pieces, labels up to 32 word-pieces of 4
-  frames each, so T = 128 and T' = 64 after the time stride).
+  frames each, so T = 128 and T' = 64 after the time stride);
+- ``asr-encdec``: the reference's ``encdec-tiny`` (``:372-393``) on the
+  shared corpus, whose 16 feature bins are its d_model;
+- ``whisper-base``: the enc-dec at whisper-base's full width
+  (``configs/whisper_base.py``, bf16 parameters) on a corpus whose frames
+  are d_model wide (``whisper_width_corpus``).
+
+Every other model kind is ROADMAP.md's M8 and has no adapter yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -28,72 +49,137 @@ import torch
 from repro_torch.asr.specaugment import SpecAugmentConfig
 from repro_torch.asr.wer import wer
 from repro_torch.data import make_speaker_corpus
-from repro_torch.models import rnnt
+from repro_torch.models import encdec, rnnt
+from repro_torch.models.model_zoo import ModelBundle, build_model
+
+# Caps exp(loss) so an early-training evaluation can't overflow to inf.
+_PPL_CLIP = 20.0
 
 
-@dataclasses.dataclass(frozen=True)
-class FederatedTask:
-    name: str
-    config: rnnt.RNNTConfig
-    make_corpus: Callable  # (seed) -> SpeakerCorpus
-    quality_metric: str = "wer"  # what "quality" means in the summary
+def _device_of(params: dict) -> torch.device:
+    return next(iter(params.values())).device
 
-    @functools.cached_property
-    def model(self) -> rnnt.RNNT:
-        """The shape-only module the loss is called through."""
-        return rnnt.RNNT(self.config)
 
-    def init_params(self, generator: torch.Generator) -> dict:
-        return rnnt.init_params(self.config, generator)
+def _eval_batch(ev: dict, device) -> dict:
+    """An ``eval_split`` dict in the engine-batch layout (weight 1), as
+    tensors on ``device``."""
+    out = {k: torch.from_numpy(ev[k]).to(device)
+           for k in ("features", "labels", "frame_len", "label_len")}
+    out["weight"] = torch.ones((ev["labels"].shape[0],), dtype=torch.float32, device=device)
+    return out
 
-    def loss_fn(self, params: dict, batch: dict, key=None):
-        return rnnt.loss_fn(self.model, params, batch, key)
 
-    def evaluate(self, params: dict, corpus, n: int = 64) -> dict:
-        """Greedy-decode WER on ``n`` examples of the clean and the hard
-        eval split, on the parameters' device."""
-        return {"quality": self._decode_wer(params, corpus.eval_split(n)),
-                "quality_hard": self._decode_wer(params, corpus.eval_split(n, hard=True))}
+def _client_slice(batch: dict, c: int, device) -> dict:
+    """Client c's examples of a (C, n, ...) panel batch, on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v[c])).to(device) for k, v in batch.items()}
 
-    def _decode(self, params: dict, features: np.ndarray, frame_len: np.ndarray) -> np.ndarray:
-        """Greedy-decoded token ids (N, T'·4) on the host."""
-        device = next(iter(params.values())).device
-        hyp = rnnt.greedy_decode(self.config, params, torch.from_numpy(features).to(device),
-                                 torch.from_numpy(frame_len).to(device))
-        return np.asarray(hyp.cpu())
 
-    def _decode_wer(self, params: dict, ev: dict) -> float:
-        hyp = self._decode(params, ev["features"], ev["frame_len"])
-        refs = [ev["labels"][i, : ev["label_len"][i]].tolist()
-                for i in range(ev["labels"].shape[0])]
-        hyps = [h[h != 0].tolist() for h in hyp]
-        return wer(refs, hyps)
+# ------------------------------------------------------- batch adapters
 
-    def client_loss(self, params: dict, batch: dict) -> np.ndarray:
-        """(C,) the loss of each tracked client over its examples
-        (``per_client_eval_batch``'s (C, n, ...) layout), SpecAugment off
-        (no key), as the reference's ``loss_fn(p, b_c)`` under a vmap over
-        the clients: one forward over the flattened C·n batch, each
-        client's weighted mean of the per-example losses."""
+
+def _encdec_adapt(batch: dict) -> dict:
+    """The enc-dec (Whisper-style) consumes precomputed frame embeddings:
+    the corpus's feature width is its d_model."""
+    return {"frames": batch["features"], "tokens": batch["labels"],
+            "weight": batch.get("weight")}
+
+
+# ------------------------------------------------------ evaluation hooks
+
+
+def _ppl_evaluate(loss_fn: Callable) -> Callable:
+    """Enc-dec evaluation: the clipped perplexity of the task loss over
+    the eval splits."""
+    def one(params: dict, ev: dict) -> float:
+        with torch.no_grad():
+            loss = float(loss_fn(params, _eval_batch(ev, _device_of(params)))[0])
+        return float(np.exp(min(loss, _PPL_CLIP)))
+
+    def evaluate(params: dict, corpus, n: int = 64) -> dict:
+        return {"quality": one(params, corpus.eval_split(n)),
+                "quality_hard": one(params, corpus.eval_split(n, hard=True))}
+
+    return evaluate
+
+
+def _ppl_client_loss(loss_fn: Callable) -> Callable:
+    """(C,) the task loss of each tracked client, one forward a client:
+    its token-weighted loss over its own examples, as the reference's
+    ``vmap(loss_fn)`` over the client axis computes it."""
+    def client_loss(params: dict, batch: dict) -> np.ndarray:
+        device = _device_of(params)
+        with torch.no_grad():
+            losses = [float(loss_fn(params, _client_slice(batch, c, device))[0])
+                      for c in range(batch["weight"].shape[0])]
+        return np.asarray(losses, np.float64)
+
+    return client_loss
+
+
+def _ppl_client_quality(loss_fn: Callable) -> Callable:
+    """(C,) clipped perplexity of each tracked client."""
+    client_loss = _ppl_client_loss(loss_fn)
+
+    def client_quality(params: dict, batch: dict) -> np.ndarray:
+        return np.exp(np.minimum(client_loss(params, batch), _PPL_CLIP))
+
+    return client_quality
+
+
+def _rnnt_decode(cfg: rnnt.RNNTConfig, params: dict, features: np.ndarray,
+                 frame_len: np.ndarray) -> np.ndarray:
+    """Greedy-decoded token ids (N, T'·4) on the host."""
+    device = _device_of(params)
+    hyp = rnnt.greedy_decode(cfg, params, torch.from_numpy(features).to(device),
+                             torch.from_numpy(frame_len).to(device))
+    return np.asarray(hyp.cpu())
+
+
+def _decode_wer(cfg: rnnt.RNNTConfig, params: dict, ev: dict) -> float:
+    hyp = _rnnt_decode(cfg, params, ev["features"], ev["frame_len"])
+    refs = [ev["labels"][i, : ev["label_len"][i]].tolist() for i in range(ev["labels"].shape[0])]
+    return wer(refs, [h[h != 0].tolist() for h in hyp])
+
+
+def _wer_evaluate(cfg: rnnt.RNNTConfig) -> Callable:
+    """ASR evaluation: greedy RNN-T decoding and WER on ``n`` examples of
+    the clean and the hard eval split, on the parameters' device."""
+    def evaluate(params: dict, corpus, n: int = 64) -> dict:
+        return {"quality": _decode_wer(cfg, params, corpus.eval_split(n)),
+                "quality_hard": _decode_wer(cfg, params, corpus.eval_split(n, hard=True))}
+
+    return evaluate
+
+
+def _wer_client_loss(loss_fn: Callable) -> Callable:
+    """(C,) the RNN-T loss of each tracked client, SpecAugment off (no
+    key): one forward over the flattened C·n panel, each client's weighted
+    mean of the per-example losses (the reference's per-client
+    ``loss_fn``, whose loss is that weighted mean)."""
+    def client_loss(params: dict, batch: dict) -> np.ndarray:
         C, n = batch["weight"].shape
-        device = next(iter(params.values())).device
+        device = _device_of(params)
         flat = {k: torch.from_numpy(np.ascontiguousarray(v.reshape((C * n,) + v.shape[2:])))
                 .to(device) for k, v in batch.items()}
         with torch.no_grad():
-            _, aux = self.loss_fn(params, flat)
+            _, aux = loss_fn(params, flat)
         w = flat["weight"].reshape(C, n)
         nll = aux["nll"].float().reshape(C, n)
         loss = (nll * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
         return loss.cpu().double().numpy()
 
-    def client_quality(self, params: dict, batch: dict) -> np.ndarray:
-        """(C,) WER of each tracked client: one greedy decode over the
-        flattened C·n batch, then each client's WER over its real examples
-        on the host (``repro/core/task.py:236-257``); 0.0 for a client with
-        none."""
+    return client_loss
+
+
+def _wer_client_quality(cfg: rnnt.RNNTConfig) -> Callable:
+    """(C,) WER of each tracked client: one greedy decode over the
+    flattened C·n panel, then each client's WER over its real examples on
+    the host; 0.0 for a client with none."""
+    def client_quality(params: dict, batch: dict) -> np.ndarray:
         C, n = batch["weight"].shape
         feats = batch["features"].reshape((C * n,) + batch["features"].shape[2:])
-        hyp = self._decode(params, feats, batch["frame_len"].reshape(C * n)).reshape(C, n, -1)
+        hyp = _rnnt_decode(cfg, params, feats, batch["frame_len"].reshape(C * n))
+        hyp = hyp.reshape(C, n, -1)
         out = np.zeros((C,), np.float64)
         for c in range(C):
             real = np.flatnonzero(batch["weight"][c] > 0)
@@ -101,6 +187,104 @@ class FederatedTask:
             hyps = [hyp[c, i][hyp[c, i] != 0].tolist() for i in real]
             out[c] = wer(refs, hyps) if refs else 0.0
         return out
+
+    return client_quality
+
+
+# ------------------------------------------------------------ dispatch
+
+# ModelBundle kind -> (quality metric, batch adapter); None adapter: the
+# model consumes the engine layout as it is. The reference's LM, MoE, SSM,
+# hybrid and keyword kinds come with their models (M8).
+_KIND_ADAPTERS = {
+    "rnnt": ("wer", None),
+    "audio": ("ppl", _encdec_adapt),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedTask:
+    """One federated workload: model, batch adapter, corpus and metric.
+    ``FederatedTask(name, config, make_corpus)``; everything else follows
+    from the config's model kind."""
+
+    name: str
+    config: Any
+    make_corpus: Callable  # (seed) -> SpeakerCorpus
+
+    @functools.cached_property
+    def bundle(self) -> ModelBundle:
+        return build_model(self.config, device=None)
+
+    @property
+    def kind(self) -> str:
+        return self.bundle.kind
+
+    @property
+    def quality_metric(self) -> str:
+        """What "quality" means in the summary: "wer" or "ppl"."""
+        return self._adapter[0]
+
+    @property
+    def adapt_batch(self) -> Optional[Callable]:
+        return self._adapter[1]
+
+    @functools.cached_property
+    def _adapter(self) -> tuple:
+        if self.kind not in _KIND_ADAPTERS:
+            raise ValueError(
+                f"no federated task adapter for model kind {self.kind!r} (config "
+                f"{type(self.config).__name__}); adapters exist for {sorted(_KIND_ADAPTERS)}")
+        return _KIND_ADAPTERS[self.kind]
+
+    @property
+    def model(self) -> rnnt.RNNT:
+        """The RNN-T's shape-only module the loss is called through."""
+        if self.bundle.module is None:
+            raise TypeError(f"task {self.name!r} ({self.kind}) has no module template")
+        return self.bundle.module
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Random parameters on the generator's device."""
+        return self.bundle.init(generator)
+
+    def loss_fn(self, params: dict, batch: dict, key=None):
+        """The engine-facing loss: the model's loss behind the adapter."""
+        adapt = self.adapt_batch
+        return self.bundle.loss_fn(params, adapt(batch) if adapt else batch, key)
+
+    @functools.cached_property
+    def _hooks(self) -> dict:
+        if self.quality_metric == "wer":
+            return {"evaluate": _wer_evaluate(self.config),
+                    "client_loss": _wer_client_loss(self.loss_fn),
+                    "client_quality": _wer_client_quality(self.config)}
+        return {"evaluate": _ppl_evaluate(self.loss_fn),
+                "client_loss": _ppl_client_loss(self.loss_fn),
+                "client_quality": _ppl_client_quality(self.loss_fn)}
+
+    def evaluate(self, params: dict, corpus, n: int = 64) -> dict:
+        """{"quality", "quality_hard"} in the task's metric on ``n``
+        examples of the clean and the hard eval split."""
+        return self._hooks["evaluate"](params, corpus, n)
+
+    def client_loss(self, params: dict, batch: dict) -> np.ndarray:
+        """(C,) the loss of each tracked client over a (C, n, ...) panel."""
+        return self._hooks["client_loss"](params, batch)
+
+    def client_quality(self, params: dict, batch: dict) -> np.ndarray:
+        """(C,) the task metric of each tracked client."""
+        return self._hooks["client_quality"](params, batch)
+
+
+def task_for_config(cfg, name: Optional[str] = None,
+                    make_corpus: Optional[Callable] = None) -> FederatedTask:
+    """THE config -> task mapping: the bundle's kind picks the adapter,
+    the metric and the evaluation hooks (``repro/core/task.py:275``).
+    Raises for a config the port has no model or adapter for."""
+    task = FederatedTask(name or cfg.name, cfg, make_corpus or default_corpus)
+    task.quality_metric  # builds the bundle and checks the kind
+    return task
 
 
 def scaled_task(task: FederatedTask, specaug_scale: float) -> FederatedTask:
@@ -121,6 +305,9 @@ def scaled_task(task: FederatedTask, specaug_scale: float) -> FederatedTask:
     return dataclasses.replace(task, config=cfg)
 
 
+# ---------------------------------------------------------------- corpus
+
+
 def default_corpus(seed: int = 0):
     """The shared container-scale speaker corpus, bitwise equal to
     ``repro.core.task.default_corpus``."""
@@ -135,6 +322,21 @@ def paper_width_corpus(seed: int = 0):
         num_speakers=16, vocab_size=4096, feat_dim=128, max_label_len=32,
         frames_per_token=4, seed=seed
     )
+
+
+# whisper-base's widths: frames d_model = 512 wide (the enc-dec reads them
+# as frame embeddings), 51,865 word-pieces, labels up to 48 tokens of 8
+# frames each, so T = 384 frames (7.7 s at Whisper's 50 frames a second)
+# and U = 48. On the host the token codebook takes 849,756,160 B and the
+# arena (16 speakers, 183 utterances, at most 23 a speaker) 289,480,576 B;
+# it builds in 5.6-6.8 s on an H100 machine's host (chip_smoke.py phase 5).
+WHISPER_CORPUS = dict(num_speakers=16, vocab_size=51865, feat_dim=512, max_label_len=48,
+                      frames_per_token=8, mean_utterances=12.0)
+
+
+def whisper_width_corpus(seed: int = 0):
+    """A corpus at whisper-base's widths (``WHISPER_CORPUS``)."""
+    return make_speaker_corpus(**WHISPER_CORPUS, seed=seed)
 
 
 def tiny_rnnt_config() -> rnnt.RNNTConfig:
@@ -157,14 +359,66 @@ def tiny_rnnt_config() -> rnnt.RNNTConfig:
     )
 
 
-def get_task(name: str) -> FederatedTask:
+def tiny_encdec_config() -> encdec.EncDecConfig:
+    """The reference's ``encdec-tiny`` (``repro/core/task.py:378-391``)."""
+    return encdec.EncDecConfig(
+        name="encdec-tiny", enc_layers=1, dec_layers=1, d_model=16, n_heads=2, n_kv=2,
+        head_dim=8, d_ff=32, vocab=64, max_source=24, max_target=12, dtype="float32",
+        loss_chunk=12,
+    )
+
+
+# ----------------------------------------------------- named registry
+
+_TASKS: dict = {}
+
+
+def register_task(name: str) -> Callable:
+    """Decorator: register a task factory ``(seed) -> FederatedTask``."""
+    def deco(factory):
+        _TASKS[name] = factory
+        return factory
+
+    return deco
+
+
+def available_tasks() -> list:
+    return sorted(_TASKS)
+
+
+def get_task(name: str, seed: int = 0) -> FederatedTask:
+    if name not in _TASKS:
+        raise KeyError(f"unknown task {name!r}; available: {available_tasks()}")
+    return _TASKS[name](seed)
+
+
+@register_task("asr-rnnt")
+def _asr_rnnt_task(seed: int = 0) -> FederatedTask:
+    """The paper's task at container scale."""
+    return task_for_config(tiny_rnnt_config(), name="asr-rnnt")
+
+
+@register_task("rnnt-librispeech")
+def _rnnt_librispeech_task(seed: int = 0) -> FederatedTask:
+    """The paper's model at full width."""
     from repro_torch.configs import rnnt_librispeech
 
-    tasks = {
-        "asr-rnnt": lambda: FederatedTask("asr-rnnt", tiny_rnnt_config(), default_corpus),
-        rnnt_librispeech.ARCH_ID: lambda: FederatedTask(
-            rnnt_librispeech.ARCH_ID, rnnt_librispeech.make_config(), paper_width_corpus),
-    }
-    if name not in tasks:
-        raise KeyError(f"unknown task {name!r}; available: {sorted(tasks)}")
-    return tasks[name]()
+    return task_for_config(rnnt_librispeech.make_config(), name=rnnt_librispeech.ARCH_ID,
+                           make_corpus=paper_width_corpus)
+
+
+@register_task("asr-encdec")
+def _asr_encdec_task(seed: int = 0) -> FederatedTask:
+    """Whisper-style enc-dec over precomputed frame features (d_model ==
+    the corpus feat_dim, so the arena's features are the frame embeds)."""
+    return task_for_config(tiny_encdec_config(), name="asr-encdec")
+
+
+@register_task("whisper-base")
+def _whisper_base_task(seed: int = 0) -> FederatedTask:
+    """whisper-base at full width: 6 + 6 layers, d_model 512, 8 heads of
+    64, d_ff 2048, vocab 51,865, bf16 parameters."""
+    from repro_torch.configs import whisper_base
+
+    return task_for_config(whisper_base.make_config(), name=whisper_base.ARCH_ID,
+                           make_corpus=whisper_width_corpus)

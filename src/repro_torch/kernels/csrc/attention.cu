@@ -1,4 +1,5 @@
-// Attention kernels (K10 and K11) for Hopper, forward only.
+// Attention kernels (K10 and K11) for Hopper, forward (K10's backward is
+// csrc/attention_bwd.cu).
 //
 // Replaces the Pallas TPU kernels
 //   K10 src/repro/kernels/flash_attention.py:70 flash_attention
@@ -15,6 +16,9 @@
 // -1e30, m_safe = 0 for a row whose keys so far are all masked, p = exp(s
 // - m_safe) masked to 0, corr = exp(m - m_safe) (0 while m is -1e30), and
 // the output is acc / max(l, 1e-30), so a row with no valid key gives 0.
+// Both K10 routes also write the rows' log-sum-exp when given an lse
+// buffer (the backward recomputes P from it); the write is after the last
+// tile and touches none of o's arithmetic, so o keeps its bits.
 // Ragged Sq, Sk and S are masked (the Pallas kernels assert divisible
 // tiles, which Whisper's 1,500 source frames fail). A tile or a split
 // whose every score is masked is skipped: its p are 0 and its corr exactly
@@ -123,6 +127,16 @@ __device__ __forceinline__ float softcap_f(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
+// The row's log-sum-exp for the backward (lse (B, H, Sq) fp32): m_safe +
+// log(l) of the final running max and sum, so exp(s - lse) is the row's
+// softmax; +inf for a row with no valid key (l = 0), whose p are then 0.
+__device__ __forceinline__ void store_lse(float* lse, int b, int h, int H, int Sq, int row,
+                                          float m, float l) {
+  const float m_safe = m <= kNegInf / 2 ? 0.f : m;
+  lse[(static_cast<long long>(b) * H + h) * Sq + row] =
+      l > 0.f ? m_safe + logf(l) : __int_as_float(0x7f800000);
+}
+
 // ------------------------------------------------------------------ K10, CUDA cores
 
 constexpr int kTQ = 32;                        // query rows a block
@@ -142,9 +156,9 @@ struct FaSmem {
 template <typename T, int DT>
 __global__ void __launch_bounds__(kFaThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
-                       int Kv, int D, int Dv, float scale, int causal, int window,
-                       float softcap, int q_offset) {
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int Sq, int Sk, int H, int Kv, int D, int Dv, float scale, int causal,
+                       int window, float softcap, int q_offset) {
   using L = FaSmem<DT>;
   constexpr int DG = DT / 64;  // float4 groups of the accumulator a thread owns per row
   extern __shared__ __align__(16) float smem[];
@@ -272,6 +286,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
+    if (lse != nullptr && tx == 0) store_lse(lse, b, h, H, Sq, row, m[i], l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * Dv;
 #pragma unroll
@@ -534,8 +549,9 @@ __global__ void __launch_bounds__(kWgThreads)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
-                             __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int Kv,
-                             float scale, int causal, int window, float softcap, int q_offset) {
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                             int Sk, int H, int Kv, float scale, int causal, int window,
+                             float softcap, int q_offset) {
   constexpr int NV = (DV + 63) / 64;
   constexpr int NO = DV / 2;  // accumulator floats a thread
   extern __shared__ uint8_t wg_smem[];
@@ -710,6 +726,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int rr = 0; rr < 2; ++rr) {
     const int row = q0 + r0 + 8 * rr;
     if (row >= Sq) continue;
+    if (lse != nullptr && cq == 0) store_lse(lse, b, h, H, Sq, row, m[rr], l[rr]);
     const float denom = fmaxf(l[rr], 1e-30f);
     __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * DV + 2 * cq;
 #pragma unroll
@@ -969,9 +986,9 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
 }
 
 template <typename T, int DT>
-int launch_fa(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-              int Kv, int D, int Dv, float scale, int causal, int window, float softcap,
-              int q_offset, cudaStream_t s) {
+int launch_fa(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
+              int Sk, int H, int Kv, int D, int Dv, float scale, int causal, int window,
+              float softcap, int q_offset, cudaStream_t s) {
   static bool ready = false;
   auto kernel = flash_attention_kernel<T, DT>;
   cudaError_t err = allow_smem(kernel, FaSmem<DT>::bytes, &ready);
@@ -979,7 +996,8 @@ int launch_fa(const void* q, const void* k, const void* v, void* o, int B, int S
   dim3 grid((Sq + kTQ - 1) / kTQ, B * H);
   kernel<<<grid, kFaThreads, FaSmem<DT>::bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, Kv, D, Dv, scale, causal, window, softcap, q_offset);
+      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, Kv, D, Dv, scale, causal, window,
+      softcap, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1030,16 +1048,16 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int wid
 
 template <int ND, int DV>
 int launch_fa_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
-                    int B, int Sq, int Sk, int H, int Kv, float scale, int causal, int window,
-                    float softcap, int q_offset, cudaStream_t s) {
+                    void* lse, int B, int Sq, int Sk, int H, int Kv, float scale, int causal,
+                    int window, float softcap, int q_offset, cudaStream_t s) {
   static bool ready = false;
   auto kernel = flash_attention_wgmma_kernel<ND, DV>;
   cudaError_t err = allow_smem(kernel, wg_smem_bytes(ND, DV), &ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kWgRows - 1) / kWgRows, B * H);
   kernel<<<grid, kWgThreads, wg_smem_bytes(ND, DV), s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Kv, scale, causal, window, softcap,
-      q_offset);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Sq, Sk, H, Kv, scale,
+      causal, window, softcap, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1086,8 +1104,8 @@ int launch_decode_g(const void* q, const void* kc, const void* vc, void* o, cons
 // window 0 = none; softcap 0 = none. Returns a cudaError_t as int (0 =
 // success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Sk, int H, int Kv, int D, int Dv,
-                                   float scale, int causal, int window, float softcap,
+                                   void* o, void* lse, int B, int Sq, int Sk, int H, int Kv, int D,
+                                   int Dv, float scale, int causal, int window, float softcap,
                                    int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 128 ||
       Dv > 128 || static_cast<long long>(B) * H > 65535)
@@ -1095,14 +1113,14 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool narrow = D <= 64 && Dv <= 64;
   if (dtype == 0)
-    return narrow ? launch_fa<float, 64>(q, k, v, o, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
+    return narrow ? launch_fa<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
                                          window, softcap, q_offset, s)
-                  : launch_fa<float, 128>(q, k, v, o, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
+                  : launch_fa<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
                                           window, softcap, q_offset, s);
   if (dtype == 1)
-    return narrow ? launch_fa<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Sk, H, Kv, D, Dv, scale,
+    return narrow ? launch_fa<__nv_bfloat16, 64>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale,
                                                  causal, window, softcap, q_offset, s)
-                  : launch_fa<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, H, Kv, D, Dv, scale,
+                  : launch_fa<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale,
                                                   causal, window, softcap, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1112,9 +1130,9 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
 // 65,535. Returns a cudaError_t as int (0 = success), or a negated
 // CUresult if a tensor map could not be encoded.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int B, int Sq, int Sk, int H, int Kv, int D, int Dv,
-                                         float scale, int causal, int window, float softcap,
-                                         int q_offset, void* stream) {
+                                         void* lse, int B, int Sq, int Sk, int H, int Kv, int D,
+                                         int Dv, float scale, int causal, int window,
+                                         float softcap, int q_offset, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 128 ||
       Dv > 128 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
@@ -1127,12 +1145,12 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dv) {
-#define K10_DV(n)                                                                              \
-  case n:                                                                                      \
-    return D <= 64 ? launch_fa_wgmma<1, n>(tq, tk, tv, o, B, Sq, Sk, H, Kv, scale, causal,     \
-                                           window, softcap, q_offset, s)                       \
-                   : launch_fa_wgmma<2, n>(tq, tk, tv, o, B, Sq, Sk, H, Kv, scale, causal,     \
-                                           window, softcap, q_offset, s);
+#define K10_DV(n)                                                                            \
+  case n:                                                                                    \
+    return D <= 64 ? launch_fa_wgmma<1, n>(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, scale,      \
+                                           causal, window, softcap, q_offset, s)             \
+                   : launch_fa_wgmma<2, n>(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, scale,      \
+                                           causal, window, softcap, q_offset, s);
     K10_DV(16) K10_DV(32) K10_DV(48) K10_DV(64) K10_DV(80) K10_DV(96) K10_DV(112) K10_DV(128)
 #undef K10_DV
   }

@@ -457,9 +457,13 @@ def _f32(v, like):
 
 
 def xla_log1p_f32(y):
-    """XLA's CPU log1p of float32 y (here y = -x * x in (-1, 0])."""
+    """XLA's CPU log1p of float32 y: the normal's y = -x·x in (-1, 0], and
+    the staleness discount's y = s >= 0 (held bit for bit to jnp.log1p on
+    every float32 of [0, 2**16]). A subnormal y reads as 0, as XLA's CPU
+    code reads it."""
     c = lambda v: _f32(v, y)  # noqa: E731
     one = c(1.0)
+    y = torch.where(torch.abs(y) < c(_FLT_MIN), y * 0.0, y)
     # |y| < sqrt(2) - 1: y - y²/2 + y³ P(y)/Q(y)
     y2 = y * y
     q = y + c(_LOG1P_CEPHES_Q[0])
@@ -491,6 +495,37 @@ def xla_log1p_f32(y):
     return torch.where(torch.abs(y) < c(_LOG1P_CEPHES_MAX), small, large)
 
 
+# XLA's CPU exp of float32 (the Cephes polynomial of its vectorised
+# exp): x clamped to [-87.8, 88.8], n = floor(x log2(e) + 1/2) clamped to
+# [-127, 127], r = x - n C1 - n C2, e^r by a degree-5 polynomial, times
+# 2^n (0 at n = -127), a subnormal result flushed to 0 as XLA's CPU code
+# flushes it. Every multiply-add is one fused multiply-add, as the
+# compiled program has it. Held to jnp.exp bit for bit on every float32 of
+# [-32, 32] (tests/test_torch_async_engine.py samples [-87.8, 88.7]).
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_EXP_LOG2EF = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+          1.6666665459e-1, 5.0000001201e-1)
+
+
+def xla_exp_f32(x):
+    """XLA's CPU exp of float32 x, bit for bit."""
+    c = lambda v: _f32(v, x)  # noqa: E731
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma32(x, c(_EXP_LOG2EF), c(0.5))), -127.0, 127.0)
+    r = _fma32(n, c(-_EXP_C1), x)
+    r = _fma32(n, c(-_EXP_C2), r)
+    z = _fma32(r, c(_EXP_P[0]), c(_EXP_P[1]))
+    for v in _EXP_P[2:]:
+        z = _fma32(z, r, c(v))
+    z = c(1.0) + _fma32(z, r * r, r)
+    ni = n.to(torch.int32)
+    pow2 = torch.where(ni > -127, ((ni + 127) << 23).view(torch.float32), c(0.0))
+    out = z * pow2
+    return torch.where(out < c(_FLT_MIN), c(0.0), out)
+
+
 def xla_erf_inv_f32(x):
     """XLA's float32 ErfInv: w = -log1p(-x·x); below 5, w - 2.5 and the
     first 9 coefficients, else sqrt(w) - 3 and the other 9, in Horner
@@ -511,11 +546,15 @@ def erf_inv_from_log1p(x, lg):
     return x * p
 
 
-def uniform_to_normal(f):
-    """[0, 1) float32 fills -> jax.random.normal's float32 values."""
+def uniform_to_normal(f, scale: float = 1.0):
+    """[0, 1) float32 fills -> jax.random.normal's float32 values times
+    ``scale``, as XLA compiles ``scale * normal`` with ``scale`` a
+    constant: the two constants folded into one float32, (scale · √2) ·
+    erf_inv(u). At scale 1 (or any power of 2) that is the normal times
+    the scale; otherwise it can differ from it by an ulp."""
     lo = _f32(NORMAL_LO, f)
     u = torch.maximum(lo, _fma32(f, _f32(2.0, f), lo))
-    return _f32(_SQRT2_F32, f) * xla_erf_inv_f32(u)
+    return (_f32(scale, f) * _f32(_SQRT2_F32, f)) * xla_erf_inv_f32(u)
 
 
 def threefry_normal_ref(key_data, n: int):
@@ -660,13 +699,15 @@ def attention_block_kv(Sk: int, block_kv: int = 512) -> int:
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
                         logit_softcap: float = 0.0, q_offset: int = 0,
-                        scale=None, block_kv: int = 512):
+                        scale=None, block_kv: int = 512, return_lse: bool = False):
     """q (B, Sq, H, D), k (B, Sk, Kv, D), v (B, Sk, Kv, Dv) -> (B, Sq, H,
     Dv) in q's dtype: ``blockwise_attention``'s online softmax over kv
     blocks, with its guards for a row whose keys are all masked
     (``m_safe``, ``corr``). Query i sits at ``q_offset + i``; ``window``
     None (or 0) is no window; ``scale`` None is D**-0.5. GQA: head h reads
-    kv head h // (H / Kv)."""
+    kv head h // (H / Kv). With ``return_lse``, (out, lse): the rows'
+    log-sum-exp (B, H, Sq) fp32, m_safe + log(l), +inf for a row with no
+    valid key (what the kernel's forward writes for its backward)."""
     B, Sq, H, D = q.shape
     Sk, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Kv
@@ -698,8 +739,56 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + p @ vf[:, :, j0:j0 + bk]
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+    if not return_lse:
+        return out
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    lse = torch.where(l > 0, m_safe + torch.log(l), math.inf)
+    return out, lse.detach()
+
+
+def attention_mask(Sq: int, Sk: int, causal: bool, window, q_offset: int, device):
+    """(Sq, Sk) bool: the keys each query row attends to."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True, window=None,
+                            logit_softcap: float = 0.0, q_offset: int = 0, scale=None):
+    """K10's backward, FlashAttention-2's equations in fp32 from (q, k, v,
+    o, lse, do): P = exp(s - lse) on valid keys with s the (softcapped)
+    scaled score, di = rowsum(do o), dV = Pᵀ dO, dS = P (dO Vᵀ - di), times
+    1 - tanh² of the raw score under a softcap, dQ = scale dS K, dK = dSᵀ
+    (scale q); GQA sums the G query heads of a kv head. Returns (dq, dk, dv)
+    in q's, k's and v's dtypes. A row with no valid key (lse +inf) gets 0."""
+    B, Sq, H, D = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float().permute(0, 2, 1, 3) * scale                             # (B, H, Sq, D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)      # (B, H, Sk, D)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    dof = do.float().permute(0, 2, 1, 3)                                  # (B, H, Sq, Dv)
+    raw = qf @ kf.transpose(-1, -2)                                       # (B, H, Sq, Sk)
+    t = tanh(raw / logit_softcap) if logit_softcap > 0 else None
+    s = logit_softcap * t if t is not None else raw
+    mask = attention_mask(Sq, Sk, causal, window, q_offset, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    di = (dof * o.float().permute(0, 2, 1, 3)).sum(dim=-1)
+    ds = p * (dof @ vf.transpose(-1, -2) - di[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf).reshape(B, Kv, G, Sk, D).sum(dim=2)
+    dv = (p.transpose(-1, -2) @ dof).reshape(B, Kv, G, Sk, -1).sum(dim=2)
+    return (dq.permute(0, 2, 1, 3).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def decode_valid(S: int, pos, *, window=None, ring: bool = False):

@@ -1,13 +1,18 @@
 """Federated training driver of the port (the paper's experiment loop).
 
-Runs FedAvg rounds of the RNN-T on the synthetic speaker-split corpus
-with the paper's knobs (data limit, FVN, server LR schedule) and CFMQ
-accounting, on the CUDA card unless the caller asks for the CPU, and
-ends, as ``repro/launch/train.py`` does, with greedy decoding and WER on
-the clean and hard eval splits.
+Runs FedAvg rounds of a registered task (``core/task.py``: the RNN-T,
+the paper's model, or the Whisper-style enc-dec) on the synthetic
+speaker-split corpus with the paper's knobs (data limit, FVN, server LR
+schedule) and CFMQ accounting, on the CUDA card unless the caller asks
+for the CPU, and ends, as ``repro/launch/train.py`` does, with the task's
+evaluation on the clean and hard eval splits: greedy decoding and WER
+for the RNN-T, perplexity for the enc-dec.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --task asr-rnnt --rounds 4
+    PYTHONPATH=src python -m repro_torch.launch.train --task asr-encdec --rounds 4
+    PYTHONPATH=src python -m repro_torch.launch.train --task whisper-base --rounds 2 \
+        --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01 --eval-every 0
     PYTHONPATH=src python -m repro_torch.launch.train --preset arch --rounds 2 \\
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
@@ -22,8 +27,9 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
         --engine async --buffer-size 3 --staleness-beta 0.5 --client-eval 6
 
-The history is a summary row of ``core/metrics.py``'s schema (WER as
-``quality``/``quality_hard``), with the per-round curves as extras. A
+The history is a summary row of ``core/metrics.py``'s schema (the task's
+metric, WER or perplexity, as ``quality``/``quality_hard`` and named in
+``quality_metric``), with the per-round curves as extras. A
 task whose config has ``use_kernel=True`` runs its joint through the
 fused joint kernels. With ``--compression {int8,int4,topk}`` the uplink
 is compressed (aggregated in the code domain under the weighted mean),
@@ -62,7 +68,8 @@ from repro_torch.core.clienteval import ClientEvalPlane
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.metrics import empty_spread, summary_row
 from repro_torch.core.plan import FederatedPlan, FVNConfig
-from repro_torch.core.task import FederatedTask, default_corpus, get_task, scaled_task
+from repro_torch.core.task import (FederatedTask, available_tasks, default_corpus, get_task,
+                                   scaled_task)
 from repro_torch.data import FederatedSampler, available_strategies, pack_round
 from repro_torch.launch.cli import add_client_eval_args, add_plan_args, plan_kwargs
 
@@ -267,15 +274,15 @@ def run_federated(task: FederatedTask, corpus, plan: FederatedPlan, rounds: int,
                   eval_every: int = 0, eval_examples: int = 64,
                   specaug_scale: float = 1.0, log=print, ckpt_dir: str | None = None,
                   client_eval: int = 0, client_eval_examples: int = 4):
-    """Returns (state, history): a summary row (final loss, WER, CFMQ,
-    the exact wire bytes) with the per-round losses and times as
-    extras. Every ``eval_every`` rounds, and at the end, the model is
-    decoded on ``eval_examples`` examples of each eval split; with
-    ``eval_examples=0`` there is no final decode and the WER is NaN.
+    """Returns (state, history): a summary row (final loss, the task's
+    quality, CFMQ, the exact wire bytes) with the per-round losses and
+    times as extras. Every ``eval_every`` rounds, and at the end, the model
+    is evaluated on ``eval_examples`` examples of each eval split; with
+    ``eval_examples=0`` there is no final evaluation and the quality is NaN.
     ``iid`` packs every round from a fresh permutation of the global pool
     (the E0 baseline); ``specaug_scale`` scales SpecAugment's mask counts
     (E10). ``client_eval`` > 0 measures that many clients'
-    (``client_eval_examples`` each) loss and WER after every round: the
+    (``client_eval_examples`` each) loss and quality after every round: the
     spread fills the row, the curves go into ``extras["client_eval"]``.
     With ``ckpt_dir`` the parameters are saved every ``rounds // 3``
     rounds (at least every round), the last three kept."""
@@ -323,7 +330,7 @@ def build_plan(args) -> FederatedPlan:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--task", default=None, choices=["asr-rnnt"],
+    ap.add_argument("--task", default=None, choices=available_tasks(),
                     help="a registered task; overrides --preset")
     ap.add_argument("--preset", default="tiny", choices=["tiny", "arch"],
                     help="tiny: asr-rnnt; arch: rnnt-librispeech at paper widths")
@@ -343,8 +350,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--eval-every", type=int, default=10,
-                    help="decode and print the WER every this many rounds (0: only at "
-                         "the end)")
+                    help="evaluate and print the task's metric every this many rounds "
+                         "(0: only at the end)")
     ap.add_argument("--out", default=None)
     return ap.parse_args(argv)
 
@@ -353,7 +360,7 @@ def main(argv=None):
     args = parse_args(argv)
 
     name = args.task or ("asr-rnnt" if args.preset == "tiny" else rnnt_librispeech.ARCH_ID)
-    task = get_task(name)
+    task = get_task(name, args.seed)
     _, hist = run_federated(task, task.make_corpus(args.seed), build_plan(args), args.rounds,
                             seed=args.seed, device=args.device, iid=args.iid,
                             eval_every=args.eval_every, client_eval=args.client_eval,

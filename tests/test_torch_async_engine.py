@@ -8,11 +8,12 @@ fills holds its arrivals and the parameters; a buffer of 2 at K = 4
 flushes twice, the second flush all stale. Each wave of the toy under a
 non-divisor buffer with jitter, partial participation, an int4 uplink and
 the trimmed mean starts from the JAX wave's state (parameters and buffer)
-and is held to it. The discount is exact where the reference's is (s = 0,
-beta = 0) and within DISC_RTOL of XLA's elsewhere (XLA's CPU ``log1p`` and
-``exp`` are not ATen's). Then ``validate_plan``'s refusals, and two waves
-of the tiny asr-rnnt task (K=3, B=2) held to JAX's jitted async engine at
-the FVN-off round's tolerances. Every JAX draw uses the
+and is held to it. The discount and the arrival times equal XLA's bit for
+bit (the port restates XLA's CPU ``exp`` and ``log1p``, ``ref.xla_exp_f32``
+and ``ref.xla_log1p_f32``; ATen's differ by an ulp). Then
+``validate_plan``'s refusals, and two waves of the tiny asr-rnnt task
+(K=3, B=2) held to JAX's jitted async engine at the FVN-off round's
+tolerances. Every JAX draw uses the
 non-partitionable threefry, set and restored around it."""
 
 import dataclasses
@@ -33,27 +34,30 @@ from repro.core import build_round_engine as jax_engine
 from repro.core import init_server_state as jax_init_state
 from repro.core import make_round_step as jax_round_step
 from repro.core.async_engine import staleness_discount as jax_discount
+from repro.core.cohort import make_latency_fn as jax_latency_fn
 from repro.core.plan import CohortConfig as JaxCohort
 from repro.core.task import default_corpus as jax_default_corpus
 from repro.core.task import task_for_config
 from repro.data import FederatedSampler as JaxSampler
 from repro.models import rnnt as jrnnt
 from repro_torch.convert import params_from_jax
+from repro_torch.core import keys as tkeys
 from repro_torch.core.async_engine import AsyncBuffer, staleness_discount
-from repro_torch.core.cohort import LatencyConfig
+from repro_torch.core.cohort import LatencyConfig, make_latency_fn
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.engine import build_round_engine, validate_plan
 from repro_torch.core.fedavg import init_server_state, make_round_step
 from repro_torch.core.plan import (AggregatorConfig, AsyncConfig, CohortConfig,
                                    FederatedPlan)
 from repro_torch.core.task import FederatedTask, default_corpus, get_task
+from repro_torch.kernels import ref
 
 W_TRUE = np.random.default_rng(7).normal(size=(4, 2)).astype(np.float32)
 TOY_ATOL = 1e-6    # the toy's parameters and buffered deltas: a few fp32 roundings
-DISC_RTOL = 4e-6   # the discount against XLA's CPU exp(-beta * log1p(s)), s < 200
+DISC_RTOL = 0.0    # the discount: XLA's CPU exp(-beta * log1p(s)) restated, bit for bit
 LOSS_RTOL = 1e-4   # the tiny RNN-T: a mean of per-client losses after local SGD
 PARAM_ATOL = 1e-5  # the tiny RNN-T: server params after the wave's flushes
-LATENCY_RTOL = 1e-5  # arrival times: exp(spread * normal), normal held to 1e-5
+LATENCY_RTOL = 0.0  # arrival times: XLA's exp of spread * normal (both bitwise), bit for bit
 
 
 def toy_loss(params, batch, key):
@@ -243,6 +247,8 @@ def test_non_divisor_buffer_with_jitter_partial_int4_trimmed_mean_matches_jax(wa
 
 
 def test_staleness_discount_is_exact_where_the_reference_is_and_close_elsewhere():
+    """Exactly 1.0 at s == 0 and at beta == 0, and XLA's bits elsewhere
+    (DISC_RTOL is 0)."""
     s = np.arange(200, dtype=np.float32)
     assert torch.all(staleness_discount(torch.zeros(4), 1.7) == 1.0)
     assert torch.all(staleness_discount(torch.from_numpy(s), 0.0) == 1.0)
@@ -336,3 +342,58 @@ def test_tiny_rnnt_async_waves_match_jax(rnnt_waves, wave):
     for name, p in state.params.items():
         np.testing.assert_allclose(p.numpy(), after[name].numpy(), atol=PARAM_ATOL, rtol=0,
                                    err_msg=f"wave {wave} {name}")
+
+
+# ------------------------------------------------- XLA's exp, bit for bit
+
+def _exp_grid() -> np.ndarray:
+    """Every 4,099th float32 of [-87.8, 88.7] by bit pattern, both signs,
+    with 0, -0 and the neighbours of 1 and of the clamp's ends."""
+    hi = np.array([87.8, 88.7], np.float32).view(np.uint32)
+    neg = np.arange(0, hi[0], 4099, dtype=np.uint32) | np.uint32(0x80000000)
+    pos = np.arange(0, hi[1], 4099, dtype=np.uint32)
+    edges = np.array([0.0, -0.0, 1.0, -1.0, -87.8, 88.7, 1e-30, -1e-30], np.float32)
+    return np.concatenate([neg.view(np.float32), pos.view(np.float32), edges,
+                           np.nextafter(edges, np.float32(np.inf)),
+                           np.nextafter(edges, np.float32(-np.inf))])
+
+
+def test_xla_exp_is_jnp_exp_bit_for_bit():
+    """ref.xla_exp_f32 is XLA's CPU exp: 0 ulp on a grid over the range
+    where exp is finite and normal."""
+    x = _exp_grid()
+    want = np.asarray(jax.jit(jnp.exp)(jnp.asarray(x)))
+    got = ref.xla_exp_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("spread", [0.25, 0.3])
+@pytest.mark.parametrize("K", [4, 16, 256])
+def test_arrival_times_are_jax_bit_for_bit(K, spread):
+    """The latency model's arrival times equal the jitted reference's on
+    seeds 0-199, so a wave's buffer fills in the reference's order. At a
+    spread that is no power of 2, XLA folds it into the normal's sqrt(2)
+    (eager JAX would not: its times differ by an ulp)."""
+    jcfg = JaxLatency(enabled=True, spread=spread)
+    tcfg = LatencyConfig(enabled=True, spread=spread)
+    jfn = jax.jit(lambda key: jax_latency_fn(jcfg)(key, K))
+    tfn = make_latency_fn(tcfg)
+
+    def run():
+        return np.stack([np.asarray(jfn(jax.random.PRNGKey(s))) for s in range(200)])
+
+    want = _non_partitionable(run)
+    got = np.stack([tfn(tkeys.PRNGKey(s), K).numpy() for s in range(200)])
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(np.argsort(got, axis=1, kind="stable"),
+                                  np.argsort(want, axis=1, kind="stable"))
+
+
+@pytest.mark.parametrize("beta", [0.5, 1.0, 1.7, 2.0])
+def test_staleness_discount_is_jax_bit_for_bit(beta):
+    """Every staleness a wave of up to 256 clients can give, and larger."""
+    s = np.concatenate([np.arange(257), [511, 1000, 4095, 65535]]).astype(np.float32)
+    want = np.asarray(jax.jit(jax_discount)(jnp.asarray(s), jnp.float32(beta)))
+    got = staleness_discount(torch.from_numpy(s), beta).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

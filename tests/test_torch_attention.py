@@ -119,6 +119,51 @@ def test_rows_with_no_valid_key_give_zero(dtype):
                                rtol=TOL[dtype])
 
 
+# K10's backward: the plain version (``ref.flash_attention_bwd_ref``, the
+# backward kernel's equations from o and the log-sum-exp) and the CPU
+# wrapper's autograd against jax.grad of the model's blockwise_attention
+GRAD_SHAPES = [  # B, Sq, Sk, H, Kv, D, Dv, causal, window, softcap, q_offset, scale
+    (2, 37, 37, 4, 2, 16, 16, True, None, 0.0, 0, None),      # causal, GQA
+    (1, 5, 70, 4, 4, 16, 16, False, None, 0.0, 0, None),      # not causal, Sq != Sk
+    (2, 19, 45, 6, 2, 32, 24, True, 9, 20.0, 26, 0.1),        # window, softcap, q_offset
+    (1, 12, 20, 2, 1, 8, 8, False, 5, 0.0, 0, None),          # window, not causal
+    (1, 6, 10, 2, 2, 8, 8, True, None, 0.0, -3, None),        # rows 0-2: no valid key (F5)
+]
+# fp32: sums over Sk and D in another order; bf16: the gradients rounded to
+# bf16 on both sides (the fp32 sums agree to ~1e-6)
+GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+def test_flash_attention_grads_are_jax_grad_of_blockwise_attention(shape, dtype):
+    B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale = shape
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(
+        [(B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, Dv), (B, Sq, H, Dv)], dtype, Sq + 7 * Sk)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=off)
+
+    def f(q, k, v):
+        out = jattn.blockwise_attention(q, k, v, query_scale=scale, **kw)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(jq, jk, jv)
+    o, lse = K10.flash_attention_fwd_lse(tq, tk, tv, scale=scale, **kw)
+    plain = K10.flash_attention_bwd(tq, tk, tv, o, lse, tdo, scale=scale, **kw)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = K10.flash_attention(*leaves, scale=scale, **kw)
+    auto = torch.autograd.grad(out, leaves, tdo)
+    for name, p, a, w in zip("qkv", plain, auto, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert p.dtype == TDT[dtype] and p.shape == a.shape == w.shape, name
+        for got in (p, a):
+            np.testing.assert_allclose(got.float().numpy(), w,
+                                       atol=GRAD_TOL[dtype] * max(1.0, np.abs(w).max()),
+                                       rtol=GRAD_TOL[dtype], err_msg=name)
+    dead = ~ref.attention_mask(Sq, Sk, causal, window, off, "cpu").any(dim=1)
+    assert torch.isinf(lse[:, :, dead]).all() and torch.isfinite(lse[:, :, ~dead]).all()
+    assert torch.equal(plain[0][:, dead], torch.zeros_like(plain[0][:, dead]))
+
+
 # ------------------------------------------------------------------ K11
 
 PALLAS_DECODE = [  # B, S, H, Kv, D, window, pos
@@ -187,21 +232,36 @@ def test_wrappers_refuse_what_no_kernel_takes():
 
 @pytest.mark.parametrize("grad_mode,needs", [(True, "q"), (True, "k"), (True, "v"),
                                              (True, ""), (False, "qkv")])
-def test_k10_refuses_grad_on_the_card_by_a_fixed_rule(grad_mode, needs):
-    """K10 has no backward: on the card it refuses a call that autograd
-    would differentiate (grad mode on and an input requiring grad), by
-    ``refuses_grad``; on the CPU the plain version is differentiable."""
-    q, k, v = (torch.randn(1, 4, 2, 8, requires_grad=name in needs) for name in "qkv")
+def test_k10_grad_path_on_the_card_by_a_fixed_rule(grad_mode, needs):
+    """On the card a call runs through ``K10Function`` (the forward with
+    its log-sum-exp, then the backward kernel) exactly when autograd will
+    differentiate it (grad mode on and an input requiring grad), by
+    ``grad_path``; otherwise the forward alone. On the CPU the plain
+    version runs either way, and its autograd gradients equal the plain
+    backward's (``ref.flash_attention_bwd_ref``, the kernel's equations)
+    within 1e-5: two fp32 orders of the same sums."""
+    q, k, v = (torch.randn(1, 6, 2, 8, generator=torch.Generator().manual_seed(i),
+                           requires_grad=name in needs) for i, name in enumerate("qkv"))
+    kw = dict(causal=True, q_offset=-2)  # rows 0 and 1 see no key (F5)
     with torch.set_grad_enabled(grad_mode):
-        refused = K10.refuses_grad(q, k, v)
-        launches = K10.FWD_LAUNCHES
-        out = K10.flash_attention(q, k, v)
-    assert refused == (grad_mode and needs != "")
-    assert K10.FWD_LAUNCHES == launches  # the plain version is no launch
-    assert out.requires_grad == refused
-    if out.requires_grad:
-        grads = torch.autograd.grad(out.sum(), [t for t in (q, k, v) if t.requires_grad])
-        assert all(torch.isfinite(g).all() for g in grads)
+        path = K10.grad_path(q, k, v)
+        launches = (K10.FWD_LAUNCHES, K10.BWD_LAUNCHES)
+        out = K10.flash_attention(q, k, v, **kw)
+    assert path == (grad_mode and needs != "")
+    assert (K10.FWD_LAUNCHES, K10.BWD_LAUNCHES) == launches  # the plain version is no launch
+    assert out.requires_grad == path
+    if not path:
+        return
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(9))
+    wanted = [t for t in (q, k, v) if t.requires_grad]
+    got = torch.autograd.grad(out, wanted, do)
+    o, lse = K10.flash_attention_fwd_lse(q.detach(), k.detach(), v.detach(), **kw)
+    assert torch.isinf(lse[0, :, :2]).all() and torch.isfinite(lse[0, :, 2:]).all()
+    ref_grads = dict(zip("qkv", K10.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                                        o, lse, do, **kw)))
+    for name, g in zip([n for n in "qkv" if n in needs], got):
+        np.testing.assert_allclose(g.numpy(), ref_grads[name].numpy(), atol=1e-5, rtol=1e-5)
+    assert torch.equal(ref_grads["q"][0, :2], torch.zeros_like(ref_grads["q"][0, :2]))
 
 
 def test_one_term_bf16_p_would_not_match():

@@ -215,6 +215,16 @@ def test_model_bundle_puts_parameters_on_its_device():
     assert bundle.init_cache(B, 16)["self_k"].device.type == "meta"
 
 
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """A stand-in for a family the port has not ported (the reference's
+    ``repro/models/transformer.py:TransformerConfig``, M8's next item)."""
+    name: str = "lm-tiny"
+
+
 def test_model_bundle_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="M8"):
-        model_zoo.build_model(RNNTConfig(name="x", feat_dim=8, vocab=8), device="cpu")
+        model_zoo.build_model(TransformerConfig(), device="cpu")
+    # the RNN-T is ported since the task registry came: its bundle builds
+    bundle = model_zoo.build_model(RNNTConfig(name="x", feat_dim=8, vocab=8), device="cpu")
+    assert bundle.kind == "rnnt" and bundle.module is not None

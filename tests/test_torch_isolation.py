@@ -49,3 +49,9 @@ def test_the_engines_and_drivers_are_walked(module):
 def test_no_jax_and_no_reference_package(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
+
+
+@pytest.mark.parametrize("module", ["examples/quickstart.py", "examples/train_federated_asr.py",
+                                    "examples/noniid_tradeoff.py", "core/task.py"])
+def test_the_example_twins_and_the_task_registry_are_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
