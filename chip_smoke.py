@@ -65,21 +65,27 @@ Phases, each printed as it ends:
    at 448; the self cache of 448 slots at
    positions 3, 200 and 447, at both sides of K11's first split edge,
    and the cross cache of 1,500), a ragged GQA
-   shape with a window, softcap and query offset for each, and K10 rows
-   with no valid key (which must be 0); each timed beside
+   shape with a window, softcap and query offset for each, K10 rows
+   with no valid key (which must be 0), and qwen3-8b's head layout (32
+   query heads on 8 kv heads of 128: K10 causal over 128 tokens, K11 over
+   a 128-slot cache); each timed beside
    ``scaled_dot_product_attention`` on the same inputs, a yardstick;
    every bf16 K10 shape on the tensor-core route (at the encoder at most
    2 % of its outputs may differ from the plain version's bf16 result),
    every fp32 one on the CUDA-core route; each K11 launch twice for the
    same bits, and K11 replayed from one CUDA graph while pos advances on
    the device, each replay held to the plain version;
-   K10's backward (csrc/attention_bwd.cu) against its plain version in
-   bf16 and fp32 at whisper-base's training shapes (the encoder, 4 x 384
-   frames; the decoder's causal self-attention over 48 tokens and its
-   cross-attention, 48 against 384) and at the ragged GQA row and the rows
-   with no valid key above, the forward's o bitwise unchanged by its
+   K10's backward against its plain version in bf16 and fp32 at
+   whisper-base's training shapes (the encoder, 4 x 384 frames; the
+   decoder's causal self-attention over 48 tokens and its cross-attention,
+   48 against 384), at the ragged GQA row, the rows with no valid key and
+   qwen3-8b's head layout above, every bf16 call on the tensor-core route
+   (csrc/attention_bwd_wgmma.cu) and every fp32 one on the CUDA-core route
+   (csrc/attention_bwd.cu), the bf16 shapes also on the CUDA-core design
+   through its C entry, the forward's o bitwise unchanged by its
    log-sum-exp write, each call twice for the same bits, timed beside the
-   plain version, SDPA's backward and the bound;
+   plain version, SDPA's backward and the bound, with each launch's device
+   time;
 4. one tiny FedAvg round (FVN on) and one tiny greedy decode on the card
    against the same on the CPU, under each LSTM dispatch ('ref': the time loop;
    'kernel': K2 on the card, its plain version on the CPU); the
@@ -187,6 +193,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -361,10 +368,14 @@ def phase_build():
     log(f"[build] {len(build.SOURCES)} source(s) ready in {time.perf_counter() - t0:.2f} s "
         f"({len(logs)} compiled now) under {build.BUILD_DIR}")
     for name, text in logs.items():
-        entry = "?"  # the mangled name of the kernel ptxas reports on
+        entry = "?"  # the kernel ptxas reports on, with its template arguments
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
+                # past an anonymous namespace's prefix (<8 hex digits><length>)
+                m = re.search(r"_cu_[0-9a-f]{8}(\d+)", entry)
+                if m:
+                    entry = entry[m.end():m.end() + int(m.group(1)) + 24]
             elif "spill" in line or ("ptxas info" in line and "Used" in line):
                 log(f"[build] {name}: {entry[:72]}: {line.strip()}")
 
@@ -1856,7 +1867,8 @@ def phase_tiny_encdec_round(torch, mode: str):
     parameters and batch, under the LSTM dispatch ``mode`` (the enc-dec has
     no LSTM: the round is the same under both): on the card every
     attention runs K10's CUDA-core route (head width 8) under autograd,
-    three forward launches and three backward calls a client step; the loss
+    three forward launches and three backward calls a client step, the
+    backward on its CUDA-core route too; the loss
     and the aggregated delta agree with the CPU's plain versions."""
     from repro_torch.core.engine import build_round_engine
     from repro_torch.core.plan import FederatedPlan, FVNConfig
@@ -1893,8 +1905,8 @@ def phase_tiny_encdec_round(torch, mode: str):
     if err > 1e-5:
         raise AssertionError(f"tiny encdec round aggregated delta differs by {err:.2e} (> 1e-5)")
     log(f"[tiny encdec round {mode}] loss cuda {loss_c:.6f} cpu {loss_h:.6f}; aggregated delta "
-        f"max|err| {err:.2e}; K10 {calls} forward launches (CUDA-core route) and {calls} "
-        f"backward calls over {steps} client steps")
+        f"max|err| {err:.2e}; K10 {calls} forward launches and {calls} backward calls, all "
+        f"on the CUDA-core routes, over {steps} client steps")
 
 
 def phase_tiny_latency(torch):
@@ -2448,7 +2460,7 @@ def _zero_counts() -> None:
     from repro_torch.kernels import flash_attention as KA
 
     KA.FWD_LAUNCHES = KA.WGMMA_LAUNCHES = KA.SIMT_LAUNCHES = KD.FWD_LAUNCHES = 0
-    KA.BWD_LAUNCHES = 0
+    KA.BWD_LAUNCHES = KA.BWD_WGMMA_LAUNCHES = KA.BWD_SIMT_LAUNCHES = 0
 
 
 def phase_paper_width(torch, use_kernel: bool, mode: str, enc_layers=None):
@@ -3330,16 +3342,21 @@ K10_SHAPES = (
     ("causal self U=448", 4, 448, 448, 8, 8, 64, 64, True, None, 0.0, 0, None),
     ("gqa window softcap", 2, 333, 517, 8, 2, 96, 80, True, 100, 30.0, 184, 0.1),
     ("no valid key", 1, 40, 16, 2, 1, 16, 16, True, 4, 0.0, 0, None),
+    # qwen3-8b's head layout (32 query heads on 8 kv heads of 128, G = 4),
+    # causal over 128 tokens: the next attention model's training shape
+    ("qwen3-8b heads", 4, 128, 128, 32, 8, 128, 128, True, None, 0.0, 0, None),
 )
 # K11's shapes: the self cache (448 slots) at three positions, the cross
-# cache (1,500 slots), and a GQA ring buffer with a window and softcap
-# (G=8, D=128). (name, B, S, H, Kv, D, pos, window, ring, softcap)
+# cache (1,500 slots), a GQA ring buffer with a window and softcap (G=8,
+# D=128), and qwen3-8b's head layout over a 128-slot cache (G=4, D=128).
+# (name, B, S, H, Kv, D, pos, window, ring, softcap)
 K11_SHAPES = (
     ("self pos 3", 4, 448, 8, 8, 64, 3, None, False, 0.0),
     ("self pos 200", 4, 448, 8, 8, 64, 200, None, False, 0.0),
     ("self pos 447", 4, 448, 8, 8, 64, 447, None, False, 0.0),
     ("cross", 4, 1500, 8, 8, 64, 1499, None, False, 0.0),
     ("gqa ring window", 2, 256, 16, 2, 128, 1000, 200, True, 20.0),
+    ("qwen3-8b heads pos 127", 4, 128, 32, 8, 128, 127, None, False, 0.0),
 )
 
 
@@ -3347,7 +3364,7 @@ def _sdpa(torch, fn, what: str):
     """A yardstick call, None where this torch refuses it."""
     try:
         fn()
-    except RuntimeError as e:  # a measurement, not the port's path
+    except (RuntimeError, TypeError) as e:  # a measurement, not the port's path
         log(f"[attention] {what}: scaled_dot_product_attention refused ({e}); not timed")
         return None
     return fn
@@ -3413,23 +3430,77 @@ K10_BWD_SHAPES = (
     ("train encoder", 4, 384, 384, 8, 8, 64, 64, False, None, 0.0, 0, None),
     ("train causal self", 4, 48, 48, 8, 8, 64, 64, True, None, 0.0, 0, None),
     ("train cross", 4, 48, 384, 8, 8, 64, 64, False, None, 0.0, 0, None),
-) + tuple(sh for sh in K10_SHAPES if sh[0] in ("gqa window softcap", "no valid key"))
+) + tuple(sh for sh in K10_SHAPES if sh[0] in ("gqa window softcap", "no valid key",
+                                               "qwen3-8b heads"))
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the forward's log-sum-exp against the plain version's: fp32 sums in
 # another order (and the tensor-core route's ex2.approx), rows of O(10)
 ATTN_LSE_ATOL = 1e-4
 
 
+def _sdpa_kw(H: int, Kv: int) -> dict:
+    """SDPA's grouped-query option where the heads are grouped (a keyword
+    an older torch lacks: ``_sdpa`` then reports the yardstick as refused)."""
+    return {} if H == Kv else {"enable_gqa": True}
+
+
+def _old_bwd(torch, KA, q, k, v, o, lse, do, kw):
+    """K10's backward on the CUDA-core design (csrc/attention_bwd.cu)
+    through its C entry, whatever the route rule picks: the design the
+    tensor-core route replaced for bf16, timed beside it. Counts no
+    launch."""
+    from repro_torch.kernels import build
+
+    B, Sq, H, D = q.shape
+    Sk, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    scale = D ** -0.5 if kw["scale"] is None else float(kw["scale"])
+    build.check_launch(KA._bwd_lib().flash_attention_bwd(
+        KA.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
+        B, Sq, Sk, H, Kv, D, Dv, scale, int(bool(kw["causal"])), int(kw["window"] or 0),
+        float(kw["logit_softcap"]), int(kw["q_offset"]), torch.cuda.current_stream().cuda_stream),
+        "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _launch_split(torch, fn, calls: int = 5) -> dict:
+    """{kernel: device microseconds a call} of ``calls`` calls of ``fn``
+    under torch.profiler (device events only), by the kernel's function
+    name; {} where the profiler records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for name, (t, _) in _device_times(torch, prof).items():
+        m = re.search(r"(fa_bwd_\w+)", name)
+        key = m.group(1) if m else name[:40]
+        split[key] = split.get(key, 0.0) + t / calls
+    return split
+
+
 def phase_attention_bwd(torch):
-    """K10's backward (csrc/attention_bwd.cu) against its plain version
-    (ref.flash_attention_bwd_ref) at K10_BWD_SHAPES in bf16 and fp32: the
-    forward's o bitwise the same with and without the log-sum-exp, that
-    log-sum-exp against the plain version's (+inf exactly on the rows with
-    no valid key, whose gradients are 0), dq, dk and dv within
-    ATTN_BWD_TOL, a second call bitwise the first; its time eager and from
-    a CUDA graph beside the plain version's, SDPA's backward (a yardstick
-    the port never calls) and the bound. Returns {kernel: row} at the
-    training encoder shape in bf16."""
+    """K10's backward against its plain version (ref.flash_attention_bwd_ref)
+    at K10_BWD_SHAPES in bf16 and fp32: the forward's o bitwise the same
+    with and without the log-sum-exp, that log-sum-exp against the plain
+    version's (+inf exactly on the rows with no valid key, whose dq is 0;
+    keys no row sees get dk and dv 0), every bf16 call on the tensor-core
+    route (csrc/attention_bwd_wgmma.cu) and every fp32 one on the CUDA-core
+    route (csrc/attention_bwd.cu) by bwd_route, dq, dk and dv within
+    ATTN_BWD_TOL with the share of bf16 elements that differ from the
+    plain version's, a second call bitwise the first; at each bf16 shape
+    also the CUDA-core design through its C entry (held to the same
+    tolerance). Each is timed eager and from a CUDA graph beside the plain
+    version's, SDPA's backward (a yardstick the port never calls) and the
+    bound, with the device time of each of its three launches. Returns
+    {kernel: row}: each route at the training encoder shape (bf16 for the
+    tensor cores, fp32 for the CUDA cores)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KA
@@ -3443,64 +3514,100 @@ def phase_attention_bwd(torch):
                        ((B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, Dv)))
             do = torch.randn((B, Sq, H, Dv), generator=gen, device="cuda").to(dtype)
             kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=off, scale=scale)
+            bf16 = dtype == torch.bfloat16
+            want_route = "wgmma" if bf16 else "simt"
             tag = f"flash_attention_bwd {name} {dname}"
             o_alone = KA.flash_attention(q, k, v, **kw)
             o, lse = KA.flash_attention_fwd_lse(q, k, v, **kw)
             if not torch.equal(o, o_alone):
                 raise AssertionError(f"{tag}: the forward's o moved with the log-sum-exp write")
             _, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
-            dead = (~ref.attention_mask(Sq, Sk, causal, window, off, "cpu").any(dim=1)).cuda()
+            mask = ref.attention_mask(Sq, Sk, causal, window, off, "cpu")
+            dead = (~mask.any(dim=1)).cuda()
+            dead_keys = (~mask.any(dim=0)).cuda()
             live = ~torch.isinf(lse_ref)
             lse_err = float((lse[live] - lse_ref[live]).abs().max())
             if not torch.equal(torch.isinf(lse), ~live) or bool(live[:, :, dead].any()) or \
                     lse_err > ATTN_LSE_ATOL:
                 raise AssertionError(f"{tag}: log-sum-exp off by {lse_err:.2e} (atol "
                                      f"{ATTN_LSE_ATOL}) or +inf on other rows than the dead")
+            before = (KA.BWD_WGMMA_LAUNCHES, KA.BWD_SIMT_LAUNCHES)
             got = KA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
+            moved = (KA.BWD_WGMMA_LAUNCHES - before[0], KA.BWD_SIMT_LAUNCHES - before[1])
+            took = {(1, 0): "wgmma", (0, 1): "simt"}.get(moved, f"launch counts moved {moved}")
+            if took != want_route or KA.bwd_route(q, k, v, o, do) != want_route:
+                raise AssertionError(f"{tag}: took the {took} route, expected {want_route}")
             want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-            errs = [_rel(torch, g, w) for g, w in zip(got, want)]
-            if any(g.dtype != dtype or g.shape != w.shape for g, w in zip(got, want)) or \
-                    max(errs) > ATTN_BWD_TOL[dname]:
-                raise AssertionError(f"{tag}: dq, dk, dv relative errors {errs} (tol "
-                                     f"{ATTN_BWD_TOL[dname]}) or the shape/dtype contract broke")
-            if dead.any() and float(got[0][:, dead].float().abs().max()) != 0.0:
-                raise AssertionError(f"{tag}: rows with no valid key have a nonzero dq")
+            designs = {took: got}
+            if bf16:  # the CUDA-core design at the same inputs, through its C entry
+                designs["simt design"] = _old_bwd(torch, KA, q, k, v, o, lse, do, kw)
+                torch.cuda.synchronize()
+            errs, differ = {}, {}
+            for design, grads in designs.items():
+                errs[design] = [_rel(torch, g, w) for g, w in zip(grads, want)]
+                differ[design] = [float((g != w).float().mean()) for g, w in zip(grads, want)]
+                if any(g.dtype != dtype or g.shape != w.shape for g, w in zip(grads, want)) or \
+                        max(errs[design]) > ATTN_BWD_TOL[dname]:
+                    raise AssertionError(f"{tag} ({design}): dq, dk, dv relative errors "
+                                         f"{errs[design]} (tol {ATTN_BWD_TOL[dname]}) or the "
+                                         "shape/dtype contract broke")
+                if dead.any() and float(grads[0][:, dead].float().abs().max()) != 0.0:
+                    raise AssertionError(f"{tag} ({design}): rows with no valid key have a "
+                                         "nonzero dq")
+                if dead_keys.any() and max(float(g[:, dead_keys].float().abs().max())
+                                           for g in grads[1:]) != 0.0:
+                    raise AssertionError(f"{tag} ({design}): keys no row sees have a nonzero "
+                                         "dk or dv")
             again = KA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
             if not all(torch.equal(a, g) for a, g in zip(again, got)):
                 raise AssertionError(f"{tag}: a second call gave other bits")
-            n_valid = int(ref.attention_mask(Sq, Sk, causal, window, off, "cpu").sum()) * B * H
+            n_valid = int(mask.sum()) * B * H
             es = q.element_size()
             nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * B * Sq * H * Dv) * es \
                 + 4 * B * H * Sq  # q, k, v, o, do in; dq, dk, dv out; the lse
             # S and dP recomputed, dV, dK and dQ: five products over the valid pairs
             flops = 2 * n_valid * (3 * D + 2 * Dv)
-            bf16 = dtype == torch.bfloat16
             bound_ms, bound_by = _bound(nbytes, 0 if bf16 else flops, flops if bf16 else 0,
                                         n_valid)
             lib = None
-            if not window and not cap and off == 0 and (not causal or Sq == Sk) and H == Kv:
+            if not window and not cap and off == 0 and (not causal or Sq == Sk):
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-                out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale)
-                do_t = do.transpose(1, 2)
-                lib = _sdpa(torch, lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
-                                                               retain_graph=True), tag)
+                fwd = _sdpa(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv)), tag)
+                if fwd is not None:
+                    out_t, do_t = fwd(), do.transpose(1, 2)
+                    lib = _sdpa(torch, lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                                   retain_graph=True), tag)
             n = 10 if Sq * Sk > 100_000 else 50
-            t = _attn_times(torch, lambda: KA.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+            call = lambda: KA.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+            t = _attn_times(torch, call,
                             lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
                             lib, n)
+            split = {took: _launch_split(torch, call)}
+            if bf16:
+                old = lambda: _old_bwd(torch, KA, q, k, v, o, lse, do, kw)  # noqa: E731
+                t["simt design"] = (cuda_ms(torch, old, n), graph_ms(torch, old, max(2, n // 2)))
+                split["simt design"] = _launch_split(torch, old)
             err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
             log(f"[attention] {tag} (B={B} Sq={Sq} Sk={Sk} H={H} Kv={Kv} D={D} Dv={Dv}): "
-                f"o bitwise unchanged by the lse write, lse max|err| {lse_err:.2e}, dq/dk/dv "
-                f"relative errors {', '.join(f'{e:.2e}' for e in errs)} (max|err| {err:.2e})"
+                f"o bitwise unchanged by the lse write, lse max|err| {lse_err:.2e}, {took} "
+                f"route; dq/dk/dv relative errors "
+                + "; ".join(f"{d} {', '.join(f'{e:.2e}' for e in es_)}"
+                            for d, es_ in errs.items())
+                + (" (share of bf16 elements that differ from the plain version's: "
+                   + "; ".join(f"{d} {', '.join(f'{x:.4f}' for x in df)}"
+                               for d, df in differ.items()) + ")" if bf16 else "")
                 + (f", {int(dead.sum())} rows with no valid key: lse +inf, dq 0"
                    if dead.any() else "")
                 + "; bitwise repeatable; us per call eager/graph: "
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop, "
-                  f"{n_valid} exp)")
-            if (name, dname) == ("train encoder", "bfloat16"):
-                rows["flash_attention_bwd"] = {
+                  f"{n_valid} exp); device us by launch: "
+                + "; ".join(f"{d} " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in sp.items())
+                            for d, sp in split.items()))
+            if name == "train encoder":
+                rows[f"flash_attention_bwd_{took}"] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"][0]}
     return rows
@@ -3563,10 +3670,10 @@ def phase_attention_kernels(torch):
             else:     # CUDA cores: every product at the fp32 rate
                 bound_ms, bound_by = _bound(nbytes, qk + pv)
             lib = None
-            if not window and not cap and off == 0 and (not causal or Sq == Sk) and H == Kv:
+            if not window and not cap and off == 0 and (not causal or Sq == Sk):
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                 lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale), tag)
+                    qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv)), tag)
             n = 10 if Sq * Sk > 100_000 else 100
             t = _attn_times(torch, lambda: KA.flash_attention(q, k, v, **kw),
                             lambda: ref.flash_attention_ref(q, k, v, **kw), lib, n)
@@ -3611,10 +3718,11 @@ def phase_attention_kernels(torch):
             bf16 = dtype == torch.bfloat16
             bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
             lib = None
-            if not ring and not window and not cap and H == Kv:
+            if not ring and not window and not cap:
                 qt = q[:, :, None]
                 kt, vt = (c[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
-                lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), tag)
+                lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, **_sdpa_kw(H, Kv)), tag)
             t = _attn_times(torch, lambda: KD.flash_decode(q, kc, vc, pos_t, **kw),
                             lambda: ref.decode_attention_ref(q, kc, vc, pos_t, **kw), lib, 200)
             err = float((got.float() - want.float()).abs().max())
@@ -3677,14 +3785,18 @@ def _attn_counts() -> dict:
 
     return {"flash_attention": KA.FWD_LAUNCHES, "flash_attention_wgmma": KA.WGMMA_LAUNCHES,
             "flash_attention_simt": KA.SIMT_LAUNCHES, "flash_attention_bwd": KA.BWD_LAUNCHES,
-            "flash_decode": KD.FWD_LAUNCHES}
+            "flash_attention_bwd_wgmma": KA.BWD_WGMMA_LAUNCHES,
+            "flash_attention_bwd_simt": KA.BWD_SIMT_LAUNCHES, "flash_decode": KD.FWD_LAUNCHES}
 
 
 def _k10(n: int, route: str = "wgmma", bwd: int = 0) -> dict:
-    """K10's expected counts: ``n`` forward launches, all on ``route``, and
-    ``bwd`` calls of its backward."""
+    """K10's expected counts: ``n`` forward launches and ``bwd`` calls of
+    its backward, all on ``route`` (the two rules agree on the inputs the
+    paths give them)."""
     return {"flash_attention": n, "flash_attention_wgmma": n if route == "wgmma" else 0,
-            "flash_attention_simt": n if route == "simt" else 0, "flash_attention_bwd": bwd}
+            "flash_attention_simt": n if route == "simt" else 0, "flash_attention_bwd": bwd,
+            "flash_attention_bwd_wgmma": bwd if route == "wgmma" else 0,
+            "flash_attention_bwd_simt": bwd if route == "simt" else 0}
 
 
 def _check_attn(tag: str, want: dict) -> None:
@@ -3961,12 +4073,13 @@ def phase_whisper_train(torch):
     random from a seed) through the training entry point on a corpus at its
     widths (``whisper_width_corpus``: frames 512 wide, T = 384, U = 48,
     51,865 word-pieces; its build timed and sized): two FedAvg rounds with
-    FVN, exact launches (K10's forward 18 a client step, all on the tensor
-    cores, and its backward 18; the normal kernel once), round times,
+    FVN, exact launches (K10's forward 18 a client step and its backward
+    18, all on the tensor cores; the normal kernel once), round times,
     examples per second and peak memory; the final perplexity evaluation
     (16 examples of each split, 36 K10 launches) and the per-client panel
     (6 x 4, 216 K10 launches: its loss and its perplexity), each timed; one more round under
-    torch.profiler (device time, busy share); the first round again with
+    torch.profiler (device time, busy share, K10's backward's device time
+    by launch); the first round again with
     K10's forward and backward swapped for their plain versions on the card
     (no K10 launch), its loss within WHISPER_LOSS_RTOL of the kernels'.
     Returns the training rounds' launch counts."""
@@ -4047,7 +4160,14 @@ def phase_whisper_train(torch):
                                            device="cuda", eval_every=0, eval_examples=0,
                                            log=lambda line: None)
         torch.cuda.synchronize()
-    _log_profile(tag, _device_times(torch, prof), hist["round_s"][-1], hist_prof["round_s"][0])
+    by_name = _device_times(torch, prof)
+    _log_profile(tag, by_name, hist["round_s"][-1], hist_prof["round_s"][0])
+    bwd = {n: tn for n, tn in by_name.items() if "fa_bwd_" in n}
+    log(f"{tag} K10's backward in the profiled round: "
+        f"{sum(t for t, _ in bwd.values()) / 1e3:.3f} ms of device time in "
+        f"{sum(c for _, c in bwd.values())} launches ("
+        + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms {c}x" for n, (t, c) in
+                    sorted(bwd.items(), key=lambda kv: -kv[1][0])) + ")")
     _zero_counts()
     with _plain_attention_on_card():
         _, hist_plain = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
@@ -4196,7 +4316,8 @@ def main() -> int:
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
     launches.update(attn_launches)
-    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    for name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_simt"):
+        launches[name] = train_launches[name]
     gates, scan, joint, wire, attn, normal = (
         "src/repro_torch/kernels/csrc/" + f for f in
         ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu", "wire_pack.cu", "attention.cu",
@@ -4242,9 +4363,12 @@ def main() -> int:
         "flash_attention_simt": (attn, "src/repro/kernels/flash_attention.py:70"),
         "flash_decode": (attn, "src/repro/kernels/decode_attention.py:62"),
         # no pallas_call: jax.grad of the model's jnp attention
-        # (blockwise_attention), which the training path differentiates
-        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
-                                "src/repro/models/attention.py:84"),
+        # (blockwise_attention), which the training path differentiates; its
+        # two routes (the rule in kernels/flash_attention.py:bwd_route)
+        "flash_attention_bwd_wgmma": ("src/repro_torch/kernels/csrc/attention_bwd_wgmma.cu",
+                                      "src/repro/models/attention.py:84"),
+        "flash_attention_bwd_simt": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
+                                     "src/repro/models/attention.py:84"),
         # no pallas_call: FVN's jax.random.normal and its scaled sum, which
         # XLA fuses (perturb, :40-48; the gaussian adversary's and the DP
         # noise's the same)
@@ -4253,9 +4377,10 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (src, replaces) in table.items()]
-    # K10's CUDA-core route serves fp32 and other widths: the main path (the
-    # bf16 serve at head width 64) takes the tensor cores by the rule
-    off_path = {"flash_attention_simt"}
+    # K10's CUDA-core routes serve fp32 and other widths: the main path (the
+    # bf16 serve and training at head width 64) takes the tensor cores by
+    # the rules
+    off_path = {"flash_attention_simt", "flash_attention_bwd_simt"}
     idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in off_path]
     if idle:
         raise AssertionError(f"kernels of the main path never launched: {idle}")

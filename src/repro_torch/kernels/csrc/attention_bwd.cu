@@ -1,4 +1,7 @@
-// K10's backward for Hopper: dq, dk and dv of the forward's attention.
+// K10's backward for Hopper on the CUDA cores: dq, dk and dv of the
+// forward's attention for fp32, and for bf16 at head widths that are not
+// multiples of 16 (kernels/flash_attention.py:bwd_route; bf16 at widths of
+// 16 n takes the tensor-core design, csrc/attention_bwd_wgmma.cu).
 //
 // Replaces no Pallas kernel: the JAX package differentiates the model's
 // jnp attention (src/repro/models/attention.py:84 blockwise_attention)
@@ -43,8 +46,8 @@
 // cores (67 TFLOP/s of fp32 fused multiply-adds at best), with two
 // shared-memory loads per two fused multiply-adds in the dK/dV/dQ
 // products, so it is bound by shared-memory bandwidth and the CUDA-core
-// rate, not by the bytes it moves. A tensor-core (wgmma) redesign is later
-// work (ROADMAP.md queue 2).
+// rate, not by the bytes it moves. The tensor-core design for bf16 is
+// csrc/attention_bwd_wgmma.cu.
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes

@@ -4,9 +4,10 @@ counts.
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:70
 flash_attention`` and stands behind the port's ``blockwise_attention``
 (``models/attention.py``), which the model calls. The forward kernels
-are CUDA C++ in ``csrc/attention.cu``, the backward in
-``csrc/attention_bwd.cu`` (each header states what bounds it on the
-card), built by ``build.py`` and called through ctypes. They take the
+are CUDA C++ in ``csrc/attention.cu``, the backward's in
+``csrc/attention_bwd_wgmma.cu`` and ``csrc/attention_bwd.cu`` (each
+header states what bounds it on the card), built by ``build.py`` and
+called through ctypes. They take the
 scale and the query offset of ``repro/models/attention.py:84
 blockwise_attention`` and mask ragged tiles, so every call of the
 model's function on the card runs them.
@@ -22,8 +23,18 @@ log-sum-exp, its backward the backward kernel (``flash_attention_bwd``);
 any other call launches the forward alone. The wrapper takes the plain
 version (``ref.flash_attention_ref``, differentiable by autograd) only
 for tensors on the CPU. ``FWD_LAUNCHES`` counts every forward launch,
-``WGMMA_LAUNCHES`` and ``SIMT_LAUNCHES`` those of each route,
-``BWD_LAUNCHES`` the backward's calls (three kernels each).
+``WGMMA_LAUNCHES`` and ``SIMT_LAUNCHES`` those of each route.
+
+The backward has two routes by the same kind of fixed rule
+(``bwd_route``): bf16 with D and Dv multiples of 16 and every tensor
+contiguous and 16-byte aligned goes to the tensor-core design
+(``csrc/attention_bwd_wgmma.cu``: TMA-fed wgmma products, P and dS kept
+fp32 as two bf16 terms, one warpgroup a block of 64 keys for dK and dV,
+of 64 query rows for dQ); everything else (fp32, other widths) to the
+CUDA-core design (``csrc/attention_bwd.cu``). Each is three launches a
+call (the rows' di, dK/dV, dQ), sums in one fixed order, no atomics.
+``BWD_LAUNCHES`` counts the backward's calls, ``BWD_WGMMA_LAUNCHES`` and
+``BWD_SIMT_LAUNCHES`` those of each route.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ FWD_LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 SIMT_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_WGMMA_LAUNCHES = 0
+BWD_SIMT_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -68,6 +81,15 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P]
     lib.flash_attention_bwd.restype = _I
+    return lib
+
+
+@functools.cache
+def _bwd_wgmma_lib() -> ctypes.CDLL:
+    lib = build.load("attention_bwd_wgmma")
+    lib.flash_attention_bwd_wgmma.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P]
+    lib.flash_attention_bwd_wgmma.restype = _I
     return lib
 
 
@@ -111,6 +133,19 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     D, Dv = q.shape[-1], v.shape[-1]
     if (q.dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              do: torch.Tensor) -> str:
+    """The backward a call on the card takes: "wgmma" (tensor cores) for
+    bf16 with D and Dv multiples of 16 and q, k, v, o and do contiguous
+    and 16-byte aligned, else "simt" (CUDA cores)."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    tensors = (q, k, v, o, do)
+    if (all(t.dtype == torch.bfloat16 for t in tensors) and D % 16 == 0 and Dv % 16 == 0
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors)):
         return "wgmma"
     return "simt"
 
@@ -180,9 +215,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
                         logit_softcap: float = 0.0, q_offset: int = 0, scale=None):
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v) from its output
     ``o``, its log-sum-exp ``lse`` and the output's cotangent ``do``, each
-    in its input's dtype. One call of the backward kernel on the card (three
-    launches), ``ref.flash_attention_bwd_ref`` on the CPU."""
-    global BWD_LAUNCHES
+    in its input's dtype. One call of the backward on the card (three
+    launches) on the route ``bwd_route`` picks, ``ref.flash_attention_bwd_ref``
+    on the CPU."""
+    global BWD_LAUNCHES, BWD_WGMMA_LAUNCHES, BWD_SIMT_LAUNCHES
     _check_shapes(q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if not check_devices("flash_attention_bwd", q, k, v, o, lse, do):
@@ -198,13 +234,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)} and "
                          f"lse {tuple(lse.shape)} {lse.dtype} do not fit q, k and v")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check_launch(_bwd_lib().flash_attention_bwd(
-        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        di.data_ptr(), B, Sq, Sk, H, Kv, D, Dv, scale, int(bool(causal)), int(window or 0),
-        float(logit_softcap), int(q_offset), stream), "flash_attention_bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    args = (B, Sq, Sk, H, Kv, D, Dv, scale, int(bool(causal)), int(window or 0),
+            float(logit_softcap), int(q_offset), stream)
+    if bwd_route(q, k, v, o, do) == "wgmma":
+        # the rows' lse log2(e) and di, each padded to whole tiles of 64 rows
+        scratch = torch.empty(2 * B * H * -(-Sq // 64) * 64, dtype=torch.float32,
+                              device=q.device)
+        build.check_launch(_bwd_wgmma_lib().flash_attention_bwd_wgmma(
+            *ptrs, scratch.data_ptr(), *args), "flash_attention_bwd_wgmma")
+        BWD_WGMMA_LAUNCHES += 1
+    else:
+        di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        build.check_launch(_bwd_lib().flash_attention_bwd(
+            DTYPE_CODES[q.dtype], *ptrs, di.data_ptr(), *args), "flash_attention_bwd")
+        BWD_SIMT_LAUNCHES += 1
     BWD_LAUNCHES += 1
     return dq, dk, dv
 

@@ -128,6 +128,8 @@ GRAD_SHAPES = [  # B, Sq, Sk, H, Kv, D, Dv, causal, window, softcap, q_offset, s
     (2, 19, 45, 6, 2, 32, 24, True, 9, 20.0, 26, 0.1),        # window, softcap, q_offset
     (1, 12, 20, 2, 1, 8, 8, False, 5, 0.0, 0, None),          # window, not causal
     (1, 6, 10, 2, 2, 8, 8, True, None, 0.0, -3, None),        # rows 0-2: no valid key (F5)
+    (2, 40, 40, 8, 2, 128, 128, True, None, 0.0, 0, None),    # qwen3-8b's head layout, small
+    (1, 29, 53, 4, 2, 64, 48, True, 16, 30.0, 11, None),      # D != Dv, window, softcap, ragged
 ]
 # fp32: sums over Sk and D in another order; bf16: the gradients rounded to
 # bf16 on both sides (the fp32 sums agree to ~1e-6)
@@ -390,6 +392,43 @@ def test_k10_route_is_a_fixed_rule(dtype, D, Dv, want):
     if want == "wgmma":  # a view 2 bytes into its storage is not aligned
         flat = torch.zeros(q.numel() + 1, dtype=dtype)
         assert K10.route(flat[1:].view(q.shape), k, v) == "simt"
+
+
+BWD_ROUTES = [  # dtype, D, Dv, which input is made misaligned or non-contiguous, route
+    (torch.bfloat16, 64, 64, None, "wgmma"),
+    (torch.bfloat16, 128, 128, None, "wgmma"),
+    (torch.bfloat16, 64, 48, None, "wgmma"),
+    (torch.bfloat16, 16, 16, None, "wgmma"),
+    (torch.bfloat16, 24, 24, None, "simt"),
+    (torch.bfloat16, 64, 40, None, "simt"),
+    (torch.float32, 64, 64, None, "simt"),
+    (torch.bfloat16, 64, 64, "misaligned q", "simt"),
+    (torch.bfloat16, 64, 64, "misaligned o", "simt"),
+    (torch.bfloat16, 64, 64, "non-contiguous do", "simt"),
+    (torch.bfloat16, 64, 64, "non-contiguous k", "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,D,Dv,fault,want", BWD_ROUTES, ids=str)
+def test_k10_bwd_route_is_a_fixed_rule(dtype, D, Dv, fault, want):
+    """The backward's rule: bf16 with D and Dv multiples of 16 and q, k, v,
+    o and do contiguous and 16-byte aligned take the tensor cores; fp32,
+    other widths, and any input misaligned or not contiguous the CUDA
+    cores."""
+    B, S, H, Kv = 1, 4, 2, 2
+    shapes = {"q": (B, S, H, D), "k": (B, S, Kv, D), "v": (B, S, Kv, Dv), "o": (B, S, H, Dv),
+              "do": (B, S, H, Dv)}
+    ts = {n: torch.zeros(sh, dtype=dtype) for n, sh in shapes.items()}
+    if fault is not None:
+        kind, name = fault.split()
+        sh = shapes[name]
+        if kind == "misaligned":  # a view 2 bytes into its storage
+            flat = torch.zeros(int(np.prod(sh)) + 1, dtype=dtype)
+            ts[name] = flat[1:].view(sh)
+        else:  # the same shape, heads and rows swapped in memory
+            ts[name] = torch.zeros(sh[0], sh[2], sh[1], sh[3], dtype=dtype).transpose(1, 2)
+        assert ts[name].data_ptr() % 16 != 0 or not ts[name].is_contiguous()
+    assert K10.bwd_route(*ts.values()) == want
 
 
 # ------------------------------------------------------------------ layers
