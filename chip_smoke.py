@@ -105,7 +105,11 @@ Phases, each printed as it ends:
    encdec-tiny, FVN on) on the card (K10's CUDA-core route and its
    backward, exact launches) and on the CPU under each dispatch; the
    latency model's arrival times from keys on the card bitwise the CPU's,
-   and XLA's exp restated (ref.xla_exp_f32) the same on both;
+   and XLA's exp restated (ref.xla_exp_f32) the same on both; one FedAvg
+   round (K=4, b=4, 2 local steps, FVN on) of each of the reference's
+   lm-transformer, lm-moe and keyword tasks on the card and on the CPU,
+   held to each other (the transformers' K10 on its CUDA-core routes, 2
+   forward launches and 2 backward calls a client step);
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -172,6 +176,21 @@ Phases, each printed as it ends:
    4), one round profiled (busy share), and the first round again with
    K10's forward and backward swapped for their plain versions on the
    card, its loss within WHISPER_LOSS_RTOL;
+   and, run first of all the phases after the build (its 68 GB peak on an
+   80 GB H100 needs an allocator the other phases have not fragmented),
+   qwen3-8b trained
+   at full width and 4 of its 36 layers
+   (2,016,449,536 bf16 parameters, random from a seed) through the
+   training entry point on a corpus at its vocabulary (label rows of 128
+   tokens over 151,936 word-pieces): two FedAvg rounds (K=4, b=4, 2 local
+   steps, FVN 0.01) with exact launches a client step (K10's forward 4 on
+   flash_attention_wgmma_kernel<2, 128> and its backward 4 on the <2, 2>
+   kernels, the normal kernel 1), round times, examples per second, peak
+   memory, the perplexity evaluation, one round profiled (device time by
+   kernel, busy share), and the first round again on the plain attention
+   within QWEN_LOSS_RTOL; then the trained model served: B=4 prompts of
+   128 tokens, prefill (K10 4), 32 greedy decode steps (K11 4 each), each
+   step's logits held to a teacher-forced forward within QWEN_SERVE_TOL;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it; and one more K2 round with the host's Python
@@ -4201,6 +4220,334 @@ def phase_whisper_train(torch):
     return trained
 
 
+# the tiny LM and keyword rounds of phase 4: K=4 clients, b=4, data limit 8
+# (2 local steps), FVN 0.01, server SGD at lr 1, card against CPU from the
+# same parameters and batch; the loss to TINY_LM_LOSS_RTOL relative, the
+# aggregated delta to TINY_LM_DELTA_ATOL (fp32 sums in other orders: the
+# card's K10 and cuBLAS against the CPU's plain versions)
+TINY_LM_TASKS = ("lm-transformer", "lm-moe", "keyword")
+TINY_LM_LOSS_RTOL = 1e-4
+TINY_LM_DELTA_ATOL = 1e-5
+
+
+def phase_tiny_lm_rounds(torch):
+    """One FedAvg round of each of the reference's container-scale LM,
+    MoE LM and keyword tasks (fp32, FVN on) on the card and on the CPU from
+    the same parameters and batch: the loss and the aggregated delta agree.
+    On the card each transformer task's attention runs K10's CUDA-core
+    route (fp32) and its CUDA-core backward, one launch and one call a
+    layer a client step; the keyword task launches no attention; every task
+    launches the normal kernel once a client step."""
+    from repro_torch.core.engine import build_round_engine
+    from repro_torch.core.plan import FederatedPlan, FVNConfig
+    from repro_torch.core.task import get_task
+    from repro_torch.data import FederatedSampler
+
+    K, b, limit = 4, 4, 8
+    plan = FederatedPlan(clients_per_round=K, local_batch_size=b, data_limit=limit,
+                         client_lr=0.05, server_optimizer="sgd", server_lr=1.0,
+                         fvn=FVNConfig(enabled=True, std=0.01))
+    for name in TINY_LM_TASKS:
+        task = get_task(name)
+        params = task.init_params(torch.Generator().manual_seed(0))
+        rb = FederatedSampler(task.make_corpus(0), K, b, data_limit=limit, seed=0).next_round()
+        batch = rb.engine_batch()
+        steps = K * rb.mask.shape[1]
+        layers = getattr(task.config, "n_layers", 0)
+        out = {}
+        for device in ("cuda", "cpu"):
+            p = {k: v.to(device) for k, v in params.items()}
+            engine = build_round_engine(plan, task, seed=1)
+            _zero_counts()
+            state, metrics = engine.step(engine.init_state(p),
+                                         {k: torch.from_numpy(v).to(device)
+                                          for k, v in batch.items()})
+            if device == "cuda":
+                torch.cuda.synchronize()
+                counts = _counts()
+                _check_attn(f"[tiny {name} round]",
+                            {**_k10(layers * steps, "simt", bwd=layers * steps),
+                             "flash_decode": 0})
+                if counts["threefry_normal"] != steps:
+                    raise AssertionError(f"[tiny {name} round] normal kernel launches "
+                                         f"{counts['threefry_normal']}, expected {steps}")
+            out[device] = (metrics["loss"], {k: (p[k] - state.params[k]).cpu() for k in p})
+        (loss_c, delta_c), (loss_h, delta_h) = out["cuda"], out["cpu"]
+        if not math.isclose(loss_c, loss_h, rel_tol=TINY_LM_LOSS_RTOL):
+            raise AssertionError(f"[tiny {name} round] loss cuda {loss_c} vs cpu {loss_h}")
+        err = max(float((delta_c[k] - delta_h[k]).abs().max()) for k in delta_c)
+        moved = max(float(d.abs().max()) for d in delta_h.values())
+        if err > TINY_LM_DELTA_ATOL or not moved > 0:
+            raise AssertionError(f"[tiny {name} round] aggregated delta differs by {err:.2e} "
+                                 f"(> {TINY_LM_DELTA_ATOL}) or is 0 ({moved:.2e})")
+        log(f"[tiny {name} round] loss cuda {loss_c:.6f} cpu {loss_h:.6f} (rtol "
+            f"{TINY_LM_LOSS_RTOL}); aggregated delta max|err| {err:.2e} (atol "
+            f"{TINY_LM_DELTA_ATOL}, delta up to {moved:.2e}); launches a client step over "
+            f"{steps} client steps: K10 forward {layers} on the CUDA-core route (fp32), K10 "
+            f"backward {layers} on the CUDA-core route, normal kernel 1")
+
+
+# qwen3-8b's federated training in phase 5: K=4 clients, b=4, 2 local steps
+# (data limit 8) over 128-token label rows, FVN std 0.01, two rounds, then
+# the perplexity evaluation on QWEN_EVAL_EXAMPLES examples of each split.
+# The server's Adam at an LM's learning rate, 1e-5: at launch/train.py's
+# default of 0.01 (the RNN-T's), the warm-up's second step alone moves every
+# weight by up to about 0.005, a third of the projections' init std
+# (4096 ** -0.5), and the evaluation's loss passed the perplexity clip (exp 20)
+QWEN_ARGV = ["--task", "qwen3-8b", "--clients", "4", "--batch", "4", "--data-limit", "8",
+             "--fvn-std", "0.01", "--server-lr", "1e-5", "--eval-every", "0"]
+QWEN_EVAL_EXAMPLES = 64
+QWEN_PARAMS = 2_016_449_536
+# the first round's loss on the kernels against the same round with K10's
+# forward and backward swapped for their plain versions on the card: bf16
+# attention outputs an ulp apart in a few entries, carried through 4 layers
+# and a local SGD step
+QWEN_LOSS_RTOL = 1e-3
+# K10's template instantiations at qwen3-8b's head width (D = Dv = 128): the
+# forward's <ND, DV> and the backward's <ND, NV> (64-column regions)
+QWEN_K10 = ("flash_attention_wgmma_kernel<2, 128>", "fa_bwd_dkdv_wgmma_kernel<2, 2>",
+            "fa_bwd_dq_wgmma_kernel<2, 2>")
+# the serve: B=4 prompts of 128 tokens (eval-split label rows), prefill, the
+# cache grown to 160 slots, 32 greedy decode steps; each step's logits held to
+# a teacher-forced forward over prompt and generated tokens at QWEN_SERVE_TOL
+# of the largest logit (K11 against K10, one token against 160 in each
+# product, bf16 through 4 layers)
+QWEN_SERVE_B, QWEN_PROMPT, QWEN_STEPS = 4, 128, 32
+QWEN_SERVE_TOL = 5e-2
+
+
+def phase_qwen_train(torch):
+    """qwen3-8b at full width and 4 of its 36 layers (2,016,449,536 bf16
+    parameters, random from a seed) trained through the training entry
+    point on a corpus at its vocabulary (``qwen_width_corpus``: label rows
+    of 128 tokens over 151,936 word-pieces; its build timed): two FedAvg
+    rounds (K=4, b=4, 2 local steps, FVN 0.01) with exact launches a client
+    step (K10's forward 4 and its backward 4, on the tensor cores; the
+    normal kernel 1, over the 14 bf16 leaves), round times, client examples
+    per second and peak memory; the final perplexity evaluation
+    (QWEN_EVAL_EXAMPLES of each split, K10 4 each); one more round under
+    torch.profiler (device time by kernel, busy share, K10's
+    instantiations QWEN_K10); the first round again with K10's forward and
+    backward swapped for their plain versions on the card (no K10 launch),
+    its loss within QWEN_LOSS_RTOL of the kernels'. The perplexity must be
+    below its clip (exp 20). Returns (the training rounds' launch counts,
+    the trained parameters, the corpus)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.task import get_task
+    from repro_torch.launch import train
+
+    task = get_task("qwen3-8b")
+    cfg, rounds, L = task.config, 2, task.config.n_layers
+    tag = "[qwen3-8b train]"
+    t0 = time.perf_counter()
+    corpus = task.make_corpus(0)
+    build_s = time.perf_counter() - t0
+    log(f"{tag} corpus built in {build_s:.1f} s: token codebook {corpus.codebook.nbytes} B, "
+        f"labels {tuple(corpus.arena_labels.shape)} ({int(corpus.counts.sum())} utterances, "
+        f"U={corpus.u_max}, vocab {corpus.cfg.vocab_size})")
+    args = train.parse_args(QWEN_ARGV + ["--rounds", str(rounds)])
+    plan = train.build_plan(args)
+    marks = []
+
+    def after_round(line):
+        log(f"{tag} {line}")
+        torch.cuda.synchronize()
+        marks.append((_counts(), torch.cuda.max_memory_allocated()))
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_counts()
+    state, hist = train.run_federated(task, corpus, plan, rounds, seed=0, device="cuda",
+                                      eval_every=0, eval_examples=QWEN_EVAL_EXAMPLES,
+                                      log=after_round)
+    torch.cuda.synchronize()
+    total, eval_peak = _counts(), torch.cuda.max_memory_allocated()
+    trained, train_peak = marks[-1]
+    evaluated = {k: total[k] - trained[k] for k in total}
+    steps = args.clients * hist["local_steps"] * rounds
+    want = {k: 0 for k in total}
+    want.update(_k10(L * steps, bwd=L * steps), threefry_normal=steps)
+    if trained != want:
+        raise AssertionError(f"{tag} launches over the training rounds {trained}, expected "
+                             f"{want} ({steps} client steps)")
+    want_eval = {k: 0 for k in total}
+    want_eval.update(_k10(2 * L))
+    if evaluated != want_eval:
+        raise AssertionError(f"{tag} launches over the evaluation {evaluated}, expected "
+                             f"{want_eval}")
+    ppl = (hist["quality"], hist["quality_hard"])
+    if not all(math.isfinite(x) for x in hist["loss"]) or hist["quality_metric"] != "ppl" or \
+            not all(1.0 <= x < math.exp(20.0) for x in ppl) or \
+            hist["n_params"] != QWEN_PARAMS:
+        raise AssertionError(f"{tag} losses {hist['loss']}, {hist['quality_metric']} {ppl}, "
+                             f"{hist['n_params']} parameters")
+    params = {k: v.detach() for k, v in state.params.items()}
+    del state
+    torch.cuda.synchronize()
+
+    args1 = train.parse_args(QWEN_ARGV + ["--rounds", "1"])
+    # each run's state (parameters, the server's Adam moments) is dropped as
+    # it returns: two would not fit on the card beside the next run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+        hist_prof = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
+                                        device="cuda", eval_every=0, eval_examples=0,
+                                        log=lambda line: None)[1]
+        torch.cuda.synchronize()
+    by_name = _device_times(torch, prof)
+    _log_profile(tag, by_name, hist["round_s"][-1], hist_prof["round_s"][0])
+    if by_name:
+        round_steps = steps // rounds
+        k10 = {n: c for n, (_, c) in by_name.items()
+               if "flash_attention" in n or ("fa_bwd_" in n and "wgmma" in n)}
+        want_k10 = {inst: L * round_steps for inst in QWEN_K10}
+        got_k10 = {inst: sum(c for n, c in k10.items() if inst in n) for inst in QWEN_K10}
+        if got_k10 != want_k10 or sum(k10.values()) != sum(want_k10.values()):
+            raise AssertionError(f"{tag} K10's kernels in the profiled round {k10}, expected "
+                                 f"{want_k10}")
+        log(f"{tag} K10 in the profiled round by instantiation: "
+            + ", ".join(f"{inst} {c} ({c // round_steps} a client step, "
+                        f"{sum(t for n, (t, _) in by_name.items() if inst in n) / 1e3:.3f} ms)"
+                        for inst, c in got_k10.items()))
+    _zero_counts()
+    with _plain_attention_on_card():
+        hist_plain = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
+                                         device="cuda", eval_every=0, eval_examples=0,
+                                         log=lambda line: None)[1]
+    torch.cuda.synchronize()
+    plain_k10 = {k: v for k, v in _counts().items() if k.startswith("flash_attention") and v}
+    loss_k, loss_p = hist["loss"][0], hist_plain["loss"][0]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    if plain_k10 or rel > QWEN_LOSS_RTOL:
+        raise AssertionError(f"{tag} first-round loss on K10 {loss_k} against the plain "
+                             f"attention on the card {loss_p}: relative gap {rel:.3e} (tol "
+                             f"{QWEN_LOSS_RTOL}); K10 launches in the plain run {plain_k10}")
+    per_s = [e / t for e, t in zip(hist["examples"], hist["round_s"])]
+    log(f"{tag} {hist['n_params']} parameters ({cfg.pdtype}) in {len(params)} leaves, "
+        f"K={args.clients} b={args.batch} {hist['local_steps']} local steps over "
+        f"{corpus.u_max}-token rows, FVN {args.fvn_std}: losses {hist['loss']}; ms per round "
+        f"{[round(t * 1e3, 1) for t in hist['round_s']]}; client examples per second {per_s}; "
+        f"peak memory over the training rounds {train_peak} B ({held} B allocated before "
+        f"them), over the evaluation too {eval_peak} B")
+    log(f"{tag} launches per client step over {steps} client steps: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in trained.items() if v))
+    log(f"{tag} final evaluation (n = {QWEN_EVAL_EXAMPLES} examples of each split): "
+        f"{hist['eval_s'] * 1e3:.1f} ms, perplexity {ppl[0]:.2f} clean, {ppl[1]:.2f} hard; "
+        f"launches {({k: v for k, v in evaluated.items() if v})}")
+    log(f"{tag} first-round loss on K10 {loss_k} vs K10's plain versions on the card {loss_p}: "
+        f"relative gap {rel:.3e} (tol {QWEN_LOSS_RTOL}), no K10 launch in the plain run; "
+        f"its round {hist_plain['round_s'][0] * 1e3:.1f} ms against the kernels' last "
+        f"{hist['round_s'][-1] * 1e3:.1f} ms")
+    return trained, params, corpus
+
+
+def phase_qwen_serve(torch, params: dict, corpus):
+    """The trained qwen3-8b served through the model bundle on the card:
+    B=4 prompts of 128 tokens (label rows of the eval split), ``prefill``,
+    the cache copied into ``init_cache(B, 160)`` (F6), 32 greedy
+    ``decode_step``s. Exact launches (K10 4 in prefill, on the tensor cores;
+    K11 4 a step), times and peak memory; prefill and 10 decode steps again
+    under torch.profiler; every step's logits (prefill's last and the 32
+    decode steps') held to a teacher-forced forward over prompt and
+    generated tokens (K10 4) at QWEN_SERVE_TOL, the share of equal argmaxes
+    printed. Returns the serve's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.task import get_task
+    from repro_torch.models import model_zoo, transformer
+
+    cfg = get_task("qwen3-8b").config
+    bundle = model_zoo.build_model(cfg)
+    L, total = cfg.n_layers, QWEN_PROMPT + QWEN_STEPS
+    prompt = torch.from_numpy(corpus.eval_split(QWEN_SERVE_B)["labels"][:, :QWEN_PROMPT]).to(
+        "cuda", torch.long)
+    tag = "[qwen3-8b serve]"
+
+    def serve():
+        logits, cache = bundle.prefill(params, {"tokens": prompt})
+        full = bundle.init_cache(QWEN_SERVE_B, total)
+        for name in ("k", "v"):
+            full["layers"][name][:, :, :QWEN_PROMPT].copy_(cache["layers"][name])
+        return logits, full
+
+    with torch.no_grad():
+        logits, cache = serve()  # warm-up: cuBLAS handles, allocator pools
+        bundle.decode_step(params, cache, logits.argmax(-1, keepdim=True), QWEN_PROMPT)
+        del cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = serve()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        _check_attn(f"{tag} prefill", {**_k10(L), "flash_decode": 0})
+        steps, fed = [logits], []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(QWEN_STEPS):
+            fed.append(steps[-1].argmax(-1, keepdim=True))
+            logits, cache = bundle.decode_step(params, cache, fed[-1], QWEN_PROMPT + i)
+            steps.append(logits)
+        end.record()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = _attn_counts()
+        peak = torch.cuda.max_memory_allocated()
+        _check_attn(f"{tag} prefill + {QWEN_STEPS} decode steps",
+                    {**_k10(L), "flash_decode": L * QWEN_STEPS})
+        del cache
+
+        windows = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+            t0 = time.perf_counter()
+            out, cache = serve()
+            torch.cuda.synchronize()
+            windows["prefill"] = (prof, prefill_s, time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(10):
+                out, cache = bundle.decode_step(params, cache, out.argmax(-1, keepdim=True),
+                                                QWEN_PROMPT + i)
+            torch.cuda.synchronize()
+            windows["10 decode steps"] = (prof, 10 * decode_s / QWEN_STEPS,
+                                          time.perf_counter() - t0)
+        del cache, out
+        for what, (prof, wall, wall_prof) in windows.items():
+            _log_profile(tag, _device_times(torch, prof), wall, wall_prof, what=what)
+
+        tokens = torch.cat([prompt, *fed], dim=1)                  # (B, 160)
+        _zero_counts()
+        h, _ = transformer.forward(cfg, params, tokens)
+        _check_attn(f"{tag} teacher-forced forward", {**_k10(L), "flash_decode": 0})
+        tf = transformer.unembed(cfg, params, h[:, QWEN_PROMPT - 1:]).transpose(0, 1)
+        dec = torch.stack(steps)                                   # (33, B, V)
+        if dec.shape != tf.shape or not torch.isfinite(dec).all():
+            raise AssertionError(f"{tag} decode logits {tuple(dec.shape)} are not finite or "
+                                 f"not shaped as the teacher-forced {tuple(tf.shape)}")
+        err = _rel(torch, dec, tf)
+        same = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
+        if err > QWEN_SERVE_TOL:
+            raise AssertionError(f"{tag} decode logits against the teacher-forced forward: "
+                                 f"relative error {err:.3e} > {QWEN_SERVE_TOL}")
+        checked, n_pos = _margin_agrees(torch, dec, tf, QWEN_SERVE_TOL)
+    log(f"{tag} B={QWEN_SERVE_B}, {QWEN_PROMPT}-token prompts, {QWEN_STEPS} greedy steps: "
+        f"prefill (with the cache copy to {total} slots) {prefill_s * 1e3:.2f} ms, decode "
+        f"{decode_s * 1e3 / QWEN_STEPS:.3f} ms per token on the host clock "
+        f"({start.elapsed_time(end) / QWEN_STEPS:.3f} ms between CUDA events), "
+        f"{QWEN_SERVE_B * QWEN_STEPS / decode_s:.1f} tokens/s; peak memory over prefill and "
+        f"decode {peak} B, {peak - held} B above the {held} B allocated before it; launches "
+        f"K10 {launches['flash_attention']} (tensor cores {launches['flash_attention_wgmma']}), "
+        f"K11 {launches['flash_decode']} ({L} a step)")
+    log(f"{tag} decode vs the teacher-forced forward over {tokens.shape[1]} tokens ({L} K10 "
+        f"launches): logits relative error {err:.3e} (tol {QWEN_SERVE_TOL}); argmax equal at "
+        f"{same:.4f} of the {n_pos} positions; greedy tokens agree at {checked} of {n_pos} "
+        f"positions with a clear margin")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4222,6 +4569,16 @@ def main() -> int:
     tuner.set_registry(tuner.TuningRegistry(path=str(ROOT / "build" / "chip_smoke_tuning.json")))
     phase_build()
     mark("build")
+    # qwen3-8b first: its rounds allocate and free tensors of many sizes up to
+    # 2.5 GB at a peak of about 68 GB on an 80 GB H100, which fits an
+    # allocator that no earlier phase has fragmented (after them, 19 GB of
+    # that card stayed reserved in split blocks and a 2.5 GB request failed)
+    qwen_launches, qwen_params, qwen_corpus = phase_qwen_train(torch)
+    mark("qwen3-8b training")
+    qwen_serve_launches = phase_qwen_serve(torch, qwen_params, qwen_corpus)
+    del qwen_params, qwen_corpus
+    torch.cuda.empty_cache()
+    mark("qwen3-8b serve")
     rows = phase_kernels(torch)
     rows.update(phase_joint_kernels(torch))
     rows.update(phase_scan_kernels(torch))
@@ -4245,6 +4602,7 @@ def main() -> int:
     phase_tiny_slowpath(torch)
     phase_tiny_encdec(torch)
     phase_tiny_ladder(torch)
+    phase_tiny_lm_rounds(torch)
     mark("tiny phases")
     round_s_chunked = phase_paper_width(torch, False, "ref")[1]
     k1_launches, round_s_loop, loss_loop, _ = phase_paper_width(torch, True, "ref")
@@ -4299,6 +4657,7 @@ def main() -> int:
     mark("whisper-base serve")
     train_launches = phase_whisper_train(torch)
     mark("whisper-base training")
+
     phase_profile(torch, round_s_chunked, False, "ref")
     phase_profile(torch, round_s_loop, True, "ref")
     phase_profile(torch, round_s_scan, True, "auto")
@@ -4307,17 +4666,20 @@ def main() -> int:
     mark("profiles")
     phase_autotune(torch)
     mark("autotune")
+    log(f"[time] the script's total time: {time.perf_counter() - t0:.1f} s")
 
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3, K4 and the
     # normal kernel (FVN) under 'auto'; K5-K9 in the compressed and
     # slow-path runs (their launches summed); K10 and K11 in the
-    # whisper-base serve; K10's backward in the whisper-base training
+    # whisper-base and qwen3-8b serves and trainings, K10's backward in the
+    # two trainings (each path's launches summed)
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
-    launches.update(attn_launches)
+    for name in ("flash_attention_wgmma", "flash_attention_simt", "flash_decode"):
+        launches[name] = attn_launches[name] + qwen_serve_launches[name] + qwen_launches[name]
     for name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_simt"):
-        launches[name] = train_launches[name]
+        launches[name] = train_launches[name] + qwen_launches[name]
     gates, scan, joint, wire, attn, normal = (
         "src/repro_torch/kernels/csrc/" + f for f in
         ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu", "wire_pack.cu", "attention.cu",

@@ -12,7 +12,8 @@ curves move only because the model moved) and measures each round
   as the reference's vmap over the client axis);
 - ``client_quality``: (C,) the task's metric of each client
   (``FederatedTask.client_quality``): WER through one greedy decode over
-  the panel for the RNN-T, clipped perplexity for the enc-dec.
+  the panel for the RNN-T, clipped perplexity for the enc-dec and the
+  language models, the weighted error rate for the keyword classifier.
 
 ``fairness_spread`` reduces the last round's panel to the summary
 schema's fields (p10/p90/gap of loss and quality, ``clients_tracked``;

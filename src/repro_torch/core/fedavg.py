@@ -206,6 +206,9 @@ def _client_update(loss_fn: Callable, client_opt: Optimizer, sigma: Optional[flo
         p = apply_updates(p, updates)
         losses.append(loss.detach())
         ns.append(step_batch["weight"].sum())
+        # the step's perturbed copy, gradients and updates, freed before the
+        # next step's and before the delta (at a 2 G-parameter model, 16 GB)
+        del p_eval, leaves, grads, updates
     delta = {k: params[k].float() - p[k].float() for k in params}
     losses, ns = torch.stack(losses), torch.stack(ns)
     step_mask = (ns > 0).float()

@@ -15,7 +15,12 @@ and its evaluation hooks, all chosen by the model's kind
 - ``audio`` (the enc-dec): ``features`` read as precomputed frame
   embeddings and ``labels`` as the tokens (``_encdec_adapt``, ``:118``);
   perplexity, exp of the loss clipped at ``_PPL_CLIP`` (``_ppl_evaluate``
-  ``:166``, ``_ppl_client_quality`` ``:207``).
+  ``:166``, ``_ppl_client_quality`` ``:207``);
+- ``dense`` and ``moe`` (the decoder-only transformer): ``labels`` read
+  as the tokens (``_lm_adapt``, ``:112``; the label rows' padding zeros
+  are trained on too, as in the reference); perplexity as the enc-dec's;
+- ``keyword``: the engine layout as it is; the classification error rate
+  (``_err_evaluate`` ``:183``, ``_err_client_quality`` ``:218``).
 
 ``client_loss`` is the per-client evaluation plane's loss of each tracked
 client (``core/clienteval.py``), as the reference's ``vmap(loss_fn)``
@@ -32,9 +37,16 @@ over the panel's clients. The registry (``register_task``,
   shared corpus, whose 16 feature bins are its d_model;
 - ``whisper-base``: the enc-dec at whisper-base's full width
   (``configs/whisper_base.py``, bf16 parameters) on a corpus whose frames
-  are d_model wide (``whisper_width_corpus``).
+  are d_model wide (``whisper_width_corpus``);
+- ``lm-transformer``, ``lm-moe`` and ``keyword``: the reference's
+  container-scale LM, MoE LM and keyword classifier (``:396-460``) on the
+  shared corpus;
+- ``qwen3-8b``: qwen3-8b at full width and 4 of its 36 layers
+  (``configs/qwen3_8b.py``, bf16 parameters) on a corpus at its vocabulary
+  (``qwen_width_corpus``).
 
-Every other model kind is ROADMAP.md's M8 and has no adapter yet.
+The ``ssm`` and ``hybrid`` kinds are ROADMAP.md's M8 and have no adapter
+yet.
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ import torch
 from repro_torch.asr.specaugment import SpecAugmentConfig
 from repro_torch.asr.wer import wer
 from repro_torch.data import make_speaker_corpus
-from repro_torch.models import encdec, rnnt
+from repro_torch.models import encdec, keyword, rnnt
 from repro_torch.models.model_zoo import ModelBundle, build_model
 
 # Caps exp(loss) so an early-training evaluation can't overflow to inf.
@@ -77,6 +89,12 @@ def _client_slice(batch: dict, c: int, device) -> dict:
 # ------------------------------------------------------- batch adapters
 
 
+def _lm_adapt(batch: dict) -> dict:
+    """LM models read the word-piece label sequence as tokens: the
+    per-speaker vocabulary skew makes it non-IID text."""
+    return {"tokens": batch["labels"], "weight": batch.get("weight")}
+
+
 def _encdec_adapt(batch: dict) -> dict:
     """The enc-dec (Whisper-style) consumes precomputed frame embeddings:
     the corpus's feature width is its d_model."""
@@ -88,8 +106,8 @@ def _encdec_adapt(batch: dict) -> dict:
 
 
 def _ppl_evaluate(loss_fn: Callable) -> Callable:
-    """Enc-dec evaluation: the clipped perplexity of the task loss over
-    the eval splits."""
+    """LM and enc-dec evaluation: the clipped perplexity of the task loss
+    over the eval splits."""
     def one(params: dict, ev: dict) -> float:
         with torch.no_grad():
             loss = float(loss_fn(params, _eval_batch(ev, _device_of(params)))[0])
@@ -102,9 +120,9 @@ def _ppl_evaluate(loss_fn: Callable) -> Callable:
     return evaluate
 
 
-def _ppl_client_loss(loss_fn: Callable) -> Callable:
+def _client_loss(loss_fn: Callable) -> Callable:
     """(C,) the task loss of each tracked client, one forward a client:
-    its token-weighted loss over its own examples, as the reference's
+    its weighted loss over its own examples, as the reference's
     ``vmap(loss_fn)`` over the client axis computes it."""
     def client_loss(params: dict, batch: dict) -> np.ndarray:
         device = _device_of(params)
@@ -118,10 +136,45 @@ def _ppl_client_loss(loss_fn: Callable) -> Callable:
 
 def _ppl_client_quality(loss_fn: Callable) -> Callable:
     """(C,) clipped perplexity of each tracked client."""
-    client_loss = _ppl_client_loss(loss_fn)
+    client_loss = _client_loss(loss_fn)
 
     def client_quality(params: dict, batch: dict) -> np.ndarray:
         return np.exp(np.minimum(client_loss(params, batch), _PPL_CLIP))
+
+    return client_quality
+
+
+def _err_evaluate(cfg: keyword.KeywordConfig) -> Callable:
+    """Keyword evaluation: the classification error rate of the pooled MLP
+    on ``n`` examples of the clean and the hard eval split."""
+    def one(params: dict, ev: dict) -> float:
+        device = _device_of(params)
+        with torch.no_grad():
+            pred = keyword.predict(cfg, params, torch.from_numpy(ev["features"]).to(device),
+                                   torch.from_numpy(ev["frame_len"]).to(device))
+        return float(np.mean(pred.cpu().numpy() != ev["labels"][:, 0]))
+
+    def evaluate(params: dict, corpus, n: int = 64) -> dict:
+        return {"quality": one(params, corpus.eval_split(n)),
+                "quality_hard": one(params, corpus.eval_split(n, hard=True))}
+
+    return evaluate
+
+
+def _err_client_quality(cfg: keyword.KeywordConfig) -> Callable:
+    """(C,) the weighted classification error of each tracked client: one
+    forward over the flattened C·n panel."""
+    def client_quality(params: dict, batch: dict) -> np.ndarray:
+        C, n = batch["weight"].shape
+        device = _device_of(params)
+        flat = {k: torch.from_numpy(np.ascontiguousarray(v.reshape((C * n,) + v.shape[2:])))
+                .to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = keyword.forward(cfg, params, flat["features"], flat["frame_len"])
+        hit = (logits.argmax(dim=-1) == keyword.class_of(flat)).float().reshape(C, n)
+        w = flat["weight"].reshape(C, n)
+        err = 1.0 - (hit * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
+        return err.cpu().double().numpy()
 
     return client_quality
 
@@ -194,11 +247,14 @@ def _wer_client_quality(cfg: rnnt.RNNTConfig) -> Callable:
 # ------------------------------------------------------------ dispatch
 
 # ModelBundle kind -> (quality metric, batch adapter); None adapter: the
-# model consumes the engine layout as it is. The reference's LM, MoE, SSM,
-# hybrid and keyword kinds come with their models (M8).
+# model consumes the engine layout as it is. The reference's SSM and
+# hybrid kinds come with their models (M8).
 _KIND_ADAPTERS = {
     "rnnt": ("wer", None),
     "audio": ("ppl", _encdec_adapt),
+    "dense": ("ppl", _lm_adapt),
+    "moe": ("ppl", _lm_adapt),
+    "keyword": ("err", None),
 }
 
 
@@ -222,7 +278,7 @@ class FederatedTask:
 
     @property
     def quality_metric(self) -> str:
-        """What "quality" means in the summary: "wer" or "ppl"."""
+        """What "quality" means in the summary: "wer", "ppl" or "err"."""
         return self._adapter[0]
 
     @property
@@ -259,8 +315,12 @@ class FederatedTask:
             return {"evaluate": _wer_evaluate(self.config),
                     "client_loss": _wer_client_loss(self.loss_fn),
                     "client_quality": _wer_client_quality(self.config)}
+        if self.quality_metric == "err":
+            return {"evaluate": _err_evaluate(self.config),
+                    "client_loss": _client_loss(self.loss_fn),
+                    "client_quality": _err_client_quality(self.config)}
         return {"evaluate": _ppl_evaluate(self.loss_fn),
-                "client_loss": _ppl_client_loss(self.loss_fn),
+                "client_loss": _client_loss(self.loss_fn),
                 "client_quality": _ppl_client_quality(self.loss_fn)}
 
     def evaluate(self, params: dict, corpus, n: int = 64) -> dict:
@@ -337,6 +397,18 @@ WHISPER_CORPUS = dict(num_speakers=16, vocab_size=51865, feat_dim=512, max_label
 def whisper_width_corpus(seed: int = 0):
     """A corpus at whisper-base's widths (``WHISPER_CORPUS``)."""
     return make_speaker_corpus(**WHISPER_CORPUS, seed=seed)
+
+
+# qwen3-8b's vocabulary: 151,936 word-pieces, labels up to 128 tokens (the
+# LM's sequences), 16 feature bins (the LM reads only the labels, so the
+# token codebook stays 19,447,808 B on the host)
+QWEN_CORPUS = dict(num_speakers=16, vocab_size=151936, feat_dim=16, max_label_len=128,
+                   mean_utterances=12.0)
+
+
+def qwen_width_corpus(seed: int = 0):
+    """A corpus at qwen3-8b's vocabulary (``QWEN_CORPUS``)."""
+    return make_speaker_corpus(**QWEN_CORPUS, seed=seed)
 
 
 def tiny_rnnt_config() -> rnnt.RNNTConfig:
@@ -422,3 +494,57 @@ def _whisper_base_task(seed: int = 0) -> FederatedTask:
 
     return task_for_config(whisper_base.make_config(), name=whisper_base.ARCH_ID,
                            make_corpus=whisper_width_corpus)
+
+
+def tiny_lm_config():
+    """The reference's ``lm-tiny`` (``repro/core/task.py:399-411``)."""
+    from repro_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        name="lm-tiny", n_layers=2, d_model=32, n_heads=2, n_kv=2, head_dim=16, d_ff=64,
+        vocab=64, dtype="float32", loss_chunk=12,
+    )
+
+
+def tiny_moe_config():
+    """The reference's ``moe-tiny`` (``repro/core/task.py:419-432``)."""
+    from repro_torch.models.moe import MoEConfig
+
+    return dataclasses.replace(
+        tiny_lm_config(), name="moe-tiny",
+        moe=MoEConfig(n_experts=4, top_k=2, expert_ff=32, capacity_factor=2.0))
+
+
+@register_task("lm-transformer")
+def _lm_transformer_task(seed: int = 0) -> FederatedTask:
+    """A two-layer dense LM reading the corpus's label sequences."""
+    return task_for_config(tiny_lm_config(), name="lm-transformer")
+
+
+@register_task("lm-moe")
+def _lm_moe_task(seed: int = 0) -> FederatedTask:
+    """The same LM with a 4-expert top-2 MoE in place of each MLP."""
+    return task_for_config(tiny_moe_config(), name="lm-moe")
+
+
+@register_task("keyword")
+def _keyword_task(seed: int = 0) -> FederatedTask:
+    """The million-client CI workload: about 10k parameters."""
+    return task_for_config(
+        keyword.KeywordConfig(name="keyword-tiny", feat_dim=16, n_classes=64, hidden=64),
+        name="keyword")
+
+
+@register_task("qwen3-8b")
+def _qwen3_8b_task(seed: int = 0) -> FederatedTask:
+    """qwen3-8b at full width (d_model 4,096, 32 query heads on 8 kv heads
+    of 128, d_ff 12,288, vocab 151,936, qk_norm, bf16 parameters) and 4 of
+    its 36 layers: 2,016,449,536 parameters. Depth is the cut because a
+    round keeps the parameters, the server's fp32 Adam moments, the fp32
+    mean delta and one client's copies, perturbed copy, gradients and fp32
+    updates and delta on the card: its peak was 68.3 GB at 4 layers on an
+    80 GB H100, and at about 24 B a parameter 36 layers need about 197 GB."""
+    from repro_torch.configs import qwen3_8b
+
+    return task_for_config(qwen3_8b.make_config(n_layers=4), name=qwen3_8b.ARCH_ID,
+                           make_corpus=qwen_width_corpus)

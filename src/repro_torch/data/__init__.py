@@ -3,6 +3,7 @@ from repro_torch.data.corpus import CorpusConfig, SpeakerCorpus, make_speaker_co
 from repro_torch.data.pipeline import (FederatedSampler, RoundBatch, pack_round,
                                        per_client_eval_batch)
 from repro_torch.data.strategies import available_strategies, get_strategy, register_strategy
+from repro_torch.data.synthetic import synthetic_lm_batch, synthetic_lm_clients
 
 __all__ = [
     "CorpusConfig",
@@ -15,4 +16,6 @@ __all__ = [
     "available_strategies",
     "get_strategy",
     "register_strategy",
+    "synthetic_lm_batch",
+    "synthetic_lm_clients",
 ]

@@ -57,7 +57,7 @@ from repro_torch.core.corruption import CorruptionConfig
 from repro_torch.core.metrics import SPREAD_KEYS, summary_row
 from repro_torch.core.plan import (AggregatorConfig, AsyncConfig, CohortConfig, FederatedPlan,
                                    FVNConfig)
-from repro_torch.core.task import FederatedTask, default_corpus, get_task, scaled_task
+from repro_torch.core.task import FederatedTask, get_task, scaled_task
 from repro_torch.data import FederatedSampler
 from repro_torch.launch.train import (FederatedRun, federated_rounds, resolve_device,
                                       summary_fields)
@@ -76,7 +76,8 @@ class SweepPoint:
 
 
 class SweepRunner:
-    """Runs SweepPoints one after another on one task and one corpus.
+    """Runs SweepPoints one after another on one task and one corpus (the
+    task's own, ``task.make_corpus(seed)``, unless the caller gives one).
 
     ``pad_steps=True`` pads every point of a grid to the grid's largest
     local-step count with weight-0 steps, exact no-ops under the engine's
@@ -90,7 +91,7 @@ class SweepRunner:
                  client_eval_examples: int = 4, device: Optional[str] = None):
         task = task if task is not None else get_task("asr-rnnt")
         self.task = task
-        self.corpus = corpus if corpus is not None else default_corpus(seed)
+        self.corpus = corpus if corpus is not None else task.make_corpus(seed)
         self.eval_examples = eval_examples
         self.pad_steps = pad_steps
         self.client_eval = client_eval

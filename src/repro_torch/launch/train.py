@@ -1,18 +1,24 @@
 """Federated training driver of the port (the paper's experiment loop).
 
 Runs FedAvg rounds of a registered task (``core/task.py``: the RNN-T,
-the paper's model, or the Whisper-style enc-dec) on the synthetic
-speaker-split corpus with the paper's knobs (data limit, FVN, server LR
-schedule) and CFMQ accounting, on the CUDA card unless the caller asks
-for the CPU, and ends, as ``repro/launch/train.py`` does, with the task's
-evaluation on the clean and hard eval splits: greedy decoding and WER
-for the RNN-T, perplexity for the enc-dec.
+the paper's model, the Whisper-style enc-dec, the decoder-only and MoE
+language models, qwen3-8b at full width, or the keyword classifier) on
+the synthetic speaker-split corpus with the paper's knobs (data limit,
+FVN, server LR schedule) and CFMQ accounting, on the CUDA card unless the
+caller asks for the CPU, and ends, as ``repro/launch/train.py`` does, with
+the task's evaluation on the clean and hard eval splits: greedy decoding
+and WER for the RNN-T, perplexity for the enc-dec and the language
+models, the classification error for the keyword task.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --task asr-rnnt --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --task asr-encdec --rounds 4
-    PYTHONPATH=src python -m repro_torch.launch.train --task whisper-base --rounds 2 \
+    PYTHONPATH=src python -m repro_torch.launch.train --task whisper-base --rounds 2 \\
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01 --eval-every 0
+    PYTHONPATH=src python -m repro_torch.launch.train --task lm-moe --rounds 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --task keyword --rounds 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --task qwen3-8b --rounds 2 \\
+        --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01 --server-lr 1e-5 --eval-every 0
     PYTHONPATH=src python -m repro_torch.launch.train --preset arch --rounds 2 \\
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
@@ -28,7 +34,7 @@ Usage:
         --engine async --buffer-size 3 --staleness-beta 0.5 --client-eval 6
 
 The history is a summary row of ``core/metrics.py``'s schema (the task's
-metric, WER or perplexity, as ``quality``/``quality_hard`` and named in
+metric, WER, perplexity or error rate, as ``quality``/``quality_hard`` and named in
 ``quality_metric``), with the per-round curves as extras. A
 task whose config has ``use_kernel=True`` runs its joint through the
 fused joint kernels. With ``--compression {int8,int4,topk}`` the uplink

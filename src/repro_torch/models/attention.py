@@ -37,13 +37,13 @@ class AttnConfig:
 
 
 def attn_init(generator: torch.Generator, cfg: AttnConfig,
-              dtype: torch.dtype = torch.float32) -> dict:
+              dtype: torch.dtype = torch.float32, device=None) -> dict:
     H, Kv, D, M = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.d_model
-    p = {"wq": dense_init(generator, M, H * D, dtype),
-         "wk": dense_init(generator, M, Kv * D, dtype),
-         "wv": dense_init(generator, M, Kv * D, dtype),
-         "wo": dense_init(generator, H * D, M, dtype)}
-    dev = generator.device
+    dev = generator.device if device is None else device
+    p = {"wq": dense_init(generator, M, H * D, dtype, device=dev),
+         "wk": dense_init(generator, M, Kv * D, dtype, device=dev),
+         "wv": dense_init(generator, M, Kv * D, dtype, device=dev),
+         "wo": dense_init(generator, H * D, M, dtype, device=dev)}
     if cfg.use_bias:
         for name, n in (("bq", H * D), ("bk", Kv * D), ("bv", Kv * D)):
             p[name] = torch.zeros((n,), dtype=dtype, device=dev)

@@ -24,15 +24,18 @@ from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               dtype: torch.dtype = torch.float32, scale: float | None = None):
+               dtype: torch.dtype = torch.float32, scale: float | None = None, device=None):
+    """``device`` None: the generator's (``"meta"`` gives the shapes alone)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator, device=generator.device)
+    w = torch.randn((d_in, d_out), generator=generator,
+                    device=generator.device if device is None else device)
     return (w * scale).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
-               dtype: torch.dtype = torch.float32, scale: float = 1.0):
-    w = torch.randn((vocab, d), generator=generator, device=generator.device)
+               dtype: torch.dtype = torch.float32, scale: float = 1.0, device=None):
+    w = torch.randn((vocab, d), generator=generator,
+                    device=generator.device if device is None else device)
     return (w * (scale / math.sqrt(d))).to(dtype)
 
 
@@ -118,11 +121,11 @@ def sinusoidal_positions(length: int, d: int, device=None):
 # ---------------------------------------------------------------- mlp
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, gated: bool = True,
-             dtype: torch.dtype = torch.float32) -> dict:
-    p = {"w_up": dense_init(generator, d_model, d_ff, dtype),
-         "w_down": dense_init(generator, d_ff, d_model, dtype)}
+             dtype: torch.dtype = torch.float32, device=None) -> dict:
+    p = {"w_up": dense_init(generator, d_model, d_ff, dtype, device=device),
+         "w_down": dense_init(generator, d_ff, d_model, dtype, device=device)}
     if gated:
-        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype)
+        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype, device=device)
     return p
 
 

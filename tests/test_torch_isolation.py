@@ -55,3 +55,10 @@ def test_no_jax_and_no_reference_package(path):
                                     "examples/noniid_tradeoff.py", "core/task.py"])
 def test_the_example_twins_and_the_task_registry_are_walked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["models/transformer.py", "models/moe.py",
+                                    "models/keyword.py", "configs/qwen3_8b.py",
+                                    "data/synthetic.py"])
+def test_the_language_model_tasks_are_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
