@@ -16,9 +16,10 @@ and its evaluation hooks, all chosen by the model's kind
   embeddings and ``labels`` as the tokens (``_encdec_adapt``, ``:118``);
   perplexity, exp of the loss clipped at ``_PPL_CLIP`` (``_ppl_evaluate``
   ``:166``, ``_ppl_client_quality`` ``:207``);
-- ``dense`` and ``moe`` (the decoder-only transformer): ``labels`` read
-  as the tokens (``_lm_adapt``, ``:112``; the label rows' padding zeros
-  are trained on too, as in the reference); perplexity as the enc-dec's;
+- ``dense`` and ``moe`` (the decoder-only transformer), ``ssm`` (the
+  RWKV-6 stack) and ``hybrid`` (the Zamba2 hybrid): ``labels`` read as the
+  tokens (``_lm_adapt``, ``:112``; the label rows' padding zeros are
+  trained on too, as in the reference); perplexity as the enc-dec's;
 - ``keyword``: the engine layout as it is; the classification error rate
   (``_err_evaluate`` ``:183``, ``_err_client_quality`` ``:218``).
 
@@ -43,10 +44,15 @@ over the panel's clients. The registry (``register_task``,
   shared corpus;
 - ``qwen3-8b``: qwen3-8b at full width and 4 of its 36 layers
   (``configs/qwen3_8b.py``, bf16 parameters) on a corpus at its vocabulary
-  (``qwen_width_corpus``).
-
-The ``ssm`` and ``hybrid`` kinds are ROADMAP.md's M8 and have no adapter
-yet.
+  (``qwen_width_corpus``);
+- ``lm-rwkv``: the reference's container-scale RWKV-6 LM (``rwkv-tiny``,
+  ``:436-449``) on the shared corpus;
+- ``rwkv6-1.6b``: rwkv6-1.6b at its full published size, all 24 layers
+  (``configs/rwkv6_1p6b.py``, bf16 parameters), on a corpus at its
+  vocabulary (``rwkv_width_corpus``);
+- ``zamba2-7b``: zamba2-7b at full width and 7 of its 81 Mamba2 layers
+  (``configs/zamba2_7b.py``, bf16 parameters), on a corpus at its
+  vocabulary (``zamba_width_corpus``).
 """
 
 from __future__ import annotations
@@ -247,13 +253,15 @@ def _wer_client_quality(cfg: rnnt.RNNTConfig) -> Callable:
 # ------------------------------------------------------------ dispatch
 
 # ModelBundle kind -> (quality metric, batch adapter); None adapter: the
-# model consumes the engine layout as it is. The reference's SSM and
-# hybrid kinds come with their models (M8).
+# model consumes the engine layout as it is. The reference's vlm kind comes
+# with its model (M8).
 _KIND_ADAPTERS = {
     "rnnt": ("wer", None),
     "audio": ("ppl", _encdec_adapt),
     "dense": ("ppl", _lm_adapt),
     "moe": ("ppl", _lm_adapt),
+    "ssm": ("ppl", _lm_adapt),
+    "hybrid": ("ppl", _lm_adapt),
     "keyword": ("err", None),
 }
 
@@ -411,6 +419,22 @@ def qwen_width_corpus(seed: int = 0):
     return make_speaker_corpus(**QWEN_CORPUS, seed=seed)
 
 
+# rwkv6-1.6b's and zamba2-7b's vocabularies (65,536 and 32,000 word-pieces),
+# shaped as QWEN_CORPUS: 128-token label rows, 16 feature bins
+RWKV_CORPUS = dict(QWEN_CORPUS, vocab_size=65536)
+ZAMBA_CORPUS = dict(QWEN_CORPUS, vocab_size=32000)
+
+
+def rwkv_width_corpus(seed: int = 0):
+    """A corpus at rwkv6-1.6b's vocabulary (``RWKV_CORPUS``)."""
+    return make_speaker_corpus(**RWKV_CORPUS, seed=seed)
+
+
+def zamba_width_corpus(seed: int = 0):
+    """A corpus at zamba2-7b's vocabulary (``ZAMBA_CORPUS``)."""
+    return make_speaker_corpus(**ZAMBA_CORPUS, seed=seed)
+
+
 def tiny_rnnt_config() -> rnnt.RNNTConfig:
     return rnnt.RNNTConfig(
         name="rnnt-tiny",
@@ -548,3 +572,47 @@ def _qwen3_8b_task(seed: int = 0) -> FederatedTask:
 
     return task_for_config(qwen3_8b.make_config(n_layers=4), name=qwen3_8b.ARCH_ID,
                            make_corpus=qwen_width_corpus)
+
+
+def tiny_rwkv_config():
+    """The reference's ``rwkv-tiny`` (``repro/core/task.py:438-447``)."""
+    from repro_torch.models.model_zoo import RWKVModelConfig
+    from repro_torch.models.rwkv import RWKVConfig
+
+    return RWKVModelConfig(name="rwkv-tiny", n_layers=2,
+                           rwkv=RWKVConfig(d_model=32, head_size=16, d_ff=64), vocab=64,
+                           dtype="float32", loss_chunk=12)
+
+
+@register_task("lm-rwkv")
+def _lm_rwkv_task(seed: int = 0) -> FederatedTask:
+    """A two-layer RWKV-6 LM reading the corpus's label sequences."""
+    return task_for_config(tiny_rwkv_config(), name="lm-rwkv")
+
+
+@register_task("rwkv6-1.6b")
+def _rwkv6_1p6b_task(seed: int = 0) -> FederatedTask:
+    """rwkv6-1.6b at its full published size (24 layers, d_model 2,048 in
+    32 heads of 64, d_ff 7,168, vocab 65,536, bf16 parameters):
+    1,584,091,136 parameters."""
+    from repro_torch.configs import rwkv6_1p6b
+
+    return task_for_config(rwkv6_1p6b.make_config(), name=rwkv6_1p6b.ARCH_ID,
+                           make_corpus=rwkv_width_corpus)
+
+
+@register_task("zamba2-7b")
+def _zamba2_7b_task(seed: int = 0) -> FederatedTask:
+    """zamba2-7b at full width (d_model 3,584, 112 SSM heads of 64 with
+    state 64, the shared block's 32 heads of 112 and d_ff 14,336, vocab
+    32,000, bf16 parameters) and 7 of its 81 Mamba2 layers: one group of 6
+    and a tail of 1, so the shared block runs twice, on both code paths;
+    980,754,096 parameters. Depth is the cut because a round keeps the
+    parameters, the server's fp32 Adam moments and mean delta and one
+    client's copies on the card: its round peaked at 32,009,919,488 B at 7
+    layers on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5), about 33 B a
+    parameter, so all 81 layers' 6,751,130,832 need about 220 GB."""
+    from repro_torch.configs import zamba2_7b
+
+    return task_for_config(zamba2_7b.make_config(n_layers=7), name=zamba2_7b.ARCH_ID,
+                           make_corpus=zamba_width_corpus)

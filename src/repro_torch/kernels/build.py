@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("lstm_gates", "lstm_scan", "rnnt_joint", "wire_pack", "attention",
-           "attention_bwd", "attention_bwd_wgmma", "threefry_normal")
+           "attention_bwd", "attention_bwd_wgmma", "threefry_normal", "wkv6", "ssm_scan")
 # libraries whose entry points are PyTorch operators: the C++ file that
 # registers them, built beside csrc/<name>.cu
 OP_SOURCES = {"lstm_gates": "lstm_gates_op.cpp"}

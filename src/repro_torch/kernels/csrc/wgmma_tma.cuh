@@ -296,10 +296,19 @@ EncodeTiled encode_tiled() {
 
 // A contiguous (B, S, heads, width) bf16 tensor as TMA reads it: boxes of
 // 64 columns x 1 head x 64 rows, 128-byte swizzled, zero fill past every
-// edge. Returns 0, or the negated CUresult of the encoding.
+// edge. Returns 0, or the negated CUresult of the encoding. The encoding is
+// a driver call and needs a current context: cudaSetDevice makes the
+// device's primary context current on this thread (a thread on which no
+// runtime call has run yet, such as autograd's device thread when K10's
+// backward is its first CUDA work, has none: the encoding then returned
+// CUDA_ERROR_INVALID_CONTEXT).
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int width) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(width) * 2;

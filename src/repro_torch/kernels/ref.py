@@ -825,3 +825,127 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *, window=None, ring: bool = 
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     out = (p @ vf) / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
     return out.reshape(B, H, Dv).to(q.dtype)
+
+
+# ------------------------------------------------------------------ recurrences
+# K12 (WKV-6) and K13 (Mamba2's scan): the reference's scan steps
+# (``repro/models/rwkv.py:126-131``, ``repro/models/ssm.py:110-116``), one
+# step at a time over (B, S, H, ...) fp32 inputs. The forward keeps the
+# state at the start of every ``chunk`` steps (the checkpoints, as the
+# reference's 64-step checkpointed chunks); the backward replays each chunk
+# from its checkpoint and walks it back, as the kernels do, so the plain
+# backward is the kernels' algorithm written out.
+
+
+def _n_chunks(S: int, chunk: int) -> int:
+    return -(-S // chunk)
+
+
+def wkv6_fwd_ref(r, k, v, w, u, S0=None, chunk: int = 64):
+    """r, k, v, w (B, S, H, P), u (H, P), S0 (B, H, P, P) or None (zeros)
+    -> (y (B, S, H, P), S_T (B, H, P, P), checkpoints (B, H, n, P, P)):
+    y_t = r_t (S_{t-1} + diag(u) k_t v_tᵀ), S_t = diag(w_t) S_{t-1} + k_t
+    v_tᵀ, the state's rows the key dim; the checkpoints are S at t = 0,
+    chunk, 2·chunk, ..."""
+    B, S, H, P = r.shape
+    state = torch.zeros((B, H, P, P), dtype=r.dtype, device=r.device) if S0 is None else S0
+    ys, ckpts = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            ckpts.append(state)
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]                      # (B, H, P, P)
+        ys.append(torch.einsum("bhp,bhpq->bhq", r[:, t], state + u[None, :, :, None] * kv))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1), state, torch.stack(ckpts, dim=2)
+
+
+def wkv6_bwd_ref(r, k, v, w, u, ckpts, dy, dS_T=None, chunk: int = 64):
+    """The gradients of ``wkv6_fwd_ref``'s (y, S_T) from its checkpoints:
+    (dr, dk, dv, dw (B, S, H, P), du (H, P), dS0 (B, H, P, P)). With G the
+    cotangent of S_t, walking back: dr = (S_{t-1} + diag(u) k vᵀ) dy, dk =
+    G v + r u (dy·v), dv = Gᵀ k + (Σ r u k) dy, dw = rowsum(G ∘ S_{t-1}),
+    du += r k (dy·v), then G ← diag(w) G + r dyᵀ. du sums over the steps
+    (last first) of each batch row, then over the rows in order."""
+    B, S, H, P = r.shape
+    G = torch.zeros((B, H, P, P), dtype=r.dtype, device=r.device) if dS_T is None else dS_T
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_rows = torch.zeros((B, H, P), dtype=r.dtype, device=r.device)
+    for c in reversed(range(_n_chunks(S, chunk))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        states, state = [], ckpts[:, :, c]
+        for t in range(t0, t1):
+            states.append(state)
+            state = w[:, t, :, :, None] * state + k[:, t, :, :, None] * v[:, t, :, None, :]
+        for t in reversed(range(t0, t1)):
+            prev = states[t - t0]
+            r_t, k_t, v_t, w_t, dy_t = r[:, t], k[:, t], v[:, t], w[:, t], dy[:, t]
+            dyv = (dy_t * v_t).sum(-1, keepdim=True)                       # (B, H, 1)
+            kv = k_t[..., :, None] * v_t[..., None, :]
+            dr[:, t] = torch.einsum("bhpq,bhq->bhp", prev + u[None, :, :, None] * kv, dy_t)
+            dk[:, t] = torch.einsum("bhpq,bhq->bhp", G, v_t) + r_t * u * dyv
+            rku = (r_t * u * k_t).sum(-1, keepdim=True)
+            dv[:, t] = torch.einsum("bhpq,bhp->bhq", G, k_t) + rku * dy_t
+            dw[:, t] = (G * prev).sum(-1)
+            du_rows = du_rows + r_t * k_t * dyv
+            G = w_t[..., :, None] * G + r_t[..., :, None] * dy_t[..., None, :]
+    du = du_rows[0]
+    for b in range(1, B):
+        du = du + du_rows[b]
+    return dr, dk, dv, dw, du, G
+
+
+def ssm_scan_fwd_ref(x, dt, a, Bm, Cm, h0=None, chunk: int = 64):
+    """x (B, S, H, P), dt and the decay a = exp(dt·A) (B, S, H), Bm, Cm
+    (B, S, N), h0 (B, H, P, N) or None (zeros) -> (y (B, S, H, P), h_T,
+    checkpoints (B, H, n, P, N)): h_t = a_t h_{t-1} + (dt_t x_t) ⊗ B_t,
+    y_t = h_t C_t; the checkpoints are h at t = 0, chunk, ..."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device) if h0 is None else h0
+    ys, ckpts = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            ckpts.append(h)
+        h = h * a[:, t, :, None, None] \
+            + (dt[:, t, :, None] * x[:, t])[..., None] * Bm[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h, torch.stack(ckpts, dim=2)
+
+
+def ssm_scan_bwd_ref(x, dt, a, Bm, Cm, ckpts, dy, dh_T=None, chunk: int = 64):
+    """The gradients of ``ssm_scan_fwd_ref``'s (y, h_T) from its
+    checkpoints: (dx (B, S, H, P), ddt, da (B, S, H), dB, dC (B, S, N),
+    dh0 (B, H, P, N)). With G the cotangent of h_t (dy_t ⊗ C_t added
+    first), walking back: dC = Σ_h h_tᵀ dy, s = G B, dx = dt s, ddt = x·s,
+    dB = Σ_h Gᵀ (dt x), da = Σ G ∘ h_{t-1}, then G ← a G. dB and dC sum
+    the heads in order."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    G = torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device) if dh_T is None else dh_T
+    dx = torch.empty_like(x)
+    ddt, da = torch.empty_like(dt), torch.empty_like(a)
+    dB_heads = torch.empty((Bsz, S, H, N), dtype=x.dtype, device=x.device)
+    dC_heads = torch.empty_like(dB_heads)
+    for c in reversed(range(_n_chunks(S, chunk))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        states, h = [], ckpts[:, :, c]
+        for t in range(t0, t1):
+            states.append(h)
+            h = h * a[:, t, :, None, None] \
+                + (dt[:, t, :, None] * x[:, t])[..., None] * Bm[:, t, None, None, :]
+        for t in reversed(range(t0, t1)):
+            prev = states[t - t0]
+            xs = dt[:, t, :, None] * x[:, t]                                # (B, H, P)
+            cur = prev * a[:, t, :, None, None] + xs[..., None] * Bm[:, t, None, None, :]
+            dC_heads[:, t] = torch.einsum("bhpn,bhp->bhn", cur, dy[:, t])
+            G = G + dy[:, t, :, :, None] * Cm[:, t, None, None, :]
+            s = torch.einsum("bhpn,bn->bhp", G, Bm[:, t])
+            dx[:, t] = dt[:, t, :, None] * s
+            ddt[:, t] = (x[:, t] * s).sum(-1)
+            dB_heads[:, t] = torch.einsum("bhpn,bhp->bhn", G, xs)
+            da[:, t] = (G * prev).sum((-1, -2))
+            G = a[:, t, :, None, None] * G
+    dB, dC = dB_heads[:, :, 0], dC_heads[:, :, 0]
+    for h in range(1, H):
+        dB, dC = dB + dB_heads[:, :, h], dC + dC_heads[:, :, h]
+    return dx, ddt, da, dB, dC, G

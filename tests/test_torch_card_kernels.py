@@ -6,16 +6,24 @@ backward shapes, twice for the same bits. A CUDA kernel has no interpret
 mode: without a card these tests skip. They take the cases chip_smoke.py
 does not: at each normal edge the other dtype and another kind of scale
 than its ``normal_edges``, K7 at K = 2 (chip_smoke takes K = 3 and 4), and
-the backward on inputs drawn from other seeds.
+the backward on inputs drawn from other seeds. K12 (WKV-6) and K13
+(Mamba2's scan), forward and backward, against their plain versions at
+ragged lengths (one checkpoint chunk, two, and one step past two), from a
+zero and a given state, each head size the kernels take; each call twice
+for the same bits, the launch counts, the dispatch of the model's calls
+(the autograd Function under grad, the forward alone without) and the
+kernels' refusals (bf16, strided tensors, other head sizes).
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card_kernels.py
 """
+
+import threading
 
 import pytest
 import torch
 
 from repro_torch.core import keys
-from repro_torch.kernels import flash_attention, ref, threefry_normal, wire_pack
+from repro_torch.kernels import flash_attention, ref, ssm_scan, threefry_normal, wire_pack, wkv6
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +81,7 @@ K10_BWD_SHAPES = (
     ("gqa window softcap", 2, 333, 517, 8, 2, 96, 80, True, 100, 30.0, 184, 0.1),
     ("no valid key", 1, 40, 16, 2, 1, 16, 16, True, 4, 0.0, 0, None),
     ("qwen3-8b heads", 4, 128, 128, 32, 8, 128, 128, True, None, 0.0, 0, None),
+    ("zamba2-7b heads", 4, 128, 128, 32, 32, 112, 112, True, None, 0.0, 0, None),
 )
 # chip_smoke.py's ATTN_BWD_TOL for bf16: one bf16 ulp of the largest entry
 BWD_BF16_TOL = 8e-3
@@ -101,3 +110,130 @@ def test_k10_tensor_core_backward_is_its_plain_version_on_the_card(card, shape):
     assert torch.equal(got[0][:, dead], torch.zeros_like(got[0][:, dead]))
     again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# K12 and K13 in fp32 against their plain versions: the same products summed
+# in another order over up to 129 steps, relative to the largest entry
+SCAN_TOL = 2e-6
+
+
+def _err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 2, 16), (3, 128, 4, 32), (1, 129, 2, 64)],
+                         ids=["one-chunk", "two-chunks", "ragged"])
+@pytest.mark.parametrize("from_state", [False, True], ids=["zero", "state"])
+def test_k12_is_its_plain_version_on_the_card(card, shape, from_state):
+    B, S, H, P = shape
+    gen = torch.Generator(device=card).manual_seed(S * P + from_state)
+    r, k, v, dy = (torch.randn(shape, generator=gen, device=card) * 0.5 for _ in range(4))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=gen, device=card) * 0.5 - 1.0))
+    u = torch.randn((H, P), generator=gen, device=card) * 0.1
+    S0 = torch.randn((B, H, P, P), generator=gen, device=card) * 0.1 if from_state else None
+    dS = torch.randn((B, H, P, P), generator=gen, device=card) if from_state else None
+    f0, b0 = wkv6.FWD_LAUNCHES, wkv6.BWD_LAUNCHES
+    y, ST, ck = wkv6.wkv6_fwd(r, k, v, w, u, S0, checkpoints=True)
+    grads = wkv6.wkv6_bwd(r, k, v, w, u, ck, dy, dS)
+    torch.cuda.synchronize()
+    assert (wkv6.FWD_LAUNCHES, wkv6.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    want = ref.wkv6_fwd_ref(r, k, v, w, u, S0, wkv6.CHUNK)
+    for name, g, w_ in zip(("y", "S_T", "checkpoints"), (y, ST, ck), want):
+        assert _err(g, w_) <= SCAN_TOL, name
+    want = ref.wkv6_bwd_ref(r, k, v, w, u, want[2], dy, dS, wkv6.CHUNK)
+    for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "dS0"), grads, want):
+        assert g.shape == w_.shape and _err(g, w_) <= SCAN_TOL, name
+    again = wkv6.wkv6_bwd(r, k, v, w, u, ck, dy, dS)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+    assert torch.equal(wkv6.wkv6_fwd(r, k, v, w, u, S0)[0], y)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 3, 16, 16), (3, 128, 4, 32, 64),
+                                   (1, 129, 2, 64, 32)], ids=["one-chunk", "two-chunks", "ragged"])
+@pytest.mark.parametrize("from_state", [False, True], ids=["zero", "state"])
+def test_k13_is_its_plain_version_on_the_card(card, shape, from_state):
+    B, S, H, P, N = shape
+    gen = torch.Generator(device=card).manual_seed(S * N + P + from_state)
+    x, dy = (torch.randn((B, S, H, P), generator=gen, device=card) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=card) - 3.0)
+    a = torch.exp(dt * -torch.linspace(1.0, 16.0, H, device=card))
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device=card) for _ in range(2))
+    h0 = torch.randn((B, H, P, N), generator=gen, device=card) * 0.1 if from_state else None
+    dh = torch.randn((B, H, P, N), generator=gen, device=card) if from_state else None
+    f0, b0 = ssm_scan.FWD_LAUNCHES, ssm_scan.BWD_LAUNCHES
+    y, hT, ck = ssm_scan.ssm_scan_fwd(x, dt, a, Bm, Cm, h0, checkpoints=True)
+    grads = ssm_scan.ssm_scan_bwd(x, dt, a, Bm, Cm, ck, dy, dh)
+    torch.cuda.synchronize()
+    assert (ssm_scan.FWD_LAUNCHES, ssm_scan.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    want = ref.ssm_scan_fwd_ref(x, dt, a, Bm, Cm, h0, ssm_scan.CHUNK)
+    for name, g, w_ in zip(("y", "h_T", "checkpoints"), (y, hT, ck), want):
+        assert _err(g, w_) <= SCAN_TOL, name
+    want = ref.ssm_scan_bwd_ref(x, dt, a, Bm, Cm, want[2], dy, dh, ssm_scan.CHUNK)
+    for name, g, w_ in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), grads, want):
+        assert g.shape == w_.shape and _err(g, w_) <= SCAN_TOL, name
+    again = ssm_scan.ssm_scan_bwd(x, dt, a, Bm, Cm, ck, dy, dh)
+    assert all(torch.equal(p, g) for p, g in zip(again, grads))
+
+
+def test_k12_and_k13_dispatch_and_refusals_on_the_card(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    r = torch.randn((2, 8, 2, 16), generator=gen, device=card)
+    u = torch.zeros((2, 16), device=card)
+    x = torch.randn((2, 8, 2, 16), generator=gen, device=card)
+    dt = torch.rand((2, 8, 2), generator=gen, device=card)
+    Bm = torch.randn((2, 8, 16), generator=gen, device=card)
+    # the model's calls: the forward alone without grad, the Function with it
+    f12, b12, f13, b13 = (wkv6.FWD_LAUNCHES, wkv6.BWD_LAUNCHES, ssm_scan.FWD_LAUNCHES,
+                          ssm_scan.BWD_LAUNCHES)
+    with torch.no_grad():
+        wkv6.wkv6(r, r, r, r.sigmoid(), u)
+        ssm_scan.ssm_scan(x, dt, dt, Bm, Bm)
+    rg = r.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    wkv6.wkv6(rg, r, r, r.sigmoid(), u)[0].sum().backward()
+    ssm_scan.ssm_scan(xg, dt, dt, Bm, Bm)[0].sum().backward()
+    torch.cuda.synchronize()
+    assert (wkv6.FWD_LAUNCHES - f12, wkv6.BWD_LAUNCHES - b12) == (2, 1)
+    assert (ssm_scan.FWD_LAUNCHES - f13, ssm_scan.BWD_LAUNCHES - b13) == (2, 1)
+    assert torch.isfinite(rg.grad).all() and torch.isfinite(xg.grad).all()
+    with pytest.raises(TypeError, match="float32"):
+        wkv6.wkv6_fwd(r.bfloat16(), r.bfloat16(), r.bfloat16(), r.bfloat16(), u.bfloat16())
+    strided = r.transpose(0, 1).contiguous().transpose(0, 1)  # r's shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6.wkv6_fwd(strided, r, r, r, u)
+    r48 = torch.zeros((1, 2, 1, 48), device=card)
+    with pytest.raises(ValueError, match="P in"):
+        wkv6.wkv6_fwd(r48, r48, r48, r48, torch.zeros((1, 48), device=card))
+    with pytest.raises(TypeError, match="float32"):
+        ssm_scan.ssm_scan_fwd(x.bfloat16(), dt, dt, Bm, Bm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan.ssm_scan_fwd(x, dt, dt, Bm.transpose(0, 1).contiguous().transpose(0, 1), Bm)
+    with pytest.raises(ValueError, match="P and N in"):
+        ssm_scan.ssm_scan_fwd(x, dt, dt, Bm[..., :8].contiguous(), Bm[..., :8].contiguous())
+    with pytest.raises(ValueError, match="several devices"):
+        ssm_scan.ssm_scan_fwd(x, dt.cpu(), dt, Bm, Bm)
+
+
+def test_k10_tensor_core_backward_on_a_thread_with_no_cuda_work_yet(card):
+    """The TMA encoding is a driver call that needs a current context: on a
+    fresh thread (as autograd's device thread, when K10's backward is its
+    first CUDA work) it once failed with CUDA_ERROR_INVALID_CONTEXT."""
+    gen = torch.Generator(device=card).manual_seed(112)
+    q, k, v, do = (torch.randn((2, 64, 4, 112), generator=gen, device=card).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash_attention.flash_attention_fwd_lse(q, k, v)
+    want = flash_attention.flash_attention_bwd(q, k, v, o, lse, do)
+    out = {}
+
+    def work():
+        try:
+            out["grads"] = flash_attention.flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # reported below, on the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    assert all(torch.equal(g, w) for g, w in zip(out["grads"], want))

@@ -62,3 +62,10 @@ def test_the_example_twins_and_the_task_registry_are_walked(module):
                                     "data/synthetic.py"])
 def test_the_language_model_tasks_are_walked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["models/rwkv.py", "models/ssm.py", "models/hybrid.py",
+                                    "kernels/wkv6.py", "kernels/ssm_scan.py",
+                                    "configs/rwkv6_1p6b.py", "configs/zamba2_7b.py"])
+def test_the_recurrent_language_models_are_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

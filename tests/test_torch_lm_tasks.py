@@ -1,10 +1,11 @@
 """The port's language-model and keyword tasks against the JAX package's:
 the synthetic LM client data bit for bit, the registry's names, kinds and
 metrics, one FedAvg round (K = 2, one local step, FVN on) of
-``lm-transformer``, ``lm-moe`` and ``keyword`` against the reference's
-jitted ``build_round_engine(plan, get_task(name))`` with its quality
-evaluation after the round, the qwen3-8b task's config, and the port's
-parameter count at qwen3-8b's full width on the meta device. Every JAX
+``lm-transformer``, ``lm-moe``, ``lm-rwkv`` and ``keyword`` against the
+reference's jitted ``build_round_engine(plan, get_task(name))`` with its
+quality evaluation after the round, the qwen3-8b task's config, and the
+port's parameter count at qwen3-8b's full width on the meta device; the
+full-size rwkv6-1.6b and zamba2-7b tasks' kinds and corpora. Every JAX
 draw runs with the non-partitionable threefry (the pinned jax's default),
 set and restored around it."""
 
@@ -41,7 +42,7 @@ PARAM_TOL = 1e-5           # the server parameters, relative to each leaf's larg
 PPL_RTOL = 1e-5            # exp of a loss held to ROUND_LOSS_RTOL
 PLAN = dict(clients_per_round=K, local_batch_size=B, data_limit=LIMIT, client_lr=0.05,
             server_optimizer="sgd", server_lr=1.0)
-TASKS = ("keyword", "lm-moe", "lm-transformer")
+TASKS = ("keyword", "lm-moe", "lm-rwkv", "lm-transformer")
 QWEN_PARAMS = 2_016_449_536
 
 
@@ -73,6 +74,17 @@ def test_registry_names_kinds_and_metrics_are_the_references():
     qwen = get_task("qwen3-8b")
     assert (qwen.kind, qwen.quality_metric) == ("dense", "ppl")
     assert qwen.make_corpus is ttask.qwen_width_corpus
+    rwkv, zamba = get_task("rwkv6-1.6b"), get_task("zamba2-7b")
+    assert (rwkv.kind, rwkv.quality_metric, zamba.kind, zamba.quality_metric) == \
+        ("ssm", "ppl", "hybrid", "ppl")
+    assert (rwkv.make_corpus, zamba.make_corpus) == (ttask.rwkv_width_corpus,
+                                                     ttask.zamba_width_corpus)
+
+
+@pytest.mark.parametrize("spec,vocab", [("RWKV_CORPUS", 65536), ("ZAMBA_CORPUS", 32000)])
+def test_full_size_corpora_are_qwens_shape_at_their_vocabularies(spec, vocab):
+    assert getattr(ttask, spec) == {**ttask.QWEN_CORPUS, "vocab_size": vocab}
+    assert ttask.QWEN_CORPUS["max_label_len"] == 128
 
 
 def test_qwen3_configs_are_the_references_field_for_field():
