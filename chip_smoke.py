@@ -4620,7 +4620,7 @@ RWKV_RUN = LMRun(
 # <2, 112> and backward <2, 2> once an application of the shared block (2)
 ZAMBA_RUN = LMRun(
     task="zamba2-7b", argv=("--task", "zamba2-7b") + LM_ARGV, n_params=980_754_096,
-    insts={"ssm_scan_fwd_kernel<64>": 7, "ssm_scan_bwd_kernel<64>": 7,
+    insts={"ssm_scan_fwd_kernel<64>": 7, "ssm_scan_bwd_kernel<64, 64>": 7,
            "ssm_scan_bc_sum_kernel": 7, "flash_attention_wgmma_kernel<2, 112>": 2,
            "fa_bwd_dkdv_wgmma_kernel<2, 2>": 2, "fa_bwd_dq_wgmma_kernel<2, 2>": 2},
     plain=_plain_kernels_on_card, loss_rtol=1e-3, forward_rtol=1e-3)
@@ -5032,6 +5032,7 @@ def phase_recurrence_kernels(torch):
                              graph_ms(torch, lambda: bwd(*ins, out[2], dy, dstate), n),
                              cuda_ms(torch, lambda: bwd_ref(*ins, want[2], dy, dstate, K.CHUNK),
                                      plain_n))}
+            info = K12.bwd_info(P) if kind == "wkv6" else K13.bwd_info(P, N)
             log(f"[recurrence] {tag}: relative errors fwd "
                 + ", ".join(f"{e:.2e}" for e in errs[:3]) + "; bwd "
                 + ", ".join(f"{e:.2e}" for e in errs[3:])
@@ -5041,7 +5042,11 @@ def phase_recurrence_kernels(torch):
                 f"{f_bytes} B, {f_flops * entries} flop); backward "
                 f"{_us(times['backward'][0])} us eager, {_us(times['backward'][1])} us graph, "
                 f"plain {_us(times['backward'][2])} us, bound {b_bound * 1e3:.2f} us ({b_by}, "
-                f"{b_bytes} B, {b_flops * entries} flop); no single PyTorch call computes it")
+                f"{b_bytes} B, {b_flops * entries} flop); the backward's block "
+                f"{info['threads']} threads, {info['registers']} registers, "
+                f"{info['shared_bytes']} B shared, {info['blocks_per_sm']} an SM, "
+                f"{info['local_bytes']} B spilled, {B * H} blocks; no single PyTorch call "
+                "computes it")
             if name.endswith("train"):
                 for part, (bound_ms, by), idx in (("fwd", (f_bound, f_by), slice(0, 3)),
                                                   ("bwd", (b_bound, b_by), slice(3, None))):

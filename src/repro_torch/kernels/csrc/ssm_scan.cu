@@ -14,25 +14,39 @@
 // outside, and so is the D x_t skip. Inputs are fp32: x (B, S, H, P), dt
 // and a (B, S, H), Bm and Cm (B, S, N), shared by the heads, h0 and h_T
 // (B, H, P, N). The forward writes the state at the start of every `chunk`
-// steps (the checkpoints, (B, H, n, P, N)) when asked; the backward replays
-// each chunk from its checkpoint into a scratch of (B, H, chunk, P, N) and
-// walks it back.
+// steps (the checkpoints, (B, H, n, P, N)) when asked; the backward walks
+// each chunk back from its checkpoint.
 //
-// Design: one block per (b, h). The forward has P threads, thread p holding
-// row p of h in registers: y_t[p] is a sum over n in the thread, B_t and C_t
-// staged in shared memory. The backward has N threads, thread n holding
-// column n of h and of its cotangent G: dB and dC for the head are sums in
-// the thread, written per head and added over the heads in order by a second
-// launch (no atomics); s = G B_t (a sum over columns) goes through a padded
-// shared tile, summed in a fixed order, and gives dx and ddt; da and ddt are
-// summed over the block's threads by thread 0 in order.
+// Forward: one block per (b, h), P threads, thread p holding row p of h in
+// registers: y_t[p] is a sum over n in the thread, B_t and C_t staged in
+// shared memory. Bound on the card: its operations (5 flops a state entry a
+// step), 1.17 GFLOP at zamba2-7b's training shape; each step's latency (the
+// staged vectors, two barriers) binds this simple design.
 //
-// Bound on the card: the bytes (each input read once, each output written
-// once), a few tens of MB a layer at zamba2's width; the work is about
-// 4 P N flops a step per (b, h) forward. As K12, each step's latency (the
-// staged vectors, two to four barriers) bounds this simple design.
+// Backward (csrc/scan_bwd.cuh): one block per (b, h), N·P/8 threads,
+// thread (column n, lane g of the column's P/8 lanes) holding h[p][n] and
+// G[p][n] for 8 rows p. A chunk is replayed from its checkpoint in
+// sub-chunks of 8 steps: a forward pass keeps the state at each sub-chunk's
+// start in shared memory (the last one in registers), then each sub-chunk,
+// last first, is replayed into registers (with the state after its last
+// step) and walked back. No state leaves the chip. x, dy, B and C come a
+// sub-chunk at a time as TMA boxes on mbarriers, two sub-chunks ahead; a
+// and dt a chunk at a time. The column sums Gᵀ x, G ∘ h_{t-1} and
+// dC = h_tᵀ dy are added over the column's lanes, s = G B over the warp's
+// columns, by shuffle reduce-scatters; s's warp parts go through a shared
+// tile, added over the warps in a fixed order after each sub-chunk (one barrier a
+// sub-chunk), giving dx = dt s; dB = dt Gᵀ x, ddt = B·(Gᵀ x) and da are
+// the column sums' sums over n. dB and dC per head are added over the
+// heads in a fixed order by a second launch: no atomics, the same bits for the
+// same inputs. Bound on the card: its operations (14 flops a state entry
+// a step), 3.29 GFLOP at zamba2-7b's training shape against 53 MB. Its 448
+// blocks of 512 threads take 210,080 B of shared memory each, one an SM:
+// four rounds of the card's 132 SMs, the last 52 blocks long; each block
+// waits, as K12's, on its steps' shuffle chains.
 
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "scan_bwd.cuh"  // the backward's geometry, sums, slabs and sub-chunk order
 
 namespace {
 
@@ -77,111 +91,267 @@ __global__ void ssm_scan_fwd_kernel(const float* __restrict__ x, const float* __
   for (int n = 0; n < N; ++n) hrow[n] = hs[n];
 }
 
-template <int P>
-__global__ void ssm_scan_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
-    const float* __restrict__ Bm, const float* __restrict__ Cm, const float* __restrict__ ckpt,
-    const float* __restrict__ dy, const float* __restrict__ dhT, float* __restrict__ dx,
-    float* __restrict__ ddt, float* __restrict__ da, float* __restrict__ dB_heads,
-    float* __restrict__ dC_heads, float* __restrict__ dh0, float* __restrict__ scratch,
-    int S, int H, int N, int chunk) {
-  const int bh = blockIdx.x, b = bh / H, hd = bh % H, n = threadIdx.x;
-  const int n_ck = (S + chunk - 1) / chunk;
-  extern __shared__ float smem[];
-  float* sx = smem;              // x_t (P)
-  float* sdy = sx + P;           // dy_t (P)
-  float* ss = sdy + P;           // x_t[q] s[q] (P)
-  float* red = ss + P;           // each thread's part of da (N)
-  float* tile = red + N;         // tile[n][q] = G[q][n] B_t[n], rows P + 1 apart
-  float g[P], hp[P];
+// The backward's geometry: one block a (b, h), Geom<N, P>: thread (column
+// n, lane g of the column) holds h[p][n] and G[p][n] for its kSpan rows p.
+// Shared memory: the input slabs (x, dy, B, C a sub-chunk), the
+// sub-checkpoints, two sub-chunks' partial tiles (s = G B a warp; the
+// column sums Gᵀ x, da's part and dC), and a chunk's a and dt twice.
+template <int P, int N>
+struct SsmBwd {
+  using Gm = Geom<N, P>;
+  static constexpr int T = Gm::T, W = Gm::W, LG = Gm::LG;
+  static constexpr int kSlabFloats = 2 * kSub * (P + N);  // x, dy [kSub][P]; B, C [kSub][N]
+  static constexpr int kXTile = kSub * W * P;             // [kSub][W][P]: s a warp
+  static constexpr int kLTile = kSub * 3 * N;             // [kSub][3][N]: Gᵀ x, da's part, dC
+  static constexpr size_t smem_bytes() {
+    return kSmemSlack + sizeof(float) * ((size_t)kSlabs * kSlabFloats +
+                                         (size_t)kSubSlots * kSpan * T + 2 * kXTile +
+                                         2 * kLTile + 4 * kChunk) +
+           sizeof(uint64_t) * kSlabs;
+  }
+};
+
+template <int P, int N>
+__global__ void __launch_bounds__(SsmBwd<P, N>::T, 1) ssm_scan_bwd_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dy,
+    const __grid_constant__ CUtensorMap tm_B, const __grid_constant__ CUtensorMap tm_C,
+    const float* __restrict__ dt, const float* __restrict__ a, const float* __restrict__ ckpt,
+    const float* __restrict__ dhT, float* __restrict__ dx, float* __restrict__ ddt,
+    float* __restrict__ da, float* __restrict__ dB_heads, float* __restrict__ dC_heads,
+    float* __restrict__ dh0, int S, int H) {
+  using K = SsmBwd<P, N>;
+  using Gm = typename K::Gm;
+  constexpr int T = K::T, W = K::W, LG = K::LG;
+  using Sl = Scatter<4, 1, LG / 2>;   // Gᵀ x, da's part, dC (and a zero) over the column's lanes
+  using Sx = Scatter<kSpan, LG, 16>;  // s over the warp's columns
+  extern __shared__ unsigned char smem_raw[];
+  float* slabs = smem_base(smem_raw);
+  float4* subck = reinterpret_cast<float4*>(slabs + kSlabs * K::kSlabFloats);
+  float* xtile = reinterpret_cast<float*>(subck + kSubSlots * 2 * T);
+  float* ltile = xtile + 2 * K::kXTile;
+  float* sa = ltile + 2 * K::kLTile;  // [2][kChunk]: a chunk's a, by the chunk's parity
+  float* sdt = sa + 2 * kChunk;       // [2][kChunk]: its dt
+  uint64_t* full = reinterpret_cast<uint64_t*>(sdt + 2 * kChunk);
+
+  const int tid = threadIdx.x, wid = tid >> 5, lane = tid & 31;
+  const int g = lane % LG, n = wid * Gm::LPW + lane / LG;
+  const int bh = blockIdx.x, b = bh / H, hd = bh % H;
+  const int n_ck = (S + kChunk - 1) / kChunk;
+  auto at_t = [&](int t) { return ((size_t)b * S + t) * H + hd; };  // (b, t, h): dt, a, ddt, da
+
+  if (tid == 0) {
+    for (int s = 0; s < kSlabs; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float gs[kSpan];  // G[pos(g, e)][n], the cotangent of the state
 #pragma unroll
-  for (int q = 0; q < P; ++q) g[q] = dhT ? dhT[((size_t)bh * P + q) * N + n] : 0.f;
-  float* scr = scratch + (size_t)bh * chunk * P * N + n;
+  for (int e = 0; e < kSpan; ++e)
+    gs[e] = dhT ? dhT[((size_t)bh * P + Gm::pos(g, e)) * N + n] : 0.f;
+
+  Cursor cur{n_ck - 1, 0, 0};
+  cur.start(S);
+  int issued = 0;
+  // a sub-chunk's boxes into a slab: x and B for the pass that writes the
+  // sub-checkpoints, x, dy, B and C for the walk
+  auto issue = [&](const Cursor& cu, int slab) {
+    const int t0 = cu.c * kChunk + cu.q * kSub;
+    constexpr uint32_t box_p = kSub * P * sizeof(float), box_n = kSub * N * sizeof(float);
+    float* dst = slabs + slab * K::kSlabFloats;
+    mbar_expect_tx(&full[slab], (cu.walk ? 2 : 1) * (box_p + box_n));
+    tma_load_4d(dst, &tm_x, 0, hd, t0, b, &full[slab]);
+    if (cu.walk) tma_load_4d(dst + kSub * P, &tm_dy, 0, hd, t0, b, &full[slab]);
+    tma_load_4d(dst + 2 * kSub * P, &tm_B, 0, 0, t0, b, &full[slab]);
+    if (cu.walk) tma_load_4d(dst + 2 * kSub * P + kSub * N, &tm_C, 0, 0, t0, b, &full[slab]);
+  };
+
+  int item = 0;  // sub-chunks consumed
   for (int c = n_ck - 1; c >= 0; --c) {
-    const int t0 = c * chunk, t1 = min(S, t0 + chunk);
-    const float* ck = ckpt + ((size_t)bh * n_ck + c) * P * N + n;
-#pragma unroll
-    for (int q = 0; q < P; ++q) hp[q] = ck[(size_t)q * N];
-    for (int t = t0; t < t1; ++t) {  // replay: h_{t-1}'s column n into the scratch
-      const size_t bt = (size_t)b * S + t, o = bt * H + hd;
-      float* col = scr + (size_t)(t - t0) * P * N;
-#pragma unroll
-      for (int q = 0; q < P; ++q) col[(size_t)q * N] = hp[q];
-      __syncthreads();
-      for (int q = n; q < P; q += N) sx[q] = x[o * P + q];
-      __syncthreads();
-      const float at = a[o], dtt = dt[o], Bn = Bm[bt * N + n];
-#pragma unroll
-      for (int q = 0; q < P; ++q) hp[q] = hp[q] * at + (dtt * sx[q]) * Bn;
+    const int t0 = c * kChunk, len = min(kChunk, S - t0), nq = (len + kSub - 1) / kSub;
+    float* ca = sa + (c & 1) * kChunk;
+    float* cdt = sdt + (c & 1) * kChunk;
+    for (int j = tid; j < 2 * kChunk; j += T) {
+      const int tt = j % kChunk;
+      const float val = tt < len ? (j < kChunk ? a : dt)[at_t(t0 + tt)] : 0.f;
+      (j < kChunk ? ca : cdt)[tt] = val;
     }
-    for (int t = t1 - 1; t >= t0; --t) {  // walk the chunk back
-      const size_t bt = (size_t)b * S + t, o = bt * H + hd;
-      __syncthreads();
-      for (int q = n; q < P; q += N) {
-        sx[q] = x[o * P + q];
-        sdy[q] = dy[o * P + q];
-      }
-      __syncthreads();
-      const float at = a[o], dtt = dt[o], Bn = Bm[bt * N + n], Cn = Cm[bt * N + n];
-      const float* col = scr + (size_t)(t - t0) * P * N;
+    __syncthreads();
+    const float* ck = ckpt + ((size_t)bh * n_ck + c) * P * N + n;  // [p][n] at ck[p N]
+    float run[kSpan];
 #pragma unroll
-      for (int q = 0; q < P; ++q) hp[q] = col[(size_t)q * N];
-      float dC = 0.f, dBn = 0.f, dan = 0.f;
+    for (int e = 0; e < kSpan; ++e) run[e] = ck[(size_t)Gm::pos(g, e) * N];
+    // forward over sub-chunks 0 .. nq - 2: the state at the start of each
+    // later one into its slot, the last one's in run
+    for (int q = 0; q + 1 < nq; ++q, ++item) {
+      if (tid == 0) produce(cur, issued, item + kAhead, S, issue);
+      wait_slab(full, item);
+      const float* sl = slabs + (item % kSlabs) * K::kSlabFloats;
 #pragma unroll
-      for (int q = 0; q < P; ++q) {
-        const float xs = dtt * sx[q];
-        const float cur = hp[q] * at + xs * Bn;  // h_t, as the forward computed it
-        dC += cur * sdy[q];
-        g[q] += sdy[q] * Cn;
-        dBn += g[q] * xs;
-        dan += g[q] * hp[q];
-        tile[n * (P + 1) + q] = g[q] * Bn;
-      }
-      dB_heads[o * N + n] = dBn;
-      dC_heads[o * N + n] = dC;
-      red[n] = dan;
-      __syncthreads();
-      for (int q = n; q < P; q += N) {  // s[q] = sum over columns m of G[q][m] B_t[m]
-        float sq = 0.f;
-        for (int m = 0; m < N; ++m) sq += tile[m * (P + 1) + q];
-        dx[o * P + q] = dtt * sq;
-        ss[q] = sx[q] * sq;
-      }
-      __syncthreads();
-      if (n == 0) {
-        float dd = 0.f, aa = 0.f;
-        for (int q = 0; q < P; ++q) dd += ss[q];
-        for (int m = 0; m < N; ++m) aa += red[m];
-        ddt[o] = dd;
-        da[o] = aa;
-      }
+      for (int l = 0; l < kSub; ++l) {
+        const float at = ca[q * kSub + l], dB = cdt[q * kSub + l] * sl[2 * kSub * P + l * N + n];
+        float xv[kSpan];
+        load_span<LG>(xv, sl + l * P, g);
 #pragma unroll
-      for (int q = 0; q < P; ++q) g[q] *= at;
+        for (int e = 0; e < kSpan; ++e) run[e] = fmaf(run[e], at, xv[e] * dB);
+      }
+      if (q + 2 < nq) store_slot<T>(subck + q * 2 * T, tid, run);
+      __syncthreads();
+    }
+
+    // one sub-chunk walked back from the state at its start
+    auto walk = [&](int q, const float(&st0)[kSpan]) {
+      if (tid == 0) produce(cur, issued, item + kAhead, S, issue);
+      const int tq = q * kSub, ns = min(kSub, len - tq), buf = item & 1;
+      float* xt = xtile + buf * K::kXTile;
+      float* lt = ltile + buf * K::kLTile;
+      wait_slab(full, item);
+      const float* sl = slabs + (item % kSlabs) * K::kSlabFloats;
+      const float* sx = sl;                 // x [kSub][P]
+      const float* sy = sl + kSub * P;      // dy
+      const float* sB = sl + 2 * kSub * P;  // B [kSub][N]
+      const float* sC = sB + kSub * N;      // C
+      // replay: st[l] = h_{t-1} at t = t0 + tq + l, in registers, and hl the
+      // state after the sub-chunk's last step
+      float st[kSub][kSpan], hl[kSpan];
+#pragma unroll
+      for (int e = 0; e < kSpan; ++e) st[0][e] = st0[e];
+      auto replay = [&](int l) {
+        const float at = ca[tq + l], dB = cdt[tq + l] * sB[l * N + n];
+        float xv[kSpan];
+        load_span<LG>(xv, sx + l * P, g);
+#pragma unroll
+        for (int e = 0; e < kSpan; ++e) {
+          const float hn = fmaf(st[l][e], at, xv[e] * dB);
+          if (l + 1 < kSub)
+            st[l + 1][e] = hn;
+          else
+            hl[e] = hn;
+        }
+      };
+      // one step of the walk: Gᵀ x, da's part and dC over the column's lanes
+      // into lt, s = G B over the warp's columns into xt
+      auto back = [&](int l) {
+        const float at = ca[tq + l], Bn = sB[l * N + n], Cn = sC[l * N + n];
+        float xv[kSpan], yy[kSpan];
+        load_span<LG>(xv, sx + l * P, g);
+        load_span<LG>(yy, sy + l * P, g);
+        float ls[4] = {0.f, 0.f, 0.f, 0.f}, cr[kSpan];
+#pragma unroll
+        for (int e = 0; e < kSpan; ++e) {
+          const float ht = l + 1 < kSub ? st[l + 1][e] : hl[e];
+          ls[2] = fmaf(ht, yy[e], ls[2]);        // dC: h_tᵀ dy
+          gs[e] = fmaf(yy[e], Cn, gs[e]);        // G += dy ⊗ C
+          ls[0] = fmaf(gs[e], xv[e], ls[0]);     // Gᵀ x: dB = dt Gᵀ x, ddt = B·Gᵀ x
+          ls[1] = fmaf(gs[e], st[l][e], ls[1]);  // da: G ∘ h_{t-1}
+          cr[e] = gs[e] * Bn;                    // s: G B
+          gs[e] *= at;                           // G <- a G
+        }
+        bool wl, wx;
+        const int ol = Sl::run(ls, lane, wl);
+        if (wl) {
+#pragma unroll
+          for (int m = 0; m < Sl::kept; ++m)
+            if (ol + m < 3) lt[(l * 3 + ol + m) * N + n] = ls[m];
+        }
+        const int ox = Sx::run(cr, lane, wx);
+        if (wx) {
+#pragma unroll
+          for (int m = 0; m < Sx::kept; ++m) xt[(l * W + wid) * P + Gm::pos(g, ox + m)] = cr[m];
+        }
+      };
+#pragma unroll
+      for (int l = 0; l < kSub; ++l)
+        if (l < ns) replay(l);
+#pragma unroll
+      for (int l = kSub - 1; l >= 0; --l)
+        if (l < ns) back(l);
+      __syncthreads();
+      // a (step, row) a thread: s over the warps in a fixed order, dx = dt s
+      for (int j = tid; j < ns * P; j += T) {
+        const int l = j / P, p = j % P;
+        dx[at_t(t0 + tq + l) * P + p] = cdt[tq + l] * tree_sum<W>(xt + l * W * P + p, P);
+      }
+      // a (step, column) a thread: the head's dC and dB
+      for (int j = tid; j < ns * N; j += T) {
+        const int l = j / N, m = j % N;
+        const size_t o = at_t(t0 + tq + l) * N + m;
+        dB_heads[o] = cdt[tq + l] * lt[(l * 3) * N + m];
+        dC_heads[o] = lt[(l * 3 + 2) * N + m];
+      }
+      // a warp a step, the last warps first (warp 0 issues the most boxes):
+      // ddt = B·Gᵀ x and da over the columns (every lane of a warp reaches
+      // the sums, so the shuffles need no divergence)
+#pragma unroll
+      for (int k = 0; k < (kSub + W - 1) / W; ++k) {
+        const int l = W - 1 - wid + k * W;
+        float dd = 0.f, dap = 0.f;
+        if (l < ns) {
+          for (int m = lane; m < N; m += 32) {
+            dd = fmaf(sB[l * N + m], lt[(l * 3) * N + m], dd);
+            dap += lt[(l * 3 + 1) * N + m];
+          }
+        }
+        dd = warp_sum(dd);
+        dap = warp_sum(dap);
+        if (l < ns && lane == 0) {
+          ddt[at_t(t0 + tq + l)] = dd;
+          da[at_t(t0 + tq + l)] = dap;
+        }
+      }
+      ++item;
+    };
+
+    walk(nq - 1, run);
+    for (int q = nq - 2; q >= 0; --q) {
+      float st0[kSpan];
+      if (q == 0) {
+#pragma unroll
+        for (int e = 0; e < kSpan; ++e) st0[e] = ck[(size_t)Gm::pos(g, e) * N];
+      } else {
+        load_slot<T>(st0, subck + (q - 1) * 2 * T, tid);
+      }
+      walk(q, st0);
     }
   }
   if (dh0) {
 #pragma unroll
-    for (int q = 0; q < P; ++q) dh0[((size_t)bh * P + q) * N + n] = g[q];
+    for (int e = 0; e < kSpan; ++e) dh0[((size_t)bh * P + Gm::pos(g, e)) * N + n] = gs[e];
   }
 }
 
-// dB, dC (B, S, N) = the per-head parts (B, S, H, N) added over h = 0, 1, ...
-// in order; one block a (b, t)
-__global__ void ssm_scan_bc_sum_kernel(const float* __restrict__ dB_heads,
-                                       const float* __restrict__ dC_heads,
-                                       float* __restrict__ dB, float* __restrict__ dC,
-                                       int H, int N) {
+// dB, dC (B, S, N) = the per-head parts (B, S, H, N) added over the heads
+// in a fixed order. One block a (b, t), kBcThreads threads: thread (k =
+// its lane's low two bits, c = the rest) sums, as float4s, four columns
+// of dB (c < N / 4) or dC of heads k, k + 4, k + 8, ...; the four head
+// groups are then added over their lanes, (g0 + g1) + (g2 + g3) in every
+// lane. Every lane reaches the shuffles.
+constexpr int kBcThreads = 128;
+__global__ void __launch_bounds__(kBcThreads) ssm_scan_bc_sum_kernel(
+    const float* __restrict__ dB_heads, const float* __restrict__ dC_heads,
+    float* __restrict__ dB, float* __restrict__ dC, int H, int N) {
   const size_t bt = blockIdx.x;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float* pb = dB_heads + bt * H * N + n;
-    const float* pc = dC_heads + bt * H * N + n;
-    float sb = pb[0], sc = pc[0];
-    for (int h = 1; h < H; ++h) {
-      sb += pb[(size_t)h * N];
-      sc += pc[(size_t)h * N];
+  const int k = threadIdx.x & 3, groups = N / 4;
+  for (int c0 = 0; c0 < 2 * groups; c0 += kBcThreads / 4) {
+    const int c = c0 + (threadIdx.x >> 2), q = c / groups, n0 = (c % groups) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < 2 * groups) {
+      const float4* src = reinterpret_cast<const float4*>((q ? dC_heads : dB_heads) +
+                                                          (bt * H * N + n0));
+      for (int h = k; h < H; h += 4) {
+        const float4 v = src[(size_t)h * groups];
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
     }
-    dB[bt * N + n] = sb;
-    dC[bt * N + n] = sc;
+#pragma unroll
+    for (int m = 1; m <= 2; m <<= 1) {
+      s.x += __shfl_xor_sync(0xffffffffu, s.x, m);
+      s.y += __shfl_xor_sync(0xffffffffu, s.y, m);
+      s.z += __shfl_xor_sync(0xffffffffu, s.z, m);
+      s.w += __shfl_xor_sync(0xffffffffu, s.w, m);
+    }
+    if (c < 2 * groups && k == 0)
+      *reinterpret_cast<float4*>((q ? dC : dB) + bt * N + n0) = s;
   }
 }
 
@@ -194,20 +364,70 @@ cudaError_t launch_fwd(const float* x, const float* dt, const float* a, const fl
   return cudaGetLastError();
 }
 
-template <int P>
-cudaError_t launch_bwd(const float* x, const float* dt, const float* a, const float* Bm,
-                       const float* Cm, const float* ckpt, const float* dy, const float* dhT,
-                       float* dx, float* ddt, float* da, float* dB_heads, float* dC_heads,
-                       float* dB, float* dC, float* dh0, float* scratch, int B, int S, int H,
-                       int N, int chunk, cudaStream_t stream) {
-  const size_t smem = (3 * P + N + (size_t)N * (P + 1)) * sizeof(float);
-  ssm_scan_bwd_kernel<P><<<B * H, N, smem, stream>>>(x, dt, a, Bm, Cm, ckpt, dy, dhT, dx, ddt,
-                                                     da, dB_heads, dC_heads, dh0, scratch, S,
-                                                     H, N, chunk);
-  cudaError_t err = cudaGetLastError();
+template <int P, int N>
+int launch_bwd(const float* x, const float* dt, const float* a, const float* Bm, const float* Cm,
+               const float* ckpt, const float* dy, const float* dhT, float* dx, float* ddt,
+               float* da, float* dB_heads, float* dC_heads, float* dB, float* dC, float* dh0,
+               int B, int S, int H, cudaStream_t stream) {
+  using K = SsmBwd<P, N>;
+  CUtensorMap tm[4];
+  int bad = make_context_current();
+  if (bad == 0) bad = make_step_map(&tm[0], x, B, S, H, P);
+  if (bad == 0) bad = make_step_map(&tm[1], dy, B, S, H, P);
+  if (bad == 0) bad = make_step_map(&tm[2], Bm, B, S, 1, N);
+  if (bad == 0) bad = make_step_map(&tm[3], Cm, B, S, 1, N);
+  if (bad != 0) return bad;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(ssm_scan_bwd_kernel<P, N>, K::smem_bytes(), &smem_set);
   if (err != cudaSuccess) return err;
-  ssm_scan_bc_sum_kernel<<<B * S, N, 0, stream>>>(dB_heads, dC_heads, dB, dC, H, N);
+  ssm_scan_bwd_kernel<P, N><<<B * H, K::T, K::smem_bytes(), stream>>>(
+      tm[0], tm[1], tm[2], tm[3], dt, a, ckpt, dhT, dx, ddt, da, dB_heads, dC_heads, dh0, S, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssm_scan_bc_sum_kernel<<<B * S, kBcThreads, 0, stream>>>(dB_heads, dC_heads, dB, dC, H, N);
   return cudaGetLastError();
+}
+
+// {threads, dynamic shared bytes, registers, blocks an SM, local bytes}
+template <int P, int N>
+int bwd_info(int* out) {
+  using K = SsmBwd<P, N>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(ssm_scan_bwd_kernel<P, N>, K::smem_bytes(), &smem_set);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, ssm_scan_bwd_kernel<P, N>);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ssm_scan_bwd_kernel<P, N>,
+                                                        K::T, K::smem_bytes());
+  if (err != cudaSuccess) return err;
+  out[0] = K::T;
+  out[1] = static_cast<int>(K::smem_bytes());
+  out[2] = attr.numRegs;
+  out[3] = blocks;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+// the instantiation of launch_bwd or bwd_info for P and N (16, 32 or 64)
+template <int P, typename F>
+int by_n(int N, F f) {
+  switch (N) {
+    case 16: return f(std::integral_constant<int, P>{}, std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, P>{}, std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, P>{}, std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+int by_widths(int P, int N, F f) {
+  switch (P) {
+    case 16: return by_n<16>(N, f);
+    case 32: return by_n<32>(N, f);
+    case 64: return by_n<64>(N, f);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -230,22 +450,28 @@ int ssm_scan_fwd(const float* x, const float* dt, const float* a, const float* B
 
 // Two launches: the recurrence backward (dx (B, S, H, P), ddt and da
 // (B, S, H), the per-head dB and dC parts (B, S, H, N), dh0 when not
-// null), then dB and dC (B, S, N). dhT null is a zero cotangent; scratch
-// holds B·H·chunk·P·N floats. P is 16, 32 or 64; N at most 1024.
+// null), then dB and dC (B, S, N). dhT null is a zero cotangent. P and N
+// are 16, 32 or 64; chunk must be 64, x, dy, B and C 16-byte aligned.
 int ssm_scan_bwd(const float* x, const float* dt, const float* a, const float* Bm,
                  const float* Cm, const float* ckpt, const float* dy, const float* dhT,
                  float* dx, float* ddt, float* da, float* dB_heads, float* dC_heads, float* dB,
-                 float* dC, float* dh0, float* scratch, int B, int S, int H, int P, int N,
-                 int chunk, cudaStream_t stream) {
-  switch (P) {
-    case 16: return launch_bwd<16>(x, dt, a, Bm, Cm, ckpt, dy, dhT, dx, ddt, da, dB_heads,
-                                   dC_heads, dB, dC, dh0, scratch, B, S, H, N, chunk, stream);
-    case 32: return launch_bwd<32>(x, dt, a, Bm, Cm, ckpt, dy, dhT, dx, ddt, da, dB_heads,
-                                   dC_heads, dB, dC, dh0, scratch, B, S, H, N, chunk, stream);
-    case 64: return launch_bwd<64>(x, dt, a, Bm, Cm, ckpt, dy, dhT, dx, ddt, da, dB_heads,
-                                   dC_heads, dB, dC, dh0, scratch, B, S, H, N, chunk, stream);
-    default: return cudaErrorInvalidValue;
-  }
+                 float* dC, float* dh0, int B, int S, int H, int P, int N, int chunk,
+                 cudaStream_t stream) {
+  if (chunk != kChunk) return cudaErrorInvalidValue;
+  return by_widths(P, N, [&](auto p, auto n) {
+    return launch_bwd<decltype(p)::value, decltype(n)::value>(
+        x, dt, a, Bm, Cm, ckpt, dy, dhT, dx, ddt, da, dB_heads, dC_heads, dB, dC, dh0, B, S, H,
+        stream);
+  });
+}
+
+// The backward kernel at widths P and N on the current card: out[0..4] =
+// threads a block, dynamic shared bytes, registers a thread, blocks an SM,
+// local (spilled) bytes a thread.
+int ssm_scan_bwd_info(int P, int N, int* out) {
+  return by_widths(P, N, [&](auto p, auto n) {
+    return bwd_info<decltype(p)::value, decltype(n)::value>(out);
+  });
 }
 
 }  // extern "C"

@@ -7,10 +7,14 @@ Replaces no Pallas kernel: the reference runs Mamba2's recurrence as a
 ``mamba_step`` (``:147-166``). The kernels are CUDA C++ in
 ``csrc/ssm_scan.cu`` (its header states what bounds them), built by
 ``build.py`` and called through ctypes: ``ssm_scan_fwd`` is one launch
-over a layer's sequence (S = 1 is the decode step, from the cache's
-state), ``ssm_scan_bwd`` two (the recurrence walked back chunk by chunk
-from the forward's checkpoints, then dB and dC added over the heads in
-order: B and C are shared by the heads).
+(``ssm_scan_fwd_kernel<N>``) over a layer's sequence (S = 1 is the decode
+step, from the cache's state), ``ssm_scan_bwd`` two:
+``ssm_scan_bwd_kernel<P, N>`` walks the recurrence back from the forward's
+checkpoints, each 64-step chunk replayed on chip in 8-step sub-chunks (its
+inputs as TMA boxes on mbarriers, its states in shared memory and
+registers: no scratch in device memory, ``bwd_geometry`` its block), then
+``ssm_scan_bc_sum_kernel`` adds dB and dC over the heads in a fixed order (B and C
+are shared by the heads).
 
 ``ssm_scan`` is what the model calls: under autograd it runs
 ``SSMScanFunction`` (the forward keeps the state every ``CHUNK`` steps,
@@ -35,6 +39,10 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 CHUNK = 64              # steps between the forward's checkpoints
 WIDTHS = (16, 32, 64)   # the kernels' template instantiations: the state's N and P
+# the backward's layout (csrc/scan_bwd.cuh): entries a thread, steps a
+# sub-chunk, input slabs, sub-checkpoint slots
+SPAN, SUB, SLABS, SUB_SLOTS = 8, 8, 4, CHUNK // 8 - 2
+SMEM_LIMIT = 232_448    # shared bytes a block can have on an H100
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -44,8 +52,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssm_scan")
     lib.ssm_scan_fwd.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.ssm_scan_fwd.restype = _I
-    lib.ssm_scan_bwd.argtypes = [_P] * 17 + [_I] * 6 + [_P]
+    lib.ssm_scan_bwd.argtypes = [_P] * 16 + [_I] * 6 + [_P]
     lib.ssm_scan_bwd.restype = _I
+    lib.ssm_scan_bwd_info.argtypes = [_I, _I, _P]
+    lib.ssm_scan_bwd_info.restype = _I
     return lib
 
 
@@ -79,6 +89,38 @@ def _check(what: str, x, dt, a, Bm, Cm, *states) -> bool:
     return on_card
 
 
+def bwd_geometry(P: int, N: int) -> dict:
+    """The backward kernel's block at widths P and N, as ``SsmBwd<P, N>`` in
+    ``csrc/ssm_scan.cu`` lays it out: threads (N·P / 8, 8 state entries
+    each), warps and dynamic shared bytes (the slabs of x, dy, B, C, the
+    sub-checkpoints, two sub-chunks' partial tiles, a chunk's a and dt
+    twice, the mbarriers; 128 bytes more to align the start for TMA)."""
+    if P not in WIDTHS or N not in WIDTHS:
+        raise ValueError(f"ssm_scan_bwd: the kernel takes P and N in {WIDTHS}, got P={P}, N={N}")
+    threads = N * P // SPAN
+    warps = threads // 32
+    floats = (SLABS * 2 * SUB * (P + N) + SUB_SLOTS * SPAN * threads + 2 * SUB * warps * P
+              + 2 * SUB * 3 * N + 4 * CHUNK)
+    return {"threads": threads, "warps": warps, "shared_bytes": 128 + 4 * floats + 8 * SLABS}
+
+
+def bwd_info(P: int, N: int) -> dict:
+    """The built backward kernel at widths P and N on the current card:
+    threads, dynamic shared bytes, registers a thread, blocks an SM and
+    spilled bytes a thread (``ssm_scan_bwd_info``)."""
+    out = (ctypes.c_int * 5)()
+    build.check_launch(_lib().ssm_scan_bwd_info(P, N, ctypes.addressof(out)),
+                       "ssm_scan_bwd_info")
+    return dict(zip(("threads", "shared_bytes", "registers", "blocks_per_sm", "local_bytes"),
+                    out))
+
+
+def _check_aligned(what: str, *tensors) -> None:
+    """The backward reads x, dy, B and C as TMA boxes."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the kernel takes 16-byte-aligned tensors")
+
+
 def ssm_scan_fwd(x, dt, a, Bm, Cm, h0=None, *, checkpoints: bool = False):
     """x (B, S, H, P), dt and a (B, S, H), Bm and Cm (B, S, N), all fp32,
     h0 (B, H, P, N) or None (a zero state) -> (y (B, S, H, P), h_T, the
@@ -108,7 +150,9 @@ def ssm_scan_fwd(x, dt, a, Bm, Cm, h0=None, *, checkpoints: bool = False):
 def ssm_scan_bwd(x, dt, a, Bm, Cm, ckpt, dy, dh_T=None, *, want_dh0: bool = True):
     """The gradients of ``ssm_scan_fwd``'s (y, h_T) from its checkpoints:
     (dx, ddt, da, dB, dC, dh0 or None), each shaped as its input. ``dh_T``
-    None is a zero cotangent. Two launches on the card."""
+    None is a zero cotangent. Two launches on the card
+    (``ssm_scan_bwd_kernel<P, N>``, ``ssm_scan_bc_sum_kernel``), which
+    allocate no scratch; x, dy, B and C must be 16-byte aligned (TMA)."""
     global BWD_LAUNCHES
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -119,6 +163,7 @@ def ssm_scan_bwd(x, dt, a, Bm, Cm, ckpt, dy, dh_T=None, *, want_dh0: bool = True
     if not _check("ssm_scan_bwd", x, dt, a, Bm, Cm, ckpt, dy, dh_T):
         dx, ddt, da, dB, dC, dh0 = ref.ssm_scan_bwd_ref(x, dt, a, Bm, Cm, ckpt, dy, dh_T, CHUNK)
         return dx, ddt, da, dB, dC, dh0 if want_dh0 else None
+    _check_aligned("ssm_scan_bwd", x, dy, Bm, Cm)
     dx = torch.empty_like(x)
     ddt, da = torch.empty_like(dt), torch.empty_like(a)
     dB_heads = torch.empty((Bsz, S, H, N), dtype=torch.float32, device=x.device)
@@ -126,13 +171,12 @@ def ssm_scan_bwd(x, dt, a, Bm, Cm, ckpt, dy, dh_T=None, *, want_dh0: bool = True
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dh0 = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device) if want_dh0 \
         else None
-    scratch = torch.empty((Bsz * H * CHUNK * P * N,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check_launch(_lib().ssm_scan_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ckpt.data_ptr(),
         dy.data_ptr(), _ptr(dh_T), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
         dB_heads.data_ptr(), dC_heads.data_ptr(), dB.data_ptr(), dC.data_ptr(), _ptr(dh0),
-        scratch.data_ptr(), Bsz, S, H, P, N, CHUNK, stream), "ssm_scan_bwd")
+        Bsz, S, H, P, N, CHUNK, stream), "ssm_scan_bwd")
     BWD_LAUNCHES += 1
     return dx, ddt, da, dB, dC, dh0
 

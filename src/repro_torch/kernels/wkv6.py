@@ -5,10 +5,14 @@ Replaces no Pallas kernel: the reference runs RWKV-6's recurrence as a
 ``lax.scan`` of checkpointed 64-step chunks (``repro/models/rwkv.py:140``,
 its step ``:126-131``). The kernels are CUDA C++ in ``csrc/wkv6.cu`` (its
 header states what bounds them), built by ``build.py`` and called through
-ctypes: ``wkv6_fwd`` is one launch over a layer's whole sequence (training
-from a zero state, prefill, and the one-token decode step from the cache's
-state), ``wkv6_bwd`` two (the recurrence walked back chunk by chunk from
-the forward's checkpoints, then du's sum over the batch rows in order).
+ctypes: ``wkv6_fwd`` is one launch (``wkv6_fwd_kernel<P>``) over a layer's
+whole sequence (training from a zero state, prefill, and the one-token
+decode step from the cache's state), ``wkv6_bwd`` two:
+``wkv6_bwd_kernel<P>`` walks the recurrence back from the forward's
+checkpoints, each 64-step chunk replayed on chip in 8-step sub-chunks (its
+inputs as TMA boxes on mbarriers, its states in shared memory and
+registers: no scratch in device memory, ``bwd_geometry`` its block), then
+``wkv6_du_sum_kernel`` adds du over the batch rows in order.
 
 ``wkv6`` is what the model calls: under autograd (grad mode on and an
 input that requires grad) it runs ``WKV6Function``, whose forward keeps
@@ -35,6 +39,10 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 CHUNK = 64               # steps between the forward's checkpoints
 HEAD_SIZES = (16, 32, 64)  # the kernels' template instantiations
+# the backward's layout (csrc/scan_bwd.cuh): entries a thread, steps a
+# sub-chunk, input slabs, sub-checkpoint slots
+SPAN, SUB, SLABS, SUB_SLOTS = 8, 8, 4, CHUNK // 8 - 2
+SMEM_LIMIT = 232_448     # shared bytes a block can have on an H100
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -44,8 +52,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("wkv6")
     lib.wkv6_fwd.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.wkv6_fwd.restype = _I
-    lib.wkv6_bwd.argtypes = [_P] * 16 + [_I] * 5 + [_P]
+    lib.wkv6_bwd.argtypes = [_P] * 15 + [_I] * 5 + [_P]
     lib.wkv6_bwd.restype = _I
+    lib.wkv6_bwd_info.argtypes = [_I, _P]
+    lib.wkv6_bwd_info.restype = _I
     return lib
 
 
@@ -76,6 +86,38 @@ def _check(what: str, r, k, v, w, u, *states) -> bool:
     return on_card
 
 
+def bwd_geometry(P: int) -> dict:
+    """The backward kernel's block at head size P, as ``Wkv6Bwd<P>`` in
+    ``csrc/wkv6.cu`` lays it out: threads (P·P / 8, 8 state entries each),
+    warps and dynamic shared bytes (the slabs of r, k, w, v, dy, the
+    sub-checkpoints, two sub-chunks' partial tiles, u, the mbarriers; 128
+    bytes more to align the start for TMA)."""
+    if P not in HEAD_SIZES:
+        raise ValueError(f"wkv6_bwd: the kernel takes P in {HEAD_SIZES}, got {P}")
+    threads = P * P // SPAN
+    warps = threads // 32
+    floats = (SLABS * 5 * SUB * P + SUB_SLOTS * SPAN * threads + 2 * SUB * warps * P
+              + 2 * SUB * 4 * P + P)
+    return {"threads": threads, "warps": warps, "shared_bytes": 128 + 4 * floats + 8 * SLABS}
+
+
+def bwd_info(P: int) -> dict:
+    """The built backward kernel at head size P on the current card:
+    threads, dynamic shared bytes, registers a thread, blocks an SM and
+    spilled bytes a thread (``wkv6_bwd_info``)."""
+    out = (ctypes.c_int * 5)()
+    build.check_launch(_lib().wkv6_bwd_info(P, ctypes.addressof(out)), "wkv6_bwd_info")
+    return dict(zip(("threads", "shared_bytes", "registers", "blocks_per_sm", "local_bytes"),
+                    out))
+
+
+def _check_aligned(what: str, *tensors) -> None:
+    """The backward reads its inputs as TMA boxes and the state's rows 16
+    bytes at a time."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the kernel takes 16-byte-aligned tensors")
+
+
 def wkv6_fwd(r, k, v, w, u, S0=None, *, checkpoints: bool = False):
     """r, k, v, w (B, S, H, P) fp32, u (H, P), S0 (B, H, P, P) or None (a
     zero state) -> (y (B, S, H, P), S_T, the checkpoints (B, H, ceil(S /
@@ -102,7 +144,9 @@ def wkv6_fwd(r, k, v, w, u, S0=None, *, checkpoints: bool = False):
 def wkv6_bwd(r, k, v, w, u, ckpt, dy, dS_T=None, *, want_dS0: bool = True):
     """The gradients of ``wkv6_fwd``'s (y, S_T) from its checkpoints: (dr,
     dk, dv, dw (B, S, H, P), du (H, P), dS0 (B, H, P, P) or None). ``dS_T``
-    None is a zero cotangent. Two launches on the card."""
+    None is a zero cotangent. Two launches on the card
+    (``wkv6_bwd_kernel<P>``, ``wkv6_du_sum_kernel``), which allocate no
+    scratch; the inputs must be 16-byte aligned (TMA)."""
     global BWD_LAUNCHES
     B, S, H, P = r.shape
     n_ck = -(-S // CHUNK)
@@ -113,17 +157,16 @@ def wkv6_bwd(r, k, v, w, u, ckpt, dy, dS_T=None, *, want_dS0: bool = True):
     if not _check("wkv6_bwd", r, k, v, w, u, ckpt, dy, dS_T):
         dr, dk, dv, dw, du, dS0 = ref.wkv6_bwd_ref(r, k, v, w, u, ckpt, dy, dS_T, CHUNK)
         return dr, dk, dv, dw, du, dS0 if want_dS0 else None
+    _check_aligned("wkv6_bwd", r, k, v, w, ckpt, dy, dS_T)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du_rows = torch.empty((B, H, P), dtype=torch.float32, device=r.device)
     du = torch.empty((H, P), dtype=torch.float32, device=r.device)
     dS0 = torch.empty((B, H, P, P), dtype=torch.float32, device=r.device) if want_dS0 else None
-    scratch = torch.empty((B * H * CHUNK * P * P,), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     build.check_launch(_lib().wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ckpt.data_ptr(),
         dy.data_ptr(), _ptr(dS_T), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        du_rows.data_ptr(), du.data_ptr(), _ptr(dS0), scratch.data_ptr(), B, S, H, P, CHUNK,
-        stream), "wkv6_bwd")
+        du_rows.data_ptr(), du.data_ptr(), _ptr(dS0), B, S, H, P, CHUNK, stream), "wkv6_bwd")
     BWD_LAUNCHES += 1
     return dr, dk, dv, dw, du, dS0
 

@@ -8,11 +8,13 @@ does not: at each normal edge the other dtype and another kind of scale
 than its ``normal_edges``, K7 at K = 2 (chip_smoke takes K = 3 and 4), and
 the backward on inputs drawn from other seeds. K12 (WKV-6) and K13
 (Mamba2's scan), forward and backward, against their plain versions at
-ragged lengths (one checkpoint chunk, two, and one step past two), from a
-zero and a given state, each head size the kernels take; each call twice
-for the same bits, the launch counts, the dispatch of the model's calls
-(the autograd Function under grad, the forward alone without) and the
-kernels' refusals (bf16, strided tensors, other head sizes).
+every width the kernels take (K13's P and N each way), at one step, one
+full checkpoint chunk and one step past two, from a zero and a given
+state; each call twice for the same bits, the launch counts, the
+backwards on a fresh thread and their blocks against ``bwd_geometry``,
+the dispatch of the model's calls (the autograd Function under grad, the
+forward alone without) and the kernels' refusals (bf16, strided or
+misaligned tensors, other head sizes).
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card_kernels.py
 """
@@ -121,58 +123,117 @@ def _err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("shape", [(2, 12, 2, 16), (3, 128, 4, 32), (1, 129, 2, 64)],
-                         ids=["one-chunk", "two-chunks", "ragged"])
-@pytest.mark.parametrize("from_state", [False, True], ids=["zero", "state"])
-def test_k12_is_its_plain_version_on_the_card(card, shape, from_state):
-    B, S, H, P = shape
-    gen = torch.Generator(device=card).manual_seed(S * P + from_state)
+# the backwards' cases: every width the kernels take, one step, one full
+# checkpoint chunk and one step past two, from a zero and a given state
+SCAN_LENGTHS = (1, 64, 129)
+
+
+def _k12_inputs(card, B, S, H, P, from_state, seed):
+    shape = (B, S, H, P)
+    gen = torch.Generator(device=card).manual_seed(seed)
     r, k, v, dy = (torch.randn(shape, generator=gen, device=card) * 0.5 for _ in range(4))
     w = torch.exp(-torch.exp(torch.randn(shape, generator=gen, device=card) * 0.5 - 1.0))
     u = torch.randn((H, P), generator=gen, device=card) * 0.1
     S0 = torch.randn((B, H, P, P), generator=gen, device=card) * 0.1 if from_state else None
     dS = torch.randn((B, H, P, P), generator=gen, device=card) if from_state else None
+    return (r, k, v, w, u), S0, dy, dS
+
+
+@pytest.mark.parametrize("S", SCAN_LENGTHS)
+@pytest.mark.parametrize("P", wkv6.HEAD_SIZES)
+@pytest.mark.parametrize("from_state", [False, True], ids=["zero", "state"])
+def test_k12_is_its_plain_version_on_the_card(card, P, S, from_state):
+    B, H = (3, 4) if P < 64 else (1, 2)
+    ins, S0, dy, dS = _k12_inputs(card, B, S, H, P, from_state, S * P + from_state)
     f0, b0 = wkv6.FWD_LAUNCHES, wkv6.BWD_LAUNCHES
-    y, ST, ck = wkv6.wkv6_fwd(r, k, v, w, u, S0, checkpoints=True)
-    grads = wkv6.wkv6_bwd(r, k, v, w, u, ck, dy, dS)
+    y, ST, ck = wkv6.wkv6_fwd(*ins, S0, checkpoints=True)
+    grads = wkv6.wkv6_bwd(*ins, ck, dy, dS)
     torch.cuda.synchronize()
     assert (wkv6.FWD_LAUNCHES, wkv6.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
-    want = ref.wkv6_fwd_ref(r, k, v, w, u, S0, wkv6.CHUNK)
+    want = ref.wkv6_fwd_ref(*ins, S0, wkv6.CHUNK)
     for name, g, w_ in zip(("y", "S_T", "checkpoints"), (y, ST, ck), want):
         assert _err(g, w_) <= SCAN_TOL, name
-    want = ref.wkv6_bwd_ref(r, k, v, w, u, want[2], dy, dS, wkv6.CHUNK)
+    want = ref.wkv6_bwd_ref(*ins, want[2], dy, dS, wkv6.CHUNK)
     for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "dS0"), grads, want):
         assert g.shape == w_.shape and _err(g, w_) <= SCAN_TOL, name
-    again = wkv6.wkv6_bwd(r, k, v, w, u, ck, dy, dS)
+    again = wkv6.wkv6_bwd(*ins, ck, dy, dS)
     assert all(torch.equal(a, g) for a, g in zip(again, grads))
-    assert torch.equal(wkv6.wkv6_fwd(r, k, v, w, u, S0)[0], y)
+    assert torch.equal(wkv6.wkv6_fwd(*ins, S0)[0], y)
 
 
-@pytest.mark.parametrize("shape", [(2, 12, 3, 16, 16), (3, 128, 4, 32, 64),
-                                   (1, 129, 2, 64, 32)], ids=["one-chunk", "two-chunks", "ragged"])
-@pytest.mark.parametrize("from_state", [False, True], ids=["zero", "state"])
-def test_k13_is_its_plain_version_on_the_card(card, shape, from_state):
-    B, S, H, P, N = shape
-    gen = torch.Generator(device=card).manual_seed(S * N + P + from_state)
+def _k13_inputs(card, B, S, H, P, N, from_state, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
     x, dy = (torch.randn((B, S, H, P), generator=gen, device=card) for _ in range(2))
     dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=card) - 3.0)
     a = torch.exp(dt * -torch.linspace(1.0, 16.0, H, device=card))
     Bm, Cm = (torch.randn((B, S, N), generator=gen, device=card) for _ in range(2))
     h0 = torch.randn((B, H, P, N), generator=gen, device=card) * 0.1 if from_state else None
     dh = torch.randn((B, H, P, N), generator=gen, device=card) if from_state else None
+    return (x, dt, a, Bm, Cm), h0, dy, dh
+
+
+@pytest.mark.parametrize("S", SCAN_LENGTHS)
+@pytest.mark.parametrize("P, N", [(p, n) for p in ssm_scan.WIDTHS for n in ssm_scan.WIDTHS])
+@pytest.mark.parametrize("from_state", [False, True], ids=["zero", "state"])
+def test_k13_is_its_plain_version_on_the_card(card, P, N, S, from_state):
+    B, H = (2, 3) if P * N < 4096 else (1, 2)
+    ins, h0, dy, dh = _k13_inputs(card, B, S, H, P, N, from_state, S * N + P + from_state)
     f0, b0 = ssm_scan.FWD_LAUNCHES, ssm_scan.BWD_LAUNCHES
-    y, hT, ck = ssm_scan.ssm_scan_fwd(x, dt, a, Bm, Cm, h0, checkpoints=True)
-    grads = ssm_scan.ssm_scan_bwd(x, dt, a, Bm, Cm, ck, dy, dh)
+    y, hT, ck = ssm_scan.ssm_scan_fwd(*ins, h0, checkpoints=True)
+    grads = ssm_scan.ssm_scan_bwd(*ins, ck, dy, dh)
     torch.cuda.synchronize()
     assert (ssm_scan.FWD_LAUNCHES, ssm_scan.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
-    want = ref.ssm_scan_fwd_ref(x, dt, a, Bm, Cm, h0, ssm_scan.CHUNK)
+    want = ref.ssm_scan_fwd_ref(*ins, h0, ssm_scan.CHUNK)
     for name, g, w_ in zip(("y", "h_T", "checkpoints"), (y, hT, ck), want):
         assert _err(g, w_) <= SCAN_TOL, name
-    want = ref.ssm_scan_bwd_ref(x, dt, a, Bm, Cm, want[2], dy, dh, ssm_scan.CHUNK)
+    want = ref.ssm_scan_bwd_ref(*ins, want[2], dy, dh, ssm_scan.CHUNK)
     for name, g, w_ in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), grads, want):
         assert g.shape == w_.shape and _err(g, w_) <= SCAN_TOL, name
-    again = ssm_scan.ssm_scan_bwd(x, dt, a, Bm, Cm, ck, dy, dh)
+    again = ssm_scan.ssm_scan_bwd(*ins, ck, dy, dh)
     assert all(torch.equal(p, g) for p, g in zip(again, grads))
+
+
+def test_k12_and_k13_backwards_on_a_thread_with_no_cuda_work_yet(card):
+    """The backwards encode their TMA maps with a driver call that needs a
+    current context, and wait on mbarriers: on a fresh thread (autograd's
+    device thread, when a backward is its first CUDA work) they give the
+    bits they give here."""
+    ins12, S0, dy12, dS = _k12_inputs(card, 2, 70, 3, 64, True, 12)
+    ck12 = wkv6.wkv6_fwd(*ins12, S0, checkpoints=True)[2]
+    ins13, h0, dy13, dh = _k13_inputs(card, 2, 70, 3, 64, 32, True, 13)
+    ck13 = ssm_scan.ssm_scan_fwd(*ins13, h0, checkpoints=True)[2]
+    want = (wkv6.wkv6_bwd(*ins12, ck12, dy12, dS), ssm_scan.ssm_scan_bwd(*ins13, ck13, dy13, dh))
+    out = {}
+
+    def work():
+        try:
+            out["grads"] = (wkv6.wkv6_bwd(*ins12, ck12, dy12, dS),
+                            ssm_scan.ssm_scan_bwd(*ins13, ck13, dy13, dh))
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # reported below, on the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    for got, ref_ in zip(out["grads"], want):
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, ref_))
+
+
+def test_k12_and_k13_backward_blocks_are_their_geometry_on_the_card(card):
+    """The built kernels' threads and shared memory are what
+    ``bwd_geometry`` lays out, and a block fits an SM at every width."""
+    for P in wkv6.HEAD_SIZES:
+        info, geo = wkv6.bwd_info(P), wkv6.bwd_geometry(P)
+        assert (info["threads"], info["shared_bytes"]) == (geo["threads"], geo["shared_bytes"])
+        assert info["blocks_per_sm"] >= 1, (P, info)
+    for P in ssm_scan.WIDTHS:
+        for N in ssm_scan.WIDTHS:
+            info, geo = ssm_scan.bwd_info(P, N), ssm_scan.bwd_geometry(P, N)
+            assert (info["threads"], info["shared_bytes"]) == (geo["threads"],
+                                                               geo["shared_bytes"])
+            assert info["blocks_per_sm"] >= 1, (P, N, info)
 
 
 def test_k12_and_k13_dispatch_and_refusals_on_the_card(card):
@@ -212,6 +273,16 @@ def test_k12_and_k13_dispatch_and_refusals_on_the_card(card):
         ssm_scan.ssm_scan_fwd(x, dt, dt, Bm[..., :8].contiguous(), Bm[..., :8].contiguous())
     with pytest.raises(ValueError, match="several devices"):
         ssm_scan.ssm_scan_fwd(x, dt.cpu(), dt, Bm, Bm)
+    # the backwards' TMA boxes need 16-byte-aligned inputs: a contiguous view
+    # one float into its storage is refused
+    ck12 = wkv6.wkv6_fwd(r, r, r, r.sigmoid(), u, checkpoints=True)[2]
+    r_off = torch.empty(r.numel() + 1, device=card)[1:].view(r.shape).copy_(r)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        wkv6.wkv6_bwd(r_off, r, r, r.sigmoid(), u, ck12, r)
+    ck13 = ssm_scan.ssm_scan_fwd(x, dt, dt, Bm, Bm, checkpoints=True)[2]
+    B_off = torch.empty(Bm.numel() + 1, device=card)[1:].view(Bm.shape).copy_(Bm)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        ssm_scan.ssm_scan_bwd(x, dt, dt, B_off, Bm, ck13, x)
 
 
 def test_k10_tensor_core_backward_on_a_thread_with_no_cuda_work_yet(card):

@@ -278,3 +278,12 @@ def test_k12_wrapper_checks_shapes_and_takes_the_plain_version_on_the_cpu():
         K12.wkv6_fwd(r, r, r, r, u, torch.zeros(2, 2, 8, 4))
     with pytest.raises(ValueError, match="do not fit"):
         K12.wkv6_bwd(r, r, r, r, u, ck[:, :, :, :4], torch.ones_like(r))
+    # the backward's block at every head size: 8 state entries a thread, in
+    # the shared memory of one H100 block; rwkv6-1.6b's P=64 one block an SM
+    for P in K12.HEAD_SIZES:
+        geo = K12.bwd_geometry(P)
+        assert geo["threads"] == P * P // 8 == 32 * geo["warps"] <= 1024
+        assert geo["shared_bytes"] <= K12.SMEM_LIMIT
+    assert K12.bwd_geometry(64)["shared_bytes"] > K12.SMEM_LIMIT // 2
+    with pytest.raises(ValueError, match="P in"):
+        K12.bwd_geometry(48)

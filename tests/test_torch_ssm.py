@@ -189,3 +189,12 @@ def test_k13_wrapper_checks_shapes_and_takes_the_plain_version_on_the_cpu():
         K13.ssm_scan_fwd(x, dt, dt, Bm, Bm, torch.zeros(2, 3, 4, 5))
     with pytest.raises(ValueError, match="do not fit"):
         K13.ssm_scan_bwd(x, dt, dt, Bm, Bm, ck[..., :5], torch.ones_like(x))
+    # the backward's block at every pair of widths: 8 state entries a
+    # thread, in the shared memory of one H100 block
+    for P in K13.WIDTHS:
+        for N in K13.WIDTHS:
+            geo = K13.bwd_geometry(P, N)
+            assert geo["threads"] == P * N // 8 == 32 * geo["warps"] <= 1024
+            assert geo["shared_bytes"] <= K13.SMEM_LIMIT
+    with pytest.raises(ValueError, match="P and N in"):
+        K13.bwd_geometry(64, 8)
