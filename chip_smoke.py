@@ -92,7 +92,8 @@ Phases, each printed as it ends:
    S=128, H=32, P=64; zamba2-7b: H=112, P=64, N=64), the decode steps from
    a state, a ragged length past two checkpoint chunks and the tiny tasks'
    widths, each call twice for the same bits, timed beside the plain
-   version and the bound;
+   version and the bound (a forward as the path calls it: with checkpoints
+   in training, none at a decode step), each kernel's block printed;
 4. one tiny FedAvg round (FVN on) and one tiny greedy decode on the card
    against the same on the CPU, under each LSTM dispatch ('ref': the time loop;
    'kernel': K2 on the card, its plain version on the CPU); the
@@ -213,8 +214,9 @@ Phases, each printed as it ends:
    32 decode steps, zamba2-7b by 160 decode steps (its reference has no
    prefill), each step's logits held to a teacher-forced forward within
    QWEN_SERVE_TOL unless that forward's floor (it again on the plain
-   versions) passes the bar, then the same serve on an fp32 copy of the
-   parameters within FP32_SERVE_TOL;
+   versions) passes the bar, K12's or K13's device time in the profiled
+   windows printed, then the same serve on an fp32 copy of the parameters
+   within FP32_SERVE_TOL;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it; and one more K2 round with the host's Python
@@ -4614,13 +4616,13 @@ QWEN_RUN = LMRun(
 # and by one forward's loss here
 RWKV_RUN = LMRun(
     task="rwkv6-1.6b", argv=("--task", "rwkv6-1.6b") + LM_ARGV, n_params=1_584_091_136,
-    insts={"wkv6_fwd_kernel<64>": 24, "wkv6_bwd_kernel<64>": 24, "wkv6_du_sum_kernel": 24},
+    insts={"wkv6_fwd_lanes_kernel<64>": 24, "wkv6_bwd_kernel<64>": 24, "wkv6_du_sum_kernel": 24},
     plain=_plain_recurrences_on_card, loss_rtol=None, forward_rtol=5e-3)
 # zamba2-7b at 7 of its 81 layers: K13 once a Mamba2 layer, K10's forward
 # <2, 112> and backward <2, 2> once an application of the shared block (2)
 ZAMBA_RUN = LMRun(
     task="zamba2-7b", argv=("--task", "zamba2-7b") + LM_ARGV, n_params=980_754_096,
-    insts={"ssm_scan_fwd_kernel<64>": 7, "ssm_scan_bwd_kernel<64, 64>": 7,
+    insts={"ssm_scan_fwd_lanes_kernel<64, 64>": 7, "ssm_scan_bwd_kernel<64, 64>": 7,
            "ssm_scan_bc_sum_kernel": 7, "flash_attention_wgmma_kernel<2, 112>": 2,
            "fa_bwd_dkdv_wgmma_kernel<2, 2>": 2, "fa_bwd_dq_wgmma_kernel<2, 2>": 2},
     plain=_plain_kernels_on_card, loss_rtol=1e-3, forward_rtol=1e-3)
@@ -4867,7 +4869,13 @@ def _serve_recurrent(torch, name: str, cfg, params: dict, corpus, tol: float,
                                               time.perf_counter() - t0)
             del state, out
         for what, (prof, wall, wall_prof) in windows.items():
-            _log_profile(tag, _device_times(torch, prof), wall, wall_prof, what=what)
+            by_name = _device_times(torch, prof)
+            _log_profile(tag, by_name, wall, wall_prof, what=what)
+            kname = "wkv6_fwd" if rwkv else "ssm_scan_fwd"
+            us, n = (sum(v[i] for k, v in by_name.items() if kname in k) for i in (0, 1))
+            log(f"{tag} {'K12' if rwkv else 'K13'}'s forward in the profiled {what}: "
+                f"{us:.1f} us of device time in {n} launches"
+                + (f", {us / n:.2f} us a launch" if n else ""))
 
         tokens = torch.cat([prompt, *fed], dim=1)                  # (B, 160)
         _zero_counts()
@@ -4972,9 +4980,11 @@ def phase_recurrence_kernels(torch):
     length past two checkpoint chunks, the tiny tasks' widths): every
     output (the checkpoints too) within SCAN_KERNEL_TOL, each call twice
     for the same bits, one launch counted a call; timed eager and from a
-    CUDA graph beside the plain version and the bound. No single PyTorch
-    call computes either recurrence: no library yardstick. Returns
-    {kernel: row} at the training shapes."""
+    CUDA graph beside the plain version and the bound (a forward as the
+    path calls it: with checkpoints where S > 1, as training does, none at
+    a decode step, as the serves do), each kernel's block printed. No
+    single PyTorch call computes either recurrence: no library yardstick.
+    Returns {kernel: row} at the training shapes."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as K13
     from repro_torch.kernels import wkv6 as K12
@@ -5024,22 +5034,29 @@ def phase_recurrence_kernels(torch):
             b_bound, b_by = _bound(b_bytes, b_flops * entries)
             n = 20 if S > 1 else 100
             plain_n = 2 if S > 1 else 10
+            ck = S > 1
             times = {
-                "forward": (cuda_ms(torch, lambda: fwd(*ins, state, checkpoints=True), n),
-                            graph_ms(torch, lambda: fwd(*ins, state, checkpoints=True), n),
+                "forward": (cuda_ms(torch, lambda: fwd(*ins, state, checkpoints=ck), n),
+                            graph_ms(torch, lambda: fwd(*ins, state, checkpoints=ck), n),
                             cuda_ms(torch, lambda: fwd_ref(*ins, state, K.CHUNK), plain_n)),
                 "backward": (cuda_ms(torch, lambda: bwd(*ins, out[2], dy, dstate), n),
                              graph_ms(torch, lambda: bwd(*ins, out[2], dy, dstate), n),
                              cuda_ms(torch, lambda: bwd_ref(*ins, want[2], dy, dstate, K.CHUNK),
                                      plain_n))}
             info = K12.bwd_info(P) if kind == "wkv6" else K13.bwd_info(P, N)
+            finfo = K12.fwd_info(P) if kind == "wkv6" else K13.fwd_info(P, N)
             log(f"[recurrence] {tag}: relative errors fwd "
                 + ", ".join(f"{e:.2e}" for e in errs[:3]) + "; bwd "
                 + ", ".join(f"{e:.2e}" for e in errs[3:])
                 + f" (tol {SCAN_KERNEL_TOL}); bitwise repeatable; forward "
-                f"{_us(times['forward'][0])} us eager, {_us(times['forward'][1])} us graph, "
-                f"plain {_us(times['forward'][2])} us, bound {f_bound * 1e3:.2f} us ({f_by}, "
-                f"{f_bytes} B, {f_flops * entries} flop); backward "
+                f"({'with' if ck else 'no'} checkpoints) "
+                f"{_us(times['forward'][0])} us eager, {_us(times['forward'][1])} us graph "
+                f"({times['forward'][0] / f_bound:.1f}x, {times['forward'][1] / f_bound:.1f}x "
+                f"its bound), plain {_us(times['forward'][2])} us, bound {f_bound * 1e3:.2f} us "
+                f"({f_by}, {f_bytes} B, {f_flops * entries} flop); the forward's block "
+                f"{finfo['threads']} threads, {finfo['registers']} registers, "
+                f"{finfo['shared_bytes']} B shared, {finfo['blocks_per_sm']} an SM, "
+                f"{finfo['local_bytes']} B spilled, {B * H * finfo['blocks']} blocks; backward "
                 f"{_us(times['backward'][0])} us eager, {_us(times['backward'][1])} us graph, "
                 f"plain {_us(times['backward'][2])} us, bound {b_bound * 1e3:.2f} us ({b_by}, "
                 f"{b_bytes} B, {b_flops * entries} flop); the backward's block "

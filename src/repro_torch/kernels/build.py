@@ -126,3 +126,14 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
     if err < 0:
         raise RuntimeError(f"{what} launch failed: CUresult {-err}")
+
+
+def kernel_info(lib: ctypes.CDLL, entry: str, *widths) -> dict:
+    """A built kernel's block on the current card from a library's
+    ``*_info`` entry (``entry(*widths, int out[6])``): threads, dynamic
+    shared bytes, registers a thread, blocks an SM, local (spilled) bytes a
+    thread and blocks a (batch row, head), 0 where the entry leaves it."""
+    out = (ctypes.c_int * 6)()
+    check_launch(getattr(lib, entry)(*widths, ctypes.addressof(out)), entry)
+    return dict(zip(("threads", "shared_bytes", "registers", "blocks_per_sm", "local_bytes",
+                     "blocks"), out))

@@ -1,21 +1,32 @@
-// Pieces shared by the backward kernels of K12 (WKV-6, csrc/wkv6.cu) and
-// K13 (Mamba2's scan, csrc/ssm_scan.cu).
+// Pieces shared by the kernels of K12 (WKV-6, csrc/wkv6.cu) and K13
+// (Mamba2's scan, csrc/ssm_scan.cu), forwards and backwards.
 //
-// Both walk a recurrence back over a state of LINES x SPAN fp32 entries
-// per (batch row, head), in which every entry evolves on its own. One
-// block holds one state: each thread kSpan entries of one line, the
-// line's SPAN entries over LG = SPAN / kSpan neighbouring lanes, 32 / LG
-// lines a warp. Sums along a line are in the thread and then over its LG
-// lanes; sums across the lines are over the lanes of a warp that share a
-// span position, then over the warps through a shared tile. Both sums
-// are reduce-scatters over warp shuffles in a fixed tree: no atomics, the
-// same bits on every call.
+// Both run a recurrence over a state of LINES x SPAN fp32 entries per
+// (batch row, head), in which every entry evolves on its own. A thread
+// holds kSpan entries of one line, the line's SPAN entries over LG = SPAN /
+// kSpan neighbouring lanes, 32 / LG lines a warp (Geom). Sums along a line
+// are in the thread and then over its LG lanes by a shuffle reduce-scatter
+// in a fixed tree: no atomics, the same bits on every call. The one update
+// of a state entry is written once here (wkv6_update, ssm_update), so a
+// backward's replay walks through exactly the states its forward kept.
 //
 // The inputs come into shared memory a sub-chunk (kSub steps) at a time,
 // one TMA box of kSub rows an input, completing on an mbarrier, into a
-// ring of kSlabs slabs loaded kAhead sub-chunks ahead of the one in use.
-// A chunk's states stay on chip: its sub-checkpoints (every kSub steps)
-// in shared memory, a sub-chunk's states in registers.
+// ring of slabs loaded ahead of the one in use.
+//
+// Backward: one block a state; sums across the lines go over the lanes of
+// a warp that share a span position, then over the warps through a shared
+// tile. A chunk's states stay on chip: its sub-checkpoints (every kSub
+// steps) in shared memory, a sub-chunk's states in registers; kSlabs
+// slabs, kAhead sub-chunks ahead.
+//
+// Forward (FwdGeom): a state's lines split over blocks of at most kFwdLines
+// lines, which share nothing, a thread kSpan entries of each of a few
+// lines (the inputs it reads from shared memory a step serve them all);
+// kFwdSlabs slabs, kFwdSlabs - 1 sub-chunks ahead. A step's sums wait for
+// the sub-chunk's end, when one reduce-scatter adds the kSub steps' sums
+// over each line's lanes; the outputs leave through shared memory as
+// 16-byte stores, after the sub-chunk's one barrier.
 //
 // Header only: each library that includes it keeps its own copy.
 
@@ -30,6 +41,8 @@ constexpr int kSub = 8;      // steps of a sub-chunk: its states in registers
 constexpr int kSpan = 8;     // state entries of a thread, along its line
 constexpr int kSlabs = 4;    // sub-chunk input slabs in shared memory
 constexpr int kAhead = 2;    // slabs in flight beyond the one in use
+constexpr int kFwdSlabs = 4;  // the forwards' input slabs
+constexpr int kFwdLines = 32; // lines of a forward block, at most
 // sub-checkpoints kept in shared memory: sub-chunks 1 .. kChunk / kSub - 2
 // (sub-chunk 0 starts at the forward's checkpoint, the last one from the
 // registers of the pass that wrote the others)
@@ -51,6 +64,34 @@ struct Geom {
     return (e >> 2) * 4 * LG + 4 * g + (e & 3);
   }
 };
+
+// The forwards' block: LB lines of a state's LINES, LPT lines a thread
+// (at most WANT, as many as whole warps allow): Geom<LB / LPT, SPAN> lays
+// out a thread's first line, its others LB / LPT lines on; BLOCKS blocks a
+// (b, h). A sub-chunk's line sums wait in a shared tile of kSub rows of YS
+// floats (16-byte rows).
+template <int LINES, int SPAN, int WANT>
+struct FwdGeom {
+  static constexpr int LB = LINES < kFwdLines ? LINES : kFwdLines;
+  static constexpr int LPT = WANT < LB * SPAN / kSpan / 32 ? WANT : LB * SPAN / kSpan / 32;
+  static constexpr int SL = LB / LPT;
+  using Gm = Geom<SL, SPAN>;
+  static constexpr int T = Gm::T, LG = Gm::LG, LPW = Gm::LPW;
+  static constexpr int BLOCKS = LINES / LB;
+  static constexpr int YS = LB + 4;
+  static_assert(LINES % LB == 0 && LB % 4 == 0 && LPT >= 1, "lines of 16, 32 or 64");
+};
+
+// The one update of a state entry, in the forwards and the backwards'
+// replays alike. K12: S <- w S + k v, the product k v rounded first.
+__device__ __forceinline__ float wkv6_update(float s, float w, float kv) {
+  return fmaf(w, s, kv);
+}
+
+// K13: h <- a h + (dt x) B, in the plain version's order of products.
+__device__ __forceinline__ float ssm_update(float h, float a, float dtx, float B) {
+  return fmaf(h, a, dtx * B);
+}
 
 // Reduce-scatter of V values over the lanes that differ in the lane bits
 // M, 2M, ..., MEND. While more than one value is left, each stage halves
@@ -109,6 +150,12 @@ __device__ __forceinline__ void load_span(float (&d)[kSpan], const float* row, i
   const float4 b = *reinterpret_cast<const float4*>(row + 4 * LG + 4 * g);
   d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
   d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
+}
+
+template <int LG>
+__device__ __forceinline__ void store_span(float* row, int g, const float (&d)[kSpan]) {
+  *reinterpret_cast<float4*>(row + 4 * g) = make_float4(d[0], d[1], d[2], d[3]);
+  *reinterpret_cast<float4*>(row + 4 * LG + 4 * g) = make_float4(d[4], d[5], d[6], d[7]);
 }
 
 // a sub-checkpoint slot: [2][T] float4, a thread's entries at tid
@@ -189,23 +236,46 @@ int make_context_current() {
 }
 
 // A contiguous fp32 (B, S, rows, width) tensor as TMA reads it: boxes of
-// width columns x 1 row x kSub steps x 1, not swizzled, zeros past step
-// S - 1. Returns 0, or the negated CUresult of the encoding (with a
-// current context: make_context_current).
-int make_step_map(CUtensorMap* map, const float* ptr, int B, int S, int rows, int width) {
+// `box` columns (all `width` by default) x 1 row x kSub steps x 1, not
+// swizzled, zeros past step S - 1. Returns 0, or the negated CUresult of
+// the encoding (with a current context: make_context_current).
+int make_step_map(CUtensorMap* map, const float* ptr, int B, int S, int rows, int width,
+                  int box = 0) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(width) * sizeof(float);
   const cuuint64_t strides[3] = {row, row * rows, row * rows * S};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(width), 1, kSub, 1};
+  const cuuint32_t dims_box[4] = {static_cast<cuuint32_t>(box ? box : width), 1, kSub, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            dims, strides, dims_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+// A kernel launched with T threads and `smem` dynamic shared bytes on the
+// current card: out[0..4] = threads, dynamic shared bytes, registers a
+// thread, blocks an SM, local (spilled) bytes a thread. Returns the
+// cudaError.
+template <typename Kern>
+int kernel_info(Kern kernel, int T, size_t smem, int* out) {
+  bool smem_set = false;
+  cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, T, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = T;
+  out[1] = static_cast<int>(smem);
+  out[2] = attr.numRegs;
+  out[3] = blocks;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // the dynamic shared memory, its start rounded up to 128 bytes (TMA's

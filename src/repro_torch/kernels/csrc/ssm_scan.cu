@@ -17,13 +17,30 @@
 // steps (the checkpoints, (B, H, n, P, N)) when asked; the backward walks
 // each chunk back from its checkpoint.
 //
-// Forward: one block per (b, h), P threads, thread p holding row p of h in
-// registers: y_t[p] is a sum over n in the thread, B_t and C_t staged in
-// shared memory. Bound on the card: its operations (5 flops a state entry a
-// step), 1.17 GFLOP at zamba2-7b's training shape; each step's latency (the
-// staged vectors, two barriers) binds this simple design.
+// Forward (csrc/scan.cuh, FwdGeom<P, N, 4>): a line is a row p of h, since
+// y_t[p] reads row p alone. A row's N columns lie over N/8 lanes, 8 a
+// thread (two 16-byte pieces of the row, so the state, the checkpoints and
+// h_T move as 16-byte loads and stores from registers, a warp's covering
+// whole rows), and a thread holds 4 rows 8 apart: the 16 values of B and C
+// it reads from shared memory a step serve all four. A block holds 32 rows:
+// a (b, h) is P/32 blocks that share nothing (896 blocks of 64 threads at
+// zamba2-7b's B·H = 448). x for the block's rows, B and C come a sub-chunk
+// of 8 steps at a time as TMA boxes on mbarriers, 3 sub-chunks ahead (a
+// call of at most 8 steps, the decode step, copies its rows with the
+// state's loads instead); a and dt a chunk at a time, loaded into
+// registers a chunk ahead. A step is, for each entry, a h + (dt x) B
+// (ssm_update, the backward's replay's form) and h C into the row's sum;
+// the sums wait for the sub-chunk's end, one reduce-scatter of its 8 steps
+// over each row's lanes, then y through a shared tile as 16-byte stores
+// after the sub-chunk's one barrier. No scratch, no atomics. Bound on the
+// card: its operations (5 flops a state entry a step), 1.17 GFLOP at
+// zamba2-7b's training shape; the design issues 3 fp32 instructions an
+// entry a step (the product (dt x) B kept for the plain version's order)
+// and about 22 shared-memory loads a warp a step, at 14 warps an SM (143
+// registers a thread); the decode step is the state's read and write
+// (14.7 MB).
 //
-// Backward (csrc/scan_bwd.cuh): one block per (b, h), N·P/8 threads,
+// Backward (csrc/scan.cuh): one block per (b, h), N·P/8 threads,
 // thread (column n, lane g of the column's P/8 lanes) holding h[p][n] and
 // G[p][n] for 8 rows p. A chunk is replayed from its checkpoint in
 // sub-chunks of 8 steps: a forward pass keeps the state at each sub-chunk's
@@ -46,49 +63,214 @@
 
 #include <type_traits>
 
-#include "scan_bwd.cuh"  // the backward's geometry, sums, slabs and sub-chunk order
+#include "scan.cuh"  // geometry, the update, sums, slabs, the backward's sub-chunk order
 
 namespace {
 
-template <int N>
-__global__ void ssm_scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                                    const float* __restrict__ a, const float* __restrict__ Bm,
-                                    const float* __restrict__ Cm, const float* __restrict__ h0,
-                                    float* __restrict__ y, float* __restrict__ hT,
-                                    float* __restrict__ ckpt, int S, int H, int P, int chunk) {
-  const int bh = blockIdx.x, b = bh / H, hd = bh % H, p = threadIdx.x;
-  const int n_ck = (S + chunk - 1) / chunk;
-  __shared__ float sB[N], sC[N];
-  float hs[N];
-  const float* h0row = h0 ? h0 + ((size_t)bh * P + p) * N : nullptr;
+// The forward's geometry: FwdGeom<P, N, kSsmRows>, a line a row p of the
+// state. Shared memory: the input slabs (x for the block's rows, B and C a
+// sub-chunk), two sub-chunks' y tiles, two chunks' a and dt, the
+// mbarriers.
+constexpr int kSsmRows = 4;  // rows a thread: B and C from shared memory serve them all
+template <int P, int N>
+struct SsmFwd {
+  using F = FwdGeom<P, N, kSsmRows>;
+  static constexpr int LB = F::LB, T = F::T, LG = F::LG, YS = F::YS;
+  static constexpr int kSlabFloats = kSub * (LB + 2 * N);  // x [kSub][LB]; B, C [kSub][N]
+  static constexpr size_t smem_bytes() {
+    return kSmemSlack + sizeof(float) * ((size_t)kFwdSlabs * kSlabFloats + 2 * kSub * YS +
+                                         4 * kChunk) +
+           sizeof(uint64_t) * kFwdSlabs;
+  }
+};
+
+template <int P, int N>
+__global__ void __launch_bounds__(SsmFwd<P, N>::T) ssm_scan_fwd_lanes_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_B,
+    const __grid_constant__ CUtensorMap tm_C, const float* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ a, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, const float* __restrict__ h0, float* __restrict__ y,
+    float* __restrict__ hT, float* __restrict__ ckpt, int S, int H) {
+  using K = SsmFwd<P, N>;
+  using F = typename K::F;
+  constexpr int LB = K::LB, T = K::T, LG = K::LG, YS = K::YS, LPT = F::LPT, SL = F::SL;
+  constexpr int kSubs = kChunk / kSub;
+  using Sy = Scatter<LPT * kSub, 1, LG / 2>;  // a sub-chunk's y sums over each row's lanes
+  static_assert(Sy::dup_mask == 0, "every lane keeps sums of its own");
+  extern __shared__ unsigned char smem_raw[];
+  float* slabs = smem_base(smem_raw);
+  float* ytile = slabs + kFwdSlabs * K::kSlabFloats;  // [2][kSub][YS]
+  float* sadt = ytile + 2 * kSub * YS;                // [2][2][kChunk]: a chunk's a, its dt
+  uint64_t* full = reinterpret_cast<uint64_t*>(sadt + 4 * kChunk);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the thread's rows in the block: slot, slot + SL, ...
+  const int g = lane % LG, slot = (tid >> 5) * F::LPW + lane / LG;
+  const int bh = blockIdx.x / F::BLOCKS, p0 = (blockIdx.x % F::BLOCKS) * LB;
+  const int b = bh / H, hd = bh % H;
+  const int n_ck = (S + kChunk - 1) / kChunk, n_sub = (S + kSub - 1) / kSub;
+  auto at_t = [&](int t) { return ((size_t)b * S + t) * H + hd; };  // (b, t, h): dt, a, y's row
+  // row m of the thread's in a (P, N) state of this (b, h): h0, h_T, checkpoint c
+  auto state_row = [&](int m) { return ((size_t)bh * P + p0 + slot + m * SL) * N; };
+  auto ck_row = [&](int c, int m) {
+    return (((size_t)bh * n_ck + c) * P + p0 + slot + m * SL) * N;
+  };
+
+  auto issue = [&](int it) {
+    const int slab = it % kFwdSlabs, t0 = it * kSub;
+    float* dst = slabs + slab * K::kSlabFloats;
+    mbar_expect_tx(&full[slab], K::kSlabFloats * sizeof(float));
+    tma_load_4d(dst, &tm_x, p0, hd, t0, b, &full[slab]);
+    tma_load_4d(dst + kSub * LB, &tm_B, 0, 0, t0, b, &full[slab]);
+    tma_load_4d(dst + kSub * (LB + N), &tm_C, 0, 0, t0, b, &full[slab]);
+  };
+  // a call of one sub-chunk (a decode step) copies its rows with the
+  // threads, beside the state's loads: no tensor map to encode on the host,
+  // no TMA round trip after the loads
+  const bool direct = n_sub == 1;
+  if (tid == 0) {  // the first sub-chunks' loads go out before anything else
+    for (int s = 0; s < kFwdSlabs; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; !direct && it < kFwdSlabs - 1 && it < n_sub; ++it) issue(it);
+  }
+  // a and dt come a chunk at a time: each thread loads its share of the
+  // next chunk's at a chunk's start and stores it before the chunk's last
+  // barrier
+  constexpr int kPre = (2 * kChunk + T - 1) / T;
+  float pre[kPre];
+  auto fetch = [&](int c) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) hs[n] = h0row ? h0row[n] : 0.f;
-  for (int t = 0; t < S; ++t) {
-    if (ckpt && t % chunk == 0) {
-      float* c = ckpt + (((size_t)bh * n_ck + t / chunk) * P + p) * N;
-#pragma unroll
-      for (int n = 0; n < N; ++n) c[n] = hs[n];
+    for (int m = 0; m < kPre; ++m) {
+      const int j = tid + m * T, t = c * kChunk + j % kChunk;
+      pre[m] = j < 2 * kChunk && t < S ? (j < kChunk ? a : dt)[at_t(t)] : 0.f;
     }
-    const size_t bt = (size_t)b * S + t, o = bt * H + hd;
-    __syncthreads();  // the last step's reads of sB and sC are done
-    for (int q = p; q < N; q += P) {
-      sB[q] = Bm[bt * N + q];
-      sC[q] = Cm[bt * N + q];
+  };
+  auto stash = [&](int c) {
+#pragma unroll
+    for (int m = 0; m < kPre; ++m)
+      if (tid + m * T < 2 * kChunk) sadt[(c & 1) * 2 * kChunk + tid + m * T] = pre[m];
+  };
+  // Every global load of the prologue goes out before its first store: a
+  // decode step's rows (x for the block's rows, B, C), chunk 0's a and dt,
+  // the state, which then go to the slab, sadt and the first checkpoint.
+  constexpr int X4 = LB / 4, N4 = N / 4, R4 = X4 + 2 * N4;  // float4s of a step's row
+  constexpr int kRowPieces = (kSub * R4 + T - 1) / T;
+  auto row_piece = [&](int i, const float*& src, float*& dst) {
+    const int l = i / R4, c4 = i % R4;
+    if (c4 < X4) {
+      src = x + at_t(l) * P + p0 + 4 * c4;
+      dst = slabs + l * LB + 4 * c4;
+    } else {
+      const int bc = (c4 - X4) / N4;  // 0: B, 1: C
+      src = (bc ? Cm : Bm) + ((size_t)b * S + l) * N + 4 * ((c4 - X4) % N4);
+      dst = slabs + kSub * (LB + bc * N) + l * N + 4 * ((c4 - X4) % N4);
+    }
+  };
+  float4 rowp[kRowPieces];
+  if (direct) {
+#pragma unroll
+    for (int m = 0; m < kRowPieces; ++m) {
+      const float* src;
+      float* dst;
+      if (tid + m * T < S * R4) {
+        row_piece(tid + m * T, src, dst);
+        rowp[m] = *reinterpret_cast<const float4*>(src);
+      }
+    }
+  }
+  fetch(0);
+
+  float hs[LPT][kSpan];  // h[p][pos(g, e)] of the thread's rows p
+#pragma unroll
+  for (int m = 0; m < LPT; ++m) {
+    if (h0) {
+      load_span<LG>(hs[m], h0 + state_row(m), g);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kSpan; ++e) hs[m][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < LPT && ckpt; ++m) store_span<LG>(ckpt + ck_row(0, m), g, hs[m]);
+  if (direct) {
+#pragma unroll
+    for (int m = 0; m < kRowPieces; ++m) {
+      const float* src;
+      float* dst;
+      if (tid + m * T < S * R4) {
+        row_piece(tid + m * T, src, dst);
+        *reinterpret_cast<float4*>(dst) = rowp[m];
+      }
+    }
+  }
+  stash(0);
+  fetch(1);
+  __syncthreads();
+
+  for (int it = 0; it < n_sub; ++it) {
+    // slab (it - 1) % kFwdSlabs is free: every thread passed the last barrier
+    if (tid == 0 && it + kFwdSlabs - 1 < n_sub) issue(it + kFwdSlabs - 1);
+    const int c = it / kSubs, q = it % kSubs, t0 = it * kSub, n = min(kSub, S - t0);
+    if (q == 0 && c > 0) fetch(c + 1);
+    if (!direct) mbar_wait(&full[it % kFwdSlabs], (it / kFwdSlabs) & 1);
+    const float* sx = slabs + (it % kFwdSlabs) * K::kSlabFloats;  // x [kSub][LB]
+    const float* sB = sx + kSub * LB;                               // B [kSub][N]
+    const float* sC = sB + kSub * N;                                // C
+    const float* ca = sadt + (c & 1) * 2 * kChunk + q * kSub;
+    const float* cdt = ca + kChunk;
+    float* yt = ytile + (it & 1) * kSub * YS;
+    float yp[LPT * kSub];  // y[p] of row m at step l over the thread's entries: [m][l]
+    auto steps = [&](auto whole) {
+#pragma unroll
+      for (int l = 0; l < kSub; ++l) {
+        if (decltype(whole)::value || l < n) {
+          const float at = ca[l], dtl = cdt[l];
+          float Bv[kSpan], Cv[kSpan];
+          load_span<LG>(Bv, sB + l * N, g);
+          load_span<LG>(Cv, sC + l * N, g);
+#pragma unroll
+          for (int m = 0; m < LPT; ++m) {
+            const float dtx = dtl * sx[l * LB + slot + m * SL];
+            float acc = 0.f;
+#pragma unroll
+            for (int e = 0; e < kSpan; ++e) {
+              hs[m][e] = ssm_update(hs[m][e], at, dtx, Bv[e]);
+              acc = fmaf(hs[m][e], Cv[e], acc);
+            }
+            yp[m * kSub + l] = acc;
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < LPT; ++m) yp[m * kSub + l] = 0.f;
+        }
+      }
+    };
+    if (n == kSub)
+      steps(std::true_type{});
+    else
+      steps(std::false_type{});
+    bool writes;
+    const int off = Sy::run(yp, lane, writes);
+#pragma unroll
+    for (int i = 0; i < Sy::kept; ++i)
+      yt[((off + i) % kSub) * YS + slot + (off + i) / kSub * SL] = yp[i];
+    if (q == kSubs - 1) {  // a chunk's end: the next one's checkpoint, a and dt
+      if (ckpt && it + 1 < n_sub) {
+#pragma unroll
+        for (int m = 0; m < LPT; ++m)
+          store_span<LG>(ckpt + ck_row(c + 1, m), g, hs[m]);
+      }
+      stash(c + 1);
     }
     __syncthreads();
-    const float at = a[o];
-    const float xs = dt[o] * x[o * P + p];
-    float acc = 0.f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      hs[n] = hs[n] * at + xs * sB[n];
-      acc += hs[n] * sC[n];
+    for (int i = tid; i < n * (LB / 4); i += T) {
+      const int l = i / (LB / 4), c4 = i % (LB / 4);
+      *reinterpret_cast<float4*>(y + at_t(t0 + l) * P + p0 + 4 * c4) =
+          *reinterpret_cast<const float4*>(yt + l * YS + 4 * c4);
     }
-    y[o * P + p] = acc;
   }
-  float* hrow = hT + ((size_t)bh * P + p) * N;
 #pragma unroll
-  for (int n = 0; n < N; ++n) hrow[n] = hs[n];
+  for (int m = 0; m < LPT; ++m) store_span<LG>(hT + state_row(m), g, hs[m]);
 }
 
 // The backward's geometry: one block a (b, h), Geom<N, P>: thread (column
@@ -189,11 +371,12 @@ __global__ void __launch_bounds__(SsmBwd<P, N>::T, 1) ssm_scan_bwd_kernel(
       const float* sl = slabs + (item % kSlabs) * K::kSlabFloats;
 #pragma unroll
       for (int l = 0; l < kSub; ++l) {
-        const float at = ca[q * kSub + l], dB = cdt[q * kSub + l] * sl[2 * kSub * P + l * N + n];
+        const float at = ca[q * kSub + l], dtl = cdt[q * kSub + l];
+        const float Bn = sl[2 * kSub * P + l * N + n];
         float xv[kSpan];
         load_span<LG>(xv, sl + l * P, g);
 #pragma unroll
-        for (int e = 0; e < kSpan; ++e) run[e] = fmaf(run[e], at, xv[e] * dB);
+        for (int e = 0; e < kSpan; ++e) run[e] = ssm_update(run[e], at, dtl * xv[e], Bn);
       }
       if (q + 2 < nq) store_slot<T>(subck + q * 2 * T, tid, run);
       __syncthreads();
@@ -217,12 +400,12 @@ __global__ void __launch_bounds__(SsmBwd<P, N>::T, 1) ssm_scan_bwd_kernel(
 #pragma unroll
       for (int e = 0; e < kSpan; ++e) st[0][e] = st0[e];
       auto replay = [&](int l) {
-        const float at = ca[tq + l], dB = cdt[tq + l] * sB[l * N + n];
+        const float at = ca[tq + l], dtl = cdt[tq + l], Bn = sB[l * N + n];
         float xv[kSpan];
         load_span<LG>(xv, sx + l * P, g);
 #pragma unroll
         for (int e = 0; e < kSpan; ++e) {
-          const float hn = fmaf(st[l][e], at, xv[e] * dB);
+          const float hn = ssm_update(st[l][e], at, dtl * xv[e], Bn);
           if (l + 1 < kSub)
             st[l + 1][e] = hn;
           else
@@ -355,12 +538,25 @@ __global__ void __launch_bounds__(kBcThreads) ssm_scan_bc_sum_kernel(
   }
 }
 
-template <int N>
-cudaError_t launch_fwd(const float* x, const float* dt, const float* a, const float* Bm,
-                       const float* Cm, const float* h0, float* y, float* hT, float* ckpt,
-                       int B, int S, int H, int P, int chunk, cudaStream_t stream) {
-  ssm_scan_fwd_kernel<N><<<B * H, P, 0, stream>>>(x, dt, a, Bm, Cm, h0, y, hT, ckpt, S, H, P,
-                                                  chunk);
+template <int P, int N>
+int launch_fwd(const float* x, const float* dt, const float* a, const float* Bm, const float* Cm,
+               const float* h0, float* y, float* hT, float* ckpt, int B, int S, int H,
+               cudaStream_t stream) {
+  using K = SsmFwd<P, N>;
+  CUtensorMap tm[3] = {};  // not read when S fits one sub-chunk
+  int bad = 0;
+  if (S > kSub) {
+    bad = make_context_current();
+    if (bad == 0) bad = make_step_map(&tm[0], x, B, S, H, P, K::LB);
+    if (bad == 0) bad = make_step_map(&tm[1], Bm, B, S, 1, N);
+    if (bad == 0) bad = make_step_map(&tm[2], Cm, B, S, 1, N);
+  }
+  if (bad != 0) return bad;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(ssm_scan_fwd_lanes_kernel<P, N>, K::smem_bytes(), &smem_set);
+  if (err != cudaSuccess) return err;
+  ssm_scan_fwd_lanes_kernel<P, N><<<B * H * K::F::BLOCKS, K::T, K::smem_bytes(), stream>>>(
+      tm[0], tm[1], tm[2], x, dt, a, Bm, Cm, h0, y, hT, ckpt, S, H);
   return cudaGetLastError();
 }
 
@@ -388,28 +584,20 @@ int launch_bwd(const float* x, const float* dt, const float* a, const float* Bm,
   return cudaGetLastError();
 }
 
-// {threads, dynamic shared bytes, registers, blocks an SM, local bytes}
 template <int P, int N>
 int bwd_info(int* out) {
   using K = SsmBwd<P, N>;
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(ssm_scan_bwd_kernel<P, N>, K::smem_bytes(), &smem_set);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, ssm_scan_bwd_kernel<P, N>);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ssm_scan_bwd_kernel<P, N>,
-                                                        K::T, K::smem_bytes());
-  if (err != cudaSuccess) return err;
-  out[0] = K::T;
-  out[1] = static_cast<int>(K::smem_bytes());
-  out[2] = attr.numRegs;
-  out[3] = blocks;
-  out[4] = static_cast<int>(attr.localSizeBytes);
-  return 0;
+  return kernel_info(ssm_scan_bwd_kernel<P, N>, K::T, K::smem_bytes(), out);
 }
 
-// the instantiation of launch_bwd or bwd_info for P and N (16, 32 or 64)
+template <int P, int N>
+int fwd_info(int* out) {
+  using K = SsmFwd<P, N>;
+  out[5] = K::F::BLOCKS;
+  return kernel_info(ssm_scan_fwd_lanes_kernel<P, N>, K::T, K::smem_bytes(), out);
+}
+
+// the instantiation of a launch or an info for P and N (16, 32 or 64)
 template <int P, typename F>
 int by_n(int N, F f) {
   switch (N) {
@@ -436,16 +624,16 @@ extern "C" {
 
 // One launch: y (B, S, H, P), h_T (B, H, P, N) and, when ckpt is not null,
 // the checkpoints (B, H, ceil(S / chunk), P, N). h0 null is a zero state.
-// N is 16, 32 or 64; P at most 1024.
+// P and N are 16, 32 or 64; chunk must be 64; x, B, C and h0 16-byte
+// aligned.
 int ssm_scan_fwd(const float* x, const float* dt, const float* a, const float* Bm,
                  const float* Cm, const float* h0, float* y, float* hT, float* ckpt, int B,
                  int S, int H, int P, int N, int chunk, cudaStream_t stream) {
-  switch (N) {
-    case 16: return launch_fwd<16>(x, dt, a, Bm, Cm, h0, y, hT, ckpt, B, S, H, P, chunk, stream);
-    case 32: return launch_fwd<32>(x, dt, a, Bm, Cm, h0, y, hT, ckpt, B, S, H, P, chunk, stream);
-    case 64: return launch_fwd<64>(x, dt, a, Bm, Cm, h0, y, hT, ckpt, B, S, H, P, chunk, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (chunk != kChunk) return cudaErrorInvalidValue;
+  return by_widths(P, N, [&](auto p, auto n) {
+    return launch_fwd<decltype(p)::value, decltype(n)::value>(x, dt, a, Bm, Cm, h0, y, hT,
+                                                                ckpt, B, S, H, stream);
+  });
 }
 
 // Two launches: the recurrence backward (dx (B, S, H, P), ddt and da
@@ -471,6 +659,15 @@ int ssm_scan_bwd(const float* x, const float* dt, const float* a, const float* B
 int ssm_scan_bwd_info(int P, int N, int* out) {
   return by_widths(P, N, [&](auto p, auto n) {
     return bwd_info<decltype(p)::value, decltype(n)::value>(out);
+  });
+}
+
+// The forward kernel at widths P and N on the current card: out[0..5] =
+// threads a block, dynamic shared bytes, registers a thread, blocks an SM,
+// local (spilled) bytes a thread, blocks a (batch row, head).
+int ssm_scan_fwd_info(int P, int N, int* out) {
+  return by_widths(P, N, [&](auto p, auto n) {
+    return fwd_info<decltype(p)::value, decltype(n)::value>(out);
   });
 }
 

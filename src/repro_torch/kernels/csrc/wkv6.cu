@@ -17,16 +17,31 @@
 // `chunk` steps (the checkpoints, (B, H, n, P, P)) when asked, and the
 // backward walks each chunk back from its checkpoint.
 //
-// Forward: one block per (b, h), P threads, thread j holding column j of S
-// in registers, so y_t[j] is a sum over i in the thread, in the reference's
-// order of products; r_t, k_t and w_t are staged in shared memory a step at
-// a time (the next step's loads issued before the current step's
-// arithmetic). Bound on the card: the bytes (each input read once, each
-// output written once), a few MB a layer, against 5 P^2 flops a step per
-// (b, h); at B·H = 128 blocks of 64 threads each step's latency (shared-
-// memory round trips, two barriers) binds it instead.
+// Forward (csrc/scan.cuh, FwdGeom<P, P, 2>): a line is a column j of S,
+// since y_t[j] reads column j alone. A column's P rows lie over P/8 lanes,
+// 8 a thread, and a thread holds 2 columns 16 apart: the 24 values of r, k
+// and w it reads from shared memory a step serve both. A block holds 32
+// columns, so a (b, h) is P/32 blocks that share nothing (256 blocks of 128
+// threads at rwkv6-1.6b's B·H = 128, P = 64). r, k, w and the block's v
+// come a sub-chunk of 8 steps at a time as TMA boxes on mbarriers, 3
+// sub-chunks ahead (a call of at most 8 steps, the decode step, copies its
+// rows with the state's loads instead). A step is, for each entry, r (S +
+// u k v) into the column's sum and w S + k v (wkv6_update, the backward's
+// replay's form); the sums wait for the sub-chunk's end, one reduce-scatter
+// of its 8 steps over each column's lanes, then y through a shared tile as
+// 16-byte stores after the sub-chunk's one barrier. The state, the
+// checkpoints (every 64 steps) and S_T cross device memory through a
+// shared tile of the block's columns, as 16-byte pieces of rows. No
+// scratch, no atomics. Bound on the card: its bytes (each input read once,
+// each output written once), 23.1 MB at the training shape against 0.34
+// GFLOP at 5 flops an entry a step; the design issues 4 fp32 instructions
+// an entry a step and reads 26 floats a thread a step from shared memory
+// (about one shared-memory cycle a float a warp): at 8 warps an SM the
+// shared-memory reads bind it at the training shape, and at the decode
+// step its fixed passes (the state through the tile each way, three
+// barriers) cost more than the state's 4.2 MB.
 //
-// Backward (csrc/scan_bwd.cuh): one block per (b, h), P·P/8 threads, thread
+// Backward (csrc/scan.cuh): one block per (b, h), P·P/8 threads, thread
 // (row i, lane g of the row's P/8 lanes) holding S[i][j] and G[i][j] for 8
 // columns j. A chunk is replayed from its checkpoint in sub-chunks of 8
 // steps: a forward pass keeps the state at each sub-chunk's start in shared
@@ -47,49 +62,223 @@
 // replay twice, the sums' shuffles) and waits on each step's chains of
 // shuffles.
 
-#include "scan_bwd.cuh"  // the backward's geometry, sums, slabs and sub-chunk order
+#include <type_traits>
+
+#include "scan.cuh"  // geometry, the update, sums, slabs, the backward's sub-chunk order
 
 namespace {
 
+// The forward's geometry: FwdGeom<P, P, kWkv6Cols>, a line a column j of
+// the state. Shared memory: the input slabs (r, k, w a sub-chunk, v for the
+// block's columns), the block's columns of a state (rows i; its 16-byte
+// pieces swizzled by row, so that a warp's scattered writes land in
+// distinct banks), two sub-chunks' y tiles, the mbarriers.
+constexpr int kWkv6Cols = 2;  // columns a thread: r, k, w from shared memory serve them all
 template <int P>
-__global__ void __launch_bounds__(P) wkv6_fwd_kernel(
-    const float* __restrict__ r, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ u, const float* __restrict__ S0,
-    float* __restrict__ y, float* __restrict__ ST, float* __restrict__ ckpt,
-    int S, int H, int chunk) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, j = threadIdx.x;
-  const int n_ck = (S + chunk - 1) / chunk;
-  __shared__ float sr[P], sk[P], sw[P], su[P];
-  float s[P];
-  su[j] = u[h * P + j];
-#pragma unroll
-  for (int i = 0; i < P; ++i) s[i] = S0 ? S0[((size_t)bh * P + i) * P + j] : 0.f;
-  size_t off = ((size_t)b * S * H + h) * P + j;  // element j of (b, t = 0, h)
-  const size_t step = (size_t)H * P;
-  float nr = 0.f, nk = 0.f, nw = 0.f, nv = 0.f;
-  if (S > 0) { nr = r[off]; nk = k[off]; nw = w[off]; nv = v[off]; }
-  for (int t = 0; t < S; ++t, off += step) {
-    if (ckpt && t % chunk == 0) {
-      float* c = ckpt + ((size_t)bh * n_ck + t / chunk) * P * P + j;
-#pragma unroll
-      for (int i = 0; i < P; ++i) c[i * P] = s[i];
-    }
-    __syncthreads();  // the last step's reads of the staged vectors are done
-    sr[j] = nr; sk[j] = nk; sw[j] = nw;
-    const float vj = nv;
-    __syncthreads();
-    if (t + 1 < S) { nr = r[off + step]; nk = k[off + step]; nw = w[off + step]; nv = v[off + step]; }
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const float kv = sk[i] * vj;
-      acc += sr[i] * (s[i] + su[i] * kv);
-      s[i] = sw[i] * s[i] + kv;
-    }
-    y[off] = acc;
+struct Wkv6Fwd {
+  using F = FwdGeom<P, P, kWkv6Cols>;
+  static constexpr int LB = F::LB, T = F::T, LG = F::LG, YS = F::YS;
+  static constexpr int kSlabFloats = kSub * (3 * P + LB);  // r, k, w [kSub][P]; v [kSub][LB]
+  static constexpr size_t smem_bytes() {
+    return kSmemSlack + sizeof(float) * ((size_t)kFwdSlabs * kSlabFloats + P * LB +
+                                         2 * kSub * YS) +
+           sizeof(uint64_t) * kFwdSlabs;
   }
+  // the float of state entry (row i, block column jl) in the state tile
+  __device__ static __forceinline__ int tile_at(int i, int jl) {
+    const int swz = ((i >> 2) * (8 / LG)) & (LB / 4 - 1);
+    return i * LB + 4 * ((jl >> 2) ^ swz) + (jl & 3);
+  }
+};
+
+template <int P>
+__global__ void __launch_bounds__(Wkv6Fwd<P>::T) wkv6_fwd_lanes_kernel(
+    const __grid_constant__ CUtensorMap tm_r, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ r, const float* __restrict__ k, const float* __restrict__ w,
+    const float* __restrict__ v, const float* __restrict__ u, const float* __restrict__ S0,
+    float* __restrict__ y, float* __restrict__ ST, float* __restrict__ ckpt, int S, int H) {
+  using K = Wkv6Fwd<P>;
+  using F = typename K::F;
+  using Gm = typename F::Gm;
+  constexpr int LB = K::LB, T = K::T, LG = K::LG, YS = K::YS, LPT = F::LPT, SL = F::SL;
+  constexpr int kSubs = kChunk / kSub;
+  using Sy = Scatter<LPT * kSub, 1, LG / 2>;  // a sub-chunk's y sums over each column's lanes
+  static_assert(Sy::dup_mask == 0, "every lane keeps sums of its own");
+  extern __shared__ unsigned char smem_raw[];
+  float* slabs = smem_base(smem_raw);
+  float* stile = slabs + kFwdSlabs * K::kSlabFloats;  // [P][LB], swizzled: tile_at
+  float* ytile = stile + P * LB;                      // [2][kSub][YS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ytile + 2 * kSub * YS);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the thread's columns in the block: slot, slot + SL, ...
+  const int g = lane % LG, slot = (tid >> 5) * F::LPW + lane / LG;
+  const int bh = blockIdx.x / F::BLOCKS, j0 = (blockIdx.x % F::BLOCKS) * LB;
+  const int b = bh / H, h = bh % H;
+  const int n_ck = (S + kChunk - 1) / kChunk, n_sub = (S + kSub - 1) / kSub;
+  auto row = [&](int t) { return (((size_t)b * S + t) * H + h) * P; };  // (b, t, h)
+  // the thread's entries into the tile
+  auto to_tile = [&](const float(&s)[LPT][kSpan]) {
 #pragma unroll
-  for (int i = 0; i < P; ++i) ST[((size_t)bh * P + i) * P + j] = s[i];
+    for (int m = 0; m < LPT; ++m)
+#pragma unroll
+      for (int e = 0; e < kSpan; ++e) stile[K::tile_at(Gm::pos(g, e), slot + m * SL)] = s[m][e];
+  };
+  // the tile -> the block's columns of a (P, P) state in device memory, as
+  // float4s along the rows
+  auto tile_out = [&](float* dst) {
+#pragma unroll
+    for (int x = tid; x < P * LB / 4; x += T) {
+      const int i = x / (LB / 4), c4 = x % (LB / 4);
+      *reinterpret_cast<float4*>(dst + (size_t)i * P + j0 + 4 * c4) =
+          *reinterpret_cast<const float4*>(stile + K::tile_at(i, 4 * c4));
+    }
+  };
+
+  auto issue = [&](int it) {
+    const int slab = it % kFwdSlabs, t0 = it * kSub;
+    float* dst = slabs + slab * K::kSlabFloats;
+    mbar_expect_tx(&full[slab], K::kSlabFloats * sizeof(float));
+    tma_load_4d(dst, &tm_r, 0, h, t0, b, &full[slab]);
+    tma_load_4d(dst + kSub * P, &tm_k, 0, h, t0, b, &full[slab]);
+    tma_load_4d(dst + 2 * kSub * P, &tm_w, 0, h, t0, b, &full[slab]);
+    tma_load_4d(dst + 3 * kSub * P, &tm_v, j0, h, t0, b, &full[slab]);
+  };
+  // a call of one sub-chunk (a decode step) copies its rows with the
+  // threads, beside the state's loads: no tensor map to encode on the host,
+  // no TMA round trip after the loads
+  const bool direct = n_sub == 1;
+  if (tid == 0) {  // the first sub-chunks' loads go out before anything else
+    for (int s = 0; s < kFwdSlabs; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; !direct && it < kFwdSlabs - 1 && it < n_sub; ++it) issue(it);
+  }
+  // Every global load of the prologue goes out before its first store: a
+  // decode step's rows, u, the block's columns of S0 (zeros without one),
+  // which then go to the slab, the tile and the first checkpoint.
+  constexpr int P4 = P / 4, R4 = 3 * P4 + LB / 4;  // float4s of a step's row: r, k, w, v
+  constexpr int kRowPieces = (kSub * R4 + T - 1) / T, kPieces = P * LB / 4 / T;
+  auto row_piece = [&](int i, const float*& src, float*& dst) {
+    const int l = i / R4, c4 = i % R4, a = c4 / P4;  // a: r, k, w, then v
+    src = (a == 0 ? r : a == 1 ? k : a == 2 ? w : v) + row(l) +
+          (a < 3 ? 4 * (c4 % P4) : j0 + 4 * (c4 - 3 * P4));
+    dst = slabs + (a < 3 ? (a * kSub + l) * P + 4 * (c4 % P4)
+                         : 3 * kSub * P + l * LB + 4 * (c4 - 3 * P4));
+  };
+  auto s0_at = [&](int m, int& i, int& c4) {  // piece m of a thread: row i, float4 c4
+    const int x = tid + m * T;
+    i = x / (LB / 4);
+    c4 = x % (LB / 4);
+  };
+  float4 rowp[kRowPieces], piece[kPieces];
+  if (direct) {
+#pragma unroll
+    for (int m = 0; m < kRowPieces; ++m) {
+      const float* src;
+      float* dst;
+      if (tid + m * T < S * R4) {
+        row_piece(tid + m * T, src, dst);
+        rowp[m] = *reinterpret_cast<const float4*>(src);
+      }
+    }
+  }
+  float uu[kSpan], s[LPT][kSpan];  // u[pos(g, e)]; S[pos(g, e)][j0 + slot + m SL]
+  load_span<LG>(uu, u + (size_t)h * P, g);
+#pragma unroll
+  for (int m = 0; m < kPieces; ++m) {
+    int i, c4;
+    s0_at(m, i, c4);
+    piece[m] = S0 ? *reinterpret_cast<const float4*>(S0 + ((size_t)bh * P + i) * P + j0 + 4 * c4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (direct) {
+#pragma unroll
+    for (int m = 0; m < kRowPieces; ++m) {
+      const float* src;
+      float* dst;
+      if (tid + m * T < S * R4) {
+        row_piece(tid + m * T, src, dst);
+        *reinterpret_cast<float4*>(dst) = rowp[m];
+      }
+    }
+  }
+  float* ck0 = ckpt ? ckpt + (size_t)bh * n_ck * P * P : nullptr;
+#pragma unroll
+  for (int m = 0; m < kPieces; ++m) {
+    int i, c4;
+    s0_at(m, i, c4);
+    if (S0) *reinterpret_cast<float4*>(stile + K::tile_at(i, 4 * c4)) = piece[m];
+    if (ck0) *reinterpret_cast<float4*>(ck0 + (size_t)i * P + j0 + 4 * c4) = piece[m];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < LPT; ++m)
+#pragma unroll
+    for (int e = 0; e < kSpan; ++e)
+      s[m][e] = S0 ? stile[K::tile_at(Gm::pos(g, e), slot + m * SL)] : 0.f;
+
+  for (int it = 0; it < n_sub; ++it) {
+    // slab (it - 1) % kFwdSlabs is free: every thread passed the last barrier
+    if (tid == 0 && it + kFwdSlabs - 1 < n_sub) issue(it + kFwdSlabs - 1);
+    const int c = it / kSubs, q = it % kSubs, t0 = it * kSub, n = min(kSub, S - t0);
+    if (!direct) mbar_wait(&full[it % kFwdSlabs], (it / kFwdSlabs) & 1);
+    const float* sr = slabs + (it % kFwdSlabs) * K::kSlabFloats;  // r [kSub][P]
+    const float* sk = sr + kSub * P;                                // k
+    const float* sw = sk + kSub * P;                                // w
+    const float* sv = sw + kSub * P;                                // v [kSub][LB]
+    float* yt = ytile + (it & 1) * kSub * YS;
+    float yp[LPT * kSub];  // y[j] of column m at step l over the thread's rows: [m][l]
+    auto steps = [&](auto whole) {
+#pragma unroll
+      for (int l = 0; l < kSub; ++l) {
+        if (decltype(whole)::value || l < n) {
+          float rv[kSpan], kv[kSpan], wv[kSpan];
+          load_span<LG>(rv, sr + l * P, g);
+          load_span<LG>(kv, sk + l * P, g);
+          load_span<LG>(wv, sw + l * P, g);
+#pragma unroll
+          for (int m = 0; m < LPT; ++m) {
+            const float vj = sv[l * LB + slot + m * SL];
+            float acc = 0.f;
+#pragma unroll
+            for (int e = 0; e < kSpan; ++e) {
+              const float kvj = kv[e] * vj;
+              acc = fmaf(rv[e], fmaf(uu[e], kvj, s[m][e]), acc);  // r (S + u k v)
+              s[m][e] = wkv6_update(s[m][e], wv[e], kvj);
+            }
+            yp[m * kSub + l] = acc;
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < LPT; ++m) yp[m * kSub + l] = 0.f;
+        }
+      }
+    };
+    if (n == kSub)
+      steps(std::true_type{});
+    else
+      steps(std::false_type{});
+    bool writes;
+    const int off = Sy::run(yp, lane, writes);
+#pragma unroll
+    for (int i = 0; i < Sy::kept; ++i)
+      yt[((off + i) % kSub) * YS + slot + (off + i) / kSub * SL] = yp[i];
+    // a chunk's end: the next one's checkpoint through the tile
+    const bool ck_next = ckpt && q == kSubs - 1 && it + 1 < n_sub;
+    if (ck_next) to_tile(s);
+    __syncthreads();
+    for (int x = tid; x < n * (LB / 4); x += T) {
+      const int l = x / (LB / 4), c4 = x % (LB / 4);
+      *reinterpret_cast<float4*>(y + row(t0 + l) + j0 + 4 * c4) =
+          *reinterpret_cast<const float4*>(yt + l * YS + 4 * c4);
+    }
+    if (ck_next) tile_out(ck0 + (size_t)(c + 1) * P * P);
+  }
+  // the tile's last reads were before the last barrier
+  to_tile(s);
+  __syncthreads();
+  tile_out(ST + (size_t)bh * P * P);
 }
 
 // The backward's geometry: one block a (b, h), Geom<P, P>: thread (row i,
@@ -193,7 +382,7 @@ __global__ void __launch_bounds__(Wkv6Bwd<P>::T, 1) wkv6_bwd_kernel(
         float vv[kSpan];
         load_span<LG>(vv, sl + (3 * kSub + l) * P, g);
 #pragma unroll
-        for (int e = 0; e < kSpan; ++e) run[e] = fmaf(wi, run[e], ki * vv[e]);
+        for (int e = 0; e < kSpan; ++e) run[e] = wkv6_update(run[e], wi, ki * vv[e]);
       }
       if (q + 2 < nq) store_slot<T>(subck + q * 2 * T, tid, run);
       __syncthreads();
@@ -217,7 +406,7 @@ __global__ void __launch_bounds__(Wkv6Bwd<P>::T, 1) wkv6_bwd_kernel(
         float vv[kSpan];
         load_span<LG>(vv, in(3, l), g);
 #pragma unroll
-        for (int e = 0; e < kSpan; ++e) st[l + 1][e] = fmaf(wi, st[l][e], ki * vv[e]);
+        for (int e = 0; e < kSpan; ++e) st[l + 1][e] = wkv6_update(st[l][e], wi, ki * vv[e]);
       };
       // one step of the walk: the row sums over the row's lanes into lt, dv
       // over the warp's rows into xt
@@ -299,10 +488,21 @@ __global__ void wkv6_du_sum_kernel(const float* __restrict__ du_rows, float* __r
 }
 
 template <int P>
-cudaError_t launch_fwd(const float* r, const float* k, const float* v, const float* w,
-                       const float* u, const float* S0, float* y, float* ST, float* ckpt,
-                       int B, int S, int H, int chunk, cudaStream_t stream) {
-  wkv6_fwd_kernel<P><<<B * H, P, 0, stream>>>(r, k, v, w, u, S0, y, ST, ckpt, S, H, chunk);
+int launch_fwd(const float* r, const float* k, const float* v, const float* w, const float* u,
+               const float* S0, float* y, float* ST, float* ckpt, int B, int S, int H,
+               cudaStream_t stream) {
+  using K = Wkv6Fwd<P>;
+  CUtensorMap tm[4] = {};  // not read when S fits one sub-chunk
+  const float* src[4] = {r, k, w, v};
+  int bad = S > kSub ? make_context_current() : 0;
+  for (int a = 0; S > kSub && a < 4 && bad == 0; ++a)
+    bad = make_step_map(&tm[a], src[a], B, S, H, P, a == 3 ? K::LB : P);
+  if (bad != 0) return bad;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(wkv6_fwd_lanes_kernel<P>, K::smem_bytes(), &smem_set);
+  if (err != cudaSuccess) return err;
+  wkv6_fwd_lanes_kernel<P><<<B * H * K::F::BLOCKS, K::T, K::smem_bytes(), stream>>>(
+      tm[0], tm[1], tm[2], tm[3], r, k, w, v, u, S0, y, ST, ckpt, S, H);
   return cudaGetLastError();
 }
 
@@ -328,25 +528,17 @@ int launch_bwd(const float* r, const float* k, const float* v, const float* w, c
   return cudaGetLastError();
 }
 
-// {threads, dynamic shared bytes, registers, blocks an SM, local bytes}
 template <int P>
 int bwd_info(int* out) {
   using K = Wkv6Bwd<P>;
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(wkv6_bwd_kernel<P>, K::smem_bytes(), &smem_set);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, wkv6_bwd_kernel<P>);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wkv6_bwd_kernel<P>, K::T,
-                                                        K::smem_bytes());
-  if (err != cudaSuccess) return err;
-  out[0] = K::T;
-  out[1] = static_cast<int>(K::smem_bytes());
-  out[2] = attr.numRegs;
-  out[3] = blocks;
-  out[4] = static_cast<int>(attr.localSizeBytes);
-  return 0;
+  return kernel_info(wkv6_bwd_kernel<P>, K::T, K::smem_bytes(), out);
+}
+
+template <int P>
+int fwd_info(int* out) {
+  using K = Wkv6Fwd<P>;
+  out[5] = K::F::BLOCKS;
+  return kernel_info(wkv6_fwd_lanes_kernel<P>, K::T, K::smem_bytes(), out);
 }
 
 }  // namespace
@@ -355,14 +547,17 @@ extern "C" {
 
 // One launch: y (B, S, H, P), S_T (B, H, P, P) and, when ckpt is not null,
 // the checkpoints (B, H, ceil(S / chunk), P, P). S0 null is a zero state.
-// P is 16, 32 or 64. Returns the cudaError of the launch.
+// P is 16, 32 or 64; chunk must be 64; r, k, v, w, u and S0 16-byte
+// aligned. Returns the cudaError of the launch, or the negated CUresult of
+// a tensor map's encoding.
 int wkv6_fwd(const float* r, const float* k, const float* v, const float* w, const float* u,
              const float* S0, float* y, float* ST, float* ckpt, int B, int S, int H, int P,
              int chunk, cudaStream_t stream) {
+  if (chunk != kChunk) return cudaErrorInvalidValue;
   switch (P) {
-    case 16: return launch_fwd<16>(r, k, v, w, u, S0, y, ST, ckpt, B, S, H, chunk, stream);
-    case 32: return launch_fwd<32>(r, k, v, w, u, S0, y, ST, ckpt, B, S, H, chunk, stream);
-    case 64: return launch_fwd<64>(r, k, v, w, u, S0, y, ST, ckpt, B, S, H, chunk, stream);
+    case 16: return launch_fwd<16>(r, k, v, w, u, S0, y, ST, ckpt, B, S, H, stream);
+    case 32: return launch_fwd<32>(r, k, v, w, u, S0, y, ST, ckpt, B, S, H, stream);
+    case 64: return launch_fwd<64>(r, k, v, w, u, S0, y, ST, ckpt, B, S, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -395,6 +590,18 @@ int wkv6_bwd_info(int P, int* out) {
     case 16: return bwd_info<16>(out);
     case 32: return bwd_info<32>(out);
     case 64: return bwd_info<64>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The forward kernel at head size P on the current card: out[0..5] =
+// threads a block, dynamic shared bytes, registers a thread, blocks an SM,
+// local (spilled) bytes a thread, blocks a (batch row, head).
+int wkv6_fwd_info(int P, int* out) {
+  switch (P) {
+    case 16: return fwd_info<16>(out);
+    case 32: return fwd_info<32>(out);
+    case 64: return fwd_info<64>(out);
     default: return cudaErrorInvalidValue;
   }
 }

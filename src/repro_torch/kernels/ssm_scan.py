@@ -7,8 +7,12 @@ Replaces no Pallas kernel: the reference runs Mamba2's recurrence as a
 ``mamba_step`` (``:147-166``). The kernels are CUDA C++ in
 ``csrc/ssm_scan.cu`` (its header states what bounds them), built by
 ``build.py`` and called through ctypes: ``ssm_scan_fwd`` is one launch
-(``ssm_scan_fwd_kernel<N>``) over a layer's sequence (S = 1 is the decode
-step, from the cache's state), ``ssm_scan_bwd`` two:
+(``ssm_scan_fwd_lanes_kernel<P, N>``) over a layer's sequence (S = 1 is
+the decode step, from the cache's state): each row of the state over N/8
+lanes, a thread 8 entries of each of up to 4 rows, a (b, h) over P/32
+blocks of at most 32 rows,
+its inputs as TMA boxes a sub-chunk of 8 steps at a time, no barrier a
+step (``fwd_geometry`` its block). ``ssm_scan_bwd`` is two:
 ``ssm_scan_bwd_kernel<P, N>`` walks the recurrence back from the forward's
 checkpoints, each 64-step chunk replayed on chip in 8-step sub-chunks (its
 inputs as TMA boxes on mbarriers, its states in shared memory and
@@ -39,9 +43,11 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 CHUNK = 64              # steps between the forward's checkpoints
 WIDTHS = (16, 32, 64)   # the kernels' template instantiations: the state's N and P
-# the backward's layout (csrc/scan_bwd.cuh): entries a thread, steps a
-# sub-chunk, input slabs, sub-checkpoint slots
+# the kernels' layout (csrc/scan.cuh): entries a thread, steps a sub-chunk,
+# the backward's input slabs and sub-checkpoint slots, the forward's input
+# slabs, lines a block at most and rows a thread at most
 SPAN, SUB, SLABS, SUB_SLOTS = 8, 8, 4, CHUNK // 8 - 2
+FWD_SLABS, FWD_LINES, FWD_ROWS = 4, 32, 4
 SMEM_LIMIT = 232_448    # shared bytes a block can have on an H100
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib.ssm_scan_fwd.restype = _I
     lib.ssm_scan_bwd.argtypes = [_P] * 16 + [_I] * 6 + [_P]
     lib.ssm_scan_bwd.restype = _I
-    lib.ssm_scan_bwd_info.argtypes = [_I, _I, _P]
-    lib.ssm_scan_bwd_info.restype = _I
+    lib.ssm_scan_bwd_info.argtypes = lib.ssm_scan_fwd_info.argtypes = [_I, _I, _P]
+    lib.ssm_scan_bwd_info.restype = lib.ssm_scan_fwd_info.restype = _I
     return lib
 
 
@@ -108,11 +114,41 @@ def bwd_info(P: int, N: int) -> dict:
     """The built backward kernel at widths P and N on the current card:
     threads, dynamic shared bytes, registers a thread, blocks an SM and
     spilled bytes a thread (``ssm_scan_bwd_info``)."""
-    out = (ctypes.c_int * 5)()
-    build.check_launch(_lib().ssm_scan_bwd_info(P, N, ctypes.addressof(out)),
-                       "ssm_scan_bwd_info")
-    return dict(zip(("threads", "shared_bytes", "registers", "blocks_per_sm", "local_bytes"),
-                    out))
+    info = build.kernel_info(_lib(), "ssm_scan_bwd_info", P, N)
+    del info["blocks"]
+    return info
+
+
+def fwd_geometry(P: int, N: int) -> dict:
+    """The forward kernel's block at widths P and N, as ``SsmFwd<P, N>`` in
+    ``csrc/ssm_scan.cu`` lays it out: a block holds ``min(P, FWD_LINES)``
+    rows of the state, each over N/8 lanes, a thread 8 entries of each of
+    up to FWD_ROWS rows (threads: as many as whole warps allow), ``blocks``
+    blocks a (b, h), and dynamic shared bytes (the slabs of the block's x, B and C,
+    two sub-chunks' y tiles of 4 floats more a row, two chunks' a and dt,
+    the mbarriers; 128 bytes more to align the start for TMA)."""
+    if P not in WIDTHS or N not in WIDTHS:
+        raise ValueError(f"ssm_scan_fwd: the kernel takes P and N in {WIDTHS}, got P={P}, "
+                         f"N={N}")
+    lines = min(P, FWD_LINES)
+    rows = min(FWD_ROWS, lines * N // SPAN // 32)
+    floats = FWD_SLABS * SUB * (lines + 2 * N) + 2 * SUB * (lines + 4) + 4 * CHUNK
+    return {"threads": lines * N // SPAN // rows, "blocks": P // lines,
+            "shared_bytes": 128 + 4 * floats + 8 * FWD_SLABS}
+
+
+def fwd_info(P: int, N: int) -> dict:
+    """The built forward kernel at widths P and N on the current card:
+    threads, dynamic shared bytes, registers a thread, blocks an SM, spilled
+    bytes a thread and blocks a (b, h) (``ssm_scan_fwd_info``)."""
+    return build.kernel_info(_lib(), "ssm_scan_fwd_info", P, N)
+
+
+def _aligned(t):
+    """``t``, or a copy where its start is not 16-byte aligned: the forward
+    reads x, B and C as TMA boxes and the state 16 bytes at a time (a
+    cache's view may start anywhere)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_aligned(what: str, *tensors) -> None:
@@ -125,7 +161,7 @@ def ssm_scan_fwd(x, dt, a, Bm, Cm, h0=None, *, checkpoints: bool = False):
     """x (B, S, H, P), dt and a (B, S, H), Bm and Cm (B, S, N), all fp32,
     h0 (B, H, P, N) or None (a zero state) -> (y (B, S, H, P), h_T, the
     checkpoints (B, H, ceil(S / CHUNK), P, N) or None). One launch on the
-    card."""
+    card; an input that does not start on 16 bytes is copied first."""
     global FWD_LAUNCHES
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -134,6 +170,7 @@ def ssm_scan_fwd(x, dt, a, Bm, Cm, h0=None, *, checkpoints: bool = False):
     if not _check("ssm_scan", x, dt, a, Bm, Cm, h0):
         y, hT, ckpt = ref.ssm_scan_fwd_ref(x, dt, a, Bm, Cm, h0, CHUNK)
         return y, hT, ckpt if checkpoints else None
+    x, Bm, Cm, h0 = (_aligned(t) for t in (x, Bm, Cm, h0))
     y = torch.empty_like(x)
     hT = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     ckpt = torch.empty((Bsz, H, -(-S // CHUNK), P, N), dtype=torch.float32,

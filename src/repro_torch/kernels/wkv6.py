@@ -5,9 +5,12 @@ Replaces no Pallas kernel: the reference runs RWKV-6's recurrence as a
 ``lax.scan`` of checkpointed 64-step chunks (``repro/models/rwkv.py:140``,
 its step ``:126-131``). The kernels are CUDA C++ in ``csrc/wkv6.cu`` (its
 header states what bounds them), built by ``build.py`` and called through
-ctypes: ``wkv6_fwd`` is one launch (``wkv6_fwd_kernel<P>``) over a layer's
-whole sequence (training from a zero state, prefill, and the one-token
-decode step from the cache's state), ``wkv6_bwd`` two:
+ctypes: ``wkv6_fwd`` is one launch (``wkv6_fwd_lanes_kernel<P>``) over a
+layer's whole sequence (training from a zero state, prefill, and the
+one-token decode step from the cache's state): each column of the state
+over P/8 lanes, a thread 8 entries of each of 2 columns, a (b, h) over
+P/32 blocks of at most 32 columns, its inputs as TMA boxes a sub-chunk of 8 steps at a time, no
+barrier a step (``fwd_geometry`` its block). ``wkv6_bwd`` is two:
 ``wkv6_bwd_kernel<P>`` walks the recurrence back from the forward's
 checkpoints, each 64-step chunk replayed on chip in 8-step sub-chunks (its
 inputs as TMA boxes on mbarriers, its states in shared memory and
@@ -39,9 +42,11 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 CHUNK = 64               # steps between the forward's checkpoints
 HEAD_SIZES = (16, 32, 64)  # the kernels' template instantiations
-# the backward's layout (csrc/scan_bwd.cuh): entries a thread, steps a
-# sub-chunk, input slabs, sub-checkpoint slots
+# the kernels' layout (csrc/scan.cuh): entries a thread, steps a sub-chunk,
+# the backward's input slabs and sub-checkpoint slots, the forward's input
+# slabs, lines a block at most and columns a thread at most
 SPAN, SUB, SLABS, SUB_SLOTS = 8, 8, 4, CHUNK // 8 - 2
+FWD_SLABS, FWD_LINES, FWD_COLS = 4, 32, 2
 SMEM_LIMIT = 232_448     # shared bytes a block can have on an H100
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +59,8 @@ def _lib() -> ctypes.CDLL:
     lib.wkv6_fwd.restype = _I
     lib.wkv6_bwd.argtypes = [_P] * 15 + [_I] * 5 + [_P]
     lib.wkv6_bwd.restype = _I
-    lib.wkv6_bwd_info.argtypes = [_I, _P]
-    lib.wkv6_bwd_info.restype = _I
+    lib.wkv6_bwd_info.argtypes = lib.wkv6_fwd_info.argtypes = [_I, _P]
+    lib.wkv6_bwd_info.restype = lib.wkv6_fwd_info.restype = _I
     return lib
 
 
@@ -105,10 +110,40 @@ def bwd_info(P: int) -> dict:
     """The built backward kernel at head size P on the current card:
     threads, dynamic shared bytes, registers a thread, blocks an SM and
     spilled bytes a thread (``wkv6_bwd_info``)."""
-    out = (ctypes.c_int * 5)()
-    build.check_launch(_lib().wkv6_bwd_info(P, ctypes.addressof(out)), "wkv6_bwd_info")
-    return dict(zip(("threads", "shared_bytes", "registers", "blocks_per_sm", "local_bytes"),
-                    out))
+    info = build.kernel_info(_lib(), "wkv6_bwd_info", P)
+    del info["blocks"]
+    return info
+
+
+def fwd_geometry(P: int) -> dict:
+    """The forward kernel's block at head size P, as ``Wkv6Fwd<P>`` in
+    ``csrc/wkv6.cu`` lays it out: a block holds ``min(P, FWD_LINES)``
+    columns of the state, each over P/8 lanes, a thread 8 entries of each
+    of up to FWD_COLS columns (threads: as many as whole warps allow),
+    ``blocks`` blocks a (b, h), and dynamic shared bytes (the slabs of r, k, w and the
+    block's v, the state tile, two sub-chunks' y tiles of 4 floats more a
+    row, the mbarriers; 128 bytes more to align the start for TMA)."""
+    if P not in HEAD_SIZES:
+        raise ValueError(f"wkv6_fwd: the kernel takes P in {HEAD_SIZES}, got {P}")
+    lines = min(P, FWD_LINES)
+    cols = min(FWD_COLS, lines * P // SPAN // 32)
+    floats = FWD_SLABS * SUB * (3 * P + lines) + P * lines + 2 * SUB * (lines + 4)
+    return {"threads": lines * P // SPAN // cols, "blocks": P // lines,
+            "shared_bytes": 128 + 4 * floats + 8 * FWD_SLABS}
+
+
+def fwd_info(P: int) -> dict:
+    """The built forward kernel at head size P on the current card: threads,
+    dynamic shared bytes, registers a thread, blocks an SM, spilled bytes a
+    thread and blocks a (b, h) (``wkv6_fwd_info``)."""
+    return build.kernel_info(_lib(), "wkv6_fwd_info", P)
+
+
+def _aligned(t):
+    """``t``, or a copy where its start is not 16-byte aligned: the forward
+    reads its inputs as TMA boxes and the state 16 bytes at a time (a
+    cache's view may start anywhere)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_aligned(what: str, *tensors) -> None:
@@ -121,7 +156,8 @@ def _check_aligned(what: str, *tensors) -> None:
 def wkv6_fwd(r, k, v, w, u, S0=None, *, checkpoints: bool = False):
     """r, k, v, w (B, S, H, P) fp32, u (H, P), S0 (B, H, P, P) or None (a
     zero state) -> (y (B, S, H, P), S_T, the checkpoints (B, H, ceil(S /
-    CHUNK), P, P) or None). One launch on the card."""
+    CHUNK), P, P) or None). One launch on the card; an input that does not
+    start on 16 bytes is copied first."""
     global FWD_LAUNCHES
     B, S, H, P = r.shape
     if S0 is not None and tuple(S0.shape) != (B, H, P, P):
@@ -129,6 +165,7 @@ def wkv6_fwd(r, k, v, w, u, S0=None, *, checkpoints: bool = False):
     if not _check("wkv6", r, k, v, w, u, S0):
         y, ST, ckpt = ref.wkv6_fwd_ref(r, k, v, w, u, S0, CHUNK)
         return y, ST, ckpt if checkpoints else None
+    r, k, v, w, u, S0 = (_aligned(t) for t in (r, k, v, w, u, S0))
     y = torch.empty_like(r)
     ST = torch.empty((B, H, P, P), dtype=torch.float32, device=r.device)
     ckpt = torch.empty((B, H, -(-S // CHUNK), P, P), dtype=torch.float32,

@@ -10,11 +10,14 @@ the backward on inputs drawn from other seeds. K12 (WKV-6) and K13
 (Mamba2's scan), forward and backward, against their plain versions at
 every width the kernels take (K13's P and N each way), at one step, one
 full checkpoint chunk and one step past two, from a zero and a given
-state; each call twice for the same bits, the launch counts, the
-backwards on a fresh thread and their blocks against ``bwd_geometry``,
-the dispatch of the model's calls (the autograd Function under grad, the
-forward alone without) and the kernels' refusals (bf16, strided or
-misaligned tensors, other head sizes).
+state; each call twice for the same bits (a forward's y the same without
+checkpoints), a 129-step forward the same bits as 64 steps continued by 65
+from their state, the launch counts, the backwards on a fresh thread, the
+blocks against ``bwd_geometry`` and ``fwd_geometry``, a forward's copy of
+inputs that start off 16 bytes, the dispatch of the model's calls (the
+autograd Function under grad, the forward alone without) and the kernels'
+refusals (bf16, strided tensors, misaligned ones to a backward, other
+head sizes).
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card_kernels.py
 """
@@ -158,6 +161,9 @@ def test_k12_is_its_plain_version_on_the_card(card, P, S, from_state):
         assert g.shape == w_.shape and _err(g, w_) <= SCAN_TOL, name
     again = wkv6.wkv6_bwd(*ins, ck, dy, dS)
     assert all(torch.equal(a, g) for a, g in zip(again, grads))
+    # the forward twice: the same bits, and y the same without checkpoints
+    again = wkv6.wkv6_fwd(*ins, S0, checkpoints=True)
+    assert all(torch.equal(a, g) for a, g in zip(again, (y, ST, ck)))
     assert torch.equal(wkv6.wkv6_fwd(*ins, S0)[0], y)
 
 
@@ -191,6 +197,32 @@ def test_k13_is_its_plain_version_on_the_card(card, P, N, S, from_state):
         assert g.shape == w_.shape and _err(g, w_) <= SCAN_TOL, name
     again = ssm_scan.ssm_scan_bwd(*ins, ck, dy, dh)
     assert all(torch.equal(p, g) for p, g in zip(again, grads))
+    # the forward twice: the same bits, and y the same without checkpoints
+    again = ssm_scan.ssm_scan_fwd(*ins, h0, checkpoints=True)
+    assert all(torch.equal(p, g) for p, g in zip(again, (y, hT, ck)))
+    assert torch.equal(ssm_scan.ssm_scan_fwd(*ins, h0)[0], y)
+
+
+@pytest.mark.parametrize("kind, P, N", [("wkv6", p, p) for p in wkv6.HEAD_SIZES]
+                         + [("ssm_scan", p, n) for p in ssm_scan.WIDTHS for n in (16, 64)])
+def test_k12_and_k13_forwards_continue_from_their_state_bit_for_bit(card, kind, P, N):
+    """Prefill then continue, as the serves do: 129 steps from a state give
+    the y and final state of 64 steps followed by 65 from the state those
+    returned, bit for bit (64 is a whole number of sub-chunks and chunks)."""
+    if kind == "wkv6":
+        ins, state, _, _ = _k12_inputs(card, 2, 129, 3, P, True, 7 * P)
+        fwd = wkv6.wkv6_fwd
+    else:
+        ins, state, _, _ = _k13_inputs(card, 2, 129, 3, P, N, True, 7 * P + N)
+        fwd = ssm_scan.ssm_scan_fwd
+    y, last, _ = fwd(*ins, state)
+    head = [t if t.dim() == 2 else t[:, :64].contiguous() for t in ins]  # u (H, P) stays
+    tail = [t if t.dim() == 2 else t[:, 64:].contiguous() for t in ins]
+    y0, mid, _ = fwd(*head, state)
+    y1, end, _ = fwd(*tail, mid)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y0, y1], dim=1), y)
+    assert torch.equal(end, last)
 
 
 def test_k12_and_k13_backwards_on_a_thread_with_no_cuda_work_yet(card):
@@ -234,6 +266,40 @@ def test_k12_and_k13_backward_blocks_are_their_geometry_on_the_card(card):
             assert (info["threads"], info["shared_bytes"]) == (geo["threads"],
                                                                geo["shared_bytes"])
             assert info["blocks_per_sm"] >= 1, (P, N, info)
+
+
+def test_k12_and_k13_forward_blocks_are_their_geometry_on_the_card(card):
+    """The built forwards' threads, shared memory and blocks a (b, h) are
+    what ``fwd_geometry`` lays out, and a block fits an SM at every width."""
+    for P in wkv6.HEAD_SIZES:
+        info, geo = wkv6.fwd_info(P), wkv6.fwd_geometry(P)
+        assert (info["threads"], info["shared_bytes"], info["blocks"]) == \
+            (geo["threads"], geo["shared_bytes"], geo["blocks"])
+        assert info["blocks_per_sm"] >= 1, (P, info)
+    for P in ssm_scan.WIDTHS:
+        for N in ssm_scan.WIDTHS:
+            info, geo = ssm_scan.fwd_info(P, N), ssm_scan.fwd_geometry(P, N)
+            assert (info["threads"], info["shared_bytes"], info["blocks"]) == \
+                (geo["threads"], geo["shared_bytes"], geo["blocks"])
+            assert info["blocks_per_sm"] >= 1, (P, N, info)
+
+
+def test_k12_and_k13_forwards_copy_a_view_that_starts_off_16_bytes(card):
+    """The forwards read TMA boxes and 16-byte pieces of the state: a
+    contiguous view one float into its storage (as a cache's view may be)
+    is copied by the wrapper and computed, not refused; the same bits as
+    the aligned tensors give."""
+    def off(t):
+        return torch.empty(t.numel() + 1, device=card)[1:].view(t.shape).copy_(t)
+
+    ins, S0, _, _ = _k12_inputs(card, 2, 9, 3, 32, True, 41)
+    want = wkv6.wkv6_fwd(*ins, S0, checkpoints=True)
+    got = wkv6.wkv6_fwd(*(off(t) for t in ins), off(S0), checkpoints=True)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    ins, h0, _, _ = _k13_inputs(card, 2, 9, 3, 32, 16, True, 43)
+    want = ssm_scan.ssm_scan_fwd(*ins, h0, checkpoints=True)
+    got = ssm_scan.ssm_scan_fwd(*(off(t) for t in ins), off(h0), checkpoints=True)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
 
 
 def test_k12_and_k13_dispatch_and_refusals_on_the_card(card):

@@ -287,3 +287,26 @@ def test_k12_wrapper_checks_shapes_and_takes_the_plain_version_on_the_cpu():
     assert K12.bwd_geometry(64)["shared_bytes"] > K12.SMEM_LIMIT // 2
     with pytest.raises(ValueError, match="P in"):
         K12.bwd_geometry(48)
+
+
+@pytest.mark.parametrize("P", [16, 32, 64])
+def test_k12_forward_block_at_every_head_size(P):
+    """The forward's block: a block's columns (at most FWD_LINES) each over
+    P/8 lanes, up to FWD_COLS columns a thread in whole warps, the blocks
+    of a (b, h) covering its P columns, in the shared memory of one H100
+    block."""
+    from repro_torch.kernels import wkv6 as K12
+
+    geo = K12.fwd_geometry(P)
+    lines = min(P, K12.FWD_LINES)
+    assert geo["threads"] * min(K12.FWD_COLS, lines * P // 256) == lines * P // 8
+    assert geo["threads"] % 32 == 0
+    assert geo["blocks"] * lines == P
+    assert geo["shared_bytes"] <= K12.SMEM_LIMIT
+
+
+def test_k12_forward_block_refuses_head_size_48():
+    from repro_torch.kernels import wkv6 as K12
+
+    with pytest.raises(ValueError, match="P in"):
+        K12.fwd_geometry(48)

@@ -198,3 +198,27 @@ def test_k13_wrapper_checks_shapes_and_takes_the_plain_version_on_the_cpu():
             assert geo["shared_bytes"] <= K13.SMEM_LIMIT
     with pytest.raises(ValueError, match="P and N in"):
         K13.bwd_geometry(64, 8)
+
+
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("N", [16, 32, 64])
+def test_k13_forward_block_at_every_pair_of_widths(P, N):
+    """The forward's block: a block's rows (at most FWD_LINES) each over N/8
+    lanes, up to FWD_ROWS rows a thread in whole warps, the blocks of a
+    (b, h) covering its P rows, in the shared memory of one H100 block."""
+    from repro_torch.kernels import ssm_scan as K13
+
+    geo = K13.fwd_geometry(P, N)
+    lines = min(P, K13.FWD_LINES)
+    assert geo["threads"] * min(K13.FWD_ROWS, lines * N // 256) == lines * N // 8
+    assert geo["threads"] % 32 == 0
+    assert geo["blocks"] * lines == P
+    assert geo["shared_bytes"] <= K13.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("P, N", [(48, 64), (64, 48)])
+def test_k13_forward_block_refuses_width_48(P, N):
+    from repro_torch.kernels import ssm_scan as K13
+
+    with pytest.raises(ValueError, match="P and N in"):
+        K13.fwd_geometry(P, N)
