@@ -86,7 +86,13 @@ Phases, each printed as it ends:
    log-sum-exp write, each call twice for the same bits, timed beside the
    plain version, SDPA's backward and the bound, with each launch's device
    time; K10, its backward and K11 also at zamba2-7b's head layout (32
-   heads on 32 kv heads of 112: the forward pads 112 to 128 columns); K12
+   heads on 32 kv heads of 112: the forward pads 112 to 128 columns); K10
+   and its backward at deepseek-v2-lite-16b's multi-head latent attention
+   (16 heads, q.k width 192, v width 128, MLA's scale: the tensor-core
+   forward's ND = 3 and the backward's two-warpgroup dK/dV, the CUDA-core
+   routes' 192-wide tiles) and at those widths with a window, a softcap,
+   H = 2 Kv, Sq = 100 against Sk = 130 and a query offset, the SDPA
+   backends that take D != Dv named; K12
    (WKV-6) and K13 (Mamba2's scan), forward and backward, against their
    plain versions at the full-size training shapes (rwkv6-1.6b: B=4,
    S=128, H=32, P=64; zamba2-7b: H=112, P=64, N=64), the decode steps from
@@ -115,10 +121,11 @@ Phases, each printed as it ends:
    latency model's arrival times from keys on the card bitwise the CPU's,
    and XLA's exp restated (ref.xla_exp_f32) the same on both; one FedAvg
    round (K=4, b=4, 2 local steps, FVN on) of each of the reference's
-   lm-transformer, lm-moe, lm-rwkv and keyword tasks and of zamba2-7b's
-   smoke hybrid on the card and on the CPU, held to each other (K10 on its
-   CUDA-core routes, once an attention a client step, K12 once an RWKV
-   layer, K13 once a Mamba2 layer, forward and backward);
+   lm-transformer, lm-moe, lm-rwkv and keyword tasks, of zamba2-7b's
+   smoke hybrid and of deepseek-v2-lite-16b's smoke MLA transformer on the
+   card and on the CPU, held to each other (K10 on its CUDA-core routes,
+   once an attention a client step, K12 once an RWKV layer, K13 once a
+   Mamba2 layer, forward and backward);
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -216,7 +223,16 @@ Phases, each printed as it ends:
    QWEN_SERVE_TOL unless that forward's floor (it again on the plain
    versions) passes the bar, K12's or K13's device time in the profiled
    windows printed, then the same serve on an fp32 copy of the parameters
-   within FP32_SERVE_TOL;
+   within FP32_SERVE_TOL; then deepseek-v2-lite-16b (DEEPSEEK_RUN) at full
+   width and 2 of its 27 layers, both with multi-head latent attention
+   (1,085,287,424 parameters, bf16 beside the fp32 router), trained as
+   qwen3-8b (K10's forward 2 on <3, 128> and its backward 2 on <3, 2> a
+   client step, the first round again on the plain attention) and served
+   by the same phase_transformer_serve (prefill K10 2; its decode scores
+   the compressed cache in plain einsums: no K11), its bf16 logits held as
+   qwen3-8b's at the positions the decode routes to the teacher-forced
+   forward's experts (at most MAX_REROUTED_SHARE rerouted) where its floor
+   allows, an fp32 copy's within FP32_SERVE_TOL;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it; and one more K2 round with the host's Python
@@ -3407,6 +3423,13 @@ K10_SHAPES = (
     # 128 tokens: the first width that is not 8, 64 or 128 (the tensor-core
     # forward pads it to 128 columns, its backward takes <2, 2>)
     ("zamba2-7b heads", 4, 128, 128, 32, 32, 112, 112, True, None, 0.0, 0, None),
+    # deepseek-v2-lite-16b's multi-head latent attention (16 heads, q.k width
+    # 128 + 64 = 192, v width 128, MLA's scale 192 ** -0.5), causal over 128
+    # tokens: the tensor-core forward's ND = 3, its backward's two-warpgroup
+    # dK/dV; and the contract's cases at those widths (a window, a softcap,
+    # H = 2 Kv, ragged Sq = 100 against Sk = 130, a query offset)
+    ("deepseek-v2-lite heads", 4, 128, 128, 16, 16, 192, 128, True, None, 0.0, 0, 192 ** -0.5),
+    ("d192 gqa window softcap", 2, 100, 130, 4, 2, 192, 128, True, 40, 30.0, 30, None),
 )
 # K11's shapes: the self cache (448 slots) at three positions, the cross
 # cache (1,500 slots), a GQA ring buffer with a window and softcap (G=8,
@@ -3422,6 +3445,27 @@ K11_SHAPES = (
     # zamba2-7b's shared block over its serve's 160-slot cache (G=1, D=112)
     ("zamba2-7b heads pos 159", 4, 160, 32, 32, 112, 159, None, False, 0.0),
 )
+
+
+def _sdpa_backends(torch, fn) -> str:
+    """The SDPA backends that take the call ``fn``, each tried alone (the
+    yardstick's default dispatch takes the first of its own order); "none"
+    where every one refuses."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    took = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                fn()
+        except RuntimeError:  # this backend refuses the shape; a yardstick, not the port
+            continue
+        took.append(backend.name.lower())
+    return ", ".join(took) or "none"
 
 
 def _sdpa(torch, fn, what: str):
@@ -3495,7 +3539,9 @@ K10_BWD_SHAPES = (
     ("train causal self", 4, 48, 48, 8, 8, 64, 64, True, None, 0.0, 0, None),
     ("train cross", 4, 48, 384, 8, 8, 64, 64, False, None, 0.0, 0, None),
 ) + tuple(sh for sh in K10_SHAPES if sh[0] in ("gqa window softcap", "no valid key",
-                                               "qwen3-8b heads", "zamba2-7b heads"))
+                                               "qwen3-8b heads", "zamba2-7b heads",
+                                               "deepseek-v2-lite heads",
+                                               "d192 gqa window softcap"))
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the forward's log-sum-exp against the plain version's: fp32 sums in
 # another order (and the tensor-core route's ex2.approx), rows of O(10)
@@ -3634,11 +3680,14 @@ def phase_attention_bwd(torch):
             flops = 2 * n_valid * (3 * D + 2 * Dv)
             bound_ms, bound_by = _bound(nbytes, 0 if bf16 else flops, flops if bf16 else 0,
                                         n_valid)
-            lib = None
+            lib, backends = None, None
             if not window and not cap and off == 0 and (not causal or Sq == Sk):
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
                 fwd = _sdpa(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv)), tag)
+                if fwd is not None and D != Dv:
+                    backends = _sdpa_backends(torch, lambda: torch.autograd.grad(
+                        fwd(), (qt, kt, vt), do.transpose(1, 2)))
                 if fwd is not None:
                     out_t, do_t = fwd(), do.transpose(1, 2)
                     lib = _sdpa(torch, lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
@@ -3669,7 +3718,9 @@ def phase_attention_bwd(torch):
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, {flops} flop, "
                   f"{n_valid} exp); device us by launch: "
                 + "; ".join(f"{d} " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in sp.items())
-                            for d, sp in split.items()))
+                            for d, sp in split.items())
+                + (f"; SDPA backends that take D != Dv, forward and backward: {backends}"
+                   if backends else ""))
             if name == "train encoder":
                 rows[f"flash_attention_bwd_{took}"] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
@@ -3733,11 +3784,14 @@ def phase_attention_kernels(torch):
                 bound_ms, bound_by = _bound(nbytes, 0, qk + 2 * pv, n_valid)
             else:     # CUDA cores: every product at the fp32 rate
                 bound_ms, bound_by = _bound(nbytes, qk + pv)
-            lib = None
+            lib, backends = None, None
             if not window and not cap and off == 0 and (not causal or Sq == Sk):
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-                lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv)), tag)
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv))
+                lib = _sdpa(torch, sdpa, tag)
+                if D != Dv:
+                    backends = _sdpa_backends(torch, sdpa)
             n = 10 if Sq * Sk > 100_000 else 100
             t = _attn_times(torch, lambda: KA.flash_attention(q, k, v, **kw),
                             lambda: ref.flash_attention_ref(q, k, v, **kw), lib, n)
@@ -3749,7 +3803,8 @@ def phase_attention_kernels(torch):
                 + "; us per call eager/graph: "
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, "
-                  f"{qk} flop Q.K^T, {pv} flop P.V, {n_valid} exp)")
+                  f"{qk} flop Q.K^T, {pv} flop P.V, {n_valid} exp)"
+                + (f"; SDPA backends that take D != Dv: {backends}" if backends else ""))
             if name == "encoder":
                 rows[f"flash_attention_{took}"] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
@@ -4270,7 +4325,8 @@ def phase_whisper_train(torch):
 # same parameters and batch; the loss to TINY_LM_LOSS_RTOL relative, the
 # aggregated delta to TINY_LM_DELTA_ATOL (fp32 sums in other orders: the
 # card's K10 and cuBLAS against the CPU's plain versions)
-TINY_LM_TASKS = ("lm-transformer", "lm-moe", "keyword", "lm-rwkv", "zamba2-7b-smoke")
+TINY_LM_TASKS = ("lm-transformer", "lm-moe", "keyword", "lm-rwkv", "zamba2-7b-smoke",
+                 "deepseek-v2-lite-16b-smoke")
 TINY_LM_LOSS_RTOL = 1e-4
 TINY_LM_DELTA_ATOL = 1e-5
 # lm-rwkv's aggregated delta (entries up to 0.31, against the transformers'
@@ -4284,13 +4340,16 @@ TINY_LM_DELTA_ATOL_BY_TASK = {"lm-rwkv": 5e-5}
 
 
 def _tiny_lm_task(name: str):
-    """A registered task, or zamba2-7b's smoke config on the shared corpus
-    (the hybrid's tiny task: the reference registers none)."""
-    from repro_torch.configs import zamba2_7b
+    """A registered task, or zamba2-7b's or deepseek-v2-lite-16b's smoke
+    config on the shared corpus (the hybrid's and MLA's tiny tasks: the
+    reference registers none; deepseek's smoke MLA runs K10 at D = 48, Dv =
+    32 in fp32, on the CUDA-core routes)."""
+    from repro_torch.configs import deepseek_v2_lite_16b, zamba2_7b
     from repro_torch.core.task import get_task, task_for_config
 
-    if name == "zamba2-7b-smoke":
-        return task_for_config(zamba2_7b.make_smoke_config(), name=name)
+    smoke = {"zamba2-7b-smoke": zamba2_7b, "deepseek-v2-lite-16b-smoke": deepseek_v2_lite_16b}
+    if name in smoke:
+        return task_for_config(smoke[name].make_smoke_config(), name=name)
     return get_task(name)
 
 
@@ -4317,9 +4376,10 @@ def _lm_step_launches(task, steps: int, route: str, backward: bool = True) -> di
 
 def phase_tiny_lm_rounds(torch):
     """One FedAvg round of each of the reference's container-scale LM, MoE
-    LM, RWKV LM and keyword tasks and of zamba2-7b's smoke hybrid (fp32, FVN
-    on) on the card and on the CPU from the same parameters and batch: the
-    loss and the aggregated delta agree. On the card each attention runs
+    LM, RWKV LM and keyword tasks, of zamba2-7b's smoke hybrid and of
+    deepseek-v2-lite-16b's smoke MLA transformer (fp32, FVN on) on the card
+    and on the CPU from the same parameters and batch: the loss and the
+    aggregated delta agree. On the card each attention runs
     K10's CUDA-core route (fp32) and its CUDA-core backward, each RWKV
     layer K12 and each Mamba2 layer K13, forward and backward, once a
     client step (exact launches, ``_lm_step_launches``); every task
@@ -4582,6 +4642,16 @@ def _plain_kernels_on_card():
 # product, bf16 through 4 layers)
 QWEN_SERVE_B, QWEN_PROMPT, QWEN_STEPS = 4, 128, 32
 QWEN_SERVE_TOL = 5e-2
+# an MoE model's teacher-forced forward at capacity_factor = E / k plus this:
+# int(cf · S · k / E) = S, so no expert can overflow at any length (E / k
+# alone can round to S - 1)
+NO_DROP_MARGIN = 1e-3
+# the most of an MoE serve's 132 positions that the decode, or the floor's
+# forward, may route to other experts than the teacher-forced forward: a
+# rounding apart moves a token's k-th choice now and then (deepseek-v2-lite-
+# 16b's bf16 decode 6 of 132, an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6);
+# a wrong decode reroutes most of them
+MAX_REROUTED_SHARE = 0.1
 
 
 # the full-size LM tasks' training runs in phase 5 (LM_ARGV, K=4, b=4, 2
@@ -4618,6 +4688,18 @@ RWKV_RUN = LMRun(
     task="rwkv6-1.6b", argv=("--task", "rwkv6-1.6b") + LM_ARGV, n_params=1_584_091_136,
     insts={"wkv6_fwd_lanes_kernel<64>": 24, "wkv6_bwd_kernel<64>": 24, "wkv6_du_sum_kernel": 24},
     plain=_plain_recurrences_on_card, loss_rtol=None, forward_rtol=5e-3)
+# deepseek-v2-lite-16b at 2 of its 27 layers (the dense first layer and the
+# first MoE layer, both MLA): K10's forward <3, 128> (a q.k width of 192,
+# three 64-column regions) and its backward <3, 2> (dK/dV on the two-
+# warpgroup kernel) once a layer a client step; its first loss against the
+# plain attention's as qwen3-8b's (bf16 attention outputs an ulp apart in a
+# few entries, through 2 layers, the top-6 routing and a local SGD step)
+DEEPSEEK_RUN = LMRun(
+    task="deepseek-v2-lite-16b", argv=("--task", "deepseek-v2-lite-16b") + LM_ARGV,
+    n_params=1_085_287_424,
+    insts={"flash_attention_wgmma_kernel<3, 128>": 2, "fa_bwd_dkdv_split_kernel<3, 2>": 2,
+           "fa_bwd_dq_wgmma_kernel<3, 2>": 2},
+    plain=_plain_attention_on_card, loss_rtol=1e-3, forward_rtol=1e-3)
 # zamba2-7b at 7 of its 81 layers: K13 once a Mamba2 layer, K10's forward
 # <2, 112> and backward <2, 2> once an application of the shared block (2)
 ZAMBA_RUN = LMRun(
@@ -4628,34 +4710,117 @@ ZAMBA_RUN = LMRun(
     plain=_plain_kernels_on_card, loss_rtol=1e-3, forward_rtol=1e-3)
 
 
-def phase_qwen_serve(torch, params: dict, corpus):
-    """The trained qwen3-8b served through the model bundle on the card:
-    B=4 prompts of 128 tokens (label rows of the eval split), ``prefill``,
-    the cache copied into ``init_cache(B, 160)`` (F6), 32 greedy
-    ``decode_step``s. Exact launches (K10 4 in prefill, on the tensor cores;
-    K11 4 a step), times and peak memory; prefill and 10 decode steps again
-    under torch.profiler; every step's logits (prefill's last and the 32
-    decode steps') held to a teacher-forced forward over prompt and
-    generated tokens (K10 4) at QWEN_SERVE_TOL, the share of equal argmaxes
-    printed. Returns the serve's launch counts."""
+@contextlib.contextmanager
+def _routing_tap(records: list):
+    """Every MoE layer's top-k expert ids (B, S, k) appended to ``records``
+    in call order inside the block (``models/moe.py`` routes through its
+    ``_route`` by name)."""
+    from repro_torch.models import moe as moe_lib
+
+    saved = moe_lib._route
+
+    def tapped(logits, cfg):
+        out = saved(logits, cfg)
+        records.append(out[2])
+        return out
+
+    moe_lib._route = tapped
+    try:
+        yield
+    finally:
+        moe_lib._route = saved
+
+
+def phase_transformer_serve(torch, name: str, params: dict, corpus):
+    """A trained transformer LM task (qwen3-8b, deepseek-v2-lite-16b) served
+    through the model bundle on the card (``_serve_transformer``); an MoE
+    model also again on an fp32 copy of its parameters (unprofiled), held
+    at FP32_SERVE_TOL: its top-k routing turns a bf16 rounding into another
+    expert now and then, so its bf16 logits may pass the bar with its floor
+    (the recurrent serves' rule), and a token routed to other experts by
+    the decode than by the teacher-forced forward is counted, not held
+    (``_serve_transformer``). Returns the bf16 serve's launch counts."""
+    from repro_torch.core.task import get_task
+
+    cfg = get_task(name).config
+    launches = _serve_transformer(torch, name, cfg, params, corpus, True)
+    if cfg.moe is not None:
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        p32 = {k: v.float() for k, v in params.items()}
+        _serve_transformer(torch, name + " fp32", cfg32, p32, corpus, False)
+        del p32
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bool):
+    """B=4 prompts of 128 tokens (label rows of the eval split),
+    ``prefill``, every layer group's cache copied into ``init_cache(B, 160)``
+    (F6), 32 greedy ``decode_step``s. Exact launches (K10 once a layer in
+    prefill, on the tensor cores in bf16; K11 once a layer a step, none with
+    MLA, whose decode scores against the compressed cache in plain einsums),
+    times and peak memory; with ``profiled``, prefill and 10 decode steps
+    again under torch.profiler; every step's logits (prefill's last and the
+    32 decode steps') against a teacher-forced forward over prompt and
+    generated tokens (K10 once a layer), the share of equal argmaxes
+    printed. The logits are held at QWEN_SERVE_TOL (fp32: FP32_SERVE_TOL)
+    with the greedy tokens' margin agreement; the floor, that forward again
+    on the plain attention on the card, is printed beside them. With MoE
+    the decode steps' forward drops no token (a decode step never does) and
+    prefill's logits are held to the prompt's forward at the config's
+    capacity (K10 twice a layer); the timed serve runs under
+    ``_routing_tap`` (a list append a layer), and a position whose token the
+    decode routes to other experts than the forward does (a rounding apart
+    moves the k-th choice) is counted and printed, not held, in the floor
+    as in the decode; more than MAX_REROUTED_SHARE of them fails, and a
+    bf16 serve is held only where its floor stays under its bar (the
+    recurrent serves' rule). That holds a model whose one MoE layer is its
+    last (deepseek-v2-lite-16b at 2 layers); with an MoE layer before an
+    attention layer a rerouted token, and prefill's dropped ones, would
+    reach later positions through the cache, so such a model is refused
+    here. Returns the serve's launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.task import get_task
     from repro_torch.models import model_zoo, transformer
 
-    cfg = get_task("qwen3-8b").config
+    if cfg.moe is not None and cfg.n_layers - cfg.moe_first_dense != 1:
+        raise ValueError(f"{name}: the serve's check holds one MoE layer, the last; this "
+                         f"config has {cfg.n_layers - cfg.moe_first_dense}")
     bundle = model_zoo.build_model(cfg)
     L, total = cfg.n_layers, QWEN_PROMPT + QWEN_STEPS
+    k11 = 0 if cfg.mla is not None else L  # K11 launches a decode step
+    bf16 = cfg.cdtype == torch.bfloat16
+    route, tol = ("wgmma", QWEN_SERVE_TOL) if bf16 else ("simt", FP32_SERVE_TOL)
     prompt = torch.from_numpy(corpus.eval_split(QWEN_SERVE_B)["labels"][:, :QWEN_PROMPT]).to(
         "cuda", torch.long)
-    tag = "[qwen3-8b serve]"
+    tag = f"[{name} serve]"
 
     def serve():
         logits, cache = bundle.prefill(params, {"tokens": prompt})
         full = bundle.init_cache(QWEN_SERVE_B, total)
-        for name in ("k", "v"):
-            full["layers"][name][:, :, :QWEN_PROMPT].copy_(cache["layers"][name])
+        for prefix, entries in cache.items():
+            for entry, t in entries.items():
+                full[prefix][entry][:, :, :QWEN_PROMPT].copy_(t)
         return logits, full
+
+    def teacher_forced(tokens):
+        """The logits the serve's 33 steps should give, from full forwards."""
+        if cfg.moe is None:
+            h, _ = transformer.forward(cfg, params, tokens)
+            return transformer.unembed(cfg, params, h[:, QWEN_PROMPT - 1:]).transpose(0, 1)
+        # A decode step's one token never overflows an expert (its top-k
+        # experts are distinct, each of capacity >= 1), while 160 tokens at
+        # the config's capacity factor drop some. So the decode steps are
+        # held to a forward at a capacity of S (NO_DROP_MARGIN: no token
+        # dropped), and prefill's logits to the prompt's forward at the
+        # config's own capacity, the computation prefill makes.
+        nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k + NO_DROP_MARGIN))
+        h, _ = transformer.forward(nodrop, params, tokens)
+        h0, _ = transformer.forward(cfg, params, prompt)
+        return torch.cat([transformer.unembed(cfg, params, h0[:, -1:]),
+                          transformer.unembed(cfg, params, h[:, QWEN_PROMPT:])],
+                         dim=1).transpose(0, 1)
 
     with torch.no_grad():
         logits, cache = serve()  # warm-up: cuBLAS handles, allocator pools
@@ -4665,61 +4830,101 @@ def phase_qwen_serve(torch, params: dict, corpus):
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         _zero_counts()
-        t0 = time.perf_counter()
-        logits, cache = serve()
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        _check_attn(f"{tag} prefill", {**_k10(L), "flash_decode": 0})
-        steps, fed = [logits], []
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for i in range(QWEN_STEPS):
-            fed.append(steps[-1].argmax(-1, keepdim=True))
-            logits, cache = bundle.decode_step(params, cache, fed[-1], QWEN_PROMPT + i)
-            steps.append(logits)
-        end.record()
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
+        dec_routes = []  # the timed serve's expert ids: prefill's, then each step's
+        tap = _routing_tap(dec_routes) if cfg.moe is not None else contextlib.nullcontext()
+        with tap:
+            t0 = time.perf_counter()
+            logits, cache = serve()
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            _check_attn(f"{tag} prefill", {**_k10(L, route), "flash_decode": 0})
+            steps, fed = [logits], []
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(QWEN_STEPS):
+                fed.append(steps[-1].argmax(-1, keepdim=True))
+                logits, cache = bundle.decode_step(params, cache, fed[-1], QWEN_PROMPT + i)
+                steps.append(logits)
+            end.record()
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
         launches = _attn_counts()
         peak = torch.cuda.max_memory_allocated()
         _check_attn(f"{tag} prefill + {QWEN_STEPS} decode steps",
-                    {**_k10(L), "flash_decode": L * QWEN_STEPS})
+                    {**_k10(L, route), "flash_decode": k11 * QWEN_STEPS})
         del cache
 
         windows = {}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
-            t0 = time.perf_counter()
-            out, cache = serve()
-            torch.cuda.synchronize()
-            windows["prefill"] = (prof, prefill_s, time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(10):
-                out, cache = bundle.decode_step(params, cache, out.argmax(-1, keepdim=True),
-                                                QWEN_PROMPT + i)
-            torch.cuda.synchronize()
-            windows["10 decode steps"] = (prof, 10 * decode_s / QWEN_STEPS,
-                                          time.perf_counter() - t0)
-        del cache, out
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+                t0 = time.perf_counter()
+                out, cache = serve()
+                torch.cuda.synchronize()
+                windows["prefill"] = (prof, prefill_s, time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(10):
+                    out, cache = bundle.decode_step(params, cache, out.argmax(-1, keepdim=True),
+                                                    QWEN_PROMPT + i)
+                torch.cuda.synchronize()
+                windows["10 decode steps"] = (prof, 10 * decode_s / QWEN_STEPS,
+                                              time.perf_counter() - t0)
+            del cache, out
         for what, (prof, wall, wall_prof) in windows.items():
             _log_profile(tag, _device_times(torch, prof), wall, wall_prof, what=what)
 
         tokens = torch.cat([prompt, *fed], dim=1)                  # (B, 160)
+        tf_k10 = L if cfg.moe is None else 2 * L
         _zero_counts()
-        h, _ = transformer.forward(cfg, params, tokens)
-        _check_attn(f"{tag} teacher-forced forward", {**_k10(L), "flash_decode": 0})
-        tf = transformer.unembed(cfg, params, h[:, QWEN_PROMPT - 1:]).transpose(0, 1)
+        tf_routes, plain_routes = [], []
+        with _routing_tap(tf_routes):
+            tf = teacher_forced(tokens)
+        _check_attn(f"{tag} teacher-forced forward", {**_k10(tf_k10, route), "flash_decode": 0})
+        _zero_counts()
+        with _plain_attention_on_card(), _routing_tap(plain_routes):
+            tf_plain = teacher_forced(tokens)
+        _check_attn(f"{tag} teacher-forced forward on the plain attention",
+                    {**_k10(0, route), "flash_decode": 0})
         dec = torch.stack(steps)                                   # (33, B, V)
         if dec.shape != tf.shape or not torch.isfinite(dec).all():
             raise AssertionError(f"{tag} decode logits {tuple(dec.shape)} are not finite or "
                                  f"not shaped as the teacher-forced {tuple(tf.shape)}")
-        err = _rel(torch, dec, tf)
-        same = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
-        if err > QWEN_SERVE_TOL:
+        # (33, B): the positions whose tokens go to the same experts
+        same = same_plain = torch.ones(dec.shape[:2], dtype=torch.bool, device=dec.device)
+        if cfg.moe is not None:
+            # each position's expert set: a forward's routes are the no-drop
+            # forward's (B, 160, k), then the prompt's (B, 128, k); the replayed
+            # serve's its prefill's (B, 128, k), then each step's (B, 1, k)
+            def alike(a, b):
+                return (a.sort(-1).values == b.sort(-1).values).all(-1).transpose(0, 1)
+
+            def at_positions(routes):
+                return torch.cat([routes[1][:, -1:], routes[0][:, QWEN_PROMPT:]], dim=1)
+
+            want = at_positions(tf_routes)
+            same = alike(want, torch.cat([dec_routes[0][:, -1:], *dec_routes[1:]], dim=1))
+            same_plain = alike(want, at_positions(plain_routes))
+        rerouted = {what: float((~m).float().mean()) for what, m in
+                    (("the decode", same), ("the plain forward", same_plain))}
+        if max(rerouted.values()) > MAX_REROUTED_SHARE:
+            raise AssertionError(f"{tag} shares of the {same.numel()} positions routed to other "
+                                 f"experts than by the teacher-forced forward: {rerouted} "
+                                 f"(at most {MAX_REROUTED_SHARE})")
+        top = max(float(tf.abs().max()), 1.0)
+        err_all = _rel(torch, dec, tf)
+        err = float((dec - tf).float()[same].abs().max()) / top
+        floor = float((tf_plain - tf).float()[same_plain].abs().max()) / top
+        agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
+        # a dense model's serve is always held; a bf16 MoE serve where its floor allows
+        barred = cfg.moe is None or not bf16 or floor <= tol
+        if barred and err > tol:
             raise AssertionError(f"{tag} decode logits against the teacher-forced forward: "
-                                 f"relative error {err:.3e} > {QWEN_SERVE_TOL}")
-        checked, n_pos = _margin_agrees(torch, dec, tf, QWEN_SERVE_TOL)
+                                 f"relative error {err:.3e} > {tol} (floor {floor:.3e}) at the "
+                                 f"{int(same.sum())} positions routed alike")
+        checked, n_pos = _margin_agrees(torch, dec[same], tf[same], tol) if barred else \
+            (0, int(same.sum()))
     log(f"{tag} B={QWEN_SERVE_B}, {QWEN_PROMPT}-token prompts, {QWEN_STEPS} greedy steps: "
         f"prefill (with the cache copy to {total} slots) {prefill_s * 1e3:.2f} ms, decode "
         f"{decode_s * 1e3 / QWEN_STEPS:.3f} ms per token on the host clock "
@@ -4727,11 +4932,23 @@ def phase_qwen_serve(torch, params: dict, corpus):
         f"{QWEN_SERVE_B * QWEN_STEPS / decode_s:.1f} tokens/s; peak memory over prefill and "
         f"decode {peak} B, {peak - held} B above the {held} B allocated before it; launches "
         f"K10 {launches['flash_attention']} (tensor cores {launches['flash_attention_wgmma']}), "
-        f"K11 {launches['flash_decode']} ({L} a step)")
-    log(f"{tag} decode vs the teacher-forced forward over {tokens.shape[1]} tokens ({L} K10 "
-        f"launches): logits relative error {err:.3e} (tol {QWEN_SERVE_TOL}); argmax equal at "
-        f"{same:.4f} of the {n_pos} positions; greedy tokens agree at {checked} of {n_pos} "
-        f"positions with a clear margin")
+        f"K11 {launches['flash_decode']} ({k11} a step"
+        + (": MLA's decode scores the compressed cache in plain einsums)"
+           if cfg.mla is not None else ")"))
+    log(f"{tag} decode vs the teacher-forced forward over {tokens.shape[1]} tokens ({tf_k10} K10 "
+        f"launches"
+        + ("; the decode steps against a forward that drops no token, prefill's logits "
+           "against the prompt's forward at the config's capacity" if cfg.moe is not None
+           else "")
+        + f"): logits relative error {err:.3e} at the {int(same.sum())} of {same.numel()} "
+        f"positions routed alike, "
+        + (f"held (tol {tol})" if barred else f"NOT held: its floor passes the bar {tol}")
+        + f"; {int((~same).sum())} positions routed to other experts by the decode (not held; "
+        f"shares: " + ", ".join(f"{w} {r:.4f}" for w, r in rerouted.items())
+        + f", at most {MAX_REROUTED_SHARE}), all positions {err_all:.3e}; floor (the same forward on the plain attention, at the "
+        f"{int(same_plain.sum())} positions it routes alike) {floor:.3e}; argmax equal at "
+        f"{agree:.4f} of all positions; greedy tokens agree at "
+        f"{checked} of the {n_pos} positions routed alike with a clear margin")
     return launches
 
 
@@ -5112,7 +5329,7 @@ def main() -> int:
     # that card stayed reserved in split blocks and a 2.5 GB request failed)
     qwen_launches, qwen_params, qwen_corpus = phase_lm_train(torch, QWEN_RUN)
     mark("qwen3-8b training")
-    qwen_serve_launches = phase_qwen_serve(torch, qwen_params, qwen_corpus)
+    qwen_serve_launches = phase_transformer_serve(torch, "qwen3-8b", qwen_params, qwen_corpus)
     del qwen_params, qwen_corpus
     _release(torch, "qwen3-8b")
     mark("qwen3-8b serve")
@@ -5130,6 +5347,15 @@ def main() -> int:
     del params, corpus
     _release(torch, "zamba2-7b")
     mark("zamba2-7b serve")
+    # deepseek-v2-lite-16b (about 37 GB at qwen3-8b's bytes a parameter) after
+    # the released recurrent phases
+    deepseek_launches, params, corpus = phase_lm_train(torch, DEEPSEEK_RUN)
+    mark("deepseek-v2-lite-16b training")
+    deepseek_serve_launches = phase_transformer_serve(torch, "deepseek-v2-lite-16b", params,
+                                                      corpus)
+    del params, corpus
+    _release(torch, "deepseek-v2-lite-16b")
+    mark("deepseek-v2-lite-16b serve")
     rows = phase_kernels(torch)
     rows.update(phase_joint_kernels(torch))
     rows.update(phase_scan_kernels(torch))
@@ -5223,16 +5449,19 @@ def main() -> int:
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3, K4 and the
     # normal kernel (FVN) under 'auto'; K5-K9 in the compressed and
     # slow-path runs (their launches summed); K10 and K11 in the
-    # whisper-base, qwen3-8b and zamba2-7b serves and trainings, K10's
-    # backward in the three trainings (each path's launches summed)
+    # whisper-base, qwen3-8b, zamba2-7b and deepseek-v2-lite-16b serves and
+    # trainings, K10's backward in the four trainings (each path's launches
+    # summed)
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
     for name in ("flash_attention_wgmma", "flash_attention_simt", "flash_decode"):
         launches[name] = attn_launches[name] + qwen_serve_launches[name] + qwen_launches[name] \
-            + zamba_launches[name] + zamba_serve_launches[name]
+            + zamba_launches[name] + zamba_serve_launches[name] + deepseek_launches[name] \
+            + deepseek_serve_launches[name]
     for name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_simt"):
-        launches[name] = train_launches[name] + qwen_launches[name] + zamba_launches[name]
+        launches[name] = train_launches[name] + qwen_launches[name] + zamba_launches[name] \
+            + deepseek_launches[name]
     # K12 in the rwkv6-1.6b training and serve, K13 in zamba2-7b's
     for name in ("wkv6_fwd", "wkv6_bwd"):
         launches[name] = rwkv_launches[name] + rwkv_serve_launches[name]

@@ -45,6 +45,11 @@ over the panel's clients. The registry (``register_task``,
 - ``qwen3-8b``: qwen3-8b at full width and 4 of its 36 layers
   (``configs/qwen3_8b.py``, bf16 parameters) on a corpus at its vocabulary
   (``qwen_width_corpus``);
+- ``deepseek-v2-lite-16b``: deepseek-v2-lite-16b at full width and 2 of
+  its 27 layers, the dense first layer and the first MoE layer, both with
+  multi-head latent attention (``configs/deepseek_v2_lite_16b.py``, bf16
+  parameters, the router fp32), on a corpus at its vocabulary
+  (``deepseek_width_corpus``);
 - ``lm-rwkv``: the reference's container-scale RWKV-6 LM (``rwkv-tiny``,
   ``:436-449``) on the shared corpus;
 - ``rwkv6-1.6b``: rwkv6-1.6b at its full published size, all 24 layers
@@ -419,6 +424,16 @@ def qwen_width_corpus(seed: int = 0):
     return make_speaker_corpus(**QWEN_CORPUS, seed=seed)
 
 
+# deepseek-v2-lite-16b's vocabulary (102,400 word-pieces), shaped as
+# QWEN_CORPUS: 128-token label rows, 16 feature bins
+DEEPSEEK_CORPUS = dict(QWEN_CORPUS, vocab_size=102400)
+
+
+def deepseek_width_corpus(seed: int = 0):
+    """A corpus at deepseek-v2-lite-16b's vocabulary (``DEEPSEEK_CORPUS``)."""
+    return make_speaker_corpus(**DEEPSEEK_CORPUS, seed=seed)
+
+
 # rwkv6-1.6b's and zamba2-7b's vocabularies (65,536 and 32,000 word-pieces),
 # shaped as QWEN_CORPUS: 128-token label rows, 16 feature bins
 RWKV_CORPUS = dict(QWEN_CORPUS, vocab_size=65536)
@@ -572,6 +587,25 @@ def _qwen3_8b_task(seed: int = 0) -> FederatedTask:
 
     return task_for_config(qwen3_8b.make_config(n_layers=4), name=qwen3_8b.ARCH_ID,
                            make_corpus=qwen_width_corpus)
+
+
+@register_task("deepseek-v2-lite-16b")
+def _deepseek_v2_lite_16b_task(seed: int = 0) -> FederatedTask:
+    """deepseek-v2-lite-16b at full width (d_model 2,048, 16 heads, vocab
+    102,400, MLA with kv_lora 512 and q·k and v widths 192 and 128, bf16
+    parameters) and 2 of its 27 layers: the dense first layer (d_ff
+    10,944, under ``dense_layers.``) and the first MoE layer (64 experts of
+    d_ff 1,408, top-6, 2 shared experts of 2,816, the fp32 router, under
+    ``layers.``): 1,085,287,424 parameters. Depth is the cut because a round
+    keeps the parameters, the server's fp32 Adam moments and mean delta and
+    one client's copies on the card, about 34 B a parameter at qwen3-8b's
+    measured peak (68.3 GB for 2.016 G): about 37 GB at 2 layers, about 530
+    GB for all 27 layers' 15,706,484,224. Two layers put MLA in both layer
+    groups and the first full-width MoE layer on the card."""
+    from repro_torch.configs import deepseek_v2_lite_16b
+
+    return task_for_config(deepseek_v2_lite_16b.make_config(n_layers=2),
+                           name=deepseek_v2_lite_16b.ARCH_ID, make_corpus=deepseek_width_corpus)
 
 
 def tiny_rwkv_config():

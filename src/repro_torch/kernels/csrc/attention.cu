@@ -26,7 +26,9 @@
 //
 // K10 has two routes; the wrapper (kernels/flash_attention.py) picks one
 // by a fixed rule: bf16 with D and Dv multiples of 16 (and 16-byte aligned
-// tensors) takes the tensor cores, everything else the CUDA cores.
+// tensors) takes the tensor cores, everything else the CUDA cores. Both take
+// a q.k width D up to 192 and a v width Dv up to 128 (multi-head latent
+// attention's 128 + 64 against 128, src/repro/models/mla.py:73).
 //
 // flash_attention_wgmma (K10 on tensor cores). q (B, Sq, H, D), k (B, Sk,
 // Kv, D), v (B, Sk, Kv, Dv), bf16; o (B, Sq, H, Dv) bf16. Grid (ceil(Sq /
@@ -60,7 +62,9 @@
 // of one head. The block walks the kv axis in tiles of 64 keys staged in
 // shared memory as fp32; a thread owns a 4 x 4 tile of the (32, 64) scores
 // (its rows 4*ty..4*ty+3, its keys tx + 16*c) and a 4 x (Dv / 16) tile of
-// the accumulator. Per tile, as blockwise_attention does per block: scores
+// the accumulator. DT, the width its tiles hold, is 64, 128 or 192 (the
+// q.k width D padded; Dv <= D's padding, or Dv <= 128 under DT = 192). Per
+// tile, as blockwise_attention does per block: scores
 // in fp32 from the scaled query, softcap, masks, the row max over the 16
 // threads of a row (warp shuffles), the online softmax above. Bound at the
 // encoder in fp32: 18.4 GFLOP at 67 TFLOP/s, 0.275 ms; its register tiles
@@ -145,7 +149,7 @@ constexpr int kTQ = 32;                        // query rows a block
 constexpr int kTK = 64;                        // keys a tile
 constexpr int kFaThreads = (kTQ / 4) * 16;     // 8 row groups x 16 key lanes
 
-template <int DT>  // DT: the head width padded to 64 or 128
+template <int DT>  // DT: the head width padded to 64, 128 or 192
 struct FaSmem {
   static constexpr int q_ld = kTQ + 4;   // Qs[DT][q_ld], transposed, rows 16-byte aligned
   static constexpr int k_ld = DT + 1;    // Ks[kTK][k_ld], padded: lanes read distinct banks
@@ -324,15 +328,17 @@ constexpr size_t wg_smem_bytes(int nd, int dv) {
          8 * (kWgStages + 1);
 }
 
-// flash_attention_wgmma (K10, bf16, D and DV multiples of 16 up to 128;
-// ND = ceil(D / 64)). Grid (ceil(Sq / 64), B * H), one warpgroup a block.
+// flash_attention_wgmma (K10, bf16, D a multiple of 16 up to 192 and DV
+// one up to 128; ND = ceil(D / 64), 1 to 3). Grid (ceil(Sq / 64), B * H), one warpgroup a block.
 // Shared memory, each region 1,024-byte aligned as the 128-byte swizzle
 // needs: Q (ND regions of 64 rows x 64 columns), then kWgStages stages of
 // K (ND regions) and V (ceil(DV / 64) regions), then the stages' mbarriers
 // and Q's. Thread 0 issues every TMA load; TMA zero-fills rows past Sq and
 // Sk and columns past D and DV, so a ragged tile adds 0 to both products
 // and Q.K^T can run all 4 ND k16 steps (a compile-time count: with a
-// run-time one, ptxas serialises the products).
+// run-time one, ptxas serialises the products). At ND = 3 (D = 192) a block
+// takes wg_smem_bytes(3, 128) = 107,544 B, two blocks an SM; its registers
+// are ND = 2's (Q and K stay in shared memory).
 template <int ND, int DV>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -836,41 +842,44 @@ int launch_decode_g(const void* q, const void* kc, const void* vc, void* o, cons
 }  // namespace
 
 // K10 on CUDA cores. dtype: 0 = float32, 1 = bfloat16 (q, k, v and o
-// alike). D and Dv at most 128; H a multiple of Kv; B * H at most 65,535.
+// alike). D at most 192 and Dv at most 128; H a multiple of Kv; B * H at
+// most 65,535.
 // window 0 = none; softcap 0 = none. Returns a cudaError_t as int (0 =
 // success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Sk, int H, int Kv, int D,
                                    int Dv, float scale, int causal, int window, float softcap,
                                    int q_offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 128 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
       Dv > 128 || static_cast<long long>(B) * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool narrow = D <= 64 && Dv <= 64;
+  const int width = std::max(D, Dv);  // the tiles' width: 64, 128 or 192
+  const auto run = [&](auto launch) {
+    return launch(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale, causal, window, softcap,
+                  q_offset, s);
+  };
   if (dtype == 0)
-    return narrow ? launch_fa<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
-                                         window, softcap, q_offset, s)
-                  : launch_fa<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
-                                          window, softcap, q_offset, s);
+    return width <= 64    ? run(launch_fa<float, 64>)
+           : width <= 128 ? run(launch_fa<float, 128>)
+                          : run(launch_fa<float, 192>);
   if (dtype == 1)
-    return narrow ? launch_fa<__nv_bfloat16, 64>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale,
-                                                 causal, window, softcap, q_offset, s)
-                  : launch_fa<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale,
-                                                  causal, window, softcap, q_offset, s);
+    return width <= 64    ? run(launch_fa<__nv_bfloat16, 64>)
+           : width <= 128 ? run(launch_fa<__nv_bfloat16, 128>)
+                          : run(launch_fa<__nv_bfloat16, 192>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K10 on tensor cores: bf16 q, k, v and o, contiguous, 16-byte aligned; D
-// and Dv multiples of 16 up to 128; H a multiple of Kv; B * H at most
-// 65,535. Returns a cudaError_t as int (0 = success), or a negated
+// a multiple of 16 up to 192, Dv one up to 128; H a multiple of Kv; B * H
+// at most 65,535. Returns a cudaError_t as int (0 = success), or a negated
 // CUresult if a tensor map could not be encoded.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int B, int Sq, int Sk, int H, int Kv, int D,
                                          int Dv, float scale, int causal, int window,
                                          float softcap, int q_offset, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 128 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
       Dv > 128 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
       misaligned(k) || misaligned(v) || misaligned(o))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -880,13 +889,15 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
   if (err == 0) err = make_map(&tv, v, B, Sk, Kv, Dv);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto launch) {
+    return launch(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, scale, causal, window, softcap, q_offset,
+                  s);
+  };
   switch (Dv) {
 #define K10_DV(n)                                                                            \
   case n:                                                                                    \
-    return D <= 64 ? launch_fa_wgmma<1, n>(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, scale,      \
-                                           causal, window, softcap, q_offset, s)             \
-                   : launch_fa_wgmma<2, n>(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, scale,      \
-                                           causal, window, softcap, q_offset, s);
+    return D <= 64 ? run(launch_fa_wgmma<1, n>)                                              \
+                   : (D <= 128 ? run(launch_fa_wgmma<2, n>) : run(launch_fa_wgmma<3, n>));
     K10_DV(16) K10_DV(32) K10_DV(48) K10_DV(64) K10_DV(80) K10_DV(96) K10_DV(112) K10_DV(128)
 #undef K10_DV
   }

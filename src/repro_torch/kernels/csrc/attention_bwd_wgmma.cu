@@ -9,7 +9,8 @@
 // over the forward's whole contract: causal or not, the query offset, the
 // scale, a sliding window, the tanh softcap (its derivative from the
 // recomputed raw score), GQA with H a multiple of Kv, Sq != Sk, ragged
-// tiles, D != Dv (multiples of 16 up to 128), rows with no valid key (lse
+// tiles, D != Dv (multiples of 16, D up to 192 and Dv up to 128), rows
+// with no valid key (lse
 // +inf, so P = 0 and their gradients are 0). FlashAttention-2's equations
 // from the forward's row log-sum-exp:
 //   s_raw = scale (q . k),  t = tanh(s_raw / cap),  s = cap t (s_raw
@@ -38,6 +39,12 @@
 //     += dS^T Q by register-A wgmma (the accumulator layout of S^T is the
 //     A-fragment layout, dO and Q read from the same tiles MN-major). The
 //     scale goes on the fp32 dK at the end, never on bf16 q;
+//   fa_bwd_dkdv_split_kernel, the dK/dV pass at D > 128 (ND = 3): one
+//     warpgroup's registers cannot hold dK (96 floats a thread), dV (64),
+//     S^T and dP^T (32 each) at once, so two warpgroups a block share its
+//     64 keys and the same streamed stages: warpgroup 0 accumulates dV from
+//     S^T alone (P^T . dO), warpgroup 1 dK from S^T and dP^T (dS^T . Q);
+//     each computes S^T from the shared tiles (S^T's product twice a tile);
 //   fa_bwd_dq_wgmma_kernel: grid (ceil(Sq / 64), B H), one warpgroup owns
 //     64 query rows of one head (Q and dO loaded once) and walks the kv
 //     tiles of 64 keys the forward visits, K and V through the same ring:
@@ -59,7 +66,8 @@
 // ceil(Sk / 64) B Kv blocks (192 at the encoder, 1.45 an SM; 64 at
 // qwen3-8b's head layout B=4, S=128, Kv=8, on 132 SMs); S and dP are
 // recomputed in both passes. Registers (ptxas): dK/dV 184 at D = Dv = 64,
-// 247 at 128, dQ 126 and 158; no spills.
+// 247 at 128, dQ 126 and 158; no spills. At D = 192, Dv = 128 a block takes
+// bwd_smem_bytes(3, 2) = 124,952 B, one block an SM, in both passes.
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes
@@ -149,6 +157,12 @@ __device__ __forceinline__ void p_and_ds_softcap(float& s, float& dp, float l2, 
   const float p = ok ? fast_exp2(fmaf(softcap * t, kLog2e, -l2)) : 0.f;
   s = p;
   dp = p * (dp - dd) * (1.f - t * t);
+}
+
+// P of one score under a softcap, without dS (the dV warpgroup's).
+__device__ __forceinline__ float prob_softcap(float s, float l2, float scale, float softcap,
+                                              bool ok) {
+  return ok ? fast_exp2(fmaf(softcap * tanhf(s * scale / softcap), kLog2e, -l2)) : 0.f;
 }
 
 __device__ __forceinline__ bool key_valid(int key, int qpos, int Sk, int causal, int window) {
@@ -397,6 +411,196 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       cq);
 }
 
+// dK and dV of 64 keys of one kv head at ND = 3 (fa_bwd_dkdv_split_kernel
+// in the header): 256 threads, warpgroup 0 for dV, warpgroup 1 for dK, over
+// the stages and in the tile order of fa_bwd_dkdv_wgmma_kernel, each sum in
+// the same order (dV += P_hi^T dO + P_lo^T dO, dK += dS_hi^T Q + dS_lo^T Q,
+// k16 step by k16 step). One accumulator array a thread, dV's 32 NV or dK's
+// 32 ND floats, so that neither warpgroup holds the other's. Thread 0 issues
+// every copy; both warpgroups finish a stage before it is refilled.
+template <int ND, int NV>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse2,
+                         const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Sq_pad, int Sk, int H,
+                         int Kv, int D, int Dv, float scale, int causal, int window,
+                         float softcap, int q_offset) {
+  constexpr int stage_bytes = (ND + NV) * kAtom;  // Q, then dO
+  constexpr int NA = 32 * (ND > NV ? ND : NV);    // dK's floats a thread (dV uses 32 NV)
+  extern __shared__ uint8_t bwd_smem[];
+  uint8_t* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  uint8_t* Ks = base;
+  uint8_t* Vs = Ks + ND * kAtom;
+  uint8_t* stage0 = Vs + NV * kAtom;
+  float* rows_s = reinterpret_cast<float*>(stage0 + kStages * stage_bytes);  // [stage][lse2, di]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows_s + 2 * kStages * kRows);
+  uint64_t* kvbar = bars + kStages;
+
+  const int tid = threadIdx.x, wg = tid / kThreads;  // 0: dV, 1: dK
+  const int warp = (tid % kThreads) >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's keys: r0 and r0 + 8
+  const int cq = lane & 3;                 // and its query pair in each 8 columns
+  const int kvh = blockIdx.y % Kv;
+  const int b = blockIdx.y / Kv;
+  const int G = H / Kv;
+  const int k0 = blockIdx.x * kRows;
+  const CUtensorMap* tm_q_ptr = &tm_q;
+  const CUtensorMap* tm_do_ptr = &tm_do;
+
+  // query rows [i_lo, i_hi) can see some key of this block
+  const int k_last = min(k0 + kRows, Sk) - 1;
+  int i_lo = 0, i_hi = Sq;
+  if (causal) i_lo = max(0, k0 - q_offset);
+  if (window > 0) i_hi = min(Sq, max(0, k_last + window - q_offset));
+  const int q_first_tile = (i_lo / kRows) * kRows;
+  const int n_qt = i_hi > q_first_tile ? (i_hi - q_first_tile + kRows - 1) / kRows : 0;
+  const int n_tiles = G * n_qt;  // head g's tiles, then head g + 1's
+
+  const auto load_stage = [=](int it) {
+    const int st = it % kStages;
+    const int h = kvh * G + it / n_qt;
+    const int q0 = q_first_tile + (it % n_qt) * kRows;
+    load_rows_stage<ND, NV>(stage0 + st * stage_bytes, rows_s + st * 2 * kRows, &bars[st],
+                            tm_q_ptr, tm_do_ptr, lse2, di,
+                            (static_cast<long long>(b) * H + h) * Sq_pad + q0, h, q0, b);
+  };
+
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+
+  if (n_tiles > 0) {
+    if (tid == 0) {
+      init_bars(bars, kStages + 1);
+      load_tiles<ND, NV>(Ks, kvbar, &tm_k, &tm_v, kvh, k0, b);  // Vs follows Ks
+      for (int s = 0; s < min(n_tiles, kStages); ++s) load_stage(s);
+    }
+    __syncthreads();  // the barriers are initialised before anyone waits on them
+    mbar_wait(kvbar, 0);
+    __syncwarp();
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const uint8_t* Qs = stage0 + st * stage_bytes;
+      const uint8_t* dOs = Qs + ND * kAtom;
+      const float* rs = rows_s + st * 2 * kRows;
+      const int q0 = q_first_tile + (it % n_qt) * kRows;
+      mbar_wait(&bars[st], (it / kStages) & 1);
+      __syncwarp();
+
+      const int qpos0 = q_offset + q0;
+      const bool full = k0 + kRows <= Sk && (!causal || k0 + kRows - 1 <= qpos0) &&
+                        (window <= 0 || k0 > qpos0 + kRows - 1 - window);
+      const auto ok = [&](int idx) {
+        return full || key_valid(k0 + r0 + 8 * ((idx >> 1) & 1), qpos0 + 8 * (idx >> 2) +
+                                 2 * cq + (idx & 1), Sk, causal, window);
+      };
+      float S[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) S[i] = 0.f;
+      if (wg == 0) {
+        // dV += P^T . dO, P^T from S^T = K . Q^T
+        pin<32>(S);
+        wgmma_fence();
+        product_ss<ND>(S, Ks, Qs);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin<32>(S);
+        if (softcap > 0.f) {
+#pragma unroll
+          for (int idx = 0; idx < 32; ++idx)
+            S[idx] = prob_softcap(S[idx], rs[8 * (idx >> 2) + 2 * cq + (idx & 1)], scale, softcap,
+                                  ok(idx));
+        } else {
+#pragma unroll
+          for (int idx = 0; idx < 32; ++idx)
+            S[idx] = prob(S[idx], rs[8 * (idx >> 2) + 2 * cq + (idx & 1)], scale, ok(idx));
+        }
+        uint32_t Ph[16], Pl[16];
+        split_bf16(S, Ph, Pl);
+        pin<32 * NV>(acc);
+        pin<16>(Ph);
+        pin<16>(Pl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          rs_step<64 * NV>(acc, Ph + 4 * kk, dOs, kk);
+          rs_step<64 * NV>(acc, Pl + 4 * kk, dOs, kk);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin<32 * NV>(acc);
+        pin<16>(Ph);
+        pin<16>(Pl);
+      } else {
+        // dK += dS^T . Q, dS^T from S^T and dP^T = V . dO^T, as the one-warpgroup pass
+        float dP[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dP[i] = 0.f;
+        pin<32>(S);
+        pin<32>(dP);
+        wgmma_fence();
+        product_ss<ND>(S, Ks, Qs);
+        wgmma_commit();
+        product_ss<NV>(dP, Vs, dOs);
+        wgmma_commit();
+        if (softcap > 0.f) {
+          wgmma_wait_all();
+          pin<32>(S);
+          pin<32>(dP);
+#pragma unroll
+          for (int idx = 0; idx < 32; ++idx) {
+            const int col = 8 * (idx >> 2) + 2 * cq + (idx & 1);
+            p_and_ds_softcap(S[idx], dP[idx], rs[col], rs[kRows + col], scale, softcap, ok(idx));
+          }
+        } else {
+          wgmma_wait<1>();
+          pin<32>(S);
+#pragma unroll
+          for (int idx = 0; idx < 32; ++idx)
+            S[idx] = prob(S[idx], rs[8 * (idx >> 2) + 2 * cq + (idx & 1)], scale, ok(idx));
+          wgmma_wait_all();
+          pin<32>(dP);
+#pragma unroll
+          for (int idx = 0; idx < 32; ++idx)
+            dP[idx] = S[idx] * (dP[idx] - rs[kRows + 8 * (idx >> 2) + 2 * cq + (idx & 1)]);
+        }
+        uint32_t Dh[16], Dl[16];
+        split_bf16(dP, Dh, Dl);
+        pin<32 * ND>(acc);
+        pin<16>(Dh);
+        pin<16>(Dl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          rs_step<64 * ND>(acc, Dh + 4 * kk, Qs, kk);
+          rs_step<64 * ND>(acc, Dl + 4 * kk, Qs, kk);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin<32 * ND>(acc);
+        pin<16>(Dh);
+        pin<16>(Dl);
+      }
+
+      __syncthreads();  // both warpgroups are done with this stage
+      if (tid == 0 && it + kStages < n_tiles) load_stage(it + kStages);
+      __syncwarp();
+    }
+  }
+
+  const long long row0 = static_cast<long long>(b) * Sk * Kv + kvh;  // key 0 of this kv head
+  if (wg == 0)
+    store_rows<64 * NV>(dv + row0 * Dv, static_cast<long long>(Kv) * Dv, k0, Sk, Dv, acc, 1.f, r0,
+                        cq);
+  else
+    store_rows<64 * ND>(dk + row0 * D, static_cast<long long>(Kv) * D, k0, Sk, D, acc, scale, r0,
+                        cq);
+}
+
 // dQ of 64 query rows of one head.
 template <int ND, int NV>
 __global__ void __launch_bounds__(kThreads)
@@ -536,6 +740,27 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       static_cast<long long>(H) * D, q0, Sq, D, dQ, scale, r0, cq);
 }
 
+// The dK/dV pass's kernel: from ND = FA_BWD_SPLIT_FROM_ND on, two
+// warpgroups a block (the split kernel); only the one chosen is
+// instantiated. tools/k10_bwd_split_ab.py builds this file again with the
+// macro at 1: at ND <= 2 the split kernel gives the one-warpgroup kernel's
+// bits and takes 3 to 21 % longer (NVIDIA H100 80GB HBM3, 700 W: 20.97
+// against 20.43 us at qwen3-8b's head layout, 19.10 against 15.79 at
+// zamba2-7b's), so it starts at 3.
+#ifndef FA_BWD_SPLIT_FROM_ND
+#define FA_BWD_SPLIT_FROM_ND 3
+#endif
+template <int ND>
+constexpr bool kSplit = ND >= FA_BWD_SPLIT_FROM_ND;
+
+template <int ND, int NV>
+constexpr auto dkdv_kernel() {
+  if constexpr (kSplit<ND>)
+    return fa_bwd_dkdv_split_kernel<ND, NV>;
+  else
+    return fa_bwd_dkdv_wgmma_kernel<ND, NV>;
+}
+
 template <int ND, int NV>
 int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                      const CUtensorMap& tdo, const void* o, const void* dout, const void* lse,
@@ -544,7 +769,8 @@ int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
                      int q_offset, cudaStream_t s) {
   static bool ready_kv = false, ready_q = false;
   constexpr size_t smem = bwd_smem_bytes(ND, NV);
-  auto kdkdv = fa_bwd_dkdv_wgmma_kernel<ND, NV>;
+  constexpr bool split = kSplit<ND>;
+  auto kdkdv = dkdv_kernel<ND, NV>();
   auto kdq = fa_bwd_dq_wgmma_kernel<ND, NV>;
   cudaError_t err = allow_smem(kdkdv, smem, &ready_kv);
   if (err == cudaSuccess) err = allow_smem(kdq, smem, &ready_q);
@@ -560,7 +786,7 @@ int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
                             static_cast<const float*>(lse), lse2, di, rows, Sq, Sq_pad, H, Dv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  kdkdv<<<dim3((Sk + kRows - 1) / kRows, B * Kv), kThreads, smem, s>>>(
+  kdkdv<<<dim3((Sk + kRows - 1) / kRows, B * Kv), split ? 2 * kThreads : kThreads, smem, s>>>(
       tq, tk, tv, tdo, lse2, di, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       Sq, Sq_pad, Sk, H, Kv, D, Dv, scale, causal, window, softcap, q_offset);
   err = cudaGetLastError();
@@ -574,8 +800,9 @@ int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
 }  // namespace
 
 // K10's backward on tensor cores: bf16 q, k, v, o, dout, dq, dk and dv,
-// contiguous, 16-byte aligned; lse (B, H, Sq) fp32 from the forward; D and
-// Dv multiples of 16 up to 128; H a multiple of Kv; B * H at most 65,535.
+// contiguous, 16-byte aligned; lse (B, H, Sq) fp32 from the forward; D a
+// multiple of 16 up to 192, Dv one up to 128; H a multiple of Kv; B * H at
+// most 65,535.
 // scratch: 2 B H ceil(Sq / 64) 64 fp32, 16-byte aligned (the padded lse2
 // and di). Returns a cudaError_t as int (0 = success), or a negated
 // CUresult if a tensor map could not be encoded.
@@ -586,7 +813,7 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
                                          float scale, int causal, int window, float softcap,
                                          int q_offset, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 128 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
       Dv > 128 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
       misaligned(k) || misaligned(v) || misaligned(o) || misaligned(dout) || misaligned(dq) ||
       misaligned(dk) || misaligned(dv) || misaligned(scratch))
@@ -604,5 +831,7 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
   };
   if (D <= 64)
     return Dv <= 64 ? run(launch_bwd_wgmma<1, 1>) : run(launch_bwd_wgmma<1, 2>);
-  return Dv <= 64 ? run(launch_bwd_wgmma<2, 1>) : run(launch_bwd_wgmma<2, 2>);
+  if (D <= 128)
+    return Dv <= 64 ? run(launch_bwd_wgmma<2, 1>) : run(launch_bwd_wgmma<2, 2>);
+  return Dv <= 64 ? run(launch_bwd_wgmma<3, 1>) : run(launch_bwd_wgmma<3, 2>);
 }

@@ -25,13 +25,13 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES,
-    MAX_HEAD_DIM,
     _lib,
     check_devices,
     check_kernel_inputs,
 )
 
 FWD_LAUNCHES = 0
+MAX_HEAD_DIM = 128  # D and Dv (the kernel's kMaxDim)
 MAX_GROUP = 16  # query heads a kv head (the kernel's registers)
 SPLIT_SLOTS = 64  # cache slots a block
 

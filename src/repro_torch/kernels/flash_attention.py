@@ -12,9 +12,12 @@ scale and the query offset of ``repro/models/attention.py:84
 blockwise_attention`` and mask ragged tiles, so every call of the
 model's function on the card runs them.
 
-Two forward routes, chosen by a fixed rule (``route``), not by a
-fallback: bf16 q, k and v with D and Dv multiples of 16, 16-byte aligned,
-go to the tensor-core kernel (``flash_attention_wgmma``); everything else
+Every route takes a q·k width D up to ``MAX_QK_DIM`` = 192 and a v width
+Dv up to ``MAX_V_DIM`` = 128: multi-head latent attention's 128 + 64
+against 128 (``repro/models/mla.py:73``) at its full width. Two forward
+routes, chosen by a fixed rule (``route``), not by a fallback: bf16 q, k
+and v with D and Dv multiples of 16, 16-byte aligned, go to the
+tensor-core kernel (``flash_attention_wgmma``); everything else
 (fp32, other widths) to the CUDA-core kernel (``flash_attention``). A
 failed build or launch raises. On the card, a call that autograd must
 differentiate (grad mode on and an input that requires grad: ``grad_path``)
@@ -30,7 +33,8 @@ The backward has two routes by the same kind of fixed rule
 contiguous and 16-byte aligned goes to the tensor-core design
 (``csrc/attention_bwd_wgmma.cu``: TMA-fed wgmma products, P and dS kept
 fp32 as two bf16 terms, one warpgroup a block of 64 keys for dK and dV,
-of 64 query rows for dQ); everything else (fp32, other widths) to the
+of 64 query rows for dQ; past D = 128 two warpgroups a block for dK and
+dV, one accumulating each); everything else (fp32, other widths) to the
 CUDA-core design (``csrc/attention_bwd.cu``). Each is three launches a
 call (the rows' di, dK/dV, dQ), sums in one fixed order, no atomics.
 ``BWD_LAUNCHES`` counts the backward's calls, ``BWD_WGMMA_LAUNCHES`` and
@@ -54,7 +58,8 @@ BWD_WGMMA_LAUNCHES = 0
 BWD_SIMT_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_QK_DIM = 192  # D, the q·k width
+MAX_V_DIM = 128   # Dv
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -163,8 +168,9 @@ def _check_shapes(q, k, v):
 def _check_kernel_shapes(q, k, v):
     B, Sq, H, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
-    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes D and Dv up to {MAX_HEAD_DIM}, got {D} and {Dv}")
+    if D > MAX_QK_DIM or Dv > MAX_V_DIM:
+        raise ValueError(f"the kernel takes a q.k width D up to {MAX_QK_DIM} and a v width Dv "
+                         f"up to {MAX_V_DIM}, got D={D} and Dv={Dv}")
     if Sq == 0 or Sk == 0 or B * H > 65535:
         raise ValueError(f"the kernel takes Sq, Sk >= 1 and B*H <= 65535; got Sq={Sq}, "
                          f"Sk={Sk}, B*H={B * H}")

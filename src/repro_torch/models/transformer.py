@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM: the dense and MoE architectures (qwen3,
-deepseek-67b, command-r, gemma3, the mistral backbone, phi-3.5-moe).
+"""Decoder-only transformer LM: the dense, MoE and MLA architectures (qwen3,
+deepseek-67b, command-r, gemma3, the mistral backbone, phi-3.5-moe,
+deepseek-v2-lite).
 
 The port of ``repro/models/transformer.py``. Parameters are one flat
 dict keyed by the reference's tree paths, in its stacked layout: every
@@ -23,17 +24,28 @@ than the sequence, ``S + 1`` or ``pos + 2``, which masks nothing).
 cache as long as the prompt, so a decode step straight after it
 overwrites the last prompt slot, in both packages: serving copies
 ``prefill``'s cache into an ``init_cache(B, total)`` first (F6 in
-ROADMAP.md). Multi-head latent attention (``mla``) is not ported yet.
+ROADMAP.md).
+
+A config with ``mla`` (multi-head latent attention, ``models/mla.py``)
+takes it in every layer where the reference does (``repro/models/
+transformer.py:109-110``, ``:150-151``, ``:247-251``, ``:269-271``,
+``:377-380``): its cache is the compressed ``{"ckv", "krope"}`` (L, B, S,
+kv_lora) and (L, B, S, qk_rope_dim), its full-sequence attention K10 at a
+q·k width of qk_nope_dim + qk_rope_dim. As in the reference, MLA ignores
+the layer's window in the forward and ``ring`` in a decode step (it writes
+at ``pos``, clamped into a cache that ``init_cache(ring=True)`` may have
+sized at the window: F7 in ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.ref import tanh
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.encdec import _flat, _layers
 from repro_torch.models.attention import (
@@ -82,16 +94,10 @@ class TransformerConfig:
     moe: Optional[moe_lib.MoEConfig] = None
     moe_first_dense: int = 0           # leading dense layers (deepseek-v2)
     first_dense_ff: int = 0
-    mla: Optional[Any] = None          # multi-head latent attention: not ported
+    mla: Optional[mla_lib.MLAConfig] = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     loss_chunk: int = 256
-
-    def __post_init__(self):
-        if self.mla is not None:
-            raise NotImplementedError(
-                f"{self.name}: multi-head latent attention (mla) is not ported yet; it comes "
-                "with models/mla.py, ROADMAP.md queue 1's M8 item")
 
     @property
     def cdtype(self) -> torch.dtype:
@@ -132,7 +138,10 @@ def _layer_init(generator, cfg: TransformerConfig, device) -> dict:
         p["norm1_b"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
         if not cfg.parallel_block:
             p["norm2_b"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
-    p["attn"] = attn_init(generator, cfg.attn_cfg(), dt, device=device)
+    if cfg.mla is not None:
+        p["attn"] = mla_lib.mla_init(generator, cfg.mla, dt, device=device)
+    else:
+        p["attn"] = attn_init(generator, cfg.attn_cfg(), dt, device=device)
     if cfg.moe is not None:
         p["moe"] = moe_lib.moe_init(generator, cfg.d_model, cfg.moe, dt, device=device)
     else:
@@ -194,9 +203,14 @@ def _ffn(cfg: TransformerConfig, lp: dict, h, is_moe: bool):
 
 def _layer_forward(cfg: TransformerConfig, lp: dict, x, window: int, is_moe: bool,
                    block_kv: int = 512):
-    """One layer over the full sequence: (x, (k, v), aux or None)."""
+    """One layer over the full sequence: (x, its cache entries ((k, v), or
+    MLA's (c_kv, k_rope)), aux or None). MLA takes no window, as in the
+    reference."""
     h = _norm(cfg, lp, x, "norm1")
-    attn_out, kv = _attn_forward_dynwin(lp["attn"], cfg.attn_cfg(), h, window, block_kv)
+    if cfg.mla is not None:
+        attn_out, kv = mla_lib.mla_forward(lp["attn"], cfg.mla, h, block_kv=block_kv)
+    else:
+        attn_out, kv = _attn_forward_dynwin(lp["attn"], cfg.attn_cfg(), h, window, block_kv)
     if cfg.parallel_block:
         m, aux = _ffn(cfg, lp, h, is_moe)
         return x + attn_out + m, kv, aux
@@ -281,13 +295,17 @@ def unembed(cfg: TransformerConfig, params: dict, x):
 def init_cache(cfg: TransformerConfig, batch: int, seq_len: int, ring: bool = False,
                device="cuda") -> dict:
     """{"layers": {"k", "v"}} of (L, B, S, Kv, D) zeros in the compute dtype
-    (and "dense_layers" for the leading dense layers). ``ring=True`` sizes
-    the windowed layers at their window (a ring buffer) where every layer
-    is windowed."""
+    (and "dense_layers" for the leading dense layers); with ``mla``,
+    {"ckv", "krope"} of (L, B, S, kv_lora) and (L, B, S, qk_rope_dim).
+    ``ring=True`` sizes the windowed layers at their window (a ring buffer)
+    where every layer is windowed."""
     n_scan = cfg.n_layers - cfg.moe_first_dense
     z = dict(dtype=cfg.cdtype, device=device)
 
     def kv_cache(n, s):
+        if cfg.mla is not None:
+            return {"ckv": torch.zeros((n, batch, s, cfg.mla.kv_lora), **z),
+                    "krope": torch.zeros((n, batch, s, cfg.mla.qk_rope_dim), **z)}
         return {"k": torch.zeros((n, batch, s, cfg.n_kv, cfg.head_dim), **z),
                 "v": torch.zeros((n, batch, s, cfg.n_kv, cfg.head_dim), **z)}
 
@@ -314,11 +332,22 @@ def _attn_decode_dynwin(p: dict, acfg: AttnConfig, x, k_cache, v_cache, pos_t, w
     return o.reshape(B, 1, acfg.n_heads * acfg.head_dim) @ p["wo"].to(x.dtype)
 
 
-def _layer_decode(cfg: TransformerConfig, lp: dict, x, k_cache, v_cache, pos_t, window: int,
+def _cache_names(cfg: TransformerConfig) -> tuple:
+    """A layer group's cache entries, in the order a layer's forward
+    returns them."""
+    return ("ckv", "krope") if cfg.mla is not None else ("k", "v")
+
+
+def _layer_decode(cfg: TransformerConfig, lp: dict, x, rows: tuple, pos_t, window: int,
                   is_moe: bool, ring: bool):
+    """One layer at one token; ``rows`` the layer's caches (``_cache_names``),
+    written in place."""
     h = _norm(cfg, lp, x, "norm1")
-    attn_out = _attn_decode_dynwin(lp["attn"], cfg.attn_cfg(), h, k_cache, v_cache, pos_t,
-                                   window, ring)
+    if cfg.mla is not None:
+        attn_out = mla_lib.mla_decode(lp["attn"], cfg.mla, h, *rows, pos_t)[0]
+    else:
+        attn_out = _attn_decode_dynwin(lp["attn"], cfg.attn_cfg(), h, *rows, pos_t, window,
+                                       ring)
     if cfg.parallel_block:
         return x + attn_out + _ffn(cfg, lp, h, is_moe)[0]
     x = x + attn_out
@@ -328,8 +357,9 @@ def _layer_decode(cfg: TransformerConfig, lp: dict, x, k_cache, v_cache, pos_t, 
 def decode_step(cfg: TransformerConfig, params: dict, cache: dict, tokens, pos,
                 ring: bool = False):
     """tokens (B, 1); ``pos`` the position being written (an int or a 0-d
-    integer tensor, read on the device). Writes each layer's k/v into the
-    cache in place. Returns (logits (B, V) fp32, cache)."""
+    integer tensor, read on the device). Writes each layer's k/v (MLA's
+    c_kv/k_rope) into the cache in place. Returns (logits (B, V) fp32,
+    cache)."""
     x = embed_tokens(cfg, params, tokens)
     pos_t = device_pos(pos, x.device)
     groups = []
@@ -338,9 +368,9 @@ def decode_step(cfg: TransformerConfig, params: dict, cache: dict, tokens, pos,
                        False))
     groups.append(("layers", cfg, cfg.layer_windows(), cfg.moe is not None, ring))
     for prefix, gcfg, windows, is_moe, gring in groups:
-        kc, vc = cache[prefix]["k"], cache[prefix]["v"]
+        caches = [cache[prefix][name] for name in _cache_names(cfg)]
         for l, (lp, w) in enumerate(zip(_layers(params, prefix, len(windows)), windows)):
-            x = _layer_decode(gcfg, lp, x, kc[l], vc[l], pos_t, w, is_moe, gring)
+            x = _layer_decode(gcfg, lp, x, tuple(c[l] for c in caches), pos_t, w, is_moe, gring)
     x = _final_norm(cfg, params, x)
     return unembed(cfg, params, x[:, 0]), cache
 
@@ -348,14 +378,15 @@ def decode_step(cfg: TransformerConfig, params: dict, cache: dict, tokens, pos,
 def prefill(cfg: TransformerConfig, params: dict, tokens):
     """A causal forward building the cache: (last token's logits, cache),
     the cache laid out as ``init_cache(..., ring=False)`` with seq_len =
-    tokens.shape[1]."""
+    tokens.shape[1] (``_kv_to_cache``, ``repro/models/transformer.py:377``)."""
     return prefill_embeds(cfg, params, embed_tokens(cfg, params, tokens))
 
 
 def prefill_embeds(cfg: TransformerConfig, params: dict, x):
     """Prefill from embeddings x (B, S, D), the VLM's entry point."""
     x, _, kvs = _stack_forward(cfg, params, x, keep_kv=True)
-    cache = {prefix: {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
+    names = _cache_names(cfg)
+    cache = {prefix: {name: torch.stack([e[i] for e in kv]) for i, name in enumerate(names)}
              for prefix, kv in kvs.items()}
     x = _final_norm(cfg, params, x)
     return unembed(cfg, params, x[:, -1]), cache

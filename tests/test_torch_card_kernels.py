@@ -2,7 +2,9 @@
 CUDA card against their plain versions, bit for bit, at their run edges
 (``threefry_normal.RUN_EDGES``, ``wire_pack.K7_RUN_EDGES``), and K10's
 tensor-core backward against its plain version at chip_smoke.py's bf16
-backward shapes, twice for the same bits. A CUDA kernel has no interpret
+backward shapes, twice for the same bits; K10 and its backward at
+multi-head latent attention's widths (q·k 192, v 128) on both routes. A
+CUDA kernel has no interpret
 mode: without a card these tests skip. They take the cases chip_smoke.py
 does not: at each normal edge the other dtype and another kind of scale
 than its ``normal_edges``, K7 at K = 2 (chip_smoke takes K = 3 and 4), and
@@ -113,6 +115,45 @@ def test_k10_tensor_core_backward_is_its_plain_version_on_the_card(card, shape):
     mask = ref.attention_mask(Sq, Sk, causal, window, off, "cpu")
     dead = (~mask.any(dim=1)).to(card)
     assert torch.equal(got[0][:, dead], torch.zeros_like(got[0][:, dead]))
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# K10 at multi-head latent attention's widths (D = 192, Dv = 128), as
+# chip_smoke.py's K10_SHAPES rows: deepseek-v2-lite-16b's layout (16 heads,
+# MLA's scale) and the contract's cases (a window, a softcap, H = 2 Kv,
+# ragged Sq and Sk, a query offset); bf16 takes the tensor cores (the
+# forward's ND = 3, the backward's two-warpgroup dK/dV), fp32 the CUDA
+# cores. chip_smoke.py's ATTN_TOL and ATTN_BWD_TOL.
+K10_D192_SHAPES = (
+    ("deepseek-v2-lite heads", 4, 128, 128, 16, 16, 192, 128, True, None, 0.0, 0, 192 ** -0.5),
+    ("d192 gqa window softcap", 2, 100, 130, 4, 2, 192, 128, True, 40, 30.0, 30, None),
+)
+FWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 8e-3)}
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: BWD_BF16_TOL}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", K10_D192_SHAPES, ids=lambda sh: sh[0])
+def test_k10_and_its_backward_at_mla_widths_are_their_plain_versions_on_the_card(card, shape,
+                                                                                 dtype):
+    _, B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale = shape
+    gen = torch.Generator(device=card).manual_seed(B * Sq + 3 * Sk + H)
+    q, k, v, do = (torch.randn(sh, generator=gen, device=card).to(dtype) for sh in
+                   ((B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, Dv), (B, Sq, H, Dv)))
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=off, scale=scale)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    o, lse = flash_attention.flash_attention_fwd_lse(q, k, v, **kw)
+    assert flash_attention.route(q, k, v) == flash_attention.bwd_route(q, k, v, o, do) == route
+    atol, rtol = FWD_TOL[dtype]
+    torch.testing.assert_close(o.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=atol, rtol=rtol)
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        top = max(float(w.float().abs().max()), 1.0)
+        assert float((g.float() - w.float()).abs().max()) <= BWD_TOL[dtype] * top
     again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 

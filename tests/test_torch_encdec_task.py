@@ -83,9 +83,9 @@ def _torch_batch(batch: dict) -> dict:
 
 
 def test_registry_names_its_tasks_and_refuses_others_as_the_reference_does():
-    assert available_tasks() == ["asr-encdec", "asr-rnnt", "keyword", "lm-moe", "lm-rwkv",
-                                 "lm-transformer", "qwen3-8b", "rnnt-librispeech",
-                                 "rwkv6-1.6b", "whisper-base", "zamba2-7b"]
+    assert available_tasks() == ["asr-encdec", "asr-rnnt", "deepseek-v2-lite-16b", "keyword",
+                                 "lm-moe", "lm-rwkv", "lm-transformer", "qwen3-8b",
+                                 "rnnt-librispeech", "rwkv6-1.6b", "whisper-base", "zamba2-7b"]
     for name in available_tasks():
         task = get_task(name, seed=3)
         assert task.name == name
@@ -94,11 +94,11 @@ def test_registry_names_its_tasks_and_refuses_others_as_the_reference_does():
                                                     ("ssm", "ppl"), ("hybrid", "ppl"),
                                                     ("keyword", "err")}
     with pytest.raises(KeyError) as port_err:
-        get_task("deepseek-v2-lite-16b")  # a reference config whose model (mla) is unported
+        get_task("llava-next-mistral-7b")  # a reference config whose model (vlm) is unported
     with pytest.raises(KeyError) as ref_err:
         jax_get_task("no-such-task")
     assert str(port_err.value).startswith(
-        "\"unknown task 'deepseek-v2-lite-16b'; available: ['asr-")
+        "\"unknown task 'llava-next-mistral-7b'; available: ['asr-")
     assert str(ref_err.value).startswith("\"unknown task 'no-such-task'; available: ['asr-")
     jtask = jax_get_task("asr-encdec")
     task = get_task("asr-encdec")

@@ -225,8 +225,3 @@ def test_prefill_cache_clamp_is_the_references():
     got, cache = ttr.decode_step(cfg, params, cache, torch.from_numpy(nxt), 6)
     _held(got, np.asarray(want), "clamped step")
     _held(cache["layers"]["v"], np.asarray(jcache["layers"]["v"]), "clamped cache")
-
-
-def test_an_mla_config_is_refused_with_roadmaps_item():
-    with pytest.raises(NotImplementedError, match="mla.*ROADMAP.md queue 1's M8"):
-        dataclasses.replace(tiny_lm_config(), mla=object())
