@@ -92,7 +92,13 @@ Phases, each printed as it ends:
    forward's ND = 3 and the backward's two-warpgroup dK/dV, the CUDA-core
    routes' 192-wide tiles) and at those widths with a window, a softcap,
    H = 2 Kv, Sq = 100 against Sk = 130 and a query offset, the SDPA
-   backends that take D != Dv named; K12
+   backends that take D != Dv named; K10 and its backward at
+   llava-next-mistral-7b's layout with Mistral's window acting (B=1,
+   Sq=Sk=4,672: 576 image + 4,096 text positions, 32 heads on 8 kv heads
+   of 128, causal, window 4,096), timed beside SDPA given the window as an
+   explicit boolean mask (the backends that take it named), and K11 at its
+   serve (B=4, 736 slots at pos 735, G=4, D=128, window 4,096); every K10
+   forward launched twice for the same bits; K12
    (WKV-6) and K13 (Mamba2's scan), forward and backward, against their
    plain versions at the full-size training shapes (rwkv6-1.6b: B=4,
    S=128, H=32, P=64; zamba2-7b: H=112, P=64, N=64), the decode steps from
@@ -125,7 +131,15 @@ Phases, each printed as it ends:
    smoke hybrid and of deepseek-v2-lite-16b's smoke MLA transformer on the
    card and on the CPU, held to each other (K10 on its CUDA-core routes,
    once an attention a client step, K12 once an RWKV layer, K13 once a
-   Mamba2 layer, forward and backward);
+   Mamba2 layer, forward and backward); each assigned architecture of the
+   ``--arch`` registry (all but rnnt-librispeech) served at its smoke
+   config (fp32) through the serve_lm twin (``repro_torch.examples.
+   serve_lm``): a 4-token prompt decoded token by token and 8 greedy steps
+   at B=4, its kernels' launches exact (K11 once a self-attention layer a
+   step, whisper's cross-attention too, none with MLA; K12 or K13 once a
+   recurrent layer a step), then the same serve on the CPU from the same
+   parameters and prompt: the greedy token ids identical and every
+   step's logits within TINY_SERVE_TOL of the largest;
 5. rounds of the paper-width RNN-T (rnnt-librispeech, 105M parameters)
    through the training entry point, each with its launch counts over
    the training rounds and over the final greedy-decode evaluation (WER
@@ -232,7 +246,24 @@ Phases, each printed as it ends:
    the compressed cache in plain einsums: no K11), its bf16 logits held as
    qwen3-8b's at the positions the decode routes to the teacher-forced
    forward's experts (at most MAX_REROUTED_SHARE rerouted) where its floor
-   allows, an fp32 copy's within FP32_SERVE_TOL;
+   allows, an fp32 copy's within FP32_SERVE_TOL; then
+   llava-next-mistral-7b at full width and 4 of its 32 layers
+   (1,155,575,808 bf16 parameters; Mistral's 4,096-token window in every
+   layer) trained as the reference's dry run builds the VLM's round
+   (``make_round_step(bundle.loss_fn, plan, seed)``: the VLM has no
+   federated task) on a seeded round batch in ``vlm_train_batch``'s layout
+   at train_4k (576 image tokens of 1,024 and 3,520 text tokens a row, K=4,
+   b=1, 2 local steps, FVN 0.01, the server's Adam at 1e-5): two rounds
+   with exact launches a client step (K10's forward 4 on <2, 128> and its
+   backward 4 on <2, 2>, the normal kernel 1), round times, peak memory, a
+   profiled round; the first client step's loss, one forward on K10 and
+   one on its plain version, within LLAVA_LOSS_RTOL, and that forward's
+   logits at every position within QWEN_SERVE_TOL; then served as
+   qwen3-8b is (_serve_transformer): B=4 rows of 576 image tokens and a
+   128-token prompt,
+   prefill over 704 positions (K10 4), the cache grown to 736 slots, 32
+   greedy decode steps of text (K11 4 each), each step's logits held to a
+   teacher-forced forward within QWEN_SERVE_TOL;
 6. one more round of each uncompressed configuration on its own under
    ``torch.profiler``: the device's busy share of a round and the
    kernels that fill it; and one more K2 round with the host's Python
@@ -3430,6 +3461,12 @@ K10_SHAPES = (
     # H = 2 Kv, ragged Sq = 100 against Sk = 130, a query offset)
     ("deepseek-v2-lite heads", 4, 128, 128, 16, 16, 192, 128, True, None, 0.0, 0, 192 ** -0.5),
     ("d192 gqa window softcap", 2, 100, 130, 4, 2, 192, 128, True, 40, 30.0, 30, None),
+    # llava-next-mistral-7b's layout with Mistral's window acting: 576 image
+    # tokens + 4,096 text positions, 32 heads on 8 kv heads of 128, causal,
+    # window 4,096 (the rows past 4,096 lose their first keys: the forward
+    # skips each tile wholly below a row block's window, masks the rest);
+    # SDPA's yardstick takes the same window as an explicit boolean mask
+    ("llava-next window", 1, 4672, 4672, 32, 8, 128, 128, True, 4096, 0.0, 0, None),
 )
 # K11's shapes: the self cache (448 slots) at three positions, the cross
 # cache (1,500 slots), a GQA ring buffer with a window and softcap (G=8,
@@ -3444,6 +3481,10 @@ K11_SHAPES = (
     ("qwen3-8b heads pos 127", 4, 128, 32, 8, 128, 127, None, False, 0.0),
     # zamba2-7b's shared block over its serve's 160-slot cache (G=1, D=112)
     ("zamba2-7b heads pos 159", 4, 160, 32, 32, 112, 159, None, False, 0.0),
+    # llava-next-mistral-7b's serve: 576 image + 128 prompt + 32 steps = 736
+    # slots, the last step at pos 735 (G=4, D=128), the window 4,096 passed
+    # (it masks nothing here, so SDPA without a mask is its yardstick)
+    ("llava-next serve pos 735", 4, 736, 32, 8, 128, 735, 4096, False, 0.0),
 )
 
 
@@ -3541,11 +3582,19 @@ K10_BWD_SHAPES = (
 ) + tuple(sh for sh in K10_SHAPES if sh[0] in ("gqa window softcap", "no valid key",
                                                "qwen3-8b heads", "zamba2-7b heads",
                                                "deepseek-v2-lite heads",
-                                               "d192 gqa window softcap"))
+                                               "d192 gqa window softcap",
+                                               "llava-next window"))
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the forward's log-sum-exp against the plain version's: fp32 sums in
 # another order (and the tensor-core route's ex2.approx), rows of O(10)
 ATTN_LSE_ATOL = 1e-4
+
+
+def _window_only(window, cap, off: int, Sq: int, Sk: int) -> bool:
+    """A causal self-attention whose only other mask is a window that acts
+    (some row loses keys to it): SDPA's yardstick then takes the mask as an
+    explicit boolean ``attn_mask``."""
+    return bool(window) and window < Sk and not cap and off == 0 and Sq == Sk
 
 
 def _sdpa_kw(H: int, Kv: int) -> dict:
@@ -3692,6 +3741,17 @@ def phase_attention_bwd(torch):
                     out_t, do_t = fwd(), do.transpose(1, 2)
                     lib = _sdpa(torch, lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
                                                                    retain_graph=True), tag)
+            elif _window_only(window, cap, off, Sq, Sk):
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                allowed = mask.cuda()
+                fwd = _sdpa(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=allowed, scale=scale, **_sdpa_kw(H, Kv)), tag)
+                if fwd is not None:
+                    backends = _sdpa_backends(torch, lambda: torch.autograd.grad(
+                        fwd(), (qt, kt, vt), do.transpose(1, 2)))
+                    out_t, do_t = fwd(), do.transpose(1, 2)
+                    lib = _sdpa(torch, lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                                   retain_graph=True), tag)
             n = 10 if Sq * Sk > 100_000 else 50
             call = lambda: KA.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
             t = _attn_times(torch, call,
@@ -3719,8 +3779,9 @@ def phase_attention_bwd(torch):
                   f"{n_valid} exp); device us by launch: "
                 + "; ".join(f"{d} " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in sp.items())
                             for d, sp in split.items())
-                + (f"; SDPA backends that take D != Dv, forward and backward: {backends}"
-                   if backends else ""))
+                + (f"; SDPA backends that take "
+                   f"{'the window mask' if window else 'D != Dv'}, forward and backward: "
+                   f"{backends}" if backends else ""))
             if name == "train encoder":
                 rows[f"flash_attention_bwd_{took}"] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
@@ -3772,6 +3833,8 @@ def phase_attention_kernels(torch):
             if bf16 and name == "encoder" and differ > K10_BF16_DIFF_MAX:
                 raise AssertionError(f"{tag}: {differ:.4f} of the outputs differ from the plain "
                                      f"version's bf16 result (at most {K10_BF16_DIFF_MAX})")
+            if not torch.equal(KA.flash_attention(q, k, v, **kw), got):
+                raise AssertionError(f"{tag}: a second launch gave other bits")
             mask = ref.attention_mask(Sq, Sk, causal, window, off, "cpu")
             dead = (~mask.any(dim=1)).cuda()
             if dead.any() and float(got[:, dead].float().abs().max()) != 0.0:
@@ -3792,6 +3855,14 @@ def phase_attention_kernels(torch):
                 lib = _sdpa(torch, sdpa, tag)
                 if D != Dv:
                     backends = _sdpa_backends(torch, sdpa)
+            elif _window_only(window, cap, off, Sq, Sk):
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                allowed = mask.cuda()
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, attn_mask=allowed, scale=scale, **_sdpa_kw(H, Kv))
+                lib = _sdpa(torch, sdpa, tag)
+                if lib is not None:
+                    backends = _sdpa_backends(torch, sdpa)
             n = 10 if Sq * Sk > 100_000 else 100
             t = _attn_times(torch, lambda: KA.flash_attention(q, k, v, **kw),
                             lambda: ref.flash_attention_ref(q, k, v, **kw), lib, n)
@@ -3804,7 +3875,8 @@ def phase_attention_kernels(torch):
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, "
                   f"{qk} flop Q.K^T, {pv} flop P.V, {n_valid} exp)"
-                + (f"; SDPA backends that take D != Dv: {backends}" if backends else ""))
+                + (f"; SDPA backends that take {'the window mask' if window else 'D != Dv'}: "
+                   f"{backends}" if backends else ""))
             if name == "encoder":
                 rows[f"flash_attention_{took}"] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
@@ -3837,7 +3909,7 @@ def phase_attention_kernels(torch):
             bf16 = dtype == torch.bfloat16
             bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
             lib = None
-            if not ring and not window and not cap:
+            if not ring and (not window or window > pos) and not cap:
                 qt = q[:, :, None]
                 kt, vt = (c[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
                 lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(
@@ -3925,11 +3997,11 @@ def _check_attn(tag: str, want: dict) -> None:
 
 
 # the enc-dec serves: the tiny one (smoke config) is held cuda against cpu
-# relative to each output's largest entry, fp32 at sums in another order,
-# bf16 at about one bf16 ulp; the whisper-base decode against its
-# teacher-forced decoder in bf16 at SERVE_LOGIT_TOL relative to the largest
-# logit: the two paths round at other places (K11 against K10, one token
-# against 64 in each product) through 6 layers
+# relative to each output's largest entry (the registry's fp32 serves too),
+# fp32 at sums in another order, bf16 at about one bf16 ulp; the whisper-base
+# decode against its teacher-forced decoder in bf16 at SERVE_LOGIT_TOL
+# relative to the largest logit: the two paths round at other places (K11
+# against K10, one token against 64 in each product) through 6 layers
 TINY_SERVE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_LOGIT_TOL = 5e-2
 SERVE_B, SERVE_FRAMES, SERVE_STEPS, SERVE_TOTAL = 4, 1500, 60, 448
@@ -4464,8 +4536,9 @@ def phase_lm_train(torch, run: LMRun):
     two FedAvg rounds (K=4, b=4, 2 local steps, FVN 0.01) with exact
     launches a client step, round times, client examples per second and
     peak memory; the final perplexity evaluation (64 examples of each
-    split); one more round under torch.profiler (device time by kernel,
-    busy share, the instantiations ``run.insts``); the first round again
+    split); one more round under torch.profiler (``_profiled_round``:
+    device time by kernel, busy share, the instantiations ``run.insts``);
+    the first round again
     with the path's kernels swapped for their plain versions on the card
     (none of them launched), its loss within ``run.loss_rtol`` of the
     kernels'; and the trained model's loss over 4 rows of the eval split,
@@ -4473,8 +4546,6 @@ def phase_lm_train(torch, run: LMRun):
     ``run.forward_rtol``. The perplexity must be below its clip (exp 20).
     Returns (the training rounds' launch counts, the trained parameters, the
     corpus)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.task import get_task
     from repro_torch.launch import train
 
@@ -4532,26 +4603,12 @@ def phase_lm_train(torch, run: LMRun):
     args1 = train.parse_args(list(run.argv) + ["--rounds", "1"])
     # each run's state (parameters, the server's Adam moments) is dropped as
     # it returns: two would not fit on the card beside the next run
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
-        hist_prof = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
-                                        device="cuda", eval_every=0, eval_examples=0,
-                                        log=lambda line: None)[1]
-        torch.cuda.synchronize()
-    by_name = _device_times(torch, prof)
-    _log_profile(tag, by_name, hist["round_s"][-1], hist_prof["round_s"][0])
-    if by_name:
-        round_steps = steps // rounds
-        select = {inst.split("<")[0] for inst in run.insts}
-        seen = {n: c for n, (_, c) in by_name.items() if any(x in n for x in select)}
-        want_insts = {inst: c * round_steps for inst, c in run.insts.items()}
-        got_insts = {inst: sum(c for n, c in seen.items() if inst in n) for inst in run.insts}
-        if got_insts != want_insts or sum(seen.values()) != sum(want_insts.values()):
-            raise AssertionError(f"{tag} the path's kernels in the profiled round {seen}, "
-                                 f"expected {want_insts}")
-        log(f"{tag} the path's kernels in the profiled round by instantiation: "
-            + ", ".join(f"{inst} {c} ({c // round_steps} a client step, "
-                        f"{sum(t for n, (t, _) in by_name.items() if inst in n) / 1e3:.3f} ms)"
-                        for inst, c in got_insts.items()))
+    want_round = {k: 0 for k in total}
+    want_round.update(_lm_step_launches(task, steps // rounds, "wgmma"))
+    _profiled_round(torch, tag, lambda: train.run_federated(
+        task, corpus, train.build_plan(args1), 1, seed=0, device="cuda", eval_every=0,
+        eval_examples=0, log=lambda line: None)[1]["round_s"][0],
+        hist["round_s"][-1], run.insts, steps // rounds, want_round)
     _zero_counts()
     with run.plain():
         hist_plain = train.run_federated(task, corpus, train.build_plan(args1), 1, seed=0,
@@ -4606,6 +4663,70 @@ def phase_lm_train(torch, run: LMRun):
         f"kernels ({fwd_launches}), {fwd_p} on their plain versions: relative gap "
         f"{fwd_rel:.3e} (tol {run.forward_rtol})")
     return trained, params, corpus
+
+
+# profiled rounds taken at most while the profiler's record of a round holds
+# fewer launches of the path's kernels than their counts
+PROFILE_TRIES = 3
+
+
+def _profiled_round(torch, tag: str, go, round_s: float, insts: dict, round_steps: int,
+                    want: dict) -> None:
+    """``go()`` (one more round; returns its wall seconds) under
+    torch.profiler (device events only), the counts set to 0 just before
+    and held equal to ``want`` just after; its busy share against the
+    unprofiled ``round_s`` (``_log_profile``) and its record of the path's
+    kernels (``_check_insts``). The profiler can lose records: a round of
+    rwkv6-1.6b holds about 63,000 device events, and its record has come
+    back without the last client step's tail while the counts held every
+    launch. So where the record lacks launches that the counts show, the
+    round is profiled again, at most PROFILE_TRIES times, and the last
+    record is kept with its loss printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        _zero_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+            profiled_s = go()
+            torch.cuda.synchronize()
+        counts = _counts()
+        if counts != want:
+            raise AssertionError(f"{tag} launches over the profiled round "
+                                 f"{ {k: v for k, v in counts.items() if v} }, expected "
+                                 f"{ {k: v for k, v in want.items() if v} }")
+        by_name = _device_times(torch, prof)
+        _log_profile(tag, by_name, round_s, profiled_s)
+        lost = _check_insts(tag, by_name, insts, round_steps)
+        if not lost:
+            return
+        log(f"{tag} profiled round {attempt} of at most {PROFILE_TRIES}: the profiler's "
+            f"record lacks {lost} of the path's launches that the counts hold"
+            + ("; profiling the round again" if attempt < PROFILE_TRIES else
+               "; its busy share above counts only the recorded events"))
+
+
+def _check_insts(tag: str, by_name: dict, insts: dict, round_steps: int) -> int:
+    """A profiled round's record of the path's kernels by template
+    instantiation: each of ``insts`` (name: launches a client step) seen,
+    at most its launches times ``round_steps`` client steps, and no other
+    instantiation of those kernels; their device time printed. Returns the
+    launches the record lacks (0 where it holds them all, and where the
+    profiler recorded no device events: ``_log_profile`` says so)."""
+    if not by_name:
+        return 0
+    select = {inst.split("<")[0] for inst in insts}
+    seen = {n: c for n, (_, c) in by_name.items() if any(x in n for x in select)}
+    want = {inst: c * round_steps for inst, c in insts.items()}
+    got = {inst: sum(c for n, c in seen.items() if inst in n) for inst in insts}
+    other = {n: c for n, c in seen.items() if not any(inst in n for inst in insts)}
+    if other or any(not 0 < got[inst] <= want[inst] for inst in insts):
+        raise AssertionError(f"{tag} the path's kernels in the profiled round {seen}, "
+                             f"expected {want}")
+    log(f"{tag} the path's kernels in the profiled round by instantiation: "
+        + ", ".join(f"{inst} {c} of {want[inst]} ({want[inst] // round_steps} a client step, "
+                    f"{sum(t for n, (t, _) in by_name.items() if inst in n) / 1e3:.3f} ms)"
+                    for inst, c in got.items()))
+    return sum(want.values()) - sum(got.values())
 
 
 @contextlib.contextmanager
@@ -4754,15 +4875,18 @@ def phase_transformer_serve(torch, name: str, params: dict, corpus):
 
 
 def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bool):
-    """B=4 prompts of 128 tokens (label rows of the eval split),
-    ``prefill``, every layer group's cache copied into ``init_cache(B, 160)``
-    (F6), 32 greedy ``decode_step``s. Exact launches (K10 once a layer in
+    """B=4 prompts of 128 tokens (label rows of the eval split; for a VLM
+    config, seeded tokens after 576 seeded image tokens, ``_llava_batch``),
+    ``prefill``, every layer group's cache copied into ``init_cache(B, n +
+    32)`` (F6; n the prefix's positions, 128 or 704), 32 greedy
+    ``decode_step``s. Exact launches (K10 once a layer in
     prefill, on the tensor cores in bf16; K11 once a layer a step, none with
     MLA, whose decode scores against the compressed cache in plain einsums),
     times and peak memory; with ``profiled``, prefill and 10 decode steps
     again under torch.profiler; every step's logits (prefill's last and the
     32 decode steps') against a teacher-forced forward over prompt and
-    generated tokens (K10 once a layer), the share of equal argmaxes
+    generated tokens (K10 once a layer; a VLM's over its image tokens too,
+    through ``vlm._embed_multimodal``), the share of equal argmaxes
     printed. The logits are held at QWEN_SERVE_TOL (fp32: FP32_SERVE_TOL)
     with the greedy tokens' margin agreement; the floor, that forward again
     on the plain attention on the card, is printed beside them. With MoE
@@ -4781,30 +4905,41 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
     here. Returns the serve's launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import model_zoo, transformer
+    from repro_torch.models import model_zoo, transformer, vlm
 
-    if cfg.moe is not None and cfg.n_layers - cfg.moe_first_dense != 1:
+    lm = getattr(cfg, "lm", cfg)  # a VLM's language model, else cfg itself
+    if lm.moe is not None and lm.n_layers - lm.moe_first_dense != 1:
         raise ValueError(f"{name}: the serve's check holds one MoE layer, the last; this "
-                         f"config has {cfg.n_layers - cfg.moe_first_dense}")
+                         f"config has {lm.n_layers - lm.moe_first_dense}")
     bundle = model_zoo.build_model(cfg)
-    L, total = cfg.n_layers, QWEN_PROMPT + QWEN_STEPS
-    k11 = 0 if cfg.mla is not None else L  # K11 launches a decode step
-    bf16 = cfg.cdtype == torch.bfloat16
+    if lm is cfg:
+        n_img, batch = 0, {"tokens": torch.from_numpy(
+            corpus.eval_split(QWEN_SERVE_B)["labels"][:, :QWEN_PROMPT]).to("cuda", torch.long)}
+    else:
+        n_img, batch = cfg.n_img_tokens, _llava_batch(torch, cfg, (QWEN_SERVE_B,), QWEN_PROMPT, 1)
+    L, n = lm.n_layers, n_img + QWEN_PROMPT
+    total = n + QWEN_STEPS
+    k11 = 0 if lm.mla is not None else L  # K11 launches a decode step
+    bf16 = lm.cdtype == torch.bfloat16
     route, tol = ("wgmma", QWEN_SERVE_TOL) if bf16 else ("simt", FP32_SERVE_TOL)
-    prompt = torch.from_numpy(corpus.eval_split(QWEN_SERVE_B)["labels"][:, :QWEN_PROMPT]).to(
-        "cuda", torch.long)
+    prompt = batch["tokens"]
     tag = f"[{name} serve]"
 
     def serve():
-        logits, cache = bundle.prefill(params, {"tokens": prompt})
+        logits, cache = bundle.prefill(params, batch)
         full = bundle.init_cache(QWEN_SERVE_B, total)
         for prefix, entries in cache.items():
             for entry, t in entries.items():
-                full[prefix][entry][:, :, :QWEN_PROMPT].copy_(t)
+                full[prefix][entry][:, :, :n].copy_(t)
         return logits, full
 
     def teacher_forced(tokens):
         """The logits the serve's 33 steps should give, from full forwards."""
+        if lm is not cfg:
+            lm_params = vlm.lm_params(params)
+            x = vlm._embed_multimodal(cfg, params, {**batch, "tokens": tokens})
+            h, _ = transformer.trunk(lm, lm_params, x)
+            return transformer.unembed(lm, lm_params, h[:, n - 1:]).transpose(0, 1)
         if cfg.moe is None:
             h, _ = transformer.forward(cfg, params, tokens)
             return transformer.unembed(cfg, params, h[:, QWEN_PROMPT - 1:]).transpose(0, 1)
@@ -4824,14 +4959,14 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
 
     with torch.no_grad():
         logits, cache = serve()  # warm-up: cuBLAS handles, allocator pools
-        bundle.decode_step(params, cache, logits.argmax(-1, keepdim=True), QWEN_PROMPT)
+        bundle.decode_step(params, cache, logits.argmax(-1, keepdim=True), n)
         del cache
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         _zero_counts()
         dec_routes = []  # the timed serve's expert ids: prefill's, then each step's
-        tap = _routing_tap(dec_routes) if cfg.moe is not None else contextlib.nullcontext()
+        tap = _routing_tap(dec_routes) if lm.moe is not None else contextlib.nullcontext()
         with tap:
             t0 = time.perf_counter()
             logits, cache = serve()
@@ -4845,7 +4980,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
             start.record()
             for i in range(QWEN_STEPS):
                 fed.append(steps[-1].argmax(-1, keepdim=True))
-                logits, cache = bundle.decode_step(params, cache, fed[-1], QWEN_PROMPT + i)
+                logits, cache = bundle.decode_step(params, cache, fed[-1], n + i)
                 steps.append(logits)
             end.record()
             torch.cuda.synchronize()
@@ -4867,7 +5002,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
                 t0 = time.perf_counter()
                 for i in range(10):
                     out, cache = bundle.decode_step(params, cache, out.argmax(-1, keepdim=True),
-                                                    QWEN_PROMPT + i)
+                                                    n + i)
                 torch.cuda.synchronize()
                 windows["10 decode steps"] = (prof, 10 * decode_s / QWEN_STEPS,
                                               time.perf_counter() - t0)
@@ -4876,7 +5011,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
             _log_profile(tag, _device_times(torch, prof), wall, wall_prof, what=what)
 
         tokens = torch.cat([prompt, *fed], dim=1)                  # (B, 160)
-        tf_k10 = L if cfg.moe is None else 2 * L
+        tf_k10 = L if lm.moe is None else 2 * L
         _zero_counts()
         tf_routes, plain_routes = [], []
         with _routing_tap(tf_routes):
@@ -4893,7 +5028,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
                                  f"not shaped as the teacher-forced {tuple(tf.shape)}")
         # (33, B): the positions whose tokens go to the same experts
         same = same_plain = torch.ones(dec.shape[:2], dtype=torch.bool, device=dec.device)
-        if cfg.moe is not None:
+        if lm.moe is not None:
             # each position's expert set: a forward's routes are the no-drop
             # forward's (B, 160, k), then the prompt's (B, 128, k); the replayed
             # serve's its prefill's (B, 128, k), then each step's (B, 1, k)
@@ -4918,15 +5053,16 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
         floor = float((tf_plain - tf).float()[same_plain].abs().max()) / top
         agree = float((dec.argmax(-1) == tf.argmax(-1)).float().mean())
         # a dense model's serve is always held; a bf16 MoE serve where its floor allows
-        barred = cfg.moe is None or not bf16 or floor <= tol
+        barred = lm.moe is None or not bf16 or floor <= tol
         if barred and err > tol:
             raise AssertionError(f"{tag} decode logits against the teacher-forced forward: "
                                  f"relative error {err:.3e} > {tol} (floor {floor:.3e}) at the "
                                  f"{int(same.sum())} positions routed alike")
         checked, n_pos = _margin_agrees(torch, dec[same], tf[same], tol) if barred else \
             (0, int(same.sum()))
-    log(f"{tag} B={QWEN_SERVE_B}, {QWEN_PROMPT}-token prompts, {QWEN_STEPS} greedy steps: "
-        f"prefill (with the cache copy to {total} slots) {prefill_s * 1e3:.2f} ms, decode "
+    log(f"{tag} B={QWEN_SERVE_B}, " + (f"{n_img} image tokens + " if n_img else "")
+        + f"{QWEN_PROMPT}-token prompts, {QWEN_STEPS} greedy steps: prefill over {n} positions "
+        f"(with the cache copy to {total} slots) {prefill_s * 1e3:.2f} ms, decode "
         f"{decode_s * 1e3 / QWEN_STEPS:.3f} ms per token on the host clock "
         f"({start.elapsed_time(end) / QWEN_STEPS:.3f} ms between CUDA events), "
         f"{QWEN_SERVE_B * QWEN_STEPS / decode_s:.1f} tokens/s; peak memory over prefill and "
@@ -4934,11 +5070,11 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
         f"K10 {launches['flash_attention']} (tensor cores {launches['flash_attention_wgmma']}), "
         f"K11 {launches['flash_decode']} ({k11} a step"
         + (": MLA's decode scores the compressed cache in plain einsums)"
-           if cfg.mla is not None else ")"))
-    log(f"{tag} decode vs the teacher-forced forward over {tokens.shape[1]} tokens ({tf_k10} K10 "
-        f"launches"
+           if lm.mla is not None else ")"))
+    log(f"{tag} decode vs the teacher-forced forward over {n_img + tokens.shape[1]} positions "
+        f"({tf_k10} K10 launches"
         + ("; the decode steps against a forward that drops no token, prefill's logits "
-           "against the prompt's forward at the config's capacity" if cfg.moe is not None
+           "against the prompt's forward at the config's capacity" if lm.moe is not None
            else "")
         + f"): logits relative error {err:.3e} at the {int(same.sum())} of {same.numel()} "
         f"positions routed alike, "
@@ -4952,6 +5088,244 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
     return launches
 
 
+
+
+# llava-next-mistral-7b at full width and 4 of its 32 layers (1,155,575,808
+# bf16 parameters: d_model 4,096, 32 query heads on 8 kv heads of 128, d_ff
+# 14,336, vocab 32,000, Mistral's 4,096-token window in every layer, the
+# projector from 576 image tokens of 1,024). Depth is the cut: a round keeps
+# about 34 B a parameter on the card (qwen3-8b's 68.3 GB for 2.016 G), about
+# 39 GB here before the 4,096-position activations, and about 245 GB at all
+# 32 layers. Its rounds run as the reference's dry run builds them
+# (make_round_step over the bundle's loss: the VLM has no federated task) on
+# batches in vlm_train_batch's layout at train_4k: 576 image tokens and
+# 3,520 text tokens a row, K = 4 clients of 2 local steps at b = 1, FVN
+# 0.01 and the server's Adam at 1e-5 (LM_ARGV's). K10's forward <2, 128>
+# and its backward <2, 2> once a layer a client step, the window passed to
+# each (it masks nothing below 4,097 positions: the rows are 4,096 long).
+LLAVA_LAYERS, LLAVA_PARAMS = 4, 1_155_575_808
+LLAVA_ARGV = ("--clients", "4", "--batch", "1", "--fvn-std", "0.01", "--server-lr", "1e-5",
+              "--rounds", "2")
+LLAVA_LOCAL_STEPS = 2
+LLAVA_INSTS = {"flash_attention_wgmma_kernel<2, 128>": 4, "fa_bwd_dkdv_wgmma_kernel<2, 2>": 4,
+               "fa_bwd_dq_wgmma_kernel<2, 2>": 4}
+# the first client step's loss at the round-start parameters, one forward on
+# K10 against one on its plain version: a round on the plain attention would
+# keep (32, 4,096, 512) fp32 score blocks for autograd, about 6 GB a layer
+# beside the round's 39 GB, so the two are held on one forward under no_grad.
+# Beside the loss, that forward's logits at all 4,096 positions (the image's
+# too), relative to the largest, at QWEN_SERVE_TOL with the greedy tokens'
+# margin agreement: bf16 through 4 layers, whose logits are bf16 products
+# (one ulp is up to 2**-7 of an entry), where phase 3's ATTN_TOL holds one
+# kernel's one rounding (the llava serve's floor, this comparison over 736
+# positions, read 9.375e-03 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
+LLAVA_LOSS_RTOL = 1e-3
+
+
+def llava_config():
+    """llava-next-mistral-7b at full width and LLAVA_LAYERS of its 32
+    layers (the reference's make_config takes no keywords)."""
+    from repro_torch.configs import llava_next_mistral_7b
+
+    cfg = llava_next_mistral_7b.make_config()
+    return dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=LLAVA_LAYERS))
+
+
+def _llava_batch(torch, cfg, lead: tuple, n_text: int, seed: int) -> dict:
+    """Image embeddings (N(0, 1), bf16) and text tokens from numpy's
+    generator at ``seed``, shaped (*lead, n_img, vit_dim) and (*lead,
+    n_text), on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal(lead + (cfg.n_img_tokens, cfg.vit_dim), dtype=np.float32)
+    tokens = rng.integers(0, cfg.lm.vocab, lead + (n_text,), dtype=np.int32)
+    return {"image_embeds": torch.from_numpy(img).to("cuda", cfg.cdtype),
+            "tokens": torch.from_numpy(tokens).to("cuda")}
+
+
+def phase_vlm_train(torch):
+    """llava-next-mistral-7b trained at full width (``llava_config``): two
+    FedAvg rounds through ``make_round_step(bundle.loss_fn, plan, seed)``
+    with the training entry point's plan (LLAVA_ARGV) on a round batch in
+    ``vlm_train_batch``'s layout at train_4k (4,096 positions a row), exact
+    launches a client step, round times, peak memory; one more round under
+    torch.profiler (``_profiled_round``: device time by kernel, busy share,
+    LLAVA_INSTS); the
+    first client step's loss at the round-start parameters on K10 and on
+    its plain version on the card, one forward each, within
+    LLAVA_LOSS_RTOL, and its logits at every position within
+    QWEN_SERVE_TOL of the largest. Returns (the training rounds' launch
+    counts, the trained parameters)."""
+    from repro_torch.configs import base
+    from repro_torch.core.fedavg import init_server_state, make_round_step
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo, transformer, vlm
+
+    cfg, tag = llava_config(), "[llava-next-mistral-7b train]"
+    args = train.parse_args(list(LLAVA_ARGV))
+    plan, rounds = train.build_plan(args), args.rounds
+    layout = base.vlm_train_batch(base.SHAPES["train_4k"], args.clients, LLAVA_LOCAL_STEPS,
+                                  args.batch, cfg)
+    batch = _llava_batch(torch, cfg, tuple(layout["tokens"].shape[:3]),
+                         layout["tokens"].shape[3], 0)
+    batch["weight"] = torch.ones(layout["weight"].shape, device="cuda")
+    if {k: (v.shape, v.dtype) for k, v in batch.items()} != \
+            {k: (v.shape, v.dtype) for k, v in layout.items()}:
+        raise AssertionError(f"{tag} the batch is not vlm_train_batch's layout")
+    bundle = model_zoo.build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = bundle.param_count(params)
+    if n_params != LLAVA_PARAMS:
+        raise AssertionError(f"{tag} {n_params} parameters, expected {LLAVA_PARAMS}")
+    step = make_round_step(bundle.loss_fn, plan, 0)
+    first = {k: v[0, 0] for k, v in batch.items()}
+
+    def forward():
+        """The loss through the bundle, and the logits at every position."""
+        lm_params = vlm.lm_params(params)
+        h, _ = transformer.trunk(cfg.lm, lm_params, vlm._embed_multimodal(cfg, params, first))
+        return float(bundle.loss_fn(params, first)[0]), transformer.unembed(cfg.lm, lm_params, h)
+
+    with torch.no_grad():
+        _zero_counts()
+        loss_k, logits_k = forward()
+        _check_attn(f"{tag} one forward", {**_k10(2 * LLAVA_LAYERS), "flash_decode": 0})
+        with _plain_attention_on_card():
+            loss_p, logits_p = forward()
+        _check_attn(f"{tag} one forward on the plain attention",
+                    {**_k10(2 * LLAVA_LAYERS), "flash_decode": 0})
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        logits_rel = _rel(torch, logits_k, logits_p)
+        if not math.isfinite(loss_k) or rel > LLAVA_LOSS_RTOL or \
+                not torch.isfinite(logits_k).all() or logits_rel > QWEN_SERVE_TOL:
+            raise AssertionError(f"{tag} the first client step's forward on K10 against the "
+                                 f"plain attention's: loss {loss_k} against {loss_p}, relative "
+                                 f"gap {rel:.3e} (tol {LLAVA_LOSS_RTOL}); logits relative error "
+                                 f"{logits_rel:.3e} (tol {QWEN_SERVE_TOL})")
+        checked, n_pos = _margin_agrees(torch, logits_k, logits_p, QWEN_SERVE_TOL)
+        del logits_k, logits_p
+    state = init_server_state(plan, params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_counts()
+    losses, round_s = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    trained = _counts()
+    steps = args.clients * LLAVA_LOCAL_STEPS * rounds
+    want = {k: 0 for k in trained}
+    want.update(_k10(LLAVA_LAYERS * steps, bwd=LLAVA_LAYERS * steps), threefry_normal=steps)
+    if trained != want:
+        raise AssertionError(f"{tag} launches over the training rounds "
+                             f"{ {k: v for k, v in trained.items() if v} }, expected "
+                             f"{ {k: v for k, v in want.items() if v} } ({steps} client steps)")
+    if not all(math.isfinite(x) for x in losses) or metrics["examples"] != \
+            args.clients * LLAVA_LOCAL_STEPS * args.batch:
+        raise AssertionError(f"{tag} losses {losses}, examples {metrics['examples']}")
+    def profiled():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    want_round = {k: 0 for k in trained}
+    want_round.update({k: v // rounds for k, v in want.items()})
+    _profiled_round(torch, tag, profiled, round_s[-1], LLAVA_INSTS, steps // rounds, want_round)
+    params = {k: v.detach() for k, v in state.params.items()}
+    del state
+    log(f"{tag} {n_params} parameters ({cfg.lm.pdtype}) in {len(params)} leaves, "
+        f"{LLAVA_LAYERS} of 32 layers; K={args.clients} b={args.batch} {LLAVA_LOCAL_STEPS} "
+        f"local steps over rows of {cfg.n_img_tokens} image + {layout['tokens'].shape[3]} text "
+        f"tokens, FVN {args.fvn_std}: losses {losses}; ms per round "
+        f"{[round(t * 1e3, 1) for t in round_s]}; client examples per second "
+        f"{[args.clients * LLAVA_LOCAL_STEPS * args.batch / t for t in round_s]}; peak memory "
+        f"over the training rounds {peak} B ({held} B allocated before them)")
+    log(f"{tag} launches per client step over {steps} client steps: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in trained.items() if v))
+    log(f"{tag} the first client step's loss at the round-start parameters, one forward: "
+        f"{loss_k} on K10, {loss_p} on its plain version on the card: relative gap "
+        f"{rel:.3e} (tol {LLAVA_LOSS_RTOL}); its logits at all {cfg.n_img_tokens} + "
+        f"{first['tokens'].shape[-1]} positions: relative error {logits_rel:.3e} (tol "
+        f"{QWEN_SERVE_TOL}), greedy tokens agree at {checked} of the {n_pos} positions with a "
+        f"clear margin")
+    return trained, params
+
+
+# the registry phase: each assigned arch's smoke config served through the
+# serve_lm twin (examples/serve_lm.py's): a REGISTRY_PROMPT-token prompt
+# decoded token by token, then REGISTRY_TOKENS greedy steps, B =
+# REGISTRY_B, fp32, on the card and on the CPU
+REGISTRY_B, REGISTRY_PROMPT, REGISTRY_TOKENS = 4, 4, 8
+REGISTRY_ARGV = ("--batch", str(REGISTRY_B), "--prompt-len", str(REGISTRY_PROMPT),
+                 "--tokens", str(REGISTRY_TOKENS))
+
+
+def phase_registry_serves(torch) -> dict:
+    """Every assigned architecture of the ``--arch`` registry (not
+    rnnt-librispeech: no serve step) served at its smoke config through
+    ``repro_torch.examples.serve_lm`` on the card, its counts set to 0 just
+    before and read just after: the decode steps' K11 launches (once a
+    self-attention layer a step; whisper's cross-attention too; none with
+    MLA), K12's or K13's (once a recurrent layer a step); then the same
+    serve with ``--device cpu`` (the same seeded parameters and prompt, the
+    plain versions): the greedy token ids identical and every step's
+    logits within TINY_SERVE_TOL's fp32 bar of the CPU's largest. Returns
+    the launch counts summed over the serves, each added once its serve
+    has agreed with the CPU's."""
+    from repro_torch.configs import get_arch, registry
+    from repro_torch.examples import serve_lm
+
+    steps, tol = REGISTRY_PROMPT + REGISTRY_TOKENS, TINY_SERVE_TOL["float32"]
+    summed: dict = {}
+    for arch_id in registry.ASSIGNED:
+        arch, tag = get_arch(arch_id), f"[registry {arch_id} serve]"
+        cfg = arch.make_smoke_config()
+        lm = getattr(cfg, "lm", cfg)
+        want = {}
+        if arch.kind in ("dense", "moe", "vlm"):
+            want["flash_decode"] = 0 if lm.mla is not None else lm.n_layers * steps
+        elif arch.kind == "audio":
+            want["flash_decode"] = 2 * cfg.dec_layers * steps
+        elif arch.kind == "ssm":
+            want["wkv6_fwd"] = cfg.n_layers * steps
+        elif arch.kind == "hybrid":
+            want.update(ssm_scan_fwd=cfg.n_layers * steps,
+                        flash_decode=cfg.n_attn_applications * steps)
+        _zero_counts()
+        out = serve_lm.main(["--arch", arch_id, *REGISTRY_ARGV])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _counts().items() if v}
+        expected = {k: v for k, v in want.items() if v}
+        if counts != expected:
+            raise AssertionError(f"{tag} launches {counts}, expected {expected}")
+        ref = serve_lm.main(["--arch", arch_id, *REGISTRY_ARGV, "--device", "cpu"])
+        if out["logits"].shape != ref["logits"].shape or not torch.isfinite(out["logits"]).all():
+            raise AssertionError(f"{tag} logits {tuple(out['logits'].shape)} are not finite or "
+                                 f"not shaped as the CPU's {tuple(ref['logits'].shape)}")
+        same = bool((out["tokens"] == ref["tokens"]).all())
+        err = _rel(torch, out["logits"], ref["logits"])
+        if not same or err > tol:
+            raise AssertionError(f"{tag} against the CPU's serve: token ids "
+                                 f"{'identical' if same else 'differ'}, logits relative error "
+                                 f"{err:.3e} (tol {tol})")
+        for k, v in counts.items():
+            summed[k] = summed.get(k, 0) + v
+        log(f"{tag} {arch.kind}, {out['n_params']} parameters (smoke, fp32): {steps} decode "
+            f"steps at B={REGISTRY_B} in {(out['prefill_s'] + out['decode_s']) * 1e3:.1f} ms on "
+            f"the host clock; launches "
+            f"{counts or 'none (its decode runs no hand-written kernel)'}; against the CPU's "
+            f"serve: token ids identical, the {steps} steps' logits relative error {err:.3e} "
+            f"(tol {tol})")
+    return summed
 
 
 # the recurrent serves' logits against the teacher-forced forward, relative
@@ -5356,6 +5730,17 @@ def main() -> int:
     del params, corpus
     _release(torch, "deepseek-v2-lite-16b")
     mark("deepseek-v2-lite-16b serve")
+    # llava-next-mistral-7b (about 43 GB: 39 GB at qwen3-8b's bytes a
+    # parameter and its 4,096-position activations) after the released ones
+    llava_launches, params = phase_vlm_train(torch)
+    mark("llava-next-mistral-7b training")
+    # served as qwen3-8b is (B = 4 rows of 576 image tokens and a 128-token
+    # prompt, prefill over 704 positions, the cache grown to 736 slots)
+    llava_serve_launches = _serve_transformer(torch, "llava-next-mistral-7b", llava_config(),
+                                              params, None, True)
+    del params
+    _release(torch, "llava-next-mistral-7b")
+    mark("llava-next-mistral-7b serve")
     rows = phase_kernels(torch)
     rows.update(phase_joint_kernels(torch))
     rows.update(phase_scan_kernels(torch))
@@ -5381,7 +5766,8 @@ def main() -> int:
     phase_tiny_encdec(torch)
     phase_tiny_ladder(torch)
     phase_tiny_lm_rounds(torch)
-    mark("tiny phases")
+    registry_launches = phase_registry_serves(torch)
+    mark("tiny phases and the registry's serves")
     round_s_chunked = phase_paper_width(torch, False, "ref")[1]
     k1_launches, round_s_loop, loss_loop, _ = phase_paper_width(torch, True, "ref")
     launches, round_s_scan, loss_scan, params_scan = phase_paper_width(torch, True, "auto")
@@ -5449,24 +5835,28 @@ def main() -> int:
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3, K4 and the
     # normal kernel (FVN) under 'auto'; K5-K9 in the compressed and
     # slow-path runs (their launches summed); K10 and K11 in the
-    # whisper-base, qwen3-8b, zamba2-7b and deepseek-v2-lite-16b serves and
-    # trainings, K10's backward in the four trainings (each path's launches
-    # summed)
+    # whisper-base, qwen3-8b, zamba2-7b, deepseek-v2-lite-16b and
+    # llava-next-mistral-7b serves and trainings and the registry's serves,
+    # K10's backward in the five trainings (each path's launches summed)
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
     for name in ("flash_attention_wgmma", "flash_attention_simt", "flash_decode"):
         launches[name] = attn_launches[name] + qwen_serve_launches[name] + qwen_launches[name] \
             + zamba_launches[name] + zamba_serve_launches[name] + deepseek_launches[name] \
-            + deepseek_serve_launches[name]
+            + deepseek_serve_launches[name] + llava_launches[name] \
+            + llava_serve_launches[name] + registry_launches.get(name, 0)
     for name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_simt"):
         launches[name] = train_launches[name] + qwen_launches[name] + zamba_launches[name] \
-            + deepseek_launches[name]
-    # K12 in the rwkv6-1.6b training and serve, K13 in zamba2-7b's
+            + deepseek_launches[name] + llava_launches[name]
+    # K12 in the rwkv6-1.6b training and serve, K13 in zamba2-7b's (and each
+    # in the registry's serves of their smoke configs)
     for name in ("wkv6_fwd", "wkv6_bwd"):
-        launches[name] = rwkv_launches[name] + rwkv_serve_launches[name]
+        launches[name] = rwkv_launches[name] + rwkv_serve_launches[name] \
+            + registry_launches.get(name, 0)
     for name in ("ssm_scan_fwd", "ssm_scan_bwd"):
-        launches[name] = zamba_launches[name] + zamba_serve_launches[name]
+        launches[name] = zamba_launches[name] + zamba_serve_launches[name] \
+            + registry_launches.get(name, 0)
     gates, scan, joint, wire, attn, normal = (
         "src/repro_torch/kernels/csrc/" + f for f in
         ("lstm_gates.cu", "lstm_scan.cu", "rnnt_joint.cu", "wire_pack.cu", "attention.cu",

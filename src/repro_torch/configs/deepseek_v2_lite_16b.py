@@ -4,14 +4,15 @@ multi-head latent attention with kv_lora 512, qk_nope 128, qk_rope 64 and
 v 128; a dense first layer (d_ff 10,944), then 64 routed experts of d_ff
 1,408, top-6, with 2 shared experts of 2,816; bf16 compute and bf16
 parameters (the MoE router fp32). The port's copy of
-``repro/configs/deepseek_v2_lite_16b.py:22-51``, without the ``ArchSpec``
-sharding rules (the registry is ROADMAP.md's M8 item). ``make_config``'s
+``repro/configs/deepseek_v2_lite_16b.py``, its ``ArchSpec`` too.
+``make_config``'s
 keywords override any field, ``n_layers`` too (the reference's passes
 them beside its fields, so a field it sets cannot be given again):
 ``make_config(n_layers=2)`` is ``dataclasses.replace(make_config(),
 n_layers=2)`` in both packages.
 """
 
+from repro_torch.configs import base
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
@@ -46,3 +47,17 @@ def make_smoke_config() -> TransformerConfig:
                       v_dim=32),
         dtype="float32", param_dtype="float32", loss_chunk=16,
     )
+
+
+ARCH = base.ArchSpec(
+    arch_id=ARCH_ID,
+    citation="arXiv:2405.04434",
+    kind="moe",
+    make_config=make_config,
+    make_smoke_config=make_smoke_config,
+    engine="fedavg",
+    param_rules=base.transformer_param_rules(16, 16, mla=True, moe=True),
+    cache_rules=base.transformer_cache_rules(),
+    long_policy="sw_variant",
+    make_long_config=lambda: make_config(window=4096),
+)

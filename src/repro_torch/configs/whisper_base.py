@@ -2,10 +2,12 @@
 heads of 64, d_ff 2048, vocab 51,865, 1,500 source frames, 448 target
 positions, bf16 compute and bf16 parameters (70,857,216 parameters). The
 conv/mel front end is a stub: frames are precomputed embeddings. The
-port's copy of ``repro/configs/whisper_base.py:15-34``, without the
-``ArchSpec`` sharding rules (ROADMAP.md's M9).
+port's copy of ``repro/configs/whisper_base.py``, its ``ArchSpec`` too.
+Its long_500k is skipped: an enc-dec with full attention and a 448-token
+decoder context has no meaningful 512k decode state.
 """
 
+from repro_torch.configs import base
 from repro_torch.models.encdec import EncDecConfig
 
 ARCH_ID = "whisper-base"
@@ -28,3 +30,19 @@ def make_smoke_config() -> EncDecConfig:
         head_dim=16, d_ff=128, vocab=128, max_source=24, max_target=16,
         dtype="float32", param_dtype="float32", loss_chunk=8,
     )
+
+
+ARCH = base.ArchSpec(
+    arch_id=ARCH_ID,
+    citation="arXiv:2212.04356",
+    kind="audio",
+    make_config=make_config,
+    make_smoke_config=make_smoke_config,
+    engine="fedavg",
+    param_rules=base.audio_param_rules(),
+    cache_rules=base.audio_cache_rules(),
+    long_policy="skip",
+    skip_notes=("enc-dec with full attention and a 448-token decoder "
+                "design context; long_500k decode state is meaningless "
+                "for this architecture (DESIGN.md §Arch-applicability)."),
+)

@@ -3,13 +3,13 @@
 MLP block every 6 layers (32 heads of 112 on 32 kv heads, d_ff 14,336),
 vocab 32,000, bf16 compute and bf16 parameters: 13 groups and a 3-layer
 tail, 14 applications of the one shared block. The port's copy of
-``repro/configs/zamba2_7b.py:16-34``, without the ``ArchSpec`` sharding
-rules (the registry is ROADMAP.md's last M8 item). ``make_config``'s
+``repro/configs/zamba2_7b.py``, its ``ArchSpec`` too. ``make_config``'s
 keywords override any field (the reference's takes none):
 ``make_config(n_layers=7)`` is ``dataclasses.replace(make_config(),
 n_layers=7)``.
 """
 
+from repro_torch.configs import base
 from repro_torch.models.hybrid import HybridConfig
 
 ARCH_ID = "zamba2-7b"
@@ -34,3 +34,16 @@ def make_smoke_config() -> HybridConfig:
         ssm_state=16, ssm_headdim=32,
         dtype="float32", param_dtype="float32", loss_chunk=16,
     )
+
+
+ARCH = base.ArchSpec(
+    arch_id=ARCH_ID,
+    citation="arXiv:2411.15242",
+    kind="hybrid",
+    make_config=make_config,
+    make_smoke_config=make_smoke_config,
+    engine="fedavg",
+    param_rules=base.hybrid_param_rules(),
+    cache_rules=base.hybrid_cache_rules(),
+    long_policy="native",
+)

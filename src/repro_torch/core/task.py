@@ -25,8 +25,11 @@ and its evaluation hooks, all chosen by the model's kind
 
 ``client_loss`` is the per-client evaluation plane's loss of each tracked
 client (``core/clienteval.py``), as the reference's ``vmap(loss_fn)``
-over the panel's clients. The registry (``register_task``,
-``available_tasks``, ``get_task(name, seed)``, ``task_for_config``) names:
+over the panel's clients. ``arch_task(arch_id)`` is the task of an
+``--arch`` id's smoke config (``configs/registry.py``) on the shared
+corpus; a VLM has none (no adapter for kind ``vlm``, as in the reference).
+The registry (``register_task``, ``available_tasks``, ``get_task(name,
+seed)``, ``task_for_config``) names:
 
 - ``asr-rnnt``: the container-scale RNN-T of ``:352-368`` on the shared
   48-speaker corpus;
@@ -258,8 +261,11 @@ def _wer_client_quality(cfg: rnnt.RNNTConfig) -> Callable:
 # ------------------------------------------------------------ dispatch
 
 # ModelBundle kind -> (quality metric, batch adapter); None adapter: the
-# model consumes the engine layout as it is. The reference's vlm kind comes
-# with its model (M8).
+# model consumes the engine layout as it is. No vlm kind, as in the
+# reference: the speaker corpus has no images, so a VLM config has no task
+# (task_for_config and arch_task raise) and trains through
+# core.fedavg.make_round_step on its own batches, as the reference's dry
+# run does (repro/launch/dryrun.py:84-101).
 _KIND_ADAPTERS = {
     "rnnt": ("wer", None),
     "audio": ("ppl", _encdec_adapt),
@@ -303,7 +309,8 @@ class FederatedTask:
         if self.kind not in _KIND_ADAPTERS:
             raise ValueError(
                 f"no federated task adapter for model kind {self.kind!r} (config "
-                f"{type(self.config).__name__}); adapters exist for {sorted(_KIND_ADAPTERS)}")
+                f"{type(self.config).__name__}); the speaker corpus has no modality for it — "
+                f"adapters exist for {sorted(_KIND_ADAPTERS)}")
         return _KIND_ADAPTERS[self.kind]
 
     @property
@@ -358,6 +365,14 @@ def task_for_config(cfg, name: Optional[str] = None,
     task = FederatedTask(name or cfg.name, cfg, make_corpus or default_corpus)
     task.quality_metric  # builds the bundle and checks the kind
     return task
+
+
+def arch_task(arch_id: str) -> FederatedTask:
+    """A task from the ``--arch`` registry's smoke config, on the shared
+    corpus (``repro/core/task.py:314-318``)."""
+    from repro_torch.configs import get_arch
+
+    return task_for_config(get_arch(arch_id).make_smoke_config(), name=arch_id)
 
 
 def scaled_task(task: FederatedTask, specaug_scale: float) -> FederatedTask:

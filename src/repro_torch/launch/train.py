@@ -21,6 +21,8 @@ Usage:
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01 --server-lr 1e-5 --eval-every 0
     PYTHONPATH=src python -m repro_torch.launch.train --preset arch --rounds 2 \\
         --clients 4 --batch 4 --data-limit 8 --fvn-std 0.01
+    PYTHONPATH=src python -m repro_torch.launch.train --preset arch --arch gemma3-4b \\
+        --rounds 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
         --compression int4 --packed-wire --error-feedback
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 4 \\
@@ -53,6 +55,14 @@ round (``core/clienteval.py``): their spread fills the summary row, their
 curves go into ``extras["client_eval"]``. ``run_federated``'s
 ``specaug_scale`` scales SpecAugment's mask counts (E10), and its
 ``ckpt_dir`` keeps checkpoints of the parameters (``checkpoint/``).
+
+``--preset arch --arch <id>`` trains ``arch_task(<id>)``, the registry's
+smoke config of that architecture on the shared corpus, as the reference
+does. One departure: ``--arch rnnt-librispeech``, the default, trains the
+paper's model at its full width on a corpus at its widths (the registered
+``rnnt-librispeech`` task), where the reference takes its smoke config.
+The VLM has no task (``arch_task`` raises, as the reference's): it trains
+through ``core.fedavg.make_round_step`` on its own batches.
 """
 
 from __future__ import annotations
@@ -74,8 +84,8 @@ from repro_torch.core.clienteval import ClientEvalPlane
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.metrics import empty_spread, summary_row
 from repro_torch.core.plan import FederatedPlan, FVNConfig
-from repro_torch.core.task import (FederatedTask, available_tasks, default_corpus, get_task,
-                                   scaled_task)
+from repro_torch.core.task import (FederatedTask, arch_task, available_tasks, default_corpus,
+                                   get_task, scaled_task)
 from repro_torch.data import FederatedSampler, available_strategies, pack_round
 from repro_torch.launch.cli import add_client_eval_args, add_plan_args, plan_kwargs
 
@@ -337,9 +347,12 @@ def build_plan(args) -> FederatedPlan:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default=None, choices=available_tasks(),
-                    help="a registered task; overrides --preset")
+                    help="a registered task; overrides --preset and --arch")
     ap.add_argument("--preset", default="tiny", choices=["tiny", "arch"],
-                    help="tiny: asr-rnnt; arch: rnnt-librispeech at paper widths")
+                    help="tiny: asr-rnnt; arch: the --arch architecture")
+    ap.add_argument("--arch", default=rnnt_librispeech.ARCH_ID,
+                    help="with --preset arch: an id of configs/registry.py, its smoke config "
+                         "(rnnt-librispeech, the default: the paper's model at full width)")
     ap.add_argument("--rounds", type=int, default=40)
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
@@ -362,11 +375,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def resolve_task(args) -> FederatedTask:
+    """--task, else --preset tiny's asr-rnnt, else --arch's task: the
+    paper-width rnnt-librispeech task for that id, arch_task otherwise."""
+    if args.task is not None:
+        return get_task(args.task, args.seed)
+    if args.preset == "tiny":
+        return get_task("asr-rnnt", args.seed)
+    if args.arch == rnnt_librispeech.ARCH_ID:
+        return get_task(rnnt_librispeech.ARCH_ID, args.seed)
+    return arch_task(args.arch)
+
+
 def main(argv=None):
     args = parse_args(argv)
 
-    name = args.task or ("asr-rnnt" if args.preset == "tiny" else rnnt_librispeech.ARCH_ID)
-    task = get_task(name, args.seed)
+    task = resolve_task(args)
     _, hist = run_federated(task, task.make_corpus(args.seed), build_plan(args), args.rounds,
                             seed=args.seed, device=args.device, iid=args.iid,
                             eval_every=args.eval_every, client_eval=args.client_eval,

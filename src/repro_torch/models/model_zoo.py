@@ -5,16 +5,16 @@ the port has: the decoder-only transformer (kind ``dense``, or ``moe``
 with a ``MoEConfig``, ``:127-137``), the Zamba2 hybrid (kind ``hybrid``,
 ``:138-147``, no prefill: serving enters through ``decode_step``), the
 RWKV-6 stack (kind ``ssm``, ``RWKVModelConfig``, ``:28-123`` and
-``:148-156``), the enc-dec (kind ``audio``, ``:157-165``), the RNN-T
-(kind ``rnnt``, ``:175-180``) and the keyword classifier (kind
-``keyword``, ``:181-186``). A bundle binds the config to
+``:148-156``), the enc-dec (kind ``audio``, ``:157-165``), the VLM (kind
+``vlm``, ``:166-173``), the RNN-T (kind ``rnnt``, ``:175-180``) and the
+keyword classifier (kind ``keyword``, ``:181-186``). A bundle binds the config to
 its functions and to one ``device``, the card unless the caller names the
 CPU: ``init`` puts the parameters there, ``init_cache`` the caches, and
 ``loss_fn``, ``prefill`` and ``decode_step`` move the batch or tokens
 they are given there. ``device=None`` moves nothing: the parameters stay
 on the generator's device and the batch where the caller put it (the
-federated task's bundle: the round engine places both). The RWKV stack,
-the hybrid and the VLM are ROADMAP.md's M8 and raise.
+federated task's bundle: the round engine places both). Any other
+config type raises.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
-from repro_torch.models import encdec, hybrid, keyword, rnnt, transformer
+from repro_torch.models import encdec, hybrid, keyword, rnnt, transformer, vlm
 from repro_torch.models.layers import dense_init, embed_init, lm_loss
 from repro_torch.models.rwkv import RWKVConfig, _ln, rwkv_init_state, rwkv_layer_forward, \
     rwkv_layer_init
@@ -34,7 +34,7 @@ from repro_torch.models.rwkv import RWKVConfig, _ln, rwkv_init_state, rwkv_layer
 @dataclasses.dataclass
 class ModelBundle:
     name: str
-    kind: str                    # dense | moe | hybrid | ssm | audio | rnnt | keyword
+    kind: str                    # dense | moe | hybrid | ssm | audio | vlm | rnnt | keyword
     config: Any
     init: Callable               # (generator) -> params on ``device``
     loss_fn: Callable            # (params, batch, key) -> (loss, aux)
@@ -210,6 +210,19 @@ def build_model(cfg, device: Optional[str] = "cuda") -> ModelBundle:
                 cfg, batch, seq_len, device=device or "cuda"),
             device=device,
         )
+    if isinstance(cfg, vlm.VLMConfig):
+        return ModelBundle(
+            name=cfg.name, kind="vlm", config=cfg,
+            init=lambda generator: _on(device, vlm.init_params(cfg, generator)),
+            loss_fn=lambda params, batch, key=None: vlm.loss_fn(
+                cfg, params, _on(device, batch), key),
+            prefill=lambda params, batch: vlm.prefill(cfg, params, _on(device, batch)),
+            decode_step=lambda params, cache, tokens, pos, ring=False: vlm.decode_step(
+                cfg, params, cache, _to(device, tokens), pos, ring),
+            init_cache=lambda batch, seq_len, ring=False: vlm.init_cache(
+                cfg, batch, seq_len, ring, device=device or "cuda"),
+            device=device,
+        )
     if isinstance(cfg, rnnt.RNNTConfig):
         module = rnnt.RNNT(cfg)
         return ModelBundle(
@@ -227,7 +240,4 @@ def build_model(cfg, device: Optional[str] = "cuda") -> ModelBundle:
                 cfg, params, _on(device, batch), key),
             device=device,
         )
-    raise NotImplementedError(
-        f"{type(cfg).__name__} is not ported yet: the port's model zoo has the dense and MoE "
-        "transformer, the hybrid, the RWKV stack, the enc-dec, the RNN-T and the keyword "
-        "classifier; the VLM is ROADMAP.md's M8")
+    raise TypeError(f"unknown config type {type(cfg)}")

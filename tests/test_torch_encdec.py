@@ -217,13 +217,13 @@ def test_model_bundle_puts_parameters_on_its_device():
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """A stand-in for a family the port has not ported (the reference's
-    ``repro/models/transformer.py:TransformerConfig``, M8's next item)."""
+    """A stand-in for a config type the model zoo does not know (named as
+    the transformer's, but not its class)."""
     name: str = "lm-tiny"
 
 
 def test_model_bundle_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="M8"):
+    with pytest.raises(TypeError, match="unknown config type"):
         model_zoo.build_model(TransformerConfig(), device="cpu")
     # the RNN-T is ported since the task registry came: its bundle builds
     bundle = model_zoo.build_model(RNNTConfig(name="x", feat_dim=8, vocab=8), device="cpu")

@@ -2,7 +2,9 @@
 repository's ``examples/``: each reference example is run with its one
 federated call replaced by a recorder (no JAX round runs), and its plan,
 config and call arguments are held field by field to the twin's; then one
-round of the port runs through each twin on the CPU."""
+round of the port runs through each twin on the CPU. The serve_lm twin's
+defaults are the reference's, and it serves a dense architecture and the
+VLM on the CPU."""
 
 import dataclasses
 import importlib.util
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.examples import noniid_tradeoff, quickstart, train_federated_asr
+from repro_torch.examples import noniid_tradeoff, quickstart, serve_lm, train_federated_asr
 from repro_torch.launch import sweeps as tsweeps
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -173,3 +175,26 @@ def test_each_twin_runs_a_port_round_on_the_cpu(twin, tmp_path, monkeypatch, one
                                          "--out", str(tmp_path / "tradeoff.json")])
         assert frontier["n_points"] == 3 and (tmp_path / "tradeoff.json").exists()
         assert all(np.isfinite(p["final_loss"]) for p in frontier["points"])
+
+
+def test_serve_lm_defaults_are_the_references(monkeypatch):
+    """Both examples resolve the same --arch by default (the registry lookup
+    recorded in place of the serve)."""
+    (arch,), _ = _run_recorded(_reference_example("serve_lm"), "get_arch", monkeypatch)
+    (tarch,), _ = _run_recorded(serve_lm, "get_arch", monkeypatch, ["--device", "cpu"])
+    assert tarch == arch == "qwen3-8b"
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "llava-next-mistral-7b"])
+def test_serve_lm_serves_on_the_cpu(arch, capsys):
+    """A prompt of 4 tokens decoded token by token, then 6 greedy steps, at
+    the smoke config: gemma3's local and global layers, the VLM's text-only
+    decode."""
+    out = serve_lm.main(["--arch", arch, "--batch", "2", "--prompt-len", "4", "--tokens", "6",
+                         "--device", "cpu"])
+    vocab = 128  # both smoke configs'
+    assert out["tokens"].shape == (2, 6) and ((0 <= out["tokens"]) & (out["tokens"] < vocab)).all()
+    assert out["last_logits"].shape == (2, vocab) and torch.isfinite(out["last_logits"]).all()
+    assert out["logits"].shape == (10, 2, vocab) and torch.equal(out["logits"][-1],
+                                                                  out["last_logits"])
+    assert f"arch={arch} (smoke config" in capsys.readouterr().out

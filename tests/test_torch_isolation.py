@@ -69,3 +69,10 @@ def test_the_language_model_tasks_are_walked(module):
                                     "configs/rwkv6_1p6b.py", "configs/zamba2_7b.py"])
 def test_the_recurrent_language_models_are_walked(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["models/vlm.py", "configs/base.py", "configs/registry.py",
+                                    "configs/llava_next_mistral_7b.py", "configs/gemma3_4b.py",
+                                    "examples/serve_lm.py"])
+def test_the_vlm_and_the_arch_registry_are_walked(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

@@ -50,6 +50,35 @@ def test_main_runs_the_tiny_preset_on_the_cpu(capsys):
     assert summary["task"] == "asr-rnnt" and summary["device"] == "cpu"
 
 
+def test_arch_preset_resolves_as_the_reference_but_for_the_paper_model():
+    """--preset arch --arch <id> is arch_task(<id>), the registry's smoke
+    config on the shared corpus, as in the reference; the default id,
+    rnnt-librispeech, stays the paper-width task (the port's departure);
+    --task wins over both."""
+    def task(*argv):
+        return train.resolve_task(train.parse_args(list(argv)))
+
+    gemma = task("--preset", "arch", "--arch", "gemma3-4b")
+    assert (gemma.name, gemma.kind, gemma.config.name) == ("gemma3-4b", "dense", "gemma3-4b-smoke")
+    paper = task("--preset", "arch")
+    assert paper.config == get_task("rnnt-librispeech").config and paper.config.enc_hidden == 1152
+    assert task("--preset", "tiny", "--arch", "gemma3-4b").name == "asr-rnnt"
+    assert task("--task", "keyword", "--preset", "arch", "--arch", "gemma3-4b").name == "keyword"
+    with pytest.raises(ValueError, match="model kind 'vlm'"):
+        task("--preset", "arch", "--arch", "llava-next-mistral-7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        task("--preset", "arch", "--arch", "gpt-5")
+
+
+def test_main_trains_an_arch_smoke_config_on_the_cpu(capsys):
+    hist = train.main(["--preset", "arch", "--arch", "command-r-35b", "--rounds", "1",
+                       "--clients", "2", "--batch", "2", "--data-limit", "2", "--device", "cpu",
+                       "--eval-every", "0"])
+    assert math.isfinite(hist["final_loss"]) and hist["quality_metric"] == "ppl"
+    summary = json.loads(capsys.readouterr().out.split("\n", 1)[1])
+    assert summary["task"] == "command-r-35b"
+
+
 def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     task = get_task("asr-rnnt")
