@@ -97,7 +97,15 @@ Phases, each printed as it ends:
    Sq=Sk=4,672: 576 image + 4,096 text positions, 32 heads on 8 kv heads
    of 128, causal, window 4,096), timed beside SDPA given the window as an
    explicit boolean mask (the backends that take it named), and K11 at its
-   serve (B=4, 736 slots at pos 735, G=4, D=128, window 4,096); every K10
+   serve (B=4, 736 slots at pos 735, G=4, D=128, window 4,096); K10 and
+   its backward at gemma3-4b's heads of 256 (B=1, Sq=Sk=4,096, 8 heads on 4
+   kv heads, D=Dv=256, causal: a local layer with the window of 1,024, SDPA
+   given it as a boolean mask, and the global layer, SDPA with is_causal;
+   the tensor-core forward's two warpgroups, the backward's column halves,
+   the CUDA-core routes' tiles of 256) and a ragged row at those widths
+   (Sq=Sk=1,000, window 300, softcap 30), and K11 at gemma3's serve (B=4,
+   1,184 slots at pos 1,183, G=2, D=256, with the window of 1,024 and
+   without; SDPA over the valid slots), the SDPA backends named; every K10
    forward launched twice for the same bits; K12
    (WKV-6) and K13 (Mamba2's scan), forward and backward, against their
    plain versions at the full-size training shapes (rwkv6-1.6b: B=4,
@@ -128,7 +136,9 @@ Phases, each printed as it ends:
    and XLA's exp restated (ref.xla_exp_f32) the same on both; one FedAvg
    round (K=4, b=4, 2 local steps, FVN on) of each of the reference's
    lm-transformer, lm-moe, lm-rwkv and keyword tasks, of zamba2-7b's
-   smoke hybrid and of deepseek-v2-lite-16b's smoke MLA transformer on the
+   smoke hybrid, of deepseek-v2-lite-16b's smoke MLA transformer and of
+   gemma3's smoke transformer at heads of 256 (K10's CUDA-core tiles of
+   256 through a whole round) on the
    card and on the CPU, held to each other (K10 on its CUDA-core routes,
    once an attention a client step, K12 once an RWKV layer, K13 once a
    Mamba2 layer, forward and backward); each assigned architecture of the
@@ -206,6 +216,21 @@ Phases, each printed as it ends:
    4), one round profiled (busy share), and the first round again with
    K10's forward and backward swapped for their plain versions on the
    card, its loss within WHISPER_LOSS_RTOL;
+   and, run second, after qwen3-8b's phases below, gemma3-4b at full width
+   and 6 of its 34 layers (1,908,444,672 bf16 parameters: 5 local layers of
+   a 1,024-token window to 1 global, heads of 256, a 262,144-word
+   vocabulary) trained as llava-next-mistral-7b below (make_round_step on a
+   seeded round batch in lm_train_batch's layout at train_4k: K=4, b=1, 2
+   local steps, FVN 0.01, Adam at 1e-5): two rounds with exact launches a
+   client step (K10's forward 6, 5 with the window, on
+   flash_attention_wgmma_wide_kernel<4, 128>, its backward 6 on the column
+   halves, the normal kernel 1), round times, peak memory, a profiled round,
+   the first client step's loss and logits at 4,096 positions against the
+   plain attention's; then served (_serve_transformer): B=4 prompts of
+   1,152 seeded tokens, prefill (K10 6), the cache grown to 1,184 slots, 32
+   greedy steps (K11 6 each, on its instantiation for 256 columns), the
+   window masking keys past position 1,024 in the local layers, each step's
+   logits held to a teacher-forced forward within QWEN_SERVE_TOL;
    and, run first of all the phases after the build (its 68 GB peak on an
    80 GB H100 needs an allocator the other phases have not fragmented),
    qwen3-8b trained (phase_lm_train, QWEN_RUN)
@@ -2528,7 +2553,8 @@ def _counts():
             "rnnt_joint_bwd_dlogits": KJ.BWD_DLOGITS_LAUNCHES,
             "rnnt_joint_bwd_dh": KJ.BWD_DH_LAUNCHES,
             "rnnt_joint_bwd_reduce": KJ.BWD_REDUCE_LAUNCHES,
-            "rnnt_joint_bwd_dw": KJ.BWD_DW_LAUNCHES, **_attn_counts(), **_recurrence_counts()}
+            "rnnt_joint_bwd_dw": KJ.BWD_DW_LAUNCHES, **_attn_counts(), **_wide_counts(),
+            **_recurrence_counts()}
 
 
 def _recurrence_counts() -> dict:
@@ -2562,6 +2588,8 @@ def _zero_counts() -> None:
 
     KA.FWD_LAUNCHES = KA.WGMMA_LAUNCHES = KA.SIMT_LAUNCHES = KD.FWD_LAUNCHES = 0
     KA.BWD_LAUNCHES = KA.BWD_WGMMA_LAUNCHES = KA.BWD_SIMT_LAUNCHES = 0
+    KA.WGMMA_WIDE_LAUNCHES = KA.SIMT_WIDE_LAUNCHES = KD.WIDE_LAUNCHES = 0
+    KA.BWD_WGMMA_WIDE_LAUNCHES = KA.BWD_SIMT_WIDE_LAUNCHES = 0
     from repro_torch.kernels import ssm_scan as K13
     from repro_torch.kernels import wkv6 as K12
 
@@ -3467,6 +3495,14 @@ K10_SHAPES = (
     # skips each tile wholly below a row block's window, masks the rest);
     # SDPA's yardstick takes the same window as an explicit boolean mask
     ("llava-next window", 1, 4672, 4672, 32, 8, 128, 128, True, 4096, 0.0, 0, None),
+    # gemma3-4b's heads of 256 (8 query heads on 4 kv heads, D = Dv = 256) at
+    # train_4k's 4,096 positions: a local layer (window 1,024) and the global
+    # one; the tensor-core forward's two warpgroups (Dv > 128) and the
+    # backward's column halves (ND = NV = 4), the CUDA-core routes' tiles of
+    # 256; and a ragged row at those widths with a window and a softcap
+    ("gemma3 local", 1, 4096, 4096, 8, 4, 256, 256, True, 1024, 0.0, 0, None),
+    ("gemma3 global", 1, 4096, 4096, 8, 4, 256, 256, True, None, 0.0, 0, None),
+    ("d256 ragged window softcap", 1, 1000, 1000, 8, 4, 256, 256, True, 300, 30.0, 0, None),
 )
 # K11's shapes: the self cache (448 slots) at three positions, the cross
 # cache (1,500 slots), a GQA ring buffer with a window and softcap (G=8,
@@ -3485,6 +3521,11 @@ K11_SHAPES = (
     # slots, the last step at pos 735 (G=4, D=128), the window 4,096 passed
     # (it masks nothing here, so SDPA without a mask is its yardstick)
     ("llava-next serve pos 735", 4, 736, 32, 8, 128, 735, 4096, False, 0.0),
+    # gemma3-4b's serve: 1,152 prompt + 32 steps = 1,184 slots, the last step
+    # at pos 1,183 (G = 2, D = 256), a local layer's window of 1,024 acting
+    # (SDPA over the window's slots is its yardstick) and the global layer's
+    ("gemma3 serve pos 1183", 4, 1184, 8, 4, 256, 1183, 1024, False, 0.0),
+    ("gemma3 serve global pos 1183", 4, 1184, 8, 4, 256, 1183, None, False, 0.0),
 )
 
 
@@ -3583,7 +3624,9 @@ K10_BWD_SHAPES = (
                                                "qwen3-8b heads", "zamba2-7b heads",
                                                "deepseek-v2-lite heads",
                                                "d192 gqa window softcap",
-                                               "llava-next window"))
+                                               "llava-next window", "gemma3 local",
+                                               "gemma3 global",
+                                               "d256 ragged window softcap"))
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the forward's log-sum-exp against the plain version's: fp32 sums in
 # another order (and the tensor-core route's ex2.approx), rows of O(10)
@@ -3595,6 +3638,11 @@ def _window_only(window, cap, off: int, Sq: int, Sk: int) -> bool:
     (some row loses keys to it): SDPA's yardstick then takes the mask as an
     explicit boolean ``attn_mask``."""
     return bool(window) and window < Sk and not cap and off == 0 and Sq == Sk
+
+
+def _taken(window, D: int, Dv: int) -> str:
+    """What the SDPA backends named beside a row were asked to take."""
+    return "the window mask" if window else ("D != Dv" if D != Dv else f"a head width of {D}")
 
 
 def _sdpa_kw(H: int, Kv: int) -> dict:
@@ -3734,7 +3782,7 @@ def phase_attention_bwd(torch):
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
                 fwd = _sdpa(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv)), tag)
-                if fwd is not None and D != Dv:
+                if fwd is not None and (D != Dv or D > 128):
                     backends = _sdpa_backends(torch, lambda: torch.autograd.grad(
                         fwd(), (qt, kt, vt), do.transpose(1, 2)))
                 if fwd is not None:
@@ -3779,11 +3827,10 @@ def phase_attention_bwd(torch):
                   f"{n_valid} exp); device us by launch: "
                 + "; ".join(f"{d} " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in sp.items())
                             for d, sp in split.items())
-                + (f"; SDPA backends that take "
-                   f"{'the window mask' if window else 'D != Dv'}, forward and backward: "
-                   f"{backends}" if backends else ""))
-            if name == "train encoder":
-                rows[f"flash_attention_bwd_{took}"] = {
+                + (f"; SDPA backends that take {_taken(window, D, Dv)}, forward and "
+                   f"backward: {backends}" if backends else ""))
+            if name in ("train encoder", "gemma3 global"):
+                rows[f"flash_attention_bwd_{took}" + ("_256" if D == 256 else "")] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"][0]}
     return rows
@@ -3853,7 +3900,7 @@ def phase_attention_kernels(torch):
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, is_causal=causal, scale=scale, **_sdpa_kw(H, Kv))
                 lib = _sdpa(torch, sdpa, tag)
-                if D != Dv:
+                if D != Dv or D > 128:
                     backends = _sdpa_backends(torch, sdpa)
             elif _window_only(window, cap, off, Sq, Sk):
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -3875,10 +3922,10 @@ def phase_attention_kernels(torch):
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B, "
                   f"{qk} flop Q.K^T, {pv} flop P.V, {n_valid} exp)"
-                + (f"; SDPA backends that take {'the window mask' if window else 'D != Dv'}: "
-                   f"{backends}" if backends else ""))
-            if name == "encoder":
-                rows[f"flash_attention_{took}"] = {
+                + (f"; SDPA backends that take {_taken(window, D, Dv)}: {backends}"
+                   if backends else ""))
+            if name in ("encoder", "gemma3 global"):
+                rows[f"flash_attention_{took}" + ("_256" if D == 256 else "")] = {
                     "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"][0]}
     S_self = K11_SHAPES[0][2]
@@ -3909,9 +3956,10 @@ def phase_attention_kernels(torch):
             bf16 = dtype == torch.bfloat16
             bound_ms, bound_by = _bound(nbytes, pv + (0 if bf16 else qk), qk if bf16 else 0)
             lib = None
-            if not ring and (not window or window > pos) and not cap:
+            if not ring and not cap:  # the valid slots: the window's, up to pos
                 qt = q[:, :, None]
-                kt, vt = (c[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
+                lo = max(0, pos - window + 1) if window else 0
+                kt, vt = (c[:, lo:pos + 1].transpose(1, 2) for c in (kc, vc))
                 lib = _sdpa(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, **_sdpa_kw(H, Kv)), tag)
             t = _attn_times(torch, lambda: KD.flash_decode(q, kc, vc, pos_t, **kw),
@@ -3922,10 +3970,10 @@ def phase_attention_kernels(torch):
                 "us per call eager/graph: "
                 + ", ".join(f"{w} {_us(e)}/{_us(g)}" for w, (e, g) in t.items())
                 + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
-            if (name, dname) == ("cross", "bfloat16"):
-                rows["flash_decode"] = {"max_abs_err": err, "ms": t["kernel"][0],
-                                        "plain_ms": t["plain"][0], "bound_ms": bound_ms,
-                                        "bound_by": bound_by, "library_ms": t["library"][0]}
+            if dname == "bfloat16" and name in ("cross", "gemma3 serve pos 1183"):
+                rows["flash_decode" + ("_256" if D == 256 else "")] = {
+                    "max_abs_err": err, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"][0]}
     _decode_graph_replay(torch, gen)
     return rows
 
@@ -3978,6 +4026,53 @@ def _attn_counts() -> dict:
             "flash_attention_simt": KA.SIMT_LAUNCHES, "flash_attention_bwd": KA.BWD_LAUNCHES,
             "flash_attention_bwd_wgmma": KA.BWD_WGMMA_LAUNCHES,
             "flash_attention_bwd_simt": KA.BWD_SIMT_LAUNCHES, "flash_decode": KD.FWD_LAUNCHES}
+
+
+def _wide_counts() -> dict:
+    """The launches on the instantiations for heads past 192 and 128 that
+    gemma3's heads of 256 take (the tensor-core forward's two warpgroups,
+    the backward's column halves, the CUDA-core tiles of 256, K11 sized for
+    256 columns), each its own row of the kernels line."""
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KA
+
+    return {"flash_attention_wgmma_256": KA.WGMMA_WIDE_LAUNCHES,
+            "flash_attention_simt_256": KA.SIMT_WIDE_LAUNCHES,
+            "flash_attention_bwd_wgmma_256": KA.BWD_WGMMA_WIDE_LAUNCHES,
+            "flash_attention_bwd_simt_256": KA.BWD_SIMT_WIDE_LAUNCHES,
+            "flash_decode_256": KD.WIDE_LAUNCHES}
+
+
+def _wide(route: str, D: int, Dv: int, n: int, bwd: int = 0, dec: int = 0) -> dict:
+    """The expected ``_wide_counts`` of ``n`` K10 forward launches and
+    ``bwd`` calls of its backward on ``route``, and ``dec`` K11 launches,
+    all at widths D, Dv: those that the libraries' ``*_wide`` entries, the
+    tests their dispatch branches on, put on the instantiations counted
+    apart."""
+    from repro_torch.kernels import flash_attention as KA
+
+    wg = route == "wgmma"
+    fwd = (KA._lib().flash_attention_wgmma_wide if wg else KA._lib().flash_attention_simt_wide)
+    back = (KA._bwd_wgmma_lib().flash_attention_bwd_wgmma_wide if wg
+            else KA._bwd_lib().flash_attention_bwd_simt_wide)
+    n, bwd = n * fwd(D, Dv), bwd * back(D, Dv)
+    return {"flash_attention_wgmma_256": n if wg else 0, "flash_attention_simt_256": 0 if wg else n,
+            "flash_attention_bwd_wgmma_256": bwd if wg else 0,
+            "flash_attention_bwd_simt_256": 0 if wg else bwd,
+            "flash_decode_256": dec * KA._lib().flash_decode_wide(D, Dv)}
+
+
+def _attn_widths(cfg) -> tuple:
+    """A transformer config's K10 widths (D, Dv): multi-head latent
+    attention's q·k and v widths, else the head width."""
+    m = cfg.mla
+    return (cfg.head_dim, cfg.head_dim) if m is None else (m.qk_nope_dim + m.qk_rope_dim, m.v_dim)
+
+
+def _check_wide(tag: str, want: dict) -> None:
+    got = _wide_counts()
+    if got != want:
+        raise AssertionError(f"{tag}: launches on the wide instantiations {got}, expected {want}")
 
 
 def _k10(n: int, route: str = "wgmma", bwd: int = 0) -> dict:
@@ -4243,20 +4338,27 @@ WHISPER_LOSS_RTOL = 5e-3
 
 
 @contextlib.contextmanager
-def _plain_attention_on_card():
+def _attention_swapped(replacement):
     """Every attention of the model (``models/attention.py``'s
-    ``blockwise_attention`` calls ``flash_attention`` by name) takes K10's
-    plain version on the card inside the block, under autograd: its
-    forward and its backward are plain PyTorch."""
-    from repro_torch.kernels import ref
+    ``blockwise_attention`` calls ``flash_attention`` by name) calls
+    ``replacement`` inside the block."""
     from repro_torch.models import attention
 
     saved = attention.flash_attention
-    attention.flash_attention = ref.flash_attention_ref
+    attention.flash_attention = replacement
     try:
         yield
     finally:
         attention.flash_attention = saved
+
+
+def _plain_attention_on_card():
+    """Every attention of the model takes K10's plain version on the card
+    inside the block, under autograd: its forward and its backward are
+    plain PyTorch."""
+    from repro_torch.kernels import ref
+
+    return _attention_swapped(ref.flash_attention_ref)
 
 
 def phase_whisper_train(torch):
@@ -4398,7 +4500,7 @@ def phase_whisper_train(torch):
 # aggregated delta to TINY_LM_DELTA_ATOL (fp32 sums in other orders: the
 # card's K10 and cuBLAS against the CPU's plain versions)
 TINY_LM_TASKS = ("lm-transformer", "lm-moe", "keyword", "lm-rwkv", "zamba2-7b-smoke",
-                 "deepseek-v2-lite-16b-smoke")
+                 "deepseek-v2-lite-16b-smoke", "gemma3-4b-d256-smoke")
 TINY_LM_LOSS_RTOL = 1e-4
 TINY_LM_DELTA_ATOL = 1e-5
 # lm-rwkv's aggregated delta (entries up to 0.31, against the transformers'
@@ -4415,14 +4517,26 @@ def _tiny_lm_task(name: str):
     """A registered task, or zamba2-7b's or deepseek-v2-lite-16b's smoke
     config on the shared corpus (the hybrid's and MLA's tiny tasks: the
     reference registers none; deepseek's smoke MLA runs K10 at D = 48, Dv =
-    32 in fp32, on the CUDA-core routes)."""
+    32 in fp32, on the CUDA-core routes), or gemma3's at gemma3-4b's head
+    width (``gemma3_d256_smoke``: K10's CUDA-core routes at tiles of 256)."""
     from repro_torch.configs import deepseek_v2_lite_16b, zamba2_7b
     from repro_torch.core.task import get_task, task_for_config
 
-    smoke = {"zamba2-7b-smoke": zamba2_7b, "deepseek-v2-lite-16b-smoke": deepseek_v2_lite_16b}
+    smoke = {"zamba2-7b-smoke": zamba2_7b.make_smoke_config,
+             "deepseek-v2-lite-16b-smoke": deepseek_v2_lite_16b.make_smoke_config,
+             "gemma3-4b-d256-smoke": gemma3_d256_smoke}
     if name in smoke:
-        return task_for_config(smoke[name].make_smoke_config(), name=name)
+        return task_for_config(smoke[name](), name=name)
     return get_task(name)
+
+
+def gemma3_d256_smoke():
+    """gemma3's smoke config (2 layers: one local of window 16, one global;
+    fp32) at gemma3-4b's head width: 2 heads on 1 kv head of 256, as
+    tests/test_torch_gemma3.py holds it against the JAX package."""
+    from repro_torch.configs import gemma3_4b
+
+    return dataclasses.replace(gemma3_4b.make_smoke_config(), head_dim=256, n_heads=2, n_kv=1)
 
 
 def _lm_step_launches(task, steps: int, route: str, backward: bool = True) -> dict:
@@ -4437,6 +4551,8 @@ def _lm_step_launches(task, steps: int, route: str, backward: bool = True) -> di
     want = {"threefry_normal": steps} if backward else {}
     if task.kind in ("dense", "moe"):
         want.update(_k10(cfg.n_layers * steps, route, bwd=cfg.n_layers * bwd))
+        D, Dv = _attn_widths(cfg)
+        want.update(_wide(route, D, Dv, cfg.n_layers * steps, bwd=cfg.n_layers * bwd))
     elif task.kind == "hybrid":
         apps = cfg.n_attn_applications
         want.update(_k10(apps * steps, route, bwd=apps * bwd), ssm_scan_fwd=cfg.n_layers * steps,
@@ -4455,7 +4571,9 @@ def phase_tiny_lm_rounds(torch):
     K10's CUDA-core route (fp32) and its CUDA-core backward, each RWKV
     layer K12 and each Mamba2 layer K13, forward and backward, once a
     client step (exact launches, ``_lm_step_launches``); every task
-    launches the normal kernel once a client step."""
+    launches the normal kernel once a client step. gemma3's smoke config
+    at heads of 256 takes the CUDA-core routes' tiles of 256. Returns the
+    card rounds' launches, summed."""
     from repro_torch.core.engine import build_round_engine
     from repro_torch.core.plan import FederatedPlan, FVNConfig
     from repro_torch.data import FederatedSampler
@@ -4464,6 +4582,7 @@ def phase_tiny_lm_rounds(torch):
     plan = FederatedPlan(clients_per_round=K, local_batch_size=b, data_limit=limit,
                          client_lr=0.05, server_optimizer="sgd", server_lr=1.0,
                          fvn=FVNConfig(enabled=True, std=0.01))
+    summed: dict = {}
     for name in TINY_LM_TASKS:
         task = _tiny_lm_task(name)
         params = task.init_params(torch.Generator().manual_seed(0))
@@ -4488,6 +4607,7 @@ def phase_tiny_lm_rounds(torch):
                                          f"{ {k: v for k, v in counts.items() if v} }, expected "
                                          f"{ {k: v for k, v in want.items() if v} } over "
                                          f"{steps} client steps")
+                summed = {k: summed.get(k, 0) + v for k, v in counts.items()}
             out[device] = (metrics["loss"], {k: (p[k] - state.params[k]).cpu() for k in p})
         (loss_c, delta_c), (loss_h, delta_h) = out["cuda"], out["cpu"]
         if not math.isclose(loss_c, loss_h, rel_tol=TINY_LM_LOSS_RTOL):
@@ -4504,6 +4624,7 @@ def phase_tiny_lm_rounds(torch):
             f"{steps} client steps: "
             + ", ".join(f"{k} {v // steps}" for k, v in want.items() if v)
             + " (K10 on its CUDA-core routes, fp32)")
+    return summed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4874,14 +4995,17 @@ def phase_transformer_serve(torch, name: str, params: dict, corpus):
     return launches
 
 
-def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bool):
-    """B=4 prompts of 128 tokens (label rows of the eval split; for a VLM
+def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bool,
+                       prompt_len: int = QWEN_PROMPT):
+    """B=4 prompts of ``prompt_len`` tokens (label rows of the eval split;
+    with no corpus, tokens from numpy's generator at seed 1; for a VLM
     config, seeded tokens after 576 seeded image tokens, ``_llava_batch``),
     ``prefill``, every layer group's cache copied into ``init_cache(B, n +
-    32)`` (F6; n the prefix's positions, 128 or 704), 32 greedy
-    ``decode_step``s. Exact launches (K10 once a layer in
+    32)`` (F6; n the prefix's positions: 128, 704 or gemma3's 1,152), 32
+    greedy ``decode_step``s. Exact launches (K10 once a layer in
     prefill, on the tensor cores in bf16; K11 once a layer a step, none with
-    MLA, whose decode scores against the compressed cache in plain einsums),
+    MLA, whose decode scores against the compressed cache in plain einsums;
+    at heads of 256 each on its wide instantiation, ``_wide_counts``),
     times and peak memory; with ``profiled``, prefill and 10 decode steps
     again under torch.profiler; every step's logits (prefill's last and the
     32 decode steps') against a teacher-forced forward over prompt and
@@ -4911,17 +5035,23 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
     if lm.moe is not None and lm.n_layers - lm.moe_first_dense != 1:
         raise ValueError(f"{name}: the serve's check holds one MoE layer, the last; this "
                          f"config has {lm.n_layers - lm.moe_first_dense}")
+    import numpy as np
+
     bundle = model_zoo.build_model(cfg)
-    if lm is cfg:
-        n_img, batch = 0, {"tokens": torch.from_numpy(
-            corpus.eval_split(QWEN_SERVE_B)["labels"][:, :QWEN_PROMPT]).to("cuda", torch.long)}
+    if lm is not cfg:
+        n_img, batch = cfg.n_img_tokens, _llava_batch(torch, cfg, (QWEN_SERVE_B,), prompt_len, 1)
+    elif corpus is None:
+        tokens = np.random.default_rng(1).integers(0, cfg.vocab, (QWEN_SERVE_B, prompt_len))
+        n_img, batch = 0, {"tokens": torch.from_numpy(tokens).to("cuda", torch.long)}
     else:
-        n_img, batch = cfg.n_img_tokens, _llava_batch(torch, cfg, (QWEN_SERVE_B,), QWEN_PROMPT, 1)
-    L, n = lm.n_layers, n_img + QWEN_PROMPT
+        n_img, batch = 0, {"tokens": torch.from_numpy(
+            corpus.eval_split(QWEN_SERVE_B)["labels"][:, :prompt_len]).to("cuda", torch.long)}
+    L, n = lm.n_layers, n_img + prompt_len
     total = n + QWEN_STEPS
     k11 = 0 if lm.mla is not None else L  # K11 launches a decode step
     bf16 = lm.cdtype == torch.bfloat16
     route, tol = ("wgmma", QWEN_SERVE_TOL) if bf16 else ("simt", FP32_SERVE_TOL)
+    D, Dv = _attn_widths(lm)
     prompt = batch["tokens"]
     tag = f"[{name} serve]"
 
@@ -4942,7 +5072,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
             return transformer.unembed(lm, lm_params, h[:, n - 1:]).transpose(0, 1)
         if cfg.moe is None:
             h, _ = transformer.forward(cfg, params, tokens)
-            return transformer.unembed(cfg, params, h[:, QWEN_PROMPT - 1:]).transpose(0, 1)
+            return transformer.unembed(cfg, params, h[:, prompt_len - 1:]).transpose(0, 1)
         # A decode step's one token never overflows an expert (its top-k
         # experts are distinct, each of capacity >= 1), while 160 tokens at
         # the config's capacity factor drop some. So the decode steps are
@@ -4954,7 +5084,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
         h, _ = transformer.forward(nodrop, params, tokens)
         h0, _ = transformer.forward(cfg, params, prompt)
         return torch.cat([transformer.unembed(cfg, params, h0[:, -1:]),
-                          transformer.unembed(cfg, params, h[:, QWEN_PROMPT:])],
+                          transformer.unembed(cfg, params, h[:, prompt_len:])],
                          dim=1).transpose(0, 1)
 
     with torch.no_grad():
@@ -4973,6 +5103,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
             _check_attn(f"{tag} prefill", {**_k10(L, route), "flash_decode": 0})
+            _check_wide(f"{tag} prefill", _wide(route, D, Dv, L))
             steps, fed = [logits], []
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -4985,10 +5116,12 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
             end.record()
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0
-        launches = _attn_counts()
+        launches = {**_attn_counts(), **_wide_counts()}
         peak = torch.cuda.max_memory_allocated()
         _check_attn(f"{tag} prefill + {QWEN_STEPS} decode steps",
                     {**_k10(L, route), "flash_decode": k11 * QWEN_STEPS})
+        _check_wide(f"{tag} prefill + {QWEN_STEPS} decode steps",
+                    _wide(route, D, Dv, L, dec=k11 * QWEN_STEPS))
         del cache
 
         windows = {}
@@ -5036,7 +5169,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
                 return (a.sort(-1).values == b.sort(-1).values).all(-1).transpose(0, 1)
 
             def at_positions(routes):
-                return torch.cat([routes[1][:, -1:], routes[0][:, QWEN_PROMPT:]], dim=1)
+                return torch.cat([routes[1][:, -1:], routes[0][:, prompt_len:]], dim=1)
 
             want = at_positions(tf_routes)
             same = alike(want, torch.cat([dec_routes[0][:, -1:], *dec_routes[1:]], dim=1))
@@ -5061,7 +5194,7 @@ def _serve_transformer(torch, name: str, cfg, params: dict, corpus, profiled: bo
         checked, n_pos = _margin_agrees(torch, dec[same], tf[same], tol) if barred else \
             (0, int(same.sum()))
     log(f"{tag} B={QWEN_SERVE_B}, " + (f"{n_img} image tokens + " if n_img else "")
-        + f"{QWEN_PROMPT}-token prompts, {QWEN_STEPS} greedy steps: prefill over {n} positions "
+        + f"{prompt_len}-token prompts, {QWEN_STEPS} greedy steps: prefill over {n} positions "
         f"(with the cache copy to {total} slots) {prefill_s * 1e3:.2f} ms, decode "
         f"{decode_s * 1e3 / QWEN_STEPS:.3f} ms per token on the host clock "
         f"({start.elapsed_time(end) / QWEN_STEPS:.3f} ms between CUDA events), "
@@ -5257,6 +5390,193 @@ def phase_vlm_train(torch):
         f"{first['tokens'].shape[-1]} positions: relative error {logits_rel:.3e} (tol "
         f"{QWEN_SERVE_TOL}), greedy tokens agree at {checked} of the {n_pos} positions with a "
         f"clear margin")
+    return trained, params
+
+
+# gemma3-4b at full width and 6 of its 34 layers (1,908,444,672 bf16
+# parameters: d_model 2,560, 8 query heads on 4 kv heads of 256, d_ff 10,240,
+# vocab 262,144 (the embedding and the unembedding 1,342,177,280 of them),
+# qk_norm, (1 + scale) RMSNorm, sqrt(2,560) = 50.5 in bf16 on the
+# embeddings; 5 local layers of a 1,024-token window to 1 global). Depth is
+# the cut: 6 layers is the least that holds one global layer, so it holds
+# the model's pattern. Reckoned before the first run: at llava's 31 B and
+# qwen3-8b's 34 B a parameter a round keeps 59-65 GB, the loss's fp32
+# logits kept for autograd 4.3 GB (32 chunks of 128 rows x 262,144) and the
+# activations of 6 layers at 4,096 positions about 3 GB: 66-72 GB of the
+# card's 80, so the rows stay at train_4k's 4,096 (all 34 layers would need
+# 141-155 GB). Measured on an H100 80GB, right after qwen3-8b's phases: a
+# peak of 61,347,118,592 B (32 B a parameter), 23,670,374,912 B of the
+# card's 85,017,493,504 to spare, so the phase runs on the allocator
+# qwen3-8b released; the phase prints its headroom. Its rounds run as llava's (``make_round_step`` over the
+# bundle's loss, as the reference's dry run) on a round batch in
+# ``lm_train_batch``'s layout at train_4k: K = 4 clients of 2 local steps at b
+# = 1, tokens from numpy's generator over the whole vocabulary, FVN 0.01 and
+# the server's Adam at 1e-5 (LLAVA_ARGV). A client step launches K10's
+# forward 6 times (5 with the window, which masks keys from position 1,024
+# on, 1 without) and its backward 6, all on the wide instantiations.
+GEMMA3_LAYERS, GEMMA3_PARAMS = 6, 1_908_444_672
+GEMMA3_LOCAL_STEPS = 2
+GEMMA3_INSTS = {"flash_attention_wgmma_wide_kernel<4, 128>": 6, "fa_bwd_prep_kernel": 6,
+                "fa_bwd_dkdv_halves_kernel<4, 4>": 6, "fa_bwd_dq_halves_kernel<4, 4>": 6}
+# the first client step's loss at the round-start parameters, one forward on
+# K10 against one on its plain version under no_grad (a round on the plain
+# attention would keep (8, 4,096, 512) fp32 score blocks a layer), as
+# llava's; its logits at all 4,096 positions at QWEN_SERVE_TOL with the
+# greedy tokens' margin agreement
+GEMMA3_LOSS_RTOL = 1e-3
+# the serve: B = 4 prompts of 1,152 seeded tokens (past the window of 1,024,
+# so the local layers' K10 in prefill and K11 in every decode step mask
+# keys), the cache grown to 1,184 slots
+GEMMA3_PROMPT = 1152
+
+
+def gemma3_config():
+    """gemma3-4b at full width and GEMMA3_LAYERS of its 34 layers."""
+    from repro_torch.configs import gemma3_4b
+
+    return gemma3_4b.make_config(n_layers=GEMMA3_LAYERS)
+
+
+def _window_tap(records: list):
+    """Each K10 call the models make inside the block appends its window
+    (0: none) to ``records``; its launches and results unchanged."""
+    from repro_torch.models import attention
+
+    saved = attention.flash_attention
+
+    def tapped(q, k, v, **kw):
+        records.append(int(kw.get("window") or 0))
+        return saved(q, k, v, **kw)
+
+    return _attention_swapped(tapped)
+
+
+def phase_gemma3_train(torch):
+    """gemma3-4b trained at full width (``gemma3_config``): two FedAvg rounds
+    through ``make_round_step(bundle.loss_fn, plan, seed)`` with the
+    training entry point's plan (LLAVA_ARGV) on a round batch in
+    ``lm_train_batch``'s layout at train_4k, exact launches a client step
+    (K10's forward and backward 6 each on the wide instantiations, the
+    normal kernel 1), round times, peak memory; one more round under
+    torch.profiler (``_profiled_round``: device time by kernel, busy share,
+    GEMMA3_INSTS); the first client step's forward on K10 and on its plain
+    version on the card, the windows of its 12 K10 calls (5 local and 1
+    global layer, in the trunk and in the loss), its loss within
+    GEMMA3_LOSS_RTOL and its logits at every position within QWEN_SERVE_TOL
+    of the largest. Returns (the training rounds' launch counts, the
+    trained parameters)."""
+    import numpy as np
+
+    from repro_torch.configs import base
+    from repro_torch.core.fedavg import init_server_state, make_round_step
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo, transformer
+
+    cfg, tag = gemma3_config(), "[gemma3-4b train]"
+    L = cfg.n_layers
+    args = train.parse_args(list(LLAVA_ARGV))
+    plan, rounds = train.build_plan(args), args.rounds
+    layout = base.lm_train_batch(base.SHAPES["train_4k"], args.clients, GEMMA3_LOCAL_STEPS,
+                                 args.batch)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, tuple(layout["tokens"].shape),
+                                               dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda"),
+             "weight": torch.ones(layout["weight"].shape, device="cuda")}
+    if {k: (v.shape, v.dtype) for k, v in batch.items()} != \
+            {k: (v.shape, v.dtype) for k, v in layout.items()}:
+        raise AssertionError(f"{tag} the batch is not lm_train_batch's layout")
+    bundle = model_zoo.build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = bundle.param_count(params)
+    if n_params != GEMMA3_PARAMS:
+        raise AssertionError(f"{tag} {n_params} parameters, expected {GEMMA3_PARAMS}")
+    step = make_round_step(bundle.loss_fn, plan, 0)
+    first = {k: v[0, 0] for k, v in batch.items()}
+
+    def forward():
+        """The loss through the bundle, and the logits at every position."""
+        h, _ = transformer.forward(cfg, params, first["tokens"])
+        return float(bundle.loss_fn(params, first)[0]), transformer.unembed(cfg, params, h)
+
+    with torch.no_grad():
+        _zero_counts()
+        windows = []
+        with _window_tap(windows):
+            loss_k, logits_k = forward()
+        _check_attn(f"{tag} one forward", {**_k10(2 * L), "flash_decode": 0})
+        _check_wide(f"{tag} one forward", _wide("wgmma", cfg.head_dim, cfg.head_dim, 2 * L))
+        if windows != cfg.layer_windows() * 2:
+            raise AssertionError(f"{tag} the forward's K10 windows {windows}, expected "
+                                 f"{cfg.layer_windows()} in the trunk and in the loss")
+        with _plain_attention_on_card():
+            loss_p, logits_p = forward()
+        _check_attn(f"{tag} one forward on the plain attention",
+                    {**_k10(2 * L), "flash_decode": 0})
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        logits_rel = _rel(torch, logits_k, logits_p)
+        if not math.isfinite(loss_k) or rel > GEMMA3_LOSS_RTOL or \
+                not torch.isfinite(logits_k).all() or logits_rel > QWEN_SERVE_TOL:
+            raise AssertionError(f"{tag} the first client step's forward on K10 against the "
+                                 f"plain attention's: loss {loss_k} against {loss_p}, relative "
+                                 f"gap {rel:.3e} (tol {GEMMA3_LOSS_RTOL}); logits relative "
+                                 f"error {logits_rel:.3e} (tol {QWEN_SERVE_TOL})")
+        checked, n_pos = _margin_agrees(torch, logits_k, logits_p, QWEN_SERVE_TOL)
+        del logits_k, logits_p
+    state = init_server_state(plan, params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_counts()
+    losses, round_s = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    trained = _counts()
+    steps = args.clients * GEMMA3_LOCAL_STEPS * rounds
+    want = {k: 0 for k in trained}
+    want.update(_k10(L * steps, bwd=L * steps), threefry_normal=steps)
+    want.update(_wide("wgmma", cfg.head_dim, cfg.head_dim, L * steps, bwd=L * steps))
+    if trained != want:
+        raise AssertionError(f"{tag} launches over the training rounds "
+                             f"{ {k: v for k, v in trained.items() if v} }, expected "
+                             f"{ {k: v for k, v in want.items() if v} } ({steps} client steps)")
+    if not all(math.isfinite(x) for x in losses) or metrics["examples"] != \
+            args.clients * GEMMA3_LOCAL_STEPS * args.batch:
+        raise AssertionError(f"{tag} losses {losses}, examples {metrics['examples']}")
+
+    def profiled():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    want_round = {k: v // rounds for k, v in want.items()}
+    _profiled_round(torch, tag, profiled, round_s[-1], GEMMA3_INSTS, steps // rounds, want_round)
+    params = {k: v.detach() for k, v in state.params.items()}
+    del state
+    log(f"{tag} {n_params} parameters ({cfg.pdtype}) in {len(params)} leaves, {L} of 34 "
+        f"layers (windows {cfg.layer_windows()}); K={args.clients} b={args.batch} "
+        f"{GEMMA3_LOCAL_STEPS} local steps over rows of {layout['tokens'].shape[3]} tokens, FVN "
+        f"{args.fvn_std}: losses {losses}; ms per round {[round(t * 1e3, 1) for t in round_s]}; "
+        f"client examples per second "
+        f"{[args.clients * GEMMA3_LOCAL_STEPS * args.batch / t for t in round_s]}; peak memory "
+        f"over the training rounds {peak} B ({held} B allocated before them; "
+        f"{torch.cuda.get_device_properties(0).total_memory - peak} B of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory} B to spare)")
+    log(f"{tag} launches per client step over {steps} client steps: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in trained.items() if v)
+        + " (K10's forward 5 with the window of 1,024 and 1 without, by the forward's calls)")
+    log(f"{tag} the first client step's loss at the round-start parameters, one forward: "
+        f"{loss_k} on K10, {loss_p} on its plain version on the card: relative gap "
+        f"{rel:.3e} (tol {GEMMA3_LOSS_RTOL}); its logits at all {first['tokens'].shape[-1]} "
+        f"positions: relative error {logits_rel:.3e} (tol {QWEN_SERVE_TOL}), greedy tokens "
+        f"agree at {checked} of the {n_pos} positions with a clear margin")
     return trained, params
 
 
@@ -5707,6 +6027,16 @@ def main() -> int:
     del qwen_params, qwen_corpus
     _release(torch, "qwen3-8b")
     mark("qwen3-8b serve")
+    # gemma3-4b second (a peak of 61.3 GB measured here on an H100 80GB,
+    # 23.7 GB to spare), on the allocator qwen3-8b released; served as
+    # qwen3-8b is, from 1,152-token prompts
+    gemma_launches, params = phase_gemma3_train(torch)
+    mark("gemma3-4b training")
+    gemma_serve_launches = _serve_transformer(torch, "gemma3-4b", gemma3_config(), params, None,
+                                              True, GEMMA3_PROMPT)
+    del params
+    _release(torch, "gemma3-4b")
+    mark("gemma3-4b serve")
     # then the recurrent models, largest peak first, each phase's state
     # dropped and the allocator's cache emptied before the next
     rwkv_launches, params, corpus = phase_lm_train(torch, RWKV_RUN)
@@ -5765,7 +6095,7 @@ def main() -> int:
     phase_tiny_slowpath(torch)
     phase_tiny_encdec(torch)
     phase_tiny_ladder(torch)
-    phase_tiny_lm_rounds(torch)
+    tiny_lm_launches = phase_tiny_lm_rounds(torch)
     registry_launches = phase_registry_serves(torch)
     mark("tiny phases and the registry's serves")
     round_s_chunked = phase_paper_width(torch, False, "ref")[1]
@@ -5835,20 +6165,23 @@ def main() -> int:
     # K1 runs the main path's LSTM steps under 'ref'; K2, K3, K4 and the
     # normal kernel (FVN) under 'auto'; K5-K9 in the compressed and
     # slow-path runs (their launches summed); K10 and K11 in the
-    # whisper-base, qwen3-8b, zamba2-7b, deepseek-v2-lite-16b and
-    # llava-next-mistral-7b serves and trainings and the registry's serves,
-    # K10's backward in the five trainings (each path's launches summed)
+    # whisper-base, qwen3-8b, gemma3-4b, zamba2-7b, deepseek-v2-lite-16b and
+    # llava-next-mistral-7b serves and trainings, the registry's serves and
+    # the tiny LM rounds, K10's backward in the trainings and the tiny rounds
+    # (each path's launches summed); each row of the instantiations for
+    # heads of 256 (``_wide_counts``) takes its launches out of its kernel's
+    # row, so that no launch counts twice
     for name in ("lstm_gates_fwd", "lstm_gates_bwd"):
         launches[name] = k1_launches[name]
     launches.update(wire_launches)
-    for name in ("flash_attention_wgmma", "flash_attention_simt", "flash_decode"):
-        launches[name] = attn_launches[name] + qwen_serve_launches[name] + qwen_launches[name] \
-            + zamba_launches[name] + zamba_serve_launches[name] + deepseek_launches[name] \
-            + deepseek_serve_launches[name] + llava_launches[name] \
-            + llava_serve_launches[name] + registry_launches.get(name, 0)
-    for name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_simt"):
-        launches[name] = train_launches[name] + qwen_launches[name] + zamba_launches[name] \
-            + deepseek_launches[name] + llava_launches[name]
+    attn_paths = (attn_launches, train_launches, qwen_launches, qwen_serve_launches,
+                  zamba_launches, zamba_serve_launches, deepseek_launches,
+                  deepseek_serve_launches, llava_launches, llava_serve_launches, gemma_launches,
+                  gemma_serve_launches, registry_launches, tiny_lm_launches)
+    for wide in _wide_counts():
+        base = wide.removesuffix("_256")
+        launches[wide] = sum(path.get(wide, 0) for path in attn_paths)
+        launches[base] = sum(path.get(base, 0) for path in attn_paths) - launches[wide]
     # K12 in the rwkv6-1.6b training and serve, K13 in zamba2-7b's (and each
     # in the registry's serves of their smoke configs)
     for name in ("wkv6_fwd", "wkv6_bwd"):
@@ -5901,6 +6234,12 @@ def main() -> int:
         "flash_attention_wgmma": (attn, "src/repro/kernels/flash_attention.py:70"),
         "flash_attention_simt": (attn, "src/repro/kernels/flash_attention.py:70"),
         "flash_decode": (attn, "src/repro/kernels/decode_attention.py:62"),
+        # their instantiations for heads of 256 (``_wide_counts``: the
+        # forward's two warpgroups, the CUDA-core tiles of 256; K11 sized
+        # for 256 columns)
+        "flash_attention_wgmma_256": (attn, "src/repro/kernels/flash_attention.py:70"),
+        "flash_attention_simt_256": (attn, "src/repro/kernels/flash_attention.py:70"),
+        "flash_decode_256": (attn, "src/repro/kernels/decode_attention.py:62"),
         # no pallas_call: jax.grad of the model's jnp attention
         # (blockwise_attention), which the training path differentiates; its
         # two routes (the rule in kernels/flash_attention.py:bwd_route)
@@ -5908,6 +6247,11 @@ def main() -> int:
                                       "src/repro/models/attention.py:84"),
         "flash_attention_bwd_simt": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
                                      "src/repro/models/attention.py:84"),
+        # at heads of 256: the column halves, the CUDA-core tiles of 256
+        "flash_attention_bwd_wgmma_256": ("src/repro_torch/kernels/csrc/attention_bwd_wgmma.cu",
+                                          "src/repro/models/attention.py:84"),
+        "flash_attention_bwd_simt_256": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
+                                         "src/repro/models/attention.py:84"),
         # no pallas_call: FVN's jax.random.normal and its scaled sum, which
         # XLA fuses (perturb, :40-48; the gaussian adversary's and the DP
         # noise's the same)
@@ -5929,7 +6273,8 @@ def main() -> int:
     # K10's CUDA-core routes serve fp32 and other widths: the main path (the
     # bf16 serve and training at head width 64) takes the tensor cores by
     # the rules
-    off_path = {"flash_attention_simt", "flash_attention_bwd_simt"}
+    off_path = {"flash_attention_simt", "flash_attention_bwd_simt", "flash_attention_simt_256",
+                "flash_attention_bwd_simt_256"}
     idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in off_path]
     if idle:
         raise AssertionError(f"kernels of the main path never launched: {idle}")

@@ -27,13 +27,14 @@
 // K10 has two routes; the wrapper (kernels/flash_attention.py) picks one
 // by a fixed rule: bf16 with D and Dv multiples of 16 (and 16-byte aligned
 // tensors) takes the tensor cores, everything else the CUDA cores. Both take
-// a q.k width D up to 192 and a v width Dv up to 128 (multi-head latent
-// attention's 128 + 64 against 128, src/repro/models/mla.py:73).
+// a q.k width D and a v width Dv up to 256 (gemma3's heads of 256; multi-
+// head latent attention's 128 + 64 against 128, src/repro/models/mla.py:73).
 //
 // flash_attention_wgmma (K10 on tensor cores). q (B, Sq, H, D), k (B, Sk,
 // Kv, D), v (B, Sk, Kv, Dv), bf16; o (B, Sq, H, Dv) bf16. Grid (ceil(Sq /
-// 64), B * H): one warpgroup per 64 query rows of one head, reading kv head
-// h / (H / Kv). Q's tile is loaded once; K/V tiles of 64 keys stream
+// 64), B * H): one warpgroup per 64 query rows of one head (two past Dv =
+// 128, each accumulating half of o's columns), reading kv head h / (H /
+// Kv). Q's tile is loaded once; K/V tiles of 64 keys stream
 // through a ring of 2 stages by TMA (4-d tensor maps over the (B, S,
 // heads, D) layouts, so nothing is transposed in HBM; zero fill past every
 // edge), completing on mbarriers, so the next tile's copy overlaps this
@@ -62,8 +63,8 @@
 // of one head. The block walks the kv axis in tiles of 64 keys staged in
 // shared memory as fp32; a thread owns a 4 x 4 tile of the (32, 64) scores
 // (its rows 4*ty..4*ty+3, its keys tx + 16*c) and a 4 x (Dv / 16) tile of
-// the accumulator. DT, the width its tiles hold, is 64, 128 or 192 (the
-// q.k width D padded; Dv <= D's padding, or Dv <= 128 under DT = 192). Per
+// the accumulator. DT, the width its tiles hold, is 64, 128, 192 or 256
+// (max(D, Dv) padded; at 256 a block takes 177,408 B, one an SM). Per
 // tile, as blockwise_attention does per block: scores
 // in fp32 from the scaled query, softcap, masks, the row max over the 16
 // threads of a row (warp shuffles), the online softmax above. Bound at the
@@ -149,7 +150,7 @@ constexpr int kTQ = 32;                        // query rows a block
 constexpr int kTK = 64;                        // keys a tile
 constexpr int kFaThreads = (kTQ / 4) * 16;     // 8 row groups x 16 key lanes
 
-template <int DT>  // DT: the head width padded to 64, 128 or 192
+template <int DT>  // DT: the head width padded to 64, 128, 192 or 256
 struct FaSmem {
   static constexpr int q_ld = kTQ + 4;   // Qs[DT][q_ld], transposed, rows 16-byte aligned
   static constexpr int k_ld = DT + 1;    // Ks[kTK][k_ld], padded: lanes read distinct banks
@@ -328,27 +329,38 @@ constexpr size_t wg_smem_bytes(int nd, int dv) {
          8 * (kWgStages + 1);
 }
 
-// flash_attention_wgmma (K10, bf16, D a multiple of 16 up to 192 and DV
-// one up to 128; ND = ceil(D / 64), 1 to 3). Grid (ceil(Sq / 64), B * H), one warpgroup a block.
+// The body of both tensor-core forwards (K10, bf16, D a multiple of 16 up
+// to 256; ND = ceil(D / 64), 1 to 4). Grid (ceil(Sq / 64), B * H). DV1 = 0:
+// flash_attention_wgmma_kernel<ND, DV>, one warpgroup a block accumulating
+// all DV = Dv columns (up to 128). DV1 > 0: flash_attention_wgmma_wide_kernel
+// <ND, DV1> at Dv > 128, two warpgroups a block on the same 64 query rows,
+// warpgroup 0 accumulating columns [0, 128) (DV = 128), warpgroup 1
+// columns [128, 128 + DV1) (DV1, 64 or 128, covers Dv - 128; columns past
+// Dv are TMA's zeros and are not stored). Both run Q.K^T on the shared Q
+// and K tiles with the same products in the same order, so their scores,
+// row maxima and sums are the same bits, and each keeps ND <= 3's 64
+// accumulator floats a thread; Q, K and V are loaded once a block.
 // Shared memory, each region 1,024-byte aligned as the 128-byte swizzle
 // needs: Q (ND regions of 64 rows x 64 columns), then kWgStages stages of
-// K (ND regions) and V (ceil(DV / 64) regions), then the stages' mbarriers
-// and Q's. Thread 0 issues every TMA load; TMA zero-fills rows past Sq and
-// Sk and columns past D and DV, so a ragged tile adds 0 to both products
-// and Q.K^T can run all 4 ND k16 steps (a compile-time count: with a
-// run-time one, ptxas serialises the products). At ND = 3 (D = 192) a block
-// takes wg_smem_bytes(3, 128) = 107,544 B, two blocks an SM; its registers
-// are ND = 2's (Q and K stay in shared memory).
-template <int ND, int DV>
-__global__ void __launch_bounds__(kWgThreads)
-flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                             const __grid_constant__ CUtensorMap tm_k,
-                             const __grid_constant__ CUtensorMap tm_v,
-                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
-                             int Sk, int H, int Kv, float scale, int causal, int window,
-                             float softcap, int q_offset) {
-  constexpr int NV = (DV + 63) / 64;
+// K (ND regions) and V (ceil((DV + DV1) / 64) regions), then the stages'
+// mbarriers and Q's. Thread 0 issues every TMA load; TMA zero-fills rows
+// past Sq and Sk and columns past D and Dv, so a ragged tile adds 0 to both
+// products and Q.K^T can run all 4 ND k16 steps (a compile-time count: with
+// a run-time one, ptxas serialises the products). At ND = 3 (D = 192) and
+// DV = 128 a block takes wg_smem_bytes(3, 128) = 107,544 B, two blocks an
+// SM; at ND = 4 and Dv = 256 wg_smem_bytes(4, 256) = 164,888 B, one block
+// an SM. Registers are ND = 2's: Q and K stay in shared memory.
+template <int ND, int DV, int DV1>
+__device__ __forceinline__ void fa_wgmma_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                              const CUtensorMap* tm_v,
+                                              __nv_bfloat16* __restrict__ o,
+                                              float* __restrict__ lse, int Sq, int Sk, int H,
+                                              int Kv, int Dv, float scale, int causal, int window,
+                                              float softcap, int q_offset) {
+  constexpr int NWG = DV1 > 0 ? 2 : 1;
+  constexpr int NV = (DV + DV1 + 63) / 64;
   constexpr int NO = DV / 2;  // accumulator floats a thread
+  static_assert(NWG == 1 || DV == 128, "two warpgroups split Dv at column 128");
   extern __shared__ uint8_t wg_smem[];
   uint8_t* base = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
   uint8_t* Qs = base;
@@ -357,7 +369,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* bars = reinterpret_cast<uint64_t*>(KV0 + kWgStages * stage_bytes);
   uint64_t* qbar = bars + kWgStages;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
+  const int wg = NWG > 1 ? tid / kWgThreads : 0;   // this thread's warpgroup
+  const int t = NWG > 1 ? tid % kWgThreads : tid;  // and its thread in it
+  const int warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int cq = lane & 3;                 // and its column pair in each 8 columns
   const int h = blockIdx.y % H;
@@ -387,9 +402,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_expect_tx(qbar, ND * kAtom);
-      for (int r = 0; r < ND; ++r) tma_load_4d(Qs + r * kAtom, &tm_q, 64 * r, h, q0, b, qbar);
+      for (int r = 0; r < ND; ++r) tma_load_4d(Qs + r * kAtom, tm_q, 64 * r, h, q0, b, qbar);
       for (int s = 0; s < min(n_tiles, kWgStages); ++s)
-        load_kv(KV0 + s * stage_bytes, &bars[s], &tm_k, &tm_v, ND, NV, kvh, t_first + s * kWgKeys,
+        load_kv(KV0 + s * stage_bytes, &bars[s], tm_k, tm_v, ND, NV, kvh, t_first + s * kWgKeys,
                 b);
     }
     __syncthreads();  // the barriers are initialised before anyone waits on them
@@ -493,10 +508,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       pin<16>(Ph);
       pin<16>(Pl);
       wgmma_fence();
+      if (wg == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-        rs_step<DV>(O, Ph + 4 * kk, Vs, kk);
-        rs_step<DV>(O, Pl + 4 * kk, Vs, kk);
+        for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+          rs_step<DV>(O, Ph + 4 * kk, Vs, kk);
+          rs_step<DV>(O, Pl + 4 * kk, Vs, kk);
+        }
+      } else if constexpr (NWG > 1) {  // columns from 128 on: V's regions from 2 on
+#pragma unroll
+        for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+          rs_step<DV1>(O, Ph + 4 * kk, Vs + 2 * kAtom, kk);
+          rs_step<DV1>(O, Pl + 4 * kk, Vs + 2 * kAtom, kk);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -506,7 +529,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       __syncthreads();  // every warp's products are done with this stage
       if (tid == 0 && it + kWgStages < n_tiles)
-        load_kv(KV0 + st * stage_bytes, &bars[st], &tm_k, &tm_v, ND, NV, kvh,
+        load_kv(KV0 + st * stage_bytes, &bars[st], tm_k, tm_v, ND, NV, kvh,
                 t0 + kWgStages * kWgKeys, b);
       __syncwarp();
     }
@@ -517,26 +540,57 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
   }
+  // a row of o is Dv columns; with two warpgroups, warpgroup 1's from 128 on
+  const int ld = NWG > 1 ? Dv : DV;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = q0 + r0 + 8 * rr;
     if (row >= Sq) continue;
-    if (lse != nullptr && cq == 0) store_lse(lse, b, h, H, Sq, row, m[rr], l[rr]);
+    if (lse != nullptr && cq == 0 && wg == 0) store_lse(lse, b, h, H, Sq, row, m[rr], l[rr]);
     const float denom = fmaxf(l[rr], 1e-30f);
-    __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * DV + 2 * cq;
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * Sq + row) * H + h) * ld + DV * wg + 2 * cq;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(O[4 * j + 2 * rr] / denom, O[4 * j + 2 * rr + 1] / denom);
+      if (NWG == 1 || DV * wg + 8 * j < Dv)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(O[4 * j + 2 * rr] / denom, O[4 * j + 2 * rr + 1] / denom);
   }
+}
+
+// K10 on tensor cores at Dv <= 128: one warpgroup a block (the body above).
+template <int ND, int DV>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                             int Sk, int H, int Kv, float scale, int causal, int window,
+                             float softcap, int q_offset) {
+  fa_wgmma_body<ND, DV, 0>(&tm_q, &tm_k, &tm_v, o, lse, Sq, Sk, H, Kv, DV, scale, causal, window,
+                           softcap, q_offset);
+}
+
+// K10 on tensor cores at 128 < Dv <= 256: two warpgroups a block, columns
+// [0, 128) and [128, 128 + DV1) (the body above).
+template <int ND, int DV1>
+__global__ void __launch_bounds__(2 * kWgThreads)
+flash_attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                                  int Sk, int H, int Kv, int Dv, float scale, int causal,
+                                  int window, float softcap, int q_offset) {
+  fa_wgmma_body<ND, 128, DV1>(&tm_q, &tm_k, &tm_v, o, lse, Sq, Sk, H, Kv, Dv, scale, causal,
+                              window, softcap, q_offset);
 }
 
 // ------------------------------------------------------------------ K11
 
 constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kMaxG = 16;    // query heads a kv head
-constexpr int kMaxDim = 128;  // D and Dv
+constexpr int kMaxG = 16;     // query heads a kv head
+constexpr int kMaxDim = 256;  // D and Dv
 
 // CH = 16 / sizeof(T) elements of a cache row from `d0`, as fp32: one
 // 16-byte load when the rows allow it (`vec`), else element by element;
@@ -576,10 +630,21 @@ __device__ __forceinline__ float merge_weight(float m, float m_safe) {
   return m <= kNegInf / 2 ? 0.f : expf(m - m_safe);
 }
 
+// E: the elements of a cache row a lane of K11 holds (E / CH 16-byte chunks)
+template <typename T, int DM>
+__host__ __device__ constexpr int dec_lane_elems() {
+  constexpr int CH = 16 / sizeof(T);
+  return DM / (32 * CH) > 1 ? DM / 32 : CH;
+}
+
 // flash_decode (K11), split over S. Grid (B * Kv, n_split): block (bkv,
 // sp) takes slots [sp * split, (sp + 1) * split) of kv head bkv and its G
-// query heads. A lane group of `lps` lanes (a power of two) holds one
-// slot's k and v rows, CH elements a lane; the block's 128 / lps groups
+// query heads. DM, the widths' bound (128 or 256), sizes the scaled
+// queries and the warps' partial sums in dynamic shared memory ((1 +
+// kDecWarps) GM DM floats: 80 KB at GM = 16, DM = 256). A lane group of
+// `lps` lanes (a power of two, at most 32) holds one slot's k and v rows,
+// E = NC CH elements a lane (NC = 2 16-byte chunks for fp32 at DM = 256,
+// else 1, so a row of 256 fits one warp); the block's 128 / lps groups
 // each walk every (128 / lps)-th slot of the split with their own online
 // softmax (m, l and acc in fp32 for each of the GM <= 16 rows), are merged
 // within the warp by shuffles and across warps in shared memory, and the
@@ -589,16 +654,18 @@ __device__ __forceinline__ float merge_weight(float m, float m_safe) {
 // (b, kv head) merges the n_split partials in split order (no float
 // atomics: the same inputs give the same bits) into o, and resets the
 // ticket to 0 for the next launch.
-template <typename T, int GM>
+template <typename T, int GM, int DM>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                     T* __restrict__ o, const int* __restrict__ pos_ptr, float* __restrict__ part,
                     int* __restrict__ tickets, int S, int Kv, int G, int D, int Dv, float scale,
                     int window, int ring, float softcap, int split, int lps, int vec) {
   constexpr int CH = 16 / sizeof(T);
-  __shared__ __align__(16) float Qs[GM][kMaxDim];  // scaled
+  constexpr int E = dec_lane_elems<T, DM>();
+  extern __shared__ __align__(16) float dec_smem[];
+  float* Qs = dec_smem;           // [GM][DM], scaled
+  float* Wacc = Qs + GM * DM;     // [kDecWarps][GM][DM]
   __shared__ float Wm[kDecWarps][GM], Wl[kDecWarps][GM];
-  __shared__ float Wacc[kDecWarps][GM][kMaxDim];
   __shared__ int is_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -621,25 +688,25 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       parts[(static_cast<long long>(g) * n_split + sp) * Dp + e] = e == 0 ? kNegInf : 0.f;
     }
   } else {
-    for (int idx = tid; idx < GM * kMaxDim; idx += kDecThreads) {
-      const int g = idx / kMaxDim, d = idx % kMaxDim;
+    for (int idx = tid; idx < GM * DM; idx += kDecThreads) {
+      const int g = idx / DM, d = idx % DM;
       float val = 0.f;
       if (g < G && d < D)
         val = load_f(q + (static_cast<long long>(b) * H + kvh * G + g) * D + d) * scale;
-      Qs[g][d] = val;
+      Qs[g * DM + d] = val;
     }
     __syncthreads();
 
     const int per_warp = 32 / lps;
-    const int sub = lane % lps, d0 = sub * CH;
+    const int sub = lane % lps, d0 = sub * E;
     const int gid = warp * per_warp + lane / lps, n_groups = kDecWarps * per_warp;
-    float m[GM], l[GM], acc[GM][CH];
+    float m[GM], l[GM], acc[GM][E];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       m[g] = kNegInf;
       l[g] = 0.f;
 #pragma unroll
-      for (int e = 0; e < CH; ++e) acc[g][e] = 0.f;
+      for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
     }
 
     const T* kb = kc + (static_cast<long long>(b) * S * Kv + kvh) * D;
@@ -654,13 +721,16 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
         const int a = pos - back;
         valid = a >= 0 && a <= pos && (window <= 0 || a > pos - window);
       }
-      float kf[CH], vf[CH];
+      float kf[E], vf[E];
       if (valid) {
-        load_chunk(kb + static_cast<long long>(j) * Kv * D, d0, D, vec, kf);
-        load_chunk(vb + static_cast<long long>(j) * Kv * Dv, d0, Dv, vec, vf);
+#pragma unroll
+        for (int c = 0; c < E / CH; ++c) {
+          load_chunk(kb + static_cast<long long>(j) * Kv * D, d0 + c * CH, D, vec, kf + c * CH);
+          load_chunk(vb + static_cast<long long>(j) * Kv * Dv, d0 + c * CH, Dv, vec, vf + c * CH);
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < CH; ++e) kf[e] = vf[e] = 0.f;
+        for (int e = 0; e < E; ++e) kf[e] = vf[e] = 0.f;
       }
       float s[GM];
 #pragma unroll
@@ -668,7 +738,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
         s[g] = 0.f;
         if (g >= G) break;
 #pragma unroll
-        for (int e = 0; e < CH; ++e) s[g] = fmaf(Qs[g][d0 + e], kf[e], s[g]);
+        for (int e = 0; e < E; ++e) s[g] = fmaf(Qs[g * DM + d0 + e], kf[e], s[g]);
       }
       for (int off = lps / 2; off > 0; off >>= 1)
 #pragma unroll
@@ -687,7 +757,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
         const float corr = merge_weight(m[g], m_safe);
         l[g] = l[g] * corr + p;
 #pragma unroll
-        for (int e = 0; e < CH; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e] * corr);
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e] * corr);
         m[g] = m_new;
       }
     }
@@ -704,7 +774,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
         const float wa = merge_weight(m[g], Ms), wb = merge_weight(m_o, Ms);
         l[g] = wa * l[g] + wb * l_o;
 #pragma unroll
-        for (int e = 0; e < CH; ++e) {
+        for (int e = 0; e < E; ++e) {
           const float a_o = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
           acc[g][e] = wa * acc[g][e] + wb * a_o;
         }
@@ -719,8 +789,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
           Wl[warp][g] = l[g];
         }
 #pragma unroll
-        for (int e = 0; e < CH; ++e)
-          if (d0 + e < Dv) Wacc[warp][g][d0 + e] = acc[g][e];
+        for (int e = 0; e < E; ++e)
+          if (d0 + e < Dv) Wacc[(warp * GM + g) * DM + d0 + e] = acc[g][e];
       }
     }
     __syncthreads();
@@ -735,7 +805,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       for (int w = 0; w < kDecWarps; ++w) {
         const float wt = merge_weight(Wm[w][g], Ms);
         L += wt * Wl[w][g];
-        A += wt * Wacc[w][g][dv];
+        A += wt * Wacc[(w * GM + g) * DM + dv];
       }
       float* dst = parts + (static_cast<long long>(g) * n_split + sp) * Dp;
       dst[2 + dv] = A;
@@ -790,8 +860,8 @@ int launch_fa(const void* q, const void* k, const void* v, void* o, void* lse, i
 
 template <int ND, int DV>
 int launch_fa_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
-                    void* lse, int B, int Sq, int Sk, int H, int Kv, float scale, int causal,
-                    int window, float softcap, int q_offset, cudaStream_t s) {
+                    void* lse, int B, int Sq, int Sk, int H, int Kv, int Dv, float scale,
+                    int causal, int window, float softcap, int q_offset, cudaStream_t s) {
   static bool ready = false;
   auto kernel = flash_attention_wgmma_kernel<ND, DV>;
   cudaError_t err = allow_smem(kernel, wg_smem_bytes(ND, DV), &ready);
@@ -803,84 +873,117 @@ int launch_fa_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensor
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int GM>
+// Dv in (128, 128 + DV1]: two warpgroups a block
+template <int ND, int DV1>
+int launch_fa_wgmma_wide(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         void* o, void* lse, int B, int Sq, int Sk, int H, int Kv, int Dv,
+                         float scale, int causal, int window, float softcap, int q_offset,
+                         cudaStream_t s) {
+  static bool ready = false;
+  auto kernel = flash_attention_wgmma_wide_kernel<ND, DV1>;
+  constexpr size_t smem = wg_smem_bytes(ND, 128 + DV1);
+  cudaError_t err = allow_smem(kernel, smem, &ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + kWgRows - 1) / kWgRows, B * H);
+  kernel<<<grid, 2 * kWgThreads, smem, s>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+                                             static_cast<float*>(lse), Sq, Sk, H, Kv, Dv, scale,
+                                             causal, window, softcap, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int GM, int DM>
 int launch_decode(const void* q, const void* kc, const void* vc, void* o, const void* pos,
                   void* part, void* tickets, int B, int S, int Kv, int G, int D, int Dv,
                   float scale, int window, int ring, float softcap, int split, cudaStream_t s) {
   constexpr int CH = 16 / sizeof(T);
-  const int need = (std::max(D, Dv) + CH - 1) / CH;
+  constexpr int E = dec_lane_elems<T, DM>();
+  const int need = (std::max(D, Dv) + E - 1) / E;
   int lps = 1;
   while (lps < need) lps *= 2;
   const bool aligned = reinterpret_cast<uintptr_t>(kc) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(vc) % 16 == 0;
   const int vec = aligned && D % CH == 0 && Dv % CH == 0;
+  static bool ready = false;
+  auto kernel = flash_decode_kernel<T, GM, DM>;
+  constexpr size_t smem = (1 + kDecWarps) * GM * DM * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem, &ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * Kv, (S + split - 1) / split);
-  flash_decode_kernel<T, GM><<<grid, kDecThreads, 0, s>>>(
+  kernel<<<grid, kDecThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
       static_cast<T*>(o), static_cast<const int*>(pos), static_cast<float*>(part),
       static_cast<int*>(tickets), S, Kv, G, D, Dv, scale, window, ring, softcap, split, lps, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int DM>
 int launch_decode_g(const void* q, const void* kc, const void* vc, void* o, const void* pos,
                     void* part, void* tickets, int B, int S, int Kv, int G, int D, int Dv,
                     float scale, int window, int ring, float softcap, int split, cudaStream_t s) {
-  if (G == 1)
-    return launch_decode<T, 1>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
-                               window, ring, softcap, split, s);
-  if (G <= 4)
-    return launch_decode<T, 4>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
-                               window, ring, softcap, split, s);
-  if (G <= 8)
-    return launch_decode<T, 8>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
-                               window, ring, softcap, split, s);
-  return launch_decode<T, kMaxG>(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale,
-                                 window, ring, softcap, split, s);
+  const auto run = [&](auto launch) {
+    return launch(q, kc, vc, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale, window, ring,
+                  softcap, split, s);
+  };
+  if (G == 1) return run(launch_decode<T, 1, DM>);
+  if (G <= 4) return run(launch_decode<T, 4, DM>);
+  if (G <= 8) return run(launch_decode<T, 8, DM>);
+  return run(launch_decode<T, kMaxG, DM>);
 }
 
 }  // namespace
 
+// The instantiations for heads past the widths of 192 and 128 that a launch
+// at widths D, Dv takes, each test the one its dispatch below branches on:
+// the wrappers count those launches apart. The CUDA-core forward's tiles of
+// 256; the tensor-core forward's two warpgroups a block; K11 sized for 256
+// columns.
+extern "C" int flash_attention_simt_wide(int D, int Dv) { return std::max(D, Dv) > 192; }
+extern "C" int flash_attention_wgmma_wide(int, int Dv) { return Dv > 128; }
+extern "C" int flash_decode_wide(int D, int Dv) { return std::max(D, Dv) > 128; }
+
 // K10 on CUDA cores. dtype: 0 = float32, 1 = bfloat16 (q, k, v and o
-// alike). D at most 192 and Dv at most 128; H a multiple of Kv; B * H at
-// most 65,535.
+// alike). D and Dv at most 256; H a multiple of Kv; B * H at most 65,535.
 // window 0 = none; softcap 0 = none. Returns a cudaError_t as int (0 =
 // success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Sk, int H, int Kv, int D,
                                    int Dv, float scale, int causal, int window, float softcap,
                                    int q_offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
-      Dv > 128 || static_cast<long long>(B) * H > 65535)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256 || static_cast<long long>(B) * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = std::max(D, Dv);  // the tiles' width: 64, 128 or 192
+  const int width = std::max(D, Dv);  // the tiles' width: 64, 128, 192 or 256
   const auto run = [&](auto launch) {
     return launch(q, k, v, o, lse, B, Sq, Sk, H, Kv, D, Dv, scale, causal, window, softcap,
                   q_offset, s);
   };
+  const bool wide = flash_attention_simt_wide(D, Dv);
   if (dtype == 0)
-    return width <= 64    ? run(launch_fa<float, 64>)
+    return wide           ? run(launch_fa<float, 256>)
+           : width <= 64  ? run(launch_fa<float, 64>)
            : width <= 128 ? run(launch_fa<float, 128>)
                           : run(launch_fa<float, 192>);
   if (dtype == 1)
-    return width <= 64    ? run(launch_fa<__nv_bfloat16, 64>)
+    return wide           ? run(launch_fa<__nv_bfloat16, 256>)
+           : width <= 64  ? run(launch_fa<__nv_bfloat16, 64>)
            : width <= 128 ? run(launch_fa<__nv_bfloat16, 128>)
                           : run(launch_fa<__nv_bfloat16, 192>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K10 on tensor cores: bf16 q, k, v and o, contiguous, 16-byte aligned; D
-// a multiple of 16 up to 192, Dv one up to 128; H a multiple of Kv; B * H
-// at most 65,535. Returns a cudaError_t as int (0 = success), or a negated
+// and Dv multiples of 16 up to 256; H a multiple of Kv; B * H at most
+// 65,535. Dv <= 128 takes flash_attention_wgmma_kernel<ceil(D / 64), Dv>,
+// Dv > 128 flash_attention_wgmma_wide_kernel<ceil(D / 64), 64 or 128>. Returns a cudaError_t as int (0 = success), or a negated
 // CUresult if a tensor map could not be encoded.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int B, int Sq, int Sk, int H, int Kv, int D,
                                          int Dv, float scale, int causal, int window,
                                          float softcap, int q_offset, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
-      Dv > 128 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
       misaligned(k) || misaligned(v) || misaligned(o))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -890,21 +993,32 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto launch) {
-    return launch(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, scale, causal, window, softcap, q_offset,
-                  s);
+    return launch(tq, tk, tv, o, lse, B, Sq, Sk, H, Kv, Dv, scale, causal, window, softcap,
+                  q_offset, s);
   };
-  switch (Dv) {
+  const int nd = (D + 63) / 64;
+  if (!flash_attention_wgmma_wide(D, Dv)) switch (Dv) {
 #define K10_DV(n)                                                                            \
   case n:                                                                                    \
-    return D <= 64 ? run(launch_fa_wgmma<1, n>)                                              \
-                   : (D <= 128 ? run(launch_fa_wgmma<2, n>) : run(launch_fa_wgmma<3, n>));
+    return nd == 1 ? run(launch_fa_wgmma<1, n>)                                              \
+         : nd == 2 ? run(launch_fa_wgmma<2, n>)                                              \
+         : nd == 3 ? run(launch_fa_wgmma<3, n>)                                              \
+                   : run(launch_fa_wgmma<4, n>);
     K10_DV(16) K10_DV(32) K10_DV(48) K10_DV(64) K10_DV(80) K10_DV(96) K10_DV(112) K10_DV(128)
 #undef K10_DV
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  // Dv in (128, 256]: warpgroup 1's columns from 128 on, 64 or 128 of them
+#define K10_WIDE(n)                                                                          \
+  (nd == 1 ? run(launch_fa_wgmma_wide<1, n>)                                                 \
+   : nd == 2 ? run(launch_fa_wgmma_wide<2, n>)                                               \
+   : nd == 3 ? run(launch_fa_wgmma_wide<3, n>)                                               \
+             : run(launch_fa_wgmma_wide<4, n>))
+  return Dv <= 192 ? K10_WIDE(64) : K10_WIDE(128);
+#undef K10_WIDE
 }
 
-// K11. pos: one int32 on the device. G = H / Kv at most 16. part: B * H *
+// K11. pos: one int32 on the device. G = H / Kv at most 16; D and Dv at
+// most 256 (max(D, Dv) <= 128 takes DM = 128, else 256). part: B * H *
 // ceil(S / split) * (Dv + 2) fp32 of scratch; tickets: B * Kv int32, 0
 // before the launch (the launch leaves them 0).
 extern "C" int flash_decode_fwd(int dtype, const void* q, const void* k_cache,
@@ -917,11 +1031,15 @@ extern "C" int flash_decode_fwd(int dtype, const void* q, const void* k_cache,
       static_cast<long long>(B) * Kv > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool narrow = !flash_decode_wide(D, Dv);
+  const auto run = [&](auto launch) {
+    return launch(q, k_cache, v_cache, o, pos, part, tickets, B, S, Kv, G, D, Dv, scale, window,
+                  ring, softcap, split, s);
+  };
   if (dtype == 0)
-    return launch_decode_g<float>(q, k_cache, v_cache, o, pos, part, tickets, B, S, Kv, G, D,
-                                  Dv, scale, window, ring, softcap, split, s);
+    return narrow ? run(launch_decode_g<float, 128>) : run(launch_decode_g<float, 256>);
   if (dtype == 1)
-    return launch_decode_g<__nv_bfloat16>(q, k_cache, v_cache, o, pos, part, tickets, B, S, Kv,
-                                          G, D, Dv, scale, window, ring, softcap, split, s);
+    return narrow ? run(launch_decode_g<__nv_bfloat16, 128>)
+                  : run(launch_decode_g<__nv_bfloat16, 256>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,8 +9,8 @@
 // :103) has no backward. This is its gradient for the forward's whole
 // contract (csrc/attention.cu): causal or not, the query offset (query i
 // sits at q_offset + i), the scale on q, a sliding window, the tanh logit
-// softcap, GQA with H a multiple of Kv, Sq != Sk, ragged tiles, D up to
-// 192 and Dv up to 128, fp32 or bf16 in and out with fp32 sums.
+// softcap, GQA with H a multiple of Kv, Sq != Sk, ragged tiles, D and Dv
+// up to 256, fp32 or bf16 in and out with fp32 sums.
 //
 // FlashAttention-2's equations, P recomputed from q, k and the forward's
 // row log-sum-exp (lse (B, H, Sq) fp32; +inf for a row with no valid key):
@@ -87,8 +87,8 @@ __device__ __forceinline__ void store_f<__nv_bfloat16>(__nv_bfloat16* p, float v
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-// DT: the head width padded to 64, 128 or 192. At 192 a block takes
-// 165,120 B of shared memory, one block an SM.
+// DT: max(D, Dv) padded to 64, 128, 192 or 256. At 192 a block takes
+// 165,120 B of shared memory, at 256 214,272 B: one block an SM.
 template <int DT>
 struct BwdSmem {
   static constexpr int ld = DT + 1;     // Qs, dOs, Ks, Vs rows
@@ -373,9 +373,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 }  // namespace
 
+// Whether a launch at widths D, Dv takes the tiles of 256 (past 192), the
+// test the dispatch below branches on: the wrapper counts those launches
+// apart.
+extern "C" int flash_attention_bwd_simt_wide(int D, int Dv) { return (D > Dv ? D : Dv) > 192; }
+
 // K10's backward. dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq,
 // dk and dv alike); lse (B, H, Sq) fp32 from the forward; di: B * H * Sq
-// fp32 of scratch. D at most 192 and Dv at most 128; H a multiple of Kv;
+// fp32 of scratch. D and Dv at most 256; H a multiple of Kv;
 // B * H at most 65,535; Sq rows of 32 and Sk keys of 64 at most 2**31 blocks. Returns a
 // cudaError_t as int (0 = success).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -383,21 +388,24 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
                                    void* dk, void* dv, void* di, int B, int Sq, int Sk, int H,
                                    int Kv, int D, int Dv, float scale, int causal, int window,
                                    float softcap, int q_offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
-      Dv > 128 || static_cast<long long>(B) * H > 65535)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256 || static_cast<long long>(B) * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = D > Dv ? D : Dv;  // the tiles' width: 64, 128 or 192
+  const int width = D > Dv ? D : Dv;  // the tiles' width: 64, 128, 192 or 256
   const auto args = [&](auto launch) {
     return launch(q, k, v, o, lse, dout, dq, dk, dv, di, B, Sq, Sk, H, Kv, D, Dv, scale, causal,
                   window, softcap, q_offset, s);
   };
+  const bool wide = flash_attention_bwd_simt_wide(D, Dv);
   if (dtype == 0)
-    return width <= 64    ? args(launch_bwd<float, 64>)
+    return wide           ? args(launch_bwd<float, 256>)
+           : width <= 64  ? args(launch_bwd<float, 64>)
            : width <= 128 ? args(launch_bwd<float, 128>)
                           : args(launch_bwd<float, 192>);
   if (dtype == 1)
-    return width <= 64    ? args(launch_bwd<__nv_bfloat16, 64>)
+    return wide           ? args(launch_bwd<__nv_bfloat16, 256>)
+           : width <= 64  ? args(launch_bwd<__nv_bfloat16, 64>)
            : width <= 128 ? args(launch_bwd<__nv_bfloat16, 128>)
                           : args(launch_bwd<__nv_bfloat16, 192>);
   return static_cast<int>(cudaErrorInvalidValue);

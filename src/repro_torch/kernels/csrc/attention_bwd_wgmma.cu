@@ -9,9 +9,8 @@
 // over the forward's whole contract: causal or not, the query offset, the
 // scale, a sliding window, the tanh softcap (its derivative from the
 // recomputed raw score), GQA with H a multiple of Kv, Sq != Sk, ragged
-// tiles, D != Dv (multiples of 16, D up to 192 and Dv up to 128), rows
-// with no valid key (lse
-// +inf, so P = 0 and their gradients are 0). FlashAttention-2's equations
+// tiles, D != Dv (multiples of 16 up to 256), rows with no valid key
+// (lse +inf, so P = 0 and their gradients are 0). FlashAttention-2's equations
 // from the forward's row log-sum-exp:
 //   s_raw = scale (q . k),  t = tanh(s_raw / cap),  s = cap t (s_raw
 //   without a softcap),  P = exp(s - lse) on valid keys (0 elsewhere),
@@ -39,18 +38,24 @@
 //     += dS^T Q by register-A wgmma (the accumulator layout of S^T is the
 //     A-fragment layout, dO and Q read from the same tiles MN-major). The
 //     scale goes on the fp32 dK at the end, never on bf16 q;
-//   fa_bwd_dkdv_split_kernel, the dK/dV pass at D > 128 (ND = 3): one
+//   fa_bwd_dkdv_split_kernel, the dK/dV pass at ND or NV = 3: one
 //     warpgroup's registers cannot hold dK (96 floats a thread), dV (64),
 //     S^T and dP^T (32 each) at once, so two warpgroups a block share its
 //     64 keys and the same streamed stages: warpgroup 0 accumulates dV from
 //     S^T alone (P^T . dO), warpgroup 1 dK from S^T and dP^T (dS^T . Q);
 //     each computes S^T from the shared tiles (S^T's product twice a tile);
+//   fa_bwd_dkdv_halves_kernel, the dK/dV pass at ND or NV = 4 (gemma3's
+//     heads of 256): the split kernel's two warpgroups over two column
+//     blocks on the grid's z, block z accumulating dV's and dK's 128-wide
+//     half z (64 floats a thread instead of 128), each block computing S^T
+//     and dP^T whole;
 //   fa_bwd_dq_wgmma_kernel: grid (ceil(Sq / 64), B H), one warpgroup owns
 //     64 query rows of one head (Q and dO loaded once) and walks the kv
 //     tiles of 64 keys the forward visits, K and V through the same ring:
 //     S = Q K^T and dP = dO V^T from shared memory (P's exponentials again
 //     beside dP's products), dQ += dS K by register-A wgmma with K
-//     MN-major.
+//     MN-major; at ND = 4 fa_bwd_dq_halves_kernel, two column blocks on
+//     the grid's z, each dQ's 128-wide half from S and dP computed whole.
 // P and dS stay fp32 as two bf16 terms, hi + lo, each a register-A product
 // into the same fp32 sums, as the forward keeps p (csrc/attention.cu: one
 // bf16 term would change 42 % of its bf16 outputs at 1,500 keys): 10
@@ -67,7 +72,10 @@
 // qwen3-8b's head layout B=4, S=128, Kv=8, on 132 SMs); S and dP are
 // recomputed in both passes. Registers (ptxas): dK/dV 184 at D = Dv = 64,
 // 247 at 128, dQ 126 and 158; no spills. At D = 192, Dv = 128 a block takes
-// bwd_smem_bytes(3, 2) = 124,952 B, one block an SM, in both passes.
+// bwd_smem_bytes(3, 2) = 124,952 B, at D = Dv = 256 bwd_smem_bytes(4, 4) =
+// 198,680 B: one block an SM, in both passes. The halves kernels recompute
+// S and dP once more for each column block (the products of S^T and dP^T
+// of a key tile run in two blocks of dK/dV and two of dQ).
 //
 // Built by src/repro_torch/kernels/build.py with nvcc for sm_90a into a
 // shared library with a plain C interface, called through ctypes
@@ -411,25 +419,42 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       cq);
 }
 
-// dK and dV of 64 keys of one kv head at ND = 3 (fa_bwd_dkdv_split_kernel
-// in the header): 256 threads, warpgroup 0 for dV, warpgroup 1 for dK, over
-// the stages and in the tile order of fa_bwd_dkdv_wgmma_kernel, each sum in
-// the same order (dV += P_hi^T dO + P_lo^T dO, dK += dS_hi^T Q + dS_lo^T Q,
-// k16 step by k16 step). One accumulator array a thread, dV's 32 NV or dK's
-// 32 ND floats, so that neither warpgroup holds the other's. Thread 0 issues
-// every copy; both warpgroups finish a stage before it is refilled.
-template <int ND, int NV>
-__global__ void __launch_bounds__(2 * kThreads, 1)
-fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse2,
-                         const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Sq, int Sq_pad, int Sk, int H,
-                         int Kv, int D, int Dv, float scale, int causal, int window,
-                         float softcap, int q_offset) {
+// One k16 step of a column block's product, acc += a . tile over the block's
+// 64-column regions of a tile of N regions: the whole tile where C = N (one
+// block); else block 0 regions [0, C), block 1 the N - C after them.
+template <int N, int C>
+__device__ __forceinline__ void rs_block(float* acc, const uint32_t* a, const uint8_t* tile,
+                                         int z, int kk) {
+  if constexpr (C == N)
+    rs_step<64 * N>(acc, a, tile, kk);
+  else if (z == 0)
+    rs_step<64 * C>(acc, a, tile, kk);
+  else
+    rs_step<64 * (N - C)>(acc, a, tile + C * kAtom, kk);
+}
+
+// dK and dV of 64 keys of one kv head on two warpgroups (the split and the
+// halves kernels in the header): 256 threads, warpgroup 0 for dV, warpgroup
+// 1 for dK, over the stages and in the tile order of
+// fa_bwd_dkdv_wgmma_kernel, each sum in the same order (dV += P_hi^T dO +
+// P_lo^T dO, dK += dS_hi^T Q + dS_lo^T Q, k16 step by k16 step). One
+// accumulator array a thread, so that neither warpgroup holds the other's.
+// NZ column blocks over the grid's z: block z accumulates dV's regions and
+// dK's regions of rs_block (CV = ceil(NV / NZ) and CK = ceil(ND / NZ) of
+// them; a warpgroup whose output has none in its block idles), so at NZ =
+// 2 a thread holds 64 floats where one block would hold 128; each block
+// computes S^T and dP^T whole. Thread 0 issues every copy; both warpgroups
+// finish a stage before it is refilled.
+template <int ND, int NV, int NZ>
+__device__ __forceinline__ void dkdv_split_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse2, const float* __restrict__ di,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sq_pad, int Sk,
+    int H, int Kv, int D, int Dv, float scale, int causal, int window, float softcap,
+    int q_offset) {
+  constexpr int CK = (ND + NZ - 1) / NZ, CV = (NV + NZ - 1) / NZ;  // a block's regions
   constexpr int stage_bytes = (ND + NV) * kAtom;  // Q, then dO
-  constexpr int NA = 32 * (ND > NV ? ND : NV);    // dK's floats a thread (dV uses 32 NV)
+  constexpr int NA = 32 * (CK > CV ? CK : CV);    // dK's floats a thread (dV uses 32 CV)
   extern __shared__ uint8_t bwd_smem[];
   uint8_t* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
   uint8_t* Ks = base;
@@ -447,8 +472,8 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y / Kv;
   const int G = H / Kv;
   const int k0 = blockIdx.x * kRows;
-  const CUtensorMap* tm_q_ptr = &tm_q;
-  const CUtensorMap* tm_do_ptr = &tm_do;
+  const int z = NZ > 1 ? static_cast<int>(blockIdx.z) : 0;  // this block's columns
+  const bool cols = wg == 0 ? z * CV < NV : z * CK < ND;     // this warpgroup has some
 
   // query rows [i_lo, i_hi) can see some key of this block
   const int k_last = min(k0 + kRows, Sk) - 1;
@@ -463,9 +488,9 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int st = it % kStages;
     const int h = kvh * G + it / n_qt;
     const int q0 = q_first_tile + (it % n_qt) * kRows;
-    load_rows_stage<ND, NV>(stage0 + st * stage_bytes, rows_s + st * 2 * kRows, &bars[st],
-                            tm_q_ptr, tm_do_ptr, lse2, di,
-                            (static_cast<long long>(b) * H + h) * Sq_pad + q0, h, q0, b);
+    load_rows_stage<ND, NV>(stage0 + st * stage_bytes, rows_s + st * 2 * kRows, &bars[st], tm_q,
+                            tm_do, lse2, di, (static_cast<long long>(b) * H + h) * Sq_pad + q0, h,
+                            q0, b);
   };
 
   float acc[NA];
@@ -475,7 +500,7 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (n_tiles > 0) {
     if (tid == 0) {
       init_bars(bars, kStages + 1);
-      load_tiles<ND, NV>(Ks, kvbar, &tm_k, &tm_v, kvh, k0, b);  // Vs follows Ks
+      load_tiles<ND, NV>(Ks, kvbar, tm_k, tm_v, kvh, k0, b);  // Vs follows Ks
       for (int s = 0; s < min(n_tiles, kStages); ++s) load_stage(s);
     }
     __syncthreads();  // the barriers are initialised before anyone waits on them
@@ -501,7 +526,9 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
       float S[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) S[i] = 0.f;
-      if (wg == 0) {
+      if (!cols) {
+        // no columns of this warpgroup's output in this block
+      } else if (wg == 0) {
         // dV += P^T . dO, P^T from S^T = K . Q^T
         pin<32>(S);
         wgmma_fence();
@@ -521,18 +548,18 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         uint32_t Ph[16], Pl[16];
         split_bf16(S, Ph, Pl);
-        pin<32 * NV>(acc);
+        pin<32 * CV>(acc);
         pin<16>(Ph);
         pin<16>(Pl);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kRows / 16; ++kk) {
-          rs_step<64 * NV>(acc, Ph + 4 * kk, dOs, kk);
-          rs_step<64 * NV>(acc, Pl + 4 * kk, dOs, kk);
+          rs_block<NV, CV>(acc, Ph + 4 * kk, dOs, z, kk);
+          rs_block<NV, CV>(acc, Pl + 4 * kk, dOs, z, kk);
         }
         wgmma_commit();
         wgmma_wait_all();
-        pin<32 * NV>(acc);
+        pin<32 * CV>(acc);
         pin<16>(Ph);
         pin<16>(Pl);
       } else {
@@ -570,18 +597,18 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         uint32_t Dh[16], Dl[16];
         split_bf16(dP, Dh, Dl);
-        pin<32 * ND>(acc);
+        pin<32 * CK>(acc);
         pin<16>(Dh);
         pin<16>(Dl);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kRows / 16; ++kk) {
-          rs_step<64 * ND>(acc, Dh + 4 * kk, Qs, kk);
-          rs_step<64 * ND>(acc, Dl + 4 * kk, Qs, kk);
+          rs_block<ND, CK>(acc, Dh + 4 * kk, Qs, z, kk);
+          rs_block<ND, CK>(acc, Dl + 4 * kk, Qs, z, kk);
         }
         wgmma_commit();
         wgmma_wait_all();
-        pin<32 * ND>(acc);
+        pin<32 * CK>(acc);
         pin<16>(Dh);
         pin<16>(Dl);
       }
@@ -594,23 +621,52 @@ fa_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const long long row0 = static_cast<long long>(b) * Sk * Kv + kvh;  // key 0 of this kv head
   if (wg == 0)
-    store_rows<64 * NV>(dv + row0 * Dv, static_cast<long long>(Kv) * Dv, k0, Sk, Dv, acc, 1.f, r0,
-                        cq);
+    store_rows<64 * CV>(dv + row0 * Dv + 64 * CV * z, static_cast<long long>(Kv) * Dv, k0, Sk,
+                        Dv - 64 * CV * z, acc, 1.f, r0, cq);
   else
-    store_rows<64 * ND>(dk + row0 * D, static_cast<long long>(Kv) * D, k0, Sk, D, acc, scale, r0,
-                        cq);
+    store_rows<64 * CK>(dk + row0 * D + 64 * CK * z, static_cast<long long>(Kv) * D, k0, Sk,
+                        D - 64 * CK * z, acc, scale, r0, cq);
 }
 
-// dQ of 64 query rows of one head.
+#define K10_DKDV_PARAMS                                                                     \
+  const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,       \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float *__restrict__ lse2, const float *__restrict__ di,                         \
+      __nv_bfloat16 *__restrict__ dk, __nv_bfloat16 *__restrict__ dv, int Sq, int Sq_pad,   \
+      int Sk, int H, int Kv, int D, int Dv, float scale, int causal, int window,            \
+      float softcap, int q_offset
+#define K10_DKDV_ARGS                                                                       \
+  &tm_q, &tm_k, &tm_v, &tm_do, lse2, di, dk, dv, Sq, Sq_pad, Sk, H, Kv, D, Dv, scale, causal, \
+      window, softcap, q_offset
+
+// dK and dV at ND = 3 or NV = 3 (the split kernel): one column block.
 template <int ND, int NV>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                       const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v,
-                       const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse2,
-                       const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int Sq,
-                       int Sq_pad, int Sk, int H, int Kv, int D, float scale, int causal,
-                       int window, float softcap, int q_offset) {
+__global__ void __launch_bounds__(2 * kThreads, 1)
+fa_bwd_dkdv_split_kernel(K10_DKDV_PARAMS) {
+  dkdv_split_body<ND, NV, 1>(K10_DKDV_ARGS);
+}
+
+// dK and dV at ND = 4 or NV = 4 (the halves kernel): two column blocks.
+template <int ND, int NV>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+fa_bwd_dkdv_halves_kernel(K10_DKDV_PARAMS) {
+  dkdv_split_body<ND, NV, 2>(K10_DKDV_ARGS);
+}
+
+// dQ of 64 query rows of one head, NZ column blocks over the grid's z
+// (block z's regions of K are rs_block's: at NZ = 2, ND = 4, 64 floats a
+// thread where one block would hold 128; S and dP are computed whole in
+// each).
+template <int ND, int NV, int NZ>
+__device__ __forceinline__ void dq_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, const CUtensorMap* tm_do,
+                                        const float* __restrict__ lse2,
+                                        const float* __restrict__ di,
+                                        __nv_bfloat16* __restrict__ dq, int Sq, int Sq_pad,
+                                        int Sk, int H, int Kv, int D, float scale, int causal,
+                                        int window, float softcap, int q_offset) {
+  constexpr int CK = (ND + NZ - 1) / NZ;  // a block's regions of dQ
+  static_assert(NZ == 1 || ND > CK, "every column block has columns");
   constexpr int stage_bytes = (ND + NV) * kAtom;  // K, then V
   extern __shared__ uint8_t bwd_smem[];
   uint8_t* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
@@ -628,6 +684,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y / H;
   const int kvh = h / (H / Kv);
   const int q0 = blockIdx.x * kRows;
+  const int z = NZ > 1 ? static_cast<int>(blockIdx.z) : 0;  // this block's columns
 
   // keys [k_begin, k_end) can be valid for some row of this block
   const int q_first = q_offset + q0;
@@ -638,11 +695,9 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int t_first = (k_begin / kRows) * kRows;
   const int n_tiles = k_end > t_first ? (k_end - t_first + kRows - 1) / kRows : 0;
 
-  const CUtensorMap* tm_k_ptr = &tm_k;
-  const CUtensorMap* tm_v_ptr = &tm_v;
   const auto load_stage = [=](int it) {
     const int st = it % kStages;
-    load_tiles<ND, NV>(stage0 + st * stage_bytes, &bars[st], tm_k_ptr, tm_v_ptr, kvh,
+    load_tiles<ND, NV>(stage0 + st * stage_bytes, &bars[st], tm_k, tm_v, kvh,
                        t_first + it * kRows, b);
   };
 
@@ -651,14 +706,14 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float l2[2] = {lse2[at], lse2[at + 8]};
   const float dd[2] = {di[at], di[at + 8]};
 
-  float dQ[32 * ND];
+  float dQ[32 * CK];
 #pragma unroll
-  for (int i = 0; i < 32 * ND; ++i) dQ[i] = 0.f;
+  for (int i = 0; i < 32 * CK; ++i) dQ[i] = 0.f;
 
   if (n_tiles > 0) {
     if (tid == 0) {
       init_bars(bars, kStages + 1);
-      load_tiles<ND, NV>(Qs, qbar, &tm_q, &tm_do, h, q0, b);  // dOs follows Qs
+      load_tiles<ND, NV>(Qs, qbar, tm_q, tm_do, h, q0, b);  // dOs follows Qs
       for (int s = 0; s < min(n_tiles, kStages); ++s) load_stage(s);
     }
     __syncthreads();  // the barriers are initialised before anyone waits on them
@@ -715,18 +770,18 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // dQ += dS . K, dS as hi + lo
       uint32_t Dh[16], Dl[16];
       split_bf16(dP, Dh, Dl);
-      pin<32 * ND>(dQ);
+      pin<32 * CK>(dQ);
       pin<16>(Dh);
       pin<16>(Dl);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) {
-        rs_step<64 * ND>(dQ, Dh + 4 * kk, Ks, kk);
-        rs_step<64 * ND>(dQ, Dl + 4 * kk, Ks, kk);
+        rs_block<ND, CK>(dQ, Dh + 4 * kk, Ks, z, kk);
+        rs_block<ND, CK>(dQ, Dl + 4 * kk, Ks, z, kk);
       }
       wgmma_commit();
       wgmma_wait_all();
-      pin<32 * ND>(dQ);
+      pin<32 * CK>(dQ);
       pin<16>(Dh);
       pin<16>(Dl);
 
@@ -736,29 +791,74 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  store_rows<64 * ND>(dq + (static_cast<long long>(b) * Sq * H + h) * D,
-                      static_cast<long long>(H) * D, q0, Sq, D, dQ, scale, r0, cq);
+  store_rows<64 * CK>(dq + (static_cast<long long>(b) * Sq * H + h) * D + 64 * CK * z,
+                      static_cast<long long>(H) * D, q0, Sq, D - 64 * CK * z, dQ, scale, r0, cq);
 }
 
-// The dK/dV pass's kernel: from ND = FA_BWD_SPLIT_FROM_ND on, two
-// warpgroups a block (the split kernel); only the one chosen is
-// instantiated. tools/k10_bwd_split_ab.py builds this file again with the
-// macro at 1: at ND <= 2 the split kernel gives the one-warpgroup kernel's
-// bits and takes 3 to 21 % longer (NVIDIA H100 80GB HBM3, 700 W: 20.97
-// against 20.43 us at qwen3-8b's head layout, 19.10 against 15.79 at
-// zamba2-7b's), so it starts at 3.
+#define K10_DQ_PARAMS                                                                       \
+  const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,       \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float *__restrict__ lse2, const float *__restrict__ di,                         \
+      __nv_bfloat16 *__restrict__ dq, int Sq, int Sq_pad, int Sk, int H, int Kv, int D,     \
+      float scale, int causal, int window, float softcap, int q_offset
+#define K10_DQ_ARGS                                                                         \
+  &tm_q, &tm_k, &tm_v, &tm_do, lse2, di, dq, Sq, Sq_pad, Sk, H, Kv, D, scale, causal, window, \
+      softcap, q_offset
+
+// dQ at ND <= 3: one column block.
+template <int ND, int NV>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dq_wgmma_kernel(K10_DQ_PARAMS) {
+  dq_body<ND, NV, 1>(K10_DQ_ARGS);
+}
+
+// dQ at ND = 4: two column blocks.
+template <int ND, int NV>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dq_halves_kernel(K10_DQ_PARAMS) {
+  dq_body<ND, NV, 2>(K10_DQ_ARGS);
+}
+
+#undef K10_DKDV_PARAMS
+#undef K10_DKDV_ARGS
+#undef K10_DQ_PARAMS
+#undef K10_DQ_ARGS
+
+// The dK/dV pass's kernel: from max(ND, NV) = FA_BWD_SPLIT_FROM_ND on, two
+// warpgroups a block (the split kernel; the halves kernel, two column
+// blocks, at max(ND, NV) = 4); only the one chosen is instantiated.
+// tools/k10_bwd_split_ab.py builds this file again with the macro at 1: at
+// ND <= 2 the split kernel gives the one-warpgroup kernel's bits and takes 3
+// to 21 % longer (NVIDIA H100 80GB HBM3, 700 W: 20.97 against 20.43 us at
+// qwen3-8b's head layout, 19.10 against 15.79 at zamba2-7b's), so it starts
+// at 3. The dQ pass takes two column blocks at ND = 4.
 #ifndef FA_BWD_SPLIT_FROM_ND
 #define FA_BWD_SPLIT_FROM_ND 3
 #endif
+constexpr bool halves(int nd, int nv) { return (nd > nv ? nd : nv) == 4; }
+template <int ND, int NV>
+constexpr int kDkdvBlocks = halves(ND, NV) ? 2 : 1;
+template <int ND, int NV>
+constexpr bool kSplit = (ND > NV ? ND : NV) >= FA_BWD_SPLIT_FROM_ND;
 template <int ND>
-constexpr bool kSplit = ND >= FA_BWD_SPLIT_FROM_ND;
+constexpr int kDqBlocks = ND == 4 ? 2 : 1;
 
 template <int ND, int NV>
 constexpr auto dkdv_kernel() {
-  if constexpr (kSplit<ND>)
+  if constexpr (kDkdvBlocks<ND, NV> == 2)
+    return fa_bwd_dkdv_halves_kernel<ND, NV>;
+  else if constexpr (kSplit<ND, NV>)
     return fa_bwd_dkdv_split_kernel<ND, NV>;
   else
     return fa_bwd_dkdv_wgmma_kernel<ND, NV>;
+}
+
+template <int ND, int NV>
+constexpr auto dq_kernel() {
+  if constexpr (kDqBlocks<ND> == 2)
+    return fa_bwd_dq_halves_kernel<ND, NV>;
+  else
+    return fa_bwd_dq_wgmma_kernel<ND, NV>;
 }
 
 template <int ND, int NV>
@@ -769,9 +869,9 @@ int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
                      int q_offset, cudaStream_t s) {
   static bool ready_kv = false, ready_q = false;
   constexpr size_t smem = bwd_smem_bytes(ND, NV);
-  constexpr bool split = kSplit<ND>;
+  constexpr bool two_wg = kSplit<ND, NV> || kDkdvBlocks<ND, NV> == 2;
   auto kdkdv = dkdv_kernel<ND, NV>();
-  auto kdq = fa_bwd_dq_wgmma_kernel<ND, NV>;
+  auto kdq = dq_kernel<ND, NV>();
   cudaError_t err = allow_smem(kdkdv, smem, &ready_kv);
   if (err == cudaSuccess) err = allow_smem(kdq, smem, &ready_q);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -786,12 +886,13 @@ int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
                             static_cast<const float*>(lse), lse2, di, rows, Sq, Sq_pad, H, Dv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  kdkdv<<<dim3((Sk + kRows - 1) / kRows, B * Kv), split ? 2 * kThreads : kThreads, smem, s>>>(
+  kdkdv<<<dim3((Sk + kRows - 1) / kRows, B * Kv, kDkdvBlocks<ND, NV>),
+          two_wg ? 2 * kThreads : kThreads, smem, s>>>(
       tq, tk, tv, tdo, lse2, di, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       Sq, Sq_pad, Sk, H, Kv, D, Dv, scale, causal, window, softcap, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  kdq<<<dim3((Sq + kRows - 1) / kRows, B * H), kThreads, smem, s>>>(
+  kdq<<<dim3((Sq + kRows - 1) / kRows, B * H, kDqBlocks<ND>), kThreads, smem, s>>>(
       tq, tk, tv, tdo, lse2, di, static_cast<__nv_bfloat16*>(dq), Sq, Sq_pad, Sk, H, Kv, D, scale,
       causal, window, softcap, q_offset);
   return static_cast<int>(cudaGetLastError());
@@ -799,10 +900,17 @@ int launch_bwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
 
 }  // namespace
 
+// Whether a launch at widths D, Dv takes the dK/dV pass's halves kernel (ND
+// or NV = 4; the dQ pass's at ND = 4), the test its choice above makes: the
+// wrapper counts those launches apart. At D <= 192 with Dv in (128, 192] it
+// takes the split kernel at NV = 3 and the one-warpgroup dQ kernel.
+extern "C" int flash_attention_bwd_wgmma_wide(int D, int Dv) {
+  return halves((D + 63) / 64, (Dv + 63) / 64);
+}
+
 // K10's backward on tensor cores: bf16 q, k, v, o, dout, dq, dk and dv,
-// contiguous, 16-byte aligned; lse (B, H, Sq) fp32 from the forward; D a
-// multiple of 16 up to 192, Dv one up to 128; H a multiple of Kv; B * H at
-// most 65,535.
+// contiguous, 16-byte aligned; lse (B, H, Sq) fp32 from the forward; D and
+// Dv multiples of 16 up to 256; H a multiple of Kv; B * H at most 65,535.
 // scratch: 2 B H ceil(Sq / 64) 64 fp32, 16-byte aligned (the padded lse2
 // and di). Returns a cudaError_t as int (0 = success), or a negated
 // CUresult if a tensor map could not be encoded.
@@ -813,8 +921,8 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
                                          float scale, int causal, int window, float softcap,
                                          int q_offset, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 192 ||
-      Dv > 128 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Kv <= 0 || H % Kv || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256 || D % 16 || Dv % 16 || static_cast<long long>(B) * H > 65535 || misaligned(q) ||
       misaligned(k) || misaligned(v) || misaligned(o) || misaligned(dout) || misaligned(dq) ||
       misaligned(dk) || misaligned(dv) || misaligned(scratch))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -829,9 +937,14 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
     return launch(tq, tk, tv, tdo, o, dout, lse, dq, dk, dv, scratch, B, Sq, Sk, H, Kv, D, Dv,
                   scale, causal, window, softcap, q_offset, s);
   };
-  if (D <= 64)
-    return Dv <= 64 ? run(launch_bwd_wgmma<1, 1>) : run(launch_bwd_wgmma<1, 2>);
-  if (D <= 128)
-    return Dv <= 64 ? run(launch_bwd_wgmma<2, 1>) : run(launch_bwd_wgmma<2, 2>);
-  return Dv <= 64 ? run(launch_bwd_wgmma<3, 1>) : run(launch_bwd_wgmma<3, 2>);
+  const int nd = (D + 63) / 64, nv = (Dv + 63) / 64;
+#define K10_BWD(ND)                                                                          \
+  if (nd == ND)                                                                              \
+    return nv == 1   ? run(launch_bwd_wgmma<ND, 1>)                                          \
+           : nv == 2 ? run(launch_bwd_wgmma<ND, 2>)                                          \
+           : nv == 3 ? run(launch_bwd_wgmma<ND, 3>)                                          \
+                     : run(launch_bwd_wgmma<ND, 4>);
+  K10_BWD(1) K10_BWD(2) K10_BWD(3) K10_BWD(4)
+#undef K10_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }

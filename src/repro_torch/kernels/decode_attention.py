@@ -13,9 +13,14 @@ head) merges in split order: one launch, the same bits for the same
 inputs. The split count depends on S only, so a captured launch replays
 for any ``pos``.
 
+It takes D and Dv up to ``MAX_HEAD_DIM`` = 256 (gemma3's heads): past
+128 the kernel's queries and partial sums are sized for 256 columns.
+
 The wrapper takes the plain version (``ref.decode_attention_ref``) only
 for tensors on the CPU. A CUDA tensor gets the kernel or an exception;
-nothing falls back. ``FWD_LAUNCHES`` counts the kernel's launches.
+nothing falls back. ``FWD_LAUNCHES`` counts the kernel's launches,
+``WIDE_LAUNCHES`` those on its instantiation for 256 columns (the
+library's ``flash_decode_wide``, the test its dispatch branches on).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from repro_torch.kernels.flash_attention import (
 )
 
 FWD_LAUNCHES = 0
-MAX_HEAD_DIM = 128  # D and Dv (the kernel's kMaxDim)
+WIDE_LAUNCHES = 0
+MAX_HEAD_DIM = 256  # D and Dv (the kernel's kMaxDim)
 MAX_GROUP = 16  # query heads a kv head (the kernel's registers)
 SPLIT_SLOTS = 64  # cache slots a block
 
@@ -41,6 +47,13 @@ def n_splits(S: int) -> int:
     return -(-S // SPLIT_SLOTS)
 
 
+def check_kernel_shapes(D: int, Dv: int, G: int, S: int) -> None:
+    """The kernel's contract on widths, grouping and length."""
+    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM or G > MAX_GROUP or S == 0:
+        raise ValueError(f"the kernel takes D, Dv <= {MAX_HEAD_DIM}, H/Kv <= {MAX_GROUP} and "
+                         f"S >= 1; got D={D}, Dv={Dv}, H/Kv={G}, S={S}")
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
                  window=None, ring: bool = False, logit_softcap: float = 0.0,
                  scale=None) -> torch.Tensor:
@@ -48,7 +61,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
     integer tensor: the current token, already written) -> (B, H, Dv) in
     q's dtype. ``window`` None or 0 is no window; ``scale`` None is
     D**-0.5."""
-    global FWD_LAUNCHES
+    global FWD_LAUNCHES, WIDE_LAUNCHES
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
         raise ValueError("q must be (B, H, D) and the caches (B, S, Kv, D)")
     B, H, D = q.shape
@@ -66,9 +79,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
                                         logit_softcap=logit_softcap, scale=scale)
     check_kernel_inputs("flash_decode", q, k_cache, v_cache)
     G = H // Kv
-    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM or G > MAX_GROUP or S == 0:
-        raise ValueError(f"the kernel takes D, Dv <= {MAX_HEAD_DIM}, H/Kv <= {MAX_GROUP} and "
-                         f"S >= 1; got D={D}, Dv={Dv}, H/Kv={G}, S={S}")
+    check_kernel_shapes(D, Dv, G, S)
     if pos_t is None:
         pos_t = torch.full((), pos, dtype=torch.int32, device=q.device)
     elif pos_t.numel() != 1 or pos_t.dtype != torch.int32:
@@ -89,4 +100,5 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
         "flash_decode_fwd",
     )
     FWD_LAUNCHES += 1
+    WIDE_LAUNCHES += _lib().flash_decode_wide(D, Dv)
     return o

@@ -12,12 +12,14 @@ scale and the query offset of ``repro/models/attention.py:84
 blockwise_attention`` and mask ragged tiles, so every call of the
 model's function on the card runs them.
 
-Every route takes a q·k width D up to ``MAX_QK_DIM`` = 192 and a v width
-Dv up to ``MAX_V_DIM`` = 128: multi-head latent attention's 128 + 64
-against 128 (``repro/models/mla.py:73``) at its full width. Two forward
-routes, chosen by a fixed rule (``route``), not by a fallback: bf16 q, k
-and v with D and Dv multiples of 16, 16-byte aligned, go to the
-tensor-core kernel (``flash_attention_wgmma``); everything else
+Every route takes a q·k width D up to ``MAX_QK_DIM`` = 256 and a v width
+Dv up to ``MAX_V_DIM`` = 256: gemma3's heads of 256
+(``repro/configs/gemma3_4b.py``) and multi-head latent attention's 128 +
+64 against 128 (``repro/models/mla.py:73``) at their full widths. Two
+forward routes, chosen by a fixed rule (``route``), not by a fallback: bf16
+q, k and v with D and Dv multiples of 16, 16-byte aligned, go to the
+tensor-core kernel (``flash_attention_wgmma``; two warpgroups a block past
+Dv = 128, each accumulating half of the output's columns); everything else
 (fp32, other widths) to the CUDA-core kernel (``flash_attention``). A
 failed build or launch raises. On the card, a call that autograd must
 differentiate (grad mode on and an input that requires grad: ``grad_path``)
@@ -26,19 +28,27 @@ log-sum-exp, its backward the backward kernel (``flash_attention_bwd``);
 any other call launches the forward alone. The wrapper takes the plain
 version (``ref.flash_attention_ref``, differentiable by autograd) only
 for tensors on the CPU. ``FWD_LAUNCHES`` counts every forward launch,
-``WGMMA_LAUNCHES`` and ``SIMT_LAUNCHES`` those of each route.
+``WGMMA_LAUNCHES`` and ``SIMT_LAUNCHES`` those of each route, and
+``WGMMA_WIDE_LAUNCHES`` and ``SIMT_WIDE_LAUNCHES`` those of each route on
+the instantiations for heads past 192 and 128 that gemma3's heads of 256
+take (the two warpgroups a block at Dv > 128, the CUDA-core tiles of 256):
+the library's ``*_wide`` entries say which launches those are, by the
+tests its dispatch branches on.
 
 The backward has two routes by the same kind of fixed rule
 (``bwd_route``): bf16 with D and Dv multiples of 16 and every tensor
 contiguous and 16-byte aligned goes to the tensor-core design
 (``csrc/attention_bwd_wgmma.cu``: TMA-fed wgmma products, P and dS kept
 fp32 as two bf16 terms, one warpgroup a block of 64 keys for dK and dV,
-of 64 query rows for dQ; past D = 128 two warpgroups a block for dK and
-dV, one accumulating each); everything else (fp32, other widths) to the
-CUDA-core design (``csrc/attention_bwd.cu``). Each is three launches a
-call (the rows' di, dK/dV, dQ), sums in one fixed order, no atomics.
+of 64 query rows for dQ; past a width of 128 two warpgroups a block for
+dK and dV, one accumulating each; past 192 each output's columns in two
+halves over the grid); everything else (fp32, other widths) to the CUDA-core
+design (``csrc/attention_bwd.cu``). Each is three launches a call (the
+rows' di, dK/dV, dQ), sums in one fixed order, no atomics.
 ``BWD_LAUNCHES`` counts the backward's calls, ``BWD_WGMMA_LAUNCHES`` and
-``BWD_SIMT_LAUNCHES`` those of each route.
+``BWD_SIMT_LAUNCHES`` those of each route, ``BWD_WGMMA_WIDE_LAUNCHES`` and
+``BWD_SIMT_WIDE_LAUNCHES`` those on the column halves (ND or NV = 4) and the
+CUDA-core tiles of 256, by the libraries' ``*_wide`` entries.
 """
 
 from __future__ import annotations
@@ -56,10 +66,14 @@ SIMT_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_WGMMA_LAUNCHES = 0
 BWD_SIMT_LAUNCHES = 0
+WGMMA_WIDE_LAUNCHES = 0
+SIMT_WIDE_LAUNCHES = 0
+BWD_WGMMA_WIDE_LAUNCHES = 0
+BWD_SIMT_WIDE_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_QK_DIM = 192  # D, the q·k width
-MAX_V_DIM = 128   # Dv
+MAX_QK_DIM = 256  # D, the q·k width
+MAX_V_DIM = 256   # Dv
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -179,13 +193,13 @@ def _check_kernel_shapes(q, k, v):
 def _forward(q, k, v, causal, window, logit_softcap, q_offset, scale, with_lse: bool):
     """One launch of K10 on the card: o (B, Sq, H, Dv) in q's dtype, and
     with ``with_lse`` the rows' log-sum-exp (B, H, Sq) fp32 (else None)."""
-    global FWD_LAUNCHES, WGMMA_LAUNCHES, SIMT_LAUNCHES
-    B, Sq, H, _ = q.shape
+    global FWD_LAUNCHES, WGMMA_LAUNCHES, SIMT_LAUNCHES, WGMMA_WIDE_LAUNCHES, SIMT_WIDE_LAUNCHES
+    B, Sq, H, D = q.shape
     Sk, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (B, Sq, Sk, H, Kv, q.shape[-1], Dv, scale, int(bool(causal)), int(window or 0),
+    args = (B, Sq, Sk, H, Kv, D, Dv, scale, int(bool(causal)), int(window or 0),
             float(logit_softcap), int(q_offset), stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if with_lse else None)
@@ -193,10 +207,12 @@ def _forward(q, k, v, causal, window, logit_softcap, q_offset, scale, with_lse: 
         build.check_launch(_lib().flash_attention_wgmma_fwd(*ptrs, *args),
                            "flash_attention_wgmma_fwd")
         WGMMA_LAUNCHES += 1
+        WGMMA_WIDE_LAUNCHES += _lib().flash_attention_wgmma_wide(D, Dv)
     else:
         build.check_launch(_lib().flash_attention_fwd(DTYPE_CODES[q.dtype], *ptrs, *args),
                            "flash_attention_fwd")
         SIMT_LAUNCHES += 1
+        SIMT_WIDE_LAUNCHES += _lib().flash_attention_simt_wide(D, Dv)
     FWD_LAUNCHES += 1
     return o, lse
 
@@ -225,6 +241,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
     launches) on the route ``bwd_route`` picks, ``ref.flash_attention_bwd_ref``
     on the CPU."""
     global BWD_LAUNCHES, BWD_WGMMA_LAUNCHES, BWD_SIMT_LAUNCHES
+    global BWD_WGMMA_WIDE_LAUNCHES, BWD_SIMT_WIDE_LAUNCHES
     _check_shapes(q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if not check_devices("flash_attention_bwd", q, k, v, o, lse, do):
@@ -252,11 +269,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None
         build.check_launch(_bwd_wgmma_lib().flash_attention_bwd_wgmma(
             *ptrs, scratch.data_ptr(), *args), "flash_attention_bwd_wgmma")
         BWD_WGMMA_LAUNCHES += 1
+        BWD_WGMMA_WIDE_LAUNCHES += _bwd_wgmma_lib().flash_attention_bwd_wgmma_wide(D, Dv)
     else:
         di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         build.check_launch(_bwd_lib().flash_attention_bwd(
             DTYPE_CODES[q.dtype], *ptrs, di.data_ptr(), *args), "flash_attention_bwd")
         BWD_SIMT_LAUNCHES += 1
+        BWD_SIMT_WIDE_LAUNCHES += _bwd_lib().flash_attention_bwd_simt_wide(D, Dv)
     BWD_LAUNCHES += 1
     return dq, dk, dv
 

@@ -3,7 +3,8 @@ CUDA card against their plain versions, bit for bit, at their run edges
 (``threefry_normal.RUN_EDGES``, ``wire_pack.K7_RUN_EDGES``), and K10's
 tensor-core backward against its plain version at chip_smoke.py's bf16
 backward shapes, twice for the same bits; K10 and its backward at
-multi-head latent attention's widths (q·k 192, v 128) on both routes. A
+multi-head latent attention's widths (q·k 192, v 128) and at widths up to
+gemma3's 256 on both routes, and K11 at D = 256. A
 CUDA kernel has no interpret
 mode: without a card these tests skip. They take the cases chip_smoke.py
 does not: at each normal edge the other dtype and another kind of scale
@@ -30,7 +31,15 @@ import pytest
 import torch
 
 from repro_torch.core import keys
-from repro_torch.kernels import flash_attention, ref, ssm_scan, threefry_normal, wire_pack, wkv6
+from repro_torch.kernels import (
+    decode_attention,
+    flash_attention,
+    ref,
+    ssm_scan,
+    threefry_normal,
+    wire_pack,
+    wkv6,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,10 +142,7 @@ FWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 8e-3)}
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: BWD_BF16_TOL}
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", K10_D192_SHAPES, ids=lambda sh: sh[0])
-def test_k10_and_its_backward_at_mla_widths_are_their_plain_versions_on_the_card(card, shape,
-                                                                                 dtype):
+def _k10_and_its_backward_against_plain(card, shape, dtype):
     _, B, Sq, Sk, H, Kv, D, Dv, causal, window, cap, off, scale = shape
     gen = torch.Generator(device=card).manual_seed(B * Sq + 3 * Sk + H)
     q, k, v, do = (torch.randn(sh, generator=gen, device=card).to(dtype) for sh in
@@ -156,6 +162,80 @@ def test_k10_and_its_backward_at_mla_widths_are_their_plain_versions_on_the_card
         assert float((g.float() - w.float()).abs().max()) <= BWD_TOL[dtype] * top
     again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert torch.equal(flash_attention.flash_attention(q, k, v, **kw), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", K10_D192_SHAPES, ids=lambda sh: sh[0])
+def test_k10_and_its_backward_at_mla_widths_are_their_plain_versions_on_the_card(card, shape,
+                                                                                 dtype):
+    _k10_and_its_backward_against_plain(card, shape, dtype)
+
+
+# K10 and its backward at head widths past 192 and 128, up to gemma3's 256
+# (D = Dv = 256): 8 heads on 4 kv heads with the window acting, a ragged
+# length with a window, softcap and query offset, Dv past 128 with D = 64,
+# D = 256 with Dv = 144 (the wide forward's second warpgroup over 64
+# columns, 16 of them stored), D = 208 against Dv = 48, and D = 192 against
+# Dv = 160 (the backward's split kernel at NV = 3, not the halves). bf16
+# takes the tensor cores, fp32 the CUDA cores. Beside each, the launches
+# (forward, backward) on the instantiations counted apart: on the tensor
+# cores the forward's two warpgroups (Dv > 128) and the backward's column
+# halves (ND or NV = 4), on the CUDA cores the tiles of 256 (max(D, Dv) >
+# 192); the forward runs twice (with its lse, alone), the backward twice.
+K10_D256_SHAPES = (
+    ("gemma3 local", 1, 384, 384, 8, 4, 256, 256, True, 128, 0.0, 0, None),
+    ("d256 gqa window softcap", 2, 100, 130, 4, 2, 256, 256, True, 40, 30.0, 30, None),
+    ("d64 dv256", 2, 70, 70, 2, 1, 64, 256, True, None, 0.0, 0, None),
+    ("d256 dv144", 1, 70, 90, 2, 2, 256, 144, False, None, 0.0, 0, None),
+    ("d208 dv48", 1, 65, 65, 4, 1, 208, 48, True, 20, 0.0, 0, 0.05),
+    ("d192 dv160", 1, 90, 120, 4, 2, 192, 160, True, 50, 0.0, 0, None),
+)
+K10_D256_WIDE = {"d208 dv48": {"WGMMA": [0, 2], "SIMT": [2, 2]},
+                 "d192 dv160": {"WGMMA": [2, 0], "SIMT": [0, 0]}}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", K10_D256_SHAPES, ids=lambda sh: sh[0])
+def test_k10_and_its_backward_at_width_256_are_their_plain_versions_on_the_card(card, shape,
+                                                                                dtype):
+    route = "WGMMA" if dtype == torch.bfloat16 else "SIMT"
+    names = (f"{route}_WIDE_LAUNCHES", f"BWD_{route}_WIDE_LAUNCHES")
+    before = [getattr(flash_attention, n) for n in names]
+    _k10_and_its_backward_against_plain(card, shape, dtype)
+    want = K10_D256_WIDE.get(shape[0], {}).get(route, [2, 2])
+    assert [getattr(flash_attention, n) - b for n, b in zip(names, before)] == want
+
+
+# K11 at gemma3's heads (G = 2, D = 256) over a cache of 1,184 slots with the
+# window of 1,024 acting and without it, a ring of 1,024 slots, and D = 256
+# against Dv = 200 at G = 16 (the widest partial sums): bf16 and fp32 against
+# the plain version (chip_smoke.py's ATTN_TOL), twice for the same bits.
+K11_D256_SHAPES = (
+    ("gemma3 serve", 4, 1184, 8, 4, 256, 256, 1183, 1024, False),
+    ("gemma3 serve global", 4, 1184, 8, 4, 256, 256, 1183, None, False),
+    ("d256 ring", 2, 1024, 4, 2, 256, 256, 1500, 1024, True),
+    ("d256 dv200 g16", 1, 300, 16, 1, 256, 200, 250, None, False),
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", K11_D256_SHAPES, ids=lambda sh: sh[0])
+def test_k11_at_width_256_is_its_plain_version_on_the_card(card, shape, dtype):
+    _, B, S, H, Kv, D, Dv, pos, window, ring = shape
+    gen = torch.Generator(device=card).manual_seed(S + D + Dv)
+    q, kc, vc = (torch.randn(sh, generator=gen, device=card).to(dtype) for sh in
+                 ((B, H, D), (B, S, Kv, D), (B, S, Kv, Dv)))
+    pos_t = torch.full((), pos, dtype=torch.int32, device=card)
+    kw = dict(window=window, ring=ring)
+    before = decode_attention.WIDE_LAUNCHES
+    got = decode_attention.flash_decode(q, kc, vc, pos_t, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.WIDE_LAUNCHES == before + 1
+    atol, rtol = FWD_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, pos_t, **kw).float(),
+                               atol=atol, rtol=rtol)
+    assert torch.equal(decode_attention.flash_decode(q, kc, vc, pos_t, **kw), got)
 
 
 # K12 and K13 in fp32 against their plain versions: the same products summed

@@ -36,7 +36,7 @@ from repro_torch.core.compression import jax_leaf_order
 from repro_torch.core.engine import build_round_engine
 from repro_torch.core.plan import FederatedPlan, FVNConfig
 from repro_torch.core.task import get_task, task_for_config
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import attention as tattn
 from repro_torch.models import mla as tmla
 from repro_torch.models import model_zoo
@@ -185,7 +185,7 @@ def test_blockwise_attention_at_mla_widths_matches_jax(causal, kv):
     """D = 192 (128 + 64), Dv = 128 with MLA's query scale, B = 1, S = 20,
     H = 2: the output and the gradients of q, k and v against jax.grad of
     the reference's blockwise_attention (8-key blocks in both), and the
-    kernel's width contract on the card side (D <= 192, Dv <= 128)."""
+    kernels' width contract on the card side (D, Dv <= 256)."""
     rng = np.random.default_rng(192 + kv)
     q, k, v, do = (rng.standard_normal(sh).astype(np.float32) for sh in
                    ((1, 20, 2, 192), (1, 20, kv, 192), (1, 20, kv, 128), (1, 20, 2, 128)))
@@ -202,16 +202,23 @@ def test_blockwise_attention_at_mla_widths_matches_jax(causal, kv):
     got = torch.autograd.grad((o * torch.from_numpy(do)).sum(), (qt, kt, vt))
     for g, w, what in zip(got, grads, ("dq", "dk", "dv")):
         _held(g, w, what, GRAD_TOL)
-    assert (flash_attention.MAX_QK_DIM, flash_attention.MAX_V_DIM) == (192, 128)
+    assert (flash_attention.MAX_QK_DIM, flash_attention.MAX_V_DIM) == (256, 256)
+    assert decode_attention.MAX_HEAD_DIM == 256
 
 
 def test_the_kernel_width_contract_names_both_limits():
-    q = torch.zeros((1, 4, 2, 208))
-    with pytest.raises(ValueError, match="D up to 192 and a v width Dv up to 128"):
-        flash_attention._check_kernel_shapes(q, q, q[..., :128])
-    with pytest.raises(ValueError, match="got D=192 and Dv=144"):
-        flash_attention._check_kernel_shapes(q[..., :192], q[..., :192], q[..., :144])
-    flash_attention._check_kernel_shapes(q[..., :192], q[..., :192], q[..., :128])
+    q = torch.zeros((1, 4, 2, 272))
+    with pytest.raises(ValueError, match="D up to 256 and a v width Dv up to 256"):
+        flash_attention._check_kernel_shapes(q, q, q[..., :256])
+    with pytest.raises(ValueError, match="got D=256 and Dv=272"):
+        flash_attention._check_kernel_shapes(q[..., :256], q[..., :256], q)
+    flash_attention._check_kernel_shapes(q[..., :256], q[..., :256], q[..., :256])
+    # K11's: D and Dv up to 256 alike
+    with pytest.raises(ValueError, match="D, Dv <= 256"):
+        decode_attention.check_kernel_shapes(272, 256, 2, 8)
+    with pytest.raises(ValueError, match="got D=256, Dv=272"):
+        decode_attention.check_kernel_shapes(256, 272, 2, 8)
+    decode_attention.check_kernel_shapes(256, 256, 2, 8)
 
 
 # ------------------------------------------------------------------ the transformer
